@@ -6,16 +6,28 @@
 Phases, one line each, flushed as they finish:
 
 0. toolchain: torch, CUDA, nvcc, the card's name and power limit;
-1. build: the CUDA kernels of marlin_tpu_torch/csrc, compiled with nvcc;
-2. kernels: each unordered-FFT kernel at its 512³ main-path shapes (and at
-   n = 64, 200, 384) against its plain PyTorch twin, max error ≤ 1e-5 of
-   the result's largest magnitude; kernel, twin and torch.fft times;
+1. build: the CUDA libraries of marlin_tpu_torch/csrc (the unordered FFT,
+   the fused k-space update) and the generated library of the 3-D
+   Cahn-Hilliard µ fused into the forward lanes read, one nvcc each, all
+   started together;
+2. kernels: each kernel at its 512³ main-path shapes (and at n = 64, 200,
+   384) against its plain PyTorch twin, max error ≤ 1e-5 of the twin's
+   largest magnitude; kernel, twin, bound and yardstick times;
 3. main path: the 3-D Cahn-Hilliard deck at 512³ through ``run_deck`` with
    ``fft_backend = PALLAS`` in float32 (10 substeps, 2 steps, dt = 1): the
    launch counters rise by exactly the count the path implies, c is finite
    and its mean (mass) stays within 1e-5 of the start;
 4. library anchor: the same deck with ``fft_backend = DEFAULT`` (torch.fft);
-   max |c_PALLAS − c_DEFAULT| ≤ 5e-5 (tests/test_pallas_fft.py's tolerance).
+   max |c_PALLAS − c_DEFAULT| ≤ 5e-5 (tests/test_pallas_fft.py's tolerance);
+5. fused single-field path: the same deck on PALLAS with
+   ``carry_reciprocal`` and ``fused_spectral``: exact launch counts, mass
+   within 1e-5, max |c_fused − c_DEFAULT| ≤ 2e-4
+   (tests/test_pallas_spectral.py's fused-versus-library tolerance);
+6. fused N-field path: the 3-D two-field chain (decks.MULTI_3D_DECK: a
+   Cahn-Hilliard field c and an Allen-Cahn field n1) at 512³, float32,
+   10 substeps, 2 steps, dt = 0.05, fused and unfused (carry only):
+   max |Δ| ≤ 5e-5 on c and n1, mass of c within 1e-5, one
+   ``fwd_x_update_poly`` launch per fused substep.
 
 Then one JSON line with every kernel's numbers and, last, the JSON result
 line.  Any failure ends the run with a non-zero exit and no result line.
@@ -23,6 +35,7 @@ Needs one CUDA card; fails without one, and fails where the package is not
 beside it.
 """
 
+import concurrent.futures
 import json
 import math
 import os
@@ -31,17 +44,22 @@ import sys
 import tempfile
 import time
 
+import numpy as np
 import torch
 
 HERE = os.path.dirname(os.path.abspath(__file__))
 N = 512
 SUBSTEPS = 10
 STEPS = 2
+MULTI_DT = 0.05
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM data sheet
 F32_FLOP_PER_S = 67e12     # H100 SXM data sheet, float32 outside tensor cores
 KERNEL_TOL = 1e-5
 ANCHOR_TOL = 5e-5
+FUSED_ANCHOR_TOL = 2e-4
+MULTI_TOL = 5e-5
 MASS_TOL = 1e-5
+FUSED = "carry_reciprocal = true\n  fused_spectral = true"
 
 
 def say(*parts):
@@ -66,25 +84,84 @@ def cuda_ms(fn, reps=10, warmup=2):
     return start.elapsed_time(end) / reps
 
 
-def fft_bound_ms(n_in_bytes, n_out_bytes, rows, n):
-    """Least time for one pass: bytes over the memory rate against the
-    standard FFT count (5·n·log2 n flop a length-n transform) over the
+def bound_ms(n_bytes, flops):
+    """Least time: bytes over the memory rate against flops over the
     float32 rate; returns (ms, "bytes" | "operations")."""
-    t_bytes = (n_in_bytes + n_out_bytes) / HBM_BYTES_PER_S
-    t_ops = rows * 5 * n * math.log2(n) / F32_FLOP_PER_S
+    t_bytes = n_bytes / HBM_BYTES_PER_S
+    t_ops = flops / F32_FLOP_PER_S
     return 1e3 * max(t_bytes, t_ops), "bytes" if t_bytes >= t_ops else "operations"
 
 
-def phase_kernels(uf, dev):
-    """Each kernel against its twin; returns {name: numbers} at the
-    main-path shapes (averaged over the shapes the path launches)."""
-    gen = torch.Generator().manual_seed(0)
+def fft_flops(rows, n):
+    """The standard count, 5·n·log2 n flop a length-n transform."""
+    return rows * 5 * n * math.log2(n)
 
+
+def nbytes(*ts):
+    return sum(t.numel() * t.element_size() for t in ts)
+
+
+def check(name, shape, got, ref):
+    """max |got − ref| against 1e-5 of the twin's largest magnitude, over
+    every output; returns the error."""
+    got = got if isinstance(got, tuple) else (got,)
+    ref = ref if isinstance(ref, tuple) else (ref,)
+    err = 0.0
+    for g, r in zip(got, ref):
+        e = (g - r).abs().max().item()
+        mag = r.abs().max().item()
+        assert e <= KERNEL_TOL * mag, (name, shape, e, mag)
+        err = max(err, e)
+    return err
+
+
+def summarise(rows):
+    k = len(rows)
+    mean = lambda key: sum(r[key] for r in rows) / k
+    out = {"max_abs_err": max(r["max_abs_err"] for r in rows),
+           "ms": mean("ms"), "plain_ms": mean("plain_ms"),
+           "bound_ms": mean("bound_ms"), "bound_by": rows[0]["bound_by"],
+           "library_ms": None if rows[0]["library_ms"] is None else mean("library_ms")}
+    if "yardstick_ms" in rows[0]:
+        out["yardstick_ms"] = mean("yardstick_ms")
+        out["yardstick"] = rows[0]["yardstick"]
+    return out
+
+
+def measure(name, shape, kernel, twin, library, n_bytes, flops, yardstick=None):
+    """One main-shape row: the check, then kernel, twin, library or
+    composite yardstick times and the bound."""
+    got = kernel()
+    torch.cuda.synchronize()
+    ref = twin()
+    err = check(name, shape, got, ref)
+    del got, ref
+    ms = cuda_ms(kernel)
+    plain = cuda_ms(twin, reps=3, warmup=1)
+    lib = None if library is None else cuda_ms(library)
+    bnd, by = bound_ms(n_bytes, flops)
+    row = {"max_abs_err": err, "ms": ms, "plain_ms": plain, "library_ms": lib,
+           "bound_ms": bnd, "bound_by": by}
+    text = (f"[kernels] {name} {tuple(shape)}: max_abs_err {err:.3e}, kernel "
+            f"{ms:.3f} ms, twin {plain:.3f} ms, bound {bnd:.3f} ms ({by})")
+    if lib is not None:
+        text += f", torch.fft {lib:.3f} ms"
+    if yardstick is not None:
+        label, fn = yardstick
+        row["yardstick"] = label
+        row["yardstick_ms"] = cuda_ms(fn)
+        text += f", {label} {row['yardstick_ms']:.3f} ms"
+    say(text)
+    torch.cuda.empty_cache()
+    return row
+
+
+def phase_fft_kernels(uf, dev, gen):
+    """Kernels 1-4 against their twins."""
     def make(shape, dtype):
         return torch.randn(shape, generator=gen, dtype=dtype).to(dev)
 
     plane = N * N
-    # the shapes and dtypes the 512³ path gives each kernel
     main_shapes = {
         "fwd_lanes": [((plane, N), torch.float32)],
         "inv_lanes": [((plane, N), torch.complex64)],
@@ -113,70 +190,147 @@ def phase_kernels(uf, dev):
             x = make(shape, dtype)
             got = kernel(x)
             torch.cuda.synchronize()
-            ref = twin(x)
-            err = (got - ref).abs().max().item()
-            mag = ref.abs().max().item()
+            err = check(name, shape, got, twin(x))
             say(f"[kernels] {name} {tuple(shape)} {str(dtype)[6:]}: "
-                f"max_abs_err {err:.3e} (limit {KERNEL_TOL * mag:.3e})")
-            assert err <= KERNEL_TOL * mag, (name, shape, err, mag)
+                f"max_abs_err {err:.3e}")
         rows = []
         for shape, dtype in main_shapes[name]:
             x = make(shape, dtype)
-            got = kernel(x)
-            torch.cuda.synchronize()
-            ref = twin(x)
-            err = (got - ref).abs().max().item()
-            mag = ref.abs().max().item()
-            assert err <= KERNEL_TOL * mag, (name, shape, err, mag)
-            del ref
-            ms = cuda_ms(lambda: kernel(x))
-            plain_ms = cuda_ms(lambda: twin(x), reps=3, warmup=1)
-            lib_ms = cuda_ms(lambda: library[name](x))
-            n = shape[-1] if "lanes" in name and "sub" not in name else shape[1]
-            count = got.numel() // n
-            out_bytes = got.numel() * got.element_size()
-            in_bytes = x.numel() * x.element_size() + n * 8  # + twiddle table
-            bound, by = fft_bound_ms(in_bytes, out_bytes, count, n)
-            say(f"[kernels] {name} {tuple(shape)} {str(dtype)[6:]}: "
-                f"max_abs_err {err:.3e} (limit {KERNEL_TOL * mag:.3e}), "
-                f"kernel {ms:.3f} ms, twin {plain_ms:.3f} ms, "
-                f"torch.fft {lib_ms:.3f} ms, bound {bound:.3f} ms ({by})")
-            rows.append((err, ms, plain_ms, lib_ms, bound, by))
-            del x, got
-            torch.cuda.empty_cache()
-        k = len(rows)
-        results[name] = {
-            "max_abs_err": max(r[0] for r in rows),
-            "ms": sum(r[1] for r in rows) / k,
-            "plain_ms": sum(r[2] for r in rows) / k,
-            "library_ms": sum(r[3] for r in rows) / k,
-            "bound_ms": sum(r[4] for r in rows) / k,
-            "bound_by": rows[0][5],
-        }
+            n = shape[1] if "sub" in name else shape[-1]
+            out_bytes = x.numel() * (4 if name == "inv_lanes" else 8)
+            rows.append(measure(
+                name, shape, lambda: kernel(x), lambda: twin(x),
+                lambda: library[name](x),
+                nbytes(x) + out_bytes + n * 8,  # + the twiddle table
+                fft_flops(x.numel() // n, n)))
+            del x
+        results[name] = summarise(rows)
     return results
 
 
-def ch3d_deck(backend):
-    from marlin_tpu_torch.decks import CH3D_DECK
+def phase_fused_kernels(uf, sp, dev, gen, pre, k2):
+    """fwd_lanes_pre, fwd_x_update and fwd_x_update_poly against their
+    twins."""
+    def make(shape, dtype, scale=1.0, shift=0.0):
+        return (shift + scale * torch.randn(shape, generator=gen, dtype=dtype)).to(dev)
 
-    deck = CH3D_DECK.format(n=N, substeps=SUBSTEPS).replace(
-        "[Domain]",
-        f"[Domain]\n  fft_backend = {backend}\n  floating_precision = SINGLE")
+    results = {}
+    # -- kernel 1 with the fused µ read: c-like values around 0.5
+    pre_ops = pre.expr.cuda_source(pre.var).count("\n")  # one flop a statement
+    for n in (64, 200, 384):
+        x = make((4096, n), torch.float32, 0.05, 0.5)
+        err = check("fwd_lanes_pre", (4096, n), uf.fwd_lanes(x, pre=pre),
+                    uf.fwd_lanes_plain(pre(x)))
+        say(f"[kernels] fwd_lanes_pre (4096, {n}) float32: max_abs_err {err:.3e}")
+    x = make((N * N, N), torch.float32, 0.05, 0.5)
+    results["fwd_lanes_pre"] = summarise([measure(
+        "fwd_lanes_pre", x.shape, lambda: uf.fwd_lanes(x, pre=pre),
+        lambda: uf.fwd_lanes_plain(pre(x)), None,
+        nbytes(x) + 2 * nbytes(x) + N * 8,
+        fft_flops(N * N, N) + pre_ops * x.numel(),
+        ("composite µ (torch ops) + torch.fft.fft",
+         lambda: torch.fft.fft(pre(x), dim=-1)))])
+    del x
+
+    # -- kernels 5 and 6: the last forward axis with the ABM update
+    forms = {"lapsq_mobility": (5.0, ("lapsq", -10.0)),
+             "sh_no_mobility": (None, ("sh", 0.025, 1.0))}
+    args = (0.1, 1.5, -0.5)
+
+    def tables(n, L):
+        return (make((n,), torch.float32).abs().contiguous(),
+                make((L,), torch.float32).abs().contiguous())
+
+    def composite(m, u, o, kx2, kyz2, mobility, lin):
+        """torch.fft.fft along x plus the update in torch ops (a yardstick:
+        no single torch call computes the fused function)."""
+        mb = torch.fft.fft(m, dim=0)
+        k2 = kx2[:, None] + kyz2
+        lb = (k2 * k2) * lin[1] if lin[0] == "lapsq" else (
+            lin[1] - lin[2] ** 2 * (1.0 - k2) ** 2)
+        return sp._update(mb, u, o, *args, lb,
+                          None if mobility is None else -k2 * mobility)
+
+    for form, (mobility, lin) in forms.items():
+        for n in (64, 200, 384):
+            m, u, o = (make((n, 300), torch.complex64) for _ in range(3))
+            kx2, kyz2 = tables(n, 300)
+            err = check("fwd_x_update", (n, 300),
+                        sp.fwd_x_update(m, u, o, kx2, kyz2, *args, mobility, lin),
+                        sp.fwd_x_update_plain(m, u, o, kx2, kyz2, *args, mobility, lin))
+            say(f"[kernels] fwd_x_update {form} ({n}, 300): max_abs_err {err:.3e}")
+    rows = []
+    kx2, kyz2 = k2
+    L = N * N
+    for form, (mobility, lin) in forms.items():
+        m, u, o = (make((N, L), torch.complex64) for _ in range(3))
+        rows.append(measure(
+            f"fwd_x_update {form}", m.shape,
+            lambda: sp.fwd_x_update(m, u, o, kx2, kyz2, *args, mobility, lin),
+            lambda: sp.fwd_x_update_plain(m, u, o, kx2, kyz2, *args, mobility, lin),
+            None, 5 * nbytes(m) + nbytes(kx2, kyz2),
+            fft_flops(L, N) + 25 * m.numel(),
+            ("composite torch.fft.fft(dim=0) + update (torch ops)",
+             lambda: composite(m, u, o, kx2, kyz2, mobility, lin))))
+        del m, u, o
+    results["fwd_x_update"] = summarise(rows)
+
+    coef = np.asarray([[0.0, -5.0, 0.0, 0.0, -10.0],    # Cahn-Hilliard field
+                       [1.0, 0.0, 0.0, -15.0, 0.0]],    # Allen-Cahn field
+                      np.float32)
+    rows8 = np.concatenate([np.tile(np.asarray(args, np.float32), (2, 1)), coef], 1)
+    for n in (64, 200, 384):
+        m, u, o = (make((2, n, 300), torch.complex64) for _ in range(3))
+        kx2s, kyz2s = tables(n, 300)
+        err = check("fwd_x_update_poly", (2, n, 300),
+                    sp.fwd_x_update_poly(m, u, o, kx2s, kyz2s, rows8),
+                    sp.fwd_x_update_poly_plain(m, u, o, kx2s, kyz2s, rows8))
+        say(f"[kernels] fwd_x_update_poly (2, {n}, 300): max_abs_err {err:.3e}")
+    m, u, o = (make((2, N, L), torch.complex64) for _ in range(3))
+    # kernel 6 locked to kernel 5: field 0's row is the lapsq/mobility form
+    lock = check("fwd_x_update_poly vs fwd_x_update", m[0].shape,
+                 tuple(t[0] for t in sp.fwd_x_update_poly(m, u, o, kx2, kyz2, rows8)),
+                 sp.fwd_x_update(m[0], u[0], o[0], kx2, kyz2, *args, 5.0,
+                                 ("lapsq", -10.0)))
+    say(f"[kernels] fwd_x_update_poly field 0 against fwd_x_update: "
+        f"max_abs_err {lock:.3e}")
+
+    def composite_poly():
+        mb = torch.fft.fft(m, dim=1)
+        k2t = kx2[:, None] + kyz2
+        return [sp._update(mb[f], u[f], o[f], *args,
+                           float(coef[f, 3]) * k2t + float(coef[f, 4]) * k2t * k2t,
+                           float(coef[f, 0]) + float(coef[f, 1]) * k2t)
+                for f in range(2)]
+
+    results["fwd_x_update_poly"] = summarise([measure(
+        "fwd_x_update_poly", m.shape,
+        lambda: sp.fwd_x_update_poly(m, u, o, kx2, kyz2, rows8),
+        lambda: sp.fwd_x_update_poly_plain(m, u, o, kx2, kyz2, rows8),
+        None, 5 * nbytes(m) + nbytes(kx2, kyz2),
+        2 * fft_flops(L, N) + 25 * m.numel(),
+        ("composite torch.fft.fft(dim=1) + update (torch ops)", composite_poly))])
+    del m, u, o
+    torch.cuda.empty_cache()
+    return results
+
+
+def transient(deck, dt, buffer):
     return deck + f"""
 [Executioner]
   type = Transient
   num_steps = {STEPS}
-  dt = 1
+  dt = {dt}
 []
 [Postprocessors]
-  [c_mean]
+  [mean]
     type = TensorAveragePostprocessor
-    buffer = c
+    buffer = {buffer}
     execute_on = 'INITIAL TIMESTEP_END'
   []
-  [c_max]
+  [max]
     type = TensorExtremeValuePostprocessor
-    buffer = c
+    buffer = {buffer}
     value_type = MAX
   []
 []
@@ -186,27 +340,63 @@ def ch3d_deck(backend):
 """
 
 
-def run_main_path(backend, dev):
-    """run_deck on the 512³ deck (its CSV into a temporary directory);
-    returns (transient, wall seconds)."""
+def ch3d_deck(backend, solver_extra=""):
+    from marlin_tpu_torch.decks import CH3D_DECK
+
+    deck = CH3D_DECK.format(n=N, substeps=SUBSTEPS).replace(
+        "[Domain]",
+        f"[Domain]\n  fft_backend = {backend}\n  floating_precision = SINGLE")
+    if solver_extra:
+        deck = deck.replace("[TensorSolver]", f"[TensorSolver]\n  {solver_extra}")
+    return transient(deck, 1, "c")
+
+
+def multi_deck(solver_extra):
+    from marlin_tpu_torch.decks import MULTI_3D_DECK
+
+    deck = MULTI_3D_DECK.format(
+        n=N, domain_extra="fft_backend = PALLAS\n  floating_precision = SINGLE",
+        solver_extra=solver_extra).replace("substeps = 5",
+                                           f"substeps = {SUBSTEPS}")
+    return transient(deck, MULTI_DT, "c")
+
+
+def run_main_path(deck, dev):
+    """run_deck on a deck (its CSV into a temporary directory); returns
+    (transient, wall seconds)."""
     from marlin_tpu_torch import hit
     from marlin_tpu_torch.executioner import run_deck
 
     with tempfile.TemporaryDirectory() as out_dir:
         torch.cuda.synchronize()
         t0 = time.perf_counter()
-        tr = run_deck(hit.parse(ch3d_deck(backend)), output_dir=out_dir,
-                      device=dev)
+        tr = run_deck(hit.parse(deck), output_dir=out_dir, device=dev)
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
     return tr, wall
 
 
-def substep_ms(tr):
+def substep_ms(tr, dt):
     """Device time of one steady-state step of the finished run, a substep."""
     p, st = tr.problem, tr.state
-    ms = cuda_ms(lambda: p.step(st, tr.time, 1.0, 1.0, False), reps=2, warmup=1)
+    ms = cuda_ms(lambda: p.step(st, tr.time, dt, dt, False), reps=2, warmup=1)
     return ms / SUBSTEPS
+
+
+def mass(tr, label):
+    rows = tr.csv.rows
+    m0, m1 = rows[0]["mean"], rows[-1]["mean"]
+    say(f"[{label}] mean(c) {m0:.9f} -> {m1:.9f}, max(c) {tr.pp_values['max']:.6f}")
+    assert abs(m1 - m0) <= MASS_TOL, (label, m0, m1)
+
+
+def counters(uf, sp):
+    return {**uf.launches(), **sp.launches()}
+
+
+def reset(uf, sp):
+    uf.reset_launches()
+    sp.reset_launches()
 
 
 def main():
@@ -214,7 +404,11 @@ def main():
         say("chip_smoke: torch.cuda.is_available() is False; needs a CUDA card")
         return 1
     sys.path.insert(0, HERE)
+    from marlin_tpu_torch import hit
+    from marlin_tpu_torch import spectral as sp
     from marlin_tpu_torch import unordered_fft as uf
+    from marlin_tpu_torch.decks import CH3D_DECK
+    from marlin_tpu_torch.problem import TensorProblem
 
     dev = torch.device("cuda")
     t_start = time.perf_counter()
@@ -224,68 +418,153 @@ def main():
     nvcc = run([uf._nvcc(), "--version"]).splitlines()[-1]
     say(f"[toolchain] torch {torch.__version__}, CUDA {torch.version.cuda}, "
         f"device {torch.cuda.get_device_name(0)}, nvcc: {nvcc}")
-    say(smi)
 
-    # -- 1: build -------------------------------------------------------------
-    cold = not os.path.exists(uf.library_path())
+    # -- 1: build, one nvcc a library, all at once -------------------------------
+    # the plan of the fused deck gives the µ of the lanes kernel's read; its
+    # library is named by the generated source, the same at every extent
+    small = TensorProblem(hit.parse(CH3D_DECK.format(n=16, substeps=2).replace(
+        "[Domain]", "[Domain]\n  fft_backend = PALLAS\n  floating_precision = SINGLE"
+    ).replace("[TensorSolver]", f"[TensorSolver]\n  {FUSED}")), device=dev)
+    pre = sp.match_chain(small.solver).pre
+    libs = {"unordered_fft": uf.LIBRARY, "spectral_update": sp.LIBRARY,
+            "fwd_lanes_pre (CH3D µ)": pre.library}
+    cold = {k: not os.path.exists(lib.path()) for k, lib in libs.items()}
+
+    def timed_build(lib):
+        t0 = time.perf_counter()
+        lib.build()
+        return time.perf_counter() - t0
+
     t0 = time.perf_counter()
-    uf.load()
-    say(f"[build] {'built' if cold else 'reused'} {os.path.relpath(uf.library_path(), HERE)} "
-        f"in {time.perf_counter() - t0:.2f} s")
+    with concurrent.futures.ThreadPoolExecutor(len(libs)) as pool:
+        times = dict(zip(libs, pool.map(timed_build, libs.values())))
+    for k, lib in libs.items():
+        lib.load()
+        say(f"[build] {'built' if cold[k] else 'reused'} {k}: "
+            f"{os.path.relpath(lib.path(), HERE)} in {times[k]:.2f} s")
+    say(f"[build] all libraries in {time.perf_counter() - t0:.2f} s")
 
     # -- 2: kernels against their twins ---------------------------------------
-    kernels = phase_kernels(uf, dev)
+    gen = torch.Generator().manual_seed(0)
+    kernels = phase_fft_kernels(uf, dev, gen)
+    dom = TensorProblem(hit.parse(CH3D_DECK.format(n=N, substeps=2).replace(
+        "[Domain]", "[Domain]\n  fft_backend = PALLAS\n  floating_precision = SINGLE")),
+        device=dev).domain
+    kernels.update(phase_fused_kernels(uf, sp, dev, gen, pre, sp._k2_tables(dom)))
     say("[kernels] ok")
 
     # -- 3: the main path -----------------------------------------------------
-    uf.reset_launches()
-    tr, wall = run_main_path("PALLAS", dev)
-    launches = uf.launches()
+    reset(uf, sp)
+    tr, wall = run_main_path(ch3d_deck("PALLAS"), dev)
+    launches = counters(uf, sp)
     n_sub = STEPS * SUBSTEPS
     # each substep: mubar = fft(mu) and cbar = fft(c), each one lanes and two
     # sublanes launches; c = ifft(ū), two sublanes and one lanes launch
-    expected = {"fwd_lanes": 2 * n_sub, "fwd_sublanes": 4 * n_sub,
-                "inv_sublanes": 2 * n_sub, "inv_lanes": n_sub}
+    expected = {"fwd_lanes": 2 * n_sub, "fwd_lanes_pre": 0,
+                "fwd_sublanes": 4 * n_sub, "inv_sublanes": 2 * n_sub,
+                "inv_lanes": n_sub, "fwd_x_update": 0, "fwd_x_update_poly": 0}
     say(f"[main] PALLAS {N}^3, {STEPS} steps x {SUBSTEPS} substeps: "
         f"run_deck {wall:.2f} s, launches {launches}")
     assert launches == expected, (launches, expected)
     c_pallas = tr.state["buffers"]["c"]
     assert c_pallas.shape == (N, N, N) and c_pallas.dtype == torch.float32
     assert bool(torch.isfinite(c_pallas).all())
-    rows = tr.csv.rows
-    mass0, mass1 = rows[0]["c_mean"], rows[-1]["c_mean"]
-    say(f"[main] mean(c) {mass0:.9f} -> {mass1:.9f}, max(c) {tr.pp_values['c_max']:.6f}, "
-        f"peak device memory {torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
-    assert abs(mass1 - mass0) <= MASS_TOL, (mass0, mass1)
-    ms_pallas = substep_ms(tr)
+    mass(tr, "main")
+    say(f"[main] peak device memory {torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
+    ms_pallas = substep_ms(tr, 1.0)
     say(f"[main] PALLAS {ms_pallas:.3f} ms/substep")
     del tr
 
     # -- 4: the library anchor -------------------------------------------------
-    tr_def, wall_def = run_main_path("DEFAULT", dev)
-    ms_default = substep_ms(tr_def)
-    diff = (tr_def.state["buffers"]["c"] - c_pallas).abs().max().item()
+    tr_def, wall_def = run_main_path(ch3d_deck("DEFAULT"), dev)
+    ms_default = substep_ms(tr_def, 1.0)
+    c_default = tr_def.state["buffers"]["c"]
+    diff = (c_default - c_pallas).abs().max().item()
     say(f"[anchor] DEFAULT run_deck {wall_def:.2f} s, {ms_default:.3f} ms/substep; "
         f"PALLAS {ms_pallas:.3f} ms/substep; max|c_PALLAS - c_DEFAULT| {diff:.3e} "
         f"(limit {ANCHOR_TOL})")
     assert diff <= ANCHOR_TOL, diff
+    del tr_def, c_pallas
+
+    # -- 5: the fused single-field path ----------------------------------------
+    reset(uf, sp)
+    torch.cuda.reset_peak_memory_stats()
+    tr, wall = run_main_path(ch3d_deck("PALLAS", FUSED), dev)
+    fused_launches = counters(uf, sp)
+    # per step (3-D): the ū seed fft(c), 1 lanes + 2 sublanes; each of the
+    # S-1 fused substeps 1 lanes with µ fused + 1 sublanes + 1 fwd_x_update
+    # + 2 inverse sublanes + 1 inverse lanes; the trailing regular substep
+    # fft(µ), 1 lanes + 2 sublanes, and ifft(ū), 2 sublanes + 1 lanes
+    S = SUBSTEPS
+    expected = {"fwd_lanes": STEPS * 2, "fwd_lanes_pre": STEPS * (S - 1),
+                "fwd_sublanes": STEPS * (2 + (S - 1) + 2),
+                "fwd_x_update": STEPS * (S - 1), "fwd_x_update_poly": 0,
+                "inv_sublanes": STEPS * 2 * S, "inv_lanes": STEPS * S}
+    say(f"[fused] PALLAS fused {N}^3, {STEPS} steps x {S} substeps: run_deck "
+        f"{wall:.2f} s, launches {fused_launches}")
+    assert fused_launches == expected, (fused_launches, expected)
+    c_fused = tr.state["buffers"]["c"]
+    assert c_fused.shape == (N, N, N) and bool(torch.isfinite(c_fused).all())
+    mass(tr, "fused")
+    diff_f = (c_fused - c_default).abs().max().item()
+    ms_fused = substep_ms(tr, 1.0)
+    say(f"[fused] {ms_fused:.3f} ms/substep (PALLAS {ms_pallas:.3f}, DEFAULT "
+        f"{ms_default:.3f}); max|c_fused - c_DEFAULT| {diff_f:.3e} (limit "
+        f"{FUSED_ANCHOR_TOL}); peak device memory "
+        f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
+    assert diff_f <= FUSED_ANCHOR_TOL, diff_f
+    del tr, c_fused, c_default
+
+    # -- 6: the fused N-field path ------------------------------------------------
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    reset(uf, sp)
+    tr_m, wall_m = run_main_path(multi_deck(FUSED), dev)
+    multi_launches = counters(uf, sp)
+    say(f"[multi] fused {N}^3, 2 fields, {STEPS} steps x {S} substeps: run_deck "
+        f"{wall_m:.2f} s, launches {multi_launches}")
+    assert multi_launches["fwd_x_update_poly"] == STEPS * (S - 1), multi_launches
+    assert multi_launches["fwd_x_update"] == multi_launches["fwd_lanes_pre"] == 0
+    assert min(multi_launches[k] for k in ("fwd_lanes", "fwd_sublanes",
+                                           "inv_sublanes", "inv_lanes")) > 0
+    mass(tr_m, "multi")
+    ms_multi = substep_ms(tr_m, MULTI_DT)
+    fields = {k: tr_m.state["buffers"][k] for k in ("c", "n1")}
+    del tr_m
+    tr_u, wall_u = run_main_path(multi_deck("carry_reciprocal = true"), dev)
+    ms_multi_unfused = substep_ms(tr_u, MULTI_DT)
+    for k, v in fields.items():
+        assert bool(torch.isfinite(v).all()), k
+        d = (v - tr_u.state["buffers"][k]).abs().max().item()
+        say(f"[multi] max|{k}_fused - {k}_unfused| {d:.3e} (limit {MULTI_TOL})")
+        assert d <= MULTI_TOL, (k, d)
+    say(f"[multi] fused {ms_multi:.3f} ms/substep, unfused (carry) "
+        f"{ms_multi_unfused:.3f} ms/substep (run_deck {wall_u:.2f} s); peak "
+        f"device memory {torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
+    del tr_u, fields
     say(f"[done] {time.perf_counter() - t_start:.1f} s")
 
     # -- result -----------------------------------------------------------------
-    replaces = {
-        "fwd_lanes": "marlin_tpu/pallas_fft.py:237",
-        "inv_lanes": "marlin_tpu/pallas_fft.py:276",
-        "fwd_sublanes": "marlin_tpu/pallas_fft.py:340",
-        "inv_sublanes": "marlin_tpu/pallas_fft.py:355",
-    }
+    table = [
+        ("fwd_lanes", "unordered_fft.cu", "marlin_tpu/pallas_fft.py:237", launches),
+        ("inv_lanes", "unordered_fft.cu", "marlin_tpu/pallas_fft.py:276", launches),
+        ("fwd_sublanes", "unordered_fft.cu", "marlin_tpu/pallas_fft.py:340", launches),
+        ("inv_sublanes", "unordered_fft.cu", "marlin_tpu/pallas_fft.py:355", launches),
+        ("fwd_lanes_pre", "fft_tile.cuh", "marlin_tpu/pallas_fft.py:237",
+         fused_launches),
+        ("fwd_x_update", "spectral_update.cu", "marlin_tpu/pallas_spectral.py:120",
+         fused_launches),
+        ("fwd_x_update_poly", "spectral_update.cu",
+         "marlin_tpu/pallas_spectral.py:203", multi_launches),
+    ]
     line = {"kernels": [
         {"name": name, "route": "cuda",
-         "source": "marlin_tpu_torch/csrc/unordered_fft.cu",
-         "replaces": replaces[name], "launches": launches[name],
-         **kernels[name]}
-        for name in replaces
+         "source": f"marlin_tpu_torch/csrc/{src}", "replaces": replaces,
+         "launches": counts[name], **kernels[name]}
+        for name, src, replaces, counts in table
     ]}
     say(json.dumps(line))
+    say(smi)
     say(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))

@@ -238,3 +238,20 @@ class ReciprocalLaplacianSquareFactor(TensorCompute):
 
     def output_specs(self, specs):
         return {self.out: Spec(self.domain.reciprocal_shape, self.domain.dtype)}
+
+
+@computes.register("SwiftHohenbergLinear")
+class SwiftHohenbergLinear(TensorCompute):
+    """r − α²(1−k²)² (reference: src/tensor_computes/SwiftHohenbergLinear.C:31-36)."""
+
+    def __init__(self, name, params: Params, problem):
+        super().__init__(name, params, problem)
+        self.r = self.constant("r", -0.5)
+        self.alpha = self.constant("alpha", 1.0)
+
+    def apply(self, state, ctx):
+        k2 = self.domain.k_square
+        return {self.out: self.r - self.alpha * self.alpha * (1.0 - k2) * (1.0 - k2)}
+
+    def output_specs(self, specs):
+        return {self.out: Spec(self.domain.reciprocal_shape, self.domain.dtype)}

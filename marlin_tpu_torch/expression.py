@@ -26,6 +26,7 @@ chain-rule handling with `d<name>` bindings.
 from __future__ import annotations
 
 import math
+import struct
 from dataclasses import dataclass
 from typing import Callable, Dict, List, Optional, Sequence, Tuple
 
@@ -1074,6 +1075,137 @@ def _is_bool(x) -> bool:
     return getattr(x, "dtype", None) == torch.bool
 
 
+class CudaSourceError(ExpressionError):
+    """The expression has a part the CUDA printer cannot print."""
+
+
+def cuda_float(value: float) -> str:
+    """A CUDA float literal of the float32 that torch rounds ``value`` to
+    where a Python scalar meets a float32 tensor."""
+    try:
+        f32 = struct.unpack("f", struct.pack("f", float(value)))[0]
+    except (OverflowError, TypeError) as e:
+        raise CudaSourceError(f"constant {value!r} has no float32 literal") from e
+    if not math.isfinite(f32):
+        raise CudaSourceError(f"constant {value!r} has no float32 literal")
+    return repr(f32) + "f"
+
+
+_CUDA_UNARY = {
+    "sin": "sinf", "cos": "cosf", "tan": "tanf", "sinh": "sinhf",
+    "cosh": "coshf", "tanh": "tanhf", "asin": "asinf", "acos": "acosf",
+    "atan": "atanf", "asinh": "asinhf", "acosh": "acoshf", "atanh": "atanhf",
+    "exp": "expf", "log": "logf", "log10": "log10f", "log2": "log2f",
+    "sqrt": "sqrtf", "abs": "fabsf", "ceil": "ceilf", "floor": "floorf",
+    "round": "rintf",  # torch.round rounds half to even
+    "trunc": "truncf", "erf": "erff",
+}
+_CUDA_BINARY = {"min": "fminf", "max": "fmaxf", "atan2": "atan2f",
+                "hypot": "hypotf"}
+
+
+class CudaSourceOps(Ops):
+    """Prints an expression over one float32 value as CUDA statements.
+
+    A value is either a Python float (a constant, folded on the host as
+    ``TorchOps`` folds Python scalars) or the name of a ``const float``
+    local; every operation on a local appends one statement, so the
+    printed code keeps the evaluation order.  Constants print as the
+    float32 that torch rounds them to; integer powers print as the products
+    JAX's ``integer_pow`` takes (square-and-multiply); comparisons and
+    logical operators give 1.0f or 0.0f.  Anything else raises
+    ``CudaSourceError``."""
+
+    lazy_if = False
+
+    def __init__(self):
+        self.lines: List[str] = []
+
+    def local(self, code: str) -> str:
+        name = f"t{len(self.lines)}"
+        self.lines.append(f"const float {name} = {code};")
+        return name
+
+    def c(self, a) -> str:
+        if isinstance(a, str):
+            return a
+        if isinstance(a, complex):
+            raise CudaSourceError(f"complex value {a!r} cannot be printed")
+        return cuda_float(a)
+
+    @staticmethod
+    def _folds(*args) -> bool:
+        return not any(isinstance(a, str) for a in args)
+
+    def _fold(self, fn, *args):
+        try:
+            return fn(*args)
+        except (ArithmeticError, ValueError, ExpressionError) as e:
+            raise CudaSourceError(f"constant folding failed: {e}") from e
+
+    def neg(self, a):
+        return -a if self._folds(a) else self.local(f"-{a}")
+
+    def logical_not(self, a):
+        if self._folds(a):
+            return super().logical_not(a)
+        return self.local(f"{a} != 0.0f ? 0.0f : 1.0f")
+
+    def binary(self, op, a, b):
+        if self._folds(a, b):
+            return self._fold(super().binary, op, a, b)
+        if op in "+-*/":
+            return self.local(f"{self.c(a)} {op} {self.c(b)}")
+        if op == "%":
+            return self.local(f"fmodf({self.c(a)}, {self.c(b)})")
+        if op == "^":
+            return self._pow(a, b)
+        raise CudaSourceError(f"operator '{op}' cannot be printed")
+
+    def _pow(self, a, b):
+        if isinstance(b, str) or float(b) != int(b):
+            return self.local(f"powf({self.c(a)}, {self.c(b)})")
+        n = int(b)
+        if n == 0:
+            return 1.0
+        acc, x, m = None, a, abs(n)
+        while m:
+            if m & 1:
+                acc = x if acc is None else self.local(f"{acc} * {x}")
+            m >>= 1
+            if m:
+                x = self.local(f"{x} * {x}")
+        return self.local(f"1.0f / {acc}") if n < 0 else acc
+
+    def compare(self, op, a, b):
+        if self._folds(a, b):
+            return super().compare(op, a, b)
+        return self.local(f"{self.c(a)} {op} {self.c(b)} ? 1.0f : 0.0f")
+
+    def logical(self, op, a, b):
+        if self._folds(a, b):
+            return super().logical(op, a, b)
+        c_op = "&&" if op == "&" else "||"
+        return self.local(f"({self.c(a)} != 0.0f) {c_op} ({self.c(b)} != 0.0f)"
+                          " ? 1.0f : 0.0f")
+
+    def call(self, name, args):
+        if self._folds(*args):
+            return self._fold(super().call, name, args)
+        if name == "if" and len(args) == 3:
+            cond, a, b = (self.c(x) for x in args)
+            return self.local(f"{cond} != 0.0f ? {a} : {b}")
+        if name == "pow" and len(args) == 2:
+            return self._pow(args[0], args[1])
+        if name in _CUDA_UNARY and len(args) == 1:
+            return self.local(f"{_CUDA_UNARY[name]}({self.c(args[0])})")
+        if name in _CUDA_BINARY and len(args) == 2:
+            a, b = (self.c(x) for x in args)
+            return self.local(f"{_CUDA_BINARY[name]}({a}, {b})")
+        raise CudaSourceError(
+            f"function '{name}'/{len(args)} cannot be printed as CUDA source")
+
+
 _scalar_ops = Ops()
 
 
@@ -1147,3 +1279,14 @@ class CompiledExpression:
         scope = dict(self.constants)
         scope.update(env)
         return float(self.ast.evaluate(scope, Ops()))
+
+    def cuda_source(self, var: str, arg: str = "x") -> str:
+        """The body of a CUDA device function of one float ``arg`` that
+        computes this expression of the variable ``var`` in float32 (see
+        ``CudaSourceOps``); raises ``CudaSourceError`` for what it cannot
+        print."""
+        ops = CudaSourceOps()
+        scope = dict(self.constants)
+        scope[var] = arg
+        out = self.ast.evaluate(scope, ops)
+        return "\n".join(ops.lines + [f"return {ops.c(out)};"])

@@ -152,6 +152,8 @@ class TensorProblem:
             if isinstance(root_compute, ComputeGroup):
                 root_compute.sort()
             self.solver.bind(root_compute)
+            if getattr(self.solver, "carry_reciprocal", False):
+                self.solver.prune_reciprocal_ffts()
 
         # -- postprocessors --------------------------------------------------
         self.postprocessors: List[Postprocessor] = []

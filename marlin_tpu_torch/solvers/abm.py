@@ -1,17 +1,27 @@
 """Adams-Bashforth-Moulton semi-implicit solver.
 
-The PyTorch counterpart of marlin_tpu/solvers/abm.py (unfused ``substep``,
-:325-390; reference src/tensor_solver/AdamsBashforthMoulton.C:60-187):
-AB1-5 predictor with the semi-implicit update ū = (ū + dt·Σβᵢ N̄ᵢ)/(1 − dt·L̄),
-optional AM1-5 corrector, order fallback on a dt change, per-variable
-history.  The order is chosen on the host each substep.
+The PyTorch counterpart of marlin_tpu/solvers/abm.py (reference
+src/tensor_solver/AdamsBashforthMoulton.C:60-187): AB1-5 predictor with the
+semi-implicit update ū = (ū + dt·Σβᵢ N̄ᵢ)/(1 − dt·L̄), optional AM1-5
+corrector, order fallback on a dt change, per-variable history.  The order
+is chosen on the host each substep.
+
+``fused_spectral = true`` (with ``carry_reciprocal = true`` and ``[Domain]
+fft_backend = PALLAS``) runs all but the last substep of each step through
+the fused kernels of ``spectral.py`` (``_fused_step``); the last substep
+runs the regular chain, so the state matches the unfused path.
 """
 
 from __future__ import annotations
 
+import math
+
+import numpy as np
+import torch
+
 from ..params import Params
 from ..registry import solvers
-from .base import SplitOperatorBase
+from .base import SplitOperatorBase, advance_state
 
 MAX_ORDER = 5
 
@@ -38,6 +48,8 @@ ALPHA = [
 
 @solvers.register("AdamsBashforthMoulton", "SemiImplicitSolver")
 class AdamsBashforthMoulton(SplitOperatorBase):
+    supports_carry_reciprocal = True  # substep writes the updated ū back
+
     def __init__(self, name, params: Params, problem):
         super().__init__(name, params, problem)
         porder = params.get_int("predictor_order", 2)
@@ -48,6 +60,116 @@ class AdamsBashforthMoulton(SplitOperatorBase):
         self.corrector_order = corder - 1
         self.corrector_steps = params.get_int("corrector_steps", 0)
         self.request_history(max(self.predictor_order, self.corrector_order))
+        self.fused_spectral = params.get_bool("fused_spectral", False)
+        self._fused_plan = None
+        if self.fused_spectral and not self.carry_reciprocal:
+            params.error(
+                "fused_spectral", "requires carry_reciprocal = true"
+            )
+
+    def step(self, state, t, dt, dt_old, first_step):
+        if not self.fused_spectral or self.substeps <= 1:
+            return super().step(state, t, dt, dt_old, first_step)
+        return self._fused_step(state, t, dt, dt_old, first_step)
+
+    def _fused_step(self, state, t, dt, dt_old, first_step):
+        """Substeps 0..n-2 through spectral.ch_substep(_multi), with ū and
+        N̄ carried as complex64 (nx, L) tensors; the final substep runs the
+        regular chain so the state matches the unfused path
+        (marlin_tpu/solvers/abm.py:_fused_step, serial branches)."""
+        from .. import spectral as sp
+        from .. import unordered_fft as uf
+
+        if self._fused_plan is None:
+            self._fused_plan = sp.match_chain(self)
+        plan = self._fused_plan
+        if len(state["old_dt"]) > 1 or any(
+            s.shape[0] != 1 for s in state["old"].values()
+        ):
+            raise sp.SpectralChainError(
+                "fused_spectral = true supports history depth 1 only"
+            )
+        # History on the carried pair (N̄ and u itself) stays exact: both are
+        # current through the fused loop, and the one advance before the
+        # trailing substep pushes what the unfused per-substep advances
+        # would have.  Other buffers go stale in the fused substeps.
+        multi = isinstance(plan, sp.SpectralPlanMulti)
+        hist_ok = (set(plan.nonlinears) | set(plan.buffers)) if multi else (
+            {plan.nonlinear, plan.buffer})
+        if not set(state["old"]) <= hist_ok:
+            raise sp.SpectralChainError(
+                f"fused_spectral = true supports old-state history on "
+                f"{sorted(hist_ok)} only (got {sorted(state['old'])})"
+            )
+
+        dom = self.domain
+        # the kernels take float32 weights, as the TPU kernels' scalar row
+        sub_dt = float(np.float32(dt / self.substeps))
+        dt_changed = dt != dt_old
+        n_adv0 = state["n_advances"]
+        shape = plan.shape
+        flat = (shape[0], math.prod(shape[1:]))
+        buffers = dict(state["buffers"])
+
+        def carried(name):
+            return buffers[name].to(torch.complex64).reshape(flat).contiguous()
+
+        # carry_reciprocal seed: ū = fft(u) once per step.  The history slot
+        # equals buffers[N̄] here: the step-level advance just pushed it (on
+        # the first step both are zeros while β₁ = 0), which makes the
+        # per-substep history push a rebinding of the carried N̄
+        if multi:
+            c = torch.stack([buffers[n].to(torch.float32) for n in plan.buffers])
+            cbar = torch.stack([uf.fftn_unordered(ci).reshape(flat) for ci in c])
+            nbar = torch.stack([carried(n) for n in plan.nonlinears])
+            substep_fn = sp.ch_substep_multi
+        else:
+            c = buffers[plan.buffer].to(torch.float32)
+            cbar = uf.fftn_unordered(c).reshape(flat)
+            nbar = carried(plan.nonlinear)
+            substep_fn = sp.ch_substep
+
+        for s in range(self.substeps - 1):
+            # AB order selection (substep(), reference :88-91)
+            n_old_b = min(n_adv0 + (0 if first_step else s), 1)
+            cond = s < self.predictor_order and dt_changed
+            order = min(0 if cond else n_old_b, self.predictor_order)
+            c2, u2, n2 = substep_fn(c, cbar, nbar, sub_dt, BETA[order][0],
+                                    BETA[order][1], plan)
+            if self.corrector_steps:
+                # Adams-Moulton corrector (reference :118-186): the same fused
+                # chain with ū base = the pre-predictor ū, β0 → α0 on the
+                # fresh N̄ of the corrected field and β1 → α1 on the frozen N_n
+                cond_c = s < self.corrector_order and dt_changed
+                order_c = min(1 if cond_c else n_old_b + 1, self.corrector_order)
+                a0, a1 = ALPHA[order_c][0], ALPHA[order_c][1]
+                n_n = n2
+                for _ in range(self.corrector_steps):
+                    c3, u3, n2 = substep_fn(c2, cbar, n_n, sub_dt, a0, a1, plan)
+                    # corrector order 1: the group re-evaluates (N̄ updates)
+                    # but ū and u stay
+                    if self.corrector_order > 0:
+                        c2, u2 = c3, u3
+            c, cbar, nbar = c2, u2, n2
+
+        if multi:
+            for i, name in enumerate(plan.buffers):
+                buffers[name] = c[i].to(dom.dtype)
+                buffers[plan.reciprocals[i]] = cbar[i].reshape(shape).to(dom.cdtype)
+                buffers[plan.nonlinears[i]] = nbar[i].reshape(shape).to(dom.cdtype)
+        else:
+            buffers[plan.buffer] = c.to(dom.dtype)
+            buffers[plan.reciprocal] = cbar.reshape(shape).to(dom.cdtype)
+            buffers[plan.nonlinear] = nbar.reshape(shape).to(dom.cdtype)
+        # the skipped in-loop advances (s = 1..substeps-2); the final
+        # substep's advance below refreshes the depth-1 old/old_dt slots
+        st = {**state, "buffers": buffers,
+              "n_advances": n_adv0 + (0 if first_step else self.substeps - 2)}
+        if not first_step:
+            st = advance_state(st, dt)
+        s_last = self.substeps - 1
+        return self.substep(st, t + s_last * sub_dt, sub_dt, dt, dt_old,
+                            s_last, first_step)
 
     def substep(self, state, sub_time, sub_dt, dt, dt_old, substep_index, first_step):
         state = self._run_group(state, sub_time)
@@ -104,5 +226,10 @@ class AdamsBashforthMoulton(SplitOperatorBase):
                         ubar = ubar / (1.0 - sub_dt * buffers[v.linear_reciprocal])
                     final_ubar[v.buffer] = ubar
                 buffers.update({k: dom.ifft(u) for k, u in final_ubar.items()})
+
+        if self.carry_reciprocal:
+            # the pruned ForwardFFT's role: the next substep reads ū directly
+            for v in self.variables:
+                buffers[v.reciprocal_buffer] = final_ubar[v.buffer]
 
         return {**state, "buffers": buffers}

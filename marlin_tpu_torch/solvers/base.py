@@ -117,6 +117,13 @@ class TensorSolver:
         during the first MOOSE timestep (the reference's timeStep()<=1
         guard in TensorProblem::advanceState)."""
         sub_dt = dt / self.substeps
+        if getattr(self, "carry_reciprocal", False):
+            # seed ū = fft(u) once per timestep (the per-substep transform
+            # is pruned; see SplitOperatorBase.prune_reciprocal_ffts)
+            buffers = dict(state["buffers"])
+            for v in self.variables:
+                buffers[v.reciprocal_buffer] = self.domain.fft(buffers[v.buffer])
+            state = {**state, "buffers": buffers}
         for s in range(self.substeps):
             if s > 0 and not first_step:
                 state = advance_state(state, dt)
@@ -170,11 +177,67 @@ class SplitOperatorBase(TensorSolver):
             for i in range(n)
         ]
         self.history_size = 0  # set by subclasses via request_history
-        for knob in ("carry_reciprocal", "fused_spectral"):
-            if params.get_bool(knob, False):
-                params.error(
-                    knob, "is not ported to marlin_tpu_torch yet (the fused "
-                    "spectral path is a later slice of the port)")
+
+        # When the deck's only producer of ū is `ForwardFFT(input = u)`, that
+        # transform is redundant: the previous substep's update already has
+        # ū, and u = ifft(ū).  `carry_reciprocal = true` prunes the
+        # ForwardFFT from the solve group and carries ū across substeps,
+        # one of the three transforms of a semi-implicit Cahn-Hilliard
+        # substep.  Off by default: gold parity needs the recompute.
+        self.carry_reciprocal = params.get_bool("carry_reciprocal", False)
+        if self.carry_reciprocal and not getattr(
+            self, "supports_carry_reciprocal", False
+        ):
+            params.error(
+                "carry_reciprocal",
+                f"not supported by {type(self).__name__}: the solver must "
+                "write the updated ū back each substep (currently only "
+                "AdamsBashforthMoulton does)",
+            )
+
+    def prune_reciprocal_ffts(self):
+        """Remove the ForwardFFT members producing each variable's ū
+        (carry_reciprocal mode).  Errors if ū has a different producer."""
+        from ..computes.base import ComputeGroup
+        from ..computes.core import ForwardFFT
+
+        targets = {v.reciprocal_buffer: v.buffer for v in self.variables}
+        found = set()
+
+        if not isinstance(self.compute, ComputeGroup):
+            raise ValueError(
+                "carry_reciprocal = true requires the solver's root compute "
+                "to be a ComputeGroup containing the ForwardFFT producers "
+                f"(got a single '{type(self.compute).__name__}' via "
+                "root_compute)"
+            )
+
+        def prune(group):
+            kept = []
+            for m in group.members:
+                if isinstance(m, ComputeGroup):
+                    prune(m)
+                    kept.append(m)
+                elif (
+                    isinstance(m, ForwardFFT)
+                    and m.out in targets
+                    and m.input == targets[m.out]
+                ):
+                    found.add(m.out)
+                else:
+                    kept.append(m)
+            group.members = kept
+            group._update_io()
+
+        prune(self.compute)
+        missing = set(targets) - found
+        if missing:
+            raise ValueError(
+                f"carry_reciprocal = true requires each reciprocal_buffer to "
+                f"be produced by a ForwardFFT of its buffer; not found for "
+                f"{sorted(missing)}"
+            )
+        self.compute.sort()
 
     def request_history(self, history_size: int):
         self.history_size = history_size

@@ -8,6 +8,7 @@ Pallas TPU kernel:
 wrapper            replaces
 =================  ===============================================
 ``fwd_lanes``      pallas_fft.py:237 ``_fwd_lanes_kernel``
+``fwd_lanes_pre``  the same kernel with its fused ``pre`` read
 ``inv_lanes``      pallas_fft.py:276 ``_inv_lanes_kernel``
 ``fwd_sublanes``   pallas_fft.py:340 ``_fwd_sublanes_kernel``
 ``inv_sublanes``   pallas_fft.py:355 ``_inv_sublanes_kernel``
@@ -24,14 +25,21 @@ carry over: the wrappers take and return ``complex64`` (interleaved), the
 forward wrappers also take a real ``float32`` input, and ``inv_lanes`` can
 return the real part only.
 
-The kernels (``csrc/unordered_fft.cu``) are built with ``nvcc`` for
-``sm_90a`` into a plain C shared library at first use and loaded with
-``ctypes``.  Bound at 512³ on an H100 SXM (3.35 TB/s): a real-input forward
-or real-output inverse lanes pass moves 1.61 GB (0.48 ms), a complex
-sublanes pass 2.15 GB (0.64 ms).  The kernels run a mixed-radix Stockham
-FFT over a tile in shared memory (radix-8/4/2 butterflies in registers,
-odd radices summed directly) and permute on the way out or in; the fused
-pointwise producer of the TPU kernel (``pre``) is left to later work.
+The kernels (``csrc/unordered_fft.cu`` over the shared tile FFT of
+``csrc/fft_tile.cuh``) are built with ``nvcc`` for ``sm_90a`` into a plain
+C shared library at first use and loaded with ``ctypes``.  Bound at 512³
+on an H100 SXM (3.35 TB/s): a real-input forward or real-output inverse
+lanes pass moves 1.61 GB (0.48 ms), a complex sublanes pass 2.15 GB
+(0.64 ms).  The kernels run a mixed-radix Stockham FFT over a tile in
+shared memory (radix-8/4/2 butterflies in registers, odd radices summed
+directly) and permute on the way out or in.
+
+The TPU kernel's fused pointwise producer (``pre``: µ = f′(c) evaluated in
+the forward lanes kernel's read, so µ never reaches memory) is a
+``Pointwise``: a parsed expression printed as CUDA source
+(``expression.CudaSourceOps``).  ``fwd_lanes_pre`` compiles it, with the
+lanes kernel of ``fft_tile.cuh``, into a library of its own in ``_build/``
+named by a hash of the generated source, once per distinct expression.
 
 On a CPU tensor each wrapper computes its plain twin (``*_plain``), which
 repeats the JAX kernels' arithmetic in torch ops: radix-r butterflies, the
@@ -64,7 +72,7 @@ SUPPORTED_RULE = (f"a multiple of 128 up to 1024, or any extent in "
                   f"[8, {DIRECT_MAX}] (direct DFT)")
 
 _HERE = os.path.dirname(os.path.abspath(__file__))
-SOURCE = os.path.join(_HERE, "csrc", "unordered_fft.cu")
+CSRC = os.path.join(_HERE, "csrc")
 BUILD_DIR = os.path.join(_HERE, "_build")
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC"]
@@ -211,56 +219,87 @@ def _nvcc() -> str:
     raise KernelBuildError("nvcc not found (on PATH or under $CUDA_HOME/bin)")
 
 
-def library_path() -> str:
-    """Where the library for the current source lives; the name carries a
-    hash of the source and flags, so a changed source builds anew."""
-    with open(SOURCE, "rb") as f:
-        digest = hashlib.sha256(f.read() + " ".join(NVCC_FLAGS).encode())
-    return os.path.join(BUILD_DIR, f"unordered_fft_{digest.hexdigest()[:16]}.so")
+def _header_bytes() -> bytes:
+    out = b""
+    for name in sorted(os.listdir(CSRC)):
+        if name.endswith(".cuh"):
+            with open(os.path.join(CSRC, name), "rb") as f:
+                out += f.read()
+    return out
 
 
-def build() -> str:
-    """Compile the kernels unless the library for this source exists.
-    Raises KernelBuildError with nvcc's output when the build fails."""
-    path = library_path()
-    if os.path.exists(path):
+class CudaLibrary:
+    """One shared library built by nvcc from a source in ``csrc/`` (or from
+    generated source text) and bound with ctypes.  Its file name carries a
+    hash of the source, the shared headers and the flags, so a changed
+    source builds anew."""
+
+    def __init__(self, stem: str, signatures: Dict[str, list],
+                 source: str = None, text: str = None):
+        self.stem = stem
+        self.signatures = signatures
+        self.source = source
+        self.text = text
+        self._lib = None
+
+    def _source_bytes(self) -> bytes:
+        if self.text is not None:
+            return self.text.encode()
+        with open(self.source, "rb") as f:
+            return f.read()
+
+    def path(self) -> str:
+        digest = hashlib.sha256(self._source_bytes() + _header_bytes()
+                                + " ".join(NVCC_FLAGS).encode())
+        return os.path.join(BUILD_DIR, f"{self.stem}_{digest.hexdigest()[:16]}.so")
+
+    def build(self) -> str:
+        """Compile unless the library for this source exists.  Raises
+        KernelBuildError with nvcc's output when the build fails."""
+        path = self.path()
+        if os.path.exists(path):
+            return path
+        os.makedirs(BUILD_DIR, exist_ok=True)
+        source = self.source
+        if self.text is not None:
+            source = path[:-3] + ".cu"
+            with open(source, "w") as f:
+                f.write(self.text)
+        fd, tmp = tempfile.mkstemp(suffix=".so", dir=BUILD_DIR)
+        os.close(fd)
+        cmd = [_nvcc(), *NVCC_FLAGS, "-I", CSRC, "-o", tmp, source]
+        try:
+            proc = subprocess.run(cmd, capture_output=True, text=True)
+            if proc.returncode != 0:
+                raise KernelBuildError(
+                    f"nvcc failed ({proc.returncode}): {' '.join(cmd)}\n"
+                    f"{proc.stderr}{proc.stdout}")
+            os.replace(tmp, path)
+        finally:
+            if os.path.exists(tmp):
+                os.remove(tmp)
         return path
-    os.makedirs(BUILD_DIR, exist_ok=True)
-    fd, tmp = tempfile.mkstemp(suffix=".so", dir=BUILD_DIR)
-    os.close(fd)
-    cmd = [_nvcc(), *NVCC_FLAGS, "-o", tmp, SOURCE]
-    try:
-        proc = subprocess.run(cmd, capture_output=True, text=True)
-        if proc.returncode != 0:
-            raise KernelBuildError(
-                f"nvcc failed ({proc.returncode}): {' '.join(cmd)}\n"
-                f"{proc.stderr}{proc.stdout}")
-        os.replace(tmp, path)
-    finally:
-        if os.path.exists(tmp):
-            os.remove(tmp)
-    return path
+
+    def load(self) -> ctypes.CDLL:
+        """Build (if needed) and load the library."""
+        if self._lib is None:
+            lib = ctypes.CDLL(self.build())
+            for name, argtypes in self.signatures.items():
+                fn = getattr(lib, name)
+                fn.argtypes = argtypes
+                fn.restype = ctypes.c_int
+            self._lib = lib
+        return self._lib
 
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int64
-_SIGNATURES = {
+LIBRARY = CudaLibrary("unordered_fft", {
     "mtt_fwd_lanes": [_P, _P, _P, _P, _I, _I, _I, _P],
     "mtt_inv_lanes": [_P, _P, _P, _P, _I, _I, _I, _P],
     "mtt_fwd_sublanes": [_P, _P, _P, _P, _I, _I, _I, _I, _P],
     "mtt_inv_sublanes": [_P, _P, _P, _I, _I, _I, _I, _P],
-}
-
-
-@functools.lru_cache(maxsize=1)
-def load() -> ctypes.CDLL:
-    """Build (if needed) and load the kernel library."""
-    lib = ctypes.CDLL(build())
-    for name, argtypes in _SIGNATURES.items():
-        fn = getattr(lib, name)
-        fn.argtypes = argtypes
-        fn.restype = ctypes.c_int
-    return lib
+}, source=os.path.join(CSRC, "unordered_fft.cu"))
 
 
 _TWIDDLES: Dict[Tuple[int, bool, str], torch.Tensor] = {}
@@ -311,24 +350,98 @@ def _launch_kernel(x: torch.Tensor, what: str) -> bool:
 
 
 # ---------------------------------------------------------------------------
-# the four wrappers
+# the fused pointwise read of the forward lanes kernel (``pre``)
 # ---------------------------------------------------------------------------
 
 
-def fwd_lanes(x: torch.Tensor) -> torch.Tensor:
+class Pointwise:
+    """A pointwise real function f(x) of one float32 value, fused into the
+    forward lanes kernel's read (pallas_fft._fwd_lanes_kernel's ``pre``).
+
+    ``expr`` is a ``CompiledExpression`` of the variable ``var``.  Calling
+    the object evaluates it with torch (the twin's read); ``source`` is the
+    generated ``.cu`` file, printed at construction by
+    ``expression.CudaSourceOps``, which raises ``CudaSourceError`` for what
+    it cannot print."""
+
+    def __init__(self, expr, var: str):
+        self.expr = expr
+        self.var = var
+        body = "\n".join("    " + line for line in expr.cuda_source(var).splitlines())
+        self.source = f"""// Generated by marlin_tpu_torch.unordered_fft: the forward lanes kernel
+// of fft_tile.cuh with the pointwise read
+//   {var} -> {expr.ast}
+#include "fft_tile.cuh"
+
+namespace {{
+struct Pre {{
+  __device__ __forceinline__ float operator()(float x) const {{
+{body}
+  }}
+}};
+}}  // namespace
+
+// x: (B, n) float; out: (B, n) complex, permuted.
+extern "C" cudaError_t mtt_fwd_lanes_pre(const void* x, void* out,
+                                         const void* tw, int64_t B,
+                                         int64_t n, int64_t b,
+                                         cudaStream_t stream) {{
+  return launch_fwd_lanes((const float*)x, nullptr, (float2*)out,
+                          (const float2*)tw, B, n, b, stream, Pre());
+}}
+"""
+        self.library = CudaLibrary(
+            "fwd_lanes_pre", {"mtt_fwd_lanes_pre": [_P, _P, _P, _I, _I, _I, _P]},
+            text=self.source)
+
+    def __call__(self, x: torch.Tensor) -> torch.Tensor:
+        out = self.expr({self.var: x})
+        return torch.as_tensor(out, dtype=x.dtype, device=x.device).expand_as(x)
+
+
+# ---------------------------------------------------------------------------
+# the wrappers
+# ---------------------------------------------------------------------------
+
+
+def fwd_lanes(x: torch.Tensor, pre: Pointwise = None) -> torch.Tensor:
     """Forward along the last axis of (B, n), float32 or complex64 input;
-    permuted complex64 output.  Replaces pallas_fft._fwd_lanes_kernel."""
+    permuted complex64 output.  Replaces pallas_fft._fwd_lanes_kernel; with
+    ``pre`` (float32 input only) the transform is of pre(x), see
+    ``fwd_lanes_pre``."""
+    if pre is not None:
+        return fwd_lanes_pre(x, pre)
     B, n = x.shape
     _check(x, n, "fwd_lanes", complex_only=False)
     if not _launch_kernel(x, "fwd_lanes"):
         return fwd_lanes_plain(x)
     out = torch.empty((B, n), dtype=torch.complex64, device=x.device)
     real = x.dtype == torch.float32
-    _launch(load().mtt_fwd_lanes, _ptr(x) if real else None,
+    _launch(LIBRARY.load().mtt_fwd_lanes, _ptr(x) if real else None,
             None if real else _ptr(x), _ptr(out),
             _ptr(_twiddle_table(n, False, x.device)), B, n, base(n),
             device=x.device, name="fwd_lanes")
     fwd_lanes.launches += 1
+    return out
+
+
+def fwd_lanes_pre(x: torch.Tensor, pre: Pointwise) -> torch.Tensor:
+    """Forward along the last axis of (B, n) of pre(x), x float32: the
+    pointwise function is evaluated in the kernel's read, so pre(x) never
+    reaches memory.  Replaces pallas_fft._fwd_lanes_kernel with ``pre``;
+    the twin is ``fwd_lanes_plain(pre(x))``."""
+    B, n = x.shape
+    _check(x, n, "fwd_lanes_pre", complex_only=False)
+    if x.dtype != torch.float32:
+        raise TypeError("fwd_lanes_pre: the fused read takes a float32 input "
+                        f"(got {x.dtype})")
+    if not _launch_kernel(x, "fwd_lanes_pre"):
+        return fwd_lanes_plain(pre(x))
+    out = torch.empty((B, n), dtype=torch.complex64, device=x.device)
+    _launch(pre.library.load().mtt_fwd_lanes_pre, _ptr(x), _ptr(out),
+            _ptr(_twiddle_table(n, False, x.device)), B, n, base(n),
+            device=x.device, name="fwd_lanes_pre")
+    fwd_lanes_pre.launches += 1
     return out
 
 
@@ -342,7 +455,7 @@ def inv_lanes(x: torch.Tensor, real_output: bool = True) -> torch.Tensor:
         return inv_lanes_plain(x, real_output)
     dtype = torch.float32 if real_output else torch.complex64
     out = torch.empty((B, n), dtype=dtype, device=x.device)
-    _launch(load().mtt_inv_lanes, _ptr(x), _ptr(out) if real_output else None,
+    _launch(LIBRARY.load().mtt_inv_lanes, _ptr(x), _ptr(out) if real_output else None,
             None if real_output else _ptr(out),
             _ptr(_twiddle_table(n, True, x.device)), B, n, base(n),
             device=x.device, name="inv_lanes")
@@ -360,7 +473,7 @@ def fwd_sublanes(x: torch.Tensor) -> torch.Tensor:
         return fwd_sublanes_plain(x)
     out = torch.empty((P_, n, L), dtype=torch.complex64, device=x.device)
     real = x.dtype == torch.float32
-    _launch(load().mtt_fwd_sublanes, _ptr(x) if real else None,
+    _launch(LIBRARY.load().mtt_fwd_sublanes, _ptr(x) if real else None,
             None if real else _ptr(x), _ptr(out),
             _ptr(_twiddle_table(n, False, x.device)), P_, n, L, base(n),
             device=x.device, name="fwd_sublanes")
@@ -377,14 +490,14 @@ def inv_sublanes(x: torch.Tensor) -> torch.Tensor:
     if not _launch_kernel(x, "inv_sublanes"):
         return inv_sublanes_plain(x)
     out = torch.empty((P_, n, L), dtype=torch.complex64, device=x.device)
-    _launch(load().mtt_inv_sublanes, _ptr(x), _ptr(out),
+    _launch(LIBRARY.load().mtt_inv_sublanes, _ptr(x), _ptr(out),
             _ptr(_twiddle_table(n, True, x.device)), P_, n, L, base(n),
             device=x.device, name="inv_sublanes")
     inv_sublanes.launches += 1
     return out
 
 
-WRAPPERS = (fwd_lanes, inv_lanes, fwd_sublanes, inv_sublanes)
+WRAPPERS = (fwd_lanes, fwd_lanes_pre, inv_lanes, fwd_sublanes, inv_sublanes)
 for _w in WRAPPERS:
     _w.launches = 0
 
@@ -407,26 +520,62 @@ def _split(shape: Sequence[int], d: int) -> Tuple[int, int, int]:
     return math.prod(shape[:d]), shape[d], math.prod(shape[d + 1:])
 
 
-def fftn_unordered(x: torch.Tensor) -> torch.Tensor:
-    """Forward n-D FFT of a float32 (or complex64) array: the last axis
-    through ``fwd_lanes``, every other axis, last to first, through
-    ``fwd_sublanes``.  complex64, permuted along every axis."""
+def _check_extents(shape, axes):
+    for d in axes:
+        if not supported(shape[d]):
+            raise ValueError(f"unordered fft: extent {shape[d]} does not "
+                             f"factor as {SUPPORTED_RULE}")
+
+
+def fwd_axes(x: torch.Tensor, axes: Sequence[int], pre: Pointwise = None) -> torch.Tensor:
+    """Forward unordered transform of x along ``axes``, last to first: the
+    last array axis (which must be in ``axes``) through ``fwd_lanes``, with
+    ``pre`` fused into its read, every other axis through ``fwd_sublanes``
+    with the axes before it as the launch's prefix
+    (pallas_fft.fwd_axes_planar).  complex64, permuted along ``axes``."""
     shape = tuple(x.shape)
-    for n in shape:
-        if not supported(n):
-            raise ValueError(f"unordered fft: extent {n} does not factor as "
-                             f"{SUPPORTED_RULE}")
-    u = fwd_lanes(x.contiguous().reshape(-1, shape[-1])).reshape(shape)
-    for d in range(len(shape) - 2, -1, -1):
+    axes = sorted(axes, reverse=True)
+    if not axes or axes[0] != len(shape) - 1:
+        raise ValueError("unordered fft: the last axis must be transformed")
+    _check_extents(shape, axes)
+    u = fwd_lanes(x.contiguous().reshape(-1, shape[-1]), pre=pre).reshape(shape)
+    for d in axes[1:]:
         u = fwd_sublanes(u.reshape(_split(shape, d))).reshape(shape)
     return u
+
+
+def inv_axes(u: torch.Tensor, axes: Sequence[int], real_output: bool = False) -> torch.Tensor:
+    """Inverse of ``fwd_axes`` along ``axes``, first to last; with
+    ``real_output`` (the last array axis in ``axes``) the REAL float32
+    array (the imaginary part of the last-axis inverse is dropped, as in
+    irfftn), else complex64 (pallas_fft.inv_axes_planar)."""
+    shape = tuple(u.shape)
+    axes = sorted(axes)
+    last = len(shape) - 1
+    if real_output and (not axes or axes[-1] != last):
+        raise ValueError("real_output requires the last axis in `axes`")
+    _check_extents(shape, axes)
+    u = u.to(torch.complex64).contiguous()
+    for d in axes:
+        if d == last:
+            return inv_lanes(u.reshape(-1, shape[-1]),
+                             real_output=real_output).reshape(shape)
+        u = inv_sublanes(u.reshape(_split(shape, d))).reshape(shape)
+    return u
+
+
+def fftn_unordered(x: torch.Tensor, pre: Pointwise = None,
+                   skip_axis0: bool = False) -> torch.Tensor:
+    """Forward n-D FFT of a float32 (or complex64) array, complex64 and
+    permuted along every axis.  ``pre`` fuses a pointwise function into the
+    first (last-axis) kernel's read; ``skip_axis0`` leaves axis 0
+    untransformed for a caller that fuses its own kernel along it
+    (pallas_fft.fftn_unordered_planar)."""
+    return fwd_axes(x, range(1 if skip_axis0 else 0, x.ndim), pre=pre)
 
 
 def ifftn_unordered(u: torch.Tensor, shape: Sequence[int]) -> torch.Tensor:
     """Inverse of ``fftn_unordered``; returns the REAL float32 array (the
     imaginary part of the last-axis inverse is dropped, as in irfftn)."""
     shape = tuple(shape)
-    u = u.to(torch.complex64).contiguous()
-    for d in range(len(shape) - 1):
-        u = inv_sublanes(u.reshape(_split(shape, d))).reshape(shape)
-    return inv_lanes(u.reshape(-1, shape[-1]), real_output=True).reshape(shape)
+    return inv_axes(u.reshape(shape), range(len(shape)), real_output=True)

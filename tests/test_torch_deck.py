@@ -11,7 +11,9 @@ from __graft_entry__ import _CH_DECK
 from marlin_tpu import hit as jhit
 from marlin_tpu import params as jparams
 from marlin_tpu_torch import hit, params, registry
+from marlin_tpu_torch import decks
 from marlin_tpu_torch.decks import CH3D_DECK
+from tests import test_pallas_spectral as tps
 
 
 def _tree(node):
@@ -71,6 +73,22 @@ def test_load_with_overrides_gives_same_tree(tmp_path):
 
 def test_ch3d_deck_is_bench_copy():
     assert CH3D_DECK == bench._CH3D_DECK
+
+
+@pytest.mark.parametrize("name,original", [
+    ("CH_DECK", "_CH"), ("SH_DECK", "_SH"), ("MULTI_DECK", "_MULTI")])
+def test_spectral_decks_are_test_copies(name, original):
+    assert getattr(decks, name) == getattr(tps, original)
+
+
+def test_multi_3d_deck_is_test_copy():
+    """At n = 16 the 3-D copy is _mk_multi_3d_deck(); n sets every extent."""
+    keep = {"domain_extra": "{domain_extra}", "solver_extra": "{solver_extra}"}
+    assert decks.MULTI_3D_DECK.format(n=16, **keep) == tps._mk_multi_3d_deck()
+    text = decks.MULTI_3D_DECK.format(n=512, domain_extra="", solver_extra="")
+    domain = hit.parse(text).child("Domain")
+    assert [domain.get(k) for k in ("nx", "ny", "nz", "xmax", "ymax", "zmax")
+            ] == ["512"] * 6
 
 
 def test_unbalanced_deck_raises_in_both():

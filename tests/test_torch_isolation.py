@@ -15,7 +15,9 @@ from marlin_tpu_torch import hit
 from marlin_tpu_torch import main as port_main
 from marlin_tpu_torch.domain import Domain
 from marlin_tpu_torch.executioner import run_deck
+from marlin_tpu_torch.params import ParamError, Params
 from marlin_tpu_torch.problem import ProblemError, TensorProblem
+from marlin_tpu_torch.solvers.base import SplitOperatorBase
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 FORBIDDEN = ("jax", "jaxlib", "marlin_tpu", "h5py")
@@ -48,6 +50,13 @@ def test_no_jax_or_marlin_tpu_import(path):
     for mod in _imported_modules(path):
         top = mod.split(".")[0]
         assert top not in FORBIDDEN, f"{os.path.relpath(path, ROOT)} imports {mod}"
+
+
+def test_sources_cover_the_port():
+    names = {os.path.relpath(p, ROOT) for p in _sources()}
+    for module in ("spectral.py", "unordered_fft.py", "expression.py",
+                   "solvers/abm.py"):
+        assert os.path.join("marlin_tpu_torch", module) in names, module
 
 
 def test_no_cpp_extension():
@@ -145,10 +154,25 @@ def test_domain_rejections(domain, match):
 
 @pytest.mark.parametrize("knob", ["carry_reciprocal", "fused_spectral"])
 def test_fused_spectral_path_is_a_named_error(knob):
+    """Both knobs are ported; what stays a named error is what the JAX
+    package itself rejects: carry_reciprocal on a solver that does not
+    write ū back (marlin_tpu/solvers/base.py:256-264), and fused_spectral
+    without carry_reciprocal (marlin_tpu/solvers/abm.py:69-74)."""
     text = _CH_DECK.format(nx=16, ny=16, substeps=1).replace(
         "  substeps =", f"  {knob} = true\n  substeps =")
-    with pytest.raises(Exception, match=knob):
-        TensorProblem(hit.parse(text), device="cpu")
+    root = hit.parse(text)
+    if knob == "carry_reciprocal":
+        class NoWriteBack(SplitOperatorBase):
+            pass
+
+        problem = TensorProblem(root, device="cpu")  # ABM writes ū back
+        with pytest.raises(ParamError, match=f"{knob}.*not supported by "
+                                             "NoWriteBack"):
+            NoWriteBack("s", Params(root.child("TensorSolver")), problem)
+    else:
+        with pytest.raises(ParamError,
+                           match=f"{knob}.*requires carry_reciprocal = true"):
+            TensorProblem(root, device="cpu")
 
 
 def test_tensor_valued_field_under_pallas_is_a_named_error():

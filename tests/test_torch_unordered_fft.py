@@ -108,13 +108,17 @@ def test_order_tables_equal_pallas(pf):
 
 
 def test_cpu_wrappers_use_twins_and_launch_nothing():
+    from marlin_tpu_torch.expression import CompiledExpression
+
     uf.reset_launches()
     x = torch.randn(4, 64, dtype=torch.float32)
     u = uf.fwd_lanes(x)
+    pre = uf.Pointwise(CompiledExpression("c^3 - c", ["c"]).compile(), "c")
+    assert torch.equal(uf.fwd_lanes(x, pre=pre), uf.fwd_lanes_plain(x**3 - x))
     uf.inv_lanes(u)
     uf.fwd_sublanes(x.reshape(1, 4, 64).transpose(1, 2).contiguous())
     uf.inv_sublanes(u.reshape(1, 4, 64).transpose(1, 2).contiguous())
-    assert uf.launches() == {"fwd_lanes": 0, "inv_lanes": 0,
+    assert uf.launches() == {"fwd_lanes": 0, "fwd_lanes_pre": 0, "inv_lanes": 0,
                              "fwd_sublanes": 0, "inv_sublanes": 0}
 
 
