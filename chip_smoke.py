@@ -7,12 +7,15 @@ Phases, one line each, flushed as they finish:
 
 0. toolchain: torch, CUDA, nvcc, the card's name and power limit;
 1. build: the CUDA libraries of marlin_tpu_torch/csrc (the unordered FFT,
-   the fused k-space update) and the generated library of the 3-D
-   Cahn-Hilliard µ fused into the forward lanes read, one nvcc each, all
-   started together;
+   the fused k-space update, the fused LBM substep) and the generated
+   library of the 3-D Cahn-Hilliard µ fused into the forward lanes read,
+   one nvcc each, all started together;
 2. kernels: each kernel at its 512³ main-path shapes (and at n = 64, 200,
    384) against its plain PyTorch twin, max error ≤ 1e-5 of the twin's
-   largest magnitude; kernel, twin, bound and yardstick times;
+   largest magnitude; kernel, twin, bound and yardstick times.  The LBM
+   substep kernel (``lbm_substep``) at 256³ in float32 on four plans (the
+   porous deck's, the mixed deck's, a D3Q27 all-faces plan with a z body
+   force, a zeroth-order Zou-He channel), and at 9³ and 33×17×20;
 3. main path: the 3-D Cahn-Hilliard deck at 512³ through ``run_deck`` with
    ``fft_backend = PALLAS`` in float32 (10 substeps, 2 steps, dt = 1): the
    launch counters rise by exactly the count the path implies, c is finite
@@ -27,7 +30,18 @@ Phases, one line each, flushed as they finish:
    Cahn-Hilliard field c and an Allen-Cahn field n1) at 512³, float32,
    10 substeps, 2 steps, dt = 0.05, fused and unfused (carry only):
    max |Δ| ≤ 5e-5 on c and n1, mass of c within 1e-5, one
-   ``fwd_x_update_poly`` launch per fused substep.
+   ``fwd_x_update_poly`` launch per fused substep;
+7. LBM porous: ``decks.POROUS_DECK`` (D3Q19 BGK through the benchmark's
+   sphere pack, ``decks.porous_media``, handed in as an array so no HDF5
+   file is needed) at 256³, float32, 20 substeps × 3 steps, through
+   ``run_deck`` with ``lbm_backend = PALLAS`` and ``JNP``: exactly 2 × 19
+   ``lbm_substep`` launches on PALLAS and none on JNP; on f, fpc, density,
+   velocity and speed max |PALLAS − JNP| ≤ 1e-5 of the JNP buffer's
+   largest magnitude; the fluid mass Σρ (float64) within 1e-5 of its start
+   on both; every buffer finite;
+8. LBM mixed: ``decks.MIXED_DECK`` (bounce-back walls, Zou-He velocity
+   inlet, zero-gradient outlet) the same way, without the mass check (the
+   inlet and the outlet move mass).
 
 Then one JSON line with every kernel's numbers and, last, the JSON result
 line.  Any failure ends the run with a non-zero exit and no result line.
@@ -60,6 +74,10 @@ FUSED_ANCHOR_TOL = 2e-4
 MULTI_TOL = 5e-5
 MASS_TOL = 1e-5
 FUSED = "carry_reciprocal = true\n  fused_spectral = true"
+LBM_N = 256
+LBM_SUBSTEPS = 20
+LBM_STEPS = 3
+LBM_ODD = [(9, 9, 9), (33, 17, 20)]
 
 
 def say(*parts):
@@ -315,6 +333,198 @@ def phase_fused_kernels(uf, sp, dev, gen, pre, k2):
     return results
 
 
+# -- the fused LBM substep ---------------------------------------------------------
+
+
+def lbm_zeroth_order_deck(backend):
+    """decks.INLET_OUTLET_DECK as a pressure-driven channel: Zou-He density
+    faces on both x faces (zeroth order)."""
+    from marlin_tpu_torch.decks import INLET_OUTLET_DECK
+
+    deck = INLET_OUTLET_DECK.format(backend=backend)
+    deck = deck.replace("type = LBMFixedFirstOrderBC", "type = LBMFixedZerothOrderBC")
+    deck = deck.replace("value = 0.01", "value = 1.001")
+    return deck.replace("""      type = LBMMicroscopicZeroGradientBC
+      buffer = f
+      boundary = right""", """      type = LBMFixedZerothOrderBC
+      buffer = f
+      f = f
+      value = 1.0
+      boundary = right""")
+
+
+def lbm_plans():
+    """name -> FusedLBMConfig of each deck's own chain, built at a small
+    extent; the kernel checks set the extents."""
+    from marlin_tpu_torch import decks, hit
+    from marlin_tpu_torch import lbm_fused as lf
+    from marlin_tpu_torch.problem import TensorProblem
+
+    texts = {
+        "porous": (decks.POROUS_DECK.format(n=8, substeps=2, backend="PALLAS",
+                                            media_h5="media.h5"),
+                   {"media": decks.porous_media(8)}),
+        "mixed": (decks.MIXED_DECK.format(n=8, substeps=2, backend="PALLAS"), None),
+        "allface_d3q27": (decks.ALLFACE_DECK.format(n=8, stencil="LBMD3Q27",
+                                                    backend="PALLAS"), None),
+        "zouhe_zeroth": (lbm_zeroth_order_deck("PALLAS"), None),
+    }
+    plans = {}
+    for name, (text, arrays) in texts.items():
+        p = TensorProblem(hit.parse(text), device="cpu", arrays=arrays)
+        p.init_state()
+        plans[name] = lf.match_chain(p).config
+    return plans
+
+
+def lbm_flops(cfg):
+    """Operations a cell: the density and momentum sums, u (three
+    quotients, three sums, one product each), |u|², √, and per direction
+    e·u, the equilibrium and the BGK collision."""
+    nnz = [sum(1 for c in e if c) for e in cfg.e]
+    per_q = sum(13 + max(0, k - 1) for k in nnz)
+    return (cfg.q - 1) + sum(nnz) + 16 + per_q
+
+
+def phase_lbm_kernel(lf, dev):
+    """lbm_substep against its twin at 256³ (float32) on four plans and at
+    odd extents; returns the main-shape rows of the porous and mixed plans."""
+    import dataclasses
+
+    from marlin_tpu_torch.decks import porous_media
+
+    gen = torch.Generator(device=dev).manual_seed(1)
+    rows = {}
+    for name, base in lbm_plans().items():
+        for shape in LBM_ODD + [(LBM_N,) * 3]:
+            cfg = dataclasses.replace(base, nx=shape[0], ny=shape[1], nz=shape[2])
+            w = torch.tensor(cfg.w, dtype=torch.float32, device=dev)
+            fpc = w[:, None, None, None] * (1.0 + 0.05 * torch.randn(
+                (cfg.q,) + shape, generator=gen, device=dev))
+            media = None
+            if cfg.has_media:
+                # the code TensorProblem.lbm_media gives: 1 fluid, 0 solid
+                if len(set(shape)) == 1:
+                    m = torch.as_tensor(porous_media(shape[0]), device=dev)
+                else:
+                    m = torch.rand(shape, generator=gen, device=dev) > 0.2
+                media = m.to(torch.int8).contiguous()
+                fpc = torch.where(media == 0, 0.0, fpc)
+            fpc = fpc.contiguous()
+            kernel = lambda: lf.fused_substep(fpc, media, cfg)
+            twin = lambda: lf.fused_substep_twin(fpc, media, cfg)
+            if shape != (LBM_N,) * 3:
+                err = check(f"lbm_substep {name}", shape, kernel(), twin())
+                say(f"[kernels] lbm_substep {name} {shape}: max_abs_err {err:.3e}")
+                continue
+            cells = math.prod(shape)
+            n_bytes = 2 * nbytes(fpc) + cells * 4 + (cells if media is not None else 0)
+            row = measure(f"lbm_substep {name}", (cfg.q,) + shape, kernel, twin,
+                          None, n_bytes, lbm_flops(cfg) * cells)
+            say(f"[kernels] lbm_substep {name}: {cells / (row['ms'] * 1e3):.0f} "
+                f"MLUPS (byte bound {cells / (row['bound_ms'] * 1e3):.0f})")
+            rows[name] = row
+            del fpc, media
+            torch.cuda.empty_cache()
+    return rows
+
+
+def lbm_run(name, backend, dev):
+    """run_deck on the porous or mixed deck at LBM_N³, float32; returns
+    (transient, wall seconds, launches)."""
+    from marlin_tpu_torch import decks, hit
+    from marlin_tpu_torch import lbm_fused as lf
+    from marlin_tpu_torch.executioner import run_deck
+
+    if name == "porous":
+        deck = decks.POROUS_DECK.format(n=LBM_N, substeps=LBM_SUBSTEPS,
+                                        backend=backend, media_h5="media.h5")
+        arrays = {"media": decks.porous_media(LBM_N)}
+    else:
+        deck = decks.MIXED_DECK.format(n=LBM_N, substeps=LBM_SUBSTEPS,
+                                       backend=backend)
+        arrays = None
+    deck = deck.replace("[Domain]", "[Domain]\n  floating_precision = SINGLE")
+    deck = deck.replace("""[Executioner]
+  type = Transient
+  num_steps = 3
+[]
+""", "")
+    deck += f"""
+[Executioner]
+  type = Transient
+  num_steps = {LBM_STEPS}
+[]
+"""
+    lf.reset_launches()
+    with tempfile.TemporaryDirectory() as out_dir:
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        tr = run_deck(hit.parse(deck), output_dir=out_dir, device=dev, arrays=arrays)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    return tr, wall, lf.launches()["lbm_substep"]
+
+
+def lbm_substep_ms(tr):
+    """Device time of one steady step of the finished run, a substep."""
+    p, st = tr.problem, tr.state
+    ms = cuda_ms(lambda: p.step(st, tr.time, 1.0, 1.0, False), reps=2, warmup=1)
+    return ms / LBM_SUBSTEPS
+
+
+def fluid_mass(state, solid):
+    rho = state["buffers"]["density"].double()
+    return rho[~solid].sum().item()
+
+
+def phase_lbm_path(name, dev, mass_check):
+    """One LBM deck on PALLAS and JNP: launches, PALLAS against JNP, mass,
+    speed.  Returns (PALLAS launches, PALLAS ms, JNP ms)."""
+    cells = LBM_N ** 3
+    # the first MOOSE step runs no substeps, the last substep of each step
+    # runs the eager chain
+    expected = (LBM_STEPS - 1) * (LBM_SUBSTEPS - 1)
+    out = {}
+    for backend in ("PALLAS", "JNP"):
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        tr, wall, launched = lbm_run(name, backend, dev)
+        want = expected if backend == "PALLAS" else 0
+        say(f"[lbm {name}] {backend} {LBM_N}^3, {LBM_STEPS} steps x {LBM_SUBSTEPS} "
+            f"substeps: run_deck {wall:.2f} s, lbm_substep launches {launched} "
+            f"(expected {want}), peak device memory "
+            f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
+        assert launched == want, (name, backend, launched, want)
+        for k, v in tr.state["buffers"].items():
+            assert bool(torch.isfinite(v).all()), (name, backend, k)
+        ms = lbm_substep_ms(tr)
+        say(f"[lbm {name}] {backend} {ms:.3f} ms/substep, "
+            f"{cells / (ms * 1e3):.0f} MLUPS")
+        problem = tr.problem
+        solid = problem.lbm_solid_mask()
+        if solid is None:
+            solid = torch.zeros((LBM_N,) * 3, dtype=torch.bool, device=dev)
+        else:
+            say(f"[lbm {name}] solid fraction {solid.double().mean().item():.4f}")
+        if mass_check:
+            # the deck starts every fluid cell at density 1
+            m0 = float((~solid).sum().item())
+            m1 = fluid_mass(tr.state, solid)
+            say(f"[lbm {name}] {backend} fluid mass {m0:.6f} -> {m1:.6f}")
+            assert abs(m1 - m0) <= MASS_TOL * m0, (name, backend, m0, m1)
+        out[backend] = (tr.state["buffers"], ms, launched)
+        del tr, problem
+    for k in ("f", "fpc", "density", "velocity", "speed"):
+        a, b = out["PALLAS"][0][k], out["JNP"][0][k]
+        d = (a - b).abs().max().item()
+        mag = b.abs().max().item()
+        say(f"[lbm {name}] max|{k}_PALLAS - {k}_JNP| {d:.3e} (limit "
+            f"{KERNEL_TOL} x {mag:.4e})")
+        assert d <= KERNEL_TOL * mag, (name, k, d, mag)
+    return out["PALLAS"][2], out["PALLAS"][1], out["JNP"][1]
+
+
 def transient(deck, dt, buffer):
     return deck + f"""
 [Executioner]
@@ -405,6 +615,7 @@ def main():
         return 1
     sys.path.insert(0, HERE)
     from marlin_tpu_torch import hit
+    from marlin_tpu_torch import lbm_fused as lf
     from marlin_tpu_torch import spectral as sp
     from marlin_tpu_torch import unordered_fft as uf
     from marlin_tpu_torch.decks import CH3D_DECK
@@ -427,7 +638,7 @@ def main():
     ).replace("[TensorSolver]", f"[TensorSolver]\n  {FUSED}")), device=dev)
     pre = sp.match_chain(small.solver).pre
     libs = {"unordered_fft": uf.LIBRARY, "spectral_update": sp.LIBRARY,
-            "fwd_lanes_pre (CH3D µ)": pre.library}
+            "lbm_substep": lf.LIBRARY, "fwd_lanes_pre (CH3D µ)": pre.library}
     cold = {k: not os.path.exists(lib.path()) for k, lib in libs.items()}
 
     def timed_build(lib):
@@ -451,6 +662,8 @@ def main():
         "[Domain]", "[Domain]\n  fft_backend = PALLAS\n  floating_precision = SINGLE")),
         device=dev).domain
     kernels.update(phase_fused_kernels(uf, sp, dev, gen, pre, sp._k2_tables(dom)))
+    del dom
+    lbm_rows = phase_lbm_kernel(lf, dev)
     say("[kernels] ok")
 
     # -- 3: the main path -----------------------------------------------------
@@ -542,6 +755,16 @@ def main():
         f"{ms_multi_unfused:.3f} ms/substep (run_deck {wall_u:.2f} s); peak "
         f"device memory {torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
     del tr_u, fields
+
+    # -- 7 and 8: the LBM paths ----------------------------------------------------
+    lbm_launches, ms_porous, ms_porous_jnp = phase_lbm_path("porous", dev, True)
+    _, ms_mixed, ms_mixed_jnp = phase_lbm_path("mixed", dev, False)
+    lbm = summarise([lbm_rows["porous"], lbm_rows["mixed"]])
+    lbm["yardstick"] = "the eager JNP substep (run_deck, lbm_backend = JNP)"
+    lbm["yardstick_ms"] = (ms_porous_jnp + ms_mixed_jnp) / 2
+    kernels["lbm_substep"] = lbm
+    say(f"[lbm] ms/substep PALLAS porous {ms_porous:.3f}, mixed {ms_mixed:.3f}; "
+        f"JNP porous {ms_porous_jnp:.3f}, mixed {ms_mixed_jnp:.3f}")
     say(f"[done] {time.perf_counter() - t_start:.1f} s")
 
     # -- result -----------------------------------------------------------------
@@ -556,6 +779,8 @@ def main():
          fused_launches),
         ("fwd_x_update_poly", "spectral_update.cu",
          "marlin_tpu/pallas_spectral.py:203", multi_launches),
+        ("lbm_substep", "lbm_substep.cu", "marlin_tpu/pallas_lbm.py:224",
+         {"lbm_substep": lbm_launches}),
     ]
     line = {"kernels": [
         {"name": name, "route": "cuda",

@@ -15,7 +15,21 @@ each copy equal to its original.
 - ``MULTI_3D_DECK``: the 3-D variant of ``_MULTI``, formatted also with
   ``n`` (nx, ny, nz, xmax, ymax, zmax); at n = 16 it is
   tests/test_pallas_spectral.py's ``_mk_multi_3d_deck()``.
+- ``POROUS_DECK``, ``MIXED_DECK``: bench.py's ``_POROUS_DECK`` (D3Q19 BGK
+  through a sphere pack: binary media with obstacle bounce-back and a body
+  force; formatted with ``n``, ``substeps``, ``backend`` and ``media_h5``,
+  the media file) and ``_MIXED_DECK`` (D3Q19 BGK channel: bounce-back walls,
+  a Zou-He velocity inlet and a zero-gradient outlet; ``n``, ``substeps``,
+  ``backend``), the production LBM decks; ``porous_media`` draws the
+  porous benchmark's media.
+- ``ALLFACE_DECK``, ``MEDIA_DECK``, ``INLET_OUTLET_DECK``:
+  tests/test_pallas_lbm.py's ``_ALLFACE_DECK`` (bounce-back on all six
+  faces; ``n``, ``stencil``, ``backend``), ``_MEDIA_DECK`` (a box obstacle
+  in h5 media; ``backend``, ``media_h5``) and ``_INLET_OUTLET_DECK``
+  (``backend``).
 """
+
+import numpy as np
 
 CH3D_DECK = """
 [Domain]
@@ -415,3 +429,819 @@ MULTI_3D_DECK = """
   type = TensorProblem
 []
 """
+
+
+# -- lattice Boltzmann ---------------------------------------------------------
+
+POROUS_DECK = """
+[Domain]
+  dim = 3
+  nx = {n}
+  ny = {n}
+  nz = {n}
+  mesh_mode = DUMMY
+[]
+[Stencil]
+  [s]
+    type = LBMD3Q19
+  []
+[]
+[TensorBuffers]
+  [f]
+    type = LBMTensorBuffer
+    buffer_type = df
+  []
+  [feq]
+    type = LBMTensorBuffer
+    buffer_type = df
+  []
+  [fpc]
+    type = LBMTensorBuffer
+    buffer_type = df
+  []
+  [velocity]
+    type = LBMTensorBuffer
+    buffer_type = mv
+  []
+  [density]
+    type = LBMTensorBuffer
+    buffer_type = ms
+  []
+  [speed]
+    type = LBMTensorBuffer
+    buffer_type = ms
+  []
+  [media]
+    type = LBMTensorBuffer
+    buffer_type = ms
+    is_integer = true
+    file = {media_h5}
+  []
+[]
+[TensorComputes]
+  [Initialize]
+    [initial_density]
+      type = LBMConstantTensor
+      buffer = density
+      constants = 1.0
+    []
+    [initial_velocity]
+      type = LBMConstantTensor
+      buffer = velocity
+      constants = '0.0 0.0 0.0'
+    []
+    [initial_equilibrium]
+      type = LBMEquilibrium
+      buffer = feq
+      bulk = density
+      velocity = velocity
+    []
+    [initial_distribution]
+      type = LBMEquilibrium
+      buffer = f
+      bulk = density
+      velocity = velocity
+    []
+    [initial_distribution_pc]
+      type = LBMEquilibrium
+      buffer = fpc
+      bulk = density
+      velocity = velocity
+    []
+  []
+  [Solve]
+    [equilibrium]
+      type = LBMEquilibrium
+      buffer = feq
+      bulk = density
+      velocity = velocity
+    []
+    [collision]
+      type = LBMBGKCollision
+      buffer = fpc
+      f = f
+      feq = feq
+      tau0 = 0.8
+    []
+    [density]
+      type = LBMComputeDensity
+      buffer = density
+      f = f
+    []
+    [velocity]
+      type = LBMComputeVelocity
+      buffer = velocity
+      f = f
+      rho = density
+      add_body_force = true
+      body_force_x = 0.0001
+    []
+    [speed]
+      type = LBMComputeVelocityMagnitude
+      buffer = speed
+      velocity = velocity
+    []
+    [residual]
+      type = LBMComputeResidual
+      buffer = speed
+      speed = speed
+    []
+  []
+  [Boundary]
+    [wall]
+      type = LBMBounceBack
+      buffer = f
+      f_old = fpc
+      boundary = wall
+    []
+  []
+[]
+[TensorSolver]
+  type = LBMStream
+  buffer = f
+  f_old = fpc
+[]
+[Problem]
+  type = LatticeBoltzmannProblem
+  substeps = {substeps}
+  binary_media = media
+  lbm_backend = {backend}
+[]
+"""
+
+MIXED_DECK = """
+[Domain]
+  dim = 3
+  nx = {n}
+  ny = {n}
+  nz = {n}
+  mesh_mode = DUMMY
+[]
+[Stencil]
+  [s]
+    type = LBMD3Q19
+  []
+[]
+[TensorBuffers]
+  [f]
+    type = LBMTensorBuffer
+    buffer_type = df
+  []
+  [feq]
+    type = LBMTensorBuffer
+    buffer_type = df
+  []
+  [fpc]
+    type = LBMTensorBuffer
+    buffer_type = df
+  []
+  [velocity]
+    type = LBMTensorBuffer
+    buffer_type = mv
+  []
+  [density]
+    type = LBMTensorBuffer
+    buffer_type = ms
+  []
+  [speed]
+    type = LBMTensorBuffer
+    buffer_type = ms
+  []
+[]
+[TensorComputes]
+  [Initialize]
+    [initial_density]
+      type = LBMConstantTensor
+      buffer = density
+      constants = 1.0
+    []
+    [initial_velocity]
+      type = LBMConstantTensor
+      buffer = velocity
+      constants = '0.01 0.0 0.0'
+    []
+    [initial_equilibrium]
+      type = LBMEquilibrium
+      buffer = feq
+      bulk = density
+      velocity = velocity
+    []
+    [initial_distribution]
+      type = LBMEquilibrium
+      buffer = f
+      bulk = density
+      velocity = velocity
+    []
+    [initial_distribution_pc]
+      type = LBMEquilibrium
+      buffer = fpc
+      bulk = density
+      velocity = velocity
+    []
+  []
+  [Solve]
+    [density]
+      type = LBMComputeDensity
+      buffer = density
+      f = f
+    []
+    [velocity]
+      type = LBMComputeVelocity
+      buffer = velocity
+      f = f
+      rho = density
+    []
+    [feq]
+      type = LBMEquilibrium
+      buffer = feq
+      bulk = density
+      velocity = velocity
+    []
+    [collision]
+      type = LBMBGKCollision
+      buffer = fpc
+      f = f
+      feq = feq
+      tau0 = 0.6
+    []
+    [speed]
+      type = LBMComputeVelocityMagnitude
+      buffer = speed
+      velocity = velocity
+    []
+    [residual]
+      type = LBMComputeResidual
+      buffer = speed
+      speed = speed
+    []
+  []
+  [Boundary]
+    [top]
+      type = LBMBounceBack
+      buffer = f
+      f_old = fpc
+      boundary = top
+    []
+    [bottom]
+      type = LBMBounceBack
+      buffer = f
+      f_old = fpc
+      boundary = bottom
+    []
+    [front]
+      type = LBMBounceBack
+      buffer = f
+      f_old = fpc
+      boundary = front
+    []
+    [back]
+      type = LBMBounceBack
+      buffer = f
+      f_old = fpc
+      boundary = back
+    []
+    [inlet]
+      type = LBMFixedFirstOrderBC
+      buffer = f
+      f = f
+      value = 0.01
+      boundary = left
+    []
+    [outlet]
+      type = LBMMicroscopicZeroGradientBC
+      buffer = f
+      boundary = right
+    []
+  []
+[]
+[TensorSolver]
+  type = LBMStream
+  buffer = f
+  f_old = fpc
+[]
+[Problem]
+  type = LatticeBoltzmannProblem
+  substeps = {substeps}
+  lbm_backend = {backend}
+[]
+[Executioner]
+  type = Transient
+  num_steps = 3
+[]
+"""
+
+ALLFACE_DECK = """
+[Domain]
+  dim = 3
+  nx = {n}
+  ny = 10
+  nz = 12
+  mesh_mode = DUMMY
+[]
+[Stencil]
+  [s]
+    type = {stencil}
+  []
+[]
+[TensorBuffers]
+  [f]
+    type = LBMTensorBuffer
+    buffer_type = df
+  []
+  [feq]
+    type = LBMTensorBuffer
+    buffer_type = df
+  []
+  [fpc]
+    type = LBMTensorBuffer
+    buffer_type = df
+  []
+  [velocity]
+    type = LBMTensorBuffer
+    buffer_type = mv
+  []
+  [density]
+    type = LBMTensorBuffer
+    buffer_type = ms
+  []
+  [speed]
+    type = LBMTensorBuffer
+    buffer_type = ms
+  []
+  [vx]
+    type = LBMTensorBuffer
+    buffer_type = ms
+  []
+  [vy]
+    type = LBMTensorBuffer
+    buffer_type = ms
+  []
+  [vz]
+    type = LBMTensorBuffer
+    buffer_type = ms
+  []
+[]
+[TensorComputes]
+  [Initialize]
+    [initial_density]
+      type = LBMConstantTensor
+      buffer = density
+      constants = 1.0
+    []
+    [vx]
+      type = ParsedCompute
+      buffer = vx
+      extra_symbols = true
+      expression = '0.01*sin(x*6.28)'
+    []
+    [vy]
+      type = ParsedCompute
+      buffer = vy
+      extra_symbols = true
+      expression = '0.02*cos(y*6.28)'
+    []
+    [vz]
+      type = LBMConstantTensor
+      buffer = vz
+      constants = 0.0
+    []
+    [initial_velocity]
+      type = LBMStackTensors
+      buffer = velocity
+      inputs = 'vx vy vz'
+    []
+    [initial_equilibrium]
+      type = LBMEquilibrium
+      buffer = feq
+      bulk = density
+      velocity = velocity
+    []
+    [initial_distribution]
+      type = LBMEquilibrium
+      buffer = f
+      bulk = density
+      velocity = velocity
+    []
+    [initial_distribution_pc]
+      type = LBMEquilibrium
+      buffer = fpc
+      bulk = density
+      velocity = velocity
+    []
+  []
+  [Solve]
+    [equilibrium]
+      type = LBMEquilibrium
+      buffer = feq
+      bulk = density
+      velocity = velocity
+    []
+    [collision]
+      type = LBMBGKCollision
+      buffer = fpc
+      f = f
+      feq = feq
+      tau0 = 0.8
+    []
+    [density]
+      type = LBMComputeDensity
+      buffer = density
+      f = f
+    []
+    [velocity]
+      type = LBMComputeVelocity
+      buffer = velocity
+      f = f
+      rho = density
+      add_body_force = true
+      body_force_x = 0.0001
+      body_force_z = -0.00005
+    []
+    [speed]
+      type = LBMComputeVelocityMagnitude
+      buffer = speed
+      velocity = velocity
+    []
+    [residual]
+      type = LBMComputeResidual
+      buffer = speed
+      speed = speed
+    []
+  []
+  [Boundary]
+    [top]
+      type = LBMBounceBack
+      buffer = f
+      f_old = fpc
+      boundary = top
+    []
+    [bottom]
+      type = LBMBounceBack
+      buffer = f
+      f_old = fpc
+      boundary = bottom
+    []
+    [left]
+      type = LBMBounceBack
+      buffer = f
+      f_old = fpc
+      boundary = left
+    []
+    [right]
+      type = LBMBounceBack
+      buffer = f
+      f_old = fpc
+      boundary = right
+    []
+    [front]
+      type = LBMBounceBack
+      buffer = f
+      f_old = fpc
+      boundary = front
+    []
+    [back]
+      type = LBMBounceBack
+      buffer = f
+      f_old = fpc
+      boundary = back
+    []
+  []
+[]
+[TensorSolver]
+  type = LBMStream
+  buffer = f
+  f_old = fpc
+[]
+[Problem]
+  type = LatticeBoltzmannProblem
+  substeps = 6
+  lbm_backend = {backend}
+[]
+"""
+
+MEDIA_DECK = """
+[Domain]
+  dim = 3
+  nx = 8
+  ny = 12
+  nz = 10
+  mesh_mode = DUMMY
+[]
+[Stencil]
+  [s]
+    type = LBMD3Q19
+  []
+[]
+[TensorBuffers]
+  [f]
+    type = LBMTensorBuffer
+    buffer_type = df
+  []
+  [feq]
+    type = LBMTensorBuffer
+    buffer_type = df
+  []
+  [fpc]
+    type = LBMTensorBuffer
+    buffer_type = df
+  []
+  [velocity]
+    type = LBMTensorBuffer
+    buffer_type = mv
+  []
+  [density]
+    type = LBMTensorBuffer
+    buffer_type = ms
+  []
+  [speed]
+    type = LBMTensorBuffer
+    buffer_type = ms
+  []
+  [media]
+    type = LBMTensorBuffer
+    buffer_type = ms
+    is_integer = true
+    file = {media_h5}
+  []
+[]
+[TensorComputes]
+  [Initialize]
+    [initial_density]
+      type = LBMConstantTensor
+      buffer = density
+      constants = 1.0
+    []
+    [initial_velocity]
+      type = LBMConstantTensor
+      buffer = velocity
+      constants = '0.01 0.0 0.0'
+    []
+    [initial_equilibrium]
+      type = LBMEquilibrium
+      buffer = feq
+      bulk = density
+      velocity = velocity
+    []
+    [initial_distribution]
+      type = LBMEquilibrium
+      buffer = f
+      bulk = density
+      velocity = velocity
+    []
+    [initial_distribution_pc]
+      type = LBMEquilibrium
+      buffer = fpc
+      bulk = density
+      velocity = velocity
+    []
+  []
+  [Solve]
+    [equilibrium]
+      type = LBMEquilibrium
+      buffer = feq
+      bulk = density
+      velocity = velocity
+    []
+    [collision]
+      type = LBMBGKCollision
+      buffer = fpc
+      f = f
+      feq = feq
+      tau0 = 0.9
+    []
+    [density]
+      type = LBMComputeDensity
+      buffer = density
+      f = f
+    []
+    [velocity]
+      type = LBMComputeVelocity
+      buffer = velocity
+      f = f
+      rho = density
+      add_body_force = true
+      body_force_x = 0.0002
+    []
+    [speed]
+      type = LBMComputeVelocityMagnitude
+      buffer = speed
+      velocity = velocity
+    []
+    [residual]
+      type = LBMComputeResidual
+      buffer = speed
+      speed = speed
+    []
+  []
+  [Boundary]
+    [top]
+      type = LBMBounceBack
+      buffer = f
+      f_old = fpc
+      boundary = top
+    []
+    [bottom]
+      type = LBMBounceBack
+      buffer = f
+      f_old = fpc
+      boundary = bottom
+    []
+    [wall]
+      type = LBMBounceBack
+      buffer = f
+      f_old = fpc
+      boundary = wall
+    []
+  []
+[]
+[TensorSolver]
+  type = LBMStream
+  buffer = f
+  f_old = fpc
+[]
+[Problem]
+  type = LatticeBoltzmannProblem
+  substeps = 6
+  binary_media = media
+  lbm_backend = {backend}
+[]
+"""
+
+INLET_OUTLET_DECK = """
+[Domain]
+  dim = 3
+  nx = 12
+  ny = 10
+  nz = 10
+  mesh_mode = DUMMY
+[]
+[Stencil]
+  [s]
+    type = LBMD3Q19
+  []
+[]
+[TensorBuffers]
+  [f]
+    type = LBMTensorBuffer
+    buffer_type = df
+  []
+  [feq]
+    type = LBMTensorBuffer
+    buffer_type = df
+  []
+  [fpc]
+    type = LBMTensorBuffer
+    buffer_type = df
+  []
+  [velocity]
+    type = LBMTensorBuffer
+    buffer_type = mv
+  []
+  [density]
+    type = LBMTensorBuffer
+    buffer_type = ms
+  []
+  [speed]
+    type = LBMTensorBuffer
+    buffer_type = ms
+  []
+[]
+[TensorComputes]
+  [Initialize]
+    [initial_density]
+      type = LBMConstantTensor
+      buffer = density
+      constants = 1.0
+    []
+    [initial_velocity]
+      type = LBMConstantTensor
+      buffer = velocity
+      constants = '0.01 0.0 0.0'
+    []
+    [initial_f]
+      type = LBMEquilibrium
+      buffer = f
+      bulk = density
+      velocity = velocity
+    []
+    [initial_fpc]
+      type = LBMEquilibrium
+      buffer = fpc
+      bulk = density
+      velocity = velocity
+    []
+  []
+  [Solve]
+    [density]
+      type = LBMComputeDensity
+      buffer = density
+      f = f
+    []
+    [velocity]
+      type = LBMComputeVelocity
+      buffer = velocity
+      f = f
+      rho = density
+    []
+    [feq]
+      type = LBMEquilibrium
+      buffer = feq
+      bulk = density
+      velocity = velocity
+    []
+    [collision]
+      type = LBMBGKCollision
+      buffer = fpc
+      f = f
+      feq = feq
+      tau0 = 0.6
+    []
+    [speed]
+      type = LBMComputeVelocityMagnitude
+      buffer = speed
+      velocity = velocity
+    []
+    [residual]
+      type = LBMComputeResidual
+      buffer = speed
+      speed = speed
+    []
+  []
+  [Boundary]
+    [top]
+      type = LBMBounceBack
+      buffer = f
+      f_old = fpc
+      boundary = top
+    []
+    [bottom]
+      type = LBMBounceBack
+      buffer = f
+      f_old = fpc
+      boundary = bottom
+    []
+    [front]
+      type = LBMBounceBack
+      buffer = f
+      f_old = fpc
+      boundary = front
+    []
+    [back]
+      type = LBMBounceBack
+      buffer = f
+      f_old = fpc
+      boundary = back
+    []
+    [inlet]
+      type = LBMFixedFirstOrderBC
+      buffer = f
+      f = f
+      value = 0.01
+      boundary = left
+    []
+    [outlet]
+      type = LBMMicroscopicZeroGradientBC
+      buffer = f
+      boundary = right
+    []
+  []
+[]
+[TensorSolver]
+  type = LBMStream
+  buffer = f
+  f_old = fpc
+[]
+[Problem]
+  type = LatticeBoltzmannProblem
+  substeps = 6
+  lbm_backend = {backend}
+[]
+[Executioner]
+  type = Transient
+  num_steps = 3
+[]
+"""
+
+
+def porous_media(n: int, seed: int = 42) -> np.ndarray:
+    """The binary media of bench.py's porous benchmark (bench_lbm_porous):
+    an (n, n, n) int64 array, 1 fluid and 0 solid, with max(8, (n // r)³ //
+    24) spheres of radius r = max(2, n // 16) at centres drawn from
+    RandomState(seed), periodic.  The same draws and the same cells as the
+    benchmark's loop, but each sphere is set over its periodic bounding box
+    (radius r) instead of the whole grid."""
+    rng = np.random.RandomState(seed)
+    media = np.ones((n, n, n), dtype=np.int64)
+    r = max(2, n // 16)
+    off = np.arange(-r, r + 1)
+    ox, oy, oz = np.meshgrid(off, off, off, indexing="ij")
+    ball = ox * ox + oy * oy + oz * oz <= r * r
+    ox, oy, oz = ox[ball], oy[ball], oz[ball]
+    for _ in range(max(8, (n // r) ** 3 // 24)):
+        c = rng.randint(0, n, 3)
+        # per axis, |offset| <= r reaches every cell within periodic
+        # distance r once per image, so repeated cells (n < 2r + 1) only
+        # repeat the write
+        media.flat[(((c[0] + ox) % n) * n + (c[1] + oy) % n) * n
+                   + (c[2] + oz) % n] = 0
+    return media

@@ -204,6 +204,9 @@ class Transient:
         self.time = self.start_time
         self.step_count = 0
         self.pp_values: Dict[str, float] = {}
+        # an LBM problem's convergence residual, fetched with each step's
+        # postprocessor values (None: not fetched yet)
+        self._lbm_residual: Optional[float] = None
 
     def init(self):
         self.state = self.problem.init_state()
@@ -224,6 +227,15 @@ class Transient:
         dt_old = 0.0
         dt = self.stepper.dt0
         while self.step_count < self.num_steps and self.time < self.end_time - 1e-13:
+            # LBM convergence early-out (reference LatticeBoltzmannProblem::
+            # execute :74 — once the residual drops below tolerance, all
+            # further execution is skipped)
+            if self.problem.is_lbm:
+                res = self._lbm_residual
+                if res is None:
+                    res = float(self.state["solver"]["residual"])
+                if res < self.problem.lbm_tolerance:
+                    break
             self.step_count += 1
             dt = self.stepper.dt(self.step_count, dt)
             if hasattr(self.stepper, "limit_to_pps"):
@@ -260,6 +272,9 @@ class Transient:
                 dt = max(self.stepper.failed_dt(dt), self.dtmin)
             self.time += dt
             dt_old = dt
+            # internal early-out scalar: consume it before it reaches the
+            # CSV and the console tables
+            self._lbm_residual = values.pop("_lbm_residual", None)
             self.pp_values.update(values)
             if self.csv is not None:
                 self.csv.add_row(self.time, dict(self.pp_values))
@@ -287,10 +302,13 @@ def run_deck(
     file_base: Optional[str] = None,
     output_dir: str = ".",
     device=None,
+    deck_dir: Optional[str] = None,
+    arrays=None,
 ) -> Transient:
     """Build and run a full deck on ``device`` (default "cuda"); returns the
-    finished Transient (marlin_tpu/executioner.py:run_deck)."""
-    problem = TensorProblem(root, device=device)
+    finished Transient (marlin_tpu/executioner.py:run_deck).  ``deck_dir``
+    and ``arrays`` go to TensorProblem (LBM buffer files)."""
+    problem = TensorProblem(root, device=device, deck_dir=deck_dir, arrays=arrays)
     transient = Transient(
         problem,
         exec_node=root.children.get("Executioner"),

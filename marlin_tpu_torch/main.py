@@ -49,6 +49,7 @@ def main(argv=None):
         # outputs land in the CWD (MOOSE semantics), not next to the deck
         output_dir=ns.output_dir or os.getcwd(),
         device=dev,
+        deck_dir=os.path.dirname(os.path.abspath(deck)),
     )
     print(f"Finished after {transient.step_count} steps, t = {transient.time}")
     for k, v in transient.pp_values.items():

@@ -5,4 +5,4 @@ marlin_tpu_torch.registry.solvers.  A timestep runs eagerly: the substep
 loop is a Python loop over torch operations.
 """
 
-from . import abm, base  # noqa: F401
+from . import abm, base, lbm_stream  # noqa: F401

@@ -1,16 +1,21 @@
-"""Where the time of a Cahn-Hilliard step goes on the card.
+"""Where the time of a Cahn-Hilliard or lattice Boltzmann step goes on the
+card.
 
     python -m marlin_tpu_torch.substep_profile [--backend PALLAS|DEFAULT]
-        [--deck ch3d|multi3d] [--carry] [--fused]
+        [--deck ch3d|multi3d|porous|mixed] [--carry] [--fused]
+        [--lbm-backend PALLAS|JNP]
 
 Builds ``decks.CH3D_DECK`` (or the two-field ``decks.MULTI_3D_DECK``, dt =
 0.05) at 512³ (10 substeps a step) in float32 on the card, with
 ``carry_reciprocal`` (``--carry``) or ``carry_reciprocal`` and
-``fused_spectral`` (``--fused``, PALLAS only); times problem construction
-and ``init_state``, warms up with one step, then traces one more step with
-``torch.profiler``: device time by kernel name, the step's wall time and
-the share of it in which the device ran no kernel.  Prints one line per
-finding; needs a CUDA card.
+``fused_spectral`` (``--fused``, PALLAS only); or ``decks.POROUS_DECK``
+(through ``decks.porous_media``) or ``decks.MIXED_DECK`` at 256³ (20
+substeps a step) with ``lbm_backend`` from ``--lbm-backend``.  Times
+problem construction and ``init_state``, warms up with one step (two for
+LBM, whose first step runs no substeps), then traces one more step with
+``torch.profiler``: device time by kernel name, split into the hand
+kernels and the rest, the step's wall time and the share of it in which
+the device ran no kernel.  Prints one line per finding; needs a CUDA card.
 """
 
 from __future__ import annotations
@@ -22,20 +27,24 @@ import time
 import torch
 
 from . import hit
-from .decks import CH3D_DECK, MULTI_3D_DECK
+from .decks import CH3D_DECK, MIXED_DECK, MULTI_3D_DECK, POROUS_DECK, porous_media
 from .problem import TensorProblem
 
 N = 512
 SUBSTEPS = 10
+LBM_N = 256
+LBM_SUBSTEPS = 20
 TOP = 12
 
 
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(prog="marlin_tpu_torch.substep_profile")
     ap.add_argument("--backend", default="PALLAS", choices=["PALLAS", "DEFAULT"])
-    ap.add_argument("--deck", default="ch3d", choices=["ch3d", "multi3d"])
+    ap.add_argument("--deck", default="ch3d",
+                    choices=["ch3d", "multi3d", "porous", "mixed"])
     ap.add_argument("--carry", action="store_true")
     ap.add_argument("--fused", action="store_true")
+    ap.add_argument("--lbm-backend", default="PALLAS", choices=["PALLAS", "JNP"])
     ns = ap.parse_args(argv)
     if not torch.cuda.is_available():
         print("substep_profile: needs a CUDA card", file=sys.stderr)
@@ -43,7 +52,17 @@ def main(argv=None) -> int:
     solver = ("carry_reciprocal = true\n  fused_spectral = true" if ns.fused
               else "carry_reciprocal = true" if ns.carry else "")
     domain = f"fft_backend = {ns.backend}\n  floating_precision = SINGLE"
-    if ns.deck == "ch3d":
+    arrays, n, substeps, warm = None, N, SUBSTEPS, 1
+    if ns.deck in ("porous", "mixed"):
+        dt, n, substeps, warm = 1.0, LBM_N, LBM_SUBSTEPS, 2
+        fmt = dict(n=n, substeps=substeps, backend=ns.lbm_backend)
+        if ns.deck == "porous":
+            deck = POROUS_DECK.format(media_h5="media.h5", **fmt)
+            arrays = {"media": porous_media(n)}
+        else:
+            deck = MIXED_DECK.format(**fmt)
+        deck = deck.replace("[Domain]", "[Domain]\n  floating_precision = SINGLE")
+    elif ns.deck == "ch3d":
         dt = 1.0
         deck = CH3D_DECK.format(n=N, substeps=SUBSTEPS).replace(
             "[Domain]", f"[Domain]\n  {domain}").replace(
@@ -55,35 +74,45 @@ def main(argv=None) -> int:
             "substeps = 5", f"substeps = {SUBSTEPS}")
 
     t0 = time.perf_counter()
-    problem = TensorProblem(hit.parse(deck), device="cuda")
+    problem = TensorProblem(hit.parse(deck), device="cuda", arrays=arrays)
     t1 = time.perf_counter()
     state = problem.init_state()
     torch.cuda.synchronize()
     t2 = time.perf_counter()
-    label = f"{ns.deck} {ns.backend}{' fused' if ns.fused else ' carry' if ns.carry else ''}"
-    print(f"[profile] {label} {N}^3: build {t1 - t0:.3f} s, "
+    if problem.is_lbm:
+        label = f"{ns.deck} lbm_backend {ns.lbm_backend}"
+    else:
+        label = f"{ns.deck} {ns.backend}{' fused' if ns.fused else ' carry' if ns.carry else ''}"
+    print(f"[profile] {label} {n}^3: build {t1 - t0:.3f} s, "
           f"init_state {t2 - t1:.3f} s", flush=True)
-    state = problem.step(state, 0.0, dt, dt, True)  # warm-up
+    for i in range(warm):  # warm-up
+        state = problem.step(state, i * dt, dt, dt, i == 0)
     torch.cuda.synchronize()
 
     acts = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
     with torch.profiler.profile(activities=acts) as prof:
         t3 = time.perf_counter()
-        state = problem.step(state, dt, dt, dt, False)
+        state = problem.step(state, warm * dt, dt, dt, False)
         torch.cuda.synchronize()
         wall_us = (time.perf_counter() - t3) * 1e6
     # device-side events (kernels, memcpy, memset), grouped by name
     kernels = [e for e in prof.key_averages()
                if e.device_type == torch.autograd.DeviceType.CUDA]
     busy_us = sum(e.self_device_time_total for e in kernels)
-    # FFT kernels: cuFFT's carry "fft" in their names, the port's "lanes"
-    # (the fused update kernel is the forward sublanes kernel with an
-    # epilogue, so it counts here)
-    fft_us = sum(e.self_device_time_total for e in kernels
-                 if "fft" in e.key or "lanes_kernel" in e.key)
-    print(f"[profile] one step ({SUBSTEPS} substeps): wall {wall_us / 1e3:.3f} ms, "
-          f"device busy {busy_us / 1e3:.3f} ms (FFT kernels {fft_us / 1e3:.3f} ms, "
-          f"other {(busy_us - fft_us) / 1e3:.3f} ms), idle share "
+    # the hand kernels: the fused LBM substep; the FFT kernels (cuFFT's
+    # carry "fft" in their names, the port's "lanes"; the fused update
+    # kernel is the forward sublanes kernel with an epilogue, so it counts)
+    if problem.is_lbm:
+        what = "LBM substep kernel"
+        hand_us = sum(e.self_device_time_total for e in kernels
+                      if "lbm_substep_kernel" in e.key)
+    else:
+        what = "FFT kernels"
+        hand_us = sum(e.self_device_time_total for e in kernels
+                      if "fft" in e.key or "lanes_kernel" in e.key)
+    print(f"[profile] one step ({substeps} substeps): wall {wall_us / 1e3:.3f} ms, "
+          f"device busy {busy_us / 1e3:.3f} ms ({what} {hand_us / 1e3:.3f} ms, "
+          f"other {(busy_us - hand_us) / 1e3:.3f} ms), idle share "
           f"{max(0.0, 1 - busy_us / wall_us):.3f}", flush=True)
     if not kernels:
         print("[profile] the trace holds no device events", flush=True)

@@ -232,14 +232,15 @@ class CudaLibrary:
     """One shared library built by nvcc from a source in ``csrc/`` (or from
     generated source text) and bound with ctypes.  Its file name carries a
     hash of the source, the shared headers and the flags, so a changed
-    source builds anew."""
+    source builds anew.  ``flags`` are added to NVCC_FLAGS for this library."""
 
     def __init__(self, stem: str, signatures: Dict[str, list],
-                 source: str = None, text: str = None):
+                 source: str = None, text: str = None, flags=()):
         self.stem = stem
         self.signatures = signatures
         self.source = source
         self.text = text
+        self.flags = list(NVCC_FLAGS) + list(flags)
         self._lib = None
 
     def _source_bytes(self) -> bytes:
@@ -250,7 +251,7 @@ class CudaLibrary:
 
     def path(self) -> str:
         digest = hashlib.sha256(self._source_bytes() + _header_bytes()
-                                + " ".join(NVCC_FLAGS).encode())
+                                + " ".join(self.flags).encode())
         return os.path.join(BUILD_DIR, f"{self.stem}_{digest.hexdigest()[:16]}.so")
 
     def build(self) -> str:
@@ -267,7 +268,7 @@ class CudaLibrary:
                 f.write(self.text)
         fd, tmp = tempfile.mkstemp(suffix=".so", dir=BUILD_DIR)
         os.close(fd)
-        cmd = [_nvcc(), *NVCC_FLAGS, "-I", CSRC, "-o", tmp, source]
+        cmd = [_nvcc(), *self.flags, "-I", CSRC, "-o", tmp, source]
         try:
             proc = subprocess.run(cmd, capture_output=True, text=True)
             if proc.returncode != 0:

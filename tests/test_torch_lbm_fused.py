@@ -1,0 +1,560 @@
+"""The port's fused LBM substep (marlin_tpu_torch/lbm_fused.py, kernel 7 of
+the JAX package) against marlin_tpu/pallas_lbm.py, on the CPU.
+
+On the CPU ``lbm_fused.fused_substep`` computes its plain twin; the Pallas
+kernel runs in interpret mode, as tests/test_pallas_lbm.py runs it.
+
+Tolerances:
+- the twin against the interpret-mode kernel, one substep in float64:
+  1e-12;
+- whole decks on ``lbm_backend = PALLAS``: 1e-12, and 1e-10 with a Zou-He
+  inlet (tests/test_pallas_lbm.py's own), against JAX on PALLAS and on JNP;
+- the port's PALLAS path against its own JNP path: equal, bit for bit, in
+  float32 and float64 (the kernel and its twin do the eager chain's
+  operations in its order);
+- rejections: the JAX package's message, word for word.
+The `cuda` cases hold the CUDA kernel to its twin on the card; the JAX
+package is imported inside a fixture, so they run where there is no jax
+(nor h5py: the port takes the media as arrays).
+"""
+
+import dataclasses
+from types import SimpleNamespace
+
+import numpy as np
+import pytest
+import torch
+
+from marlin_tpu_torch import decks, hit
+from marlin_tpu_torch import lbm_fused as lf
+from marlin_tpu_torch import state as port_state
+from marlin_tpu_torch.params import ParamError
+from marlin_tpu_torch.problem import TensorProblem
+
+TOL = 1e-12
+ZOUHE_TOL = 1e-10
+
+
+@pytest.fixture
+def jx():
+    """The JAX package's LBM modules, Pallas in interpret mode."""
+    PL = pytest.importorskip("marlin_tpu.pallas_lbm")
+    import jax.numpy as jnp
+
+    from marlin_tpu import hit as jhit
+    from marlin_tpu.problem import TensorProblem as JaxProblem
+
+    old = PL._INTERPRET
+    PL._INTERPRET = True
+    yield SimpleNamespace(PL=PL, jnp=jnp, hit=jhit, Problem=JaxProblem)
+    PL._INTERPRET = old
+
+
+def media_file(tmp_path, media, name="media"):
+    import h5py
+
+    path = tmp_path / f"{name}.h5"
+    with h5py.File(path, "w") as f:
+        f.create_dataset(name, data=media)
+    return str(path)
+
+
+def box_media():
+    """tests/test_pallas_lbm.py's box obstacle."""
+    media = np.ones((8, 12, 10), dtype=np.int64)
+    media[3:6, 4:8, 2:6] = 0
+    return media
+
+
+def run_jax(jx, text, steps=3):
+    p = jx.Problem(jx.hit.parse(text))
+    s = p.init_state()
+    dt = jx.jnp.asarray(1.0, p.domain.dtype)
+    for i in range(steps):
+        s = p.step(s, float(i), dt, dt, i == 0)
+    return s
+
+
+def run_port(text, steps=3, device="cpu", **kw):
+    p = TensorProblem(hit.parse(text), device=device, **kw)
+    s = p.init_state()
+    for i in range(steps):
+        s = p.step(s, float(i), 1.0, 1.0, i == 0)
+    return s
+
+
+def assert_state_parity(js, ps, tol):
+    """tests/test_pallas_lbm.py:_assert_state_parity across the packages:
+    every buffer, every old slot, the residual and n_advances."""
+    ps = port_state.to_numpy(ps)
+    assert set(ps["buffers"]) == set(js["buffers"])
+    assert set(ps["old"]) == set(js["old"])
+    for group in ("buffers", "old"):
+        for name, ref in js[group].items():
+            got = ps[group][name]
+            assert got.shape == np.shape(ref), (group, name)
+            d = np.max(np.abs(got - np.asarray(ref)))
+            assert d < tol, f"{group}[{name}]: maxdiff {d}"
+    r1, r2 = float(js["solver"]["residual"]), float(ps["solver"]["residual"])
+    assert abs(r1 - r2) < tol, f"residual {r1} vs {r2}"
+    assert int(ps["n_advances"]) == int(js["n_advances"])
+
+
+@pytest.fixture
+def cuda():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card (torch.cuda.is_available() is False)")
+    return torch.device("cuda")
+
+
+def _zeroth_order(backend):
+    """decks.INLET_OUTLET_DECK as a pressure-driven channel: Zou-He density
+    faces (zeroth order) on both x faces (chip_smoke.py's plan)."""
+    deck = decks.INLET_OUTLET_DECK.format(backend=backend)
+    deck = deck.replace("type = LBMFixedFirstOrderBC", "type = LBMFixedZerothOrderBC")
+    deck = deck.replace("value = 0.01", "value = 1.001")
+    return deck.replace("""      type = LBMMicroscopicZeroGradientBC
+      buffer = f
+      boundary = right""", """      type = LBMFixedZerothOrderBC
+      buffer = f
+      f = f
+      value = 1.0
+      boundary = right""")
+
+
+def _reversed(backend):
+    """The inlet on the right face, the zero-gradient outlet on the left."""
+    deck = decks.INLET_OUTLET_DECK.format(backend=backend)
+    deck = deck.replace("value = 0.01\n      boundary = left",
+                        "value = -0.01\n      boundary = right")
+    return deck.replace("LBMMicroscopicZeroGradientBC\n      buffer = f\n"
+                        "      boundary = right",
+                        "LBMMicroscopicZeroGradientBC\n      buffer = f\n"
+                        "      boundary = left")
+
+
+def _media_channel(backend, media_h5):
+    """The inlet-outlet channel through binary media: solids on the faces
+    Zou-He and zero-gradient write, obstacle bounce-back beside them."""
+    deck = decks.INLET_OUTLET_DECK.format(backend=backend)
+    deck = deck.replace("""    [inlet]""", """    [wall]
+      type = LBMBounceBack
+      buffer = f
+      f_old = fpc
+      boundary = wall
+    []
+    [inlet]""")
+    deck = deck.replace("""  [speed]
+    type = LBMTensorBuffer
+    buffer_type = ms
+  []
+""", f"""  [speed]
+    type = LBMTensorBuffer
+    buffer_type = ms
+  []
+  [media]
+    type = LBMTensorBuffer
+    buffer_type = ms
+    is_integer = true
+    file = {media_h5}
+  []
+""", 1)
+    return deck.replace("  substeps = 6\n", "  substeps = 6\n  binary_media = media\n")
+
+
+def _channel_media():
+    """Two boxes, one on the inlet face and one on the outlet face."""
+    media = np.ones((12, 10, 10), dtype=np.int64)
+    media[0:3, 3:6, 3:6] = 0
+    media[-2:, 5:8, 2:5] = 0
+    return media
+
+
+DECKS = {
+    # name: (deck(backend, media_h5), media or None, tolerance of a whole
+    # deck) — every feature group of the slice
+    "porous_8": (lambda b, m: decks.POROUS_DECK.format(
+        n=8, substeps=4, backend=b, media_h5=m), lambda: decks.porous_media(8), TOL),
+    "mixed_8": (lambda b, m: decks.MIXED_DECK.format(n=8, substeps=4, backend=b),
+                None, ZOUHE_TOL),
+    "reversed": (lambda b, m: _reversed(b), None, ZOUHE_TOL),
+    "allface_d3q19": (lambda b, m: decks.ALLFACE_DECK.format(
+        n=9, stencil="LBMD3Q19", backend=b), None, TOL),
+    "allface_d3q27": (lambda b, m: decks.ALLFACE_DECK.format(
+        n=8, stencil="LBMD3Q27", backend=b), None, TOL),
+    "zeroth_order": (lambda b, m: _zeroth_order(b), None, ZOUHE_TOL),
+    "media": (lambda b, m: decks.MEDIA_DECK.format(backend=b, media_h5=m),
+              box_media, TOL),
+    "media_channel": (_media_channel, _channel_media, ZOUHE_TOL),
+    "inlet_outlet": (lambda b, m: decks.INLET_OUTLET_DECK.format(backend=b),
+                     None, ZOUHE_TOL),
+    "porous_16": (lambda b, m: decks.POROUS_DECK.format(
+        n=16, substeps=5, backend=b, media_h5=m), lambda: decks.porous_media(16), TOL),
+    "mixed_12": (lambda b, m: decks.MIXED_DECK.format(n=12, substeps=5, backend=b),
+                 None, ZOUHE_TOL),
+}
+PLAN_CASES = ["porous_8", "mixed_8", "reversed", "allface_d3q19",
+              "allface_d3q27", "zeroth_order", "media_channel"]
+
+
+def deck(case, backend, tmp_path=None):
+    """(deck text, arrays): the media as an h5 file under ``tmp_path`` (for
+    the JAX package), or, without it, as the port's ``arrays``."""
+    make, media, _tol = DECKS[case]
+    if media is None:
+        return make(backend, None), None
+    if tmp_path is None:
+        return make(backend, "media.h5"), {"media": media()}
+    return make(backend, media_file(tmp_path, media())), None
+
+
+def port_plan(case, device="cpu"):
+    text, arrays = deck(case, "PALLAS")
+    p = TensorProblem(hit.parse(text), device=device, arrays=arrays)
+    p.init_state()
+    return lf.match_chain(p)
+
+
+def jax_plan(jx, case, tmp_path):
+    p = jx.Problem(jx.hit.parse(deck(case, "PALLAS", tmp_path)[0]))
+    p.init_state()
+    return jx.PL.match_chain(p)
+
+
+@pytest.mark.parametrize("case", PLAN_CASES)
+def test_plan_and_twin_match_pallas(jx, case, tmp_path):
+    """The port's plan is the JAX package's, field for field, and one
+    twin substep equals one interpret-mode kernel substep (4×5×6, float64,
+    random distribution and media), incl. the corners where zero-gradient
+    faces meet bounce-back."""
+    jplan, plan = jax_plan(jx, case, tmp_path), port_plan(case)
+    assert (plan.fpc, plan.speed) == (jplan.fpc, jplan.speed)
+    for field in dataclasses.fields(plan.config):
+        ours, ref = getattr(plan.config, field.name), getattr(jplan.config, field.name)
+        if field.name == "post_bcs":
+            keys = [f.name for f in dataclasses.fields(lf.PostBC)]
+            ours = [[getattr(bc, k) for k in keys] for bc in ours]
+            ref = [[getattr(bc, k) for k in keys] for bc in ref]
+        assert ours == ref, field.name
+    shape = (4, 5, 6)
+    cfg = dataclasses.replace(plan.config, nx=4, ny=5, nz=6)
+    jcfg = dataclasses.replace(jplan.config, nx=4, ny=5, nz=6, block=4,
+                               nx_global=4, ny_global=5)
+    rng = np.random.RandomState(11)
+    w = np.asarray(cfg.w)[:, None, None, None]
+    fpc = w * (1.0 + 0.1 * rng.standard_normal((cfg.q,) + shape))
+    media = jmedia = None
+    if cfg.has_media:
+        code = rng.choice([0, 1, 1, 1, -1], size=shape).astype(np.int8)
+        media = torch.from_numpy(code)
+        jmedia = jx.jnp.asarray(code.astype(np.float64))
+        fpc = np.where(code == 0, 0.0, fpc)
+    ref = jx.PL.fused_substep(jx.jnp.asarray(fpc), jmedia, jcfg)
+    got = lf.fused_substep(torch.from_numpy(fpc), media, cfg)
+    for g, r in zip(got, ref):
+        np.testing.assert_allclose(g.numpy(), np.asarray(r), rtol=0, atol=TOL)
+    assert lf.launches() == {"lbm_substep": 0}
+
+
+# -- whole decks --------------------------------------------------------------------
+
+WHOLE_CASES = ["allface_d3q19", "allface_d3q27", "media", "inlet_outlet",
+               "media_channel", "porous_16", "mixed_12", "reversed", "zeroth_order"]
+
+
+@pytest.mark.parametrize("case", WHOLE_CASES)
+def test_pallas_deck_matches_jax_jnp(jx, case, tmp_path):
+    assert_state_parity(run_jax(jx, deck(case, "JNP", tmp_path)[0]),
+                        run_port(deck(case, "PALLAS", tmp_path)[0]), DECKS[case][2])
+
+
+@pytest.mark.parametrize("case", ["allface_d3q19", "mixed_8"])
+def test_pallas_deck_matches_jax_pallas(jx, case, tmp_path):
+    text = deck(case, "PALLAS", tmp_path)[0]
+    assert_state_parity(run_jax(jx, text), run_port(text), DECKS[case][2])
+
+
+def _bit_for_bit(case, precision, device="cpu"):
+    runs = []
+    for backend in ("JNP", "PALLAS"):
+        text, arrays = deck(case, backend)
+        text = text.replace("[Domain]",
+                            f"[Domain]\n  floating_precision = {precision}")
+        runs.append(run_port(text, device=device, arrays=arrays))
+    a, b = runs
+    assert a["n_advances"] == b["n_advances"] > 0
+    for group in ("buffers", "old"):
+        for name, t in a[group].items():
+            assert torch.equal(t, b[group][name]), (group, name)
+    assert torch.equal(a["solver"]["residual"], b["solver"]["residual"])
+
+
+@pytest.mark.parametrize("precision", ["SINGLE", "DOUBLE"])
+@pytest.mark.parametrize("case", ["porous_16", "mixed_12", "media_channel"])
+def test_pallas_is_jnp_bit_for_bit(case, precision):
+    """The fused substeps compute the eager chain's operations in its
+    order: every buffer equal, bit for bit, after 3 steps."""
+    _bit_for_bit(case, precision)
+
+
+def test_fused_loop_runs_all_but_the_last_substep(tmp_path, monkeypatch):
+    """(steps − 1)·(substeps − 1) fused substeps: none in the first MOOSE
+    step, and the last substep of each step is the eager chain's."""
+    calls = []
+    orig = lf.fused_substep
+    monkeypatch.setattr(lf, "fused_substep", lambda *a: calls.append(1) or orig(*a))
+    text = decks.MIXED_DECK.format(n=6, substeps=5, backend="PALLAS")
+    s = run_port(text, steps=4)
+    assert len(calls) == 3 * 4
+    assert s["n_advances"] == 3 * 5 + 3
+    assert s["buffers"]["fpc"].shape == (6, 6, 6, 19)
+
+
+# -- rejections ----------------------------------------------------------------------
+
+BASE = decks.INLET_OUTLET_DECK.format(backend="PALLAS").replace(
+    "nx = 12", "nx = 6").replace("ny = 10", "ny = 5").replace("nz = 10", "nz = 5")
+SOLVER = "[TensorSolver]\n  type = LBMStream\n  buffer = f\n  f_old = fpc\n[]\n"
+INLET = ("    [inlet]\n      type = LBMFixedFirstOrderBC\n      buffer = f\n"
+         "      f = f\n      value = 0.01\n      boundary = left\n    []\n")
+TOP = ("    [top]\n      type = LBMBounceBack\n      buffer = f\n"
+       "      f_old = fpc\n      boundary = top\n    []\n")
+VELOCITY = ("    [velocity]\n      type = LBMComputeVelocity\n      buffer = velocity\n"
+            "      f = f\n      rho = density\n    []\n")
+DENSITY = "    [density]\n      type = LBMComputeDensity\n      buffer = density\n      f = f\n    []\n"
+FEQ = ("    [feq]\n      type = LBMEquilibrium\n      buffer = feq\n      bulk = density\n"
+       "      velocity = velocity\n    []\n")
+COLLISION = ("    [collision]\n      type = LBMBGKCollision\n      buffer = fpc\n"
+             "      f = f\n      feq = feq\n      tau0 = 0.6\n    []\n")
+SPEED = ("    [speed]\n      type = LBMComputeVelocityMagnitude\n      buffer = speed\n"
+         "      velocity = velocity\n    []\n")
+RESIDUAL = ("    [residual]\n      type = LBMComputeResidual\n      buffer = speed\n"
+            "      speed = speed\n    []\n")
+BUFFERS = "[TensorBuffers]\n"
+DF = "  [{0}]\n    type = LBMTensorBuffer\n    buffer_type = {1}\n  []\n"
+
+
+def _edit(*pairs, base=BASE):
+    """BASE with each (old, new) pair replaced once."""
+    for old, new in pairs:
+        assert old in base, old
+        base = base.replace(old, new, 1)
+    return base
+
+
+def _bb_after(text):
+    """BASE's top bounce-back moved after the outlet."""
+    text = text.replace(TOP, "")
+    return text.replace("      boundary = right\n    []\n",
+                        "      boundary = right\n    []\n" + TOP)
+
+
+REJECTIONS = {
+    "no_stream_solver": _edit((SOLVER, "")),
+    "three_buffers": _edit((SOLVER, SOLVER.replace("buffer = f\n  f_old = fpc",
+                                                   "buffer = 'f feq speed'\n"
+                                                   "  f_old = 'fpc fpc fpc'"))),
+    "same_buffer_twice": _edit((SOLVER, SOLVER.replace("buffer = f\n  f_old = fpc",
+                                                       "buffer = 'f f'\n"
+                                                       "  f_old = 'fpc fpc'"))),
+    "bc_not_streamed": _edit((TOP, TOP.replace("buffer = f", "buffer = feq"))),
+    "zouhe_other_buffer": _edit((INLET, INLET.replace("f = f", "f = fpc"))),
+    "zouhe_front": _edit((INLET, INLET.replace("boundary = left", "boundary = front"))),
+    "zouhe_top": _edit((INLET, INLET.replace("boundary = left", "boundary = top"))),
+    "zero_gradient_wall": _edit(("buffer = f\n      boundary = right",
+                                 "buffer = f\n      boundary = wall")),
+    "unfusable_bc": _edit((TOP, "    [odd]\n      type = ParsedCompute\n"
+                                "      buffer = f\n      expression = 'f'\n"
+                                "      inputs = f\n    []\n" + TOP)),
+    "bounce_back_after_zouhe": _bb_after(BASE),
+    "bounce_back_other_pair": _edit((TOP, TOP.replace("f_old = fpc", "f_old = feq"))),
+    "wall_without_media": _edit((TOP, TOP.replace("boundary = top", "boundary = wall"))),
+    "bounce_back_regional": _edit((TOP, TOP.replace("boundary = top",
+                                                    "boundary = regional"))),
+    "exclude_corners": _edit((TOP, TOP.replace("boundary = top",
+                                               "boundary = top\n"
+                                               "      exclude_corners_x = true"))),
+    "unfusable_solve": _edit((RESIDUAL, RESIDUAL + "    [odd]\n      type = ParsedCompute\n"
+                                        "      buffer = odd\n      expression = '1'\n"
+                                        "    []\n")),
+    "two_velocities": _edit((VELOCITY, VELOCITY + VELOCITY.replace(
+        "[velocity]\n      type = LBMComputeVelocity\n      buffer = velocity",
+        "[velocity2]\n      type = LBMComputeVelocity\n      buffer = vel2")),
+        (BUFFERS, BUFFERS + DF.format("vel2", "mv"))),
+    "no_density": _edit((DENSITY, "")),
+    "no_velocity": _edit((VELOCITY, "")),
+    "velocity_of_other": _edit((VELOCITY, VELOCITY.replace("f = f", "f = fpc2")),
+                               (BUFFERS, BUFFERS + DF.format("fpc2", "df"))),
+    "enable_forces": _edit((VELOCITY, VELOCITY.replace("rho = density",
+                                                       "rho = density\n"
+                                                       "      enable_forces = true")),
+                           (BUFFERS, BUFFERS + DF.format("forces", "mv"))),
+    "equilibrium_without_collision": _edit((COLLISION, "")),
+    "collisionless_other_old": _edit((COLLISION, ""), (FEQ, "")),
+    "no_equilibrium": _edit((FEQ, "")),
+    "equilibrium_other_velocity": _edit(
+        (FEQ, FEQ.replace("velocity = velocity", "velocity = vel2")),
+        (BUFFERS, BUFFERS + DF.format("vel2", "mv"))),
+    "collision_other_feq": _edit((COLLISION, COLLISION.replace("feq = feq",
+                                                               "feq = fpc"))),
+    "collision_writes_other": _edit(
+        (COLLISION, COLLISION.replace("buffer = fpc", "buffer = fpc2")),
+        (BUFFERS, BUFFERS + DF.format("fpc2", "df"))),
+    "speed_other_velocity": _edit(
+        (SPEED, SPEED.replace("velocity = velocity", "velocity = vel2")),
+        (BUFFERS, BUFFERS + DF.format("vel2", "mv"))),
+    "residual_of_density": _edit((RESIDUAL, RESIDUAL.replace("speed = speed",
+                                                             "speed = density"))),
+}
+
+
+def _jax_message(jx, text):
+    p = jx.Problem(jx.hit.parse(text))
+    s = p.init_state()
+    dt = jx.jnp.asarray(1.0, p.domain.dtype)
+    with pytest.raises(jx.PL.FusedChainError) as e:
+        # the JAX package traces the fused branch on its first step
+        for i in range(2):
+            s = p.step(s, float(i), dt, dt, i == 0)
+    return str(e.value)
+
+
+def _port_message(text):
+    p = TensorProblem(hit.parse(text), device="cpu")
+    s = p.init_state()
+    s = p.step(s, 0.0, 1.0, 1.0, True)  # the first MOOSE step runs no substeps
+    with pytest.raises(lf.FusedChainError) as e:
+        p.step(s, 1.0, 1.0, 1.0, False)
+    return str(e.value)
+
+
+@pytest.mark.parametrize("case", list(REJECTIONS))
+def test_rejection_is_the_jax_message(jx, case):
+    text = REJECTIONS[case]
+    assert _port_message(text) == _jax_message(jx, text)
+
+
+NOT_PORTED = {
+    # feature: deck the JAX package fuses and this port does not yet
+    "2-D": _edit(("dim = 3", "dim = 2"), ("  nz = 5\n", ""),
+                 ("type = LBMD3Q19", "type = LBMD2Q9"),
+                 ("constants = '0.01 0.0 0.0'", "constants = '0.01 0.0'"),
+                 ("    [front]", "    [x_front]"), ("boundary = front", "boundary = top"),
+                 ("    [back]", "    [x_back]"), ("boundary = back", "boundary = bottom")),
+    "D2Q9 stencil": _edit(("type = LBMD3Q19", "type = LBMD2Q9")),
+    "second streamed lattice": _edit(
+        (SOLVER, SOLVER.replace("buffer = f\n  f_old = fpc",
+                                "buffer = 'f g'\n  f_old = 'fpc gpc'")),
+        (BUFFERS, BUFFERS + DF.format("g", "df") + DF.format("gpc", "df"))),
+    "collisionless chain": _edit((COLLISION, ""), (FEQ, ""),
+                                 (SOLVER, SOLVER.replace("f_old = fpc", "f_old = f")),
+                                 (TOP + TOP.replace("top", "bottom"), ""),
+                                 (TOP.replace("top", "front"), ""),
+                                 (TOP.replace("top", "back"), "")),
+}
+
+
+@pytest.mark.parametrize("feature", list(NOT_PORTED))
+def test_unported_feature_is_a_named_error(feature):
+    """Chains the JAX package fuses but this slice does not raise the
+    port's own error naming the feature; they never fall back."""
+    msg = _port_message(NOT_PORTED[feature])
+    assert "is not ported to marlin_tpu_torch yet" in msg
+    assert feature.split()[0].lower() in msg.lower()
+
+
+@pytest.mark.parametrize("edit,error,match", [
+    ((COLLISION, COLLISION.replace("LBMBGKCollision", "LBMMRTCollision")),
+     KeyError, "LBMMRTCollision"),
+    ((COLLISION, COLLISION.replace("LBMBGKCollision", "LBMSmagorinskyCollision")),
+     KeyError, "LBMSmagorinskyCollision"),
+    ((RESIDUAL, RESIDUAL + "    [forces]\n      type = LBMComputeForces\n"
+                           "      buffer = forces\n    []\n"), KeyError, "LBMComputeForces"),
+    ((COLLISION, COLLISION.replace("tau0 = 0.6", "tau0 = 0.6\n      projection = true")),
+     ParamError, "projection"),
+    (("[Domain]", "[Domain]\n  parallel_mode = REAL_SPACE"), NotImplementedError,
+     "parallel_mode"),
+    ((TOP, TOP.replace("LBMBounceBack", "LBMDirichletBC")), KeyError, "LBMDirichletBC"),
+], ids=["mrt", "smagorinsky", "forces", "projection", "sharded", "dirichlet"])
+def test_unported_compute_fails_at_build(edit, error, match):
+    """MRT, Smagorinsky, force fields, the Hermite projection, sharded
+    domains and the unported boundary conditions fail when the deck is
+    built, by name, before either backend could run."""
+    with pytest.raises(error, match=match):
+        TensorProblem(hit.parse(_edit(edit)), device="cpu")
+
+
+# -- the kernel's wrapper --------------------------------------------------------------
+
+
+def test_wrapper_checks_its_inputs():
+    cfg = dataclasses.replace(port_plan("porous_8").config, nx=4, ny=5, nz=6)
+    fpc = torch.zeros((19, 4, 5, 6), dtype=torch.float64)
+    media = torch.ones((4, 5, 6), dtype=torch.int8)
+    with pytest.raises(ValueError, match="shape"):
+        lf.fused_substep(fpc[:, :3], media, cfg)
+    with pytest.raises(TypeError, match="dtype"):
+        lf.fused_substep(fpc.to(torch.int32), media, cfg)
+    with pytest.raises(ValueError, match="media"):
+        lf.fused_substep(fpc, None, cfg)
+    with pytest.raises(TypeError, match="int8"):
+        lf.fused_substep(fpc, media.to(torch.int64), cfg)
+
+
+@pytest.mark.parametrize("case", ["mixed_8", "zeroth_order", "media_channel"])
+def test_plan_packs_for_the_kernel(case):
+    """The kernel's plan struct: the faces in deck order (-1 for the
+    obstacle slot), each Zou-He face's sums and rows as direction masks."""
+    cfg = port_plan(case).config
+    p = lf.pack(cfg)
+    assert (p.nx, p.ny, p.nz, p.n_faces, p.n_post) == (
+        cfg.nx, cfg.ny, cfg.nz, len(cfg.faces), len(cfg.post_bcs))
+    assert p.inv_tau == 1.0 / cfg.tau
+    for i, (axis, side, dirs) in enumerate(cfg.faces):
+        assert (p.face_axis[i], p.face_side[i]) == (axis, side)
+        assert p.face_dirs[i] == sum(1 << d for d in dirs)
+    for i, bc in enumerate(cfg.post_bcs):
+        post = p.post[i]
+        assert post.kind == (bc.kind == "zg")
+        assert post.sum1 == sum(1 << d for d in bc.sum1)
+        assert post.rows == sum(1 << r[0] for r in bc.rows)
+        for d, _src, cm, *_ in bc.rows:
+            assert post.cm[d] == cm
+
+
+# -- on the card -------------------------------------------------------------------------
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+@pytest.mark.parametrize("case", PLAN_CASES)
+def test_kernel_matches_twin_on_card(cuda, case, dtype):
+    """The CUDA kernel against its twin on the card at 33×17×20: the same
+    operations in the same order, so equal bit for bit (NaN where both
+    give it: random media can leave a fluid face cell that copies a solid
+    inner neighbour with no mass)."""
+    cfg = dataclasses.replace(port_plan(case).config, nx=33, ny=17, nz=20)
+    gen = torch.Generator(device=cuda).manual_seed(5)
+    shape = (33, 17, 20)
+    w = torch.tensor(cfg.w, dtype=dtype, device=cuda)[:, None, None, None]
+    fpc = w * (1.0 + 0.1 * torch.randn((cfg.q,) + shape, generator=gen,
+                                       device=cuda, dtype=dtype))
+    media = None
+    if cfg.has_media:
+        media = (torch.rand(shape, generator=gen, device=cuda) > 0.2).to(torch.int8)
+        fpc = torch.where(media == 0, 0.0, fpc).contiguous()
+    before = lf.launches()["lbm_substep"]
+    got = lf.fused_substep(fpc, media, cfg)
+    torch.cuda.synchronize()
+    assert lf.launches()["lbm_substep"] == before + 1
+    ref = lf.fused_substep_twin(fpc, media, cfg)
+    for g, r in zip(got, ref):
+        torch.testing.assert_close(g, r, rtol=0, atol=0, equal_nan=True)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", ["porous_16", "mixed_12", "media_channel"])
+def test_pallas_is_jnp_bit_for_bit_on_card(cuda, case):
+    """On the card too, the kernel path equals the eager chain bit for bit
+    in float32 (the kernel is built without fused multiply-adds)."""
+    _bit_for_bit(case, "SINGLE", device=cuda)

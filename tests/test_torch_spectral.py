@@ -357,6 +357,53 @@ def test_fused_deck_matches_jax(jx, case):
         assert "Mbarmubar" not in ps_["old"]
 
 
+_GROWTH = """
+[Executioner]
+  type = Transient
+  num_steps = 4
+  [TimeStepper]
+    type = IterationAdaptiveDT
+    dt = {dt}
+    growth_factor = 1.5
+  []
+[]
+"""
+
+
+@pytest.mark.parametrize("substeps", [1, 2])
+@pytest.mark.parametrize("name", ["ch", "multi"])
+def test_fused_deck_with_dt_growth_matches_jax(jx, name, substeps, tmp_path):
+    """dt grows 1.5× a step (IterationAdaptiveDT), so every step after the
+    second sees dt ≠ dt_old and the fused path's AB order fallback runs;
+    the port against JAX fused, run_deck in both, at this file's deck
+    tolerances (5e-5 on the fields, 5e-4 of the scale on the spectra)."""
+    from marlin_tpu.executioner import run_deck as jax_run_deck
+
+    from marlin_tpu_torch.executioner import run_deck
+
+    template = decks.CH_DECK if name == "ch" else decks.MULTI_DECK
+    text = template.replace("substeps = 5", f"substeps = {substeps}").format(
+        domain_extra=PALLAS, solver_extra=FUSED)
+    dt0 = 1.0 if name == "ch" else 0.02
+    text += _GROWTH.format(dt=dt0)
+    jt = jax_run_deck(jx.hit.parse(text), output_dir=str(tmp_path / "jax"))
+    pt = run_deck(hit.parse(text), output_dir=str(tmp_path / "port"), device="cpu")
+    assert pt.step_count == jt.step_count == 4
+    assert pt.time == pytest.approx(jt.time, rel=1e-12)
+    assert pt.time == pytest.approx(dt0 * (1 + 1.5 + 1.5**2 + 1.5**3), rel=1e-12)
+    js, ps_ = jt.state, pt.state
+    assert ps_["n_advances"] == int(js["n_advances"])
+    fields = ["c"] if name == "ch" else ["c", "n1"]
+    spectra = ["cbar", "Mbarmubar"] if name == "ch" else ["c_bar", "n1_bar"]
+    for f in fields:
+        np.testing.assert_allclose(ps_["buffers"][f].numpy(),
+                                   np.asarray(js["buffers"][f]), rtol=0, atol=5e-5,
+                                   err_msg=f)
+    for f in spectra:
+        ref = np.asarray(js["buffers"][f])
+        assert np.abs(ps_["buffers"][f].numpy() - ref).max() <= 5e-4 * np.abs(ref).max(), f
+
+
 def test_fused_multi_launches_one_update_per_substep():
     """On the CPU nothing launches; the plan of _MULTI is the N-field one,
     and the fused loop goes through ch_substep_multi once a substep."""
