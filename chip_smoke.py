@@ -13,9 +13,14 @@ Phases, one line each, flushed as they finish:
 2. kernels: each kernel at its 512³ main-path shapes (and at n = 64, 200,
    384) against its plain PyTorch twin, max error ≤ 1e-5 of the twin's
    largest magnitude; kernel, twin, bound and yardstick times.  The LBM
-   substep kernel (``lbm_substep``) at 256³ in float32 on four plans (the
+   substep kernel (``lbm_substep``) at 256³ in float32 on nine plans (the
    porous deck's, the mixed deck's, a D3Q27 all-faces plan with a z body
-   force, a zeroth-order Zou-He channel), and at 9³ and 33×17×20;
+   force, a zeroth-order Zou-He channel; the thermal deck's two lattices
+   with buoyancy and the Guo source, the Pebbles deck's MRT on both
+   lattices through media, an MRT D3Q27 all-faces plan, the porous deck
+   with the Hermite projection, the collisionless chain), and at 9³ and
+   33×17×20; the 256³ rows of the decks run in phases 7-10 beside their
+   eager JNP substep;
 3. main path: the 3-D Cahn-Hilliard deck at 512³ through ``run_deck`` with
    ``fft_backend = PALLAS`` in float32 (10 substeps, 2 steps, dt = 1): the
    launch counters rise by exactly the count the path implies, c is finite
@@ -41,7 +46,14 @@ Phases, one line each, flushed as they finish:
    on both; every buffer finite;
 8. LBM mixed: ``decks.MIXED_DECK`` (bounce-back walls, Zou-He velocity
    inlet, zero-gradient outlet) the same way, without the mass check (the
-   inlet and the outlet move mass).
+   inlet and the outlet move mass);
+9. LBM thermal: ``decks.THERMAL3D_DECK`` (two D3Q19 BGK lattices, f and
+   the temperature g, Boussinesq buoyancy, Guo forcing, bounce-back plates
+   and Zou-He temperature faces) the same way, on f, fpc, g, gpc, density,
+   T and velocity, with the mass check; MLUPS count both lattices;
+10. LBM Pebbles: ``decks.PEBBLES_DECK`` (MRT on both lattices through the
+   benchmark's sphere pack, buoyancy, Guo forcing, Zou-He temperature
+   faces, the residual on T) the same way.
 
 Then one JSON line with every kernel's numbers and, last, the JSON result
 line.  Any failure ends the run with a non-zero exit and no result line.
@@ -360,14 +372,24 @@ def lbm_plans():
     from marlin_tpu_torch import lbm_fused as lf
     from marlin_tpu_torch.problem import TensorProblem
 
+    media = {"media": decks.porous_media(8)}
+    allface27 = decks.ALLFACE_DECK.format(n=8, stencil="LBMD3Q27", backend="PALLAS")
     texts = {
         "porous": (decks.POROUS_DECK.format(n=8, substeps=2, backend="PALLAS",
-                                            media_h5="media.h5"),
-                   {"media": decks.porous_media(8)}),
+                                            media_h5="media.h5"), media),
         "mixed": (decks.MIXED_DECK.format(n=8, substeps=2, backend="PALLAS"), None),
-        "allface_d3q27": (decks.ALLFACE_DECK.format(n=8, stencil="LBMD3Q27",
-                                                    backend="PALLAS"), None),
+        "allface_d3q27": (allface27, None),
         "zouhe_zeroth": (lbm_zeroth_order_deck("PALLAS"), None),
+        "thermal": (decks.THERMAL3D_DECK.format(n=8, substeps=2, backend="PALLAS"),
+                    None),
+        "pebbles": (decks.PEBBLES_DECK.format(nx=8, ny=8, nz=8, substeps=2,
+                                              backend="PALLAS", media_h5="media.h5"),
+                    media),
+        "allface_d3q27_mrt": (allface27.replace("LBMBGKCollision", "LBMMRTCollision"),
+                              None),
+        "porous_proj": (decks.PROJECTED_DECK.format(n=8, substeps=2, backend="PALLAS",
+                                                    media_h5="media.h5"), media),
+        "collisionless": (decks.COLLISIONLESS_DECK.format(backend="PALLAS"), None),
     }
     plans = {}
     for name, (text, arrays) in texts.items():
@@ -379,16 +401,63 @@ def lbm_plans():
 
 def lbm_flops(cfg):
     """Operations a cell: the density and momentum sums, u (three
-    quotients, three sums, one product each), |u|², √, and per direction
-    e·u, the equilibrium and the BGK collision."""
+    quotients, three sums, one product each), |u|², √, and per lattice and
+    direction e·u, the equilibrium and the collision: BGK, or the MRT row
+    (a product and a sum a non-zero entry), after the Hermite projection's
+    sums where the plan has it; on two-lattice plans T, the force and the
+    Guo source."""
+    q = cfg.q
     nnz = [sum(1 for c in e if c) for e in cfg.e]
     per_q = sum(13 + max(0, k - 1) for k in nnz)
-    return (cfg.q - 1) + sum(nnz) + 16 + per_q
+    ops = (q - 1) + sum(nnz) + 16
+    if not cfg.collide:
+        return ops
+    lattices = [(cfg.msm, cfg.proj)]
+    if cfg.two_lattice:
+        lattices.append((cfg.msm2, cfg.proj2))
+        ops += (q - 1) + 12  # T, the force, u += F/(2ρ)
+    if cfg.force is not None and cfg.force.apply_tau:
+        ops += sum(3 + max(0, k - 1) for k in nnz)
+    for msm, proj in lattices:
+        ops += per_q
+        if msm is not None:
+            ops += sum(2 * sum(1 for c in row if c) for row in msm)
+        if proj:
+            ops += 2 * sum(nnz) * 9 + 2 * q * 9
+    return ops
+
+
+def lbm_rand(cfg, shape, gen, dev):
+    w = torch.tensor(cfg.w, dtype=torch.float32, device=dev)
+    return w[:, None, None, None] * (1.0 + 0.05 * torch.randn(
+        (cfg.q,) + shape, generator=gen, device=dev))
+
+
+def ptxas_report(log):
+    """One line per lbm_substep_kernel instantiation from nvcc's
+    -Xptxas=-v output: <Q, T, TWO, MRT>, registers, spill bytes."""
+    import re
+
+    out, name, spill = [], None, ""
+    for line in log.splitlines():
+        m = re.search(r"lbm_substep_kernelILi(\d+)E([fd])Lb([01])ELb([01])E", line)
+        if m and "Compiling entry function" in line:
+            q, t, two, mrt = m.groups()
+            name = (f"<{q}, {'float' if t == 'f' else 'double'}, "
+                    f"two={two}, mrt={mrt}>")
+        m = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads", line)
+        if m and name:
+            spill = f"spill stores {m.group(1)} B, loads {m.group(2)} B"
+        m = re.search(r"Used (\d+) registers", line)
+        if m and name:
+            out.append(f"lbm_substep_kernel{name}: {m.group(1)} registers, {spill}")
+            name = None
+    return out
 
 
 def phase_lbm_kernel(lf, dev):
-    """lbm_substep against its twin at 256³ (float32) on four plans and at
-    odd extents; returns the main-shape rows of the porous and mixed plans."""
+    """lbm_substep against its twin at 256³ (float32) on every plan and at
+    odd extents; returns the main-shape rows by plan."""
     import dataclasses
 
     from marlin_tpu_torch.decks import porous_media
@@ -398,9 +467,8 @@ def phase_lbm_kernel(lf, dev):
     for name, base in lbm_plans().items():
         for shape in LBM_ODD + [(LBM_N,) * 3]:
             cfg = dataclasses.replace(base, nx=shape[0], ny=shape[1], nz=shape[2])
-            w = torch.tensor(cfg.w, dtype=torch.float32, device=dev)
-            fpc = w[:, None, None, None] * (1.0 + 0.05 * torch.randn(
-                (cfg.q,) + shape, generator=gen, device=dev))
+            fpc = lbm_rand(cfg, shape, gen, dev)
+            gpc = lbm_rand(cfg, shape, gen, dev) if cfg.two_lattice else None
             media = None
             if cfg.has_media:
                 # the code TensorProblem.lbm_media gives: 1 fluid, 0 solid
@@ -410,52 +478,78 @@ def phase_lbm_kernel(lf, dev):
                     m = torch.rand(shape, generator=gen, device=dev) > 0.2
                 media = m.to(torch.int8).contiguous()
                 fpc = torch.where(media == 0, 0.0, fpc)
+                if gpc is not None:
+                    gpc = torch.where(media == 0, 0.0, gpc).contiguous()
             fpc = fpc.contiguous()
-            kernel = lambda: lf.fused_substep(fpc, media, cfg)
-            twin = lambda: lf.fused_substep_twin(fpc, media, cfg)
+            kernel = lambda: lf.fused_substep(fpc, media, cfg, gpc)
+            twin = lambda: lf.fused_substep_twin(fpc, media, cfg, gpc)
             if shape != (LBM_N,) * 3:
                 err = check(f"lbm_substep {name}", shape, kernel(), twin())
                 say(f"[kernels] lbm_substep {name} {shape}: max_abs_err {err:.3e}")
                 continue
             cells = math.prod(shape)
-            n_bytes = 2 * nbytes(fpc) + cells * 4 + (cells if media is not None else 0)
-            row = measure(f"lbm_substep {name}", (cfg.q,) + shape, kernel, twin,
-                          None, n_bytes, lbm_flops(cfg) * cells)
-            say(f"[kernels] lbm_substep {name}: {cells / (row['ms'] * 1e3):.0f} "
-                f"MLUPS (byte bound {cells / (row['bound_ms'] * 1e3):.0f})")
+            lattices = 2 if cfg.two_lattice else 1
+            n_bytes = (2 * lattices * nbytes(fpc) + cells * 4
+                       + (cells if media is not None else 0))
+            row = measure(f"lbm_substep {name}", (lattices, cfg.q) + shape, kernel,
+                          twin, None, n_bytes, lbm_flops(cfg) * cells)
+            say(f"[kernels] lbm_substep {name}: "
+                f"{lattices * cells / (row['ms'] * 1e3):.0f} MLUPS (byte bound "
+                f"{lattices * cells / (row['bound_ms'] * 1e3):.0f})")
             rows[name] = row
-            del fpc, media
+            del fpc, gpc, media
             torch.cuda.empty_cache()
     return rows
 
 
-def lbm_run(name, backend, dev):
-    """run_deck on the porous or mixed deck at LBM_N³, float32; returns
-    (transient, wall seconds, launches)."""
-    from marlin_tpu_torch import decks, hit
-    from marlin_tpu_torch import lbm_fused as lf
-    from marlin_tpu_torch.executioner import run_deck
+LBM_PATHS = {
+    # deck: (compared buffers, fluid mass conserved, lattices)
+    "porous": (("f", "fpc", "density", "velocity", "speed"), True, 1),
+    "mixed": (("f", "fpc", "density", "velocity", "speed"), False, 1),
+    "thermal": (("f", "fpc", "g", "gpc", "density", "T", "velocity"), True, 2),
+    "pebbles": (("f", "fpc", "g", "gpc", "density", "T", "velocity"), True, 2),
+}
 
+
+def lbm_deck(name, backend):
+    """(deck text at LBM_N³ in float32 with LBM_STEPS steps, arrays)."""
+    import re
+
+    from marlin_tpu_torch import decks
+
+    fmt = dict(substeps=LBM_SUBSTEPS, backend=backend)
+    arrays = None
     if name == "porous":
-        deck = decks.POROUS_DECK.format(n=LBM_N, substeps=LBM_SUBSTEPS,
-                                        backend=backend, media_h5="media.h5")
+        deck = decks.POROUS_DECK.format(n=LBM_N, media_h5="media.h5", **fmt)
         arrays = {"media": decks.porous_media(LBM_N)}
+    elif name == "mixed":
+        deck = decks.MIXED_DECK.format(n=LBM_N, **fmt)
+    elif name == "thermal":
+        deck = decks.THERMAL3D_DECK.format(n=LBM_N, **fmt)
     else:
-        deck = decks.MIXED_DECK.format(n=LBM_N, substeps=LBM_SUBSTEPS,
-                                       backend=backend)
-        arrays = None
+        deck = decks.PEBBLES_DECK.format(nx=LBM_N, ny=LBM_N, nz=LBM_N,
+                                         media_h5="media.h5", **fmt)
+        arrays = {"media": decks.porous_media(LBM_N)}
     deck = deck.replace("[Domain]", "[Domain]\n  floating_precision = SINGLE")
-    deck = deck.replace("""[Executioner]
-  type = Transient
-  num_steps = 3
-[]
-""", "")
+    deck = re.sub(r"\[Executioner\]\n(  .*\n)*\[\]\n", "", deck)
+    assert "[Executioner]" not in deck, name
     deck += f"""
 [Executioner]
   type = Transient
   num_steps = {LBM_STEPS}
 []
 """
+    return deck, arrays
+
+
+def lbm_run(name, backend, dev):
+    """run_deck on an LBM deck at LBM_N³, float32; returns (transient, wall
+    seconds, launches)."""
+    from marlin_tpu_torch import hit
+    from marlin_tpu_torch import lbm_fused as lf
+    from marlin_tpu_torch.executioner import run_deck
+
+    deck, arrays = lbm_deck(name, backend)
     lf.reset_launches()
     with tempfile.TemporaryDirectory() as out_dir:
         torch.cuda.synchronize()
@@ -478,9 +572,10 @@ def fluid_mass(state, solid):
     return rho[~solid].sum().item()
 
 
-def phase_lbm_path(name, dev, mass_check):
+def phase_lbm_path(name, dev):
     """One LBM deck on PALLAS and JNP: launches, PALLAS against JNP, mass,
-    speed.  Returns (PALLAS launches, PALLAS ms, JNP ms)."""
+    ms a substep and MLUPS.  Returns (PALLAS launches, PALLAS ms, JNP ms)."""
+    keys, mass_check, lattices = LBM_PATHS[name]
     cells = LBM_N ** 3
     # the first MOOSE step runs no substeps, the last substep of each step
     # runs the eager chain
@@ -500,7 +595,8 @@ def phase_lbm_path(name, dev, mass_check):
             assert bool(torch.isfinite(v).all()), (name, backend, k)
         ms = lbm_substep_ms(tr)
         say(f"[lbm {name}] {backend} {ms:.3f} ms/substep, "
-            f"{cells / (ms * 1e3):.0f} MLUPS")
+            f"{lattices * cells / (ms * 1e3):.0f} MLUPS ({lattices} lattice"
+            f"{'s' if lattices > 1 else ''})")
         problem = tr.problem
         solid = problem.lbm_solid_mask()
         if solid is None:
@@ -515,7 +611,7 @@ def phase_lbm_path(name, dev, mass_check):
             assert abs(m1 - m0) <= MASS_TOL * m0, (name, backend, m0, m1)
         out[backend] = (tr.state["buffers"], ms, launched)
         del tr, problem
-    for k in ("f", "fpc", "density", "velocity", "speed"):
+    for k in keys:
         a, b = out["PALLAS"][0][k], out["JNP"][0][k]
         d = (a - b).abs().max().item()
         mag = b.abs().max().item()
@@ -654,6 +750,8 @@ def main():
         say(f"[build] {'built' if cold[k] else 'reused'} {k}: "
             f"{os.path.relpath(lib.path(), HERE)} in {times[k]:.2f} s")
     say(f"[build] all libraries in {time.perf_counter() - t0:.2f} s")
+    for line in ptxas_report(lf.LIBRARY.log):
+        say(f"[build] ptxas {line}")
 
     # -- 2: kernels against their twins ---------------------------------------
     gen = torch.Generator().manual_seed(0)
@@ -756,15 +854,20 @@ def main():
         f"device memory {torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
     del tr_u, fields
 
-    # -- 7 and 8: the LBM paths ----------------------------------------------------
-    lbm_launches, ms_porous, ms_porous_jnp = phase_lbm_path("porous", dev, True)
-    _, ms_mixed, ms_mixed_jnp = phase_lbm_path("mixed", dev, False)
-    lbm = summarise([lbm_rows["porous"], lbm_rows["mixed"]])
+    # -- 7 to 10: the LBM paths ------------------------------------------------
+    lbm_launches = 0
+    lbm_ms = {}
+    for name in LBM_PATHS:
+        launched, ms_pallas_lbm, ms_jnp_lbm = phase_lbm_path(name, dev)
+        lbm_launches += launched
+        lbm_ms[name] = (ms_pallas_lbm, ms_jnp_lbm)
+        say(f"[lbm {name}] lbm_substep {lbm_rows[name]['ms']:.3f} ms a launch "
+            f"(bound {lbm_rows[name]['bound_ms']:.3f}); ms/substep PALLAS "
+            f"{ms_pallas_lbm:.3f}, JNP {ms_jnp_lbm:.3f}")
+    lbm = summarise([lbm_rows[name] for name in LBM_PATHS])
     lbm["yardstick"] = "the eager JNP substep (run_deck, lbm_backend = JNP)"
-    lbm["yardstick_ms"] = (ms_porous_jnp + ms_mixed_jnp) / 2
+    lbm["yardstick_ms"] = sum(jnp for _p, jnp in lbm_ms.values()) / len(lbm_ms)
     kernels["lbm_substep"] = lbm
-    say(f"[lbm] ms/substep PALLAS porous {ms_porous:.3f}, mixed {ms_mixed:.3f}; "
-        f"JNP porous {ms_porous_jnp:.3f}, mixed {ms_mixed_jnp:.3f}")
     say(f"[done] {time.perf_counter() - t_start:.1f} s")
 
     # -- result -----------------------------------------------------------------

@@ -1,4 +1,4 @@
-"""Lattice Boltzmann computes: equilibrium, BGK collision, moments.
+"""Lattice Boltzmann computes: equilibrium, collisions, moments, forces.
 
 The ported subset of marlin_tpu/computes/lbm.py (reference
 src/tensor_computes/LBM*.C; each class names its counterpart).  All LBM
@@ -22,13 +22,17 @@ are multiplications by their reciprocals (torch's CUDA division by a
 Python scalar already multiplies by the reciprocal; its CPU division does
 not).
 
+The MRT collision, the Hermite projection (``projection = true``) and the
+force chain (``LBMComputeForces``, ``LBMApplyForces``, the velocity's
+``enable_forces``) take their coefficients from ``mrt_matrix``,
+``hermite_tables`` and ``guo_prefactors``, which the fused kernel's plan
+shares, and run their sums in the kernel's order.
+
 Not ported yet, and so unregistered (a deck naming one fails with the
-registry's named error): LBMPhaseEquilibrium, LBMMRTCollision,
-LBMSmagorinskyCollision, LBMSmagorinskyMRTCollision,
-LBMTensorUnitConverter, LBMComputeForces, LBMApplyForces,
+registry's named error): LBMPhaseEquilibrium, LBMSmagorinskyCollision,
+LBMSmagorinskyMRTCollision, LBMTensorUnitConverter,
 LBMComputeSurfaceForces, LBMComputeChemicalPotential,
-LBMIsotropicGradient and LBMIsotropicLaplacian; Hermite regularization
-(``projection = true``) is a named error.
+LBMIsotropicGradient and LBMIsotropicLaplacian.
 """
 
 from __future__ import annotations
@@ -155,9 +159,88 @@ class LBMEquilibrium(LatticeBoltzmannOperator):
         return {self.out: Spec(tuple(shape), self.domain.dtype)}
 
 
+def mrt_matrix(stencil, tau: float) -> np.ndarray:
+    """MSM = M⁻¹·S′·M in float64, S′ the stencil's S with the
+    kinematic-viscosity diagonal at 1/τ, entries under 1e-14 set to 0
+    (reference LBMMRTCollision; marlin_tpu/pallas_lbm.py match_chain
+    ``msm_of``).  The eager collision and the kernel's plan use it alike."""
+    S = stencil.S.copy()
+    S[stencil.id_kinematic_visc, stencil.id_kinematic_visc] = 1.0 / float(tau)
+    m = stencil.M_inv @ S @ stencil.M
+    m[np.abs(m) < 1e-14] = 0.0
+    return m
+
+
+def hermite_tables(e, weights):
+    """The Hermite projection's coefficients (reference
+    LBMCollisionDynamics::_hermite_regularization) for the velocity set
+    ``e`` (q rows of (ex, ey, ez)): ccr (q, 9) = e⊗e, H2 (q, 9) =
+    e⊗e/c_s² − I, and the prefactors w_i/(2c_s²)."""
+    e = np.asarray(e, dtype=np.float64).T
+    ee = np.einsum("ai,bi->iab", e, e)
+    ccr = ee.reshape(e.shape[1], 9)
+    h2 = (ee / CS2 - np.eye(3)[None, :, :]).reshape(e.shape[1], 9)
+    pref = [float(w) * (1.0 / (2.0 * CS2)) for w in weights]
+    return ccr, h2, pref
+
+
+def guo_prefactors(weights, tau: float):
+    """(1 − 1/(2τ))·w_i/c_s² a direction, the Guo source's constant
+    (reference LBMApplyForces.C), each one double."""
+    return [(1.0 - 0.5 / float(tau)) * float(w) / CS2 for w in weights]
+
+
+def signed_sum(coefs, comps):
+    """Σ_k c_k·comps[k] for c_k in {-1, 0, 1}, zeros skipped, in index
+    order; None when every c_k is 0."""
+    acc = None
+    for c, v in zip(coefs, comps):
+        if c:
+            t = v if c > 0 else -v
+            acc = t if acc is None else acc + t
+    return acc
+
+
+def hermite(fneq, tables):
+    """Project the non-equilibrium planes onto the second-order Hermite
+    space: cc_j = Σ_i ccr_ij·fneq_i, then fneq_i ← pref_i·Σ_j H2_ij·cc_j,
+    each sum in index order with zero coefficients skipped (the kernel's
+    order, marlin_tpu/pallas_lbm.py ``hermite``)."""
+    ccr, h2, pref = tables
+    cc = []
+    for j in range(9):
+        acc = None
+        for i, a in enumerate(fneq):
+            c = float(ccr[i, j])
+            if c != 0.0:
+                t = a * c
+                acc = t if acc is None else acc + t
+        cc.append(acc)
+    out = []
+    for i, a in enumerate(fneq):
+        acc = None
+        for j in range(9):
+            h = float(h2[i, j])
+            if h != 0.0 and cc[j] is not None:
+                t = cc[j] * h
+                acc = t if acc is None else acc + t
+        out.append(pref[i] * acc if acc is not None else torch.zeros_like(a))
+    return out
+
+
+def mrt_relax(fneq, msm, i):
+    """Row i of MSM·fneq: Σ_j msm[i][j]·fneq_j over every entry, in index
+    order (the kernel's order; the MSM of D2Q9, D3Q19 and D3Q27 has no
+    zero entry, so this is also the JAX kernel's zero-skipping sum)."""
+    relax = fneq[0] * float(msm[i][0])
+    for j in range(1, len(fneq)):
+        relax = relax + fneq[j] * float(msm[i][j])
+    return relax
+
+
 class _CollisionBase(LatticeBoltzmannOperator):
     """Template base for collisions (reference LBMCollisionDynamics.C:1-319),
-    without the Hermite projection, which is not ported yet."""
+    with the Hermite projection of ``projection = true``."""
 
     def __init__(self, name, params: Params, problem):
         super().__init__(name, params, problem)
@@ -167,12 +250,22 @@ class _CollisionBase(LatticeBoltzmannOperator):
         self.C_s = problem.get_constant(params.get_str("Cs", "0.1"))
         self.delta_x = 1.0
         self.projection = params.get_bool("projection", False)
-        if self.projection:
-            params.error("projection", "projection = true (Hermite "
-                         "regularization) is not ported to marlin_tpu_torch yet")
 
-    def fneq(self, state):
-        return state[self.f] - state[self.feq]
+    def planes(self, state):
+        """(feq, fneq) as lists of direction planes; fneq projected when
+        ``projection = true``."""
+        f, feq = _q_major(state[self.f]), list(_q_major(state[self.feq]))
+        fneq = [f[i] - feq[i] for i in range(f.shape[0])]
+        if self.projection:
+            st = self.stencil
+            fneq = hermite(fneq, hermite_tables(np.stack([st.ex, st.ey, st.ez], 1),
+                                                st.weights))
+        return feq, fneq
+
+    def finish(self, planes):
+        u = torch.stack(planes, 0).movedim(0, -1)
+        u = self.masked_fill_solids(u)
+        return {self.out: self.masked_fill_solids(u)}
 
     def output_specs(self, specs):
         return {self.out: Spec(_broadcast_spec(specs[self.f], specs[self.feq]),
@@ -182,10 +275,27 @@ class _CollisionBase(LatticeBoltzmannOperator):
 @computes.register("LBMBGKCollision")
 class LBMBGKCollision(_CollisionBase):
     def apply(self, state, ctx):
-        fneq = self.fneq(state)
-        u = state[self.feq] + fneq - fneq * (1.0 / self.tau_0)
-        u = self.masked_fill_solids(u)
-        return {self.out: self.masked_fill_solids(u)}
+        inv_tau = 1.0 / self.tau_0
+        if not self.projection:
+            fneq = state[self.f] - state[self.feq]
+            u = state[self.feq] + fneq - fneq * inv_tau
+            u = self.masked_fill_solids(u)
+            return {self.out: self.masked_fill_solids(u)}
+        feq, fneq = self.planes(state)
+        return self.finish([e + n - n * inv_tau for e, n in zip(feq, fneq)])
+
+
+@computes.register("LBMMRTCollision")
+class LBMMRTCollision(_CollisionBase):
+    """u = feq + fneq − MSM·fneq (reference LBMMRTCollision.C), each row of
+    the contraction a sum over directions in index order (``mrt_relax``)."""
+
+    def apply(self, state, ctx):
+        msm = mrt_matrix(self.stencil, self.tau_0)
+        feq, fneq = self.planes(state)
+        out = []
+        return self.finish([feq[i] + fneq[i] - mrt_relax(fneq, msm, i)
+                            for i in range(len(fneq))])
 
 
 @computes.register("LBMComputeDensity")
@@ -238,6 +348,86 @@ class LBMComputeVelocity(LatticeBoltzmannOperator):
         s = specs[self.f]
         shape = np.broadcast_shapes(s.shape[:3], specs[self.rho].shape)
         return {self.out: Spec(tuple(shape) + (self.domain.dim,), s.dtype)}
+
+
+@computes.register("LBMComputeForces")
+class LBMComputeForces(LatticeBoltzmannOperator):
+    """Gravity/buoyancy force field (reference LBMComputeForces.C):
+    F_d = g·ρ (gravity) + g·ρ₀·(T − T₀) (Boussinesq buoyancy) along
+    ``gravity_direction`` d, zero along the other axes and at solids."""
+
+    def __init__(self, name, params: Params, problem):
+        super().__init__(name, params, problem)
+        self.rho = params.get_str("rho", "rho")
+        self.temperature = params.get_str("temperature", "T")
+        self.enable_gravity = params.get_bool("enable_gravity", False)
+        self.enable_buoyancy = params.get_bool("enable_buoyancy", False)
+        if self.enable_gravity and self.rho not in self.inputs:
+            self.inputs.append(self.rho)
+        if self.enable_buoyancy:
+            for b in (self.rho, self.temperature):
+                if b not in self.inputs:
+                    self.inputs.append(b)
+        self.rho0 = problem.get_constant(params.get_str("rho0", "1.0"))
+        self.T0 = problem.get_constant(params.get_str("T0", "1.0"))
+        self.g = problem.get_constant(params.get_str("gravity", "0.001"))
+        self.gravity_direction = int(params.get_float("gravity_direction", 1))
+
+    def apply(self, state, ctx):
+        shape = state[self.out].shape
+        fd = None
+        if self.enable_gravity:
+            fd = self.g * _ensure3d(state[self.rho])
+        if self.enable_buoyancy:
+            t = self.g * self.rho0 * (_ensure3d(state[self.temperature]) - self.T0)
+            fd = t if fd is None else fd + t
+        zero = torch.zeros(shape[:-1], dtype=self.domain.dtype,
+                           device=state[self.out].device)
+        comps = [zero] * shape[-1]
+        if fd is not None:
+            comps[self.gravity_direction] = fd.expand(shape[:-1]).to(zero.dtype)
+        return {self.out: self.masked_fill_solids(torch.stack(comps, -1))}
+
+    def output_specs(self, specs):
+        return {self.out: Spec(specs[self.out].shape, self.domain.dtype)}
+
+
+@computes.register("LBMApplyForces")
+class LBMApplyForces(LatticeBoltzmannOperator):
+    """Guo forcing source added onto the collision's output (reference
+    LBMApplyForces.C): f_i += pref_i·ρ·(e_i·F), pref_i = (1 − 1/(2τ))·w_i/c_s²
+    (``guo_prefactors``), e_i·F summed over the non-zero components of e_i
+    in axis order, as the kernel does."""
+
+    def __init__(self, name, params: Params, problem):
+        super().__init__(name, params, problem)
+        # the reference declares a velocity input but its use is commented
+        # out (LBMApplyForces.C); not requesting it avoids an implicit buffer
+        self.rho = self.input_buffer("rho")
+        self.forces = self.input_buffer("forces")
+        self.tau = problem.get_constant(params.get_str("tau0", required=True))
+        # accumulates onto its own output buffer: depends on the collision
+        # that produced it
+        if self.out not in self.inputs:
+            self.inputs.append(self.out)
+
+    def apply(self, state, ctx):
+        st = self.stencil
+        rho = _ensure3d(state[self.rho])
+        F = state[self.forces]
+        comps = [F[..., k] for k in range(F.shape[-1])]
+        pref = guo_prefactors(st.weights, self.tau)
+        fq = _q_major(state[self.out])
+        out = []
+        for i in range(st.q):
+            e = (int(st.ex[i]), int(st.ey[i]), int(st.ez[i]))[:len(comps)]
+            edotf = signed_sum(e, comps)
+            out.append(fq[i] if edotf is None else fq[i] + pref[i] * rho * edotf)
+        u = torch.stack(out, 0).movedim(0, -1)
+        return {self.out: self.masked_fill_solids(u)}
+
+    def output_specs(self, specs):
+        return {self.out: specs[self.out]}
 
 
 @computes.register("LBMComputeVelocityMagnitude")

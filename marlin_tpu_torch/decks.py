@@ -27,6 +27,21 @@ each copy equal to its original.
   faces; ``n``, ``stencil``, ``backend``), ``_MEDIA_DECK`` (a box obstacle
   in h5 media; ``backend``, ``media_h5``) and ``_INLET_OUTLET_DECK``
   (``backend``).
+- ``THERMAL3D_DECK``: bench.py's ``_THERMAL3D_DECK`` (the 3-D thermal
+  double-distribution deck: two D3Q19 BGK lattices, f and the temperature
+  g, Boussinesq buoyancy, Guo forcing, bounce-back plates and Zou-He
+  temperature faces; ``n``, ``substeps``, ``backend``).
+- ``PEBBLES_DECK``: tests/test_pallas_lbm.py's ``_THERMAL_3D_DECK`` (the
+  Pebbles pattern: MRT on both lattices, binary media with obstacle
+  bounce-back, buoyancy and Guo forcing, Zou-He temperature faces, the
+  residual on T), with its extents and substeps as fields: ``nx``, ``ny``,
+  ``nz``, ``substeps``, ``backend``, ``media_h5`` (the media, or
+  ``media.h5`` with the array handed in as ``arrays=``).
+- ``PROJECTED_DECK``: ``POROUS_DECK`` with the Hermite projection
+  (``projection = true``) on its collision.
+- ``COLLISIONLESS_DECK``: ``INLET_OUTLET_DECK`` at 6×5×5 without its
+  equilibrium, its collision and its bounce-back faces, streamed with
+  ``f_old = f`` (the collisionless chain); ``backend``.
 """
 
 import numpy as np
@@ -1222,6 +1237,589 @@ INLET_OUTLET_DECK = """
 []
 """
 
+
+THERMAL3D_DECK = """
+[Domain]
+  dim = 3
+  nx = {n}
+  ny = {n}
+  nz = {n}
+  xmax = {n}
+  ymax = {n}
+  zmax = {n}
+  mesh_mode = DUMMY
+[]
+[Stencil]
+  [s]
+    type = LBMD3Q19
+  []
+[]
+[TensorBuffers]
+  [f]
+    type = LBMTensorBuffer
+    buffer_type = df
+  []
+  [feq]
+    type = LBMTensorBuffer
+    buffer_type = df
+  []
+  [fpc]
+    type = LBMTensorBuffer
+    buffer_type = df
+  []
+  [g]
+    type = LBMTensorBuffer
+    buffer_type = df
+  []
+  [geq]
+    type = LBMTensorBuffer
+    buffer_type = df
+  []
+  [gpc]
+    type = LBMTensorBuffer
+    buffer_type = df
+  []
+  [density]
+    type = LBMTensorBuffer
+    buffer_type = ms
+  []
+  [T]
+    type = LBMTensorBuffer
+    buffer_type = ms
+  []
+  [velocity]
+    type = LBMTensorBuffer
+    buffer_type = mv
+  []
+  [F]
+    type = LBMTensorBuffer
+    buffer_type = mv
+  []
+[]
+[TensorComputes]
+  [Initialize]
+    [density]
+      type = LBMConstantTensor
+      buffer = density
+      constants = 'rho0'
+    []
+    [velocity]
+      type = LBMConstantTensor
+      buffer = velocity
+      constants = '0.0 0.0 0.0'
+    []
+    [temperature]
+      type = ParsedCompute
+      buffer = T
+      expression = '1.1 - 0.1*x/{n} + 0.005*sin(y/8)*sin(z/8)'
+      extra_symbols = true
+    []
+    [eq_f]
+      type = LBMEquilibrium
+      buffer = feq
+      bulk = density
+      velocity = velocity
+    []
+    [eq_f_total]
+      type = LBMEquilibrium
+      buffer = f
+      bulk = density
+      velocity = velocity
+    []
+    [eq_f_pc]
+      type = LBMEquilibrium
+      buffer = fpc
+      bulk = density
+      velocity = velocity
+    []
+    [eq_g]
+      type = LBMEquilibrium
+      buffer = geq
+      bulk = T
+      velocity = velocity
+    []
+    [eq_g_total]
+      type = LBMEquilibrium
+      buffer = g
+      bulk = T
+      velocity = velocity
+    []
+    [eq_g_pc]
+      type = LBMEquilibrium
+      buffer = gpc
+      bulk = T
+      velocity = velocity
+    []
+  []
+  [Solve]
+    [Temperature]
+      type = LBMComputeDensity
+      buffer = T
+      f = g
+    []
+    [Fluid_density]
+      type = LBMComputeDensity
+      buffer = density
+      f = f
+    []
+    [Fluid_velocity]
+      type = LBMComputeVelocity
+      buffer = velocity
+      f = f
+      rho = density
+      forces = F
+      enable_forces = true
+    []
+    [Eq_temperature]
+      type = LBMEquilibrium
+      buffer = geq
+      bulk = T
+      velocity = velocity
+    []
+    [Collision_temperature]
+      type = LBMBGKCollision
+      buffer = gpc
+      f = g
+      feq = geq
+      tau0 = tau_T
+    []
+    [Compute_forces]
+      type = LBMComputeForces
+      buffer = F
+      rho0 = 'rho0'
+      temperature = T
+      T0 = T_0
+      enable_buoyancy = true
+      gravity = g
+      gravity_direction = 0
+    []
+    [Eq_fluid]
+      type = LBMEquilibrium
+      buffer = feq
+      bulk = density
+      velocity = velocity
+    []
+    [Collision_fluid]
+      type = LBMBGKCollision
+      buffer = fpc
+      f = f
+      feq = feq
+      tau0 = tau_f
+    []
+    [Apply_forces]
+      type = LBMApplyForces
+      buffer = fpc
+      velocity = velocity
+      rho = density
+      forces = F
+      tau0 = tau_f
+    []
+  []
+  [Boundary]
+    [plate_left]
+      type = LBMBounceBack
+      buffer = f
+      f_old = fpc
+      boundary = left
+    []
+    [plate_right]
+      type = LBMBounceBack
+      buffer = f
+      f_old = fpc
+      boundary = right
+    []
+    [hot_left]
+      type = LBMFixedZerothOrderBC
+      buffer = g
+      f = g
+      value = T_H
+      boundary = left
+    []
+    [cold_right]
+      type = LBMFixedZerothOrderBC
+      buffer = g
+      f = g
+      value = T_C
+      boundary = right
+    []
+  []
+[]
+[TensorSolver]
+  type = LBMStream
+  buffer = 'f g'
+  f_old = 'fpc gpc'
+[]
+[Problem]
+  type = LatticeBoltzmannProblem
+  scalar_constant_names = 'rho0 T_0  T_C  T_H  tau_f tau_T  g'
+  scalar_constant_values = '1.0  1.05 1.0  1.1  0.7   0.7   0.0001'
+  substeps = {substeps}
+  lbm_backend = {backend}
+[]
+[Executioner]
+  type = Transient
+  num_steps = 1
+[]
+"""
+
+PEBBLES_DECK = """
+[Domain]
+  dim = 3
+  nx = {nx}
+  ny = {ny}
+  nz = {nz}
+  mesh_mode = DUMMY
+[]
+[Stencil]
+  [s]
+    type = LBMD3Q19
+  []
+[]
+[TensorBuffers]
+  [f]
+    type = LBMTensorBuffer
+    buffer_type = df
+  []
+  [feq]
+    type = LBMTensorBuffer
+    buffer_type = df
+  []
+  [fpc]
+    type = LBMTensorBuffer
+    buffer_type = df
+  []
+  [g]
+    type = LBMTensorBuffer
+    buffer_type = df
+  []
+  [geq]
+    type = LBMTensorBuffer
+    buffer_type = df
+  []
+  [gpc]
+    type = LBMTensorBuffer
+    buffer_type = df
+  []
+  [velocity]
+    type = LBMTensorBuffer
+    buffer_type = mv
+  []
+  [density]
+    type = LBMTensorBuffer
+    buffer_type = ms
+  []
+  [T]
+    type = LBMTensorBuffer
+    buffer_type = ms
+  []
+  [F]
+    type = LBMTensorBuffer
+    buffer_type = mv
+  []
+  [media]
+    type = LBMTensorBuffer
+    buffer_type = ms
+    is_integer = true
+    file = {media_h5}
+  []
+[]
+[TensorComputes]
+  [Initialize]
+    [density]
+      type = LBMConstantTensor
+      buffer = density
+      constants = 1.0
+    []
+    [velocity]
+      type = LBMConstantTensor
+      buffer = velocity
+      constants = '0.0 0.0 0.0'
+    []
+    [temperature]
+      type = ParsedCompute
+      buffer = T
+      expression = '1.0 + 0.05 * sin(x / 2.0) * cos(y / 3.0) * cos(z / 5.0)'
+      extra_symbols = true
+    []
+    [feq0]
+      type = LBMEquilibrium
+      buffer = feq
+      bulk = density
+      velocity = velocity
+    []
+    [f0]
+      type = LBMEquilibrium
+      buffer = f
+      bulk = density
+      velocity = velocity
+    []
+    [fpc0]
+      type = LBMEquilibrium
+      buffer = fpc
+      bulk = density
+      velocity = velocity
+    []
+    [geq0]
+      type = LBMEquilibrium
+      buffer = geq
+      bulk = T
+      velocity = velocity
+    []
+    [g0]
+      type = LBMEquilibrium
+      buffer = g
+      bulk = T
+      velocity = velocity
+    []
+    [gpc0]
+      type = LBMEquilibrium
+      buffer = gpc
+      bulk = T
+      velocity = velocity
+    []
+  []
+  [Solve]
+    [Temperature]
+      type = LBMComputeDensity
+      buffer = T
+      f = g
+    []
+    [Density]
+      type = LBMComputeDensity
+      buffer = density
+      f = f
+    []
+    [Forces]
+      type = LBMComputeForces
+      buffer = F
+      rho0 = 1.0
+      rho = density
+      temperature = T
+      T0 = 1.0
+      enable_buoyancy = true
+      gravity = 0.0005
+      gravity_direction = 2
+    []
+    [Velocity]
+      type = LBMComputeVelocity
+      buffer = velocity
+      f = f
+      rho = density
+      forces = F
+      enable_forces = true
+    []
+    [Geq]
+      type = LBMEquilibrium
+      buffer = geq
+      bulk = T
+      velocity = velocity
+    []
+    [Gcoll]
+      type = LBMMRTCollision
+      buffer = gpc
+      f = g
+      feq = geq
+      tau0 = 0.8
+    []
+    [Feq]
+      type = LBMEquilibrium
+      buffer = feq
+      bulk = density
+      velocity = velocity
+    []
+    [Fcoll]
+      type = LBMMRTCollision
+      buffer = fpc
+      f = f
+      feq = feq
+      tau0 = 0.6
+    []
+    [Apply]
+      type = LBMApplyForces
+      buffer = fpc
+      rho = density
+      forces = F
+      tau0 = 0.6
+    []
+    [Residual]
+      type = LBMComputeResidual
+      buffer = T
+      speed = T
+    []
+  []
+  [Boundary]
+    [wall]
+      type = LBMBounceBack
+      buffer = f
+      f_old = fpc
+      boundary = wall
+    []
+    [top]
+      type = LBMBounceBack
+      buffer = f
+      f_old = fpc
+      boundary = back
+    []
+    [bottom]
+      type = LBMBounceBack
+      buffer = f
+      f_old = fpc
+      boundary = front
+    []
+    [hot_bottom]
+      type = LBMFixedZerothOrderBC
+      buffer = g
+      f = g
+      value = 1.1
+      boundary = left
+    []
+    [cold_top]
+      type = LBMFixedZerothOrderBC
+      buffer = g
+      f = g
+      value = 1.0
+      boundary = right
+    []
+  []
+[]
+[TensorSolver]
+  type = LBMStream
+  buffer = 'f g'
+  f_old = 'fpc gpc'
+[]
+[Problem]
+  type = LatticeBoltzmannProblem
+  substeps = {substeps}
+  lbm_backend = {backend}
+  is_binary_media = true
+  binary_media = media
+[]
+[Executioner]
+  type = Transient
+  num_steps = 3
+[]
+"""
+
+# decks.POROUS_DECK with the Hermite projection on its collision
+PROJECTED_DECK = POROUS_DECK.replace("tau0 = 0.8\n", "tau0 = 0.8\n      projection = true\n")
+
+COLLISIONLESS_DECK = """
+[Domain]
+  dim = 3
+  nx = 6
+  ny = 5
+  nz = 5
+  mesh_mode = DUMMY
+[]
+[Stencil]
+  [s]
+    type = LBMD3Q19
+  []
+[]
+[TensorBuffers]
+  [f]
+    type = LBMTensorBuffer
+    buffer_type = df
+  []
+  [feq]
+    type = LBMTensorBuffer
+    buffer_type = df
+  []
+  [fpc]
+    type = LBMTensorBuffer
+    buffer_type = df
+  []
+  [velocity]
+    type = LBMTensorBuffer
+    buffer_type = mv
+  []
+  [density]
+    type = LBMTensorBuffer
+    buffer_type = ms
+  []
+  [speed]
+    type = LBMTensorBuffer
+    buffer_type = ms
+  []
+[]
+[TensorComputes]
+  [Initialize]
+    [initial_density]
+      type = LBMConstantTensor
+      buffer = density
+      constants = 1.0
+    []
+    [initial_velocity]
+      type = LBMConstantTensor
+      buffer = velocity
+      constants = '0.01 0.0 0.0'
+    []
+    [initial_f]
+      type = LBMEquilibrium
+      buffer = f
+      bulk = density
+      velocity = velocity
+    []
+    [initial_fpc]
+      type = LBMEquilibrium
+      buffer = fpc
+      bulk = density
+      velocity = velocity
+    []
+  []
+  [Solve]
+    [density]
+      type = LBMComputeDensity
+      buffer = density
+      f = f
+    []
+    [velocity]
+      type = LBMComputeVelocity
+      buffer = velocity
+      f = f
+      rho = density
+    []
+    [speed]
+      type = LBMComputeVelocityMagnitude
+      buffer = speed
+      velocity = velocity
+    []
+    [residual]
+      type = LBMComputeResidual
+      buffer = speed
+      speed = speed
+    []
+  []
+  [Boundary]
+    [inlet]
+      type = LBMFixedFirstOrderBC
+      buffer = f
+      f = f
+      value = 0.01
+      boundary = left
+    []
+    [outlet]
+      type = LBMMicroscopicZeroGradientBC
+      buffer = f
+      boundary = right
+    []
+  []
+[]
+[TensorSolver]
+  type = LBMStream
+  buffer = f
+  f_old = f
+[]
+[Problem]
+  type = LatticeBoltzmannProblem
+  substeps = 6
+  lbm_backend = {backend}
+[]
+[Executioner]
+  type = Transient
+  num_steps = 3
+[]
+"""
 
 def porous_media(n: int, seed: int = 42) -> np.ndarray:
     """The binary media of bench.py's porous benchmark (bench_lbm_porous):

@@ -16,29 +16,34 @@ changes once per MOOSE step, around the loop.  The last substep of a step
 runs the eager chain, so every deck buffer and the old-state ring leave the
 step as the unfused path leaves them.
 
-This slice fuses D3Q19 and D3Q27 BGK chains with face bounce-back, a body
-force, binary media (obstacle bounce-back and solid masking) and Zou-He
-fixed-order (first and zeroth order) and zero-gradient faces.
-``match_chain`` raises ``FusedChainError`` with the JAX package's own
-message, word for word, for a chain the JAX package would not fuse, and
-with a message of its own, naming the feature, for a chain it would fuse
-but this port does not yet: 2-D decks and the D2Q9 stencil, a second
-lattice and the collisionless chain.  MRT, Smagorinsky, the Hermite
-projection and force fields fail earlier, at build: their computes are not
-ported (computes/lbm.py); sharded domains fail in the Domain.  None of them
-ever falls back to the eager chain.
+The fused pattern covers D3Q19 and D3Q27 chains: BGK or MRT collisions,
+with or without the Hermite projection; face bounce-back, a body force,
+binary media (obstacle bounce-back and solid masking); Zou-He fixed-order
+(first and zeroth order) and zero-gradient faces; the collisionless chain
+(LBMStream with f_old = f); and the thermal double-distribution chain (a
+second streamed lattice g with its own faces, T = Σg, Boussinesq buoyancy
+and gravity through LBMComputeForces, the Guo source through
+LBMApplyForces, the residual on T).  ``match_chain`` raises
+``FusedChainError`` with the JAX package's own message, word for word, for
+a chain the JAX package would not fuse, and with a message of its own,
+naming the feature, for a chain it would fuse but this port does not yet:
+2-D decks and the D2Q9 stencil.  Smagorinsky collisions fail earlier, at
+build: their computes are not ported (computes/lbm.py); sharded domains
+fail in the Domain.  None of them ever falls back to the eager chain.
 
 ``fused_substep`` launches the CUDA kernel of ``csrc/lbm_substep.cu`` (the
-counterpart of pallas_lbm.py:224 ``_make_kernel``) on a CUDA tensor and
-computes its plain twin ``fused_substep_twin`` on a CPU tensor; a CUDA
+counterpart of pallas_lbm.py:224 ``_make_kernel``) on CUDA tensors and
+computes its plain twin ``fused_substep_twin`` on CPU tensors; a CUDA
 tensor never reaches the twin.  It counts its launches.
 
 Kernel, twin and the eager chain (computes/lbm.py, computes/lbm_bc.py) do
 the same operations in the same order, so ``PALLAS`` and ``JNP`` give the
-same bits: the sums over directions in index order, the divisions by
-constants as multiplications by their reciprocals, the Zou-He faces
-through one affine plan (``apply_zouhe``), the kernel built without
-fused multiply-adds.
+same bits: the sums over directions in index order (the MRT rows and the
+Hermite sums too, zero coefficients skipped), the divisions by constants
+as multiplications by their reciprocals, the Zou-He faces through one
+affine plan (``apply_zouhe``), the coefficients from one function each
+(``computes/lbm.py`` ``mrt_matrix``, ``hermite_tables``,
+``guo_prefactors``), the kernel built without fused multiply-adds.
 """
 
 from __future__ import annotations
@@ -52,7 +57,8 @@ import numpy as np
 import torch
 
 from . import unordered_fft as uf
-from .computes.lbm import INV_CS2, INV_CS4
+from .computes.lbm import (INV_CS2, INV_CS4, guo_prefactors, hermite, hermite_tables,
+                           mrt_matrix, mrt_relax, signed_sum)
 
 CS2 = 1.0 / 3.0  # the Zou-He plan's (pallas_lbm.py CS2)
 
@@ -99,6 +105,23 @@ class PostBC:
 
 
 @dataclass(frozen=True)
+class ForceSpec:
+    """Force-field chain of the thermal two-lattice decks (reference
+    LBMComputeForces.C + LBMApplyForces.C): a gravity/buoyancy field
+    F_d = g·ρ (gravity) + g·ρ₀·(T − T₀) (Boussinesq buoyancy) enters the
+    velocity as u += F/(2ρ) and the fluid collision as the Guo source
+    (1 − 1/(2τ))·w_i·ρ·(e_i·F)/c_s²."""
+
+    gravity: bool
+    buoyancy: bool
+    g: float
+    rho0: float
+    T0: float
+    direction: int
+    apply_tau: float  # LBMApplyForces tau0 (source prefactor); 0: none
+
+
+@dataclass(frozen=True)
 class FusedLBMConfig:
     q: int
     e: Tuple[Tuple[int, int, int], ...]
@@ -114,10 +137,31 @@ class FusedLBMConfig:
     faces: Tuple[Tuple[int, int, Tuple[int, ...]], ...]
     # binary media: solid masking + optional obstacle bounce-back
     has_media: bool = False
+    # MRT collision: fpc = feq + fneq - MSM·fneq with the static q×q
+    # matrix MSM = M⁻¹·S'·M (computes/lbm.py mrt_matrix); None = BGK
+    msm: Optional[Tuple[Tuple[float, ...], ...]] = None
     # post-stream BCs (Zou-He fixed-order / zero-gradient faces), deck order
     post_bcs: Tuple[PostBC, ...] = ()
-    # the carried scalar: "umag" (velocity magnitude) or "none" (zeros)
+    # False: the collisionless chain (LBMStream with f_old = f): the carried
+    # state is the post-face streamed distribution itself
+    collide: bool = True
+    # moments needed (a collision, a speed compute or a second lattice)
+    need_moments: bool = True
+    # coupled second lattice (thermal double-distribution decks): lattice 2
+    # carries the temperature advected at the fluid velocity; its zeroth
+    # moment T feeds the buoyancy force on lattice 1
+    two_lattice: bool = False
+    tau2: float = 1.0
+    msm2: Optional[Tuple[Tuple[float, ...], ...]] = None
+    faces2: Tuple[Tuple[int, int, Tuple[int, ...]], ...] = ()
+    post_bcs2: Tuple[PostBC, ...] = ()
+    force: Optional[ForceSpec] = None
+    # the carried scalar: "umag" (velocity magnitude), "t" (lattice 2's
+    # zeroth moment, the thermal decks' residual field) or "none" (zeros)
     speed_kind: str = "umag"
+    # Hermite projection of fneq before the collision, per lattice
+    proj: bool = False
+    proj2: bool = False
 
 
 @dataclass(frozen=True)
@@ -125,6 +169,7 @@ class FusedLBMPlan:
     config: FusedLBMConfig
     fpc: str  # post-collision distribution (the carried state)
     speed: Optional[str]  # carried scalar buffer (residual input)
+    fpc2: Optional[str] = None  # the second lattice's carried distribution
 
 
 # ---------------------------------------------------------------------------
@@ -231,20 +276,24 @@ def match_chain(problem) -> FusedLBMPlan:
         _reject("the solver must be LBMStream")
     if len(solver.buffers_) not in (1, 2):
         _reject("at most two streamed buffers are supported")
+    two_lattice = len(solver.buffers_) == 2
     f_name, fpc_name = solver.buffers_[0], solver.f_old[0]
-    if len(solver.buffers_) == 2:
-        if solver.buffers_[1] == f_name:
+    g_name = solver.buffers_[1] if two_lattice else None
+    gpc_name = solver.f_old[1] if two_lattice else None
+    pc_of = {f_name: fpc_name}
+    if two_lattice:
+        if g_name in pc_of:
             _reject("the two streamed buffers must be distinct")
-        _not_ported("a second streamed lattice (the two-lattice thermal chain)")
+        pc_of[g_name] = gpc_name
 
     st = problem.lbm_stencil()
     if int(st.q) == 9:
         _not_ported("the D2Q9 stencil")
-    faces = []
-    post_bcs = []
+    faces_by = {name: [] for name in pc_of}
+    post_by = {name: [] for name in pc_of}
     for bc in problem.bc_computes:
         lat = bc.out
-        if lat != f_name:
+        if lat not in pc_of:
             _reject(f"boundary compute '{bc.name}' writes '{lat}', which is "
                     f"not a streamed buffer")
         if isinstance(bc, (LB.LBMFixedFirstOrderBC, LB.LBMFixedZerothOrderBC)):
@@ -266,7 +315,7 @@ def match_chain(problem) -> FusedLBMPlan:
                 _reject("bottom/top fixed-order BCs exist for D2Q9 only")
             # perturb = true changes only the D2Q9 left face (out of this
             # slice); everywhere else the eager chain ignores it too
-            post_bcs.append(_zouhe_spec(st, axis, side, float(bc.value), first))
+            post_by[lat].append(_zouhe_spec(st, axis, side, float(bc.value), first))
             continue
         if isinstance(bc, LB.LBMMicroscopicZeroGradientBC):
             if bc.boundary not in _FACE_AXIS_SIDE:
@@ -275,25 +324,25 @@ def match_chain(problem) -> FusedLBMPlan:
                     f"face"
                 )
             axis, side = _FACE_AXIS_SIDE[bc.boundary]
-            post_bcs.append(PostBC(kind="zg", axis=axis, side=side))
+            post_by[lat].append(PostBC(kind="zg", axis=axis, side=side))
             continue
         if not isinstance(bc, LB.LBMBounceBack):
             _reject(f"boundary compute '{bc.name}' ({type(bc).__name__}) "
                     f"is not fusable")
-        if post_bcs:
+        if post_by[lat]:
             # bounce-back runs inside the streaming stage; a deck listing
-            # it AFTER a Zou-He/zero-gradient face would reorder the face
-            # writes
+            # it AFTER a Zou-He/zero-gradient face on the same lattice
+            # would reorder the face writes
             _reject(
                 f"bounce-back '{bc.name}' listed after a Zou-He/zero-"
                 f"gradient BC is not fusable"
             )
-        if bc.f_old != fpc_name:
+        if bc.f_old != pc_of[lat]:
             _reject(f"bounce-back '{bc.name}' must act on the streamed pair")
         if bc.boundary == "wall":
             if not has_media:
                 _reject("wall bounce-back requires binary media")
-            faces.append((-1, 0, ()))  # keep the deck's BC ordering
+            faces_by[lat].append((-1, 0, ()))  # keep the deck's BC ordering
             continue
         if bc.boundary not in _FACE_AXIS_SIDE:
             _reject(f"bounce-back boundary '{bc.boundary}' is not a domain face")
@@ -306,12 +355,13 @@ def match_chain(problem) -> FusedLBMPlan:
         else:
             low = {"right": "left", "top": "bottom", "back": "front"}[bc.boundary]
             dirs = st.op[incoming[low]]
-        faces.append((axis, side, tuple(int(d) for d in dirs)))
+        faces_by[lat].append((axis, side, tuple(int(d) for d in dirs)))
 
     # classify the Solve chain (collect by type, then wire by the buffer
     # dataflow)
     by_type = {"density": [], "velocity": [], "equilibrium": [],
-               "collision": [], "speed": [], "residual": []}
+               "collision": [], "speed": [], "residual": [],
+               "forces": [], "apply": []}
     for c in problem.solve_computes:
         if isinstance(c, L.LBMComputeDensity):
             by_type["density"].append(c)
@@ -319,12 +369,16 @@ def match_chain(problem) -> FusedLBMPlan:
             by_type["velocity"].append(c)
         elif isinstance(c, L.LBMEquilibrium):
             by_type["equilibrium"].append(c)
-        elif type(c) is L.LBMBGKCollision:
+        elif type(c) in (L.LBMBGKCollision, L.LBMMRTCollision):
             by_type["collision"].append(c)
         elif isinstance(c, L.LBMComputeVelocityMagnitude):
             by_type["speed"].append(c)
         elif isinstance(c, L.LBMComputeResidual):
             by_type["residual"].append(c)
+        elif isinstance(c, L.LBMComputeForces):
+            by_type["forces"].append(c)
+        elif isinstance(c, L.LBMApplyForces):
+            by_type["apply"].append(c)
         else:
             _reject(f"solve compute '{c.name}' ({type(c).__name__}) is not fusable")
     for key in by_type:
@@ -339,57 +393,132 @@ def match_chain(problem) -> FusedLBMPlan:
         return None
 
     density = pick("density", lambda c: c.f == f_name)
+    t_density = pick("density", lambda c: c.f == g_name) if two_lattice else None
     velocity = by_type["velocity"][0] if by_type["velocity"] else None
     speed = by_type["speed"][0] if by_type["speed"] else None
     residual = by_type["residual"][0] if by_type["residual"] else None
+    forces = by_type["forces"][0] if by_type["forces"] else None
+    apply_f = by_type["apply"][0] if by_type["apply"] else None
 
     for what, c in (("LBMComputeDensity", density),
                     ("LBMComputeVelocity", velocity)):
         if c is None:
             _reject(f"the chain requires a {what} compute")
+    if two_lattice and t_density is None:
+        _reject("two-lattice chains require a density (zeroth-moment) "
+                "compute on the second streamed buffer")
 
     equilibrium = pick("equilibrium", lambda c: c.rho == density.out)
     collision = pick("collision", lambda c: c.f == f_name)
+    equilibrium2 = collision2 = None
+    if two_lattice:
+        equilibrium2 = pick("equilibrium", lambda c: c.rho == t_density.out)
+        collision2 = pick("collision", lambda c: c.f == g_name)
 
     if density.f != f_name:
         _reject("density must be computed from the streamed distribution")
     if velocity.f != f_name or velocity.rho != density.out:
         _reject("velocity must be computed from the streamed distribution/density")
+
+    # force-field coupling (reference LBMComputeForces.C + LBMApplyForces.C:
+    # the thermal decks' buoyancy chain)
+    force_spec = None
     if velocity.enable_forces:
-        # LBMComputeForces is not ported, so no chain supplies the field
-        _reject("enable_forces requires a LBMComputeForces compute in the chain")
+        if forces is None:
+            _reject("enable_forces requires a LBMComputeForces compute in "
+                    "the chain")
+        if velocity.forces != forces.out:
+            _reject("the velocity's force field must be the "
+                    "LBMComputeForces output")
+    if forces is not None:
+        if not velocity.enable_forces:
+            _reject("a LBMComputeForces compute requires "
+                    "enable_forces = true on the velocity")
+        if forces.enable_buoyancy:
+            if not two_lattice:
+                _reject("buoyancy forces need the thermal (second) lattice")
+            if forces.temperature != t_density.out:
+                _reject("the buoyancy temperature must be the second "
+                        "lattice's zeroth moment")
+        if forces.enable_gravity and forces.rho != density.out:
+            _reject("the gravity force must consume the chain's density")
+        d = int(forces.gravity_direction)
+        if d >= dom.dim:
+            _reject(f"gravity_direction {d} does not exist in {dom.dim}-D")
+        apply_tau = 0.0
+        if apply_f is not None:
+            if apply_f.out != fpc_name:
+                _reject("LBMApplyForces must write the fluid post-collision "
+                        "buffer")
+            if apply_f.rho != density.out or apply_f.forces != forces.out:
+                _reject("LBMApplyForces must consume the chain's density "
+                        "and force field")
+            apply_tau = float(apply_f.tau)
+        force_spec = ForceSpec(
+            gravity=bool(forces.enable_gravity),
+            buoyancy=bool(forces.enable_buoyancy),
+            g=float(forces.g), rho0=float(forces.rho0),
+            T0=float(forces.T0), direction=d, apply_tau=apply_tau,
+        )
+    elif apply_f is not None:
+        _reject("LBMApplyForces requires a LBMComputeForces compute")
 
     if collision is None:
-        # collisionless chain (reference mixed_bcs_* decks)
+        # collisionless chain (reference mixed_bcs_* decks): LBMStream with
+        # f_old = f — the carried state is the post-BC streamed distribution
+        if two_lattice:
+            _reject("two-lattice chains require a collision per lattice")
         if equilibrium is not None:
             _reject("an equilibrium compute without a collision would go "
                     "stale across fused substeps")
         if fpc_name != f_name:
             _reject("collisionless chains require f_old = the streamed "
                     "buffer itself")
-        _not_ported("the collisionless chain (LBMStream with f_old = f)")
-    if equilibrium is None:
-        _reject("the chain requires a LBMEquilibrium compute")
-    if equilibrium.rho != density.out or equilibrium.velocity != velocity.out:
-        _reject("equilibrium must consume the chain's density and velocity")
-    if collision.f != f_name or collision.feq != equilibrium.out:
-        _reject("collision must consume the streamed distribution and equilibrium")
-    if collision.out != fpc_name:
-        _reject("collision must write the solver's f_old buffer")
+    else:
+        if equilibrium is None:
+            _reject("the chain requires a LBMEquilibrium compute")
+        if equilibrium.rho != density.out or equilibrium.velocity != velocity.out:
+            _reject("equilibrium must consume the chain's density and velocity")
+        if collision.f != f_name or collision.feq != equilibrium.out:
+            _reject("collision must consume the streamed distribution and equilibrium")
+        if collision.out != fpc_name:
+            _reject("collision must write the solver's f_old buffer")
+    if two_lattice:
+        if equilibrium2 is None or collision2 is None:
+            _reject("the second lattice requires its own equilibrium and "
+                    "collision computes")
+        if equilibrium2.velocity != velocity.out:
+            _reject("the thermal equilibrium must advect at the fluid "
+                    "velocity")
+        if collision2.f != g_name or collision2.feq != equilibrium2.out:
+            _reject("the thermal collision must consume the second "
+                    "lattice's distribution and equilibrium")
+        if collision2.out != gpc_name:
+            _reject("the thermal collision must write the solver's second "
+                    "f_old buffer")
 
     if speed is not None and speed.velocity != velocity.out:
         _reject("velocity magnitude must consume the chain's velocity")
-    # the carried scalar: the residual field (velocity magnitude)
+    # the carried scalar: the residual field (velocity magnitude, or on
+    # thermal decks the second lattice's zeroth moment)
     speed_kind = "none"
     speed_buffer = None
     if residual is not None:
         if speed is not None and residual.speed == speed.out:
             speed_kind, speed_buffer = "umag", speed.out
+        elif two_lattice and residual.speed == t_density.out:
+            speed_kind, speed_buffer = "t", t_density.out
         else:
             _reject("the residual must consume the chain's velocity "
                     "magnitude or the thermal lattice's zeroth moment")
     elif speed is not None:
         speed_kind, speed_buffer = "umag", speed.out
+
+    def msm_of(coll):
+        if type(coll) is not L.LBMMRTCollision:
+            return None
+        return tuple(tuple(float(x) for x in row)
+                     for row in mrt_matrix(st, coll.tau_0))
 
     bf = velocity.body_force if velocity.add_body_force else [0.0, 0.0, 0.0]
     nx, ny, nz = (list(dom.shape) + [1, 1])[:3]
@@ -399,23 +528,36 @@ def match_chain(problem) -> FusedLBMPlan:
         w=tuple(float(w) for w in st.weights),
         op=tuple(int(o) for o in st.op),
         nx=int(nx), ny=int(ny), nz=int(nz),
-        tau=float(collision.tau_0),
+        tau=float(collision.tau_0) if collision is not None else 1.0,
         body_force=(float(bf[0]), float(bf[1]), float(bf[2])),
-        faces=tuple(faces),
+        faces=tuple(faces_by[f_name]),
         has_media=has_media,
-        post_bcs=tuple(post_bcs),
+        msm=msm_of(collision),
+        post_bcs=tuple(post_by[f_name]),
+        collide=collision is not None,
+        need_moments=(collision is not None or speed_kind != "none"
+                      or two_lattice),
+        two_lattice=two_lattice,
+        tau2=float(collision2.tau_0) if collision2 is not None else 1.0,
+        msm2=msm_of(collision2) if two_lattice else None,
+        faces2=tuple(faces_by[g_name]) if two_lattice else (),
+        post_bcs2=tuple(post_by[g_name]) if two_lattice else (),
+        force=force_spec,
         speed_kind=speed_kind,
+        proj=bool(collision is not None and collision.projection),
+        proj2=bool(collision2 is not None and collision2.projection),
     )
     old_keys = set()
     for c in [solver] + list(problem.bc_computes) + list(problem.solve_computes):
         old_keys |= set(getattr(c, "history_requests", dict)())
-    allowed = {fpc_name, speed_buffer} - {None}
+    allowed = {fpc_name, gpc_name, speed_buffer} - {None}
     if not old_keys <= allowed:
         _reject(f"unsupported old-state history on {sorted(old_keys)}")
     return FusedLBMPlan(
         config=cfg,
         fpc=fpc_name,
         speed=speed_buffer,
+        fpc2=gpc_name,
     )
 
 
@@ -428,8 +570,8 @@ def _face_masks(cfg: FusedLBMConfig, device) -> Dict[Tuple[int, int], torch.Tens
     """(axis, side) -> a bool tensor broadcastable to (nx, ny, nz), true on
     that face."""
     masks = {}
-    keys = [(a, s) for a, s, _d in cfg.faces] + [(bc.axis, bc.side)
-                                                 for bc in cfg.post_bcs]
+    keys = ([(a, s) for a, s, _d in cfg.faces + cfg.faces2]
+            + [(bc.axis, bc.side) for bc in cfg.post_bcs + cfg.post_bcs2])
     dims = (cfg.nx, cfg.ny, cfg.nz)
     for axis, side in keys:
         if axis < 0 or (axis, side) in masks:
@@ -442,10 +584,12 @@ def _face_masks(cfg: FusedLBMConfig, device) -> Dict[Tuple[int, int], torch.Tens
 
 
 def fused_substep_twin(fpc_qm: torch.Tensor, media: Optional[torch.Tensor],
-                       cfg: FusedLBMConfig):
+                       cfg: FusedLBMConfig, gpc_qm: Optional[torch.Tensor] = None):
     """One lattice update in plain torch ops, in the kernel's order
-    (pallas_lbm.py:_make_kernel); returns (fpc_new_qm, speed).  ``fpc_qm``
-    is (q, nx, ny, nz); ``media`` the (nx, ny, nz) media code, or None."""
+    (pallas_lbm.py:_make_kernel); returns (fpc_new_qm, speed), or
+    (fpc_new_qm, gpc_new_qm, speed) on two-lattice plans.  ``fpc_qm`` (and
+    ``gpc_qm``) is (q, nx, ny, nz); ``media`` the (nx, ny, nz) media code,
+    or None."""
     q = cfg.q
     zero = torch.zeros((), dtype=fpc_qm.dtype, device=fpc_qm.device)
     masks = _face_masks(cfg, fpc_qm.device)
@@ -455,66 +599,82 @@ def fused_substep_twin(fpc_qm: torch.Tensor, media: Optional[torch.Tensor],
         # media ids are neither solid-filled nor bounced
         fluid = media >= 1
 
-    def streamed(qi):
+    def streamed(src, qi, faces):
         """Pull-streamed direction qi with face + obstacle bounce-back and
         solid masking (reference LBMStream.C:51-80 + LBMBounceBack.C +
         maskedFillSolids)."""
         e = cfg.e[qi]
-        a = torch.roll(fpc_qm[qi], e, (0, 1, 2))
-        for axis, side, dirs in cfg.faces:
+        a = torch.roll(src[qi], e, (0, 1, 2))
+        for axis, side, dirs in faces:
             if axis < 0:
                 # obstacle bounce-back: fluid cells whose upstream
                 # neighbor along e is solid
                 if qi != 0:
                     m_up = torch.roll(media, e, (0, 1, 2))
-                    a = torch.where((m_up == 0) & fluid, fpc_qm[cfg.op[qi]], a)
+                    a = torch.where((m_up == 0) & fluid, src[cfg.op[qi]], a)
             elif qi in dirs:
                 # face bounce-back: the OPPOSITE direction of the unstreamed
                 # old distribution at the same node
-                a = torch.where(masks[(axis, side)], fpc_qm[cfg.op[qi]], a)
+                a = torch.where(masks[(axis, side)], src[cfg.op[qi]], a)
         if cfg.has_media:
             a = torch.where(solid, zero, a)
         return a
 
-    fs = [streamed(qi) for qi in range(q)]
-    for bc in cfg.post_bcs:
-        # deck order, each BC reading the state the earlier ones left
-        mask = masks[(bc.axis, bc.side)]
-        prev = list(fs)
+    def lattice(src, faces, post_bcs):
+        fs = [streamed(src, qi, faces) for qi in range(q)]
+        for bc in post_bcs:
+            # deck order, each BC reading the state the earlier ones left
+            mask = masks[(bc.axis, bc.side)]
+            prev = list(fs)
 
-        def put(d, val):
-            if cfg.has_media:
-                val = torch.where(solid, zero, val)
-            fs[d] = torch.where(mask, val, fs[d])
+            def put(d, val):
+                if cfg.has_media:
+                    val = torch.where(solid, zero, val)
+                fs[d] = torch.where(mask, val, fs[d])
 
-        if bc.kind == "zg":
-            # copy the adjacent inner layer onto the face layer
-            shift = 1 if bc.side == 1 else -1
-            for qi in range(q):
-                put(qi, torch.roll(prev[qi], shift, bc.axis))
-        else:
-            for d, val in apply_zouhe(bc, prev).items():
-                put(d, val)
+            if bc.kind == "zg":
+                # copy the adjacent inner layer onto the face layer
+                shift = 1 if bc.side == 1 else -1
+                for qi in range(q):
+                    put(qi, torch.roll(prev[qi], shift, bc.axis))
+            else:
+                for d, val in apply_zouhe(bc, prev).items():
+                    put(d, val)
+        return fs
+
+    fs = lattice(fpc_qm, cfg.faces, cfg.post_bcs)
+    gs = lattice(gpc_qm, cfg.faces2, cfg.post_bcs2) if cfg.two_lattice else None
 
     # moments (reference LBMComputeDensity / LBMComputeVelocity)
-    rho = mx = my = mz = None
-    for qi in range(q):
-        a = fs[qi]
+    rho = None
+    for a in fs:
         rho = a if rho is None else rho + a
-        ex, ey, ez = cfg.e[qi]
-        if ex:
-            t = a if ex > 0 else -a
-            mx = t if mx is None else mx + t
-        if ey:
-            t = a if ey > 0 else -a
-            my = t if my is None else my + t
-        if ez:
-            t = a if ez > 0 else -a
-            mz = t if mz is None else mz + t
-    # u = m / rho (+ F / (2 rho) for each non-zero body force); tensor
-    # divisions, as the eager chain's (a Python scalar over a tensor would
-    # multiply by the tensor's reciprocal)
-    vel = [m / rho for m in (mx, my, mz)]
+    moments = [signed_sum([e[k] for e in cfg.e], fs) for k in range(3)]
+    temp = None
+    if cfg.two_lattice:
+        for a in gs:
+            temp = a if temp is None else temp + a
+    # the force field along its direction, zero at solids (reference
+    # LBMComputeForces)
+    forces = None
+    if cfg.force is not None:
+        fc = cfg.force
+        fd = torch.zeros_like(rho)
+        if fc.gravity:
+            fd = fc.g * rho
+        if fc.buoyancy:
+            t = fc.g * fc.rho0 * (temp - fc.T0)
+            fd = fd + t if fc.gravity else t
+        if cfg.has_media:
+            fd = torch.where(solid, zero, fd)
+        forces = [torch.zeros_like(rho)] * 3
+        forces[fc.direction] = fd
+    # u = m / rho (+ F / (2 rho)) (+ the body force / (2 rho) where it is
+    # non-zero); tensor divisions, as the eager chain's (a Python scalar
+    # over a tensor would multiply by the tensor's reciprocal)
+    vel = [m / rho for m in moments]
+    if forces is not None:
+        vel = [v + fc_ / (2.0 * rho) for v, fc_ in zip(vel, forces)]
     bf = torch.tensor(cfg.body_force, dtype=rho.dtype, device=rho.device)
     for i, force in enumerate(cfg.body_force):
         if force != 0.0:
@@ -526,31 +686,61 @@ def fused_substep_twin(fpc_qm: torch.Tensor, media: Optional[torch.Tensor],
     usqr = ux * ux + uy * uy + uz * uz
     if cfg.speed_kind == "umag":
         speed = torch.sqrt(usqr)
+    elif cfg.speed_kind == "t":
+        speed = temp
     else:
         speed = torch.zeros_like(rho)
 
-    inv_tau = 1.0 / cfg.tau
+    if not cfg.collide:
+        # the collisionless chain carries the post-face streamed planes
+        return torch.stack(fs), speed
+
     third = 0.5 * usqr * INV_CS2
-    out = []
-    for qi in range(q):
-        # equilibrium (reference LBMEquilibrium.C:42-66), then BGK
-        ex, ey, ez = cfg.e[qi]
-        edotu = None
-        for c, u in ((ex, ux), (ey, uy), (ez, uz)):
-            if c:
-                t = u if c > 0 else -u
-                edotu = t if edotu is None else edotu + t
+
+    def equilibrium(qi, dens):
+        """feq (reference LBMEquilibrium.C:42-66) for the bulk ``dens``."""
+        edotu = signed_sum(cfg.e[qi], (ux, uy, uz))
         if edotu is None:
-            feq = cfg.w[qi] * rho * (1.0 - third)
+            return cfg.w[qi] * dens * (1.0 - third)
+        second = edotu * INV_CS2 + 0.5 * edotu * edotu * INV_CS4
+        return cfg.w[qi] * dens * (1.0 + second - third)
+
+    def collide(planes, dens, msm, tau, proj, source):
+        """BGK or MRT (with the Hermite projection first where asked), the
+        Guo source, solid masking."""
+        inv_tau = 1.0 / tau
+        feqs = [equilibrium(qi, dens) for qi in range(q)]
+        if msm is None and not proj:
+            fneqs = None
         else:
-            second = edotu * INV_CS2 + 0.5 * edotu * edotu * INV_CS4
-            feq = cfg.w[qi] * rho * (1.0 + second - third)
-        fneq = fs[qi] - feq
-        u = feq + fneq - fneq * inv_tau
-        if cfg.has_media:
-            u = torch.where(solid, zero, u)
-        out.append(u)
-    return torch.stack(out), speed
+            fneqs = [planes[qi] - feqs[qi] for qi in range(q)]
+            if proj:
+                fneqs = hermite(fneqs, hermite_tables(cfg.e, cfg.w))
+        out = []
+        for qi in range(q):
+            if fneqs is None:
+                fneq = planes[qi] - feqs[qi]
+                u = feqs[qi] + fneq - fneq * inv_tau
+            elif msm is None:
+                u = feqs[qi] + fneqs[qi] - fneqs[qi] * inv_tau
+            else:
+                u = feqs[qi] + fneqs[qi] - mrt_relax(fneqs, msm, qi)
+            if source is not None:
+                edotf = signed_sum(cfg.e[qi], forces)
+                if edotf is not None:
+                    u = u + source[qi] * rho * edotf
+            if cfg.has_media:
+                u = torch.where(solid, zero, u)
+            out.append(u)
+        return torch.stack(out)
+
+    guo = None
+    if cfg.force is not None and cfg.force.apply_tau:
+        guo = guo_prefactors(cfg.w, cfg.force.apply_tau)
+    fpc_new = collide(fs, rho, cfg.msm, cfg.tau, cfg.proj, guo)
+    if not cfg.two_lattice:
+        return fpc_new, speed
+    return fpc_new, collide(gs, temp, cfg.msm2, cfg.tau2, cfg.proj2, None), speed
 
 
 # ---------------------------------------------------------------------------
@@ -566,27 +756,52 @@ class _Post(ctypes.Structure):
                 ("cm", ctypes.c_double * MAX_Q)]
 
 
+class _Faces(ctypes.Structure):
+    _fields_ = [("n_faces", ctypes.c_int32),
+                ("face_axis", ctypes.c_int32 * MAX_FACES),
+                ("face_side", ctypes.c_int32 * MAX_FACES),
+                ("face_dirs", ctypes.c_uint32 * MAX_FACES),
+                ("n_post", ctypes.c_int32), ("post", _Post * MAX_POST)]
+
+
+def _coef(ct):
+    class _Coef(ctypes.Structure):
+        _fields_ = [("w", ct * MAX_Q), ("inv_tau", ct * 2), ("bf", ct * 3),
+                    ("inv_cs2", ct), ("inv_cs4", ct), ("g", ct), ("g_rho0", ct),
+                    ("t0", ct), ("guo", ct * MAX_Q), ("hpref", ct * MAX_Q),
+                    ("h2", ct * (MAX_Q * 9)), ("msm", ct * (2 * MAX_Q * MAX_Q))]
+    return _Coef
+
+
 class _Plan(ctypes.Structure):
     """csrc/lbm_substep.cu ``LbmPlan``, field for field."""
 
     _fields_ = [("nx", ctypes.c_int64), ("ny", ctypes.c_int64),
-                ("nz", ctypes.c_int64), ("w", ctypes.c_double * MAX_Q),
-                ("inv_tau", ctypes.c_double), ("inv_cs2", ctypes.c_double),
-                ("inv_cs4", ctypes.c_double), ("bf", ctypes.c_double * 3),
-                ("n_faces", ctypes.c_int32),
-                ("face_axis", ctypes.c_int32 * MAX_FACES),
-                ("face_side", ctypes.c_int32 * MAX_FACES),
-                ("face_dirs", ctypes.c_uint32 * MAX_FACES),
-                ("n_post", ctypes.c_int32), ("speed", ctypes.c_int32),
-                ("post", _Post * MAX_POST)]
+                ("nz", ctypes.c_int64), ("two_lattice", ctypes.c_int32),
+                ("collide", ctypes.c_int32), ("speed", ctypes.c_int32),
+                ("force", ctypes.c_int32), ("gravity", ctypes.c_int32),
+                ("buoyancy", ctypes.c_int32), ("force_dir", ctypes.c_int32),
+                ("guo", ctypes.c_int32), ("mrt", ctypes.c_int32 * 2),
+                ("proj", ctypes.c_int32 * 2), ("bf_on", ctypes.c_int32 * 3),
+                ("lat", _Faces * 2), ("d", _coef(ctypes.c_double)),
+                ("f", _coef(ctypes.c_float))]
 
 
 LIBRARY = uf.CudaLibrary("lbm_substep", {
-    # fpc, media (or null), fpc_new, speed; q, double?; the host plan; stream
-    "mtt_lbm_substep": [uf._P] * 4 + [ctypes.c_int] * 2 + [uf._P, uf._P],
+    # fpc, gpc (or null), media (or null), fpc_new, gpc_new (or null),
+    # speed; q, double?; the host plan; stream
+    "mtt_lbm_substep": [uf._P] * 6 + [ctypes.c_int] * 2 + [uf._P, uf._P],
     # q; the compiled-in e (q·3) and op (q) tables out
     "mtt_lbm_tables": [ctypes.c_int, uf._P, uf._P],
-}, source=os.path.join(uf.CSRC, "lbm_substep.cu"), flags=["-fmad=false"])
+    # the plan's size and field offsets out (int64[7])
+    "mtt_lbm_plan_layout": [uf._P],
+}, source=os.path.join(uf.CSRC, "lbm_substep.cu"),
+    # no contraction (the eager chain's bits); the register report; the 16
+    # template instantiations optimized on every core (-split-compile=0:
+    # 28 s against 95 s single-threaded on the H100 machine's host)
+    flags=["-fmad=false", "-Xptxas=-v", "-split-compile=0"])
+
+_SPEED_KIND = {"none": 0, "umag": 1, "t": 2}
 
 
 def _mask(dirs) -> int:
@@ -596,23 +811,17 @@ def _mask(dirs) -> int:
     return m
 
 
-def pack(cfg: FusedLBMConfig) -> _Plan:
-    """The kernel's plan struct for ``cfg``; raises for what the kernel
-    does not take."""
-    if len(cfg.faces) > MAX_FACES or len(cfg.post_bcs) > MAX_POST:
+def _pack_faces(lat: _Faces, cfg: FusedLBMConfig, faces, post_bcs):
+    if len(faces) > MAX_FACES or len(post_bcs) > MAX_POST:
         raise FusedChainError(
             f"lbm_backend = PALLAS: the kernel takes at most {MAX_FACES} "
-            f"bounce-back and {MAX_POST} post-stream boundary conditions")
-    p = _Plan(nx=cfg.nx, ny=cfg.ny, nz=cfg.nz, inv_tau=1.0 / cfg.tau,
-              inv_cs2=INV_CS2, inv_cs4=INV_CS4,
-              n_faces=len(cfg.faces), n_post=len(cfg.post_bcs),
-              speed=int(cfg.speed_kind == "umag"))
-    p.w[:cfg.q] = cfg.w
-    p.bf[:] = cfg.body_force
-    for i, (axis, side, dirs) in enumerate(cfg.faces):
-        p.face_axis[i], p.face_side[i], p.face_dirs[i] = axis, side, _mask(dirs)
-    for i, bc in enumerate(cfg.post_bcs):
-        post = p.post[i]
+            f"bounce-back and {MAX_POST} post-stream boundary conditions "
+            f"a lattice")
+    lat.n_faces, lat.n_post = len(faces), len(post_bcs)
+    for i, (axis, side, dirs) in enumerate(faces):
+        lat.face_axis[i], lat.face_side[i], lat.face_dirs[i] = axis, side, _mask(dirs)
+    for i, bc in enumerate(post_bcs):
+        post = lat.post[i]
         post.kind, post.axis, post.side = int(bc.kind == "zg"), bc.axis, bc.side
         post.a, post.b = bc.a, bc.b
         # the kernel sums sum1, then 2·sum2, each in ascending direction
@@ -627,6 +836,43 @@ def pack(cfg: FusedLBMConfig) -> _Plan:
                     "term, or a direction twice)")
             post.rows |= 1 << d
             post.cm[d] = cm
+
+
+def pack(cfg: FusedLBMConfig) -> _Plan:
+    """The kernel's plan struct for ``cfg``; raises for what the kernel
+    does not take."""
+    q = cfg.q
+    fc = cfg.force
+    p = _Plan(nx=cfg.nx, ny=cfg.ny, nz=cfg.nz, two_lattice=int(cfg.two_lattice),
+              collide=int(cfg.collide), speed=_SPEED_KIND[cfg.speed_kind],
+              force=int(fc is not None),
+              gravity=int(fc is not None and fc.gravity),
+              buoyancy=int(fc is not None and fc.buoyancy),
+              force_dir=fc.direction if fc is not None else 0,
+              guo=int(fc is not None and bool(fc.apply_tau)))
+    p.mrt[:] = [int(cfg.msm is not None), int(cfg.msm2 is not None)]
+    p.proj[:] = [int(cfg.proj), int(cfg.proj2)]
+    p.bf_on[:] = [int(b != 0.0) for b in cfg.body_force]
+    _pack_faces(p.lat[0], cfg, cfg.faces, cfg.post_bcs)
+    _pack_faces(p.lat[1], cfg, cfg.faces2, cfg.post_bcs2)
+    _ccr, h2, hpref = hermite_tables(cfg.e, cfg.w)
+    # each table in double and rounded to float: the constants the eager
+    # chain multiplies by, as a Python float (double) or cast to float32
+    for t in (p.d, p.f):
+        t.w[:q] = cfg.w
+        t.inv_tau[:] = [1.0 / cfg.tau, 1.0 / cfg.tau2]
+        t.bf[:] = cfg.body_force
+        t.inv_cs2, t.inv_cs4 = INV_CS2, INV_CS4
+        if fc is not None:
+            t.g, t.g_rho0, t.t0 = fc.g, fc.g * fc.rho0, fc.T0
+            if fc.apply_tau:
+                t.guo[:q] = guo_prefactors(cfg.w, fc.apply_tau)
+        t.hpref[:q] = hpref
+        t.h2[:q * 9] = [float(x) for x in h2.reshape(-1)]
+        for lat, msm in enumerate((cfg.msm, cfg.msm2)):
+            if msm is not None:
+                base = lat * MAX_Q * MAX_Q
+                t.msm[base:base + q * q] = [x for row in msm for x in row]
     return p
 
 
@@ -635,16 +881,28 @@ _CHECKED_TABLES = set()
 
 def _check_tables(cfg: FusedLBMConfig):
     """The kernel compiles each stencil's e and op in (so every direction
-    index is static); hold them to the plan's once per stencil."""
+    index is static): hold them to the plan's once per stencil, and the
+    plan's ctypes mirror to the kernel's struct once."""
     key = (cfg.q, cfg.e, cfg.op)
     if key in _CHECKED_TABLES:
         return
     if cfg.q not in (19, 27):
         raise FusedChainError(f"lbm_backend = PALLAS: the kernel takes q = 19 "
                               f"or 27 (got {cfg.q})")
+    lib = LIBRARY.load()
+    layout = np.zeros(7, np.int64)
+    lib.mtt_lbm_plan_layout(layout.ctypes.data)
+    coef_d, coef_f = _Plan.d.offset, _Plan.f.offset
+    ours = [ctypes.sizeof(_Plan), _Plan.lat.offset,
+            _Plan.lat.offset + ctypes.sizeof(_Faces), coef_d,
+            coef_d + type(_Plan().d).msm.offset, coef_f,
+            coef_f + type(_Plan().f).msm.offset]
+    if layout.tolist() != ours:
+        raise RuntimeError(f"lbm_substep: the ctypes plan {ours} differs from "
+                           f"csrc/lbm_substep.cu's LbmPlan {layout.tolist()}")
     e = np.zeros((cfg.q, 3), np.int32)
     op = np.zeros(cfg.q, np.int32)
-    err = LIBRARY.load().mtt_lbm_tables(cfg.q, e.ctypes.data, op.ctypes.data)
+    err = lib.mtt_lbm_tables(cfg.q, e.ctypes.data, op.ctypes.data)
     if err != 0 or [tuple(r) for r in e.tolist()] != list(cfg.e) or \
             tuple(op.tolist()) != cfg.op:
         raise FusedChainError(f"lbm_backend = PALLAS: the D3Q{cfg.q} tables "
@@ -654,17 +912,27 @@ def _check_tables(cfg: FusedLBMConfig):
 
 
 def fused_substep(fpc_qm: torch.Tensor, media: Optional[torch.Tensor],
-                  cfg: FusedLBMConfig):
+                  cfg: FusedLBMConfig, gpc_qm: Optional[torch.Tensor] = None):
     """One lattice update of the (q, nx, ny, nz) post-collision
-    distribution; ``media`` is the (nx, ny, nz) int8 media code
-    (TensorProblem.lbm_media) or None.  Returns (fpc_new_qm, speed).
-    Replaces pallas_lbm.py:224 ``_make_kernel`` (via ``fused_substep``)."""
+    distribution (and on two-lattice plans the second lattice's,
+    ``gpc_qm``); ``media`` is the (nx, ny, nz) int8 media code
+    (TensorProblem.lbm_media) or None.  Returns (fpc_new_qm, speed), or
+    (fpc_new_qm, gpc_new_qm, speed) on two-lattice plans.  Replaces
+    pallas_lbm.py:224 ``_make_kernel`` (via ``fused_substep``)."""
     shape = (cfg.q, cfg.nx, cfg.ny, cfg.nz)
     if tuple(fpc_qm.shape) != shape:
         raise ValueError(f"fused_substep: fpc shape {tuple(fpc_qm.shape)}, "
                          f"plan {shape}")
     if fpc_qm.dtype not in (torch.float32, torch.float64):
         raise TypeError(f"fused_substep: dtype {fpc_qm.dtype} (float32 or float64)")
+    if cfg.two_lattice != (gpc_qm is not None):
+        raise ValueError("fused_substep: gpc must be given exactly when the "
+                         "plan has two lattices")
+    if gpc_qm is not None and (tuple(gpc_qm.shape) != shape
+                               or gpc_qm.dtype != fpc_qm.dtype
+                               or gpc_qm.device != fpc_qm.device):
+        raise TypeError("fused_substep: gpc must match fpc's shape, dtype and "
+                        "device")
     if cfg.has_media != (media is not None):
         raise ValueError("fused_substep: media must be given exactly when the "
                          "plan has binary media")
@@ -674,19 +942,23 @@ def fused_substep(fpc_qm: torch.Tensor, media: Optional[torch.Tensor],
         raise TypeError("fused_substep: media must be the (nx, ny, nz) int8 "
                         "media code on the distribution's device")
     if not uf._launch_kernel(fpc_qm, "fused_substep"):
-        return fused_substep_twin(fpc_qm, media, cfg)
-    if not fpc_qm.is_contiguous() or (media is not None and not media.is_contiguous()):
+        return fused_substep_twin(fpc_qm, media, cfg, gpc_qm)
+    if not fpc_qm.is_contiguous() or (media is not None and not media.is_contiguous()) \
+            or (gpc_qm is not None and not gpc_qm.is_contiguous()):
         raise ValueError("fused_substep: inputs must be contiguous")
     _check_tables(cfg)
     plan = pack(cfg)
     out = torch.empty_like(fpc_qm)
+    gout = torch.empty_like(gpc_qm) if gpc_qm is not None else None
     speed = torch.empty(shape[1:], dtype=fpc_qm.dtype, device=fpc_qm.device)
-    uf._launch(LIBRARY.load().mtt_lbm_substep, uf._ptr(fpc_qm), uf._ptr(media),
-               uf._ptr(out), uf._ptr(speed), cfg.q,
+    uf._launch(LIBRARY.load().mtt_lbm_substep, uf._ptr(fpc_qm), uf._ptr(gpc_qm),
+               uf._ptr(media), uf._ptr(out), uf._ptr(gout), uf._ptr(speed), cfg.q,
                int(fpc_qm.dtype == torch.float64), ctypes.addressof(plan),
                device=fpc_qm.device, name="fused_substep")
     fused_substep.launches += 1
-    return out, speed
+    if gout is None:
+        return out, speed
+    return out, gout, speed
 
 
 fused_substep.launches = 0

@@ -532,8 +532,8 @@ class TensorProblem:
 
     def _lbm_fused_substeps(self, state):
         """Substeps 0..n-2 through the fused kernel (lbm_fused.py), carrying
-        only fpc, q-major, and speed (marlin_tpu/problem.py:
-        _lbm_fused_substeps)."""
+        only fpc (and on thermal decks gpc), q-major, and the carried scalar
+        (marlin_tpu/problem.py:_lbm_fused_substeps)."""
         if self._lbm_fused_plan is None:
             self._lbm_fused_plan = lbm_fused.match_chain(self)
         plan = self._lbm_fused_plan
@@ -555,7 +555,7 @@ class TensorProblem:
                 )
         # buffers other than the carried set go stale during the fused
         # substeps, so history on them would record whole-step differences
-        allowed_old = {plan.fpc, plan.speed}
+        allowed_old = {plan.fpc, plan.fpc2, plan.speed}
         extra_old = set(state["old"]) - allowed_old
         if extra_old:
             raise lbm_fused.FusedChainError(
@@ -565,16 +565,28 @@ class TensorProblem:
             )
 
         # q-major inside the loop: each direction's plane is contiguous
-        # (no copy when the eager chain left fpc direction-major)
-        fpc_qm = state["buffers"][plan.fpc].permute(3, 0, 1, 2).contiguous()
+        # (no copy when the eager chain left the distribution
+        # direction-major)
+        def q_major(name):
+            return state["buffers"][name].permute(3, 0, 1, 2).contiguous()
+
+        fpc_qm = q_major(plan.fpc)
+        gpc_qm = q_major(plan.fpc2) if cfg.two_lattice else None
         media = self.lbm_media() if cfg.has_media else None
         for _ in range(n_fused):
-            fpc_qm, speed = lbm_fused.fused_substep(fpc_qm, media, cfg)
+            out = lbm_fused.fused_substep(fpc_qm, media, cfg, gpc_qm)
+            if cfg.two_lattice:
+                fpc_qm, gpc_qm, speed = out
+            else:
+                fpc_qm, speed = out
         buffers = dict(state["buffers"])
-        # the (nx, ny, nz, q) view of the q-major result, as the eager
+        # the (nx, ny, nz, q) views of the q-major results, as the eager
         # chain stores distributions
         buffers[plan.fpc] = fpc_qm.permute(1, 2, 3, 0)
+        if cfg.two_lattice:
+            buffers[plan.fpc2] = gpc_qm.permute(1, 2, 3, 0)
         if plan.speed is not None:
+            # |u|, or on thermal decks T (the residual's field)
             buffers[plan.speed] = speed
         return {
             **state,

@@ -2,15 +2,17 @@
 card.
 
     python -m marlin_tpu_torch.substep_profile [--backend PALLAS|DEFAULT]
-        [--deck ch3d|multi3d|porous|mixed] [--carry] [--fused]
+        [--deck ch3d|multi3d|porous|mixed|thermal|pebbles] [--carry] [--fused]
         [--lbm-backend PALLAS|JNP]
 
 Builds ``decks.CH3D_DECK`` (or the two-field ``decks.MULTI_3D_DECK``, dt =
 0.05) at 512³ (10 substeps a step) in float32 on the card, with
 ``carry_reciprocal`` (``--carry``) or ``carry_reciprocal`` and
 ``fused_spectral`` (``--fused``, PALLAS only); or ``decks.POROUS_DECK``
-(through ``decks.porous_media``) or ``decks.MIXED_DECK`` at 256³ (20
-substeps a step) with ``lbm_backend`` from ``--lbm-backend``.  Times
+(through ``decks.porous_media``), ``decks.MIXED_DECK``, the thermal
+``decks.THERMAL3D_DECK`` or ``decks.PEBBLES_DECK`` (through
+``decks.porous_media``) at 256³ (20 substeps a step) with ``lbm_backend``
+from ``--lbm-backend``.  Times
 problem construction and ``init_state``, warms up with one step (two for
 LBM, whose first step runs no substeps), then traces one more step with
 ``torch.profiler``: device time by kernel name, split into the hand
@@ -27,7 +29,8 @@ import time
 import torch
 
 from . import hit
-from .decks import CH3D_DECK, MIXED_DECK, MULTI_3D_DECK, POROUS_DECK, porous_media
+from .decks import (CH3D_DECK, MIXED_DECK, MULTI_3D_DECK, PEBBLES_DECK, POROUS_DECK,
+                    THERMAL3D_DECK, porous_media)
 from .problem import TensorProblem
 
 N = 512
@@ -41,7 +44,8 @@ def main(argv=None) -> int:
     ap = argparse.ArgumentParser(prog="marlin_tpu_torch.substep_profile")
     ap.add_argument("--backend", default="PALLAS", choices=["PALLAS", "DEFAULT"])
     ap.add_argument("--deck", default="ch3d",
-                    choices=["ch3d", "multi3d", "porous", "mixed"])
+                    choices=["ch3d", "multi3d", "porous", "mixed", "thermal",
+                             "pebbles"])
     ap.add_argument("--carry", action="store_true")
     ap.add_argument("--fused", action="store_true")
     ap.add_argument("--lbm-backend", default="PALLAS", choices=["PALLAS", "JNP"])
@@ -53,14 +57,19 @@ def main(argv=None) -> int:
               else "carry_reciprocal = true" if ns.carry else "")
     domain = f"fft_backend = {ns.backend}\n  floating_precision = SINGLE"
     arrays, n, substeps, warm = None, N, SUBSTEPS, 1
-    if ns.deck in ("porous", "mixed"):
+    if ns.deck in ("porous", "mixed", "thermal", "pebbles"):
         dt, n, substeps, warm = 1.0, LBM_N, LBM_SUBSTEPS, 2
-        fmt = dict(n=n, substeps=substeps, backend=ns.lbm_backend)
+        fmt = dict(substeps=substeps, backend=ns.lbm_backend)
         if ns.deck == "porous":
-            deck = POROUS_DECK.format(media_h5="media.h5", **fmt)
+            deck = POROUS_DECK.format(n=n, media_h5="media.h5", **fmt)
             arrays = {"media": porous_media(n)}
+        elif ns.deck == "mixed":
+            deck = MIXED_DECK.format(n=n, **fmt)
+        elif ns.deck == "thermal":
+            deck = THERMAL3D_DECK.format(n=n, **fmt)
         else:
-            deck = MIXED_DECK.format(**fmt)
+            deck = PEBBLES_DECK.format(nx=n, ny=n, nz=n, media_h5="media.h5", **fmt)
+            arrays = {"media": porous_media(n)}
         deck = deck.replace("[Domain]", "[Domain]\n  floating_precision = SINGLE")
     elif ns.deck == "ch3d":
         dt = 1.0

@@ -232,7 +232,9 @@ class CudaLibrary:
     """One shared library built by nvcc from a source in ``csrc/`` (or from
     generated source text) and bound with ctypes.  Its file name carries a
     hash of the source, the shared headers and the flags, so a changed
-    source builds anew.  ``flags`` are added to NVCC_FLAGS for this library."""
+    source builds anew.  ``flags`` are added to NVCC_FLAGS for this library;
+    ``log`` keeps what nvcc printed on the build this process made (the
+    ``-Xptxas=-v`` register report, where a library asks for it)."""
 
     def __init__(self, stem: str, signatures: Dict[str, list],
                  source: str = None, text: str = None, flags=()):
@@ -241,6 +243,7 @@ class CudaLibrary:
         self.source = source
         self.text = text
         self.flags = list(NVCC_FLAGS) + list(flags)
+        self.log = ""
         self._lib = None
 
     def _source_bytes(self) -> bytes:
@@ -275,6 +278,7 @@ class CudaLibrary:
                 raise KernelBuildError(
                     f"nvcc failed ({proc.returncode}): {' '.join(cmd)}\n"
                     f"{proc.stderr}{proc.stdout}")
+            self.log = proc.stderr + proc.stdout
             os.replace(tmp, path)
         finally:
             if os.path.exists(tmp):

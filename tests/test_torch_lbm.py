@@ -90,17 +90,58 @@ def _with_bcs(deck, blocks):
 
 FACES_3D = ["left", "right", "bottom", "top", "front", "back"]
 
+_EXTRA_BUFFERS = "".join(
+    f"  [{name}]\n    type = LBMTensorBuffer\n    buffer_type = {kind}\n  []\n"
+    for name, kind in (("fpc_mrt", "df"), ("fpc_mrtp", "df"), ("fpc_bgkp", "df"),
+                       ("F_g", "mv"), ("F_b", "mv"), ("F_gb", "mv"), ("T", "ms")))
+
+
+def _block(name, btype, lines):
+    body = "".join(f"      {line}\n" for line in lines)
+    return f"    [{name}]\n      type = {btype}\n{body}    []\n"
+
+
+def _collision(name, btype, out, projection):
+    lines = [f"buffer = {out}", "f = f", "feq = feq", "tau0 = 0.7"]
+    return _block(name, btype, lines + (["projection = true"] if projection else []))
+
+
+def _forces(name, out, gravity, buoyancy, direction):
+    lines = [f"buffer = {out}", "rho = density", "temperature = T", "rho0 = 0.9",
+             "T0 = 1.02", "gravity = 0.002", f"gravity_direction = {direction}"]
+    lines += ["enable_gravity = true"] * gravity + ["enable_buoyancy = true"] * buoyancy
+    return _block(name, "LBMComputeForces", lines)
+
+
+_EXTRA_SOLVES = (
+    _collision("x_mrt", "LBMMRTCollision", "fpc_mrt", False)
+    + _collision("x_mrt_projected", "LBMMRTCollision", "fpc_mrtp", True)
+    + _collision("x_bgk_projected", "LBMBGKCollision", "fpc_bgkp", True)
+    + _forces("x_gravity", "F_g", True, False, 1)
+    + _forces("x_buoyancy", "F_b", False, True, 0)
+    + _forces("x_gravity_buoyancy", "F_gb", True, True, 1)
+    + _block("x_apply", "LBMApplyForces", ["buffer = fpc_mrt", "rho = density",
+                                          "forces = F_gb", "tau0 = 0.7"]))
+
+
+def _with_extras(deck):
+    """A harness deck with the MRT and projected collisions and the force
+    computes beside its own chain (each writes a buffer of its own; the
+    harness applies every compute to the same random state)."""
+    deck = deck.replace("[TensorBuffers]\n", "[TensorBuffers]\n" + _EXTRA_BUFFERS, 1)
+    return deck.replace("  [Solve]\n", "  [Solve]\n" + _EXTRA_SOLVES, 1)
+
 
 def _harness_3d(tmp_path, stencil):
     deck = decks.MEDIA_DECK.format(backend="JNP", media_h5=_media_file(
         tmp_path, _box_media())).replace("type = LBMD3Q19", f"type = {stencil}")
     blocks = _harness_bcs(FACES_3D, ["left", "right"])
     blocks += _bc("bb_wall", "LBMBounceBack", "wall", "      f_old = fpc\n")
-    return _with_bcs(deck, blocks)
+    return _with_extras(_with_bcs(deck, blocks))
 
 
 def _harness_allface(tmp_path, stencil):
-    return decks.ALLFACE_DECK.format(n=6, stencil=stencil, backend="JNP")
+    return _with_extras(decks.ALLFACE_DECK.format(n=6, stencil=stencil, backend="JNP"))
 
 
 def _harness_2d(tmp_path, stencil):
@@ -114,7 +155,7 @@ def _harness_2d(tmp_path, stencil):
                           ["left", "right", "bottom", "top"])
     blocks += _bc("zh1_perturbed", "LBMFixedFirstOrderBC", "left",
                   "      f = f\n      value = 0.02\n      perturb = true\n")
-    return _with_bcs(deck, blocks)
+    return _with_extras(_with_bcs(deck, blocks))
 
 
 HARNESSES = {
@@ -197,7 +238,9 @@ def test_residual_is_one_before_history():
 
 
 @pytest.mark.parametrize("case", ["allface_d3q19", "allface_d3q27", "media",
-                                  "inlet_outlet", "porous_16", "mixed_12"])
+                                  "inlet_outlet", "porous_16", "mixed_12",
+                                  "thermal", "pebbles", "porous_proj",
+                                  "collisionless"])
 def test_deck_state_matches_jax(case, tmp_path):
     text = deck_text(case, "JNP", tmp_path)[0]
     assert_state_parity(_run_jax(text), _run_port(text), DECKS[case][2])
@@ -286,6 +329,10 @@ def test_lbm_deck_copies_are_the_originals():
     assert decks.ALLFACE_DECK == tpl._ALLFACE_DECK
     assert decks.MEDIA_DECK == tpl._MEDIA_DECK
     assert decks.INLET_OUTLET_DECK == tpl._INLET_OUTLET_DECK
+    assert decks.THERMAL3D_DECK == bench._THERMAL3D_DECK
+    keep = dict(backend="{backend}", media_h5="{media_h5}")
+    assert decks.PEBBLES_DECK.format(nx=12, ny=8, nz=8, substeps=6, **keep) == \
+        tpl._THERMAL_3D_DECK.format(**keep)
 
 
 def _bench_porous_media(n):

@@ -8,11 +8,13 @@ Tolerances:
 - the twin against the interpret-mode kernel, one substep in float64:
   1e-12;
 - whole decks on ``lbm_backend = PALLAS``: 1e-12, and 1e-10 with a Zou-He
-  inlet (tests/test_pallas_lbm.py's own), against JAX on PALLAS and on JNP;
+  face and on the thermal, projected and collisionless decks
+  (tests/test_pallas_lbm.py's own), against JAX on PALLAS and on JNP;
 - the port's PALLAS path against its own JNP path: equal, bit for bit, in
   float32 and float64 (the kernel and its twin do the eager chain's
   operations in its order);
-- rejections: the JAX package's message, word for word.
+- rejections: the JAX package's message, word for word (one deck a
+  reachable ``_reject``, the thermal ones edits of decks.THERMAL3D_DECK).
 The `cuda` cases hold the CUDA kernel to its twin on the card; the JAX
 package is imported inside a fixture, so they run where there is no jax
 (nor h5py: the port takes the media as arrays).
@@ -28,7 +30,6 @@ import torch
 from marlin_tpu_torch import decks, hit
 from marlin_tpu_torch import lbm_fused as lf
 from marlin_tpu_torch import state as port_state
-from marlin_tpu_torch.params import ParamError
 from marlin_tpu_torch.problem import TensorProblem
 
 TOL = 1e-12
@@ -170,6 +171,28 @@ def _channel_media():
     return media
 
 
+def _thermal_zero_gradient(backend):
+    """decks.THERMAL3D_DECK with a zero-gradient face on the thermal
+    lattice in place of its cold Zou-He face."""
+    return decks.THERMAL3D_DECK.format(n=6, substeps=4, backend=backend).replace(
+        """    [cold_right]
+      type = LBMFixedZerothOrderBC
+      buffer = g
+      f = g
+      value = T_C
+      boundary = right""", """    [cold_right]
+      type = LBMMicroscopicZeroGradientBC
+      buffer = g
+      boundary = right""")
+
+
+def pebbles_media():
+    """tests/test_pallas_lbm.py's Pebbles obstacle."""
+    media = np.ones((12, 8, 8), dtype=np.int64)
+    media[5:8, 3:6, 2:5] = 0
+    return media
+
+
 DECKS = {
     # name: (deck(backend, media_h5), media or None, tolerance of a whole
     # deck) — every feature group of the slice
@@ -192,9 +215,26 @@ DECKS = {
         n=16, substeps=5, backend=b, media_h5=m), lambda: decks.porous_media(16), TOL),
     "mixed_12": (lambda b, m: decks.MIXED_DECK.format(n=12, substeps=5, backend=b),
                  None, ZOUHE_TOL),
+    # the thermal double-distribution decks (BGK; MRT with media), the
+    # projected and collisionless chains: 1e-10, the JAX package's bound for
+    # its own thermal decks (tests/test_pallas_lbm.py)
+    "thermal": (lambda b, m: decks.THERMAL3D_DECK.format(n=6, substeps=4, backend=b),
+                None, ZOUHE_TOL),
+    "thermal_zg": (lambda b, m: _thermal_zero_gradient(b), None, ZOUHE_TOL),
+    "pebbles": (lambda b, m: decks.PEBBLES_DECK.format(
+        nx=12, ny=8, nz=8, substeps=6, backend=b, media_h5=m), pebbles_media, ZOUHE_TOL),
+    "porous_proj": (lambda b, m: decks.PROJECTED_DECK.format(
+        n=8, substeps=4, backend=b, media_h5=m), lambda: decks.porous_media(8), ZOUHE_TOL),
+    "collisionless": (lambda b, m: decks.COLLISIONLESS_DECK.format(backend=b), None,
+                      ZOUHE_TOL),
+    "allface_d3q27_mrt": (lambda b, m: decks.ALLFACE_DECK.format(
+        n=8, stencil="LBMD3Q27", backend=b).replace("LBMBGKCollision", "LBMMRTCollision"),
+        None, ZOUHE_TOL),
 }
 PLAN_CASES = ["porous_8", "mixed_8", "reversed", "allface_d3q19",
-              "allface_d3q27", "zeroth_order", "media_channel"]
+              "allface_d3q27", "zeroth_order", "media_channel", "thermal",
+              "thermal_zg", "pebbles", "porous_proj", "collisionless",
+              "allface_d3q27_mrt"]
 
 
 def deck(case, backend, tmp_path=None):
@@ -221,21 +261,28 @@ def jax_plan(jx, case, tmp_path):
     return jx.PL.match_chain(p)
 
 
+def _same_field(name, ours, ref):
+    if name in ("post_bcs", "post_bcs2"):
+        keys = [f.name for f in dataclasses.fields(lf.PostBC)]
+        return [[getattr(bc, k) for k in keys] for bc in ours] == \
+            [[getattr(bc, k) for k in keys] for bc in ref]
+    if name == "force" and ours is not None and ref is not None:
+        return dataclasses.asdict(ours) == {k: getattr(ref, k) for k in
+                                            dataclasses.asdict(ours)}
+    return ours == ref
+
+
 @pytest.mark.parametrize("case", PLAN_CASES)
 def test_plan_and_twin_match_pallas(jx, case, tmp_path):
     """The port's plan is the JAX package's, field for field, and one
     twin substep equals one interpret-mode kernel substep (4×5×6, float64,
-    random distribution and media), incl. the corners where zero-gradient
-    faces meet bounce-back."""
+    random distributions and media), incl. the corners where zero-gradient
+    faces meet bounce-back, and both lattices of the thermal plans."""
     jplan, plan = jax_plan(jx, case, tmp_path), port_plan(case)
-    assert (plan.fpc, plan.speed) == (jplan.fpc, jplan.speed)
+    assert (plan.fpc, plan.speed, plan.fpc2) == (jplan.fpc, jplan.speed, jplan.fpc2)
     for field in dataclasses.fields(plan.config):
         ours, ref = getattr(plan.config, field.name), getattr(jplan.config, field.name)
-        if field.name == "post_bcs":
-            keys = [f.name for f in dataclasses.fields(lf.PostBC)]
-            ours = [[getattr(bc, k) for k in keys] for bc in ours]
-            ref = [[getattr(bc, k) for k in keys] for bc in ref]
-        assert ours == ref, field.name
+        assert _same_field(field.name, ours, ref), field.name
     shape = (4, 5, 6)
     cfg = dataclasses.replace(plan.config, nx=4, ny=5, nz=6)
     jcfg = dataclasses.replace(jplan.config, nx=4, ny=5, nz=6, block=4,
@@ -243,14 +290,21 @@ def test_plan_and_twin_match_pallas(jx, case, tmp_path):
     rng = np.random.RandomState(11)
     w = np.asarray(cfg.w)[:, None, None, None]
     fpc = w * (1.0 + 0.1 * rng.standard_normal((cfg.q,) + shape))
+    gpc = w * (1.0 + 0.1 * rng.standard_normal((cfg.q,) + shape)) \
+        if cfg.two_lattice else None
     media = jmedia = None
     if cfg.has_media:
         code = rng.choice([0, 1, 1, 1, -1], size=shape).astype(np.int8)
         media = torch.from_numpy(code)
         jmedia = jx.jnp.asarray(code.astype(np.float64))
         fpc = np.where(code == 0, 0.0, fpc)
-    ref = jx.PL.fused_substep(jx.jnp.asarray(fpc), jmedia, jcfg)
-    got = lf.fused_substep(torch.from_numpy(fpc), media, cfg)
+        if gpc is not None:
+            gpc = np.where(code == 0, 0.0, gpc)
+    ref = jx.PL.fused_substep(jx.jnp.asarray(fpc), jmedia, jcfg,
+                              gpc_qm=None if gpc is None else jx.jnp.asarray(gpc))
+    got = lf.fused_substep(torch.from_numpy(fpc), media, cfg,
+                           None if gpc is None else torch.from_numpy(gpc))
+    assert len(got) == len(ref) == (3 if cfg.two_lattice else 2)
     for g, r in zip(got, ref):
         np.testing.assert_allclose(g.numpy(), np.asarray(r), rtol=0, atol=TOL)
     assert lf.launches() == {"lbm_substep": 0}
@@ -259,7 +313,9 @@ def test_plan_and_twin_match_pallas(jx, case, tmp_path):
 # -- whole decks --------------------------------------------------------------------
 
 WHOLE_CASES = ["allface_d3q19", "allface_d3q27", "media", "inlet_outlet",
-               "media_channel", "porous_16", "mixed_12", "reversed", "zeroth_order"]
+               "media_channel", "porous_16", "mixed_12", "reversed", "zeroth_order",
+               "thermal", "thermal_zg", "pebbles", "porous_proj", "collisionless",
+               "allface_d3q27_mrt"]
 
 
 @pytest.mark.parametrize("case", WHOLE_CASES)
@@ -268,7 +324,7 @@ def test_pallas_deck_matches_jax_jnp(jx, case, tmp_path):
                         run_port(deck(case, "PALLAS", tmp_path)[0]), DECKS[case][2])
 
 
-@pytest.mark.parametrize("case", ["allface_d3q19", "mixed_8"])
+@pytest.mark.parametrize("case", ["allface_d3q19", "mixed_8", "thermal", "pebbles"])
 def test_pallas_deck_matches_jax_pallas(jx, case, tmp_path):
     text = deck(case, "PALLAS", tmp_path)[0]
     assert_state_parity(run_jax(jx, text), run_port(text), DECKS[case][2])
@@ -289,8 +345,12 @@ def _bit_for_bit(case, precision, device="cpu"):
     assert torch.equal(a["solver"]["residual"], b["solver"]["residual"])
 
 
+BIT_CASES = ["porous_16", "mixed_12", "media_channel", "thermal", "pebbles",
+             "porous_proj", "collisionless"]
+
+
 @pytest.mark.parametrize("precision", ["SINGLE", "DOUBLE"])
-@pytest.mark.parametrize("case", ["porous_16", "mixed_12", "media_channel"])
+@pytest.mark.parametrize("case", BIT_CASES)
 def test_pallas_is_jnp_bit_for_bit(case, precision):
     """The fused substeps compute the eager chain's operations in its
     order: every buffer equal, bit for bit, after 3 steps."""
@@ -405,7 +465,147 @@ REJECTIONS = {
         (BUFFERS, BUFFERS + DF.format("vel2", "mv"))),
     "residual_of_density": _edit((RESIDUAL, RESIDUAL.replace("speed = speed",
                                                              "speed = density"))),
+    "two_lattice_no_density": _edit(
+        (SOLVER, SOLVER.replace("buffer = f\n  f_old = fpc",
+                                "buffer = 'f g'\n  f_old = 'fpc gpc'")),
+        (BUFFERS, BUFFERS + DF.format("g", "df") + DF.format("gpc", "df"))),
+    "forces_without_enable_forces": _edit(
+        (RESIDUAL, RESIDUAL + "    [forces]\n      type = LBMComputeForces\n"
+                              "      buffer = forces\n    []\n"),
+        (BUFFERS, BUFFERS + DF.format("forces", "mv"))),
 }
+
+# the thermal deck (two lattices, buoyancy, the Guo source) and its edits
+THERMAL = decks.THERMAL3D_DECK.format(n=6, substeps=3, backend="PALLAS")
+T_VELOCITY = """      forces = F
+      enable_forces = true
+"""
+T_FORCES = """    [Compute_forces]
+      type = LBMComputeForces
+      buffer = F
+      rho0 = 'rho0'
+      temperature = T
+      T0 = T_0
+      enable_buoyancy = true
+      gravity = g
+      gravity_direction = 0
+    []
+"""
+T_APPLY = """    [Apply_forces]
+      type = LBMApplyForces
+      buffer = fpc
+      velocity = velocity
+      rho = density
+      forces = F
+      tau0 = tau_f
+    []
+"""
+T_GEQ = """    [Eq_temperature]
+      type = LBMEquilibrium
+      buffer = geq
+      bulk = T
+      velocity = velocity
+    []
+"""
+T_GCOLL = """    [Collision_temperature]
+      type = LBMBGKCollision
+      buffer = gpc
+      f = g
+      feq = geq
+      tau0 = tau_T
+    []
+"""
+T_FCOLL = """    [Collision_fluid]
+      type = LBMBGKCollision
+      buffer = fpc
+      f = f
+      feq = feq
+      tau0 = tau_f
+    []
+"""
+T_FEQ = """    [Eq_fluid]
+      type = LBMEquilibrium
+      buffer = feq
+      bulk = density
+      velocity = velocity
+    []
+"""
+T_BUFFERS = "[TensorBuffers]\n"
+T_HOT = """    [hot_left]
+      type = LBMFixedZerothOrderBC
+      buffer = g
+      f = g
+      value = T_H
+      boundary = left
+    []
+"""
+T_PLATE = """    [plate_left]
+      type = LBMBounceBack
+      buffer = f
+      f_old = fpc
+      boundary = left
+    []
+"""
+
+
+def _thermal(*pairs):
+    return _edit(*pairs, base=THERMAL)
+
+
+THERMAL_REJECTIONS = {
+    "velocity_other_forces": _thermal((T_VELOCITY, T_VELOCITY.replace("forces = F",
+                                                                      "forces = F2")),
+                                      (T_BUFFERS, T_BUFFERS + DF.format("F2", "mv"))),
+    "velocity_forces_without_compute": _thermal((T_FORCES, ""), (T_APPLY, "")),
+    "buoyancy_one_lattice": _edit(
+        (RESIDUAL, RESIDUAL + T_FORCES.replace("F\n", "forces\n").replace(
+            "temperature = T", "temperature = density").replace("rho0 = 'rho0'",
+                                                              "rho0 = 1.0").replace(
+            "T0 = T_0", "T0 = 1.0").replace("gravity = g", "gravity = 0.001")),
+        (VELOCITY, VELOCITY.replace("rho = density", "rho = density\n"
+                                    "      enable_forces = true")),
+        (BUFFERS, BUFFERS + DF.format("forces", "mv"))),
+    "buoyancy_other_temperature": _thermal(
+        (T_FORCES, T_FORCES.replace("temperature = T", "temperature = density"))),
+    "gravity_other_density": _thermal(
+        (T_FORCES, T_FORCES.replace("enable_buoyancy = true",
+                                    "enable_buoyancy = true\n      enable_gravity = true\n"
+                                    "      rho = T"))),
+    "gravity_direction_3": _thermal(
+        (T_FORCES, T_FORCES.replace("gravity_direction = 0", "gravity_direction = 3"))),
+    "apply_other_buffer": _thermal((T_APPLY, T_APPLY.replace("buffer = fpc",
+                                                             "buffer = gpc"))),
+    "apply_other_density": _thermal((T_APPLY, T_APPLY.replace("rho = density",
+                                                              "rho = T"))),
+    "apply_without_forces": _edit(
+        (RESIDUAL, RESIDUAL + T_APPLY.replace("forces = F", "forces = forces").replace(
+            "tau0 = tau_f", "tau0 = 0.6")),
+        (BUFFERS, BUFFERS + DF.format("forces", "mv"))),
+    "two_forces": _thermal((T_FORCES, T_FORCES + T_FORCES.replace(
+        "[Compute_forces]", "[Compute_forces2]").replace("buffer = F", "buffer = F2")),
+        (T_BUFFERS, T_BUFFERS + DF.format("F2", "mv"))),
+    "two_lattices_no_collision": _thermal((T_FCOLL, ""), (T_FEQ, ""), (T_GCOLL, ""),
+                                          (T_GEQ, ""), (T_APPLY, "")),
+    "second_lattice_no_collision": _thermal((T_GCOLL, "")),
+    "thermal_equilibrium_other_velocity": _thermal(
+        (T_GEQ, T_GEQ.replace("velocity = velocity", "velocity = v2")),
+        (T_BUFFERS, T_BUFFERS + DF.format("v2", "mv"))),
+    "thermal_collision_other_feq": _thermal((T_GCOLL, T_GCOLL.replace("feq = geq",
+                                                                      "feq = gpc"))),
+    "thermal_collision_writes_other": _thermal(
+        (T_GCOLL, T_GCOLL.replace("buffer = gpc", "buffer = g2")),
+        (T_BUFFERS, T_BUFFERS + DF.format("g2", "df"))),
+    "bounce_back_after_zouhe_on_g": _thermal(
+        (T_HOT, T_HOT + T_PLATE.replace("[plate_left]", "[g_plate]").replace(
+            "buffer = f\n      f_old = fpc", "buffer = g\n      f_old = gpc"))),
+    "bounce_back_g_other_pair": _thermal(
+        (T_HOT, T_PLATE.replace("[plate_left]", "[g_plate]").replace(
+            "buffer = f\n      f_old = fpc", "buffer = g\n      f_old = fpc") + T_HOT)),
+    "residual_of_velocity_on_thermal": _thermal(
+        (T_APPLY, T_APPLY + "    [residual]\n      type = LBMComputeResidual\n"
+                            "      buffer = density\n      speed = density\n    []\n")),
+}
+REJECTIONS.update(THERMAL_REJECTIONS)
 
 
 def _jax_message(jx, text):
@@ -442,15 +642,6 @@ NOT_PORTED = {
                  ("    [front]", "    [x_front]"), ("boundary = front", "boundary = top"),
                  ("    [back]", "    [x_back]"), ("boundary = back", "boundary = bottom")),
     "D2Q9 stencil": _edit(("type = LBMD3Q19", "type = LBMD2Q9")),
-    "second streamed lattice": _edit(
-        (SOLVER, SOLVER.replace("buffer = f\n  f_old = fpc",
-                                "buffer = 'f g'\n  f_old = 'fpc gpc'")),
-        (BUFFERS, BUFFERS + DF.format("g", "df") + DF.format("gpc", "df"))),
-    "collisionless chain": _edit((COLLISION, ""), (FEQ, ""),
-                                 (SOLVER, SOLVER.replace("f_old = fpc", "f_old = f")),
-                                 (TOP + TOP.replace("top", "bottom"), ""),
-                                 (TOP.replace("top", "front"), ""),
-                                 (TOP.replace("top", "back"), "")),
 }
 
 
@@ -464,22 +655,25 @@ def test_unported_feature_is_a_named_error(feature):
 
 
 @pytest.mark.parametrize("edit,error,match", [
-    ((COLLISION, COLLISION.replace("LBMBGKCollision", "LBMMRTCollision")),
-     KeyError, "LBMMRTCollision"),
+    ((COLLISION, COLLISION.replace("LBMBGKCollision", "LBMSmagorinskyMRTCollision")),
+     KeyError, "LBMSmagorinskyMRTCollision"),
     ((COLLISION, COLLISION.replace("LBMBGKCollision", "LBMSmagorinskyCollision")),
      KeyError, "LBMSmagorinskyCollision"),
-    ((RESIDUAL, RESIDUAL + "    [forces]\n      type = LBMComputeForces\n"
-                           "      buffer = forces\n    []\n"), KeyError, "LBMComputeForces"),
-    ((COLLISION, COLLISION.replace("tau0 = 0.6", "tau0 = 0.6\n      projection = true")),
-     ParamError, "projection"),
+    ((RESIDUAL, RESIDUAL + "    [surface]\n      type = LBMComputeSurfaceForces\n"
+                           "      buffer = forces\n    []\n"),
+     KeyError, "LBMComputeSurfaceForces"),
+    ((RESIDUAL, RESIDUAL + "    [convert]\n      type = LBMTensorUnitConverter\n"
+                           "      buffer = converted\n    []\n"),
+     KeyError, "LBMTensorUnitConverter"),
     (("[Domain]", "[Domain]\n  parallel_mode = REAL_SPACE"), NotImplementedError,
      "parallel_mode"),
     ((TOP, TOP.replace("LBMBounceBack", "LBMDirichletBC")), KeyError, "LBMDirichletBC"),
-], ids=["mrt", "smagorinsky", "forces", "projection", "sharded", "dirichlet"])
+], ids=["smagorinsky_mrt", "smagorinsky", "surface_forces", "unit_converter",
+        "sharded", "dirichlet"])
 def test_unported_compute_fails_at_build(edit, error, match):
-    """MRT, Smagorinsky, force fields, the Hermite projection, sharded
-    domains and the unported boundary conditions fail when the deck is
-    built, by name, before either backend could run."""
+    """Smagorinsky collisions, the surface forces, the unit converter,
+    sharded domains and the unported boundary conditions fail when the deck
+    is built, by name, before either backend could run."""
     with pytest.raises(error, match=match):
         TensorProblem(hit.parse(_edit(edit)), device="cpu")
 
@@ -499,27 +693,57 @@ def test_wrapper_checks_its_inputs():
         lf.fused_substep(fpc, None, cfg)
     with pytest.raises(TypeError, match="int8"):
         lf.fused_substep(fpc, media.to(torch.int64), cfg)
+    thermal = dataclasses.replace(port_plan("thermal").config, nx=4, ny=5, nz=6)
+    with pytest.raises(ValueError, match="gpc"):
+        lf.fused_substep(fpc, None, thermal)
+    with pytest.raises(TypeError, match="gpc"):
+        lf.fused_substep(fpc, None, thermal, fpc.to(torch.float32))
 
 
-@pytest.mark.parametrize("case", ["mixed_8", "zeroth_order", "media_channel"])
+@pytest.mark.parametrize("case", ["mixed_8", "zeroth_order", "media_channel",
+                                  "thermal_zg", "pebbles", "porous_proj",
+                                  "collisionless"])
 def test_plan_packs_for_the_kernel(case):
-    """The kernel's plan struct: the faces in deck order (-1 for the
-    obstacle slot), each Zou-He face's sums and rows as direction masks."""
+    """The kernel's plan struct: each lattice's faces in deck order (-1 for
+    the obstacle slot), each Zou-He face's sums and rows as direction masks,
+    the branch flags, and the coefficient tables in double and rounded to
+    float."""
     cfg = port_plan(case).config
     p = lf.pack(cfg)
-    assert (p.nx, p.ny, p.nz, p.n_faces, p.n_post) == (
-        cfg.nx, cfg.ny, cfg.nz, len(cfg.faces), len(cfg.post_bcs))
-    assert p.inv_tau == 1.0 / cfg.tau
-    for i, (axis, side, dirs) in enumerate(cfg.faces):
-        assert (p.face_axis[i], p.face_side[i]) == (axis, side)
-        assert p.face_dirs[i] == sum(1 << d for d in dirs)
-    for i, bc in enumerate(cfg.post_bcs):
-        post = p.post[i]
-        assert post.kind == (bc.kind == "zg")
-        assert post.sum1 == sum(1 << d for d in bc.sum1)
-        assert post.rows == sum(1 << r[0] for r in bc.rows)
-        for d, _src, cm, *_ in bc.rows:
-            assert post.cm[d] == cm
+    q = cfg.q
+    assert (p.nx, p.ny, p.nz) == (cfg.nx, cfg.ny, cfg.nz)
+    assert (p.two_lattice, p.collide) == (cfg.two_lattice, cfg.collide)
+    assert p.speed == {"none": 0, "umag": 1, "t": 2}[cfg.speed_kind]
+    assert list(p.mrt) == [cfg.msm is not None, cfg.msm2 is not None]
+    assert list(p.proj) == [cfg.proj, cfg.proj2]
+    assert list(p.d.inv_tau) == [1.0 / cfg.tau, 1.0 / cfg.tau2]
+    for lat, faces, post_bcs in ((p.lat[0], cfg.faces, cfg.post_bcs),
+                                 (p.lat[1], cfg.faces2, cfg.post_bcs2)):
+        assert (lat.n_faces, lat.n_post) == (len(faces), len(post_bcs))
+        for i, (axis, side, dirs) in enumerate(faces):
+            assert (lat.face_axis[i], lat.face_side[i]) == (axis, side)
+            assert lat.face_dirs[i] == sum(1 << d for d in dirs)
+        for i, bc in enumerate(post_bcs):
+            post = lat.post[i]
+            assert post.kind == (bc.kind == "zg")
+            assert post.sum1 == sum(1 << d for d in bc.sum1)
+            assert post.rows == sum(1 << r[0] for r in bc.rows)
+            for d, _src, cm, *_ in bc.rows:
+                assert post.cm[d] == cm
+    for lat, msm in enumerate((cfg.msm, cfg.msm2)):
+        if msm is not None:
+            flat = np.asarray(msm).reshape(-1)
+            base = lat * lf.MAX_Q * lf.MAX_Q
+            np.testing.assert_array_equal(p.d.msm[base:base + q * q], flat)
+            np.testing.assert_array_equal(p.f.msm[base:base + q * q],
+                                          flat.astype(np.float32))
+    fc = cfg.force
+    assert (p.force, p.guo) == (fc is not None, fc is not None and bool(fc.apply_tau))
+    if p.guo:
+        from marlin_tpu_torch.computes.lbm import guo_prefactors
+
+        assert list(p.d.guo[:q]) == guo_prefactors(cfg.w, fc.apply_tau)
+        assert (p.d.g_rho0, p.d.t0) == (fc.g * fc.rho0, fc.T0)
 
 
 # -- on the card -------------------------------------------------------------------------
@@ -537,23 +761,31 @@ def test_kernel_matches_twin_on_card(cuda, case, dtype):
     gen = torch.Generator(device=cuda).manual_seed(5)
     shape = (33, 17, 20)
     w = torch.tensor(cfg.w, dtype=dtype, device=cuda)[:, None, None, None]
-    fpc = w * (1.0 + 0.1 * torch.randn((cfg.q,) + shape, generator=gen,
-                                       device=cuda, dtype=dtype))
+
+    def distribution():
+        return w * (1.0 + 0.1 * torch.randn((cfg.q,) + shape, generator=gen,
+                                            device=cuda, dtype=dtype))
+
+    fpc = distribution()
+    gpc = distribution() if cfg.two_lattice else None
     media = None
     if cfg.has_media:
         media = (torch.rand(shape, generator=gen, device=cuda) > 0.2).to(torch.int8)
         fpc = torch.where(media == 0, 0.0, fpc).contiguous()
+        if gpc is not None:
+            gpc = torch.where(media == 0, 0.0, gpc).contiguous()
     before = lf.launches()["lbm_substep"]
-    got = lf.fused_substep(fpc, media, cfg)
+    got = lf.fused_substep(fpc, media, cfg, gpc)
     torch.cuda.synchronize()
     assert lf.launches()["lbm_substep"] == before + 1
-    ref = lf.fused_substep_twin(fpc, media, cfg)
+    ref = lf.fused_substep_twin(fpc, media, cfg, gpc)
+    assert len(got) == len(ref)
     for g, r in zip(got, ref):
         torch.testing.assert_close(g, r, rtol=0, atol=0, equal_nan=True)
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("case", ["porous_16", "mixed_12", "media_channel"])
+@pytest.mark.parametrize("case", BIT_CASES)
 def test_pallas_is_jnp_bit_for_bit_on_card(cuda, case):
     """On the card too, the kernel path equals the eager chain bit for bit
     in float32 (the kernel is built without fused multiply-adds)."""
