@@ -20,7 +20,11 @@ Phases, one line each, flushed as they finish:
    lattices through media, an MRT D3Q27 all-faces plan, the porous deck
    with the Hermite projection, the collisionless chain), and at 9³ and
    33×17×20; the 256³ rows of the decks run in phases 7-10 beside their
-   eager JNP substep;
+   eager JNP substep.  The 2-D (D2Q9) plans at 800×200 and 4096×2048 in
+   float32 (the channel with BGK and with MRT, the 2-D thermal pair, the
+   Kármán plan: Smagorinsky with the projection, a perturbed inlet and the
+   cylinder) and at 33×17 and 1000×333; the Kármán plan's two density-mean
+   passes (``lbm_density_mean``) against their twin at the same extents;
 3. main path: the 3-D Cahn-Hilliard deck at 512³ through ``run_deck`` with
    ``fft_backend = PALLAS`` in float32 (10 substeps, 2 steps, dt = 1): the
    launch counters rise by exactly the count the path implies, c is finite
@@ -53,7 +57,15 @@ Phases, one line each, flushed as they finish:
    T and velocity, with the mass check; MLUPS count both lattices;
 10. LBM Pebbles: ``decks.PEBBLES_DECK`` (MRT on both lattices through the
    benchmark's sphere pack, buoyancy, Guo forcing, Zou-He temperature
-   faces, the residual on T) the same way.
+   faces, the residual on T) the same way;
+11. LBM Kármán: ``decks.KARMAN_DECK`` (D2Q9, Smagorinsky with the Hermite
+   projection, the cylinder of ``decks.karman_media``, a perturbed Zou-He
+   inlet, a zero-gradient outlet) at 800×200, float32, 100 substeps × 3
+   steps, on PALLAS and JNP: exactly 2 × 99 ``lbm_substep`` launches and
+   2 × 198 ``lbm_density_mean`` launches on PALLAS, none on JNP; on f, fpc,
+   feq, density, velocity and speed max |PALLAS − JNP| ≤ 1e-5 of the JNP
+   buffer's largest magnitude; every buffer finite; ms a substep, MLUPS and
+   peak device memory on both.
 
 Then one JSON line with every kernel's numbers and, last, the JSON result
 line.  Any failure ends the run with a non-zero exit and no result line.
@@ -90,6 +102,10 @@ LBM_N = 256
 LBM_SUBSTEPS = 20
 LBM_STEPS = 3
 LBM_ODD = [(9, 9, 9), (33, 17, 20)]
+KARMAN = (800, 200)  # the reference cylinder.i's shipped extent
+LBM_2D = [KARMAN, (4096, 2048)]  # the shipped 2-D size, and one above launch cost
+LBM_ODD_2D = [(33, 17), (1000, 333)]  # 1000×333: the mean's chunked finish
+KARMAN_SUBSTEPS = 100
 
 
 def say(*parts):
@@ -390,6 +406,14 @@ def lbm_plans():
         "porous_proj": (decks.PROJECTED_DECK.format(n=8, substeps=2, backend="PALLAS",
                                                     media_h5="media.h5"), media),
         "collisionless": (decks.COLLISIONLESS_DECK.format(backend="PALLAS"), None),
+        "channel2d": (decks.CHANNEL2D_DECK.format(nx=8, ny=6, substeps=2,
+                                                  backend="PALLAS"), None),
+        "channel2d_mrt": (decks.CHANNEL2D_MRT_DECK.format(nx=8, ny=6, substeps=2,
+                                                          backend="PALLAS"), None),
+        "thermal2d": (decks.THERMAL2D_DECK.format(n=8, substeps=2, backend="PALLAS"),
+                      None),
+        "karman": (decks.KARMAN_DECK.format(nx=40, ny=20, substeps=2, backend="PALLAS"),
+                   {"binary_media": decks.karman_media(40, 20)}),
     }
     plans = {}
     for name, (text, arrays) in texts.items():
@@ -424,6 +448,10 @@ def lbm_flops(cfg):
             ops += sum(2 * sum(1 for c in row if c) for row in msm)
         if proj:
             ops += 2 * sum(nnz) * 9 + 2 * q * 9
+    if cfg.smag is not None:
+        # the flux component, its square, two roots, two quotients, four
+        # products and sums
+        ops += sum(1 for e in cfg.e if e[0] * e[1]) + 10
     return ops
 
 
@@ -456,23 +484,36 @@ def ptxas_report(log):
 
 
 def phase_lbm_kernel(lf, dev):
-    """lbm_substep against its twin at 256³ (float32) on every plan and at
-    odd extents; returns the main-shape rows by plan."""
+    """lbm_substep against its twin at 256³ (float32) on every 3-D plan,
+    at 800×200 and 4096×2048 on every 2-D plan, and at odd extents; the
+    density mean of the Smagorinsky plan against its twin at the same
+    extents.  Returns the main-shape rows by plan (2-D plans by plan and
+    extent) and the density mean's rows."""
     import dataclasses
 
-    from marlin_tpu_torch.decks import porous_media
+    from marlin_tpu_torch.decks import karman_media, porous_media
 
     gen = torch.Generator(device=dev).manual_seed(1)
-    rows = {}
+    rows, mean_rows = {}, []
     for name, base in lbm_plans().items():
-        for shape in LBM_ODD + [(LBM_N,) * 3]:
+        if base.two_d:
+            shapes = [s + (1,) for s in LBM_ODD_2D + LBM_2D]
+            main = [s + (1,) for s in LBM_2D]
+        else:
+            shapes = LBM_ODD + [(LBM_N,) * 3]
+            main = [(LBM_N,) * 3]
+        for shape in shapes:
             cfg = dataclasses.replace(base, nx=shape[0], ny=shape[1], nz=shape[2])
             fpc = lbm_rand(cfg, shape, gen, dev)
             gpc = lbm_rand(cfg, shape, gen, dev) if cfg.two_lattice else None
             media = None
             if cfg.has_media:
                 # the code TensorProblem.lbm_media gives: 1 fluid, 0 solid
-                if len(set(shape)) == 1:
+                if cfg.two_d:
+                    # the cylinder at every extent: random media leave NaN
+                    # (a zero-gradient face cell copying a solid neighbour)
+                    m = torch.as_tensor(karman_media(*shape[:2]), device=dev)[..., None]
+                elif shape in main:
                     m = torch.as_tensor(porous_media(shape[0]), device=dev)
                 else:
                     m = torch.rand(shape, generator=gen, device=dev) > 0.2
@@ -483,23 +524,41 @@ def phase_lbm_kernel(lf, dev):
             fpc = fpc.contiguous()
             kernel = lambda: lf.fused_substep(fpc, media, cfg, gpc)
             twin = lambda: lf.fused_substep_twin(fpc, media, cfg, gpc)
-            if shape != (LBM_N,) * 3:
+            cells = math.prod(shape)
+            if cfg.smag is not None:
+                mean_rows += lbm_density_mean_check(lf, fpc, media, cfg, shape, shape in main)
+            if shape not in main:
                 err = check(f"lbm_substep {name}", shape, kernel(), twin())
                 say(f"[kernels] lbm_substep {name} {shape}: max_abs_err {err:.3e}")
                 continue
-            cells = math.prod(shape)
             lattices = 2 if cfg.two_lattice else 1
             n_bytes = (2 * lattices * nbytes(fpc) + cells * 4
                        + (cells if media is not None else 0))
             row = measure(f"lbm_substep {name}", (lattices, cfg.q) + shape, kernel,
                           twin, None, n_bytes, lbm_flops(cfg) * cells)
-            say(f"[kernels] lbm_substep {name}: "
+            say(f"[kernels] lbm_substep {name} {shape}: "
                 f"{lattices * cells / (row['ms'] * 1e3):.0f} MLUPS (byte bound "
                 f"{lattices * cells / (row['bound_ms'] * 1e3):.0f})")
-            rows[name] = row
+            rows[name if not cfg.two_d else f"{name} {shape[0]}x{shape[1]}"] = row
             del fpc, gpc, media
             torch.cuda.empty_cache()
-    return rows
+    return rows, mean_rows
+
+
+def lbm_density_mean_check(lf, fpc, media, cfg, shape, timed):
+    """The Smagorinsky plan's density mean (two launches) against its twin,
+    exactly as the kernel's check: ≤ 1e-5 of the twin's magnitude; on a
+    main extent also its times, bound by the bytes it reads (the q planes
+    and the media byte)."""
+    kernel = lambda: lf.density_mean(fpc, media, cfg)
+    twin = lambda: lf.density_mean_twin(fpc, media, cfg)
+    if not timed:
+        err = check("lbm_density_mean", shape, kernel(), twin())
+        say(f"[kernels] lbm_density_mean {shape}: max_abs_err {err:.3e}")
+        return []
+    cells = math.prod(shape)
+    n_bytes = nbytes(fpc) + (cells if media is not None else 0)
+    return [measure("lbm_density_mean", shape, kernel, twin, None, n_bytes, cfg.q * cells)]
 
 
 LBM_PATHS = {
@@ -560,11 +619,11 @@ def lbm_run(name, backend, dev):
     return tr, wall, lf.launches()["lbm_substep"]
 
 
-def lbm_substep_ms(tr):
+def lbm_substep_ms(tr, substeps=LBM_SUBSTEPS):
     """Device time of one steady step of the finished run, a substep."""
     p, st = tr.problem, tr.state
     ms = cuda_ms(lambda: p.step(st, tr.time, 1.0, 1.0, False), reps=2, warmup=1)
-    return ms / LBM_SUBSTEPS
+    return ms / substeps
 
 
 def fluid_mass(state, solid):
@@ -618,6 +677,67 @@ def phase_lbm_path(name, dev):
         say(f"[lbm {name}] max|{k}_PALLAS - {k}_JNP| {d:.3e} (limit "
             f"{KERNEL_TOL} x {mag:.4e})")
         assert d <= KERNEL_TOL * mag, (name, k, d, mag)
+    return out["PALLAS"][2], out["PALLAS"][1], out["JNP"][1]
+
+
+def karman_deck(backend):
+    """decks.KARMAN_DECK at its shipped 800×200 in float32, KARMAN_SUBSTEPS
+    substeps × LBM_STEPS steps; (text, arrays)."""
+    from marlin_tpu_torch import decks
+
+    nx, ny = KARMAN
+    deck = decks.KARMAN_DECK.format(nx=nx, ny=ny, substeps=KARMAN_SUBSTEPS,
+                                    backend=backend)
+    deck = deck.replace("[Domain]", "[Domain]\n  floating_precision = SINGLE")
+    deck = deck.replace("  num_steps = 3\n", f"  num_steps = {LBM_STEPS}\n")
+    return deck, {"binary_media": decks.karman_media(nx, ny)}
+
+
+def phase_karman(dev):
+    """The Kármán deck at 800×200 on PALLAS and JNP: launches, PALLAS
+    against JNP, ms a substep, MLUPS, peak memory.  Returns (launches of
+    PALLAS, PALLAS ms, JNP ms)."""
+    from marlin_tpu_torch import hit
+    from marlin_tpu_torch import lbm_fused as lf
+    from marlin_tpu_torch.executioner import run_deck
+
+    cells = KARMAN[0] * KARMAN[1]
+    fused = (LBM_STEPS - 1) * (KARMAN_SUBSTEPS - 1)
+    out = {}
+    for backend in ("PALLAS", "JNP"):
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        held = torch.cuda.memory_allocated()  # by earlier phases' live objects
+        deck, arrays = karman_deck(backend)
+        lf.reset_launches()
+        with tempfile.TemporaryDirectory() as out_dir:
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            tr = run_deck(hit.parse(deck), output_dir=out_dir, device=dev, arrays=arrays)
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+        launched = lf.launches()
+        want = ({"lbm_substep": fused, "lbm_density_mean": 2 * fused} if backend == "PALLAS"
+                else {"lbm_substep": 0, "lbm_density_mean": 0})
+        say(f"[karman] {backend} {KARMAN[0]}x{KARMAN[1]}, {LBM_STEPS} steps x "
+            f"{KARMAN_SUBSTEPS} substeps: run_deck {wall:.2f} s, launches {launched} "
+            f"(expected {want}), peak device memory "
+            f"{torch.cuda.max_memory_allocated() / 2**30:.3f} GiB, of which "
+            f"{held / 2**30:.3f} GiB held before the run")
+        assert launched == want, (backend, launched, want)
+        for k, v in tr.state["buffers"].items():
+            assert bool(torch.isfinite(v).all()), (backend, k)
+        ms = lbm_substep_ms(tr, KARMAN_SUBSTEPS)
+        say(f"[karman] {backend} {ms:.4f} ms/substep, {cells / (ms * 1e3):.0f} MLUPS; "
+            f"max speed {tr.state['buffers']['speed'].max().item():.5f}")
+        out[backend] = (tr.state["buffers"], ms, launched)
+        del tr
+    for k in ("f", "fpc", "feq", "density", "velocity", "speed"):
+        a, b = out["PALLAS"][0][k], out["JNP"][0][k]
+        d = (a - b).abs().max().item()
+        mag = b.abs().max().item()
+        say(f"[karman] max|{k}_PALLAS - {k}_JNP| {d:.3e} (limit {KERNEL_TOL} x {mag:.4e})")
+        assert d <= KERNEL_TOL * mag, (k, d, mag)
     return out["PALLAS"][2], out["PALLAS"][1], out["JNP"][1]
 
 
@@ -761,7 +881,7 @@ def main():
         device=dev).domain
     kernels.update(phase_fused_kernels(uf, sp, dev, gen, pre, sp._k2_tables(dom)))
     del dom
-    lbm_rows = phase_lbm_kernel(lf, dev)
+    lbm_rows, mean_rows = phase_lbm_kernel(lf, dev)
     say("[kernels] ok")
 
     # -- 3: the main path -----------------------------------------------------
@@ -864,10 +984,25 @@ def main():
         say(f"[lbm {name}] lbm_substep {lbm_rows[name]['ms']:.3f} ms a launch "
             f"(bound {lbm_rows[name]['bound_ms']:.3f}); ms/substep PALLAS "
             f"{ms_pallas_lbm:.3f}, JNP {ms_jnp_lbm:.3f}")
-    lbm = summarise([lbm_rows[name] for name in LBM_PATHS])
+
+    # -- 11: the 2-D Kármán path -------------------------------------------------
+    karman_launches, ms_pallas_k, ms_jnp_k = phase_karman(dev)
+    kname = f"karman {KARMAN[0]}x{KARMAN[1]}"
+    lbm_launches += karman_launches["lbm_substep"]
+    lbm_ms[kname] = (ms_pallas_k, ms_jnp_k)
+    say(f"[karman] lbm_substep {lbm_rows[kname]['ms']:.4f} ms a launch (bound "
+        f"{lbm_rows[kname]['bound_ms']:.4f}), lbm_density_mean {mean_rows[0]['ms']:.4f} "
+        f"ms a pair (bound {mean_rows[0]['bound_ms']:.4f}); ms/substep PALLAS "
+        f"{ms_pallas_k:.4f}, JNP {ms_jnp_k:.4f}")
+    lbm = summarise([lbm_rows[name] for name in list(LBM_PATHS) + [kname]])
     lbm["yardstick"] = "the eager JNP substep (run_deck, lbm_backend = JNP)"
     lbm["yardstick_ms"] = sum(jnp for _p, jnp in lbm_ms.values()) / len(lbm_ms)
+    # every plan's own row, each at its main extent
+    lbm["plans"] = lbm_rows
     kernels["lbm_substep"] = lbm
+    kernels["lbm_density_mean"] = summarise(mean_rows[:1])
+    kernels["lbm_density_mean"]["plans"] = {f"karman {x}x{y}": row
+                                            for (x, y), row in zip(LBM_2D, mean_rows)}
     say(f"[done] {time.perf_counter() - t_start:.1f} s")
 
     # -- result -----------------------------------------------------------------
@@ -884,6 +1019,8 @@ def main():
          "marlin_tpu/pallas_spectral.py:203", multi_launches),
         ("lbm_substep", "lbm_substep.cu", "marlin_tpu/pallas_lbm.py:224",
          {"lbm_substep": lbm_launches}),
+        ("lbm_density_mean", "lbm_substep.cu", "marlin_tpu/pallas_lbm.py:687",
+         karman_launches),
     ]
     line = {"kernels": [
         {"name": name, "route": "cuda",

@@ -22,15 +22,17 @@ are multiplications by their reciprocals (torch's CUDA division by a
 Python scalar already multiplies by the reciprocal; its CPU division does
 not).
 
-The MRT collision, the Hermite projection (``projection = true``) and the
-force chain (``LBMComputeForces``, ``LBMApplyForces``, the velocity's
-``enable_forces``) take their coefficients from ``mrt_matrix``,
-``hermite_tables`` and ``guo_prefactors``, which the fused kernel's plan
-shares, and run their sums in the kernel's order.
+The MRT collision, the Hermite projection (``projection = true``), the
+Smagorinsky collision and the force chain (``LBMComputeForces``,
+``LBMApplyForces``, the velocity's ``enable_forces``) take their
+coefficients from ``mrt_matrix``, ``hermite_tables``,
+``smagorinsky_constants`` and ``guo_prefactors``, which the fused kernel's
+plan shares, and run their sums in the kernel's order.  The Smagorinsky
+τ needs the grid's mean density, which ``tree_mean`` sums by a fixed
+pairwise tree that the kernel's two reduction passes reproduce.
 
 Not ported yet, and so unregistered (a deck naming one fails with the
-registry's named error): LBMPhaseEquilibrium, LBMSmagorinskyCollision,
-LBMSmagorinskyMRTCollision, LBMTensorUnitConverter,
+registry's named error): LBMPhaseEquilibrium, LBMTensorUnitConverter,
 LBMComputeSurfaceForces, LBMComputeChemicalPotential,
 LBMIsotropicGradient and LBMIsotropicLaplacian.
 """
@@ -95,10 +97,11 @@ def _ensure3d(a):
 
 def _direction_sum(fq, coef=None):
     """Σ_q coef_q·fq[q] over the leading direction axis of a q-major
-    distribution (coef_q in {-1, 0, 1}; all ones when None), one direction
-    at a time in index order, zero coefficients skipped."""
+    distribution, or a list of direction planes (coef_q in {-1, 0, 1}; all
+    ones when None), one direction at a time in index order, zero
+    coefficients skipped."""
     acc = None
-    for qi in range(fq.shape[0]):
+    for qi in range(len(fq)):
         c = 1 if coef is None else int(coef[qi])
         if c == 0:
             continue
@@ -228,6 +231,74 @@ def hermite(fneq, tables):
     return out
 
 
+def tree_mean(a):
+    """The mean of every element of ``a`` as a 0-d tensor: ``a`` flattened
+    in index order, zero-padded to a power of two and summed pairwise
+    (``a[0::2] + a[1::2]`` until one element is left), times 1/n.  Adding
+    zeros is exact, so the CUDA passes (a block tree over each aligned
+    chunk of 256 cells, then one block over the chunks, csrc/lbm_substep.cu)
+    give the same bits."""
+    a = a.reshape(-1)
+    n = a.numel()
+    pad = (1 << (n - 1).bit_length()) - n
+    if pad:
+        a = torch.cat([a, a.new_zeros(pad)])
+    while a.numel() > 1:
+        a = a[0::2] + a[1::2]
+    return a[0] * (1.0 / n)
+
+
+def smagorinsky_constants(C_s: float, tau0: float):
+    """The Smagorinsky τ's constants in double (reference
+    LBMCollisionDynamics::computeRelaxationParameter, δx = 1): η = τ₀/t_sgs
+    with t_sgs = √C_s/c_s, η², 1/(2 t_sgs) and C_s/c_s²."""
+    t_sgs = math.sqrt(float(C_s)) / CS
+    eta = float(tau0) / t_sgs
+    return {"eta": eta, "eta2": eta * eta, "inv_2tsgs": 1.0 / (2.0 * t_sgs),
+            "cs_over_cs2": float(C_s) / CS2}
+
+
+def _smagorinsky_rows(e, nz_is_one: bool):
+    """The coefficients of the non-equilibrium momentum flux components
+    Q_kab = Σ_i ez2_ki·ex2_ai·ey2_bi·fneq_i (reference
+    computeRelaxationParameter), in (k, a, b) order, the components whose
+    coefficients are all zero left out: ex2 = [ex, 0, 0], ey2 = [0, ey, 0]
+    and ez2 = [0, 0, ez], or [1, 0, ez] when nz = 1 (the reference's 2-D
+    quirk)."""
+    e = np.asarray(e).T  # (3, q)
+    zeros, ones = np.zeros(e.shape[1], np.int64), np.ones(e.shape[1], np.int64)
+    ex2 = np.stack([e[0], zeros, zeros])
+    ey2 = np.stack([zeros, e[1], zeros])
+    ez2 = np.stack([ones if nz_is_one else zeros, zeros, e[2]])
+    rows = []
+    for k in range(3):
+        for a in range(3):
+            for b in range(3):
+                c = ez2[k] * ex2[a] * ey2[b]
+                if c.any():
+                    rows.append(tuple(int(x) for x in c))
+    return rows
+
+
+def smagorinsky_inv_tau(fneq, e, mean, C_s: float, tau0: float, nz_is_one: bool):
+    """The per-cell 1/τ of the Smagorinsky collision from the
+    non-equilibrium planes and the grid's mean density (a 0-d tensor):
+    |Q|/(ρ̄ c_s²) → S = (√(η² + 4 Q̄) − η)/(2 t_sgs) → τ = τ₀ + C_s S/c_s².
+    Each component a signed sum in index order, |Q|² summed in (k, a, b)
+    order; the fused kernel does the same operations."""
+    k = smagorinsky_constants(C_s, tau0)
+    q2 = None
+    for row in _smagorinsky_rows(e, nz_is_one):
+        comp = signed_sum(row, fneq)
+        t = comp * comp
+        q2 = t if q2 is None else q2 + t
+    if q2 is None:
+        q2 = torch.zeros_like(fneq[0])
+    q_mean = torch.sqrt(q2) / (mean * CS2)
+    s = (torch.sqrt(k["eta2"] + 4.0 * q_mean) - k["eta"]) * k["inv_2tsgs"]
+    return torch.reciprocal(float(tau0) + k["cs_over_cs2"] * s)
+
+
 def mrt_relax(fneq, msm, i):
     """Row i of MSM·fneq: Σ_j msm[i][j]·fneq_j over every entry, in index
     order (the kernel's order; the MSM of D2Q9, D3Q19 and D3Q27 has no
@@ -296,6 +367,60 @@ class LBMMRTCollision(_CollisionBase):
         out = []
         return self.finish([feq[i] + fneq[i] - mrt_relax(fneq, msm, i)
                             for i in range(len(fneq))])
+
+
+class _SmagorinskyBase(_CollisionBase):
+    def inv_tau(self, state, fneq):
+        """1/τ a cell from the projected (where asked) non-equilibrium
+        planes and the mean over the grid of Σ_q f, solids (zero) included,
+        as the reference's ``mean(sum(f, 3))``."""
+        st = self.stencil
+        f = state[self.f]
+        mean = tree_mean(_direction_sum(_q_major(f)))
+        return smagorinsky_inv_tau(fneq, np.stack([st.ex, st.ey, st.ez], 1), mean,
+                                   self.C_s, self.tau_0, f.shape[2] == 1)
+
+
+@computes.register("LBMSmagorinskyCollision")
+class LBMSmagorinskyCollision(_SmagorinskyBase):
+    """BGK with a per-cell τ (reference LBMSmagorinskyCollision.C):
+    u = feq + fneq − fneq/τ, by the reciprocal ``smagorinsky_inv_tau``."""
+
+    def apply(self, state, ctx):
+        feq, fneq = self.planes(state)
+        inv_tau = self.inv_tau(state, fneq)
+        return self.finish([e + n - n * inv_tau for e, n in zip(feq, fneq)])
+
+
+@computes.register("LBMSmagorinskyMRTCollision")
+class LBMSmagorinskyMRTCollision(_SmagorinskyBase):
+    """MRT with the per-cell τ on the kinematic-viscosity moments
+    (reference LBMSmagorinskyMRTCollision.C, computeLocalRelaxationMatrix):
+    m = M·fneq, the stencil's S on every moment but those, 1/τ on those,
+    u = feq + fneq − M⁻¹·m′.  Eager only: the fused kernel does not take
+    it (the JAX package does not fuse it either)."""
+
+    def apply(self, state, ctx):
+        st = self.stencil
+        feq, fneq = self.planes(state)
+        inv_tau = self.inv_tau(state, fneq)
+        visc = {int(i) for i in st.id_kinematic_visc}
+        q = len(fneq)
+
+        def row_times(mat, i, vecs):
+            acc = None
+            for j in range(q):
+                c = float(mat[i, j])
+                if c != 0.0:
+                    t = vecs[j] * c
+                    acc = t if acc is None else acc + t
+            return acc if acc is not None else torch.zeros_like(vecs[0])
+
+        m_neq = [row_times(st.M, i, fneq) for i in range(q)]
+        relaxed = [inv_tau * m_neq[i] if i in visc else row_times(st.S, i, m_neq)
+                   for i in range(q)]
+        return self.finish([feq[i] + fneq[i] - row_times(st.M_inv, i, relaxed)
+                            for i in range(q)])
 
 
 @computes.register("LBMComputeDensity")

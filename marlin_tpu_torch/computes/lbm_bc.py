@@ -16,14 +16,15 @@ writes the clone, so no tensor of the state is written in place.
 Faithfulness note: the generic (q != 9) fixed-order BCs replicate the
 reference's negative-index selection `f[..., -neutral_x]` verbatim
 (LBMFixedFirstOrderBC.C leftBoundary) — the gold files encode exactly this
-behavior.  They evaluate it through the affine plan of the fused kernel
-(lbm_fused.PostBC, built by ``_zouhe_spec`` from the same formulas), so
-the eager chain and the kernel compute the same bits.
+behavior.  Every fixed-order face, the D2Q9 ones too, evaluates through
+the affine plan of the fused kernel (lbm_fused.PostBC, built by
+``_zouhe_spec`` from the same formulas), so the eager chain and the kernel
+compute the same bits.
 """
 
 from __future__ import annotations
 
-import math
+import dataclasses
 
 import torch
 
@@ -164,37 +165,63 @@ class LBMBounceBack(LBMBoundaryCondition):
 
 
 class _FixedOrderBC(LBMBoundaryCondition):
-    """Shared reads of the Zou-He fixed-order faces."""
+    """The Zou-He fixed-order faces (reference LBMFixedFirstOrderBC.C,
+    LBMFixedZerothOrderBC.C): every face of every stencil through the affine
+    plan of the fused kernel (lbm_fused.PostBC, built by ``_zouhe_spec``),
+    the D2Q9 branches with their transverse rows, so that the eager chain
+    and the kernel compute the same bits.  The bottom and top faces exist
+    for D2Q9 only, as in the reference."""
+
+    first_order = False
 
     def __init__(self, name, params: Params, problem):
         super().__init__(name, params, problem)
         self.f = self.input_buffer("f")
         self.value = problem.get_constant(params.get_str("value", required=True))
 
-    first_order = False
+    def spec(self, axis, side):
+        from ..lbm_fused import _zouhe_spec
 
-    def _generic(self, u, f, side):
-        """The x face ``side`` of a q != 9 stencil (reference leftBoundary /
-        rightBoundary else-branches, incl. the negative-index neutral set
-        selection), through the Zou-He affine plan."""
-        from ..lbm_fused import _zouhe_spec, apply_zouhe
+        return _zouhe_spec(self.stencil, axis, side, self.value, self.first_order)
 
-        spec = _zouhe_spec(self.stencil, 0, side, self.value, self.first_order)
-        pos = 0 if side == 0 else -1
-        plane = f[pos].movedim(-1, 0)
+    def _face(self, u, state, axis, side):
+        from ..lbm_fused import apply_zouhe, perturb_profile
+
+        if axis == 1 and self.stencil.q != 9:
+            raise ComputeError(f"{self.boundary.capitalize()} boundary only "
+                               f"implemented for D2Q9.")
+        spec = self.spec(axis, side)
+        f = state[self.f]
+        index = (0 if side == 0 else -1,) if axis == 0 else \
+            (slice(None), 0 if side == 0 else -1)
+        plane = f[index].movedim(-1, 0)  # (q, transverse, nz)
+        a = None
+        if spec.perturb_value:
+            a = perturb_profile(spec, f.shape[1], f.dtype, f.device)[:, None]
         u = u.clone()
-        for d, val in apply_zouhe(spec, plane).items():
-            u[pos, :, :, d] = val
+        for d, val in apply_zouhe(spec, plane, a).items():
+            u[index + (Ellipsis, d)] = val
         return u
 
-    def _require_d2q9(self, face):
-        if self.stencil.q != 9:
-            raise ComputeError(f"{face} boundary only implemented for D2Q9.")
+    def left_boundary(self, u, state, ctx):
+        return self._face(u, state, 0, 0)
+
+    def right_boundary(self, u, state, ctx):
+        return self._face(u, state, 0, 1)
+
+    def bottom_boundary(self, u, state, ctx):
+        return self._face(u, state, 1, 0)
+
+    def top_boundary(self, u, state, ctx):
+        return self._face(u, state, 1, 1)
 
 
 @computes.register("LBMFixedFirstOrderBC")
 class LBMFixedFirstOrderBC(_FixedOrderBC):
-    """Zou-He velocity boundary (reference LBMFixedFirstOrderBC.C)."""
+    """Zou-He velocity boundary (reference LBMFixedFirstOrderBC.C); with
+    ``perturb = true`` the D2Q9 left face prescribes the sine profile
+    v(y) = v·(1 + 1e-6·sin(2πy/ny)) (reference ``_ux_profile``), which every
+    other face and stencil ignores, as the reference does."""
 
     first_order = True
 
@@ -202,190 +229,16 @@ class LBMFixedFirstOrderBC(_FixedOrderBC):
         super().__init__(name, params, problem)
         self.perturb = params.get_bool("perturb", False)
 
-    def _ux_profile(self, ny, f):
-        if not self.perturb:
-            return torch.full((ny, 1), self.value, dtype=f.dtype, device=f.device)
-        deltaU = 1.0e-6 * self.value
-        y = torch.arange(ny, dtype=f.dtype, device=f.device)[:, None]
-        return self.value + deltaU * torch.sin(y / ny * 2.0 * math.pi)
-
-    def left_boundary(self, u, state, ctx):
-        st = self.stencil
-        f = state[self.f]
-        if st.q != 9:
-            return self._generic(u, f, 0)
-        u = u.clone()
-        ux = self._ux_profile(f.shape[1], f)
-        density = 1.0 / (1.0 - ux) * (
-            f[0, :, :, 0] + f[0, :, :, 2] + f[0, :, :, 4]
-            + 2.0 * (f[0, :, :, 3] + f[0, :, :, 6] + f[0, :, :, 7])
-        )
-        d0 = int(st.left[0])
-        u[0, :, :, d0] = f[0, :, :, int(st.op[d0])] + 2.0 / 3.0 * density * ux
-        for i in range(1, len(st.left)):
-            d = int(st.left[i])
-            u[0, :, :, d] = (
-                f[0, :, :, int(st.op[d])]
-                - 0.5 * float(st.ey[d]) * (f[0, :, :, 2] - f[0, :, :, 4])
-                + 1.0 / 6.0 * density * ux
-            )
-        return u
-
-    def right_boundary(self, u, state, ctx):
-        st = self.stencil
-        f = state[self.f]
-        if st.q != 9:
-            return self._generic(u, f, 1)
-        u = u.clone()
-        density = 1.0 / (1.0 + self.value) * (
-            f[-1, :, :, 0] + f[-1, :, :, 2] + f[-1, :, :, 4]
-            + 2.0 * (f[-1, :, :, 1] + f[-1, :, :, 5] + f[-1, :, :, 8])
-        )
-        d0 = int(st.left[0])
-        o0 = int(st.op[d0])
-        u[-1, :, :, o0] = f[-1, :, :, d0] - 2.0 / 3.0 * density * self.value
-        for i in range(1, len(st.left)):
-            d = int(st.left[i])
-            o = int(st.op[d])
-            u[-1, :, :, o] = (
-                f[-1, :, :, d]
-                + 0.5 * float(st.ey[o]) * (f[-1, :, :, 4] - f[-1, :, :, 2])
-                - 1.0 / 6.0 * density * self.value
-            )
-        return u
-
-    def bottom_boundary(self, u, state, ctx):
-        st = self.stencil
-        f = state[self.f]
-        self._require_d2q9("Bottom")
-        u = u.clone()
-        density = 1.0 / (1.0 - self.value) * (
-            f[:, 0, :, 0] + f[:, 0, :, 1] + f[:, 0, :, 3]
-            + 2.0 * (f[:, 0, :, 4] + f[:, 0, :, 7] + f[:, 0, :, 8])
-        )
-        d0 = int(st.bottom[0])
-        u[:, 0, :, d0] = f[:, 0, :, int(st.op[d0])] + 2.0 / 3.0 * density * self.value
-        for i in range(1, len(st.bottom)):
-            d = int(st.bottom[i])
-            u[:, 0, :, d] = (
-                f[:, 0, :, int(st.op[d])]
-                - 0.5 * float(st.ex[d]) * (f[:, 0, :, 1] - f[:, 0, :, 3])
-                + 1.0 / 6.0 * density * self.value
-            )
-        return u
-
-    def top_boundary(self, u, state, ctx):
-        st = self.stencil
-        f = state[self.f]
-        self._require_d2q9("Top")
-        u = u.clone()
-        density = 1.0 / (1.0 + self.value) * (
-            f[:, -1, :, 0] + f[:, -1, :, 1] + f[:, -1, :, 3]
-            + 2.0 * (f[:, -1, :, 2] + f[:, -1, :, 5] + f[:, -1, :, 6])
-        )
-        d0 = int(st.bottom[0])
-        o0 = int(st.op[d0])
-        u[:, -1, :, o0] = f[:, -1, :, d0] - 2.0 / 3.0 * density * self.value
-        for i in range(1, len(st.bottom)):
-            d = int(st.bottom[i])
-            o = int(st.op[d])
-            u[:, -1, :, o] = (
-                f[:, -1, :, d]
-                + 0.5 * float(st.ex[o]) * (f[:, -1, :, 3] - f[:, -1, :, 1])
-                - 1.0 / 6.0 * density * self.value
-            )
-        return u
+    def spec(self, axis, side):
+        spec = super().spec(axis, side)
+        if self.perturb and self.stencil.q == 9 and (axis, side) == (0, 0):
+            return dataclasses.replace(spec, perturb_value=float(self.value))
+        return spec
 
 
 @computes.register("LBMFixedZerothOrderBC")
 class LBMFixedZerothOrderBC(_FixedOrderBC):
     """Zou-He density boundary (reference LBMFixedZerothOrderBC.C)."""
-
-    def left_boundary(self, u, state, ctx):
-        st = self.stencil
-        f = state[self.f]
-        if st.q != 9:
-            return self._generic(u, f, 0)
-        u = u.clone()
-        velocity = 1.0 - (
-            f[0, :, :, 0] + f[0, :, :, 2] + f[0, :, :, 4]
-            + 2.0 * (f[0, :, :, 3] + f[0, :, :, 6] + f[0, :, :, 7])
-        ) / self.value
-        d0 = int(st.left[0])
-        u[0, :, :, d0] = f[0, :, :, int(st.op[d0])] + 2.0 / 3.0 * self.value * velocity
-        for i in range(1, len(st.left)):
-            d = int(st.left[i])
-            u[0, :, :, d] = (
-                f[0, :, :, int(st.op[d])]
-                - 0.5 * float(st.ey[d]) * (f[0, :, :, 2] - f[0, :, :, 4])
-                + 1.0 / 6.0 * self.value * velocity
-            )
-        return u
-
-    def right_boundary(self, u, state, ctx):
-        st = self.stencil
-        f = state[self.f]
-        if st.q != 9:
-            return self._generic(u, f, 1)
-        u = u.clone()
-        velocity = (
-            f[-1, :, :, 0] + f[-1, :, :, 2] + f[-1, :, :, 4]
-            + 2.0 * (f[-1, :, :, 1] + f[-1, :, :, 5] + f[-1, :, :, 8])
-        ) / self.value - 1.0
-        d0 = int(st.left[0])
-        o0 = int(st.op[d0])
-        u[-1, :, :, o0] = f[-1, :, :, d0] - 2.0 / 3.0 * self.value * velocity
-        for i in range(1, len(st.left)):
-            d = int(st.left[i])
-            o = int(st.op[d])
-            u[-1, :, :, o] = (
-                f[-1, :, :, d]
-                + 0.5 * float(st.ey[o]) * (f[-1, :, :, 4] - f[-1, :, :, 2])
-                - 1.0 / 6.0 * self.value * velocity
-            )
-        return u
-
-    def bottom_boundary(self, u, state, ctx):
-        st = self.stencil
-        f = state[self.f]
-        self._require_d2q9("Bottom")
-        u = u.clone()
-        velocity = 1.0 - (
-            f[:, 0, :, 0] + f[:, 0, :, 1] + f[:, 0, :, 3]
-            + 2.0 * (f[:, 0, :, 4] + f[:, 0, :, 7] + f[:, 0, :, 8])
-        ) / self.value
-        d0 = int(st.bottom[0])
-        u[:, 0, :, d0] = f[:, 0, :, int(st.op[d0])] + 2.0 / 3.0 * self.value * velocity
-        for i in range(1, len(st.bottom)):
-            d = int(st.bottom[i])
-            u[:, 0, :, d] = (
-                f[:, 0, :, int(st.op[d])]
-                - 0.5 * float(st.ex[d]) * (f[:, 0, :, 1] - f[:, 0, :, 3])
-                + 1.0 / 6.0 * self.value * velocity
-            )
-        return u
-
-    def top_boundary(self, u, state, ctx):
-        st = self.stencil
-        f = state[self.f]
-        self._require_d2q9("Top")
-        u = u.clone()
-        velocity = (
-            f[:, -1, :, 0] + f[:, -1, :, 1] + f[:, -1, :, 3]
-            + 2.0 * (f[:, -1, :, 2] + f[:, -1, :, 5] + f[:, -1, :, 6])
-        ) / self.value - 1.0
-        d0 = int(st.bottom[0])
-        o0 = int(st.op[d0])
-        u[:, -1, :, o0] = f[:, -1, :, d0] - 2.0 / 3.0 * self.value * velocity
-        for i in range(1, len(st.bottom)):
-            d = int(st.bottom[i])
-            o = int(st.op[d])
-            u[:, -1, :, o] = (
-                f[:, -1, :, d]
-                + 0.5 * float(st.ex[o]) * (f[:, -1, :, 3] - f[:, -1, :, 1])
-                - 1.0 / 6.0 * self.value * velocity
-            )
-        return u
 
 
 @computes.register("LBMMicroscopicZeroGradientBC")

@@ -1,15 +1,19 @@
 // One whole lattice Boltzmann substep in one pass: the port of
 // marlin_tpu/pallas_lbm.py:224 _make_kernel (called through fused_substep),
-// for D3Q19 and D3Q27 chains: BGK or MRT collisions, the Hermite projection,
-// face bounce-back, a body force, binary media (obstacle bounce-back and
-// solid masking), the post-stream Zou-He fixed-order and zero-gradient
-// faces, the collisionless chain, and the thermal double-distribution chain
-// (a second lattice g with its own faces, T = Σg, Boussinesq buoyancy and
-// gravity, the F/(2ρ) velocity shift and the Guo source on f).
+// for 3-D D3Q19 and D3Q27 and 2-D D2Q9 chains: BGK or MRT collisions, the
+// Hermite projection, the Smagorinsky collision, face bounce-back, a body
+// force, binary media (obstacle bounce-back and solid masking), the
+// post-stream Zou-He fixed-order faces (with the D2Q9 transverse rows and
+// the perturbed inlet's a(y) rows) and zero-gradient faces, the
+// collisionless chain, and the thermal double-distribution chain (a second
+// lattice g with its own faces, T = Σg, Boussinesq buoyancy and gravity,
+// the F/(2ρ) velocity shift and the Guo source on f).
 //
 //   read  fpc_old (q, nx, ny, nz), pull-streamed, periodic on every axis
 //         gpc_old (q, nx, ny, nz) on two-lattice plans
 //         media   (nx, ny, nz) int8 code (0 solid, 1 fluid, -1 neither)
+//         avec    (n, ny): a(y) of each perturbed Zou-He inlet
+//         mean    the grid's mean density (Smagorinsky plans)
 //   write fpc_new (q, nx, ny, nz), gpc_new, speed (nx, ny, nz): |u|, T or 0
 //
 // Bound on an H100 SXM: bytes.  Each cell reads q values and writes q a
@@ -55,7 +59,20 @@
 //   (a zero-gradient face replaces every direction), so each thread walks
 //   the faces backwards to the cell its state starts from, streams that
 //   cell, and replays the faces forwards, for each lattice with its own
-//   faces.  Only face cells ever start from another cell.
+//   faces.  Only face cells ever start from another cell;
+// * a 2-D plan (nz = 1) takes one thread a cell over the flattened (x, y)
+//   grid, y the fastest index: z along the block would leave one live
+//   thread in 32.  D2Q9 in float32 is 77 B a cell (36 read, 36 written,
+//   the speed and the media byte): 12.3 MB, 3.7 us at 800x200, less than a
+//   launch costs, so the shipped 2-D size is launch-bound;
+// * the Smagorinsky τ needs the mean density of the whole grid before any
+//   cell collides.  Blocks run in no order and atomics add in no fixed
+//   order (their bits would change from run to run and differ from the
+//   eager chain's), so two more passes come first: lbm_density_kernel
+//   streams each cell, applies the faces, sums ρ and reduces each aligned
+//   chunk of 256 cells by a pairwise tree; lbm_mean_kernel, one block,
+//   finishes the same tree (computes/lbm.py tree_mean) and writes the mean
+//   on the device, where the substep kernel reads it: no host sync.
 
 #include <cuda_runtime.h>
 #include <stddef.h>
@@ -65,12 +82,18 @@
 #define LBM_MAX_FACES 8
 #define LBM_MAX_POST 8
 
+#define LBM_DENSITY_BLOCK 256
+#define LBM_MEAN_THREADS 1024
+
 struct LbmPost {
   int32_t kind;  // 0: Zou-He fixed-order, 1: zero-gradient
   int32_t axis, side;
   uint32_t sum1, sum2, rows;  // direction bitmasks
+  int32_t tp, tm;             // the D2Q9 transverse pair, or -1
+  int32_t perturb;            // m = avec[perturb][y] * facesum + b, or -1
   double a, b;                // m = a * facesum + b
   double cm[LBM_MAX_Q];       // f[d] = f[op[d]] + cm[d] * m for d in rows
+  double tc[LBM_MAX_Q];       //        + tc[d] * (f[tp] - f[tm]) where != 0
 };
 
 // One lattice's boundary conditions.
@@ -91,6 +114,10 @@ struct LbmCoef {
   T bf[3];       // body force
   T inv_cs2, inv_cs4;
   T g, g_rho0, t0;              // gravity, gravity * rho0, T0 (ForceSpec)
+  T cs2;                        // c_s^2 of the Smagorinsky flux
+  T smag_eta, smag_eta2;        // Smagorinsky: tau0 / t_sgs, its square,
+  T smag_inv_2tsgs, smag_c;     // 1 / (2 t_sgs), C_s / c_s^2
+  T smag_tau0;
   T guo[LBM_MAX_Q];             // (1 - 0.5 / tau) * w_i / cs^2
   T hpref[LBM_MAX_Q];           // Hermite projection: w_i / (2 cs^2)
   T h2[LBM_MAX_Q * 9];          // Hermite projection: e e / cs^2 - I
@@ -107,6 +134,8 @@ struct LbmPlan {
   int32_t guo;       // 1: the Guo source on lattice 1
   int32_t mrt[2], proj[2];
   int32_t bf_on[3];  // non-zero body force component
+  int32_t two_d;     // 1: no z velocity component
+  int32_t smag;      // 1: the Smagorinsky collision on lattice 1
   LbmFaces lat[2];
   LbmCoef<double> d;
   LbmCoef<float> f;
@@ -127,6 +156,24 @@ __device__ __forceinline__ const LbmCoef<float>& coef<float>() { return c_plan.f
 // index folds to a constant once the direction loops unroll.
 template <int Q>
 struct Lattice;
+
+// marlin_tpu_torch/stencils.py LBMD2Q9
+template <>
+struct Lattice<9> {
+  __host__ __device__ static constexpr int ex(int q) {
+    constexpr int t[9] = {0, 1, 0, -1, 0, 1, -1, -1, 1};
+    return t[q];
+  }
+  __host__ __device__ static constexpr int ey(int q) {
+    constexpr int t[9] = {0, 0, 1, 0, -1, 1, 1, -1, -1};
+    return t[q];
+  }
+  __host__ __device__ static constexpr int ez(int) { return 0; }
+  __host__ __device__ static constexpr int op(int q) {
+    constexpr int t[9] = {0, 3, 4, 1, 2, 7, 8, 5, 6};
+    return t[q];
+  }
+};
 
 // marlin_tpu_torch/stencils.py LBMD3Q19
 template <>
@@ -257,7 +304,8 @@ __device__ __forceinline__ void stream_cell(const LbmPlan& p, const LbmFaces& L,
 template <int Q, typename T>
 __device__ __forceinline__ void load_lattice(const LbmPlan& p, const LbmFaces& L,
                                              const T* __restrict__ fpc,
-                                             const int8_t* __restrict__ media, long long N,
+                                             const int8_t* __restrict__ media,
+                                             const T* __restrict__ avec, long long N,
                                              Cell c, T (&f)[Q]) {
   using D = Lattice<Q>;
   bool on_post = false;
@@ -288,13 +336,26 @@ __device__ __forceinline__ void load_lattice(const LbmPlan& p, const LbmFaces& L
 #pragma unroll
     for (int q = 0; q < Q; ++q)
       if ((bc.sum2 >> q) & 1u) fsum = fsum + T(2) * f[q];
-    const T m = T(bc.a) * fsum + T(bc.b);  // lbm_fused.apply_zouhe
+    // lbm_fused.apply_zouhe; the perturbed inlet's a(y) by row
+    const T a = bc.perturb >= 0 ? avec[bc.perturb * p.ny + ck.y] : T(bc.a);
+    const T m = a * fsum + T(bc.b);
     T g[Q];
 #pragma unroll
     for (int q = 0; q < Q; ++q) g[q] = f[q];
+    // the D2Q9 transverse difference, read by static index
+    T gp = T(0), gm = T(0);
+#pragma unroll
+    for (int q = 0; q < Q; ++q) {
+      if (q == bc.tp) gp = g[q];
+      if (q == bc.tm) gm = g[q];
+    }
 #pragma unroll
     for (int q = 0; q < Q; ++q)
-      if ((bc.rows >> q) & 1u) f[q] = solid_k ? T(0) : g[D::op(q)] + T(bc.cm[q]) * m;
+      if ((bc.rows >> q) & 1u) {
+        T v = g[D::op(q)] + T(bc.cm[q]) * m;
+        if (bc.tc[q] != 0.0) v = v + T(bc.tc[q]) * (gp - gm);
+        f[q] = solid_k ? T(0) : v;
+      }
   }
 }
 
@@ -371,24 +432,63 @@ __device__ __forceinline__ void hermite(T (&f)[Q]) {
   }
 }
 
+// The Smagorinsky 1/τ of a cell from its non-equilibrium parts and the
+// grid's mean density (computes/lbm.py smagorinsky_inv_tau): the momentum
+// flux components (k, x, y) for k = 0 (the reference's nz = 1 quirk, ez2 =
+// [1, 0, ez]) and k = 2, each a signed sum in index order, the components
+// whose coefficients are all zero left out.
+template <int Q, typename T>
+__device__ __forceinline__ T smag_inv_tau(const LbmPlan& p, const T (&f)[Q], T mean) {
+  using D = Lattice<Q>;
+  const LbmCoef<T>& k = coef<T>();
+  T q2 = T(0);
+  bool any = false;
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    if (r == 0 && p.nz != 1) continue;
+    T comp = T(0);
+    bool has = false;
+#pragma unroll
+    for (int i = 0; i < Q; ++i) {
+      const int c = D::ex(i) * D::ey(i) * (r == 0 ? 1 : D::ez(i));
+      if (c) {
+        const T t = signed_term(c, f[i]);
+        comp = has ? comp + t : t;
+        has = true;
+      }
+    }
+    if (has) {
+      const T t = comp * comp;
+      q2 = any ? q2 + t : t;
+      any = true;
+    }
+  }
+  const T q_mean = sqrt(q2) / (mean * k.cs2);
+  const T s = (sqrt(k.smag_eta2 + T(4) * q_mean) - k.smag_eta) * k.smag_inv_2tsgs;
+  return T(1) / (k.smag_tau0 + k.smag_c * s);
+}
+
 // Equilibrium and collision of lattice L (reference LBMBGKCollision /
-// LBMMRTCollision, with the Hermite projection first where the plan asks
-// for it), the Guo source where `guo` (reference LBMApplyForces), solid
-// masking, written to out.  L is a template parameter so that every
-// coefficient's constant-memory address is static.
+// LBMMRTCollision / LBMSmagorinskyCollision, with the Hermite projection
+// first where the plan asks for it), the Guo source where `guo` (reference
+// LBMApplyForces), solid masking, written to out.  L is a template
+// parameter so that every coefficient's constant-memory address is static.
 template <int Q, typename T, bool MRT, int L>
 __device__ __forceinline__ void collide(const LbmPlan& p, T (&f)[Q], T dens, T ux, T uy, T uz,
                                         T third, bool solid, bool guo, T rho, T Fx, T Fy, T Fz,
-                                        T* __restrict__ out, long long N, int at) {
+                                        const T* __restrict__ mean, T* __restrict__ out,
+                                        long long N, int at) {
   const LbmCoef<T>& k = coef<T>();
-  const T inv_tau = k.inv_tau[L];
+  T inv_tau = k.inv_tau[L];
   const bool mrt = MRT && p.mrt[L];
-  const bool dense = mrt || p.proj[L];
+  const bool smag = L == 0 && p.smag;
+  const bool dense = mrt || p.proj[L] || smag;
   if (dense) {
     // every direction's non-equilibrium part at once, in place
 #pragma unroll
     for (int q = 0; q < Q; ++q) f[q] = f[q] - equilibrium<Q, T>(q, dens, ux, uy, uz, third);
     if (p.proj[L]) hermite<Q, T>(f);
+    if (smag) inv_tau = smag_inv_tau<Q, T>(p, f, *mean);
   }
 #pragma unroll
   for (int i = 0; i < Q; ++i) {
@@ -420,24 +520,39 @@ __device__ __forceinline__ void collide(const LbmPlan& p, T (&f)[Q], T dens, T u
   }
 }
 
+// The cell of this thread: x and y from the grid and z along the block,
+// or on a flat (2-D) launch the flattened index (x, y, z) in order.
+__device__ __forceinline__ bool thread_cell(const LbmPlan& p, bool flat, Cell& c) {
+  if (!flat) {
+    c = {(int)blockIdx.z, (int)blockIdx.y, (int)(blockIdx.x * blockDim.x + threadIdx.x)};
+    return c.z < p.nz;
+  }
+  const long long i = (long long)blockIdx.x * blockDim.x + threadIdx.x;
+  if (i >= p.nx * p.ny * p.nz) return false;
+  const int nz = (int)p.nz, ny = (int)p.ny;
+  c = {(int)(i / ((long long)ny * nz)), (int)((i / nz) % ny), (int)(i % nz)};
+  return true;
+}
+
 template <int Q, typename T, bool TWO, bool MRT>
 __global__ void __launch_bounds__(256)
 lbm_substep_kernel(const T* __restrict__ fpc, const T* __restrict__ gpc,
-                   const int8_t* __restrict__ media, T* __restrict__ out,
-                   T* __restrict__ gout, T* __restrict__ speed) {
+                   const int8_t* __restrict__ media, const T* __restrict__ avec,
+                   const T* __restrict__ mean, T* __restrict__ out,
+                   T* __restrict__ gout, T* __restrict__ speed, bool flat) {
   using D = Lattice<Q>;
   const LbmPlan& p = c_plan;
   const LbmCoef<T>& k = coef<T>();
-  const Cell c = {(int)blockIdx.z, (int)blockIdx.y, (int)(blockIdx.x * blockDim.x + threadIdx.x)};
-  if (c.z >= p.nz) return;
+  Cell c;
+  if (!thread_cell(p, flat, c)) return;
   const long long N = p.nx * p.ny * p.nz;
   const int at = cell_index(p, c);
   const bool solid = media && media[at] == 0;
 
   T f[Q];
-  load_lattice<Q, T>(p, p.lat[0], fpc, media, N, c, f);
+  load_lattice<Q, T>(p, p.lat[0], fpc, media, avec, N, c, f);
   T g[TWO ? Q : 1];
-  if constexpr (TWO) load_lattice<Q, T>(p, p.lat[1], gpc, media, N, c, g);
+  if constexpr (TWO) load_lattice<Q, T>(p, p.lat[1], gpc, media, avec, N, c, g);
 
   // moments (reference LBMComputeDensity / LBMComputeVelocity)
   T rho = f[0], mx = T(0), my = T(0), mz = T(0);
@@ -447,7 +562,12 @@ lbm_substep_kernel(const T* __restrict__ fpc, const T* __restrict__ gpc,
     if (q > 0) rho = rho + f[q];
     if (D::ex(q)) { const T t = signed_term(D::ex(q), f[q]); mx = fx ? t : mx + t; fx = false; }
     if (D::ey(q)) { const T t = signed_term(D::ey(q), f[q]); my = fy ? t : my + t; fy = false; }
-    if (D::ez(q)) { const T t = signed_term(D::ez(q), f[q]); mz = fz ? t : mz + t; fz = false; }
+    // 2-D: no z component, whatever the stencil
+    if (D::ez(q) && !p.two_d) {
+      const T t = signed_term(D::ez(q), f[q]);
+      mz = fz ? t : mz + t;
+      fz = false;
+    }
   }
   // the thermal lattice's zeroth moment (LBMComputeDensity on g)
   T temp = T(0);
@@ -493,37 +613,128 @@ lbm_substep_kernel(const T* __restrict__ fpc, const T* __restrict__ gpc,
     return;
   }
   const T third = T(0.5) * usqr * k.inv_cs2;
-  collide<Q, T, MRT, 0>(p, f, rho, ux, uy, uz, third, solid, p.guo != 0, rho, Fx, Fy, Fz, out,
-                        N, at);
+  collide<Q, T, MRT, 0>(p, f, rho, ux, uy, uz, third, solid, p.guo != 0, rho, Fx, Fy, Fz, mean,
+                        out, N, at);
   if constexpr (TWO)
-    collide<Q, T, MRT, 1>(p, g, temp, ux, uy, uz, third, solid, false, rho, Fx, Fy, Fz, gout,
-                          N, at);
+    collide<Q, T, MRT, 1>(p, g, temp, ux, uy, uz, third, solid, false, rho, Fx, Fy, Fz, mean,
+                          gout, N, at);
+}
+
+// Pass 1 of the mean density: each block streams its aligned chunk of
+// LBM_DENSITY_BLOCK flattened cells through lattice 1's faces, sums ρ in
+// direction order and reduces the chunk pairwise (cells past the grid add
+// zeros, which is exact), left + right at every level as tree_mean does.
+template <int Q, typename T>
+__global__ void __launch_bounds__(LBM_DENSITY_BLOCK)
+lbm_density_kernel(const T* __restrict__ fpc, const int8_t* __restrict__ media,
+                   const T* __restrict__ avec, T* __restrict__ partial) {
+  __shared__ T s[LBM_DENSITY_BLOCK];
+  const LbmPlan& p = c_plan;
+  const long long N = p.nx * p.ny * p.nz;
+  T rho = T(0);
+  Cell c;
+  if (thread_cell(p, true, c)) {
+    T f[Q];
+    load_lattice<Q, T>(p, p.lat[0], fpc, media, avec, N, c, f);
+    rho = f[0];
+#pragma unroll
+    for (int q = 1; q < Q; ++q) rho = rho + f[q];
+  }
+  const int t = threadIdx.x;
+  s[t] = rho;
+  __syncthreads();
+  for (int stride = 1; stride < LBM_DENSITY_BLOCK; stride <<= 1) {
+    if ((t & (2 * stride - 1)) == 0) s[t] = s[t] + s[t + stride];
+    __syncthreads();
+  }
+  if (t == 0) partial[blockIdx.x] = s[0];
+}
+
+// Pass 2, one block: the tree over the m partial sums, zero-padded to a
+// power of two.  Each thread first reduces its aligned run of `chunk`
+// partials pairwise (a stack of subtree sums, merged as a binary counter
+// carries), then the block reduces the threads' sums; thread 0 writes
+// the total times 1/N.
+template <typename T>
+__global__ void __launch_bounds__(LBM_MEAN_THREADS)
+lbm_mean_kernel(const T* __restrict__ partial, long long m, int chunk, T inv_n,
+                T* __restrict__ mean) {
+  __shared__ T s[LBM_MEAN_THREADS];
+  const int t = threadIdx.x;
+  T stack[32];
+  int depth = 0;
+  for (int i = 0; i < chunk; ++i) {
+    const long long j = (long long)t * chunk + i;
+    T v = j < m ? partial[j] : T(0);
+    for (int b = i; b & 1; b >>= 1) v = stack[--depth] + v;
+    stack[depth++] = v;
+  }
+  s[t] = stack[0];
+  __syncthreads();
+  for (int stride = 1; stride < LBM_MEAN_THREADS; stride <<= 1) {
+    if ((t & (2 * stride - 1)) == 0) s[t] = s[t] + s[t + stride];
+    __syncthreads();
+  }
+  if (t == 0) mean[0] = s[0] * inv_n;
+}
+
+cudaError_t copy_plan(const LbmPlan& p, cudaStream_t stream) {
+  return cudaMemcpyToSymbolAsync(c_plan, &p, sizeof(LbmPlan), 0, cudaMemcpyHostToDevice,
+                                 stream);
 }
 
 template <int Q, typename T, bool TWO, bool MRT>
-cudaError_t launch(const void* fpc, const void* gpc, const void* media, void* out, void* gout,
-                   void* speed, const LbmPlan& p, cudaStream_t stream) {
-  // one thread a cell: x and y from the grid, z along the block
-  const int threads = p.nz >= 256 ? 256 : (int)((p.nz + 31) / 32 * 32);
-  const dim3 grid((unsigned)((p.nz + threads - 1) / threads), (unsigned)p.ny,
-                  (unsigned)p.nx);
-  cudaError_t err = cudaMemcpyToSymbolAsync(c_plan, &p, sizeof(LbmPlan), 0,
-                                            cudaMemcpyHostToDevice, stream);
+cudaError_t launch(const void* fpc, const void* gpc, const void* media, const void* avec,
+                   const void* mean, void* out, void* gout, void* speed, const LbmPlan& p,
+                   cudaStream_t stream) {
+  // one thread a cell: x and y from the grid, z along the block; a 2-D
+  // plan over the flattened grid
+  const bool flat = p.nz == 1;
+  const int threads = flat || p.nz >= 256 ? 256 : (int)((p.nz + 31) / 32 * 32);
+  const dim3 grid = flat ? dim3((unsigned)((p.nx * p.ny + threads - 1) / threads))
+                         : dim3((unsigned)((p.nz + threads - 1) / threads),
+                                (unsigned)p.ny, (unsigned)p.nx);
+  cudaError_t err = copy_plan(p, stream);
   if (err != cudaSuccess) return err;
   lbm_substep_kernel<Q, T, TWO, MRT><<<grid, threads, 0, stream>>>(
-      (const T*)fpc, (const T*)gpc, (const int8_t*)media, (T*)out, (T*)gout, (T*)speed);
+      (const T*)fpc, (const T*)gpc, (const int8_t*)media, (const T*)avec, (const T*)mean,
+      (T*)out, (T*)gout, (T*)speed, flat);
   return cudaGetLastError();
 }
 
 template <int Q, typename T>
-cudaError_t dispatch(const void* fpc, const void* gpc, const void* media, void* out,
-                     void* gout, void* speed, const LbmPlan& p, cudaStream_t stream) {
+cudaError_t dispatch(const void* fpc, const void* gpc, const void* media, const void* avec,
+                     const void* mean, void* out, void* gout, void* speed, const LbmPlan& p,
+                     cudaStream_t stream) {
   const bool mrt = p.mrt[0] || (p.two_lattice && p.mrt[1]);
   if (p.two_lattice)
-    return mrt ? launch<Q, T, true, true>(fpc, gpc, media, out, gout, speed, p, stream)
-               : launch<Q, T, true, false>(fpc, gpc, media, out, gout, speed, p, stream);
-  return mrt ? launch<Q, T, false, true>(fpc, gpc, media, out, gout, speed, p, stream)
-             : launch<Q, T, false, false>(fpc, gpc, media, out, gout, speed, p, stream);
+    return mrt ? launch<Q, T, true, true>(fpc, gpc, media, avec, mean, out, gout, speed, p,
+                                          stream)
+               : launch<Q, T, true, false>(fpc, gpc, media, avec, mean, out, gout, speed, p,
+                                           stream);
+  return mrt ? launch<Q, T, false, true>(fpc, gpc, media, avec, mean, out, gout, speed, p,
+                                         stream)
+             : launch<Q, T, false, false>(fpc, gpc, media, avec, mean, out, gout, speed, p,
+                                          stream);
+}
+
+template <int Q, typename T>
+cudaError_t density_mean(const void* fpc, const void* media, const void* avec, void* partial,
+                         void* mean, double inv_n, const LbmPlan& p, cudaStream_t stream) {
+  const long long cells = p.nx * p.ny * p.nz;
+  const long long m = (cells + LBM_DENSITY_BLOCK - 1) / LBM_DENSITY_BLOCK;
+  long long m2 = 1;
+  while (m2 < m) m2 <<= 1;
+  const int chunk = m2 > LBM_MEAN_THREADS ? (int)(m2 / LBM_MEAN_THREADS) : 1;
+  cudaError_t err = copy_plan(p, stream);
+  if (err != cudaSuccess) return err;
+  lbm_density_kernel<Q, T><<<(unsigned)m, LBM_DENSITY_BLOCK, 0, stream>>>(
+      (const T*)fpc, (const int8_t*)media, (const T*)avec, (T*)partial);
+  err = cudaGetLastError();
+  if (err != cudaSuccess) return err;
+  lbm_mean_kernel<T><<<1, LBM_MEAN_THREADS, 0, stream>>>((const T*)partial, m, chunk,
+                                                          (T)inv_n, (T*)mean);
+  return cudaGetLastError();
 }
 
 template <int Q>
@@ -539,34 +750,66 @@ void tables(int* e, int* op) {
 
 }  // namespace
 
+// The plan checks both entry points share: the per-lattice limits, the
+// perturbed rows' table, 32-bit cell indices, and the grid's y and z
+// extents of a 3-D launch (at most 65535).
+static bool plan_ok(const LbmPlan& p, const void* avec) {
+  for (int l = 0; l < 2; ++l) {
+    if (p.lat[l].n_faces > LBM_MAX_FACES || p.lat[l].n_post > LBM_MAX_POST) return false;
+    for (int k = 0; k < p.lat[l].n_post; ++k)
+      if (p.lat[l].post[k].perturb >= 0 && !avec) return false;
+  }
+  if (p.nx * p.ny * p.nz > 0x7fffffffLL) return false;
+  return p.nz == 1 || (p.nx <= 65535 && p.ny <= 65535);
+}
+
 // fpc, out (and on two-lattice plans gpc, gout): (q, nx, ny, nz); media:
-// (nx, ny, nz) int8 or null; speed: (nx, ny, nz); float32, or float64
-// where is_double.  `plan` is a host pointer, copied to constant memory on
-// `stream` before the launch.
+// (nx, ny, nz) int8 or null; avec: the (n, ny) a(y) rows of the perturbed
+// inlets, or null; mean: one value, read on Smagorinsky plans; speed:
+// (nx, ny, nz); float32, or float64 where is_double.  `plan` is a host
+// pointer, copied to constant memory on `stream` before the launch.
 extern "C" cudaError_t mtt_lbm_substep(const void* fpc, const void* gpc, const void* media,
-                                       void* out, void* gout, void* speed, int q,
-                                       int is_double, const LbmPlan* plan,
-                                       cudaStream_t stream) {
+                                       const void* avec, const void* mean, void* out,
+                                       void* gout, void* speed, int q, int is_double,
+                                       const LbmPlan* plan, cudaStream_t stream) {
   const LbmPlan& p = *plan;
-  for (int l = 0; l < 2; ++l)
-    if (p.lat[l].n_faces > LBM_MAX_FACES || p.lat[l].n_post > LBM_MAX_POST)
-      return cudaErrorInvalidValue;
-  if (p.two_lattice && (!gpc || !gout)) return cudaErrorInvalidValue;
-  // cell indices are 32-bit; the grid's y and z extents are at most 65535
-  if (p.nx * p.ny * p.nz > 0x7fffffffLL || p.nx > 65535 || p.ny > 65535)
+  if (!plan_ok(p, avec) || (p.two_lattice && (!gpc || !gout)) || (p.smag && !mean))
     return cudaErrorInvalidValue;
-  if (q == 19)
-    return is_double ? dispatch<19, double>(fpc, gpc, media, out, gout, speed, p, stream)
-                     : dispatch<19, float>(fpc, gpc, media, out, gout, speed, p, stream);
-  if (q == 27)
-    return is_double ? dispatch<27, double>(fpc, gpc, media, out, gout, speed, p, stream)
-                     : dispatch<27, float>(fpc, gpc, media, out, gout, speed, p, stream);
+#define LBM_DISPATCH(Q)                                                                    \
+  return is_double                                                                         \
+             ? dispatch<Q, double>(fpc, gpc, media, avec, mean, out, gout, speed, p, stream) \
+             : dispatch<Q, float>(fpc, gpc, media, avec, mean, out, gout, speed, p, stream)
+  if (q == 9) LBM_DISPATCH(9);
+  if (q == 19) LBM_DISPATCH(19);
+  if (q == 27) LBM_DISPATCH(27);
+#undef LBM_DISPATCH
+  return cudaErrorInvalidValue;
+}
+
+// The mean over the grid of lattice 1's streamed density, into `mean` (one
+// value): `partial` holds ceil(nx ny nz / LBM_DENSITY_BLOCK) values of the
+// distribution's type; inv_n = 1 / (nx ny nz).
+extern "C" cudaError_t mtt_lbm_density_mean(const void* fpc, const void* media,
+                                            const void* avec, void* partial, void* mean,
+                                            int q, int is_double, double inv_n,
+                                            const LbmPlan* plan, cudaStream_t stream) {
+  const LbmPlan& p = *plan;
+  if (!plan_ok(p, avec) || !partial || !mean) return cudaErrorInvalidValue;
+#define LBM_MEAN(Q)                                                                     \
+  return is_double ? density_mean<Q, double>(fpc, media, avec, partial, mean, inv_n, p, \
+                                             stream)                                    \
+                   : density_mean<Q, float>(fpc, media, avec, partial, mean, inv_n, p, stream)
+  if (q == 9) LBM_MEAN(9);
+  if (q == 19) LBM_MEAN(19);
+  if (q == 27) LBM_MEAN(27);
+#undef LBM_MEAN
   return cudaErrorInvalidValue;
 }
 
 // The compiled-in e (q x 3) and op (q) tables of stencil q.
 extern "C" cudaError_t mtt_lbm_tables(int q, int* e, int* op) {
-  if (q == 19) tables<19>(e, op);
+  if (q == 9) tables<9>(e, op);
+  else if (q == 19) tables<19>(e, op);
   else if (q == 27) tables<27>(e, op);
   else return cudaErrorInvalidValue;
   return cudaSuccess;

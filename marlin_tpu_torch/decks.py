@@ -42,6 +42,26 @@ each copy equal to its original.
 - ``COLLISIONLESS_DECK``: ``INLET_OUTLET_DECK`` at 6×5×5 without its
   equilibrium, its collision and its bounce-back faces, streamed with
   ``f_old = f`` (the collisionless chain); ``backend``.
+
+The 2-D decks below are the port's own, not copies: the reference decks
+of their patterns are not in the repository.
+
+- ``CHANNEL2D_DECK``: a D2Q9 BGK channel (the pattern of the reference's
+  test/tests/lbm/channel2D.i): bounce-back walls on the bottom and top, a
+  Zou-He velocity inlet on the left, a zero-gradient outlet on the right;
+  ``nx``, ``ny``, ``substeps``, ``backend``.  ``CHANNEL2D_MRT_DECK`` is the
+  same with the MRT collision.
+- ``THERMAL2D_DECK``: ``THERMAL3D_DECK`` made 2-D (D2Q9 on both
+  lattices, the temperature's z ripple dropped, buoyancy along x); ``n``,
+  ``substeps``, ``backend``.
+- ``KARMAN_DECK``: the Kármán vortex street of bench.py:1687
+  ``bench_lbm_karman`` (the reference's
+  examples/lbm/Karman-vortex/cylinder.i, shipped at 800×200): D2Q9, the
+  Smagorinsky collision with the Hermite projection, obstacle bounce-back
+  around a cylinder (``karman_media``, handed in as ``arrays=
+  {"binary_media": ...}``), a perturbed Zou-He inlet on the left, a
+  zero-gradient outlet on the right, bounce-back on the bottom and top;
+  ``nx``, ``ny``, ``substeps``, ``backend``.
 """
 
 import numpy as np
@@ -1820,6 +1840,337 @@ COLLISIONLESS_DECK = """
   num_steps = 3
 []
 """
+
+CHANNEL2D_DECK = """
+[Domain]
+  dim = 2
+  nx = {nx}
+  ny = {ny}
+  mesh_mode = DUMMY
+[]
+[Stencil]
+  [s]
+    type = LBMD2Q9
+  []
+[]
+[TensorBuffers]
+  [f]
+    type = LBMTensorBuffer
+    buffer_type = df
+  []
+  [feq]
+    type = LBMTensorBuffer
+    buffer_type = df
+  []
+  [fpc]
+    type = LBMTensorBuffer
+    buffer_type = df
+  []
+  [velocity]
+    type = LBMTensorBuffer
+    buffer_type = mv
+  []
+  [density]
+    type = LBMTensorBuffer
+    buffer_type = ms
+  []
+  [speed]
+    type = LBMTensorBuffer
+    buffer_type = ms
+  []
+[]
+[TensorComputes]
+  [Initialize]
+    [initial_density]
+      type = LBMConstantTensor
+      buffer = density
+      constants = 1.0
+    []
+    [initial_velocity]
+      type = LBMConstantTensor
+      buffer = velocity
+      constants = '0.01 0.0'
+    []
+    [initial_f]
+      type = LBMEquilibrium
+      buffer = f
+      bulk = density
+      velocity = velocity
+    []
+    [initial_fpc]
+      type = LBMEquilibrium
+      buffer = fpc
+      bulk = density
+      velocity = velocity
+    []
+  []
+  [Solve]
+    [density]
+      type = LBMComputeDensity
+      buffer = density
+      f = f
+    []
+    [velocity]
+      type = LBMComputeVelocity
+      buffer = velocity
+      f = f
+      rho = density
+    []
+    [feq]
+      type = LBMEquilibrium
+      buffer = feq
+      bulk = density
+      velocity = velocity
+    []
+    [collision]
+      type = LBMBGKCollision
+      buffer = fpc
+      f = f
+      feq = feq
+      tau0 = 0.6
+    []
+    [speed]
+      type = LBMComputeVelocityMagnitude
+      buffer = speed
+      velocity = velocity
+    []
+    [residual]
+      type = LBMComputeResidual
+      buffer = speed
+      speed = speed
+    []
+  []
+  [Boundary]
+    [bottom]
+      type = LBMBounceBack
+      buffer = f
+      f_old = fpc
+      boundary = bottom
+    []
+    [top]
+      type = LBMBounceBack
+      buffer = f
+      f_old = fpc
+      boundary = top
+    []
+    [inlet]
+      type = LBMFixedFirstOrderBC
+      buffer = f
+      f = f
+      value = 0.01
+      boundary = left
+    []
+    [outlet]
+      type = LBMMicroscopicZeroGradientBC
+      buffer = f
+      boundary = right
+    []
+  []
+[]
+[TensorSolver]
+  type = LBMStream
+  buffer = f
+  f_old = fpc
+[]
+[Problem]
+  type = LatticeBoltzmannProblem
+  substeps = {substeps}
+  lbm_backend = {backend}
+[]
+[Executioner]
+  type = Transient
+  num_steps = 3
+[]
+"""
+
+# CHANNEL2D_DECK with the MRT collision
+CHANNEL2D_MRT_DECK = CHANNEL2D_DECK.replace("type = LBMBGKCollision",
+                                            "type = LBMMRTCollision")
+
+# THERMAL3D_DECK made 2-D: D2Q9 on both lattices, no z ripple
+THERMAL2D_DECK = THERMAL3D_DECK
+for _old, _new in (("dim = 3", "dim = 2"), ("  nz = {n}\n", ""), ("  zmax = {n}\n", ""),
+                   ("type = LBMD3Q19", "type = LBMD2Q9"),
+                   ("constants = '0.0 0.0 0.0'", "constants = '0.0 0.0'"),
+                   ("*sin(z/8)", "")):
+    assert _old in THERMAL2D_DECK, _old
+    THERMAL2D_DECK = THERMAL2D_DECK.replace(_old, _new)
+del _old, _new
+
+# The port's stand-ins for the reference cylinder.i's parameters: τ₀ = 0.52
+# (ν = 0.0067), C_s = 0.1, an inlet speed of 0.05 (Mach 0.087, Re = 300 on
+# the shipped cylinder's diameter of 40 cells), the whole grid starting at
+# the inlet speed.
+KARMAN_DECK = """
+[Domain]
+  dim = 2
+  nx = {nx}
+  ny = {ny}
+  mesh_mode = DUMMY
+[]
+[Stencil]
+  [d2q9]
+    type = LBMD2Q9
+  []
+[]
+[TensorBuffers]
+  [f]
+    type = LBMTensorBuffer
+    buffer_type = df
+  []
+  [feq]
+    type = LBMTensorBuffer
+    buffer_type = df
+  []
+  [fpc]
+    type = LBMTensorBuffer
+    buffer_type = df
+  []
+  [velocity]
+    type = LBMTensorBuffer
+    buffer_type = mv
+  []
+  [density]
+    type = LBMTensorBuffer
+    buffer_type = ms
+  []
+  [speed]
+    type = LBMTensorBuffer
+    buffer_type = ms
+  []
+  [binary_media]
+    type = LBMTensorBuffer
+    buffer_type = ms
+    is_integer = true
+    file = binary_media.h5
+  []
+[]
+[TensorComputes]
+  [Initialize]
+    [initial_density]
+      type = LBMConstantTensor
+      buffer = density
+      constants = 1.0
+    []
+    [initial_velocity]
+      type = LBMConstantTensor
+      buffer = velocity
+      constants = 'u_inlet 0.0'
+    []
+    [initial_f]
+      type = LBMEquilibrium
+      buffer = f
+      bulk = density
+      velocity = velocity
+    []
+    [initial_fpc]
+      type = LBMEquilibrium
+      buffer = fpc
+      bulk = density
+      velocity = velocity
+    []
+  []
+  [Solve]
+    [density]
+      type = LBMComputeDensity
+      buffer = density
+      f = f
+    []
+    [velocity]
+      type = LBMComputeVelocity
+      buffer = velocity
+      f = f
+      rho = density
+    []
+    [feq]
+      type = LBMEquilibrium
+      buffer = feq
+      bulk = density
+      velocity = velocity
+    []
+    [collision]
+      type = LBMSmagorinskyCollision
+      buffer = fpc
+      f = f
+      feq = feq
+      tau0 = tau
+      Cs = C_s
+      projection = true
+    []
+    [speed]
+      type = LBMComputeVelocityMagnitude
+      buffer = speed
+      velocity = velocity
+    []
+    [residual]
+      type = LBMComputeResidual
+      buffer = speed
+      speed = speed
+    []
+  []
+  [Boundary]
+    [bottom]
+      type = LBMBounceBack
+      buffer = f
+      f_old = fpc
+      boundary = bottom
+    []
+    [top]
+      type = LBMBounceBack
+      buffer = f
+      f_old = fpc
+      boundary = top
+    []
+    [cylinder]
+      type = LBMBounceBack
+      buffer = f
+      f_old = fpc
+      boundary = wall
+    []
+    [inlet]
+      type = LBMFixedFirstOrderBC
+      buffer = f
+      f = f
+      value = u_inlet
+      perturb = true
+      boundary = left
+    []
+    [outlet]
+      type = LBMMicroscopicZeroGradientBC
+      buffer = f
+      boundary = right
+    []
+  []
+[]
+[TensorSolver]
+  type = LBMStream
+  buffer = f
+  f_old = fpc
+[]
+[Problem]
+  type = LatticeBoltzmannProblem
+  scalar_constant_names = 'tau  C_s u_inlet'
+  scalar_constant_values = '0.52 0.1 0.05'
+  substeps = {substeps}
+  binary_media = binary_media
+  lbm_backend = {backend}
+[]
+[Executioner]
+  type = Transient
+  num_steps = 3
+[]
+"""
+
+
+def karman_media(nx: int, ny: int) -> np.ndarray:
+    """The cylinder of bench.py:1707-1709 (bench_lbm_karman): an (nx, ny)
+    int64 array, 1 fluid and 0 solid inside the disc of radius ny // 10
+    around (nx // 5, ny // 2)."""
+    x, y = np.meshgrid(np.arange(nx), np.arange(ny), indexing="ij")
+    media = np.ones((nx, ny), dtype=np.int64)
+    media[(x - nx // 5) ** 2 + (y - ny // 2) ** 2 <= (ny // 10) ** 2] = 0
+    return media
+
 
 def porous_media(n: int, seed: int = 42) -> np.ndarray:
     """The binary media of bench.py's porous benchmark (bench_lbm_porous):

@@ -16,34 +16,39 @@ changes once per MOOSE step, around the loop.  The last substep of a step
 runs the eager chain, so every deck buffer and the old-state ring leave the
 step as the unfused path leaves them.
 
-The fused pattern covers D3Q19 and D3Q27 chains: BGK or MRT collisions,
-with or without the Hermite projection; face bounce-back, a body force,
-binary media (obstacle bounce-back and solid masking); Zou-He fixed-order
-(first and zeroth order) and zero-gradient faces; the collisionless chain
-(LBMStream with f_old = f); and the thermal double-distribution chain (a
-second streamed lattice g with its own faces, T = Σg, Boussinesq buoyancy
-and gravity through LBMComputeForces, the Guo source through
-LBMApplyForces, the residual on T).  ``match_chain`` raises
-``FusedChainError`` with the JAX package's own message, word for word, for
-a chain the JAX package would not fuse, and with a message of its own,
-naming the feature, for a chain it would fuse but this port does not yet:
-2-D decks and the D2Q9 stencil.  Smagorinsky collisions fail earlier, at
-build: their computes are not ported (computes/lbm.py); sharded domains
-fail in the Domain.  None of them ever falls back to the eager chain.
+The fused pattern covers 3-D D3Q19 and D3Q27 chains and 2-D D2Q9 chains:
+BGK or MRT collisions, with or without the Hermite projection; on 2-D
+decks the Smagorinsky collision, whose τ a cell needs the mean density of
+the whole grid; face bounce-back, a body force, binary media (obstacle
+bounce-back and solid masking); Zou-He fixed-order (first and zeroth
+order, with the D2Q9 transverse rows on every face and the perturbed
+sine inlet) and zero-gradient faces; the collisionless chain (LBMStream
+with f_old = f); and the thermal double-distribution chain (a second
+streamed lattice g with its own faces, T = Σg, Boussinesq buoyancy and
+gravity through LBMComputeForces, the Guo source through LBMApplyForces,
+the residual on T).  ``match_chain`` raises ``FusedChainError`` with the
+JAX package's own message, word for word, for a chain the JAX package
+would not fuse; sharded domains fail earlier, in the Domain.  None of
+them ever falls back to the eager chain.
 
 ``fused_substep`` launches the CUDA kernel of ``csrc/lbm_substep.cu`` (the
 counterpart of pallas_lbm.py:224 ``_make_kernel``) on CUDA tensors and
 computes its plain twin ``fused_substep_twin`` on CPU tensors; a CUDA
-tensor never reaches the twin.  It counts its launches.
+tensor never reaches the twin.  A Smagorinsky plan first launches
+``density_mean``'s two reduction passes (the streamed density's mean, on
+the device, with no host sync).  Each wrapper counts its launches.
 
 Kernel, twin and the eager chain (computes/lbm.py, computes/lbm_bc.py) do
 the same operations in the same order, so ``PALLAS`` and ``JNP`` give the
 same bits: the sums over directions in index order (the MRT rows and the
 Hermite sums too, zero coefficients skipped), the divisions by constants
 as multiplications by their reciprocals, the Zou-He faces through one
-affine plan (``apply_zouhe``), the coefficients from one function each
+affine plan (``apply_zouhe``, the perturbed inlet's a(y) from
+``perturb_profile``, computed once on the host), the mean density by one
+pairwise tree (``tree_mean``), the coefficients from one function each
 (``computes/lbm.py`` ``mrt_matrix``, ``hermite_tables``,
-``guo_prefactors``), the kernel built without fused multiply-adds.
+``smagorinsky_constants``, ``guo_prefactors``), the kernel built without
+fused multiply-adds.
 """
 
 from __future__ import annotations
@@ -57,8 +62,10 @@ import numpy as np
 import torch
 
 from . import unordered_fft as uf
-from .computes.lbm import (INV_CS2, INV_CS4, guo_prefactors, hermite, hermite_tables,
-                           mrt_matrix, mrt_relax, signed_sum)
+from .computes.lbm import (CS2 as LATTICE_CS2, INV_CS2, INV_CS4, _direction_sum,
+                           guo_prefactors, hermite, hermite_tables, mrt_matrix, mrt_relax,
+                           signed_sum, smagorinsky_constants, smagorinsky_inv_tau,
+                           tree_mean)
 
 CS2 = 1.0 / 3.0  # the Zou-He plan's (pallas_lbm.py CS2)
 
@@ -102,6 +109,11 @@ class PostBC:
     sum2: Tuple[int, ...] = ()
     # per-unknown update rows: (dir, src, cm, tc, tp, tm)
     rows: Tuple[Tuple[int, int, float, float, int, int], ...] = ()
+    # perturb = true (the D2Q9 left-face velocity inlet, reference
+    # LBMFixedFirstOrderBC::_ux_profile): the prescribed velocity is the row
+    # profile v(y) = value·(1 + 1e-6·sin(2πy/ny)), so the momentum scalar
+    # is m = a(y)·facesum with a(y) = v(y)/(1 − v(y)) (``perturb_profile``)
+    perturb_value: float = 0.0
 
 
 @dataclass(frozen=True)
@@ -162,6 +174,11 @@ class FusedLBMConfig:
     # Hermite projection of fneq before the collision, per lattice
     proj: bool = False
     proj2: bool = False
+    # a 2-D deck (D2Q9): nz = 1 and the velocity has no z component
+    two_d: bool = False
+    # the Smagorinsky collision on the fluid lattice, (C_s, τ₀): τ a cell
+    # from the non-equilibrium momentum flux and the grid's mean density
+    smag: Optional[Tuple[float, float]] = None
 
 
 @dataclass(frozen=True)
@@ -185,12 +202,6 @@ _FACE_AXIS_SIDE = {
 
 def _reject(msg):
     raise FusedChainError(f"lbm_backend = PALLAS: {msg} (use the default JNP backend)")
-
-
-def _not_ported(feature):
-    raise FusedChainError(
-        f"lbm_backend = PALLAS: {feature} is not ported to marlin_tpu_torch "
-        f"yet (use the default JNP backend)")
 
 
 def _zouhe_spec(st, axis, side, value, first_order) -> PostBC:
@@ -237,17 +248,37 @@ def _zouhe_spec(st, axis, side, value, first_order) -> PostBC:
     )
 
 
-def apply_zouhe(bc: PostBC, f) -> Dict[int, torch.Tensor]:
-    """One Zou-He face's affine update: {direction d: f[src] + cm·m} with
-    m = a·(Σ f[sum1] + Σ 2·f[sum2]), every read from ``f`` (indexed by
-    direction: the state before this face).  Each sum runs in ascending
-    direction order, in every backend."""
+def perturb_profile(bc: PostBC, ny: int, dtype, device) -> torch.Tensor:
+    """The perturbed inlet's a(y) = v(y)/(1 − v(y)), v(y) = v + 1e-6·v·
+    sin(2πy/ny), for y in 0..ny−1: computed once in double on the host and
+    rounded to ``dtype``, so the eager chain, the twin and the kernel
+    multiply by the same values (no backend evaluates the sine)."""
+    key = (bc.perturb_value, ny, dtype, str(device))
+    a = _PERTURB.get(key)
+    if a is None:
+        v0 = bc.perturb_value
+        v = v0 + 1.0e-6 * v0 * np.sin(np.arange(ny, dtype=np.float64) / ny * 2.0 * np.pi)
+        a = torch.as_tensor(v / (1.0 - v), dtype=dtype).to(device)
+        _PERTURB[key] = a
+    return a
+
+
+_PERTURB: Dict[tuple, torch.Tensor] = {}
+
+
+def apply_zouhe(bc: PostBC, f, a=None) -> Dict[int, torch.Tensor]:
+    """One Zou-He face's affine update: {direction d: f[src] + cm·m
+    (+ tc·(f[tp] − f[tm]) on the D2Q9 rows)} with m = a·(Σ f[sum1] +
+    Σ 2·f[sum2]) + b, every read from ``f`` (indexed by direction: the
+    state before this face); ``a``, where given, is the perturbed inlet's
+    a(y), broadcastable to the planes.  Each sum runs in ascending direction
+    order, in every backend."""
     fsum = None
     for d in sorted(bc.sum1):
         fsum = f[d] if fsum is None else fsum + f[d]
     for d in sorted(bc.sum2):
         fsum = fsum + 2.0 * f[d]
-    m = bc.a * fsum + bc.b
+    m = (bc.a if a is None else a) * fsum + bc.b
     out = {}
     for d, src, cm, tc, tp, tm in bc.rows:
         val = f[src] + cm * m
@@ -267,8 +298,7 @@ def match_chain(problem) -> FusedLBMPlan:
     dom = problem.domain
     if dom.dim not in (2, 3):
         _reject("only 2-D/3-D decks are supported")
-    if dom.dim == 2:
-        _not_ported("the 2-D (D2Q9) fused substep")
+    two_d = dom.dim == 2
     has_media = problem.lbm_solid_mask() is not None
 
     solver = problem.solver
@@ -287,8 +317,6 @@ def match_chain(problem) -> FusedLBMPlan:
         pc_of[g_name] = gpc_name
 
     st = problem.lbm_stencil()
-    if int(st.q) == 9:
-        _not_ported("the D2Q9 stencil")
     faces_by = {name: [] for name in pc_of}
     post_by = {name: [] for name in pc_of}
     for bc in problem.bc_computes:
@@ -310,12 +338,14 @@ def match_chain(problem) -> FusedLBMPlan:
                     f"fixed-order BC boundary '{bc.boundary}' is not fusable"
                 )
             axis, side = _FACE_AXIS_SIDE[bc.boundary]
-            if axis == 1:
+            if axis == 1 and int(st.q) != 9:
                 # parity: the eager chain raises for q != 9 on these faces
                 _reject("bottom/top fixed-order BCs exist for D2Q9 only")
-            # perturb = true changes only the D2Q9 left face (out of this
-            # slice); everywhere else the eager chain ignores it too
-            post_by[lat].append(_zouhe_spec(st, axis, side, float(bc.value), first))
+            # the perturbed sine inlet exists only on the D2Q9 left face;
+            # everywhere else the eager chain ignores perturb, and so does
+            # the plan (bc.spec gives the face's plan as the eager chain
+            # runs it)
+            post_by[lat].append(bc.spec(axis, side))
             continue
         if isinstance(bc, LB.LBMMicroscopicZeroGradientBC):
             if bc.boundary not in _FACE_AXIS_SIDE:
@@ -323,6 +353,8 @@ def match_chain(problem) -> FusedLBMPlan:
                     f"zero-gradient boundary '{bc.boundary}' is not a domain "
                     f"face"
                 )
+            if two_d and bc.boundary in ("front", "back"):
+                _reject("front/back faces do not exist in 2-D")
             axis, side = _FACE_AXIS_SIDE[bc.boundary]
             post_by[lat].append(PostBC(kind="zg", axis=axis, side=side))
             continue
@@ -346,10 +378,13 @@ def match_chain(problem) -> FusedLBMPlan:
             continue
         if bc.boundary not in _FACE_AXIS_SIDE:
             _reject(f"bounce-back boundary '{bc.boundary}' is not a domain face")
+        if two_d and bc.boundary in ("front", "back"):
+            _reject("front/back faces do not exist in 2-D")
         if (bc.xsel, bc.ysel, bc.zsel) != (slice(None),) * 3:
             _reject("exclude_corners_* options are not supported")
         axis, side = _FACE_AXIS_SIDE[bc.boundary]
-        incoming = {"left": st.left, "bottom": st.bottom, "front": st.front}
+        incoming = {"left": st.left, "bottom": st.bottom,
+                    "front": getattr(st, "front", None)}
         if side == 0:
             dirs = incoming[bc.boundary]
         else:
@@ -369,7 +404,8 @@ def match_chain(problem) -> FusedLBMPlan:
             by_type["velocity"].append(c)
         elif isinstance(c, L.LBMEquilibrium):
             by_type["equilibrium"].append(c)
-        elif type(c) in (L.LBMBGKCollision, L.LBMMRTCollision):
+        elif type(c) in (L.LBMBGKCollision, L.LBMMRTCollision,
+                         L.LBMSmagorinskyCollision):
             by_type["collision"].append(c)
         elif isinstance(c, L.LBMComputeVelocityMagnitude):
             by_type["speed"].append(c)
@@ -483,10 +519,21 @@ def match_chain(problem) -> FusedLBMPlan:
             _reject("collision must consume the streamed distribution and equilibrium")
         if collision.out != fpc_name:
             _reject("collision must write the solver's f_old buffer")
+    smag = None
+    if collision is not None and type(collision) is L.LBMSmagorinskyCollision:
+        # the per-cell τ needs the GLOBAL mean density inside the substep;
+        # the JAX package fuses it on 2-D decks only (the kernel's two
+        # reduction passes would take any grid)
+        if not two_d:
+            _reject("Smagorinsky collisions fuse on 2-D decks only (the "
+                    "global mean density needs the single-block kernel)")
+        smag = (float(collision.C_s), float(collision.tau_0))
     if two_lattice:
         if equilibrium2 is None or collision2 is None:
             _reject("the second lattice requires its own equilibrium and "
                     "collision computes")
+        if type(collision2) is L.LBMSmagorinskyCollision:
+            _reject("Smagorinsky collisions fuse on the fluid lattice only")
         if equilibrium2.velocity != velocity.out:
             _reject("the thermal equilibrium must advect at the fluid "
                     "velocity")
@@ -546,6 +593,8 @@ def match_chain(problem) -> FusedLBMPlan:
         speed_kind=speed_kind,
         proj=bool(collision is not None and collision.projection),
         proj2=bool(collision2 is not None and collision2.projection),
+        two_d=two_d,
+        smag=smag,
     )
     old_keys = set()
     for c in [solver] + list(problem.bc_computes) + list(problem.solve_computes):
@@ -583,23 +632,21 @@ def _face_masks(cfg: FusedLBMConfig, device) -> Dict[Tuple[int, int], torch.Tens
     return masks
 
 
-def fused_substep_twin(fpc_qm: torch.Tensor, media: Optional[torch.Tensor],
-                       cfg: FusedLBMConfig, gpc_qm: Optional[torch.Tensor] = None):
-    """One lattice update in plain torch ops, in the kernel's order
-    (pallas_lbm.py:_make_kernel); returns (fpc_new_qm, speed), or
-    (fpc_new_qm, gpc_new_qm, speed) on two-lattice plans.  ``fpc_qm`` (and
-    ``gpc_qm``) is (q, nx, ny, nz); ``media`` the (nx, ny, nz) media code,
-    or None."""
+def _streamed_lattice(src: torch.Tensor, media: Optional[torch.Tensor],
+                      cfg: FusedLBMConfig, faces, post_bcs):
+    """One lattice's q streamed planes (nx, ny, nz) after its bounce-back
+    and post-stream faces, in the kernel's order (pallas_lbm.py:_make_kernel
+    ``streamed`` and ``apply_post``)."""
     q = cfg.q
-    zero = torch.zeros((), dtype=fpc_qm.dtype, device=fpc_qm.device)
-    masks = _face_masks(cfg, fpc_qm.device)
+    zero = torch.zeros((), dtype=src.dtype, device=src.device)
+    masks = _face_masks(cfg, src.device)
     if cfg.has_media:
         solid = media == 0
         # bounce-back applies at FLUID cells only (media >= 1); negative
         # media ids are neither solid-filled nor bounced
         fluid = media >= 1
 
-    def streamed(src, qi, faces):
+    def streamed(qi):
         """Pull-streamed direction qi with face + obstacle bounce-back and
         solid masking (reference LBMStream.C:51-80 + LBMBounceBack.C +
         maskedFillSolids)."""
@@ -620,40 +667,61 @@ def fused_substep_twin(fpc_qm: torch.Tensor, media: Optional[torch.Tensor],
             a = torch.where(solid, zero, a)
         return a
 
-    def lattice(src, faces, post_bcs):
-        fs = [streamed(src, qi, faces) for qi in range(q)]
-        for bc in post_bcs:
-            # deck order, each BC reading the state the earlier ones left
-            mask = masks[(bc.axis, bc.side)]
-            prev = list(fs)
+    fs = [streamed(qi) for qi in range(q)]
+    for bc in post_bcs:
+        # deck order, each BC reading the state the earlier ones left
+        mask = masks[(bc.axis, bc.side)]
+        prev = list(fs)
 
-            def put(d, val):
-                if cfg.has_media:
-                    val = torch.where(solid, zero, val)
-                fs[d] = torch.where(mask, val, fs[d])
+        def put(d, val):
+            if cfg.has_media:
+                val = torch.where(solid, zero, val)
+            fs[d] = torch.where(mask, val, fs[d])
 
-            if bc.kind == "zg":
-                # copy the adjacent inner layer onto the face layer
-                shift = 1 if bc.side == 1 else -1
-                for qi in range(q):
-                    put(qi, torch.roll(prev[qi], shift, bc.axis))
-            else:
-                for d, val in apply_zouhe(bc, prev).items():
-                    put(d, val)
-        return fs
+        if bc.kind == "zg":
+            # copy the adjacent inner layer onto the face layer
+            shift = 1 if bc.side == 1 else -1
+            for qi in range(q):
+                put(qi, torch.roll(prev[qi], shift, bc.axis))
+        else:
+            a = None
+            if bc.perturb_value:
+                a = perturb_profile(bc, cfg.ny, src.dtype, src.device).reshape(1, cfg.ny, 1)
+            for d, val in apply_zouhe(bc, prev, a).items():
+                put(d, val)
+    return fs
 
-    fs = lattice(fpc_qm, cfg.faces, cfg.post_bcs)
-    gs = lattice(gpc_qm, cfg.faces2, cfg.post_bcs2) if cfg.two_lattice else None
+
+def density_mean_twin(fpc_qm: torch.Tensor, media: Optional[torch.Tensor],
+                      cfg: FusedLBMConfig) -> torch.Tensor:
+    """The mean over the grid of the streamed density Σ_q f (solids, at
+    zero, included) as a 0-d tensor, by ``tree_mean``: what the Smagorinsky
+    τ of a fused substep reads."""
+    return tree_mean(_direction_sum(_streamed_lattice(fpc_qm, media, cfg, cfg.faces,
+                                                      cfg.post_bcs)))
+
+
+def fused_substep_twin(fpc_qm: torch.Tensor, media: Optional[torch.Tensor],
+                       cfg: FusedLBMConfig, gpc_qm: Optional[torch.Tensor] = None):
+    """One lattice update in plain torch ops, in the kernel's order
+    (pallas_lbm.py:_make_kernel); returns (fpc_new_qm, speed), or
+    (fpc_new_qm, gpc_new_qm, speed) on two-lattice plans.  ``fpc_qm`` (and
+    ``gpc_qm``) is (q, nx, ny, nz); ``media`` the (nx, ny, nz) media code,
+    or None."""
+    q = cfg.q
+    zero = torch.zeros((), dtype=fpc_qm.dtype, device=fpc_qm.device)
+    if cfg.has_media:
+        solid = media == 0
+    fs = _streamed_lattice(fpc_qm, media, cfg, cfg.faces, cfg.post_bcs)
+    gs = _streamed_lattice(gpc_qm, media, cfg, cfg.faces2, cfg.post_bcs2) \
+        if cfg.two_lattice else None
 
     # moments (reference LBMComputeDensity / LBMComputeVelocity)
-    rho = None
-    for a in fs:
-        rho = a if rho is None else rho + a
-    moments = [signed_sum([e[k] for e in cfg.e], fs) for k in range(3)]
-    temp = None
-    if cfg.two_lattice:
-        for a in gs:
-            temp = a if temp is None else temp + a
+    rho = _direction_sum(fs)
+    # 2-D: the velocity has no z component, whatever the stencil
+    dims = 2 if cfg.two_d else 3
+    moments = [signed_sum([e[k] for e in cfg.e], fs) for k in range(dims)]
+    temp = _direction_sum(gs) if cfg.two_lattice else None
     # the force field along its direction, zero at solids (reference
     # LBMComputeForces)
     forces = None
@@ -676,9 +744,11 @@ def fused_substep_twin(fpc_qm: torch.Tensor, media: Optional[torch.Tensor],
     if forces is not None:
         vel = [v + fc_ / (2.0 * rho) for v, fc_ in zip(vel, forces)]
     bf = torch.tensor(cfg.body_force, dtype=rho.dtype, device=rho.device)
-    for i, force in enumerate(cfg.body_force):
+    for i, force in enumerate(cfg.body_force[:dims]):
         if force != 0.0:
             vel[i] = vel[i] + bf[i] / (2.0 * rho)
+    if cfg.two_d:
+        vel.append(torch.zeros_like(rho))
     ux, uy, uz = vel
     if cfg.has_media:
         # solids carry rho = 0: zero the velocity as the masked chain does
@@ -705,17 +775,21 @@ def fused_substep_twin(fpc_qm: torch.Tensor, media: Optional[torch.Tensor],
         second = edotu * INV_CS2 + 0.5 * edotu * edotu * INV_CS4
         return cfg.w[qi] * dens * (1.0 + second - third)
 
-    def collide(planes, dens, msm, tau, proj, source):
-        """BGK or MRT (with the Hermite projection first where asked), the
-        Guo source, solid masking."""
+    def collide(planes, dens, msm, tau, proj, source, smag=None):
+        """BGK or MRT (with the Hermite projection first where asked), or
+        BGK with the Smagorinsky τ a cell, the Guo source, solid masking."""
         inv_tau = 1.0 / tau
         feqs = [equilibrium(qi, dens) for qi in range(q)]
-        if msm is None and not proj:
+        if msm is None and not proj and smag is None:
             fneqs = None
         else:
             fneqs = [planes[qi] - feqs[qi] for qi in range(q)]
             if proj:
                 fneqs = hermite(fneqs, hermite_tables(cfg.e, cfg.w))
+            if smag is not None:
+                # the mean over the grid of Σ_q f, solids (zero) included
+                inv_tau = smagorinsky_inv_tau(fneqs, cfg.e, tree_mean(rho), smag[0],
+                                              smag[1], cfg.nz == 1)
         out = []
         for qi in range(q):
             if fneqs is None:
@@ -737,7 +811,7 @@ def fused_substep_twin(fpc_qm: torch.Tensor, media: Optional[torch.Tensor],
     guo = None
     if cfg.force is not None and cfg.force.apply_tau:
         guo = guo_prefactors(cfg.w, cfg.force.apply_tau)
-    fpc_new = collide(fs, rho, cfg.msm, cfg.tau, cfg.proj, guo)
+    fpc_new = collide(fs, rho, cfg.msm, cfg.tau, cfg.proj, guo, cfg.smag)
     if not cfg.two_lattice:
         return fpc_new, speed
     return fpc_new, collide(gs, temp, cfg.msm2, cfg.tau2, cfg.proj2, None), speed
@@ -752,8 +826,10 @@ class _Post(ctypes.Structure):
     _fields_ = [("kind", ctypes.c_int32), ("axis", ctypes.c_int32),
                 ("side", ctypes.c_int32), ("sum1", ctypes.c_uint32),
                 ("sum2", ctypes.c_uint32), ("rows", ctypes.c_uint32),
+                ("tp", ctypes.c_int32), ("tm", ctypes.c_int32),
+                ("perturb", ctypes.c_int32),
                 ("a", ctypes.c_double), ("b", ctypes.c_double),
-                ("cm", ctypes.c_double * MAX_Q)]
+                ("cm", ctypes.c_double * MAX_Q), ("tc", ctypes.c_double * MAX_Q)]
 
 
 class _Faces(ctypes.Structure):
@@ -768,7 +844,9 @@ def _coef(ct):
     class _Coef(ctypes.Structure):
         _fields_ = [("w", ct * MAX_Q), ("inv_tau", ct * 2), ("bf", ct * 3),
                     ("inv_cs2", ct), ("inv_cs4", ct), ("g", ct), ("g_rho0", ct),
-                    ("t0", ct), ("guo", ct * MAX_Q), ("hpref", ct * MAX_Q),
+                    ("t0", ct), ("cs2", ct), ("smag_eta", ct), ("smag_eta2", ct),
+                    ("smag_inv_2tsgs", ct), ("smag_c", ct), ("smag_tau0", ct),
+                    ("guo", ct * MAX_Q), ("hpref", ct * MAX_Q),
                     ("h2", ct * (MAX_Q * 9)), ("msm", ct * (2 * MAX_Q * MAX_Q))]
     return _Coef
 
@@ -783,25 +861,32 @@ class _Plan(ctypes.Structure):
                 ("buoyancy", ctypes.c_int32), ("force_dir", ctypes.c_int32),
                 ("guo", ctypes.c_int32), ("mrt", ctypes.c_int32 * 2),
                 ("proj", ctypes.c_int32 * 2), ("bf_on", ctypes.c_int32 * 3),
+                ("two_d", ctypes.c_int32), ("smag", ctypes.c_int32),
                 ("lat", _Faces * 2), ("d", _coef(ctypes.c_double)),
                 ("f", _coef(ctypes.c_float))]
 
 
 LIBRARY = uf.CudaLibrary("lbm_substep", {
-    # fpc, gpc (or null), media (or null), fpc_new, gpc_new (or null),
+    # fpc, gpc (or null), media (or null), the perturbed inlets' a(y) rows
+    # (or null), the mean density (or null), fpc_new, gpc_new (or null),
     # speed; q, double?; the host plan; stream
-    "mtt_lbm_substep": [uf._P] * 6 + [ctypes.c_int] * 2 + [uf._P, uf._P],
+    "mtt_lbm_substep": [uf._P] * 8 + [ctypes.c_int] * 2 + [uf._P, uf._P],
+    # fpc, media (or null), a(y) rows (or null), partial sums, mean out; q,
+    # double?, 1/(nx·ny·nz); the host plan; stream
+    "mtt_lbm_density_mean": [uf._P] * 5 + [ctypes.c_int] * 2
+                            + [ctypes.c_double, uf._P, uf._P],
     # q; the compiled-in e (q·3) and op (q) tables out
     "mtt_lbm_tables": [ctypes.c_int, uf._P, uf._P],
     # the plan's size and field offsets out (int64[7])
     "mtt_lbm_plan_layout": [uf._P],
 }, source=os.path.join(uf.CSRC, "lbm_substep.cu"),
-    # no contraction (the eager chain's bits); the register report; the 16
-    # template instantiations optimized on every core (-split-compile=0:
-    # 28 s against 95 s single-threaded on the H100 machine's host)
+    # no contraction (the eager chain's bits); the register report; the 24
+    # substep instantiations optimized on every core (-split-compile=0; a
+    # third of the single-threaded build time, PERF.md)
     flags=["-fmad=false", "-Xptxas=-v", "-split-compile=0"])
 
 _SPEED_KIND = {"none": 0, "umag": 1, "t": 2}
+DENSITY_BLOCK = 256  # csrc/lbm_substep.cu LBM_DENSITY_BLOCK: cells a partial sum
 
 
 def _mask(dirs) -> int:
@@ -811,7 +896,13 @@ def _mask(dirs) -> int:
     return m
 
 
-def _pack_faces(lat: _Faces, cfg: FusedLBMConfig, faces, post_bcs):
+def _perturbed(cfg: FusedLBMConfig):
+    """The perturbed Zou-He faces of both lattices, in the order of their
+    rows in the kernel's a(y) table."""
+    return [bc for bc in cfg.post_bcs + cfg.post_bcs2 if bc.perturb_value]
+
+
+def _pack_faces(lat: _Faces, cfg: FusedLBMConfig, faces, post_bcs, perturbed):
     if len(faces) > MAX_FACES or len(post_bcs) > MAX_POST:
         raise FusedChainError(
             f"lbm_backend = PALLAS: the kernel takes at most {MAX_FACES} "
@@ -824,18 +915,25 @@ def _pack_faces(lat: _Faces, cfg: FusedLBMConfig, faces, post_bcs):
         post = lat.post[i]
         post.kind, post.axis, post.side = int(bc.kind == "zg"), bc.axis, bc.side
         post.a, post.b = bc.a, bc.b
+        post.tp = post.tm = post.perturb = -1
+        if bc.perturb_value:
+            post.perturb = next(k for k, p in enumerate(perturbed) if p is bc)
         # the kernel sums sum1, then 2·sum2, each in ascending direction
         # order (as apply_zouhe), and reads each row's source at op[d] (as
-        # _zouhe_spec sets)
+        # _zouhe_spec sets) and its transverse pair at (tp, tm)
         post.sum1, post.sum2 = _mask(bc.sum1), _mask(bc.sum2)
-        for d, src, cm, tc, _tp, _tm in bc.rows:
-            if src != cfg.op[d] or tc or post.rows >> d & 1:
+        for d, src, cm, tc, tp, tm in bc.rows:
+            if src != cfg.op[d] or post.rows >> d & 1 or \
+                    (tc and post.tp >= 0 and (tp, tm) != (post.tp, post.tm)):
                 raise FusedChainError(
                     "lbm_backend = PALLAS: a Zou-He row the kernel does not "
-                    "take (a source other than op[d], a D2Q9 transverse "
-                    "term, or a direction twice)")
+                    "take (a source other than op[d], a direction twice, or "
+                    "two transverse pairs on one face)")
             post.rows |= 1 << d
             post.cm[d] = cm
+            if tc:
+                post.tc[d] = tc
+                post.tp, post.tm = tp, tm
 
 
 def pack(cfg: FusedLBMConfig) -> _Plan:
@@ -849,12 +947,16 @@ def pack(cfg: FusedLBMConfig) -> _Plan:
               gravity=int(fc is not None and fc.gravity),
               buoyancy=int(fc is not None and fc.buoyancy),
               force_dir=fc.direction if fc is not None else 0,
-              guo=int(fc is not None and bool(fc.apply_tau)))
+              guo=int(fc is not None and bool(fc.apply_tau)),
+              two_d=int(cfg.two_d), smag=int(cfg.smag is not None))
     p.mrt[:] = [int(cfg.msm is not None), int(cfg.msm2 is not None)]
     p.proj[:] = [int(cfg.proj), int(cfg.proj2)]
-    p.bf_on[:] = [int(b != 0.0) for b in cfg.body_force]
-    _pack_faces(p.lat[0], cfg, cfg.faces, cfg.post_bcs)
-    _pack_faces(p.lat[1], cfg, cfg.faces2, cfg.post_bcs2)
+    # 2-D: the velocity has no z component, so no z body force either
+    p.bf_on[:] = [int(b != 0.0 and not (cfg.two_d and i == 2))
+                  for i, b in enumerate(cfg.body_force)]
+    perturbed = _perturbed(cfg)
+    _pack_faces(p.lat[0], cfg, cfg.faces, cfg.post_bcs, perturbed)
+    _pack_faces(p.lat[1], cfg, cfg.faces2, cfg.post_bcs2, perturbed)
     _ccr, h2, hpref = hermite_tables(cfg.e, cfg.w)
     # each table in double and rounded to float: the constants the eager
     # chain multiplies by, as a Python float (double) or cast to float32
@@ -862,11 +964,16 @@ def pack(cfg: FusedLBMConfig) -> _Plan:
         t.w[:q] = cfg.w
         t.inv_tau[:] = [1.0 / cfg.tau, 1.0 / cfg.tau2]
         t.bf[:] = cfg.body_force
-        t.inv_cs2, t.inv_cs4 = INV_CS2, INV_CS4
+        t.inv_cs2, t.inv_cs4, t.cs2 = INV_CS2, INV_CS4, LATTICE_CS2
         if fc is not None:
             t.g, t.g_rho0, t.t0 = fc.g, fc.g * fc.rho0, fc.T0
             if fc.apply_tau:
                 t.guo[:q] = guo_prefactors(cfg.w, fc.apply_tau)
+        if cfg.smag is not None:
+            k = smagorinsky_constants(*cfg.smag)
+            t.smag_eta, t.smag_eta2 = k["eta"], k["eta2"]
+            t.smag_inv_2tsgs, t.smag_c = k["inv_2tsgs"], k["cs_over_cs2"]
+            t.smag_tau0 = cfg.smag[1]
         t.hpref[:q] = hpref
         t.h2[:q * 9] = [float(x) for x in h2.reshape(-1)]
         for lat, msm in enumerate((cfg.msm, cfg.msm2)):
@@ -886,8 +993,8 @@ def _check_tables(cfg: FusedLBMConfig):
     key = (cfg.q, cfg.e, cfg.op)
     if key in _CHECKED_TABLES:
         return
-    if cfg.q not in (19, 27):
-        raise FusedChainError(f"lbm_backend = PALLAS: the kernel takes q = 19 "
+    if cfg.q not in (9, 19, 27):
+        raise FusedChainError(f"lbm_backend = PALLAS: the kernel takes q = 9, 19 "
                               f"or 27 (got {cfg.q})")
     lib = LIBRARY.load()
     layout = np.zeros(7, np.int64)
@@ -905,10 +1012,75 @@ def _check_tables(cfg: FusedLBMConfig):
     err = lib.mtt_lbm_tables(cfg.q, e.ctypes.data, op.ctypes.data)
     if err != 0 or [tuple(r) for r in e.tolist()] != list(cfg.e) or \
             tuple(op.tolist()) != cfg.op:
-        raise FusedChainError(f"lbm_backend = PALLAS: the D3Q{cfg.q} tables "
-                              "compiled into csrc/lbm_substep.cu differ from "
-                              "the stencil's")
+        raise FusedChainError(f"lbm_backend = PALLAS: the D{2 if cfg.q == 9 else 3}"
+                              f"Q{cfg.q} tables compiled into csrc/lbm_substep.cu "
+                              "differ from the stencil's")
     _CHECKED_TABLES.add(key)
+
+
+def _check_inputs(fpc_qm, media, cfg: FusedLBMConfig, what):
+    shape = (cfg.q, cfg.nx, cfg.ny, cfg.nz)
+    if tuple(fpc_qm.shape) != shape:
+        raise ValueError(f"{what}: fpc shape {tuple(fpc_qm.shape)}, plan {shape}")
+    if fpc_qm.dtype not in (torch.float32, torch.float64):
+        raise TypeError(f"{what}: dtype {fpc_qm.dtype} (float32 or float64)")
+    if cfg.has_media != (media is not None):
+        raise ValueError(f"{what}: media must be given exactly when the plan "
+                         "has binary media")
+    if media is not None and (tuple(media.shape) != shape[1:]
+                              or media.dtype != torch.int8
+                              or media.device != fpc_qm.device):
+        raise TypeError(f"{what}: media must be the (nx, ny, nz) int8 media code "
+                        "on the distribution's device")
+
+
+def _kernel_args(fpc_qm, media, cfg: FusedLBMConfig, gpc_qm, what):
+    """Contiguity, then the packed plan and the perturbed inlets' a(y) rows
+    (one (n, ny) tensor, or None) for a launch: built once per plan, dtype
+    and device (packing takes ~0.1 ms of host time, longer than a 2-D
+    launch at its shipped size)."""
+    if not fpc_qm.is_contiguous() or (media is not None and not media.is_contiguous()) \
+            or (gpc_qm is not None and not gpc_qm.is_contiguous()):
+        raise ValueError(f"{what}: inputs must be contiguous")
+    key = (cfg, fpc_qm.dtype, fpc_qm.device)
+    args = _KERNEL_ARGS.get(key)
+    if args is None:
+        _check_tables(cfg)
+        perturbed = _perturbed(cfg)
+        avec = None
+        if perturbed:
+            avec = torch.stack([perturb_profile(bc, cfg.ny, fpc_qm.dtype, fpc_qm.device)
+                                for bc in perturbed]).contiguous()
+        args = _KERNEL_ARGS[key] = (pack(cfg), avec)
+    return args
+
+
+_KERNEL_ARGS: Dict[tuple, tuple] = {}
+
+
+def density_mean(fpc_qm: torch.Tensor, media: Optional[torch.Tensor],
+                 cfg: FusedLBMConfig) -> torch.Tensor:
+    """The mean over the grid of the streamed density (fluid lattice, after
+    its faces), a 0-d tensor on the distribution's device: on a CUDA tensor
+    two launches of csrc/lbm_substep.cu (a partial tree sum a block of
+    DENSITY_BLOCK cells, then one block over the partials, both in
+    ``tree_mean``'s pairs), with no host sync; on a CPU tensor
+    ``density_mean_twin``.  Part of the port of pallas_lbm.py:224
+    ``_make_kernel`` (the mean of its ``smag_inv_tau``, :687)."""
+    _check_inputs(fpc_qm, media, cfg, "density_mean")
+    if not uf._launch_kernel(fpc_qm, "density_mean"):
+        return density_mean_twin(fpc_qm, media, cfg)
+    plan, avec = _kernel_args(fpc_qm, media, cfg, None, "density_mean")
+    cells = cfg.nx * cfg.ny * cfg.nz
+    partial = torch.empty(-(-cells // DENSITY_BLOCK), dtype=fpc_qm.dtype,
+                          device=fpc_qm.device)
+    mean = torch.empty((), dtype=fpc_qm.dtype, device=fpc_qm.device)
+    uf._launch(LIBRARY.load().mtt_lbm_density_mean, uf._ptr(fpc_qm), uf._ptr(media),
+               uf._ptr(avec), uf._ptr(partial), uf._ptr(mean), cfg.q,
+               int(fpc_qm.dtype == torch.float64), 1.0 / cells, ctypes.addressof(plan),
+               device=fpc_qm.device, name="density_mean")
+    density_mean.launches += 2
+    return mean
 
 
 def fused_substep(fpc_qm: torch.Tensor, media: Optional[torch.Tensor],
@@ -917,44 +1089,27 @@ def fused_substep(fpc_qm: torch.Tensor, media: Optional[torch.Tensor],
     distribution (and on two-lattice plans the second lattice's,
     ``gpc_qm``); ``media`` is the (nx, ny, nz) int8 media code
     (TensorProblem.lbm_media) or None.  Returns (fpc_new_qm, speed), or
-    (fpc_new_qm, gpc_new_qm, speed) on two-lattice plans.  Replaces
-    pallas_lbm.py:224 ``_make_kernel`` (via ``fused_substep``)."""
-    shape = (cfg.q, cfg.nx, cfg.ny, cfg.nz)
-    if tuple(fpc_qm.shape) != shape:
-        raise ValueError(f"fused_substep: fpc shape {tuple(fpc_qm.shape)}, "
-                         f"plan {shape}")
-    if fpc_qm.dtype not in (torch.float32, torch.float64):
-        raise TypeError(f"fused_substep: dtype {fpc_qm.dtype} (float32 or float64)")
+    (fpc_new_qm, gpc_new_qm, speed) on two-lattice plans.  A Smagorinsky
+    plan first takes ``density_mean``.  Replaces pallas_lbm.py:224
+    ``_make_kernel`` (via ``fused_substep``)."""
+    _check_inputs(fpc_qm, media, cfg, "fused_substep")
     if cfg.two_lattice != (gpc_qm is not None):
-        raise ValueError("fused_substep: gpc must be given exactly when the "
-                         "plan has two lattices")
-    if gpc_qm is not None and (tuple(gpc_qm.shape) != shape
-                               or gpc_qm.dtype != fpc_qm.dtype
+        raise ValueError("fused_substep: gpc must be given exactly when the plan "
+                         "has two lattices")
+    if gpc_qm is not None and (gpc_qm.shape != fpc_qm.shape or gpc_qm.dtype != fpc_qm.dtype
                                or gpc_qm.device != fpc_qm.device):
-        raise TypeError("fused_substep: gpc must match fpc's shape, dtype and "
-                        "device")
-    if cfg.has_media != (media is not None):
-        raise ValueError("fused_substep: media must be given exactly when the "
-                         "plan has binary media")
-    if media is not None and (tuple(media.shape) != shape[1:]
-                              or media.dtype != torch.int8
-                              or media.device != fpc_qm.device):
-        raise TypeError("fused_substep: media must be the (nx, ny, nz) int8 "
-                        "media code on the distribution's device")
+        raise TypeError("fused_substep: gpc must match fpc's shape, dtype and device")
     if not uf._launch_kernel(fpc_qm, "fused_substep"):
         return fused_substep_twin(fpc_qm, media, cfg, gpc_qm)
-    if not fpc_qm.is_contiguous() or (media is not None and not media.is_contiguous()) \
-            or (gpc_qm is not None and not gpc_qm.is_contiguous()):
-        raise ValueError("fused_substep: inputs must be contiguous")
-    _check_tables(cfg)
-    plan = pack(cfg)
+    mean = density_mean(fpc_qm, media, cfg) if cfg.smag is not None else None
+    plan, avec = _kernel_args(fpc_qm, media, cfg, gpc_qm, "fused_substep")
     out = torch.empty_like(fpc_qm)
     gout = torch.empty_like(gpc_qm) if gpc_qm is not None else None
-    speed = torch.empty(shape[1:], dtype=fpc_qm.dtype, device=fpc_qm.device)
+    speed = torch.empty(fpc_qm.shape[1:], dtype=fpc_qm.dtype, device=fpc_qm.device)
     uf._launch(LIBRARY.load().mtt_lbm_substep, uf._ptr(fpc_qm), uf._ptr(gpc_qm),
-               uf._ptr(media), uf._ptr(out), uf._ptr(gout), uf._ptr(speed), cfg.q,
-               int(fpc_qm.dtype == torch.float64), ctypes.addressof(plan),
-               device=fpc_qm.device, name="fused_substep")
+               uf._ptr(media), uf._ptr(avec), uf._ptr(mean), uf._ptr(out),
+               uf._ptr(gout), uf._ptr(speed), cfg.q, int(fpc_qm.dtype == torch.float64),
+               ctypes.addressof(plan), device=fpc_qm.device, name="fused_substep")
     fused_substep.launches += 1
     if gout is None:
         return out, speed
@@ -962,11 +1117,14 @@ def fused_substep(fpc_qm: torch.Tensor, media: Optional[torch.Tensor],
 
 
 fused_substep.launches = 0
+density_mean.launches = 0
 
 
 def reset_launches():
     fused_substep.launches = 0
+    density_mean.launches = 0
 
 
 def launches() -> Dict[str, int]:
-    return {"lbm_substep": fused_substep.launches}
+    return {"lbm_substep": fused_substep.launches,
+            "lbm_density_mean": density_mean.launches}

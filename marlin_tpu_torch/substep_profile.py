@@ -2,8 +2,8 @@
 card.
 
     python -m marlin_tpu_torch.substep_profile [--backend PALLAS|DEFAULT]
-        [--deck ch3d|multi3d|porous|mixed|thermal|pebbles] [--carry] [--fused]
-        [--lbm-backend PALLAS|JNP]
+        [--deck ch3d|multi3d|porous|mixed|thermal|pebbles|karman] [--carry]
+        [--fused] [--lbm-backend PALLAS|JNP]
 
 Builds ``decks.CH3D_DECK`` (or the two-field ``decks.MULTI_3D_DECK``, dt =
 0.05) at 512³ (10 substeps a step) in float32 on the card, with
@@ -11,8 +11,10 @@ Builds ``decks.CH3D_DECK`` (or the two-field ``decks.MULTI_3D_DECK``, dt =
 ``fused_spectral`` (``--fused``, PALLAS only); or ``decks.POROUS_DECK``
 (through ``decks.porous_media``), ``decks.MIXED_DECK``, the thermal
 ``decks.THERMAL3D_DECK`` or ``decks.PEBBLES_DECK`` (through
-``decks.porous_media``) at 256³ (20 substeps a step) with ``lbm_backend``
-from ``--lbm-backend``.  Times
+``decks.porous_media``) at 256³ (20 substeps a step), or the 2-D
+``decks.KARMAN_DECK`` (through ``decks.karman_media``) at its shipped
+800×200 (100 substeps a step), with ``lbm_backend`` from
+``--lbm-backend``.  Times
 problem construction and ``init_state``, warms up with one step (two for
 LBM, whose first step runs no substeps), then traces one more step with
 ``torch.profiler``: device time by kernel name, split into the hand
@@ -29,14 +31,16 @@ import time
 import torch
 
 from . import hit
-from .decks import (CH3D_DECK, MIXED_DECK, MULTI_3D_DECK, PEBBLES_DECK, POROUS_DECK,
-                    THERMAL3D_DECK, porous_media)
+from .decks import (CH3D_DECK, KARMAN_DECK, MIXED_DECK, MULTI_3D_DECK, PEBBLES_DECK,
+                    POROUS_DECK, THERMAL3D_DECK, karman_media, porous_media)
 from .problem import TensorProblem
 
 N = 512
 SUBSTEPS = 10
 LBM_N = 256
 LBM_SUBSTEPS = 20
+KARMAN = (800, 200)
+KARMAN_SUBSTEPS = 100
 TOP = 12
 
 
@@ -45,7 +49,7 @@ def main(argv=None) -> int:
     ap.add_argument("--backend", default="PALLAS", choices=["PALLAS", "DEFAULT"])
     ap.add_argument("--deck", default="ch3d",
                     choices=["ch3d", "multi3d", "porous", "mixed", "thermal",
-                             "pebbles"])
+                             "pebbles", "karman"])
     ap.add_argument("--carry", action="store_true")
     ap.add_argument("--fused", action="store_true")
     ap.add_argument("--lbm-backend", default="PALLAS", choices=["PALLAS", "JNP"])
@@ -57,7 +61,15 @@ def main(argv=None) -> int:
               else "carry_reciprocal = true" if ns.carry else "")
     domain = f"fft_backend = {ns.backend}\n  floating_precision = SINGLE"
     arrays, n, substeps, warm = None, N, SUBSTEPS, 1
-    if ns.deck in ("porous", "mixed", "thermal", "pebbles"):
+    extent = None
+    if ns.deck == "karman":
+        dt, substeps, warm = 1.0, KARMAN_SUBSTEPS, 2
+        extent = f"{KARMAN[0]}x{KARMAN[1]}"
+        deck = KARMAN_DECK.format(nx=KARMAN[0], ny=KARMAN[1], substeps=substeps,
+                                  backend=ns.lbm_backend).replace(
+            "[Domain]", "[Domain]\n  floating_precision = SINGLE")
+        arrays = {"binary_media": karman_media(*KARMAN)}
+    elif ns.deck in ("porous", "mixed", "thermal", "pebbles"):
         dt, n, substeps, warm = 1.0, LBM_N, LBM_SUBSTEPS, 2
         fmt = dict(substeps=substeps, backend=ns.lbm_backend)
         if ns.deck == "porous":
@@ -92,7 +104,7 @@ def main(argv=None) -> int:
         label = f"{ns.deck} lbm_backend {ns.lbm_backend}"
     else:
         label = f"{ns.deck} {ns.backend}{' fused' if ns.fused else ' carry' if ns.carry else ''}"
-    print(f"[profile] {label} {n}^3: build {t1 - t0:.3f} s, "
+    print(f"[profile] {label} {extent or f'{n}^3'}: build {t1 - t0:.3f} s, "
           f"init_state {t2 - t1:.3f} s", flush=True)
     for i in range(warm):  # warm-up
         state = problem.step(state, i * dt, dt, dt, i == 0)
@@ -112,9 +124,10 @@ def main(argv=None) -> int:
     # carry "fft" in their names, the port's "lanes"; the fused update
     # kernel is the forward sublanes kernel with an epilogue, so it counts)
     if problem.is_lbm:
-        what = "LBM substep kernel"
+        what = "LBM substep and density-mean kernels"
         hand_us = sum(e.self_device_time_total for e in kernels
-                      if "lbm_substep_kernel" in e.key)
+                      if "lbm_substep_kernel" in e.key or "lbm_density_kernel" in e.key
+                      or "lbm_mean_kernel" in e.key)
     else:
         what = "FFT kernels"
         hand_us = sum(e.self_device_time_total for e in kernels

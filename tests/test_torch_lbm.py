@@ -93,6 +93,7 @@ FACES_3D = ["left", "right", "bottom", "top", "front", "back"]
 _EXTRA_BUFFERS = "".join(
     f"  [{name}]\n    type = LBMTensorBuffer\n    buffer_type = {kind}\n  []\n"
     for name, kind in (("fpc_mrt", "df"), ("fpc_mrtp", "df"), ("fpc_bgkp", "df"),
+                       ("fpc_smag", "df"), ("fpc_smagp", "df"), ("fpc_smag_mrt", "df"),
                        ("F_g", "mv"), ("F_b", "mv"), ("F_gb", "mv"), ("T", "ms")))
 
 
@@ -117,6 +118,9 @@ _EXTRA_SOLVES = (
     _collision("x_mrt", "LBMMRTCollision", "fpc_mrt", False)
     + _collision("x_mrt_projected", "LBMMRTCollision", "fpc_mrtp", True)
     + _collision("x_bgk_projected", "LBMBGKCollision", "fpc_bgkp", True)
+    + _collision("x_smagorinsky", "LBMSmagorinskyCollision", "fpc_smag", False)
+    + _collision("x_smagorinsky_projected", "LBMSmagorinskyCollision", "fpc_smagp", True)
+    + _collision("x_smagorinsky_mrt", "LBMSmagorinskyMRTCollision", "fpc_smag_mrt", False)
     + _forces("x_gravity", "F_g", True, False, 1)
     + _forces("x_buoyancy", "F_b", False, True, 0)
     + _forces("x_gravity_buoyancy", "F_gb", True, True, 1)
@@ -125,8 +129,8 @@ _EXTRA_SOLVES = (
 
 
 def _with_extras(deck):
-    """A harness deck with the MRT and projected collisions and the force
-    computes beside its own chain (each writes a buffer of its own; the
+    """A harness deck with the MRT, projected and Smagorinsky collisions and
+    the force computes beside its own chain (each writes a buffer of its own; the
     harness applies every compute to the same random state)."""
     deck = deck.replace("[TensorBuffers]\n", "[TensorBuffers]\n" + _EXTRA_BUFFERS, 1)
     return deck.replace("  [Solve]\n", "  [Solve]\n" + _EXTRA_SOLVES, 1)
@@ -145,8 +149,9 @@ def _harness_allface(tmp_path, stencil):
 
 
 def _harness_2d(tmp_path, stencil):
-    """A D2Q9 channel (the eager chain's 2-D and D2Q9 branches, which the
-    fused kernel does not take yet), with the sine inlet profile."""
+    """A D2Q9 channel (the eager chain's 2-D and D2Q9 branches: the Zou-He
+    faces on all four sides through the affine plan, the sine inlet
+    profile, the Smagorinsky τ with the nz = 1 flux component)."""
     deck = decks.INLET_OUTLET_DECK.format(backend="JNP")
     deck = deck.replace("dim = 3", "dim = 2").replace("  nz = 10\n", "")
     deck = deck.replace("type = LBMD3Q19", "type = LBMD2Q9")
@@ -240,7 +245,8 @@ def test_residual_is_one_before_history():
 @pytest.mark.parametrize("case", ["allface_d3q19", "allface_d3q27", "media",
                                   "inlet_outlet", "porous_16", "mixed_12",
                                   "thermal", "pebbles", "porous_proj",
-                                  "collisionless"])
+                                  "collisionless", "channel2d", "channel2d_mrt",
+                                  "karman"])
 def test_deck_state_matches_jax(case, tmp_path):
     text = deck_text(case, "JNP", tmp_path)[0]
     assert_state_parity(_run_jax(text), _run_port(text), DECKS[case][2])
@@ -333,6 +339,41 @@ def test_lbm_deck_copies_are_the_originals():
     keep = dict(backend="{backend}", media_h5="{media_h5}")
     assert decks.PEBBLES_DECK.format(nx=12, ny=8, nz=8, substeps=6, **keep) == \
         tpl._THERMAL_3D_DECK.format(**keep)
+
+
+def test_2d_decks_build_alike_in_both_packages(tmp_path):
+    """decks.CHANNEL2D_DECK (BGK and MRT) and decks.KARMAN_DECK build in both
+    packages to the same initial state (the Kármán media through arrays= in
+    the port, through its h5 file in the JAX package); each is the port's
+    own deck, not a copy."""
+    media = decks.karman_media(40, 20)
+    _media_file(tmp_path, media, "binary_media")
+    texts = [(decks.CHANNEL2D_DECK.format(nx=9, ny=7, substeps=2, backend="JNP"), None),
+             (decks.CHANNEL2D_MRT_DECK.format(nx=9, ny=7, substeps=2, backend="JNP"), None),
+             (decks.KARMAN_DECK.format(nx=40, ny=20, substeps=2, backend="PALLAS"),
+              {"binary_media": media})]
+    for text, arrays in texts:
+        js = JaxProblem(jhit.parse(text), deck_dir=str(tmp_path)).init_state()
+        ps = TensorProblem(hit.parse(text), device="cpu", arrays=arrays).init_state()
+        assert set(js["buffers"]) == set(ps["buffers"])
+        for name, ref in js["buffers"].items():
+            got = ps["buffers"][name].numpy()
+            assert got.shape == np.shape(ref), name
+            np.testing.assert_allclose(got, np.asarray(ref), rtol=0, atol=1e-15,
+                                       err_msg=name)
+
+
+def test_karman_media_is_the_benchmark_cylinder():
+    """bench.py:1707-1709's cylinder: radius ny // 10 around (nx // 5,
+    ny // 2); at the shipped 800×200, 1,257 solid cells."""
+    nx, ny = 800, 200
+    x, y = np.meshgrid(np.arange(nx), np.arange(ny), indexing="ij")
+    ref = np.ones((nx, ny), dtype=np.int64)
+    ref[(x - nx // 5) ** 2 + (y - ny // 2) ** 2 <= (ny // 10) ** 2] = 0
+    media = decks.karman_media(nx, ny)
+    assert media.dtype == np.int64
+    np.testing.assert_array_equal(media, ref)
+    assert int((media == 0).sum()) == int((ref == 0).sum()) == 1257
 
 
 def _bench_porous_media(n):

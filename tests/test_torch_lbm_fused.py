@@ -13,8 +13,14 @@ Tolerances:
 - the port's PALLAS path against its own JNP path: equal, bit for bit, in
   float32 and float64 (the kernel and its twin do the eager chain's
   operations in its order);
+- the 2-D twin against the interpret-mode kernel, one substep: 1e-12 in
+  float64, and in float32 2e-6 of the largest magnitude (the two round in
+  different orders: the JAX kernel multiplies by 1/ρ, divides by c_s² and
+  evaluates the inlet's sine in float32; a few float32 ulps);
+- the tree mean density against ``torch.sum``: 1e-12 relative in float64;
 - rejections: the JAX package's message, word for word (one deck a
-  reachable ``_reject``, the thermal ones edits of decks.THERMAL3D_DECK).
+  reachable ``_reject``, the thermal ones edits of decks.THERMAL3D_DECK,
+  the 2-D ones edits of decks.CHANNEL2D_DECK and of a 2-D thermal deck).
 The `cuda` cases hold the CUDA kernel to its twin on the card; the JAX
 package is imported inside a fixture, so they run where there is no jax
 (nor h5py: the port takes the media as arrays).
@@ -186,6 +192,28 @@ def _thermal_zero_gradient(backend):
       boundary = right""")
 
 
+def karman_media_64():
+    """tests/test_pallas_lbm.py:1277-1279's cylinder at 64×32."""
+    x, y = np.meshgrid(np.arange(64), np.arange(32), indexing="ij")
+    media = np.ones((64, 32), dtype=np.int64)
+    media[(x - 16) ** 2 + (y - 16) ** 2 <= 5 ** 2] = 0
+    return media
+
+
+def _perturb_right_2d(backend):
+    """decks.CHANNEL2D_DECK with its inlet on the right face and perturb =
+    true, the outlet on the left: the sine profile exists only on the D2Q9
+    left face, so both packages ignore perturb here."""
+    deck = decks.CHANNEL2D_DECK.format(nx=12, ny=10, substeps=6, backend=backend)
+    for old, new in (("value = 0.01\n      boundary = left",
+                      "value = -0.01\n      perturb = true\n      boundary = right"),
+                     ("LBMMicroscopicZeroGradientBC\n      buffer = f\n      boundary = right",
+                      "LBMMicroscopicZeroGradientBC\n      buffer = f\n      boundary = left")):
+        assert old in deck, old
+        deck = deck.replace(old, new)
+    return deck
+
+
 def pebbles_media():
     """tests/test_pallas_lbm.py's Pebbles obstacle."""
     media = np.ones((12, 8, 8), dtype=np.int64)
@@ -230,11 +258,29 @@ DECKS = {
     "allface_d3q27_mrt": (lambda b, m: decks.ALLFACE_DECK.format(
         n=8, stencil="LBMD3Q27", backend=b).replace("LBMBGKCollision", "LBMMRTCollision"),
         None, ZOUHE_TOL),
+    # the 2-D (D2Q9) decks: the channel with BGK and with MRT, the Kármán
+    # pattern (Smagorinsky with the projection, a perturbed inlet, the
+    # cylinder) and the 2-D thermal pair
+    "channel2d": (lambda b, m: decks.CHANNEL2D_DECK.format(
+        nx=12, ny=10, substeps=6, backend=b), None, ZOUHE_TOL),
+    "channel2d_mrt": (lambda b, m: decks.CHANNEL2D_MRT_DECK.format(
+        nx=12, ny=10, substeps=6, backend=b), None, ZOUHE_TOL),
+    "karman": (lambda b, m: decks.KARMAN_DECK.format(
+        nx=64, ny=32, substeps=6, backend=b).replace("binary_media.h5", m),
+        karman_media_64, ZOUHE_TOL),
+    "thermal2d": (lambda b, m: decks.THERMAL2D_DECK.format(n=8, substeps=4, backend=b),
+                  None, ZOUHE_TOL),
+    # perturb = true where the reference ignores it: a D2Q9 right face, and
+    # the D3Q19 left face
+    "perturb_right_2d": (lambda b, m: _perturb_right_2d(b), None, ZOUHE_TOL),
+    "perturb_3d": (lambda b, m: decks.INLET_OUTLET_DECK.format(backend=b).replace(
+        "value = 0.01\n", "value = 0.01\n      perturb = true\n"), None, ZOUHE_TOL),
 }
 PLAN_CASES = ["porous_8", "mixed_8", "reversed", "allface_d3q19",
               "allface_d3q27", "zeroth_order", "media_channel", "thermal",
               "thermal_zg", "pebbles", "porous_proj", "collisionless",
-              "allface_d3q27_mrt"]
+              "allface_d3q27_mrt", "perturb_3d"]
+PLAN_CASES_2D = ["channel2d", "channel2d_mrt", "karman", "thermal2d", "perturb_right_2d"]
 
 
 def deck(case, backend, tmp_path=None):
@@ -307,7 +353,66 @@ def test_plan_and_twin_match_pallas(jx, case, tmp_path):
     assert len(got) == len(ref) == (3 if cfg.two_lattice else 2)
     for g, r in zip(got, ref):
         np.testing.assert_allclose(g.numpy(), np.asarray(r), rtol=0, atol=TOL)
-    assert lf.launches() == {"lbm_substep": 0}
+    assert lf.launches() == {"lbm_substep": 0, "lbm_density_mean": 0}
+
+
+@pytest.mark.parametrize("dtype", [np.float32, np.float64])
+@pytest.mark.parametrize("case", PLAN_CASES_2D)
+def test_plan_and_twin_match_pallas_2d(jx, case, dtype, tmp_path):
+    """The 2-D plans: the port's plan is the JAX package's, field for field,
+    and one twin substep (7×9×1: odd extents, random distributions and
+    media) equals one interpret-mode single-block kernel substep on the
+    squeezed (q, nx, ny) arrays, incl. the perturbed inlet, the transverse
+    Zou-He rows and the Smagorinsky τ with its mean density."""
+    jplan, plan = jax_plan(jx, case, tmp_path), port_plan(case)
+    assert (plan.fpc, plan.speed, plan.fpc2) == (jplan.fpc, jplan.speed, jplan.fpc2)
+    for field in dataclasses.fields(plan.config):
+        ours, ref = getattr(plan.config, field.name), getattr(jplan.config, field.name)
+        assert _same_field(field.name, ours, ref), field.name
+    assert plan.config.two_d and (plan.config.smag is not None) == (case == "karman")
+    nx, ny = 7, 9
+    cfg = dataclasses.replace(plan.config, nx=nx, ny=ny)
+    jcfg = dataclasses.replace(jplan.config, nx=nx, ny=ny, block=nx, nx_global=nx,
+                               ny_global=ny)
+    rng = np.random.RandomState(13)
+    w = np.asarray(cfg.w)[:, None, None]
+    fpc = (w * (1.0 + 0.1 * rng.standard_normal((cfg.q, nx, ny)))).astype(dtype)
+    gpc = (w * (1.0 + 0.1 * rng.standard_normal((cfg.q, nx, ny)))).astype(dtype) \
+        if cfg.two_lattice else None
+    media = jmedia = None
+    if cfg.has_media:
+        code = rng.choice([0, 1, 1, 1, -1], size=(nx, ny)).astype(np.int8)
+        media = torch.from_numpy(code[..., None])
+        jmedia = jx.jnp.asarray(code.astype(dtype))
+        fpc = np.where(code == 0, 0.0, fpc).astype(dtype)
+    ref = jx.PL.fused_substep(jx.jnp.asarray(fpc), jmedia, jcfg,
+                              gpc_qm=None if gpc is None else jx.jnp.asarray(gpc))
+    got = lf.fused_substep(torch.from_numpy(fpc[..., None]), media, cfg,
+                           None if gpc is None else torch.from_numpy(gpc[..., None]))
+    assert len(got) == len(ref) == (3 if cfg.two_lattice else 2)
+    for g, r in zip(got, ref):
+        r = np.asarray(r)
+        assert g.numpy().dtype == r.dtype and g.shape[-1] == 1
+        # (NaN where both give it: random media can leave a fluid face cell
+        # that copies a solid inner neighbour with no mass)
+        tol = TOL if dtype == np.float64 else 2e-6 * np.nanmax(np.abs(r))
+        np.testing.assert_allclose(g[..., 0].numpy(), r, rtol=0, atol=tol)
+    assert lf.launches() == {"lbm_substep": 0, "lbm_density_mean": 0}
+
+
+@pytest.mark.parametrize("nx,ny,nz", [(1, 1, 1), (7, 9, 1), (33, 17, 1), (5, 3, 7),
+                                      (300, 301, 1)])
+def test_tree_mean_is_the_mean(nx, ny, nz):
+    """computes/lbm.py tree_mean (the pairwise tree the kernel's reduction
+    passes reproduce) against torch.sum / n, 1e-12 relative in float64, on
+    odd extents (zero padding to the next power of two)."""
+    from marlin_tpu_torch.computes.lbm import tree_mean
+
+    a = torch.from_numpy(np.random.RandomState(nx + ny).uniform(0.5, 1.5, (nx, ny, nz)))
+    ref = torch.sum(a) / a.numel()
+    got = tree_mean(a)
+    assert got.shape == () and got.dtype == torch.float64
+    assert abs(got.item() - ref.item()) <= 1e-12 * abs(ref.item())
 
 
 # -- whole decks --------------------------------------------------------------------
@@ -315,7 +420,7 @@ def test_plan_and_twin_match_pallas(jx, case, tmp_path):
 WHOLE_CASES = ["allface_d3q19", "allface_d3q27", "media", "inlet_outlet",
                "media_channel", "porous_16", "mixed_12", "reversed", "zeroth_order",
                "thermal", "thermal_zg", "pebbles", "porous_proj", "collisionless",
-               "allface_d3q27_mrt"]
+               "allface_d3q27_mrt", "perturb_3d"] + PLAN_CASES_2D
 
 
 @pytest.mark.parametrize("case", WHOLE_CASES)
@@ -324,7 +429,8 @@ def test_pallas_deck_matches_jax_jnp(jx, case, tmp_path):
                         run_port(deck(case, "PALLAS", tmp_path)[0]), DECKS[case][2])
 
 
-@pytest.mark.parametrize("case", ["allface_d3q19", "mixed_8", "thermal", "pebbles"])
+@pytest.mark.parametrize("case", ["allface_d3q19", "mixed_8", "thermal", "pebbles",
+                                  "karman", "thermal2d"])
 def test_pallas_deck_matches_jax_pallas(jx, case, tmp_path):
     text = deck(case, "PALLAS", tmp_path)[0]
     assert_state_parity(run_jax(jx, text), run_port(text), DECKS[case][2])
@@ -346,7 +452,7 @@ def _bit_for_bit(case, precision, device="cpu"):
 
 
 BIT_CASES = ["porous_16", "mixed_12", "media_channel", "thermal", "pebbles",
-             "porous_proj", "collisionless"]
+             "porous_proj", "collisionless"] + PLAN_CASES_2D
 
 
 @pytest.mark.parametrize("precision", ["SINGLE", "DOUBLE"])
@@ -607,6 +713,36 @@ THERMAL_REJECTIONS = {
 }
 REJECTIONS.update(THERMAL_REJECTIONS)
 
+# the 2-D chains and the Smagorinsky collision: what the JAX package refuses
+CHANNEL2D = decks.CHANNEL2D_DECK.format(nx=6, ny=5, substeps=3, backend="PALLAS")
+C2_OUTLET = ("    [outlet]\n      type = LBMMicroscopicZeroGradientBC\n      buffer = f\n"
+             "      boundary = right\n    []\n")
+C2_BOTTOM = ("    [bottom]\n      type = LBMBounceBack\n      buffer = f\n"
+             "      f_old = fpc\n      boundary = bottom\n    []\n")
+THERMAL2D = decks.THERMAL2D_DECK.format(n=6, substeps=3, backend="PALLAS")
+REJECTIONS.update({
+    "smagorinsky_3d": _edit((COLLISION, COLLISION.replace("LBMBGKCollision",
+                                                          "LBMSmagorinskyCollision"))),
+    "smagorinsky_mrt": _edit((COLLISION, COLLISION.replace(
+        "LBMBGKCollision", "LBMSmagorinskyMRTCollision"))),
+    "smagorinsky_mrt_2d": _edit((COLLISION,
+                                 COLLISION.replace("LBMBGKCollision",
+                                                   "LBMSmagorinskyMRTCollision")),
+                                base=CHANNEL2D),
+    "zero_gradient_front_2d": _edit((C2_OUTLET, C2_OUTLET.replace("boundary = right",
+                                                                  "boundary = front")),
+                                    base=CHANNEL2D),
+    "bounce_back_back_2d": _edit((C2_BOTTOM, C2_BOTTOM.replace("boundary = bottom",
+                                                               "boundary = back")),
+                                 base=CHANNEL2D),
+    "gravity_direction_2_in_2d": _edit(
+        (T_FORCES, T_FORCES.replace("gravity_direction = 0", "gravity_direction = 2")),
+        base=THERMAL2D),
+    "smagorinsky_second_lattice_2d": _edit(
+        (T_GCOLL, T_GCOLL.replace("LBMBGKCollision", "LBMSmagorinskyCollision")),
+        base=THERMAL2D),
+})
+
 
 def _jax_message(jx, text):
     p = jx.Problem(jx.hit.parse(text))
@@ -635,7 +771,8 @@ def test_rejection_is_the_jax_message(jx, case):
 
 
 NOT_PORTED = {
-    # feature: deck the JAX package fuses and this port does not yet
+    # feature: a deck that an earlier slice of the port refused by name; each
+    # now has the JAX package's own outcome
     "2-D": _edit(("dim = 3", "dim = 2"), ("  nz = 5\n", ""),
                  ("type = LBMD3Q19", "type = LBMD2Q9"),
                  ("constants = '0.01 0.0 0.0'", "constants = '0.01 0.0'"),
@@ -645,20 +782,38 @@ NOT_PORTED = {
 }
 
 
+def _outcome(run):
+    """("ran", state) or (error type name, message) of three steps."""
+    try:
+        return "ran", run()
+    except Exception as e:  # the outcome itself is what is compared
+        return type(e).__name__, str(e)
+
+
 @pytest.mark.parametrize("feature", list(NOT_PORTED))
-def test_unported_feature_is_a_named_error(feature):
-    """Chains the JAX package fuses but this slice does not raise the
-    port's own error naming the feature; they never fall back."""
-    msg = _port_message(NOT_PORTED[feature])
-    assert "is not ported to marlin_tpu_torch yet" in msg
-    assert feature.split()[0].lower() in msg.lower()
+def test_unported_feature_is_a_named_error(jx, feature):
+    """The chains an earlier slice refused by name now have the JAX
+    package's outcome on lbm_backend = PALLAS: the 2-D D2Q9 channel fuses
+    and its whole state equals JAX's (1e-10); the D2Q9 stencil on a 3-D
+    deck with front and back faces fails in both packages with the same
+    error and message (D2Q9 has no front set).  Neither falls back."""
+    text = NOT_PORTED[feature]
+    ours = _outcome(lambda: run_port(text))
+    ref = _outcome(lambda: run_jax(jx, text))
+    assert ours[0] == ref[0], (ours[0], ref[0])
+    if ours[0] == "ran":
+        assert_state_parity(ref[1], ours[1], ZOUHE_TOL)
+        assert int(ours[1]["n_advances"]) > 0
+    else:
+        assert ours[1] == ref[1]
 
 
 @pytest.mark.parametrize("edit,error,match", [
     ((COLLISION, COLLISION.replace("LBMBGKCollision", "LBMSmagorinskyMRTCollision")),
-     KeyError, "LBMSmagorinskyMRTCollision"),
+     lf.FusedChainError, "solve compute 'collision' (LBMSmagorinskyMRTCollision) is not "
+                         "fusable"),
     ((COLLISION, COLLISION.replace("LBMBGKCollision", "LBMSmagorinskyCollision")),
-     KeyError, "LBMSmagorinskyCollision"),
+     lf.FusedChainError, "Smagorinsky collisions fuse on 2-D decks only"),
     ((RESIDUAL, RESIDUAL + "    [surface]\n      type = LBMComputeSurfaceForces\n"
                            "      buffer = forces\n    []\n"),
      KeyError, "LBMComputeSurfaceForces"),
@@ -671,11 +826,18 @@ def test_unported_feature_is_a_named_error(feature):
 ], ids=["smagorinsky_mrt", "smagorinsky", "surface_forces", "unit_converter",
         "sharded", "dirichlet"])
 def test_unported_compute_fails_at_build(edit, error, match):
-    """Smagorinsky collisions, the surface forces, the unit converter,
-    sharded domains and the unported boundary conditions fail when the deck
-    is built, by name, before either backend could run."""
+    """The surface forces, the unit converter, sharded domains and the
+    unported boundary conditions fail when the deck is built, by name,
+    before either backend could run.  The Smagorinsky collisions are
+    ported: they build, and this 3-D deck's PALLAS step refuses them with
+    the JAX package's words (``test_rejection_is_the_jax_message`` holds
+    the whole message)."""
+    text = _edit(edit)
+    if error is lf.FusedChainError:
+        assert match in _port_message(text)
+        return
     with pytest.raises(error, match=match):
-        TensorProblem(hit.parse(_edit(edit)), device="cpu")
+        TensorProblem(hit.parse(text), device="cpu")
 
 
 # -- the kernel's wrapper --------------------------------------------------------------
@@ -751,15 +913,17 @@ def test_plan_packs_for_the_kernel(case):
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
-@pytest.mark.parametrize("case", PLAN_CASES)
+@pytest.mark.parametrize("case", PLAN_CASES + PLAN_CASES_2D)
 def test_kernel_matches_twin_on_card(cuda, case, dtype):
-    """The CUDA kernel against its twin on the card at 33×17×20: the same
-    operations in the same order, so equal bit for bit (NaN where both
-    give it: random media can leave a fluid face cell that copies a solid
-    inner neighbour with no mass)."""
-    cfg = dataclasses.replace(port_plan(case).config, nx=33, ny=17, nz=20)
+    """The CUDA kernel against its twin on the card at 33×17×20 (2-D plans
+    at 33×17×1): the same operations in the same order, so equal bit for
+    bit (NaN where both give it: random media can leave a fluid face cell
+    that copies a solid inner neighbour with no mass).  A Smagorinsky plan
+    also takes its two density-mean launches, equal to the twin's mean."""
+    base = port_plan(case).config
+    shape = (33, 17, 1) if base.two_d else (33, 17, 20)
+    cfg = dataclasses.replace(base, nx=shape[0], ny=shape[1], nz=shape[2])
     gen = torch.Generator(device=cuda).manual_seed(5)
-    shape = (33, 17, 20)
     w = torch.tensor(cfg.w, dtype=dtype, device=cuda)[:, None, None, None]
 
     def distribution():
@@ -774,10 +938,15 @@ def test_kernel_matches_twin_on_card(cuda, case, dtype):
         fpc = torch.where(media == 0, 0.0, fpc).contiguous()
         if gpc is not None:
             gpc = torch.where(media == 0, 0.0, gpc).contiguous()
-    before = lf.launches()["lbm_substep"]
+    before = lf.launches()
     got = lf.fused_substep(fpc, media, cfg, gpc)
     torch.cuda.synchronize()
-    assert lf.launches()["lbm_substep"] == before + 1
+    smag = 2 if cfg.smag is not None else 0
+    assert lf.launches() == {"lbm_substep": before["lbm_substep"] + 1,
+                             "lbm_density_mean": before["lbm_density_mean"] + smag}
+    if smag:
+        torch.testing.assert_close(lf.density_mean(fpc, media, cfg),
+                                   lf.density_mean_twin(fpc, media, cfg), rtol=0, atol=0)
     ref = lf.fused_substep_twin(fpc, media, cfg, gpc)
     assert len(got) == len(ref)
     for g, r in zip(got, ref):
