@@ -9,10 +9,13 @@ Phases, one line each, flushed as they finish:
 1. build: the CUDA libraries of marlin_tpu_torch/csrc (the unordered FFT,
    the fused k-space update, the fused LBM substep) and the generated
    library of the 3-D Cahn-Hilliard µ fused into the forward lanes read,
-   one nvcc each, all started together;
+   one nvcc each, all started together, with ptxas's registers and spills
+   of every FFT and LBM kernel (and the register FFT kernels' shared
+   memory);
 2. kernels: each kernel at its 512³ main-path shapes (and at n = 64, 200,
    384) against its plain PyTorch twin, max error ≤ 1e-5 of the twin's
-   largest magnitude; kernel, twin, bound and yardstick times.  The LBM
+   largest magnitude; kernel, twin, bound and yardstick times, and which
+   forward path (register or tile) each FFT shape takes.  The LBM
    substep kernel (``lbm_substep``) at 256³ in float32 on nine plans (the
    porous deck's, the mixed deck's, a D3Q27 all-faces plan with a z body
    force, a zeroth-order Zou-He channel; the thermal deck's two lattices
@@ -67,8 +70,9 @@ Phases, one line each, flushed as they finish:
    buffer's largest magnitude; every buffer finite; ms a substep, MLUPS and
    peak device memory on both.
 
-Then one JSON line with every kernel's numbers and, last, the JSON result
-line.  Any failure ends the run with a non-zero exit and no result line.
+Then one JSON line with every kernel's numbers (a kernel timed at more
+than one main shape also lists each under ``shapes``) and, last, the JSON
+result line.  Any failure ends the run with a non-zero exit and no result line.
 Needs one CUDA card; fails without one, and fails where the package is not
 beside it.
 """
@@ -77,6 +81,7 @@ import concurrent.futures
 import json
 import math
 import os
+import re
 import subprocess
 import sys
 import tempfile
@@ -162,6 +167,9 @@ def check(name, shape, got, ref):
 
 
 def summarise(rows):
+    """The mean over a kernel's main-shape rows; with more than one row,
+    each row also stands on its own under ``shapes``, so that a loss at one
+    shape is not hidden by a win at another."""
     k = len(rows)
     mean = lambda key: sum(r[key] for r in rows) / k
     out = {"max_abs_err": max(r["max_abs_err"] for r in rows),
@@ -171,6 +179,8 @@ def summarise(rows):
     if "yardstick_ms" in rows[0]:
         out["yardstick_ms"] = mean("yardstick_ms")
         out["yardstick"] = rows[0]["yardstick"]
+    if k > 1:
+        out["shapes"] = rows
     return out
 
 
@@ -186,8 +196,8 @@ def measure(name, shape, kernel, twin, library, n_bytes, flops, yardstick=None):
     plain = cuda_ms(twin, reps=3, warmup=1)
     lib = None if library is None else cuda_ms(library)
     bnd, by = bound_ms(n_bytes, flops)
-    row = {"max_abs_err": err, "ms": ms, "plain_ms": plain, "library_ms": lib,
-           "bound_ms": bnd, "bound_by": by}
+    row = {"shape": list(shape), "max_abs_err": err, "ms": ms, "plain_ms": plain,
+           "library_ms": lib, "bound_ms": bnd, "bound_by": by}
     text = (f"[kernels] {name} {tuple(shape)}: max_abs_err {err:.3e}, kernel "
             f"{ms:.3f} ms, twin {plain:.3f} ms, bound {bnd:.3f} ms ({by})")
     if lib is not None:
@@ -244,6 +254,9 @@ def phase_fft_kernels(uf, dev, gen):
             x = make(shape, dtype)
             n = shape[1] if "sub" in name else shape[-1]
             out_bytes = x.numel() * (4 if name == "inv_lanes" else 8)
+            path = ("register" if name.startswith("fwd") and
+                    uf.LIBRARY.load().mtt_fwd_path(n, uf.base(n)) else "tile")
+            say(f"[kernels] {name} {tuple(shape)}: {path} path")
             rows.append(measure(
                 name, shape, lambda: kernel(x), lambda: twin(x),
                 lambda: library[name](x),
@@ -461,26 +474,60 @@ def lbm_rand(cfg, shape, gen, dev):
         (cfg.q,) + shape, generator=gen, device=dev))
 
 
-def ptxas_report(log):
-    """One line per lbm_substep_kernel instantiation from nvcc's
-    -Xptxas=-v output: <Q, T, TWO, MRT>, registers, spill bytes."""
-    import re
-
+def ptxas_report(log, describe):
+    """One line per kernel of nvcc's -Xptxas=-v output that ``describe``
+    names (it maps a mangled entry name to a label, or None to skip):
+    registers and spill bytes."""
     out, name, spill = [], None, ""
     for line in log.splitlines():
-        m = re.search(r"lbm_substep_kernelILi(\d+)E([fd])Lb([01])ELb([01])E", line)
-        if m and "Compiling entry function" in line:
-            q, t, two, mrt = m.groups()
-            name = (f"<{q}, {'float' if t == 'f' else 'double'}, "
-                    f"two={two}, mrt={mrt}>")
+        m = re.search(r"Compiling entry function '(\S+)'", line)
+        if m:
+            name = describe(m.group(1))
+            continue
         m = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads", line)
         if m and name:
             spill = f"spill stores {m.group(1)} B, loads {m.group(2)} B"
         m = re.search(r"Used (\d+) registers", line)
         if m and name:
-            out.append(f"lbm_substep_kernel{name}: {m.group(1)} registers, {spill}")
+            out.append(f"{name}: {m.group(1)} registers, {spill}")
             name = None
     return out
+
+
+def lbm_kernel_name(mangled):
+    """lbm_substep_kernel<Q, T, TWO, MRT> of a mangled entry name, or None."""
+    m = re.search(r"lbm_substep_kernelILi(\d+)E([fd])Lb([01])ELb([01])E", mangled)
+    if not m:
+        return None
+    q, t, two, mrt = m.groups()
+    return (f"lbm_substep_kernel<{q}, {'float' if t == 'f' else 'double'}, "
+            f"two={two}, mrt={mrt}>")
+
+
+FFT_KERNEL = re.compile(r"(reg_lanes|reg_sublanes|fwd_lanes|fwd_sublanes|inv_lanes|inv_sublanes)"
+                        r"_kernel(?:ILi(\d+)E)?(?:I?NS_(\d+)(\w+))?")
+
+
+def fft_kernel_namer(uf):
+    """A ``describe`` for ptxas_report: each FFT kernel with its functor;
+    a register-resident one (each N) also with the dynamic shared memory
+    a block takes at that N."""
+    def describe(mangled):
+        k = FFT_KERNEL.search(mangled)
+        if not k:
+            return None
+        kind, n, length, rest = k.groups()
+        functor = ""
+        if length:
+            functor = " " + rest[:int(length)]
+            flags = re.match(r"ILb([01])ELb([01])E", rest[int(length):])
+            if flags:
+                functor += f"<{flags.group(1)}, {flags.group(2)}>"
+        if not n:  # the generic tile: its shared memory goes by extent
+            return f"{kind}_kernel{functor} (tile)"
+        smem = uf.LIBRARY.load().mtt_fwd_smem(int(n), 128, int(kind == "reg_sublanes"))
+        return f"{kind}_kernel<{n}>{functor} ({smem} B shared memory)"
+    return describe
 
 
 def phase_lbm_kernel(lf, dev):
@@ -870,8 +917,11 @@ def main():
         say(f"[build] {'built' if cold[k] else 'reused'} {k}: "
             f"{os.path.relpath(lib.path(), HERE)} in {times[k]:.2f} s")
     say(f"[build] all libraries in {time.perf_counter() - t0:.2f} s")
-    for line in ptxas_report(lf.LIBRARY.log):
+    for line in ptxas_report(lf.LIBRARY.log, lbm_kernel_name):
         say(f"[build] ptxas {line}")
+    for k in ("unordered_fft", "spectral_update", "fwd_lanes_pre (CH3D µ)"):
+        for line in ptxas_report(libs[k].log, fft_kernel_namer(uf)):
+            say(f"[build] ptxas {k}: {line}")
 
     # -- 2: kernels against their twins ---------------------------------------
     gen = torch.Generator().manual_seed(0)

@@ -29,8 +29,13 @@
 // (0.1 ms at 67 TFLOP/s), so the kernel is bound by bytes.  Its design
 // saves the two passes over full complex grids that the unfused chain
 // spends on N-bar = M-bar mu-bar and on the update, and reads each of the
-// three inputs once; the tile FFT itself is the sublanes kernel's (one
-// 64 KB tile a block, one trip through shared memory a stage).
+// three inputs once.  The transform is the sublanes kernel's: at n = 128,
+// 256, 512 and 1024 the register-resident kernel of fft_tile.cuh (a
+// persistent block over C-column tiles brought in by a cp.async ring, not
+// in the clusters kernel 3 takes, which made these epilogues slower; the
+// epilogue called from registers with neighbouring threads on neighbouring
+// columns, so the reads of u-bar, N-bar_old and kyz2 stay coalesced), at
+// other extents the generic shared-memory tile.
 
 #include "fft_tile.cuh"
 

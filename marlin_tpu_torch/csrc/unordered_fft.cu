@@ -19,10 +19,14 @@
 // Bound: at 512^3 a pass moves 1.6-2.1 GB, 0.48-0.64 ms at 3.35 TB/s; the
 // FFT's 5*n*log2(n) flop a transform come to 6.0e9 a pass, 0.09 ms at
 // 67 TFLOP/s, so it is bound by bytes.
-// This version keeps one 64 KB ping-pong tile per block (three blocks an
-// SM) and goes through shared memory once per stage; fewer stages per
-// pass through shared memory and register-resident tiles are left for
-// later work.
+// The forward kernels take the register-resident path of fft_tile.cuh for
+// n = 128, 256, 512 and 1024 (a persistent block, a cp.async ring of
+// tiles, 8 values a thread, the exchanges in the tile's own ring slot,
+// stores straight to the permuted slot) and the generic shared-memory tile
+// otherwise; the launchers choose by n (mtt_fwd_path says which).  The two
+// inverse kernels here keep the generic tile at every extent: one 64 KB
+// ping-pong tile per block (three blocks an SM), one trip through shared
+// memory a stage.
 
 #include "fft_tile.cuh"
 
@@ -97,6 +101,16 @@ inv_sublanes_kernel(const float2* __restrict__ x, float2* __restrict__ out,
 }  // namespace
 
 extern "C" {
+
+// 1 when the forward kernels of extent n (DFT size b) take the register
+// path of fft_tile.cuh, 0 for the generic tile.
+int mtt_fwd_path(int64_t n, int64_t b) { return reg_path(n, b) ? 1 : 0; }
+
+// Bytes of dynamic shared memory a block of the forward lanes (sublanes = 0)
+// or sublanes kernel of extent n takes; 0 for an extent they do not take.
+int mtt_fwd_smem(int64_t n, int64_t b, int sublanes) {
+  return (int)fwd_smem_bytes(n, b, sublanes != 0);
+}
 
 // x_real or x_cplx (the other null): (B, n); out: (B, n) complex.
 cudaError_t mtt_fwd_lanes(const void* x_real, const void* x_cplx, void* out,

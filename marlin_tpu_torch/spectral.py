@@ -56,7 +56,7 @@ LIBRARY = uf.CudaLibrary("spectral_update", {
                          + [ctypes.c_float] * 6 + [uf._P]),
     # 8 pointers; N, n, L, b; the host rows; the stream
     "mtt_fwd_x_update_poly": [uf._P] * 8 + [uf._I] * 4 + [uf._P, uf._P],
-}, source=os.path.join(uf.CSRC, "spectral_update.cu"))
+}, source=os.path.join(uf.CSRC, "spectral_update.cu"), flags=["-Xptxas=-v"])
 
 
 class SpectralChainError(Exception):

@@ -25,14 +25,21 @@ carry over: the wrappers take and return ``complex64`` (interleaved), the
 forward wrappers also take a real ``float32`` input, and ``inv_lanes`` can
 return the real part only.
 
-The kernels (``csrc/unordered_fft.cu`` over the shared tile FFT of
-``csrc/fft_tile.cuh``) are built with ``nvcc`` for ``sm_90a`` into a plain
-C shared library at first use and loaded with ``ctypes``.  Bound at 512³
-on an H100 SXM (3.35 TB/s): a real-input forward or real-output inverse
-lanes pass moves 1.61 GB (0.48 ms), a complex sublanes pass 2.15 GB
-(0.64 ms).  The kernels run a mixed-radix Stockham FFT over a tile in
-shared memory (radix-8/4/2 butterflies in registers, odd radices summed
-directly) and permute on the way out or in.
+The kernels (``csrc/unordered_fft.cu`` over ``csrc/fft_tile.cuh``) are
+built with ``nvcc`` for ``sm_90a`` into a plain C shared library at first
+use and loaded with ``ctypes``.  Bound at 512³ on an H100 SXM (3.35 TB/s):
+a real-input forward or real-output inverse lanes pass moves 1.61 GB
+(0.48 ms), a complex sublanes pass 2.15 GB (0.64 ms).  The forward kernels
+take one of two paths, chosen in C by the extent (``mtt_fwd_path``): at
+n = 128, 256, 512 and 1024 a register-resident Stockham FFT (persistent
+blocks fed by a ring of asynchronous 16-byte copies, N/8 threads a
+transform with 8 values each, the exchanges through shared memory, the
+stores straight to the permuted slot); at every other extent, and for
+both inverse kernels, a mixed-radix Stockham FFT over a tile in shared
+memory (radix-8/4/2 butterflies in registers, odd radices summed
+directly) that permutes on the way out or in.  Both paths give the same
+bits.  ``python -m marlin_tpu_torch.fft_probe`` times the forward kernels
+beside stripped variants of both paths and torch.fft on the card.
 
 The TPU kernel's fused pointwise producer (``pre``: µ = f′(c) evaluated in
 the forward lanes kernel's read, so µ never reaches memory) is a
@@ -300,11 +307,13 @@ class CudaLibrary:
 _P = ctypes.c_void_p
 _I = ctypes.c_int64
 LIBRARY = CudaLibrary("unordered_fft", {
+    "mtt_fwd_path": [_I, _I],
+    "mtt_fwd_smem": [_I, _I, ctypes.c_int],
     "mtt_fwd_lanes": [_P, _P, _P, _P, _I, _I, _I, _P],
     "mtt_inv_lanes": [_P, _P, _P, _P, _I, _I, _I, _P],
     "mtt_fwd_sublanes": [_P, _P, _P, _P, _I, _I, _I, _I, _P],
     "mtt_inv_sublanes": [_P, _P, _P, _I, _I, _I, _I, _P],
-}, source=os.path.join(CSRC, "unordered_fft.cu"))
+}, source=os.path.join(CSRC, "unordered_fft.cu"), flags=["-Xptxas=-v"])
 
 
 _TWIDDLES: Dict[Tuple[int, bool, str], torch.Tensor] = {}
@@ -397,7 +406,7 @@ extern "C" cudaError_t mtt_fwd_lanes_pre(const void* x, void* out,
 """
         self.library = CudaLibrary(
             "fwd_lanes_pre", {"mtt_fwd_lanes_pre": [_P, _P, _P, _I, _I, _I, _P]},
-            text=self.source)
+            text=self.source, flags=["-Xptxas=-v"])
 
     def __call__(self, x: torch.Tensor) -> torch.Tensor:
         out = self.expr({self.var: x})

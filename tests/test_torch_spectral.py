@@ -582,11 +582,14 @@ def _gen(shape, dtype, seed, device):
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("n", [64, 200, 512])
+@pytest.mark.parametrize("n", [64, 200, 512, 128, 256, 1024])
 def test_cuda_pre_matches_twin(cuda, n):
-    """The generated library of kernel 1's fused read builds and agrees."""
+    """The generated library of kernel 1's fused read builds and agrees; at
+    the register path's extents (128 to 1024) with B = 1001 rows, not a
+    multiple of a tile's rows."""
     _, plan = _port_plan(_ch3d())
-    x = 0.5 + 0.1 * _gen((1024, n), torch.float32, n, cuda)
+    rows = 1024 if n in (64, 200, 512) else 1001
+    x = 0.5 + 0.1 * _gen((rows, n), torch.float32, n, cuda)
     before = uf.fwd_lanes_pre.launches
     got = uf.fwd_lanes(x, pre=plan.pre)
     torch.cuda.synchronize()
@@ -597,7 +600,8 @@ def test_cuda_pre_matches_twin(cuda, n):
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("n,L", [(64, 300), (200, 128), (512, 4096)])
+@pytest.mark.parametrize("n,L", [(64, 300), (200, 128), (512, 4096), (128, 300),
+                                 (256, 77), (512, 300), (1024, 300)])
 @pytest.mark.parametrize("form", list(FORMS))
 def test_cuda_update_matches_twin(cuda, form, n, L):
     mobility, lin = FORMS[form]
@@ -614,7 +618,8 @@ def test_cuda_update_matches_twin(cuda, form, n, L):
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("n,L", [(64, 300), (512, 4096)])
+@pytest.mark.parametrize("n,L", [(64, 300), (512, 4096), (128, 300), (256, 77),
+                                 (1024, 300)])
 def test_cuda_poly_matches_twin(cuda, n, L):
     m, u, o = (_gen((2, n, L), torch.complex64, s, cuda) for s in range(3))
     kx2 = _gen((n,), torch.float32, 3, cuda).abs()

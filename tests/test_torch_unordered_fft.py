@@ -144,6 +144,17 @@ _CASES = [
     ("inv_sublanes", (2, 200, 77), torch.complex64),
     ("inv_sublanes", (8, 512, 512), torch.complex64),
 ]
+# the register path of the forward kernels (n = 128 to 1024), real and
+# complex, with ragged tails: B = 1001 rows is no multiple of a tile's
+# rows (512 / (n/8)), L = 300 and 262145 no multiple of a tile's columns
+_CASES += [(name, shape, dtype)
+           for n in (128, 256, 512, 1024)
+           for name, shape in (("fwd_lanes", (1001, n)), ("fwd_sublanes", (3, n, 300)))
+           for dtype in (torch.float32, torch.complex64)]
+_CASES += [("fwd_sublanes", (1, 512, 262145), torch.complex64),
+           ("fwd_sublanes", (2, 256, 1), torch.float32),
+           ("fwd_lanes", (1, 1024), torch.complex64),
+           ("fwd_sublanes", (3, 64, 300), torch.float32)]
 
 
 @pytest.mark.cuda
@@ -160,6 +171,34 @@ def test_cuda_kernel_matches_twin(cuda, name, shape, dtype):
     ref = twin(x)
     err = (got - ref).abs().max().item()
     assert err <= TOL * ref.abs().max().item()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name,shape", [("fwd_lanes", (77, 512)),
+                                        ("fwd_sublanes", (2, 512, 300))])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.complex64])
+def test_cuda_kernel_takes_unaligned_input(cuda, name, shape, dtype):
+    """A view one element into its storage is no multiple of 16 bytes, so
+    the register kernels copy it value by value; they must agree all the
+    same."""
+    gen = torch.Generator().manual_seed(2)
+    flat = torch.randn(int(np.prod(shape)) + 1, generator=gen, dtype=dtype).to(cuda)
+    x = flat[1:].view(shape)
+    assert x.data_ptr() % 16 != 0
+    got = getattr(uf, name)(x)
+    torch.cuda.synchronize()
+    ref = getattr(uf, name + "_plain")(x)
+    assert (got - ref).abs().max().item() <= TOL * ref.abs().max().item()
+
+
+@pytest.mark.cuda
+def test_cuda_forward_path(cuda):
+    """The forward kernels take the register path exactly at n = 128, 256,
+    512 and 1024 (b = 128); every other extent keeps the generic tile."""
+    lib = uf.LIBRARY.load()
+    reg = [n for n in range(8, 1025) if uf.supported(n)
+           and lib.mtt_fwd_path(n, uf.base(n))]
+    assert reg == [128, 256, 512, 1024]
 
 
 @pytest.mark.cuda
