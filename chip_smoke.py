@@ -10,12 +10,12 @@ Phases, one line each, flushed as they finish:
    the fused k-space update, the fused LBM substep) and the generated
    library of the 3-D Cahn-Hilliard µ fused into the forward lanes read,
    one nvcc each, all started together, with ptxas's registers and spills
-   of every FFT and LBM kernel (and the register FFT kernels' shared
-   memory);
+   of every FFT and LBM kernel, forward and inverse (and the register FFT
+   kernels' shared memory);
 2. kernels: each kernel at its 512³ main-path shapes (and at n = 64, 200,
    384) against its plain PyTorch twin, max error ≤ 1e-5 of the twin's
    largest magnitude; kernel, twin, bound and yardstick times, and which
-   forward path (register or tile) each FFT shape takes.  The LBM
+   path (register or tile) each FFT shape takes, forward and inverse.  The LBM
    substep kernel (``lbm_substep``) at 256³ in float32 on nine plans (the
    porous deck's, the mixed deck's, a D3Q27 all-faces plan with a z body
    force, a zeroth-order Zou-He channel; the thermal deck's two lattices
@@ -254,8 +254,9 @@ def phase_fft_kernels(uf, dev, gen):
             x = make(shape, dtype)
             n = shape[1] if "sub" in name else shape[-1]
             out_bytes = x.numel() * (4 if name == "inv_lanes" else 8)
-            path = ("register" if name.startswith("fwd") and
-                    uf.LIBRARY.load().mtt_fwd_path(n, uf.base(n)) else "tile")
+            lib = uf.LIBRARY.load()
+            which = lib.mtt_fwd_path if name.startswith("fwd") else lib.mtt_inv_path
+            path = "register" if which(n, uf.base(n)) else "tile"
             say(f"[kernels] {name} {tuple(shape)}: {path} path")
             rows.append(measure(
                 name, shape, lambda: kernel(x), lambda: twin(x),
@@ -504,29 +505,55 @@ def lbm_kernel_name(mangled):
             f"two={two}, mrt={mrt}>")
 
 
-FFT_KERNEL = re.compile(r"(reg_lanes|reg_sublanes|fwd_lanes|fwd_sublanes|inv_lanes|inv_sublanes)"
-                        r"_kernel(?:ILi(\d+)E)?(?:I?NS_(\d+)(\w+))?")
+FFT_KERNEL = re.compile(r"(reg_lanes|reg_sublanes|tile_lanes|tile_sublanes)_kernel")
+TEMPLATE_ARG = re.compile(r"L[ib](\d+)E|NS_(\d+)")
+
+
+def template_args(mangled, i):
+    """The template arguments of a mangled name whose list opens at
+    ``mangled[i] == "I"``: ints and bools as digits, the port's functors
+    (types in its anonymous namespace, ``NS_<len><name>``, with their own
+    arguments) by name; returns (list, index past the list)."""
+    out, i = [], i + 1
+    while mangled[i] != "E":
+        m = TEMPLATE_ARG.match(mangled, i)
+        if m is None:
+            raise ValueError(mangled)
+        if m.group(1) is not None:
+            out.append(m.group(1))
+            i = m.end()
+            continue
+        name_end = m.end() + int(m.group(2))
+        name, i = mangled[m.end():name_end], name_end
+        if mangled[i] == "I":
+            inner, i = template_args(mangled, i)
+            name += f"<{', '.join(inner)}>"
+        if mangled[i] != "E":
+            raise ValueError(mangled)
+        out.append(name)
+        i += 1
+    return out, i + 1
 
 
 def fft_kernel_namer(uf):
-    """A ``describe`` for ptxas_report: each FFT kernel with its functor;
-    a register-resident one (each N) also with the dynamic shared memory
-    a block takes at that N."""
+    """A ``describe`` for ptxas_report: each FFT kernel with its template
+    arguments (the epilogue InvStore marks an inverse kernel); a
+    register-resident one (each N) also with the dynamic shared memory a
+    block takes at that N."""
     def describe(mangled):
         k = FFT_KERNEL.search(mangled)
         if not k:
             return None
-        kind, n, length, rest = k.groups()
-        functor = ""
-        if length:
-            functor = " " + rest[:int(length)]
-            flags = re.match(r"ILb([01])ELb([01])E", rest[int(length):])
-            if flags:
-                functor += f"<{flags.group(1)}, {flags.group(2)}>"
-        if not n:  # the generic tile: its shared memory goes by extent
-            return f"{kind}_kernel{functor} (tile)"
-        smem = uf.LIBRARY.load().mtt_fwd_smem(int(n), 128, int(kind == "reg_sublanes"))
-        return f"{kind}_kernel<{n}>{functor} ({smem} B shared memory)"
+        kind = k.group(1)
+        try:
+            args = template_args(mangled, k.end())[0] if mangled[k.end()] == "I" else []
+        except (ValueError, IndexError):
+            return mangled
+        label = f"{kind}_kernel<{', '.join(args)}>"
+        if kind.startswith("tile"):  # the generic tile: its shared memory goes by extent
+            return label
+        smem = uf.LIBRARY.load().mtt_smem(int(args[0]), 128, int(kind == "reg_sublanes"))
+        return f"{label} ({smem} B shared memory)"
     return describe
 
 

@@ -1,6 +1,5 @@
-// Stripped variants of the two forward unordered-FFT kernels of
-// fft_tile.cuh, for diagnosis only (marlin_tpu_torch/fft_probe.py); no
-// solver path launches them.
+// Stripped variants of the unordered-FFT kernels of fft_tile.cuh, for
+// diagnosis only (marlin_tpu_torch/fft_probe.py); no solver path launches them.
 //
 //   mode 0, copy only: the kernel's global loads and stores with the same
 //           tiling and permutation, no FFT stages;
@@ -11,13 +10,18 @@
 //           sum of its results has a bit pattern they do not reach, so the
 //           compiler keeps the work);
 //   mode 2 (tile only): the tile kernel whole, which the register kernels
-//           replace at n = 512.
+//           replace at n = 512;
+//   mode 3 (register, inverse sublanes only): the shipped register kernel
+//           whole on the other cluster size (clusters of 1 where it takes
+//           8, of 8 where it takes 1).
 //
-// Each is given for the generic shared-memory tile (`tile_*`, at any
-// extent the tile takes) and for the register kernels (`reg_*`, at n =
-// 512).  The variants are built from the shipped kernels' own pieces (the
-// ring's fetch and read, reg_fft, reg_slot), with the same block shape and
-// shared memory, so they change with them.
+// Modes 0 and 1 are given for the generic shared-memory tile (`tile_*`, at
+// any extent the tile takes, forward only) and for the register kernels
+// (`reg_*`, at n = 512, forward or inverse); `inverse` picks the direction
+// (the inverse lanes variants write the real part, as the solver's last
+// inverse does).  The variants are built from the shipped kernels' own
+// pieces (the ring's fetch and read, reg_fft, reg_out, the epilogues),
+// with the same block shape and shared memory, so they change with them.
 
 #include "fft_tile.cuh"
 
@@ -97,12 +101,13 @@ __device__ __forceinline__ bool never(float acc) {
 }
 
 // reg_lanes_kernel without its stages (MODE 0) or without its global
-// traffic (MODE 1).
-template <int N, int MODE>
+// traffic (MODE 1), in the direction of its epilogue.
+template <int N, int MODE, class Epi>
 __global__ void __launch_bounds__(kRegLanesThreads, 2)
 reg_lanes_probe(const float* __restrict__ xr, const float2* __restrict__ xc,
-                float2* __restrict__ out, const float2* __restrict__ tw_g,
-                int64_t B, int64_t tiles) {
+                const float2* __restrict__ tw_g, int64_t B, int64_t tiles,
+                Epi epi) {
+  constexpr bool INV = is_inverse<Epi>;
   constexpr int T = N / 8, G = kRegLanesThreads / T, E = kRegLanesElems;
   extern __shared__ float2 smem[];
   float2* ring = smem;
@@ -114,7 +119,7 @@ reg_lanes_probe(const float* __restrict__ xr, const float2* __restrict__ xc,
   if (MODE == 0) {
 #pragma unroll
     for (int s = 0; s < kRegSlots - 1; ++s)
-      reg_lanes_fetch<N>(ring + s * E, xr, xc, B, tile + s * step, tiles);
+      reg_lanes_fetch<N, INV>(ring + s * E, xr, xc, B, tile + s * step, tiles);
   }
   float acc = 0.f;
   for (int it = 0; tile < tiles; ++it, tile += step) {
@@ -123,40 +128,44 @@ reg_lanes_probe(const float* __restrict__ xr, const float2* __restrict__ xc,
     if (MODE == 0) {
       cp_async_wait<kRegSlots - 2>();
       __syncthreads();
-      reg_lanes_fetch<N>(ring + (it + kRegSlots - 1) % kRegSlots * E, xr, xc,
-                         B, tile + (kRegSlots - 1) * step, tiles);
-      reg_lanes_read<N>(v, slot, xr != nullptr, g, t, Identity());
+      reg_lanes_fetch<N, INV>(ring + (it + kRegSlots - 1) % kRegSlots * E, xr,
+                              xc, B, tile + (kRegSlots - 1) * step, tiles);
+      reg_lanes_read<N, INV>(v, slot, xr != nullptr, g, t, Identity());
       const int64_t r = tile * G + g;
       if (r < B) {
 #pragma unroll
-        for (int i = 0; i < 8; ++i) out[r * N + reg_slot<N>(t, i)] = v[i];
+        for (int i = 0; i < 8; ++i) {
+          const int k = reg_out<N, INV>(t, i);
+          epi(r * N + k, k, r, 0, v[i]);
+        }
       }
     } else {
       __syncthreads();
 #pragma unroll
       for (int q = 0; q < 8; ++q) v[q] = make_float2((float)(t + q * T), (float)g);
-      reg_fft<N, true, 1>(v, slot + g * N, stw, t, 0);
+      reg_fft<N, true, 1, INV>(v, slot + g * N, stw, t, 0);
 #pragma unroll
       for (int i = 0; i < 8; ++i) acc += v[i].x + v[i].y;
     }
   }
-  if (MODE == 1 && never(acc)) out[0] = make_float2(acc, 0.f);
+  if (MODE == 1 && never(acc)) epi(0, 0, 0, 0, make_float2(acc, 0.f));
 }
 
-// reg_sublanes_kernel (with a plain store, on the same clusters in step)
-// without its stages (MODE 0) or without its global traffic (MODE 1).
-template <int N, int MODE>
+// reg_sublanes_kernel (on the clusters its epilogue takes) without its
+// stages (MODE 0) or without its global traffic (MODE 1).
+template <int N, int MODE, class Epi>
 __global__ void __launch_bounds__(reg_sublanes_threads(N),
                                   1024 / reg_sublanes_threads(N))
 reg_sublanes_probe(const float* __restrict__ xr, const float2* __restrict__ xc,
-                   float2* __restrict__ out, const float2* __restrict__ tw_g,
-                   int64_t L, int64_t ncols, int64_t tiles) {
-  constexpr int T = N / 8, C = reg_cols(N), E = N * C;
+                   const float2* __restrict__ tw_g, int64_t L, int64_t ncols,
+                   int64_t tiles, Epi epi) {
+  constexpr bool INV = is_inverse<Epi>;
+  constexpr int T = N / 8, C = reg_cols(N), E = N * C, CL = reg_cluster<Epi>;
   extern __shared__ float2 smem[];
   float2* ring = smem;
   float2* stw = smem + kRegSlots * E;
   const int c = threadIdx.x % C, t = threadIdx.x / C;
-  const int64_t step = gridDim.x, lead = blockIdx.x - blockIdx.x % kRegCluster;
+  const int64_t step = gridDim.x, lead = blockIdx.x - blockIdx.x % CL;
   reg_load_table<N>(stw, tw_g);
   int64_t tile = blockIdx.x;
   if (MODE == 0) {
@@ -177,25 +186,35 @@ reg_sublanes_probe(const float* __restrict__ xr, const float2* __restrict__ xc,
                             xc, L, ncols, tile + (kRegSlots - 1) * step, tiles);
     cluster_arrive();
     if (MODE == 0) {
-      reg_sublanes_read<N>(v, slot, xr != nullptr, t, c);
+      reg_sublanes_read<N, INV>(v, slot, xr != nullptr, t, c);
       const int64_t prefix = tile / ncols;
       const int64_t col = (tile - prefix * ncols) * C + c;
       if (tile < tiles && col < L) {
 #pragma unroll
-        for (int i = 0; i < 8; ++i)
-          out[(prefix * N + reg_slot<N>(t, i)) * L + col] = v[i];
+        for (int i = 0; i < 8; ++i) {
+          const int k = reg_out<N, INV>(t, i);
+          epi((prefix * N + k) * L + col, k, col, (int)prefix, v[i]);
+        }
       }
     } else {
 #pragma unroll
       for (int q = 0; q < 8; ++q) v[q] = make_float2((float)(t + q * T), (float)c);
-      reg_fft<N, false, C>(v, slot, stw, t, c);
+      reg_fft<N, false, C, INV>(v, slot, stw, t, c);
 #pragma unroll
       for (int i = 0; i < 8; ++i) acc += v[i].x + v[i].y;
     }
   }
   if (it > 0) cluster_wait();
-  if (MODE == 1 && never(acc)) out[0] = make_float2(acc, 0.f);
+  if (MODE == 1 && never(acc)) epi(0, 0, 0, 0, make_float2(acc, 0.f));
 }
+
+// InvStore on the other cluster size (mode 3).
+struct InvStoreOther : InvStore {};
+template <>
+constexpr bool is_inverse<InvStoreOther> = true;
+template <>
+constexpr int reg_cluster<InvStoreOther> =
+    reg_cluster<InvStore> == 1 ? kRegCluster : 1;
 
 template <class K>
 cudaError_t launch(K kernel, dim3 grid, unsigned threads, size_t smem,
@@ -207,97 +226,136 @@ cudaError_t launch(K kernel, dim3 grid, unsigned threads, size_t smem,
   return e != cudaSuccess ? e : cudaGetLastError();
 }
 
+// The probes' output: the forward's complex values, or the inverse's
+// (the real part on lanes, as the solver's last inverse writes it).
+InvStore inv_store(void* out, int64_t n, bool lanes) {
+  return InvStore{lanes ? (float*)out : nullptr, lanes ? nullptr : (float2*)out,
+                  1.0f / (float)n};
+}
+
 }  // namespace
 
 extern "C" {
 
-// mode 0, 1 or 2 of the tile lanes kernel over (B, n).
-cudaError_t probe_tile_lanes(int mode, const void* xr, const void* xc,
-                             void* out, const void* tw, int64_t B, int64_t n,
-                             int64_t b, int sink, cudaStream_t stream) {
+// mode 0, 1 or 2 of the tile lanes kernel over (B, n); the inverse has
+// mode 2 only.
+cudaError_t probe_tile_lanes(int mode, int inverse, const void* xr,
+                             const void* xc, void* out, const void* tw,
+                             int64_t B, int64_t n, int64_t b, int sink,
+                             cudaStream_t stream) {
   Plan p;
-  if (B < 1 || !make_plan(&p, n, b) || mode < 0 || mode > 2)
+  if (B < 1 || !make_plan(&p, n, b) || mode < 0 || mode > 2 ||
+      (inverse && mode != 2))
     return cudaErrorInvalidValue;
   const float* r = (const float*)xr;
   const float2* c = (const float2*)xc;
   float2* o = (float2*)out;
   const float2* t = (const float2*)tw;
-  void* args[] = {&r, &c, &o, &t, &p, &B, &sink};
   const dim3 grid((unsigned)((B + p.T - 1) / p.T));
   const size_t smem = smem_bytes(p);
   if (mode == 2) {
     Identity pre;
-    void* whole[] = {&r, &c, &o, &t, &p, &B, &pre};
-    return launch(fwd_lanes_kernel<Identity>, grid, kThreads, smem, stream, whole);
+    Store st{o};
+    InvStore inv = inv_store(out, n, true);
+    void* fwd[] = {&r, &c, &t, &p, &B, &pre, &st};
+    void* back[] = {&r, &c, &t, &p, &B, &pre, &inv};
+    return inverse ? launch(tile_lanes_kernel<Identity, InvStore>, grid, kThreads,
+                            smem, stream, back)
+                   : launch(tile_lanes_kernel<Identity, Store>, grid, kThreads,
+                            smem, stream, fwd);
   }
+  void* args[] = {&r, &c, &o, &t, &p, &B, &sink};
   return mode == 0 ? launch(tile_lanes_probe<0>, grid, kThreads, smem, stream, args)
                    : launch(tile_lanes_probe<1>, grid, kThreads, smem, stream, args);
 }
 
-// mode 0, 1 or 2 of the tile sublanes kernel over (P, n, L).
-cudaError_t probe_tile_sublanes(int mode, const void* xr, const void* xc,
-                                void* out, const void* tw, int64_t P,
-                                int64_t n, int64_t L, int64_t b, int sink,
-                                cudaStream_t stream) {
+// mode 0, 1 or 2 of the tile sublanes kernel over (P, n, L); the inverse
+// has mode 2 only.
+cudaError_t probe_tile_sublanes(int mode, int inverse, const void* xr,
+                                const void* xc, void* out, const void* tw,
+                                int64_t P, int64_t n, int64_t L, int64_t b,
+                                int sink, cudaStream_t stream) {
   Plan p;
   if (P < 1 || P > 65535 || L < 1 || !make_plan(&p, n, b) || mode < 0 ||
-      mode > 2)
+      mode > 2 || (inverse && mode != 2))
     return cudaErrorInvalidValue;
   const float* r = (const float*)xr;
   const float2* c = (const float2*)xc;
   float2* o = (float2*)out;
   const float2* t = (const float2*)tw;
-  void* args[] = {&r, &c, &o, &t, &p, &L, &sink};
   const dim3 grid((unsigned)((L + p.T - 1) / p.T), (unsigned)P);
   const size_t smem = smem_bytes(p);
   if (mode == 2) {
     Store st{o};
-    void* whole[] = {&r, &c, &t, &p, &L, &st};
-    return launch(fwd_sublanes_kernel<Store>, grid, kThreads, smem, stream, whole);
+    InvStore inv = inv_store(out, n, false);
+    void* fwd[] = {&r, &c, &t, &p, &L, &st};
+    void* back[] = {&r, &c, &t, &p, &L, &inv};
+    return inverse ? launch(tile_sublanes_kernel<InvStore>, grid, kThreads, smem,
+                            stream, back)
+                   : launch(tile_sublanes_kernel<Store>, grid, kThreads, smem,
+                            stream, fwd);
   }
+  void* args[] = {&r, &c, &o, &t, &p, &L, &sink};
   return mode == 0 ? launch(tile_sublanes_probe<0>, grid, kThreads, smem, stream, args)
                    : launch(tile_sublanes_probe<1>, grid, kThreads, smem, stream, args);
 }
 
 // mode 0 or 1 of the register lanes kernel over (B, 512), on its grid.
-cudaError_t probe_reg_lanes(int mode, const void* xr, const void* xc,
-                            void* out, const void* tw, int64_t B, int64_t n,
-                            int64_t b, int, cudaStream_t stream) {
+cudaError_t probe_reg_lanes(int mode, int inverse, const void* xr,
+                            const void* xc, void* out, const void* tw,
+                            int64_t B, int64_t n, int64_t b, int,
+                            cudaStream_t stream) {
   constexpr int N = 512, G = kRegLanesThreads / (N / 8);
   constexpr size_t smem = reg_smem<N>(kRegLanesElems);
-  static int resident[2][kRegDevices];
+  static int resident[4][kRegDevices];
   if (B < 1 || n != N || !reg_path(n, b) || mode < 0 || mode > 1)
     return cudaErrorInvalidValue;
   const float* r = (const float*)xr;
   const float2* c = (const float2*)xc;
-  float2* o = (float2*)out;
   const float2* t = (const float2*)tw;
   const int64_t tiles = (B + G - 1) / G;
-  return mode == 0 ? reg_launch(reg_lanes_probe<N, 0>, kRegLanesThreads, smem, 1,
-                                tiles, resident[0], stream, r, c, o, t, B, tiles)
-                   : reg_launch(reg_lanes_probe<N, 1>, kRegLanesThreads, smem, 1,
-                                tiles, resident[1], stream, r, c, o, t, B, tiles);
+  const Store st{(float2*)out};
+  const InvStore inv = inv_store(out, n, true);
+#define MTT_PROBE(MODE, EPI, E)                                              \
+  reg_launch(reg_lanes_probe<N, MODE, EPI>, kRegLanesThreads, smem, 1, tiles, \
+             resident[2 * inverse + MODE], stream, r, c, t, B, tiles, E)
+  if (inverse)
+    return mode == 0 ? MTT_PROBE(0, InvStore, inv) : MTT_PROBE(1, InvStore, inv);
+  return mode == 0 ? MTT_PROBE(0, Store, st) : MTT_PROBE(1, Store, st);
+#undef MTT_PROBE
 }
 
-// mode 0 or 1 of the register sublanes kernel over (P, 512, L), on its grid.
-cudaError_t probe_reg_sublanes(int mode, const void* xr, const void* xc,
-                               void* out, const void* tw, int64_t P,
-                               int64_t n, int64_t L, int64_t b, int,
-                               cudaStream_t stream) {
+// mode 0 or 1 of the register sublanes kernel over (P, 512, L), on its
+// grid and clusters; mode 3 (inverse) the shipped kernel on the other
+// cluster size.
+cudaError_t probe_reg_sublanes(int mode, int inverse, const void* xr,
+                               const void* xc, void* out, const void* tw,
+                               int64_t P, int64_t n, int64_t L, int64_t b,
+                               int, cudaStream_t stream) {
   constexpr int N = 512, C = reg_cols(N), THREADS = reg_sublanes_threads(N);
   constexpr size_t smem = reg_smem<N>(N * C);
-  static int resident[2][kRegDevices];
-  if (P < 1 || L < 1 || n != N || !reg_path(n, b) || mode < 0 || mode > 1)
+  static int resident[5][kRegDevices];
+  if (P < 1 || L < 1 || n != N || !reg_path(n, b) || mode < 0 || mode > 3 ||
+      mode == 2 || (mode == 3 && !inverse))
     return cudaErrorInvalidValue;
   const float* r = (const float*)xr;
   const float2* c = (const float2*)xc;
-  float2* o = (float2*)out;
   const float2* t = (const float2*)tw;
   const int64_t ncols = (L + C - 1) / C, tiles = P * ncols;
-  return mode == 0 ? reg_launch(reg_sublanes_probe<N, 0>, THREADS, smem, kRegCluster,
-                                tiles, resident[0], stream, r, c, o, t, L, ncols, tiles)
-                   : reg_launch(reg_sublanes_probe<N, 1>, THREADS, smem, kRegCluster,
-                                tiles, resident[1], stream, r, c, o, t, L, ncols, tiles);
+  const Store st{(float2*)out};
+  const InvStore inv = inv_store(out, n, false);
+  if (mode == 3)
+    return reg_launch(reg_sublanes_kernel<N, InvStoreOther>, THREADS, smem,
+                      reg_cluster<InvStoreOther>, tiles, resident[4], stream, r,
+                      c, t, L, ncols, tiles, InvStoreOther{inv});
+#define MTT_PROBE(MODE, EPI, E)                                                 \
+  reg_launch(reg_sublanes_probe<N, MODE, EPI>, THREADS, smem, reg_cluster<EPI>, \
+             tiles, resident[2 * inverse + MODE], stream, r, c, t, L, ncols,    \
+             tiles, E)
+  if (inverse)
+    return mode == 0 ? MTT_PROBE(0, InvStore, inv) : MTT_PROBE(1, InvStore, inv);
+  return mode == 0 ? MTT_PROBE(0, Store, st) : MTT_PROBE(1, Store, st);
+#undef MTT_PROBE
 }
 
 }  // extern "C"

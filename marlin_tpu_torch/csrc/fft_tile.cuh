@@ -1,41 +1,50 @@
 // Shared device code of the unordered-FFT kernels (sm_90a): the generic
-// tile FFT, the register-resident forward kernels of power-of-two extents,
-// the plan, and the two forward launchers that other sources instantiate
-// with their own functors.
+// tile FFT, the register-resident kernels of power-of-two extents, the
+// plan, and the two launchers (lanes, sublanes) that other sources
+// instantiate with their own functors.
 //
 // Included by unordered_fft.cu (kernels 1-4), spectral_update.cu (the fused
 // k-space update, kernels 5-6) and the sources that unordered_fft.py
 // generates for a fused pointwise read (kernel 1's `pre`).  Everything is in
 // an anonymous namespace: each library gets its own copy.
 //
-// Two forward paths, chosen on the host by the extent (reg_path):
+// A kernel's direction follows its epilogue (is_inverse<Epi>): InvStore's
+// kernels are the inverse (permuted input, the conjugate table, natural
+// output times 1/n), every other epilogue's the forward (natural input,
+// permuted output).  Two paths, chosen on the host by the extent
+// (reg_path):
 //
 // * n = 128, 256, 512, 1024 (b = 128): the register-resident kernels
 //   reg_lanes_kernel<N> and reg_sublanes_kernel<N>, which replace
 //   marlin_tpu/pallas_fft.py:237 _fwd_lanes_kernel (kernel 1, with `pre`
-//   kernel 1') and :340 _fwd_sublanes_kernel (kernel 3, with the k-space
-//   update kernels 5-6).  They are bound by bytes: at 512^3 a real-input
-//   lanes pass moves 1.61 GB (0.48 ms at 3.35 TB/s), a complex sublanes
-//   pass 2.15 GB (0.64 ms); the FFT's 5 n log2 n flop a transform come to
-//   0.09 ms at 67 TFLOP/s.  What held the shared-memory tile back was its
-//   global traffic (one load in flight a thread, three blocks an SM): its
-//   loads and stores alone took 1.42 ms of its 1.81 (fft_probe.py on an
-//   NVIDIA H100 80GB HBM3, 700.00 W).  So a persistent block walks the tiles with a three-slot
-//   cp.async ring of 16-byte copies: the next two tiles' copies are in
-//   flight while this one's butterflies run.  T = N/8 threads share a
-//   transform and each holds 8 values in registers; with N = R_0 R_1 ...
-//   (8, 8, then 2, 4 or 8, then 2) thread t runs butterflies t + T m of
-//   every Stockham stage, so there are only (stages - 1) exchanges, each
-//   through the tile's own ring slot (swizzled on the contiguous axis);
-//   twiddles come from a per-stage table laid out [q][j mod Ns] (no bank
-//   conflicts); after the last stage thread t holds k = t + T m + (N/R) u,
-//   and its stores go straight to the permuted slot k' (no read-out pass).
-//   The strided axis takes C = 32, 32, 16, 8 columns a tile at n = 128,
-//   256, 512, 1024 (C * N/8 = 512 or 1024 threads a block; 128 B of each
-//   row at n = 512); with the plain store (kernel 3) its blocks run in
-//   clusters of 8 that take adjacent tiles in step, so that each row is
-//   read and written 8 tiles wide at a time.  Every index is a shift or a mask: N is a template
-//   parameter.
+//   kernel 1'), :276 _inv_lanes_kernel (kernel 2), :340
+//   _fwd_sublanes_kernel (kernel 3, with the k-space update kernels 5-6)
+//   and :355 _inv_sublanes_kernel (kernel 4).  They are bound by bytes: at
+//   512^3 a real-input or real-output lanes pass moves 1.61 GB (0.48 ms at
+//   3.35 TB/s), a complex sublanes pass 2.15 GB (0.64 ms); the FFT's
+//   5 n log2 n flop a transform come to 0.09 ms at 67 TFLOP/s.  What held
+//   the shared-memory tile back was its global traffic (one load in flight
+//   a thread, three blocks an SM): its loads and stores alone took 1.42 ms
+//   of its 1.81 (fft_probe.py on an NVIDIA H100 80GB HBM3, 700.00 W).  So a
+//   persistent block walks the tiles with a three-slot cp.async ring of
+//   16-byte copies: the next two tiles' copies are in flight while this
+//   one's butterflies run.  T = N/8 threads share a transform and each
+//   holds 8 values in registers; with N = R_0 R_1 ... (8, 8, then 2, 4 or
+//   8, then 2) thread t runs butterflies t + T m of every Stockham stage,
+//   so there are only (stages - 1) exchanges, each through the tile's own
+//   ring slot (swizzled on the contiguous axis); twiddles come from a
+//   per-stage table laid out [q][j mod Ns] (no bank conflicts); after the
+//   last stage thread t holds k = t + T m + (N/R) u.  The forward reads
+//   x[t + T q] in place and stores k to its permuted slot k'; the inverse
+//   reads x[t + T q] from its permuted slot (the lanes copies swizzled so
+//   that these reads are free of bank conflicts) and stores k in natural
+//   order, which neighbouring threads write to neighbouring addresses.
+//   Neither has a read-out pass.  The strided axis takes C = 32, 32, 16, 8
+//   columns a tile at n = 128, 256, 512, 1024 (C * N/8 = 512 or 1024
+//   threads a block; 128 B of each row at n = 512); with the plain stores
+//   (kernels 3 and 4) its blocks run in clusters of 8 that take adjacent
+//   tiles in step, so that each row is read and written 8 tiles wide at a
+//   time.  Every index is a shift or a mask: N is a template parameter.
 // * any other extent: the generic tile (tile_fft) below.
 //
 // Generic tile algorithm: one block holds a tile of T transforms of length
@@ -50,13 +59,13 @@
 //
 // with Ns the product of the radices already done, jlow = o mod Ns,
 // t = (o/Ns) mod R, j = (o/(Ns*R))*Ns + jlow and m = jlow + t*Ns.  All
-// stage twiddles come from one table W_n^j, j < n, computed in float64 on
-// the host and rounded to float32 (as marlin_tpu/pallas_fft.py:_tables
-// does); sums accumulate in float32.  The permutation to (or from) the
-// unordered order happens on the way out of (or into) shared memory.  Both
-// paths do the same operations in the same order (the register path reads
-// the same table entries and skips only the first stage's multiplies by
-// W^0 = 1), so they agree bit for bit.
+// stage twiddles come from one table W_n^j, j < n (W_n^-j for the inverse),
+// computed in float64 on the host and rounded to float32 (as
+// marlin_tpu/pallas_fft.py:_tables does); sums accumulate in float32.  The
+// permutation to (or from) the unordered order happens on the way out of
+// (or into) shared memory.  Both paths do the same operations in the same
+// order (the register path reads the same table entries and skips only the
+// first stage's multiplies by W^0 = 1), so they agree bit for bit.
 
 #pragma once
 
@@ -322,19 +331,56 @@ cudaError_t allow_smem(K kernel, size_t bytes) {
                               (int)bytes);
 }
 
-// Forward along the contiguous axis of (B, n): real (xr) or complex (xc)
-// input, permuted complex output.  `pre` maps each real input value as it
-// is read (Identity for a plain transform, a generated functor for the
-// fused pointwise producer of pallas_fft.py:_fwd_lanes_kernel).
+// `pre` maps each real input value as it is read (Identity for a plain
+// transform, a generated functor for the fused pointwise producer of
+// pallas_fft.py:_fwd_lanes_kernel).
 struct Identity {
   __device__ __forceinline__ float operator()(float x) const { return x; }
 };
 
-template <class Pre>
+// Each output element of a kernel goes to `epi(g, k, col, prefix, value)`,
+// with g its flat index, k its stored index along the transform (the
+// permuted slot k' of the forward, the natural index of the inverse), col
+// its row (lanes) or column (sublanes) and prefix its prefix batch
+// (sublanes; 0 on lanes).  Store writes the forward's value out, the fused
+// k-space update of spectral_update.cu applies the ABM update to it.
+struct Store {
+  float2* out;
+  __device__ __forceinline__ void operator()(int64_t g, int, int64_t, int,
+                                             float2 v) const {
+    out[g] = v;
+  }
+};
+
+// The inverse's store: the natural-order value times 1/n, its real part
+// only (out_r) or whole (out_c; out_r null).
+struct InvStore {
+  float* out_r;
+  float2* out_c;
+  float scale;
+  __device__ __forceinline__ void operator()(int64_t g, int, int64_t, int,
+                                             float2 v) const {
+    if (out_r)
+      out_r[g] = v.x * scale;
+    else
+      out_c[g] = make_float2(v.x * scale, v.y * scale);
+  }
+};
+
+// The direction of a kernel: the inverse for InvStore, else the forward.
+template <class Epi>
+constexpr bool is_inverse = false;
+template <>
+constexpr bool is_inverse<InvStore> = true;
+
+// The generic tile along the contiguous axis of (B, n): real (xr, forward
+// only) or complex (xc) input; a block takes T rows.
+template <class Pre, class Epi>
 __global__ void __launch_bounds__(kThreads)
-fwd_lanes_kernel(const float* __restrict__ xr, const float2* __restrict__ xc,
-                 float2* __restrict__ out, const float2* __restrict__ tw_g,
-                 Plan p, int64_t B, Pre pre) {
+tile_lanes_kernel(const float* __restrict__ xr, const float2* __restrict__ xc,
+                  const float2* __restrict__ tw_g, Plan p, int64_t B, Pre pre,
+                  Epi epi) {
+  constexpr bool INV = is_inverse<Epi>;
   extern __shared__ float2 smem[];
   const int n = p.n, E = n * p.T;
   float2* a = smem;
@@ -344,38 +390,31 @@ fwd_lanes_kernel(const float* __restrict__ xr, const float2* __restrict__ xc,
   const int64_t base = row0 * n;
   load_table(tw, tw_g, n);
   for (int i = threadIdx.x; i < E; i += blockDim.x) {
+    const int l = i / n, k = i % n;
     float2 v = make_float2(0.f, 0.f);
-    if (row0 + i / n < B)
+    if (row0 + l < B)
       v = xr ? make_float2(pre(xr[base + i]), 0.f) : xc[base + i];
-    a[i] = v;
+    a[l * n + (INV ? true_k(k, p) : k)] = v;
   }
   __syncthreads();
-  const float2* res = tile_fft<true, false>(a, c, tw, p);
+  const float2* res = tile_fft<true, INV>(a, c, tw, p);
   for (int i = threadIdx.x; i < E; i += blockDim.x) {
-    const int l = i / n, kp = i % n;
-    if (row0 + l < B) out[base + i] = res[l * n + true_k(kp, p)];
+    const int l = i / n, k = i % n;
+    if (row0 + l < B)
+      epi(base + i, k, row0 + l, 0, res[l * n + (INV ? k : true_k(k, p))]);
   }
 }
 
-// Forward along axis 1 of (P, n, L): blockIdx.y picks the prefix batch,
-// blockIdx.x a run of T columns.  Real (xr) or complex (xc) input.  Each
-// output element goes to `epi(g, kp, col, prefix, value)`, with g its flat
-// index and kp its permuted slot: Store writes it out, the fused k-space
-// update of spectral_update.cu applies the ABM update to it.
-struct Store {
-  float2* out;
-  __device__ __forceinline__ void operator()(int64_t g, int, int64_t, int,
-                                             float2 v) const {
-    out[g] = v;
-  }
-};
-
+// The generic tile along axis 1 of (P, n, L): blockIdx.y picks the prefix
+// batch, blockIdx.x a run of T columns.  Real (xr, forward only) or complex
+// (xc) input.
 template <class Epi>
 __global__ void __launch_bounds__(kThreads)
-fwd_sublanes_kernel(const float* __restrict__ xr,
-                    const float2* __restrict__ xc,
-                    const float2* __restrict__ tw_g, Plan p, int64_t L,
-                    Epi epi) {
+tile_sublanes_kernel(const float* __restrict__ xr,
+                     const float2* __restrict__ xc,
+                     const float2* __restrict__ tw_g, Plan p, int64_t L,
+                     Epi epi) {
+  constexpr bool INV = is_inverse<Epi>;
   extern __shared__ float2 smem[];
   const int n = p.n, T = p.T, E = n * T;
   float2* a = smem;
@@ -392,21 +431,21 @@ fwd_sublanes_kernel(const float* __restrict__ xr,
       const int64_t g = base + (int64_t)k * L + col;
       v = xr ? make_float2(xr[g], 0.f) : xc[g];
     }
-    a[i] = v;
+    a[(INV ? true_k(k, p) : k) * T + l] = v;
   }
   __syncthreads();
-  const float2* res = tile_fft<false, false>(a, c, tw, p);
+  const float2* res = tile_fft<false, INV>(a, c, tw, p);
   for (int i = threadIdx.x; i < E; i += blockDim.x) {
-    const int l = i % T, kp = i / T;
+    const int l = i % T, k = i / T;
     const int64_t col = col0 + l;
     if (col < L)
-      epi(base + (int64_t)kp * L + col, kp, col, (int)blockIdx.y,
-          res[true_k(kp, p) * T + l]);
+      epi(base + (int64_t)k * L + col, k, col, (int)blockIdx.y,
+          res[(INV ? k : true_k(k, p)) * T + l]);
   }
 }
 
 // ---------------------------------------------------------------------------
-// Register-resident forward kernels for n = 128, 256, 512, 1024 (b = 128)
+// Register-resident kernels for n = 128, 256, 512, 1024 (b = 128)
 // ---------------------------------------------------------------------------
 
 constexpr int kRegSlots = 3;           // tiles in the cp.async ring
@@ -472,9 +511,9 @@ __device__ __forceinline__ int xb_at(int p, int c) {
 }
 
 // Stage s's butterflies on the thread's 8 values: butterfly j = t + T*m
-// holds x[j + q*N/R] in v[m*R + q]; twiddle W_N^{q*(j mod Ns)*N/(Ns*R)} from
-// the per-stage table (none at s = 0), then DFT_R.
-template <int N, int s>
+// holds x[j + q*N/R] in v[m*R + q]; twiddle W_N^{-+q*(j mod Ns)*N/(Ns*R)}
+// from the per-stage table (none at s = 0), then DFT_R, forward or inverse.
+template <int N, int s, bool INV>
 __device__ __forceinline__ void reg_butterflies(float2 (&v)[8],
                                                 const float2* stw, int t) {
   constexpr int R = reg_radix(N, s), Ns = reg_ns(N, s), T = N / 8;
@@ -487,7 +526,7 @@ __device__ __forceinline__ void reg_butterflies(float2 (&v)[8],
     for (int q = 0; q < R; ++q)
       u[q] = (s == 0 || q == 0) ? v[m * R + q]
                                 : cmul(v[m * R + q], w[(q - 1) * Ns + jl]);
-    dft<R, false>(u);
+    dft<R, INV>(u);
 #pragma unroll
     for (int q = 0; q < R; ++q) v[m * R + q] = u[q];
   }
@@ -522,7 +561,7 @@ __device__ __forceinline__ void reg_get(float2 (&v)[8], const float2* xb,
 // Stages s, s+1, ...: each exchanges the previous stage's outputs through xb
 // and runs its butterflies.  The barrier before a put keeps it clear of the
 // previous get (for s = 1, of the reads of the tile that xb holds).
-template <int N, int s, bool LANES, int C>
+template <int N, int s, bool LANES, int C, bool INV>
 __device__ __forceinline__ void reg_stages(float2 (&v)[8], float2* xb,
                                            const float2* stw, int t, int c) {
   if constexpr (s < reg_nstages(N)) {
@@ -530,28 +569,57 @@ __device__ __forceinline__ void reg_stages(float2 (&v)[8], float2* xb,
     reg_put<N, s - 1, LANES, C>(v, xb, t, c);
     __syncthreads();
     reg_get<N, s, LANES, C>(v, xb, t, c);
-    reg_butterflies<N, s>(v, stw, t);
-    reg_stages<N, s + 1, LANES, C>(v, xb, stw, t, c);
+    reg_butterflies<N, s, INV>(v, stw, t);
+    reg_stages<N, s + 1, LANES, C, INV>(v, xb, stw, t, c);
   }
 }
 
 // The whole transform of the 8 values a thread read: the first stage in
 // registers, then the exchanges through xb (a lanes row, or a strided tile
-// of C columns).
-template <int N, bool LANES, int C>
+// of C columns).  The inverse is the same stages with DFT_R inverted; the
+// host hands it the conjugate table.
+template <int N, bool LANES, int C, bool INV>
 __device__ __forceinline__ void reg_fft(float2 (&v)[8], float2* xb,
                                         const float2* stw, int t, int c) {
-  reg_butterflies<N, 0>(v, stw, t);
-  reg_stages<N, 1, LANES, C>(v, xb, stw, t, c);
+  reg_butterflies<N, 0, INV>(v, stw, t);
+  reg_stages<N, 1, LANES, C, INV>(v, xb, stw, t, c);
 }
 
-// After the last stage (radix R) value i = m*R + u of thread t is frequency
-// k = t + T*m + (N/R)*u; its slot is k' = (k mod r) * 128 + k / r, r = N/128.
+// The slot k' = (k mod r) * 128 + k / r, r = N/128, that holds natural
+// index k in the permuted order (true_k_order's inverse).
 template <int N>
-__device__ __forceinline__ int reg_slot(int t, int i) {
-  constexpr int R = reg_radix(N, reg_nstages(N) - 1), r = N / 128;
-  const int k = t + (N / 8) * (i / R) + (N / R) * (i % R);
+__device__ __forceinline__ int reg_slot(int k) {
+  constexpr int r = N / 128;
   return (k % r) * 128 + k / r;
+}
+
+// Where thread t's input q, x[t + T*q], lies along the transform: in place
+// for the forward, at its permuted slot for the inverse.
+template <int N, bool INV>
+__device__ __forceinline__ int reg_in(int t, int q) {
+  const int k = t + (N / 8) * q;
+  return INV ? reg_slot<N>(k) : k;
+}
+
+// Where thread t's output i goes along the transform.  After the last
+// stage (radix R) value i = m*R + u is index k = t + T*m + (N/R)*u: the
+// forward stores it to its permuted slot, the inverse in natural order.
+template <int N, bool INV>
+__device__ __forceinline__ int reg_out(int t, int i) {
+  constexpr int R = reg_radix(N, reg_nstages(N) - 1);
+  const int k = t + (N / 8) * (i / R) + (N / R) * (i % R);
+  return INV ? k : reg_slot<N>(k);
+}
+
+// Where element e of a lanes tile sits in its ring slot.  The inverse's
+// reads of row position k' = (t mod r)*128 + t/r + 16q (r = N/128) would
+// put a half-warp on 16/r bank pairs; XOR-ing bits 4 - log2(r) .. 3 of e
+// with (e >> 7) mod r, that is with t mod r, spreads them over 16.  Bit 0
+// stays, so each 16-byte copy (a pair e, e + 1) lands whole.
+template <int N, bool INV>
+__device__ __forceinline__ int reg_lanes_at(int e) {
+  constexpr int r = N / 128, shift = r == 2 ? 3 : r == 4 ? 2 : 1;
+  return INV ? e ^ (((e >> 7) & (r - 1)) << shift) : e;
 }
 
 // The per-stage twiddle table, [q-1][j mod Ns] for each stage s >= 1.
@@ -594,9 +662,9 @@ __device__ __forceinline__ void cluster_wait() {
 //
 // The copies of lanes tile `tile` (G = 512/(N/8) consecutive rows of (B, N),
 // reals or complex values) into `dst`, 16 bytes each where the input is
-// 16-byte aligned, else one value each; rows past B are not read.  Commits
-// one group.
-template <int N>
+// 16-byte aligned, else one value each, each to its place reg_lanes_at;
+// rows past B are not read.  Commits one group.
+template <int N, bool INV>
 __device__ __forceinline__ void reg_lanes_fetch(float2* dst,
                                                 const float* __restrict__ xr,
                                                 const float2* __restrict__ xc,
@@ -612,7 +680,8 @@ __device__ __forceinline__ void reg_lanes_fetch(float2* dst,
       const char* src = real ? (const char*)(xr + base) : (const char*)(xc + base);
       for (int e = threadIdx.x * per; e < E; e += kRegLanesThreads * per) {
         if (base + e >= end) break;
-        cp_async<16>(d + (size_t)e * (16 / per), src + (size_t)e * (16 / per));
+        cp_async<16>(d + (size_t)reg_lanes_at<N, INV>(e) * (16 / per),
+                     src + (size_t)e * (16 / per));
       }
     } else {
 #pragma unroll
@@ -621,7 +690,7 @@ __device__ __forceinline__ void reg_lanes_fetch(float2* dst,
         if (real)
           cp_async<4>(reinterpret_cast<float*>(dst) + e, xr + base + e);
         else
-          cp_async<8>(dst + e, xc + base + e);
+          cp_async<8>(dst + reg_lanes_at<N, INV>(e), xc + base + e);
       }
     }
   }
@@ -629,19 +698,20 @@ __device__ __forceinline__ void reg_lanes_fetch(float2* dst,
 }
 
 // Thread t's 8 values x[t + q*N/8] of row g of the lanes tile held in
-// `slot` (floats when real), through `pre` when real.
-template <int N, class Pre>
+// `slot` (floats when real, forward only), through `pre` when real.
+template <int N, bool INV, class Pre>
 __device__ __forceinline__ void reg_lanes_read(float2 (&v)[8],
                                                const float2* slot, bool real,
                                                int g, int t, Pre pre) {
-  constexpr int T = N / 8;
   if (real) {
     const float* src = reinterpret_cast<const float*>(slot) + g * N;
 #pragma unroll
-    for (int q = 0; q < 8; ++q) v[q] = make_float2(pre(src[t + q * T]), 0.f);
+    for (int q = 0; q < 8; ++q)
+      v[q] = make_float2(pre(src[reg_in<N, INV>(t, q)]), 0.f);
   } else {
 #pragma unroll
-    for (int q = 0; q < 8; ++q) v[q] = slot[g * N + t + q * T];
+    for (int q = 0; q < 8; ++q)
+      v[q] = slot[reg_lanes_at<N, INV>(g * N + reg_in<N, INV>(t, q))];
   }
 }
 
@@ -686,31 +756,34 @@ __device__ __forceinline__ void reg_sublanes_fetch(
 }
 
 // Thread (t, c)'s 8 values x[t + q*N/8] of column c of the strided tile
-// held in `slot` (floats when real).
-template <int N>
+// held in `slot` (floats when real, forward only).  A half-warp reads one
+// position of 16 columns (at C = 8, two), whatever the position.
+template <int N, bool INV>
 __device__ __forceinline__ void reg_sublanes_read(float2 (&v)[8],
                                                   const float2* slot, bool real,
                                                   int t, int c) {
-  constexpr int T = N / 8, C = reg_cols(N);
+  constexpr int C = reg_cols(N);
   if (real) {
     const float* src = reinterpret_cast<const float*>(slot);
 #pragma unroll
-    for (int q = 0; q < 8; ++q) v[q] = make_float2(src[(t + q * T) * C + c], 0.f);
+    for (int q = 0; q < 8; ++q)
+      v[q] = make_float2(src[reg_in<N, INV>(t, q) * C + c], 0.f);
   } else {
 #pragma unroll
-    for (int q = 0; q < 8; ++q) v[q] = slot[(t + q * T) * C + c];
+    for (int q = 0; q < 8; ++q) v[q] = slot[reg_in<N, INV>(t, q) * C + c];
   }
 }
 
-// Forward along the contiguous axis of (B, N): a tile is G = 512/(N/8)
-// consecutive rows; row g of the tile goes to threads g*T .. g*T + T-1.  A
-// persistent block walks the tiles; rows past B are neither read nor
-// written.  `pre` maps each real input as it is read.
-template <int N, class Pre>
+// The contiguous axis of (B, N), forward or inverse by `epi`: a tile is
+// G = 512/(N/8) consecutive rows; row g of the tile goes to threads g*T ..
+// g*T + T-1.  A persistent block walks the tiles; rows past B are neither
+// read nor written.  `pre` maps each real input as it is read.
+template <int N, class Pre, class Epi>
 __global__ void __launch_bounds__(kRegLanesThreads, 2)
 reg_lanes_kernel(const float* __restrict__ xr, const float2* __restrict__ xc,
-                 float2* __restrict__ out, const float2* __restrict__ tw_g,
-                 int64_t B, int64_t tiles, Pre pre) {
+                 const float2* __restrict__ tw_g, int64_t B, int64_t tiles,
+                 Pre pre, Epi epi) {
+  constexpr bool INV = is_inverse<Epi>;
   constexpr int T = N / 8, G = kRegLanesThreads / T, E = kRegLanesElems;
   extern __shared__ float2 smem[];
   float2* ring = smem;  // kRegSlots tiles of E values (floats when real)
@@ -721,28 +794,32 @@ reg_lanes_kernel(const float* __restrict__ xr, const float2* __restrict__ xc,
   int64_t tile = blockIdx.x;
 #pragma unroll
   for (int s = 0; s < kRegSlots - 1; ++s)
-    reg_lanes_fetch<N>(ring + s * E, xr, xc, B, tile + s * step, tiles);
+    reg_lanes_fetch<N, INV>(ring + s * E, xr, xc, B, tile + s * step, tiles);
   for (int it = 0; tile < tiles; ++it, tile += step) {
     cp_async_wait<kRegSlots - 2>();
     __syncthreads();
-    reg_lanes_fetch<N>(ring + (it + kRegSlots - 1) % kRegSlots * E, xr, xc, B,
-                       tile + (kRegSlots - 1) * step, tiles);
+    reg_lanes_fetch<N, INV>(ring + (it + kRegSlots - 1) % kRegSlots * E, xr, xc,
+                            B, tile + (kRegSlots - 1) * step, tiles);
     float2* slot = ring + it % kRegSlots * E;
     float2 v[8];
-    reg_lanes_read<N>(v, slot, xr != nullptr, g, t, pre);
-    reg_fft<N, true, 1>(v, slot + g * N, stw, t, 0);
+    reg_lanes_read<N, INV>(v, slot, xr != nullptr, g, t, pre);
+    reg_fft<N, true, 1, INV>(v, slot + g * N, stw, t, 0);
     const int64_t r = tile * G + g;
     if (r < B) {
 #pragma unroll
-      for (int i = 0; i < 8; ++i) out[r * N + reg_slot<N>(t, i)] = v[i];
+      for (int i = 0; i < 8; ++i) {
+        const int k = reg_out<N, INV>(t, i);
+        epi(r * N + k, k, r, 0, v[i]);
+      }
     }
   }
 }
 
-// Forward along axis 1 of (P, N, L): a tile is C = reg_cols(N) consecutive
-// columns of one prefix batch; thread (t, c) = threadIdx (x / C, x % C), so
-// neighbouring threads read, and hand to `epi`, neighbouring columns.
-// Columns past L are neither read nor handed on.
+// Axis 1 of (P, N, L), forward or inverse by `epi`: a tile is C =
+// reg_cols(N) consecutive columns of one prefix batch; thread (t, c) =
+// threadIdx (x / C, x % C), so neighbouring threads read, and hand to
+// `epi`, neighbouring columns.  Columns past L are neither read nor handed
+// on.
 //
 // The grid is made of clusters of CL = reg_cluster<Epi> blocks.  Block b
 // takes tiles b, b + grid, ..., so the blocks of a cluster hold adjacent
@@ -751,7 +828,8 @@ reg_lanes_kernel(const float* __restrict__ xr, const float2* __restrict__ xc,
 // With the plain store (kernel 3) at n = 512 that took the kernel from
 // 0.825-0.839 ms to 0.790-0.794 at (1, 512, 262144), where rows are 2 MB
 // apart, and from 0.796-0.814 to 0.735-0.739 at 512^3 (fft_probe.py before
-// and after, NVIDIA H100 80GB HBM3, 700.00 W).  The k-space update's
+// and after, NVIDIA H100 80GB HBM3, 700.00 W); the inverse store (kernel 4)
+// takes them too (PERF.md section 6).  The k-space update's
 // epilogues (kernels 5-6) read two more streams of their own, not through
 // the ring, and ran slower in clusters of 8, so they keep clusters of one
 // (PERF.md section 6).  Every block of a cluster runs as many iterations
@@ -761,6 +839,8 @@ template <class Epi>
 constexpr int reg_cluster = 1;
 template <>
 constexpr int reg_cluster<Store> = kRegCluster;
+template <>
+constexpr int reg_cluster<InvStore> = kRegCluster;
 
 template <int N, class Epi>
 __global__ void __launch_bounds__(reg_sublanes_threads(N),
@@ -769,6 +849,7 @@ reg_sublanes_kernel(const float* __restrict__ xr,
                     const float2* __restrict__ xc,
                     const float2* __restrict__ tw_g, int64_t L, int64_t ncols,
                     int64_t tiles, Epi epi) {
+  constexpr bool INV = is_inverse<Epi>;
   constexpr int C = reg_cols(N), E = N * C, CL = reg_cluster<Epi>;
   extern __shared__ float2 smem[];
   float2* ring = smem;
@@ -790,15 +871,15 @@ reg_sublanes_kernel(const float* __restrict__ xr,
     cluster_arrive();
     float2* slot = ring + it % kRegSlots * E;
     float2 v[8];
-    reg_sublanes_read<N>(v, slot, xr != nullptr, t, c);
-    reg_fft<N, false, C>(v, slot, stw, t, c);
+    reg_sublanes_read<N, INV>(v, slot, xr != nullptr, t, c);
+    reg_fft<N, false, C, INV>(v, slot, stw, t, c);
     const int64_t prefix = tile / ncols;
     const int64_t col = (tile - prefix * ncols) * C + c;
     if (tile < tiles && col < L) {
 #pragma unroll
       for (int i = 0; i < 8; ++i) {
-        const int kp = reg_slot<N>(t, i);
-        epi((prefix * N + kp) * L + col, kp, col, (int)prefix, v[i]);
+        const int k = reg_out<N, INV>(t, i);
+        epi((prefix * N + k) * L + col, k, col, (int)prefix, v[i]);
       }
     }
   }
@@ -844,16 +925,16 @@ cudaError_t reg_launch(void (*kernel)(Params...), int threads, size_t smem,
   return e != cudaSuccess ? e : cudaGetLastError();
 }
 
-template <int N, class Pre>
-cudaError_t launch_reg_lanes(const float* xr, const float2* xc, float2* out,
+template <int N, class Pre, class Epi>
+cudaError_t launch_reg_lanes(const float* xr, const float2* xc,
                              const float2* tw, int64_t B, cudaStream_t stream,
-                             Pre pre) {
+                             Pre pre, Epi epi) {
   constexpr int G = kRegLanesThreads / (N / 8);
   static int resident[kRegDevices];
   const int64_t tiles = (B + G - 1) / G;
-  return reg_launch(reg_lanes_kernel<N, Pre>, kRegLanesThreads,
+  return reg_launch(reg_lanes_kernel<N, Pre, Epi>, kRegLanesThreads,
                     reg_smem<N>(kRegLanesElems), 1, tiles, resident, stream,
-                    xr, xc, out, tw, B, tiles, pre);
+                    xr, xc, tw, B, tiles, pre, epi);
 }
 
 template <int N, class Epi>
@@ -868,14 +949,15 @@ cudaError_t launch_reg_sublanes(const float* xr, const float2* xc,
                     stream, xr, xc, tw, L, ncols, P * ncols, epi);
 }
 
-// Dynamic shared memory a block of the forward kernels takes at extent n:
-// the register kernels' ring and stage table, or the generic tile.
+// Dynamic shared memory a block of the kernels takes at extent n (either
+// direction): the register kernels' ring and stage table, or the generic
+// tile.
 template <int N>
 constexpr size_t reg_smem_n(bool sublanes) {
   return reg_smem<N>(sublanes ? N * reg_cols(N) : kRegLanesElems);
 }
 
-inline size_t fwd_smem_bytes(int64_t n, int64_t b, bool sublanes) {
+inline size_t smem_bytes_n(int64_t n, int64_t b, bool sublanes) {
   if (reg_path(n, b)) {
     switch (n) {
       case 128: return reg_smem_n<128>(sublanes);
@@ -889,15 +971,15 @@ inline size_t fwd_smem_bytes(int64_t n, int64_t b, bool sublanes) {
 }
 
 // The register kernels by extent (reg_path(n, b) must hold).
-template <class Pre>
-cudaError_t launch_reg_lanes_n(const float* xr, const float2* xc, float2* out,
+template <class Pre, class Epi>
+cudaError_t launch_reg_lanes_n(const float* xr, const float2* xc,
                                const float2* tw, int64_t B, int64_t n,
-                               cudaStream_t stream, Pre pre) {
+                               cudaStream_t stream, Pre pre, Epi epi) {
   switch (n) {
-    case 128: return launch_reg_lanes<128>(xr, xc, out, tw, B, stream, pre);
-    case 256: return launch_reg_lanes<256>(xr, xc, out, tw, B, stream, pre);
-    case 512: return launch_reg_lanes<512>(xr, xc, out, tw, B, stream, pre);
-    case 1024: return launch_reg_lanes<1024>(xr, xc, out, tw, B, stream, pre);
+    case 128: return launch_reg_lanes<128>(xr, xc, tw, B, stream, pre, epi);
+    case 256: return launch_reg_lanes<256>(xr, xc, tw, B, stream, pre, epi);
+    case 512: return launch_reg_lanes<512>(xr, xc, tw, B, stream, pre, epi);
+    case 1024: return launch_reg_lanes<1024>(xr, xc, tw, B, stream, pre, epi);
   }
   return cudaErrorInvalidValue;
 }
@@ -915,46 +997,46 @@ cudaError_t launch_reg_sublanes_n(const float* xr, const float2* xc,
   return cudaErrorInvalidValue;
 }
 
-// Host launchers of the two forward kernels: the register kernels where
+// Host launchers along the contiguous axis of (B, n) and along axis 1 of
+// (P, n, L), forward or inverse by `epi`: the register kernels where
 // reg_path holds, else the generic tile.  Each returns the launch's
 // cudaGetLastError() (or cudaErrorInvalidValue for a shape the kernels do
 // not take).
-template <class Pre>
-cudaError_t launch_fwd_lanes(const float* xr, const float2* xc, float2* out,
-                             const float2* tw, int64_t B, int64_t n, int64_t b,
-                             cudaStream_t stream, Pre pre) {
+template <class Pre, class Epi>
+cudaError_t launch_lanes(const float* xr, const float2* xc, const float2* tw,
+                         int64_t B, int64_t n, int64_t b, cudaStream_t stream,
+                         Pre pre, Epi epi) {
   Plan p;
   if (B < 1 || !make_plan(&p, n, b)) return cudaErrorInvalidValue;
   if (reg_path(n, b))
-    return launch_reg_lanes_n(xr, xc, out, tw, B, n, stream, pre);
+    return launch_reg_lanes_n(xr, xc, tw, B, n, stream, pre, epi);
   const size_t smem = smem_bytes(p);
-  cudaError_t e = allow_smem(fwd_lanes_kernel<Pre>, smem);
+  cudaError_t e = allow_smem(tile_lanes_kernel<Pre, Epi>, smem);
   if (e != cudaSuccess) return e;
   const int64_t blocks = (B + p.T - 1) / p.T;
   if (blocks > 0x7fffffffLL) return cudaErrorInvalidValue;
-  fwd_lanes_kernel<Pre><<<(unsigned)blocks, kThreads, smem, stream>>>(
-      xr, xc, out, tw, p, B, pre);
+  tile_lanes_kernel<Pre, Epi><<<(unsigned)blocks, kThreads, smem, stream>>>(
+      xr, xc, tw, p, B, pre, epi);
   return cudaGetLastError();
 }
 
 template <class Epi>
-cudaError_t launch_fwd_sublanes(const float* xr, const float2* xc,
-                                const float2* tw, int64_t P, int64_t n,
-                                int64_t L, int64_t b, cudaStream_t stream,
-                                Epi epi) {
+cudaError_t launch_sublanes(const float* xr, const float2* xc,
+                            const float2* tw, int64_t P, int64_t n, int64_t L,
+                            int64_t b, cudaStream_t stream, Epi epi) {
   Plan p;
   if (P < 1 || P > 65535 || L < 1 || !make_plan(&p, n, b))
     return cudaErrorInvalidValue;
   if (reg_path(n, b))
     return launch_reg_sublanes_n(xr, xc, tw, P, n, L, stream, epi);
   const size_t smem = smem_bytes(p);
-  cudaError_t e = allow_smem(fwd_sublanes_kernel<Epi>, smem);
+  cudaError_t e = allow_smem(tile_sublanes_kernel<Epi>, smem);
   if (e != cudaSuccess) return e;
   const int64_t blocks = (L + p.T - 1) / p.T;
   if (blocks > 0x7fffffffLL) return cudaErrorInvalidValue;
   dim3 grid((unsigned)blocks, (unsigned)P);
-  fwd_sublanes_kernel<Epi><<<grid, kThreads, smem, stream>>>(xr, xc, tw, p, L,
-                                                             epi);
+  tile_sublanes_kernel<Epi><<<grid, kThreads, smem, stream>>>(xr, xc, tw, p, L,
+                                                              epi);
   return cudaGetLastError();
 }
 

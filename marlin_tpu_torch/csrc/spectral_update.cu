@@ -127,7 +127,7 @@ cudaError_t mtt_fwd_x_update(const void* mu, const void* ubar,
   const float2* m = (const float2*)mu;
   const float2* t = (const float2*)tw;
 #define MTT_UPDATE(SH_, MOB_)                                              \
-  launch_fwd_sublanes(                                                     \
+  launch_sublanes(                                                         \
       nullptr, m, t, 1, n, L, b, stream,                                   \
       Update<SH_, MOB_>{(const float2*)ubar, (const float2*)nold,          \
                         (float2*)u_out, (float2*)n_out, (const float*)kx2, \
@@ -151,8 +151,8 @@ cudaError_t mtt_fwd_x_update_poly(const void* mu, const void* ubar,
                 (float2*)n_out, (const float*)kx2, (const float*)kyz2, {}};
   for (int64_t f = 0; f < N; ++f)
     for (int j = 0; j < 8; ++j) op.row[f][j] = rows[f * 8 + j];
-  return launch_fwd_sublanes(nullptr, (const float2*)mu, (const float2*)tw, N,
-                             n, L, b, stream, op);
+  return launch_sublanes(nullptr, (const float2*)mu, (const float2*)tw, N, n,
+                         L, b, stream, op);
 }
 
 }  // extern "C"

@@ -29,17 +29,18 @@ The kernels (``csrc/unordered_fft.cu`` over ``csrc/fft_tile.cuh``) are
 built with ``nvcc`` for ``sm_90a`` into a plain C shared library at first
 use and loaded with ``ctypes``.  Bound at 512³ on an H100 SXM (3.35 TB/s):
 a real-input forward or real-output inverse lanes pass moves 1.61 GB
-(0.48 ms), a complex sublanes pass 2.15 GB (0.64 ms).  The forward kernels
-take one of two paths, chosen in C by the extent (``mtt_fwd_path``): at
-n = 128, 256, 512 and 1024 a register-resident Stockham FFT (persistent
-blocks fed by a ring of asynchronous 16-byte copies, N/8 threads a
-transform with 8 values each, the exchanges through shared memory, the
-stores straight to the permuted slot); at every other extent, and for
-both inverse kernels, a mixed-radix Stockham FFT over a tile in shared
-memory (radix-8/4/2 butterflies in registers, odd radices summed
-directly) that permutes on the way out or in.  Both paths give the same
-bits.  ``python -m marlin_tpu_torch.fft_probe`` times the forward kernels
-beside stripped variants of both paths and torch.fft on the card.
+(0.48 ms), a complex sublanes pass 2.15 GB (0.64 ms).  Every kernel takes
+one of two paths, chosen in C by the extent (``mtt_fwd_path``,
+``mtt_inv_path``): at n = 128, 256, 512 and 1024 a register-resident
+Stockham FFT (persistent blocks fed by a ring of asynchronous 16-byte
+copies, N/8 threads a transform with 8 values each, the exchanges through
+shared memory; the forward stores straight to the permuted slot, the
+inverse reads from it and stores in natural order); at every other extent
+a mixed-radix Stockham FFT over a tile in shared memory (radix-8/4/2
+butterflies in registers, odd radices summed directly) that permutes on
+the way out or in.  Both paths give the same bits.
+``python -m marlin_tpu_torch.fft_probe`` times the kernels beside
+stripped variants of both paths and torch.fft on the card.
 
 The TPU kernel's fused pointwise producer (``pre``: µ = f′(c) evaluated in
 the forward lanes kernel's read, so µ never reaches memory) is a
@@ -308,7 +309,8 @@ _P = ctypes.c_void_p
 _I = ctypes.c_int64
 LIBRARY = CudaLibrary("unordered_fft", {
     "mtt_fwd_path": [_I, _I],
-    "mtt_fwd_smem": [_I, _I, ctypes.c_int],
+    "mtt_inv_path": [_I, _I],
+    "mtt_smem": [_I, _I, ctypes.c_int],
     "mtt_fwd_lanes": [_P, _P, _P, _P, _I, _I, _I, _P],
     "mtt_inv_lanes": [_P, _P, _P, _P, _I, _I, _I, _P],
     "mtt_fwd_sublanes": [_P, _P, _P, _P, _I, _I, _I, _I, _P],
@@ -400,8 +402,8 @@ extern "C" cudaError_t mtt_fwd_lanes_pre(const void* x, void* out,
                                          const void* tw, int64_t B,
                                          int64_t n, int64_t b,
                                          cudaStream_t stream) {{
-  return launch_fwd_lanes((const float*)x, nullptr, (float2*)out,
-                          (const float2*)tw, B, n, b, stream, Pre());
+  return launch_lanes((const float*)x, nullptr, (const float2*)tw, B, n, b,
+                      stream, Pre(), Store{{(float2*)out}});
 }}
 """
         self.library = CudaLibrary(

@@ -122,6 +122,87 @@ def test_cpu_wrappers_use_twins_and_launch_nothing():
                              "fwd_sublanes": 0, "inv_sublanes": 0}
 
 
+# -- the register kernels' index maps (csrc/fft_tile.cuh), on the CPU ----------
+
+
+def _last_radix(n):
+    """The radix of the last Stockham stage (fft_tile.cuh reg_radix)."""
+    return {128: 2, 256: 4, 512: 8, 1024: 2}[n]
+
+
+def _reg_slot(n, k):
+    """fft_tile.cuh reg_slot: the permuted slot that holds natural index k."""
+    r = n // 128
+    return (k % r) * 128 + k // r
+
+
+def _reg_lanes_at(n, e):
+    """fft_tile.cuh reg_lanes_at<N, true>: where element e of an inverse
+    lanes tile sits in its ring slot."""
+    r = n // 128
+    shift = {2: 3, 4: 2}.get(r, 1)
+    return e ^ (((e >> 7) & (r - 1)) << shift)
+
+
+def _reg_stockham(x, inverse):
+    """The register kernels' schedule in numpy (fft_tile.cuh reg_fft): N/8
+    threads, thread t runs butterflies t + T*m of every stage on 8 values,
+    outputs to their Stockham places; returns the (T, 8) values the threads
+    hold after the last stage."""
+    n = len(x)
+    T = n // 8
+    radices = [8, 8] + {128: [2], 256: [4], 512: [8], 1024: [8, 2]}[n]
+    sign = 1.0 if inverse else -1.0
+    buf, ns = x.astype(np.complex128), 1
+    t = np.arange(T)[:, None]
+    for R in radices:
+        j = t + T * np.arange(8 // R)[None, :]                  # (T, 8/R)
+        q = np.arange(R)
+        u = buf[j[..., None] + q * (n // R)]                    # (T, 8/R, R)
+        u = u * np.exp(sign * 2j * np.pi * q * (j[..., None] % ns) / (ns * R))
+        dft = np.exp(sign * 2j * np.pi * np.outer(q, q) / R)    # [q, u]
+        v = u @ dft                                             # (T, 8/R, R)
+        out = np.empty(n, np.complex128)
+        out[(j[..., None] // ns) * ns * R + j[..., None] % ns + q * ns] = v
+        buf, ns = out, ns * R
+    return v.reshape(T, 8)
+
+
+@pytest.mark.parametrize("n", [128, 256, 512, 1024])
+def test_register_inverse_index_maps(n):
+    """The inverse register kernels read input q of thread t, x[t + q*N/8],
+    from its permuted slot and store value i of thread t at natural index
+    t + T*m + (N/R)*u (i = m*R + u): both maps are permutations of
+    0..N-1, the slot holds that index by true_k_order, and the schedule
+    puts the transform's value there.  The lanes swizzle moves whole
+    16-byte copies and gives each half-warp's permuted reads 16 distinct
+    8-byte bank pairs."""
+    T, R = n // 8, _last_radix(n)
+    t = np.arange(T)[:, None]
+    k_in = t + T * np.arange(8)[None, :]
+    slot = _reg_slot(n, k_in)
+    assert np.array_equal(np.sort(slot.ravel()), np.arange(n))
+    assert np.array_equal(uf.true_k_order(n)[slot], k_in)
+    i = np.arange(8)[None, :]
+    k_out = t + T * (i // R) + (n // R) * (i % R)
+    assert np.array_equal(np.sort(k_out.ravel()), np.arange(n))
+    assert np.array_equal(uf.true_k_order(n)[_reg_slot(n, k_out)], k_out)
+
+    rng = np.random.default_rng(n)
+    x = rng.standard_normal(n) + 1j * rng.standard_normal(n)
+    for inverse, ref in ((False, np.fft.fft(x)), (True, n * np.fft.ifft(x))):
+        v = _reg_stockham(x, inverse)
+        assert np.abs(v - ref[k_out]).max() <= 1e-9 * np.abs(ref).max()
+
+    e = np.arange(n)
+    pos = _reg_lanes_at(n, e)
+    assert np.array_equal(np.sort(pos), e)
+    assert np.array_equal(pos[1::2], pos[0::2] + 1)
+    for q in range(8):
+        for h in range(0, T, 16):
+            assert len(set(_reg_lanes_at(n, slot[h:h + 16, q]) % 16)) == 16
+
+
 def test_wrappers_reject_bad_inputs():
     with pytest.raises(ValueError, match="does not factor"):
         uf.fwd_lanes(torch.zeros(2, 516))
@@ -155,28 +236,43 @@ _CASES += [("fwd_sublanes", (1, 512, 262145), torch.complex64),
            ("fwd_sublanes", (2, 256, 1), torch.float32),
            ("fwd_lanes", (1, 1024), torch.complex64),
            ("fwd_sublanes", (3, 64, 300), torch.float32)]
+# the register path of the inverse kernels, with the same ragged tails
+_CASES += [(name, shape, torch.complex64)
+           for n in (128, 256, 512, 1024)
+           for name, shape in (("inv_lanes", (1001, n)), ("inv_sublanes", (3, n, 300)))]
+_CASES += [("inv_sublanes", (1, 512, 262145), torch.complex64),
+           ("inv_sublanes", (2, 256, 1), torch.complex64)]
 
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("name,shape,dtype", _CASES)
 def test_cuda_kernel_matches_twin(cuda, name, shape, dtype):
+    """Each kernel against its twin; inv_lanes with the real and the
+    complex output."""
     gen = torch.Generator().manual_seed(0)
     x = torch.randn(shape, generator=gen, dtype=dtype).to(cuda)
     wrapper = getattr(uf, name)
     twin = getattr(uf, name + "_plain")
-    before = wrapper.launches
-    got = wrapper(x)
-    torch.cuda.synchronize()
-    assert wrapper.launches == before + 1
-    ref = twin(x)
-    err = (got - ref).abs().max().item()
-    assert err <= TOL * ref.abs().max().item()
+    outputs = ({"real_output": True}, {"real_output": False}) if name == "inv_lanes" else ({},)
+    for kw in outputs:
+        before = wrapper.launches
+        got = wrapper(x, **kw)
+        torch.cuda.synchronize()
+        assert wrapper.launches == before + 1
+        ref = twin(x, **kw)
+        assert got.dtype == ref.dtype
+        err = (got - ref).abs().max().item()
+        assert err <= TOL * ref.abs().max().item(), kw
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("name,shape", [("fwd_lanes", (77, 512)),
-                                        ("fwd_sublanes", (2, 512, 300))])
-@pytest.mark.parametrize("dtype", [torch.float32, torch.complex64])
+@pytest.mark.parametrize("name,shape,dtype", [
+    ("fwd_lanes", (77, 512), torch.float32),
+    ("fwd_lanes", (77, 512), torch.complex64),
+    ("fwd_sublanes", (2, 512, 300), torch.float32),
+    ("fwd_sublanes", (2, 512, 300), torch.complex64),
+    ("inv_lanes", (77, 512), torch.complex64),
+    ("inv_sublanes", (2, 512, 300), torch.complex64)])
 def test_cuda_kernel_takes_unaligned_input(cuda, name, shape, dtype):
     """A view one element into its storage is no multiple of 16 bytes, so
     the register kernels copy it value by value; they must agree all the
@@ -199,6 +295,31 @@ def test_cuda_forward_path(cuda):
     reg = [n for n in range(8, 1025) if uf.supported(n)
            and lib.mtt_fwd_path(n, uf.base(n))]
     assert reg == [128, 256, 512, 1024]
+
+
+@pytest.mark.cuda
+def test_cuda_inverse_path(cuda):
+    """The inverse kernels take the register path at exactly the forward's
+    extents, n = 128, 256, 512 and 1024 (b = 128)."""
+    lib = uf.LIBRARY.load()
+    reg = [n for n in range(8, 1025) if uf.supported(n)
+           and lib.mtt_inv_path(n, uf.base(n))]
+    assert reg == [128, 256, 512, 1024]
+
+
+@pytest.mark.cuda
+def test_cuda_roundtrip_register_path(cuda):
+    """(8, 512, 512) forward and back, every launch on the register path."""
+    lib = uf.LIBRARY.load()
+    assert lib.mtt_fwd_path(512, 128) and lib.mtt_inv_path(512, 128)
+    gen = torch.Generator().manual_seed(3)
+    x = torch.randn((8, 512, 512), generator=gen).to(cuda)
+    uf.reset_launches()
+    back = uf.ifftn_unordered(uf.fftn_unordered(x), x.shape)
+    torch.cuda.synchronize()
+    assert uf.launches() == {"fwd_lanes": 1, "fwd_lanes_pre": 0, "inv_lanes": 1,
+                             "fwd_sublanes": 2, "inv_sublanes": 2}
+    assert (back - x).abs().max().item() <= 1e-4
 
 
 @pytest.mark.cuda
