@@ -11,7 +11,7 @@ Phases, one line each, flushed as they finish:
    library of the 3-D Cahn-Hilliard µ fused into the forward lanes read,
    one nvcc each, all started together, with ptxas's registers and spills
    of every FFT and LBM kernel, forward and inverse (and the register FFT
-   kernels' shared memory);
+   kernels' shared memory), the LBM substep's flat and brick kernels;
 2. kernels: each kernel at its 512³ main-path shapes (and at n = 64, 200,
    384) against its plain PyTorch twin, max error ≤ 1e-5 of the twin's
    largest magnitude; kernel, twin, bound and yardstick times, and which
@@ -22,8 +22,12 @@ Phases, one line each, flushed as they finish:
    with buoyancy and the Guo source, the Pebbles deck's MRT on both
    lattices through media, an MRT D3Q27 all-faces plan, the porous deck
    with the Hermite projection, the collisionless chain), and at 9³ and
-   33×17×20; the 256³ rows of the decks run in phases 7-10 beside their
-   eager JNP substep.  The 2-D (D2Q9) plans at 800×200 and 4096×2048 in
+   33×17×20, each 256³ plan with the kernel it takes (the brick kernel,
+   with its rows a brick, stages, threads and shared memory, or the flat
+   one); the 256³ rows of the decks run in phases 7-10 beside their
+   eager JNP substep.  The LBM kernels' bound takes their operations at
+   half the float32 rate (built without FMA, each multiply and add issues
+   alone).  The 2-D (D2Q9) plans at 800×200 and 4096×2048 in
    float32 (the channel with BGK and with MRT, the 2-D thermal pair, the
    Kármán plan: Smagorinsky with the projection, a perturbed inlet and the
    cylinder) and at 33×17 and 1000×333; the Kármán plan's two density-mean
@@ -97,6 +101,9 @@ STEPS = 2
 MULTI_DT = 0.05
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM data sheet
 F32_FLOP_PER_S = 67e12     # H100 SXM data sheet, float32 outside tensor cores
+# csrc/lbm_substep.cu is built with -fmad=false: every multiply and add
+# issues on its own, at half the rate that counts an FMA as two
+F32_NO_FMA_FLOP_PER_S = F32_FLOP_PER_S / 2
 KERNEL_TOL = 1e-5
 ANCHOR_TOL = 5e-5
 FUSED_ANCHOR_TOL = 2e-4
@@ -135,11 +142,11 @@ def cuda_ms(fn, reps=10, warmup=2):
     return start.elapsed_time(end) / reps
 
 
-def bound_ms(n_bytes, flops):
+def bound_ms(n_bytes, flops, flop_rate=F32_FLOP_PER_S):
     """Least time: bytes over the memory rate against flops over the
-    float32 rate; returns (ms, "bytes" | "operations")."""
+    float32 rate (``flop_rate``); returns (ms, "bytes" | "operations")."""
     t_bytes = n_bytes / HBM_BYTES_PER_S
-    t_ops = flops / F32_FLOP_PER_S
+    t_ops = flops / flop_rate
     return 1e3 * max(t_bytes, t_ops), "bytes" if t_bytes >= t_ops else "operations"
 
 
@@ -184,7 +191,8 @@ def summarise(rows):
     return out
 
 
-def measure(name, shape, kernel, twin, library, n_bytes, flops, yardstick=None):
+def measure(name, shape, kernel, twin, library, n_bytes, flops, yardstick=None,
+            flop_rate=F32_FLOP_PER_S):
     """One main-shape row: the check, then kernel, twin, library or
     composite yardstick times and the bound."""
     got = kernel()
@@ -195,7 +203,7 @@ def measure(name, shape, kernel, twin, library, n_bytes, flops, yardstick=None):
     ms = cuda_ms(kernel)
     plain = cuda_ms(twin, reps=3, warmup=1)
     lib = None if library is None else cuda_ms(library)
-    bnd, by = bound_ms(n_bytes, flops)
+    bnd, by = bound_ms(n_bytes, flops, flop_rate)
     row = {"shape": list(shape), "max_abs_err": err, "ms": ms, "plain_ms": plain,
            "library_ms": lib, "bound_ms": bnd, "bound_by": by}
     text = (f"[kernels] {name} {tuple(shape)}: max_abs_err {err:.3e}, kernel "
@@ -378,65 +386,6 @@ def phase_fused_kernels(uf, sp, dev, gen, pre, k2):
 # -- the fused LBM substep ---------------------------------------------------------
 
 
-def lbm_zeroth_order_deck(backend):
-    """decks.INLET_OUTLET_DECK as a pressure-driven channel: Zou-He density
-    faces on both x faces (zeroth order)."""
-    from marlin_tpu_torch.decks import INLET_OUTLET_DECK
-
-    deck = INLET_OUTLET_DECK.format(backend=backend)
-    deck = deck.replace("type = LBMFixedFirstOrderBC", "type = LBMFixedZerothOrderBC")
-    deck = deck.replace("value = 0.01", "value = 1.001")
-    return deck.replace("""      type = LBMMicroscopicZeroGradientBC
-      buffer = f
-      boundary = right""", """      type = LBMFixedZerothOrderBC
-      buffer = f
-      f = f
-      value = 1.0
-      boundary = right""")
-
-
-def lbm_plans():
-    """name -> FusedLBMConfig of each deck's own chain, built at a small
-    extent; the kernel checks set the extents."""
-    from marlin_tpu_torch import decks, hit
-    from marlin_tpu_torch import lbm_fused as lf
-    from marlin_tpu_torch.problem import TensorProblem
-
-    media = {"media": decks.porous_media(8)}
-    allface27 = decks.ALLFACE_DECK.format(n=8, stencil="LBMD3Q27", backend="PALLAS")
-    texts = {
-        "porous": (decks.POROUS_DECK.format(n=8, substeps=2, backend="PALLAS",
-                                            media_h5="media.h5"), media),
-        "mixed": (decks.MIXED_DECK.format(n=8, substeps=2, backend="PALLAS"), None),
-        "allface_d3q27": (allface27, None),
-        "zouhe_zeroth": (lbm_zeroth_order_deck("PALLAS"), None),
-        "thermal": (decks.THERMAL3D_DECK.format(n=8, substeps=2, backend="PALLAS"),
-                    None),
-        "pebbles": (decks.PEBBLES_DECK.format(nx=8, ny=8, nz=8, substeps=2,
-                                              backend="PALLAS", media_h5="media.h5"),
-                    media),
-        "allface_d3q27_mrt": (allface27.replace("LBMBGKCollision", "LBMMRTCollision"),
-                              None),
-        "porous_proj": (decks.PROJECTED_DECK.format(n=8, substeps=2, backend="PALLAS",
-                                                    media_h5="media.h5"), media),
-        "collisionless": (decks.COLLISIONLESS_DECK.format(backend="PALLAS"), None),
-        "channel2d": (decks.CHANNEL2D_DECK.format(nx=8, ny=6, substeps=2,
-                                                  backend="PALLAS"), None),
-        "channel2d_mrt": (decks.CHANNEL2D_MRT_DECK.format(nx=8, ny=6, substeps=2,
-                                                          backend="PALLAS"), None),
-        "thermal2d": (decks.THERMAL2D_DECK.format(n=8, substeps=2, backend="PALLAS"),
-                      None),
-        "karman": (decks.KARMAN_DECK.format(nx=40, ny=20, substeps=2, backend="PALLAS"),
-                   {"binary_media": decks.karman_media(40, 20)}),
-    }
-    plans = {}
-    for name, (text, arrays) in texts.items():
-        p = TensorProblem(hit.parse(text), device="cpu", arrays=arrays)
-        p.init_state()
-        plans[name] = lf.match_chain(p).config
-    return plans
-
-
 def lbm_flops(cfg):
     """Operations a cell: the density and momentum sums, u (three
     quotients, three sums, one product each), |u|², √, and per lattice and
@@ -496,12 +445,13 @@ def ptxas_report(log, describe):
 
 
 def lbm_kernel_name(mangled):
-    """lbm_substep_kernel<Q, T, TWO, MRT> of a mangled entry name, or None."""
-    m = re.search(r"lbm_substep_kernelILi(\d+)E([fd])Lb([01])ELb([01])E", mangled)
+    """lbm_substep_kernel or lbm_brick_kernel <Q, T, TWO, MRT> of a mangled
+    entry name, or None."""
+    m = re.search(r"lbm_(substep|brick)_kernelILi(\d+)E([fd])Lb([01])ELb([01])E", mangled)
     if not m:
         return None
-    q, t, two, mrt = m.groups()
-    return (f"lbm_substep_kernel<{q}, {'float' if t == 'f' else 'double'}, "
+    kind, q, t, two, mrt = m.groups()
+    return (f"lbm_{kind}_kernel<{q}, {'float' if t == 'f' else 'double'}, "
             f"two={two}, mrt={mrt}>")
 
 
@@ -566,10 +516,11 @@ def phase_lbm_kernel(lf, dev):
     import dataclasses
 
     from marlin_tpu_torch.decks import karman_media, porous_media
+    from marlin_tpu_torch.lbm_probe import deck_plans
 
     gen = torch.Generator(device=dev).manual_seed(1)
     rows, mean_rows = {}, []
-    for name, base in lbm_plans().items():
+    for name, base in deck_plans().items():
         if base.two_d:
             shapes = [s + (1,) for s in LBM_ODD_2D + LBM_2D]
             main = [s + (1,) for s in LBM_2D]
@@ -608,8 +559,15 @@ def phase_lbm_kernel(lf, dev):
             lattices = 2 if cfg.two_lattice else 1
             n_bytes = (2 * lattices * nbytes(fpc) + cells * 4
                        + (cells if media is not None else 0))
+            if not cfg.two_d:
+                walk = lf.brick_plan(cfg, fpc.dtype)
+                say(f"[kernels] lbm_substep {name} {shape}: " + (
+                    "flat kernel" if walk is None else
+                    f"brick kernel, by {walk.by}, {walk.stages} stages, {walk.threads} "
+                    f"threads, {walk.smem} B shared memory"))
             row = measure(f"lbm_substep {name}", (lattices, cfg.q) + shape, kernel,
-                          twin, None, n_bytes, lbm_flops(cfg) * cells)
+                          twin, None, n_bytes, lbm_flops(cfg) * cells,
+                          flop_rate=F32_NO_FMA_FLOP_PER_S)
             say(f"[kernels] lbm_substep {name} {shape}: "
                 f"{lattices * cells / (row['ms'] * 1e3):.0f} MLUPS (byte bound "
                 f"{lattices * cells / (row['bound_ms'] * 1e3):.0f})")
@@ -632,7 +590,8 @@ def lbm_density_mean_check(lf, fpc, media, cfg, shape, timed):
         return []
     cells = math.prod(shape)
     n_bytes = nbytes(fpc) + (cells if media is not None else 0)
-    return [measure("lbm_density_mean", shape, kernel, twin, None, n_bytes, cfg.q * cells)]
+    return [measure("lbm_density_mean", shape, kernel, twin, None, n_bytes, cfg.q * cells,
+                    flop_rate=F32_NO_FMA_FLOP_PER_S)]
 
 
 LBM_PATHS = {

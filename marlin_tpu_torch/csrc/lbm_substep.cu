@@ -19,27 +19,51 @@
 // Bound on an H100 SXM: bytes.  Each cell reads q values and writes q a
 // lattice, plus the carried scalar and the media byte (at 256^3 with D3Q19
 // in float32: 157 B a cell, 0.79 ms at 3.35 TB/s; two lattices 309 B,
-// 1.55 ms).  MRT adds about q^2 multiplies and adds a lattice-cell (no
-// contraction: the library is built with -fmad=false), 24 GFLOP a
-// two-lattice D3Q19 substep at 256^3, 0.36 ms at 67 TFLOP/s: still under
-// the byte bound.  The design follows from that:
+// 1.55 ms).  MRT adds q^2 multiplies and q^2 adds a lattice-cell, and the
+// library is built with -fmad=false, so each issues on its own at half
+// the 67 TFLOP/s that counts an FMA as two: 24 GFLOP a two-lattice D3Q19
+// substep at 256^3, 0.72 ms at 33.5 TFLOP/s; the whole Pebbles plan is
+// 2,125 operations a cell (chip_smoke.py lbm_flops), 1.06 ms, still under
+// its byte bound.  What holds the kernel is neither (lbm_probe.py): one
+// thread a cell copies its planes at 85% of the bound, but its moments and
+// collision wait on its loads and its stores on them, with 16 warps an SM.
+// The design follows from that:
 //
-// * one thread a cell, z the fastest index, so every direction's pull read
-//   and every write is coalesced; x and y come from the grid and the
-//   periodic neighbours are computed once a cell, so a direction's source
-//   address is a few integer adds.  The TPU kernel's x-block pipeline, its
-//   VMEM carry of the previous block's last plane and its block choice
+// * 3-D plans walk bricks (lbm_brick_kernel): one x-plane, `by` rows of y
+//   and every z.  A producer warp brings in, for each lattice and
+//   direction, the source rows a brick pulls from, whole, by bulk copies
+//   (cp.async.bulk) completed on a full mbarrier, the media rows of three
+//   planes beside them; the consumer warps update the cells out of shared
+//   memory, the z shift and its wrap a read there, and release the stage
+//   on an empty mbarrier.  Blocks persist over the bricks with `stages` in
+//   flight; no block-wide sync after the barriers' set-up, so a warp held
+//   by a global read (bounce-back from the cell's unstreamed value, a face
+//   cell's path) holds no other.  by, stages and threads come from the host
+//   (lbm_fused.brick_plan), the register cap of each instantiation from
+//   kBrickBlocks: warps an SM mattered most on the card;
+// * on two-lattice plans each lattice's streamed values go back to the
+//   cell's own slots of the stage (slot (q, j, (z - e_z) mod nz) is read by
+//   that cell alone), then T = Σg, f's moments and both collisions read
+//   them from there, one lattice live at a time, the two collisions on one
+//   loop that is not unrolled (its code, the MRT rows unrolled, once: two
+//   inlined copies ran slower on the card); each lattice's MRT matrix is
+//   copied to shared memory, rows padded to 16 bytes, read 16 bytes a load;
+// * 2-D plans and the extents the brick does not take (rows not a
+//   multiple of 16 bytes, media rows of 3-D plans not a multiple of 16, a
+//   stage that does not fit a block, a buffer not 16-byte aligned) take the
+//   flat kernel (lbm_substep_kernel): one thread a cell, z the fastest
+//   index, both lattices' q values in registers from the read to the
+//   write.  Both kernels run the same per-cell steps and give the same
+//   bits; the host chooses by shape.  The TPU kernel's x-block pipeline,
+//   its VMEM carry of the previous block's last plane and its block choice
 //   exist for the TPU's sequential grid and are not carried over;
-// * the q streamed values of each lattice stay in registers from the read
-//   to the write; the MRT and projected collisions turn them into the
-//   non-equilibrium parts in place.  The stencils' e and op tables are
-//   compiled in (the template on Q) so that every direction index is
-//   static: a run-time index into a register array would send it to local
-//   memory.  The wrapper holds the compiled tables to the plan's once
-//   (mtt_lbm_tables).  The second lattice and MRT change the set of live
-//   registers and the code size, so they are template parameters; the
-//   projection, the forces, the collisionless chain and which lattice runs
-//   MRT are warp-uniform branches on the plan;
+// * the stencils' e and op tables are compiled in (the template on Q) so
+//   that every direction index is static: a run-time index into a register
+//   array would send it to local memory.  The wrapper holds the compiled
+//   tables to the plan's once (mtt_lbm_tables).  The second lattice and
+//   MRT change the set of live registers and the code size, so they are
+//   template parameters; the projection, the forces, the collisionless
+//   chain and which lattice runs MRT are warp-uniform branches on the plan;
 // * the plan (the coefficients, each lattice's bounce-back faces in deck
 //   order with -1 for the obstacle slot and its post-stream faces with
 //   their Zou-He coefficients) is one struct in constant memory, copied on
@@ -58,8 +82,9 @@
 //   state after the earlier faces.  That dependence is a chain, not a tree
 //   (a zero-gradient face replaces every direction), so each thread walks
 //   the faces backwards to the cell its state starts from, streams that
-//   cell, and replays the faces forwards, for each lattice with its own
-//   faces.  Only face cells ever start from another cell;
+//   cell from device memory, and replays the faces forwards, for each
+//   lattice with its own faces.  Only face cells ever start from another
+//   cell, in both kernels;
 // * a 2-D plan (nz = 1) takes one thread a cell over the flattened (x, y)
 //   grid, y the fastest index: z along the block would leave one live
 //   thread in 32.  D2Q9 in float32 is 77 B a cell (36 read, 36 written,
@@ -74,473 +99,18 @@
 //   finishes the same tree (computes/lbm.py tree_mean) and writes the mean
 //   on the device, where the substep kernel reads it: no host sync.
 
-#include <cuda_runtime.h>
-#include <stddef.h>
-#include <stdint.h>
-
-#define LBM_MAX_Q 27
-#define LBM_MAX_FACES 8
-#define LBM_MAX_POST 8
-
-#define LBM_DENSITY_BLOCK 256
-#define LBM_MEAN_THREADS 1024
-
-struct LbmPost {
-  int32_t kind;  // 0: Zou-He fixed-order, 1: zero-gradient
-  int32_t axis, side;
-  uint32_t sum1, sum2, rows;  // direction bitmasks
-  int32_t tp, tm;             // the D2Q9 transverse pair, or -1
-  int32_t perturb;            // m = avec[perturb][y] * facesum + b, or -1
-  double a, b;                // m = a * facesum + b
-  double cm[LBM_MAX_Q];       // f[d] = f[op[d]] + cm[d] * m for d in rows
-  double tc[LBM_MAX_Q];       //        + tc[d] * (f[tp] - f[tm]) where != 0
-};
-
-// One lattice's boundary conditions.
-struct LbmFaces {
-  int32_t n_faces;
-  int32_t face_axis[LBM_MAX_FACES];  // -1: obstacle (wall) bounce-back
-  int32_t face_side[LBM_MAX_FACES];
-  uint32_t face_dirs[LBM_MAX_FACES];  // replaced directions, bitmask
-  int32_t n_post;
-  LbmPost post[LBM_MAX_POST];
-};
-
-// The coefficients, once in double and once rounded to float.
-template <typename T>
-struct LbmCoef {
-  T w[LBM_MAX_Q];
-  T inv_tau[2];  // per lattice
-  T bf[3];       // body force
-  T inv_cs2, inv_cs4;
-  T g, g_rho0, t0;              // gravity, gravity * rho0, T0 (ForceSpec)
-  T cs2;                        // c_s^2 of the Smagorinsky flux
-  T smag_eta, smag_eta2;        // Smagorinsky: tau0 / t_sgs, its square,
-  T smag_inv_2tsgs, smag_c;     // 1 / (2 t_sgs), C_s / c_s^2
-  T smag_tau0;
-  T guo[LBM_MAX_Q];             // (1 - 0.5 / tau) * w_i / cs^2
-  T hpref[LBM_MAX_Q];           // Hermite projection: w_i / (2 cs^2)
-  T h2[LBM_MAX_Q * 9];          // Hermite projection: e e / cs^2 - I
-  T msm[2][LBM_MAX_Q * LBM_MAX_Q];  // MRT: M^-1 S' M per lattice, q x q
-};
-
-struct LbmPlan {
-  int64_t nx, ny, nz;
-  int32_t two_lattice;
-  int32_t collide;   // 0: the collisionless chain
-  int32_t speed;     // the carried scalar: 0 zeros, 1 |u|, 2 T
-  int32_t force;     // 1: a force field (ForceSpec)
-  int32_t gravity, buoyancy, force_dir;
-  int32_t guo;       // 1: the Guo source on lattice 1
-  int32_t mrt[2], proj[2];
-  int32_t bf_on[3];  // non-zero body force component
-  int32_t two_d;     // 1: no z velocity component
-  int32_t smag;      // 1: the Smagorinsky collision on lattice 1
-  LbmFaces lat[2];
-  LbmCoef<double> d;
-  LbmCoef<float> f;
-};
-
-static_assert(sizeof(LbmPlan) < 65536, "the plan must fit constant memory");
-
-__constant__ LbmPlan c_plan;
-
-template <typename T>
-__device__ __forceinline__ const LbmCoef<T>& coef();
-template <>
-__device__ __forceinline__ const LbmCoef<double>& coef<double>() { return c_plan.d; }
-template <>
-__device__ __forceinline__ const LbmCoef<float>& coef<float>() { return c_plan.f; }
-
-// The velocity set of stencil Q: constexpr functions, so that a direction
-// index folds to a constant once the direction loops unroll.
-template <int Q>
-struct Lattice;
-
-// marlin_tpu_torch/stencils.py LBMD2Q9
-template <>
-struct Lattice<9> {
-  __host__ __device__ static constexpr int ex(int q) {
-    constexpr int t[9] = {0, 1, 0, -1, 0, 1, -1, -1, 1};
-    return t[q];
-  }
-  __host__ __device__ static constexpr int ey(int q) {
-    constexpr int t[9] = {0, 0, 1, 0, -1, 1, 1, -1, -1};
-    return t[q];
-  }
-  __host__ __device__ static constexpr int ez(int) { return 0; }
-  __host__ __device__ static constexpr int op(int q) {
-    constexpr int t[9] = {0, 3, 4, 1, 2, 7, 8, 5, 6};
-    return t[q];
-  }
-};
-
-// marlin_tpu_torch/stencils.py LBMD3Q19
-template <>
-struct Lattice<19> {
-  __host__ __device__ static constexpr int ex(int q) {
-    constexpr int t[19] = {0, 0, 0, 0, 0, 1, -1, 0, 0, 0, 0, 1, 1, -1, -1, 1, 1, -1, -1};
-    return t[q];
-  }
-  __host__ __device__ static constexpr int ey(int q) {
-    constexpr int t[19] = {0, 0, 0, 1, -1, 0, 0, 1, 1, -1, -1, 0, 0, 0, 0, 1, -1, 1, -1};
-    return t[q];
-  }
-  __host__ __device__ static constexpr int ez(int q) {
-    constexpr int t[19] = {0, 1, -1, 0, 0, 0, 0, 1, -1, 1, -1, 1, -1, 1, -1, 0, 0, 0, 0};
-    return t[q];
-  }
-  __host__ __device__ static constexpr int op(int q) {
-    constexpr int t[19] = {0, 2, 1, 4, 3, 6, 5, 10, 9, 8, 7, 14, 13, 12, 11, 18, 17, 16, 15};
-    return t[q];
-  }
-};
-
-// marlin_tpu_torch/stencils.py LBMD3Q27
-template <>
-struct Lattice<27> {
-  __host__ __device__ static constexpr int ex(int q) {
-    constexpr int t[27] = {0, 1, -1, 0, 0, 0, 0, 1, 1, -1, -1, 1, 1, -1,
-                           -1, 0, 0, 0, 0, 1, 1, 1, 1, -1, -1, -1, -1};
-    return t[q];
-  }
-  __host__ __device__ static constexpr int ey(int q) {
-    constexpr int t[27] = {0, 0, 0, 1, -1, 0, 0, 1, -1, 1, -1, 0, 0, 0,
-                           0, 1, 1, -1, -1, 1, -1, -1, 1, 1, -1, -1, 1};
-    return t[q];
-  }
-  __host__ __device__ static constexpr int ez(int q) {
-    constexpr int t[27] = {0, 0, 0, 0, 0, 1, -1, 0, 0, 0, 0, 1, -1, 1,
-                           -1, 1, -1, 1, -1, 1, 1, -1, -1, 1, 1, -1, -1};
-    return t[q];
-  }
-  __host__ __device__ static constexpr int op(int q) {
-    constexpr int t[27] = {0, 2, 1, 4, 3, 6, 5, 10, 9, 8, 7, 14, 13, 12,
-                           11, 18, 17, 16, 15, 25, 26, 23, 24, 21, 22, 19, 20};
-    return t[q];
-  }
-};
+#include "lbm_substep.cuh"
 
 namespace {
 
-struct Cell {
-  int x, y, z;
-};
-
-__device__ __forceinline__ int cell_index(const LbmPlan& p, Cell c) {
-  return (c.x * (int)p.ny + c.y) * (int)p.nz + c.z;
-}
-
-__device__ __forceinline__ bool on_face(const LbmPlan& p, int axis, int side, Cell c) {
-  const int v = axis == 0 ? c.x : (axis == 1 ? c.y : c.z);
-  const int n = (int)(axis == 0 ? p.nx : (axis == 1 ? p.ny : p.nz));
-  return v == (side == 0 ? 0 : n - 1);
-}
-
-// i - 1, i, i + 1 around a periodic axis of n: the pull source along an
-// axis for e = +1, 0, -1 (the table is indexed by 1 - e)
-struct Around {
-  int v[3];
-  __device__ __forceinline__ Around(int i, int n)
-      : v{i == 0 ? n - 1 : i - 1, i, i == n - 1 ? 0 : i + 1} {}
-};
-
-// The cell whose state post-stream face k starts from: a zero-gradient
-// face cell copies its inner neighbour (torch.roll away from the face).
-__device__ __forceinline__ Cell inner(const LbmPlan& p, const LbmPost& bc, Cell c) {
-  const int s = bc.side == 1 ? -1 : 1;
-  if (bc.axis == 0) c.x = Around(c.x, (int)p.nx).v[1 + s];
-  else if (bc.axis == 1) c.y = Around(c.y, (int)p.ny).v[1 + s];
-  else c.z = Around(c.z, (int)p.nz).v[1 + s];
-  return c;
-}
-
-// The cell whose state after face `level` of lattice L becomes this cell's
-// final state.
-__device__ __forceinline__ Cell cell_at_level(const LbmPlan& p, const LbmFaces& L, Cell c,
-                                              int level) {
-  for (int k = L.n_post; k > level; --k) {
-    const LbmPost& bc = L.post[k - 1];
-    if (bc.kind == 1 && on_face(p, bc.axis, bc.side, c)) c = inner(p, bc, c);
-  }
-  return c;
-}
-
-// Pull stream of every direction of lattice L at cell c, with face and
-// obstacle bounce-back from the unstreamed distribution and solid masking.
-// Every bounce-back rule, in whatever deck order, writes the same value
-// (the opposite direction at the cell), so they reduce to one direction
-// mask.
-template <int Q, typename T>
-__device__ __forceinline__ void stream_cell(const LbmPlan& p, const LbmFaces& L,
-                                            const T* __restrict__ fpc,
-                                            const int8_t* __restrict__ media, long long N,
-                                            Cell c, T (&f)[Q]) {
-  using D = Lattice<Q>;
-  const int ny = (int)p.ny, nz = (int)p.nz;
-  const Around xs(c.x, (int)p.nx), ys(c.y, ny), zs(c.z, nz);
-  const int at = cell_index(p, c);
-  const bool solid = media && media[at] == 0;
-  const bool fluid = media && media[at] >= 1;
-  uint32_t bounce = 0;  // directions replaced by face bounce-back here
-  bool wall = false;    // obstacle bounce-back in the plan
-  for (int i = 0; i < L.n_faces; ++i) {
-    if (L.face_axis[i] < 0) wall = true;
-    else if (on_face(p, L.face_axis[i], L.face_side[i], c)) bounce |= L.face_dirs[i];
-  }
-  wall = wall && fluid;
-#pragma unroll
-  for (int q = 0; q < Q; ++q) {
-    const int src = (xs.v[1 - D::ex(q)] * ny + ys.v[1 - D::ey(q)]) * nz + zs.v[1 - D::ez(q)];
-    T a = fpc[q * N + src];
-    if (((bounce >> q) & 1u) || (q != 0 && wall && media[src] == 0))
-      a = fpc[D::op(q) * N + at];
-    f[q] = solid ? T(0) : a;
-  }
-}
-
-// The streamed distribution of lattice L at cell c after its post-stream
-// faces, in deck order.
-template <int Q, typename T>
-__device__ __forceinline__ void load_lattice(const LbmPlan& p, const LbmFaces& L,
-                                             const T* __restrict__ fpc,
-                                             const int8_t* __restrict__ media,
-                                             const T* __restrict__ avec, long long N,
-                                             Cell c, T (&f)[Q]) {
-  using D = Lattice<Q>;
-  bool on_post = false;
-  for (int k = 0; k < L.n_post; ++k) on_post |= on_face(p, L.post[k].axis, L.post[k].side, c);
-  stream_cell<Q, T>(p, L, fpc, media, N, on_post ? cell_at_level(p, L, c, 0) : c, f);
-  for (int k = 1; on_post && k <= L.n_post; ++k) {
-    const LbmPost& bc = L.post[k - 1];
-    const Cell ck = cell_at_level(p, L, c, k);
-    if (!on_face(p, bc.axis, bc.side, ck)) continue;
-    const bool solid_k = media && media[cell_index(p, ck)] == 0;
-    if (bc.kind == 1) {
-      // f already holds the inner neighbour's state after face k - 1
-      if (solid_k) {
-#pragma unroll
-        for (int q = 0; q < Q; ++q) f[q] = T(0);
-      }
-      continue;
-    }
-    // Zou-He: every read sees the state before this face
-    T fsum = T(0);
-    bool first = true;
-#pragma unroll
-    for (int q = 0; q < Q; ++q)
-      if ((bc.sum1 >> q) & 1u) {
-        fsum = first ? f[q] : fsum + f[q];
-        first = false;
-      }
-#pragma unroll
-    for (int q = 0; q < Q; ++q)
-      if ((bc.sum2 >> q) & 1u) fsum = fsum + T(2) * f[q];
-    // lbm_fused.apply_zouhe; the perturbed inlet's a(y) by row
-    const T a = bc.perturb >= 0 ? avec[bc.perturb * p.ny + ck.y] : T(bc.a);
-    const T m = a * fsum + T(bc.b);
-    T g[Q];
-#pragma unroll
-    for (int q = 0; q < Q; ++q) g[q] = f[q];
-    // the D2Q9 transverse difference, read by static index
-    T gp = T(0), gm = T(0);
-#pragma unroll
-    for (int q = 0; q < Q; ++q) {
-      if (q == bc.tp) gp = g[q];
-      if (q == bc.tm) gm = g[q];
-    }
-#pragma unroll
-    for (int q = 0; q < Q; ++q)
-      if ((bc.rows >> q) & 1u) {
-        T v = g[D::op(q)] + T(bc.cm[q]) * m;
-        if (bc.tc[q] != 0.0) v = v + T(bc.tc[q]) * (gp - gm);
-        f[q] = solid_k ? T(0) : v;
-      }
-  }
-}
-
-// sign(c)·a, with c in {-1, 1}
-template <typename T>
-__device__ __forceinline__ T signed_term(int c, T a) {
-  return c > 0 ? a : -a;
-}
-
-// e_q·v over the non-zero components of e_q, in axis order; `none` when
-// e_q = 0 (the rest direction)
-template <int Q, typename T>
-__device__ __forceinline__ T e_dot(int q, T vx, T vy, T vz, bool& none) {
-  using D = Lattice<Q>;
-  T acc = T(0);
-  none = true;
-  if (D::ex(q)) { acc = signed_term(D::ex(q), vx); none = false; }
-  if (D::ey(q)) { const T t = signed_term(D::ey(q), vy); acc = none ? t : acc + t; none = false; }
-  if (D::ez(q)) { const T t = signed_term(D::ez(q), vz); acc = none ? t : acc + t; none = false; }
-  return acc;
-}
-
-// feq of direction q (reference LBMEquilibrium.C:42-66) for the bulk
-// `dens` (rho for f, T for g) at velocity u; third = u²/(2 cs²)
-template <int Q, typename T>
-__device__ __forceinline__ T equilibrium(int q, T dens, T ux, T uy, T uz, T third) {
-  const LbmCoef<T>& k = coef<T>();
-  bool rest;
-  const T edotu = e_dot<Q, T>(q, ux, uy, uz, rest);
-  if (rest) return k.w[q] * dens * (T(1) - third);
-  const T second = edotu * k.inv_cs2 + T(0.5) * edotu * edotu * k.inv_cs4;
-  return k.w[q] * dens * (T(1) + second - third);
-}
-
-// The Hermite projection of the non-equilibrium parts, in place:
-// cc_j = Σ_i ccr_ij fneq_i, fneq_i = pref_i Σ_j H2_ij cc_j
-// (computes/lbm.py hermite), zero coefficients skipped.
-template <int Q, typename T>
-__device__ __forceinline__ void hermite(T (&f)[Q]) {
-  using D = Lattice<Q>;
-  const LbmCoef<T>& k = coef<T>();
-  T cc[9];
-  bool has[9];
-#pragma unroll
-  for (int j = 0; j < 9; ++j) {
-    has[j] = false;
-    cc[j] = T(0);
-#pragma unroll
-    for (int i = 0; i < Q; ++i) {
-      const int a = j / 3, b = j % 3;
-      const int ea = a == 0 ? D::ex(i) : (a == 1 ? D::ey(i) : D::ez(i));
-      const int eb = b == 0 ? D::ex(i) : (b == 1 ? D::ey(i) : D::ez(i));
-      if (ea * eb != 0) {
-        const T t = f[i] * T(ea * eb);
-        cc[j] = has[j] ? cc[j] + t : t;
-        has[j] = true;
-      }
-    }
-  }
-#pragma unroll
-  for (int i = 0; i < Q; ++i) {
-    T acc = T(0);
-    bool any = false;
-#pragma unroll
-    for (int j = 0; j < 9; ++j) {
-      const T h = k.h2[i * 9 + j];
-      if (h != T(0) && has[j]) {
-        const T t = cc[j] * h;
-        acc = any ? acc + t : t;
-        any = true;
-      }
-    }
-    f[i] = any ? k.hpref[i] * acc : T(0);
-  }
-}
-
-// The Smagorinsky 1/τ of a cell from its non-equilibrium parts and the
-// grid's mean density (computes/lbm.py smagorinsky_inv_tau): the momentum
-// flux components (k, x, y) for k = 0 (the reference's nz = 1 quirk, ez2 =
-// [1, 0, ez]) and k = 2, each a signed sum in index order, the components
-// whose coefficients are all zero left out.
-template <int Q, typename T>
-__device__ __forceinline__ T smag_inv_tau(const LbmPlan& p, const T (&f)[Q], T mean) {
-  using D = Lattice<Q>;
-  const LbmCoef<T>& k = coef<T>();
-  T q2 = T(0);
-  bool any = false;
-#pragma unroll
-  for (int r = 0; r < 2; ++r) {
-    if (r == 0 && p.nz != 1) continue;
-    T comp = T(0);
-    bool has = false;
-#pragma unroll
-    for (int i = 0; i < Q; ++i) {
-      const int c = D::ex(i) * D::ey(i) * (r == 0 ? 1 : D::ez(i));
-      if (c) {
-        const T t = signed_term(c, f[i]);
-        comp = has ? comp + t : t;
-        has = true;
-      }
-    }
-    if (has) {
-      const T t = comp * comp;
-      q2 = any ? q2 + t : t;
-      any = true;
-    }
-  }
-  const T q_mean = sqrt(q2) / (mean * k.cs2);
-  const T s = (sqrt(k.smag_eta2 + T(4) * q_mean) - k.smag_eta) * k.smag_inv_2tsgs;
-  return T(1) / (k.smag_tau0 + k.smag_c * s);
-}
-
-// Equilibrium and collision of lattice L (reference LBMBGKCollision /
-// LBMMRTCollision / LBMSmagorinskyCollision, with the Hermite projection
-// first where the plan asks for it), the Guo source where `guo` (reference
-// LBMApplyForces), solid masking, written to out.  L is a template
-// parameter so that every coefficient's constant-memory address is static.
-template <int Q, typename T, bool MRT, int L>
-__device__ __forceinline__ void collide(const LbmPlan& p, T (&f)[Q], T dens, T ux, T uy, T uz,
-                                        T third, bool solid, bool guo, T rho, T Fx, T Fy, T Fz,
-                                        const T* __restrict__ mean, T* __restrict__ out,
-                                        long long N, int at) {
-  const LbmCoef<T>& k = coef<T>();
-  T inv_tau = k.inv_tau[L];
-  const bool mrt = MRT && p.mrt[L];
-  const bool smag = L == 0 && p.smag;
-  const bool dense = mrt || p.proj[L] || smag;
-  if (dense) {
-    // every direction's non-equilibrium part at once, in place
-#pragma unroll
-    for (int q = 0; q < Q; ++q) f[q] = f[q] - equilibrium<Q, T>(q, dens, ux, uy, uz, third);
-    if (p.proj[L]) hermite<Q, T>(f);
-    if (smag) inv_tau = smag_inv_tau<Q, T>(p, f, *mean);
-  }
-#pragma unroll
-  for (int i = 0; i < Q; ++i) {
-    const T feq = equilibrium<Q, T>(i, dens, ux, uy, uz, third);
-    T u;
-    if (!dense) {
-      const T fneq = f[i] - feq;
-      u = feq + fneq - fneq * inv_tau;
-    } else if (!mrt) {
-      u = feq + f[i] - f[i] * inv_tau;
-    } else {
-      u = feq + f[i];
-      if constexpr (MRT) {
-        // row i of MSM·fneq over every entry in index order
-        // (computes/lbm.py mrt_relax)
-        const T* row = k.msm[L] + i * Q;
-        T relax = f[0] * row[0];
-#pragma unroll
-        for (int j = 1; j < Q; ++j) relax = relax + f[j] * row[j];
-        u = u - relax;
-      }
-    }
-    if (guo) {
-      bool rest;
-      const T edotf = e_dot<Q, T>(i, Fx, Fy, Fz, rest);
-      if (!rest) u = u + k.guo[i] * rho * edotf;
-    }
-    out[i * N + at] = solid ? T(0) : u;
-  }
-}
-
-// The cell of this thread: x and y from the grid and z along the block,
-// or on a flat (2-D) launch the flattened index (x, y, z) in order.
-__device__ __forceinline__ bool thread_cell(const LbmPlan& p, bool flat, Cell& c) {
-  if (!flat) {
-    c = {(int)blockIdx.z, (int)blockIdx.y, (int)(blockIdx.x * blockDim.x + threadIdx.x)};
-    return c.z < p.nz;
-  }
-  const long long i = (long long)blockIdx.x * blockDim.x + threadIdx.x;
-  if (i >= p.nx * p.ny * p.nz) return false;
-  const int nz = (int)p.nz, ny = (int)p.ny;
-  c = {(int)(i / ((long long)ny * nz)), (int)((i / nz) % ny), (int)(i % nz)};
-  return true;
-}
-
+// The flat kernel: one thread a cell, both lattices held from load to
+// store.  2-D plans and the extents the brick does not take.
 template <int Q, typename T, bool TWO, bool MRT>
 __global__ void __launch_bounds__(256)
 lbm_substep_kernel(const T* __restrict__ fpc, const T* __restrict__ gpc,
                    const int8_t* __restrict__ media, const T* __restrict__ avec,
                    const T* __restrict__ mean, T* __restrict__ out,
                    T* __restrict__ gout, T* __restrict__ speed, bool flat) {
-  using D = Lattice<Q>;
   const LbmPlan& p = c_plan;
   const LbmCoef<T>& k = coef<T>();
   Cell c;
@@ -553,22 +123,6 @@ lbm_substep_kernel(const T* __restrict__ fpc, const T* __restrict__ gpc,
   load_lattice<Q, T>(p, p.lat[0], fpc, media, avec, N, c, f);
   T g[TWO ? Q : 1];
   if constexpr (TWO) load_lattice<Q, T>(p, p.lat[1], gpc, media, avec, N, c, g);
-
-  // moments (reference LBMComputeDensity / LBMComputeVelocity)
-  T rho = f[0], mx = T(0), my = T(0), mz = T(0);
-  bool fx = true, fy = true, fz = true;
-#pragma unroll
-  for (int q = 0; q < Q; ++q) {
-    if (q > 0) rho = rho + f[q];
-    if (D::ex(q)) { const T t = signed_term(D::ex(q), f[q]); mx = fx ? t : mx + t; fx = false; }
-    if (D::ey(q)) { const T t = signed_term(D::ey(q), f[q]); my = fy ? t : my + t; fy = false; }
-    // 2-D: no z component, whatever the stencil
-    if (D::ez(q) && !p.two_d) {
-      const T t = signed_term(D::ez(q), f[q]);
-      mz = fz ? t : mz + t;
-      fz = false;
-    }
-  }
   // the thermal lattice's zeroth moment (LBMComputeDensity on g)
   T temp = T(0);
   if constexpr (TWO) {
@@ -576,48 +130,116 @@ lbm_substep_kernel(const T* __restrict__ fpc, const T* __restrict__ gpc,
 #pragma unroll
     for (int q = 1; q < Q; ++q) temp = temp + g[q];
   }
-  // the force field along force_dir, zero at solids (LBMComputeForces)
-  T Fx = T(0), Fy = T(0), Fz = T(0);
-  if (p.force) {
-    T fd = T(0);
-    if (p.gravity) fd = k.g * rho;
-    if (p.buoyancy) {
-      const T t = k.g_rho0 * (temp - k.t0);
-      fd = p.gravity ? fd + t : t;
-    }
-    if (solid) fd = T(0);
-    if (p.force_dir == 0) Fx = fd;
-    else if (p.force_dir == 1) Fy = fd;
-    else Fz = fd;
-  }
-  // u = m / rho (+ F / (2 rho)) (+ body force / (2 rho) where non-zero),
-  // zero at solids (rho = 0 there), with the eager chain's operations:
-  // every product, sum and quotient below is one rounding of that chain
-  T ux = mx / rho, uy = my / rho, uz = mz / rho;
-  if (p.force) {
-    ux = ux + Fx / (T(2) * rho);
-    uy = uy + Fy / (T(2) * rho);
-    uz = uz + Fz / (T(2) * rho);
-  }
-  if (p.bf_on[0]) ux = ux + k.bf[0] / (T(2) * rho);
-  if (p.bf_on[1]) uy = uy + k.bf[1] / (T(2) * rho);
-  if (p.bf_on[2]) uz = uz + k.bf[2] / (T(2) * rho);
-  if (solid) ux = uy = uz = T(0);
-  const T usqr = ux * ux + uy * uy + uz * uz;
-  speed[at] = p.speed == 1 ? sqrt(usqr) : (p.speed == 2 ? temp : T(0));
-
+  const Flow<T> fl = flow<Q, T>(p, f, temp, solid);
+  speed[at] = carried(p, fl, temp);
   if (!p.collide) {
     // the collisionless chain carries the post-face streamed distribution
 #pragma unroll
     for (int q = 0; q < Q; ++q) out[q * N + at] = f[q];
     return;
   }
-  const T third = T(0.5) * usqr * k.inv_cs2;
-  collide<Q, T, MRT, 0>(p, f, rho, ux, uy, uz, third, solid, p.guo != 0, rho, Fx, Fy, Fz, mean,
-                        out, N, at);
+  const T third = T(0.5) * fl.usqr * k.inv_cs2;
+  collide<Q, T, MRT>(p, 0, f, fl.rho, fl.ux, fl.uy, fl.uz, third, solid, p.guo != 0, fl.rho,
+                     fl.Fx, fl.Fy, fl.Fz, mean, k.msm[0], out, N, at);
   if constexpr (TWO)
-    collide<Q, T, MRT, 1>(p, g, temp, ux, uy, uz, third, solid, false, rho, Fx, Fy, Fz, mean,
-                          gout, N, at);
+    collide<Q, T, MRT>(p, 1, g, temp, fl.ux, fl.uy, fl.uz, third, solid, false, fl.rho, fl.Fx,
+                       fl.Fy, fl.Fz, mean, k.msm[1], gout, N, at);
+}
+
+// One cell of the brick kernel (row j of its brick).  One lattice streams
+// straight into registers.  Two lattices go in two phases: first each
+// lattice's streamed values (the bounce-back's global reads of a lattice
+// issued together) go back to the cell's own slots; then T = Σg and f's
+// moments, and each lattice in turn read from its slots, collided and
+// stored, on a loop that is not unrolled: at most one lattice's q values
+// are live, and the collision's code (the MRT rows unrolled) is there
+// once.
+template <int Q, typename T, bool TWO, bool MRT>
+__device__ __forceinline__ void brick_cell(const LbmPlan& p, Stage<T> st, const T* msm, Cell c,
+                                           int j, const T* __restrict__ fpc,
+                                           const T* __restrict__ gpc,
+                                           const int8_t* __restrict__ media,
+                                           const T* __restrict__ avec,
+                                           const T* __restrict__ mean, T* __restrict__ out,
+                                           T* __restrict__ gout, T* __restrict__ speed) {
+  constexpr int S = kMsmStride<Q, T>;
+  const LbmCoef<T>& k = coef<T>();
+  const long long N = p.nx * p.ny * p.nz;
+  const int at = cell_index(p, c);
+  const bool solid = st.media && st.m(0, j, 0, c.z) == 0;
+  T temp = T(0);
+  T f[Q];
+  if constexpr (TWO) {
+    settle<Q, T>(p, p.lat[1], st, 1, gpc, media, avec, N, c, j);
+    settle<Q, T>(p, p.lat[0], st, 0, fpc, media, avec, N, c, j);
+    forget();
+    T g[Q];
+    settled<Q, T>(st, 1, j, c.z, g);
+    temp = g[0];
+#pragma unroll
+    for (int q = 1; q < Q; ++q) temp = temp + g[q];
+    forget();
+    settled<Q, T>(st, 0, j, c.z, f);
+  } else {
+    brick_lattice<Q, T>(p, p.lat[0], st, 0, fpc, media, avec, N, c, j, f);
+  }
+  const Flow<T> fl = flow<Q, T>(p, f, temp, solid);
+  speed[at] = carried(p, fl, temp);
+  if (!p.collide) {
+#pragma unroll
+    for (int q = 0; q < Q; ++q) out[q * N + at] = f[q];
+    return;
+  }
+  const T third = T(0.5) * fl.usqr * k.inv_cs2;
+  if constexpr (!TWO) {
+    collide<Q, T, MRT, S>(p, 0, f, fl.rho, fl.ux, fl.uy, fl.uz, third, solid, p.guo != 0,
+                          fl.rho, fl.Fx, fl.Fy, fl.Fz, mean, msm, out, N, at);
+  } else {
+    forget();
+#pragma unroll 1
+    for (int l = 0; l < 2; ++l) {
+      T v[Q];
+      settled<Q, T>(st, l, j, c.z, v);
+      collide<Q, T, MRT, S>(p, l, v, l ? temp : fl.rho, fl.ux, fl.uy, fl.uz, third, solid,
+                            l == 0 && p.guo != 0, fl.rho, fl.Fx, fl.Fy, fl.Fz, mean,
+                            msm + l * Q * S, l ? gout : out, N, at);
+      forget();
+    }
+  }
+}
+
+// The brick kernel of 3-D plans: persistent blocks walk the bricks, warp 0
+// bringing them in, the other warps updating their cells out of the stage.
+template <int Q, typename T, bool TWO, bool MRT>
+__global__ void __launch_bounds__((kBrickThreads<Q, TWO>), (kBrickBlocks<Q, TWO, MRT>))
+lbm_brick_kernel(const T* __restrict__ fpc, const T* __restrict__ gpc,
+                 const int8_t* __restrict__ media, const T* __restrict__ avec,
+                 const T* __restrict__ mean, T* __restrict__ out, T* __restrict__ gout,
+                 T* __restrict__ speed) {
+  extern __shared__ __align__(16) unsigned char smem[];
+  const LbmPlan& p = c_plan;
+  const int nz = (int)p.nz, by = p.brick.by;
+  const BrickLayout lay = brick_layout(Q, sizeof(T), TWO ? 2 : 1, media != nullptr, MRT, by,
+                                       p.brick.stages, nz);
+  const T* msm = MRT ? brick_msm<Q, T, TWO>(smem + lay.msm_off) : nullptr;
+  const BrickPipe pipe = brick_pipe(p, lay, smem);
+  if (threadIdx.x < 32) {
+    brick_produce<Q, T, true>(p, pipe, lay.lattice_bytes, lay.media_off, fpc,
+                              TWO ? gpc : nullptr, media);
+    return;
+  }
+  long long k = 0;
+  for (long long b = blockIdx.x; b < pipe.bricks; b += gridDim.x, ++k) {
+    const Stage<T> st = stage_at<T>(brick_acquire(pipe, k), lay.lattice_bytes, lay.media_off,
+                                    TWO, media != nullptr, by, nz);
+    const Brick br = brick_at(p, b);
+    for (int i = threadIdx.x - 32; i < br.rows * nz; i += blockDim.x - 32) {
+      const int j = i / nz;
+      brick_cell<Q, T, TWO, MRT>(p, st, msm, Cell{br.x, br.y0 + j, i - j * nz}, j, fpc, gpc,
+                                 media, avec, mean, out, gout, speed);
+    }
+    brick_release(pipe, k);
+  }
 }
 
 // Pass 1 of the mean density: each block streams its aligned chunk of
@@ -702,20 +324,92 @@ cudaError_t launch(const void* fpc, const void* gpc, const void* media, const vo
   return cudaGetLastError();
 }
 
+// The brick plan against what the brick kernel takes: a 3-D plan, rows of
+// 16-byte multiples (media rows too), a producer and at least one
+// consumer warp, and the shared memory brick_layout gives, within the
+// 227 KB a block may have.
+template <int Q, typename T>
+bool brick_ok(const LbmPlan& p, bool media) {
+  const LbmBrick& b = p.brick;
+  if (Q == 9 || p.nz == 1 || b.by < 1 || b.stages < 1 || b.threads < 64 ||
+      b.threads > (p.two_lattice ? kBrickThreads<Q, true> : kBrickThreads<Q, false>) ||
+      b.threads % 32 || (p.nz * (long long)sizeof(T)) % 16 ||
+      (media && p.nz % 16))
+    return false;
+  const bool mrt = p.mrt[0] || (p.two_lattice && p.mrt[1]);
+  const BrickLayout l = brick_layout(Q, sizeof(T), p.two_lattice ? 2 : 1, media, mrt, b.by,
+                                     b.stages, p.nz);
+  return l.smem == b.smem && l.smem <= 232448;
+}
+
+// Blocks resident on the card at once for the brick kernel at this block
+// shape, cached by device, shared memory and threads; the shared-memory
+// limit is raised on the first launch of each.
+struct Resident {
+  int dev = -1, smem = 0, threads = 0, blocks = 0;
+};
+
+template <int Q, typename T, bool TWO, bool MRT>
+cudaError_t launch_brick(const void* fpc, const void* gpc, const void* media, const void* avec,
+                         const void* mean, void* out, void* gout, void* speed,
+                         const LbmPlan& p, cudaStream_t stream) {
+  static Resident r;
+  auto kernel = lbm_brick_kernel<Q, T, TWO, MRT>;
+  const LbmBrick& b = p.brick;
+  int dev = 0;
+  cudaError_t err = cudaGetDevice(&dev);
+  if (err != cudaSuccess) return err;
+  if (r.dev != dev || r.smem != b.smem || r.threads != b.threads) {
+    int per_sm = 0, sms = 0;
+    err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, b.smem);
+    if (err == cudaSuccess)
+      err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kernel, b.threads, b.smem);
+    if (err == cudaSuccess) err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+    if (err != cudaSuccess) return err;
+    if (per_sm < 1) return cudaErrorInvalidConfiguration;
+    r = {dev, b.smem, b.threads, per_sm * sms};
+  }
+  const long long bricks = p.nx * ((p.ny + b.by - 1) / b.by);
+  err = copy_plan(p, stream);
+  if (err != cudaSuccess) return err;
+  kernel<<<(unsigned)(bricks < r.blocks ? bricks : r.blocks), b.threads, b.smem, stream>>>(
+      (const T*)fpc, (const T*)gpc, (const int8_t*)media, (const T*)avec, (const T*)mean,
+      (T*)out, (T*)gout, (T*)speed);
+  return cudaGetLastError();
+}
+
+// The brick kernel where the plan has a brick walk (and the buffers are
+// 16-byte aligned, as the bulk copies need: torch's allocations are), the
+// flat kernel otherwise; both give the same bits.
+template <int Q, typename T, bool TWO, bool MRT>
+cudaError_t launch_any(const void* fpc, const void* gpc, const void* media, const void* avec,
+                       const void* mean, void* out, void* gout, void* speed, const LbmPlan& p,
+                       cudaStream_t stream) {
+  if constexpr (Q != 9) {
+    const bool aligned =
+        (((uintptr_t)fpc | (uintptr_t)gpc | (uintptr_t)media) & 15) == 0;
+    if (p.brick.by > 0 && aligned)
+      return launch_brick<Q, T, TWO, MRT>(fpc, gpc, media, avec, mean, out, gout, speed, p,
+                                          stream);
+  }
+  return launch<Q, T, TWO, MRT>(fpc, gpc, media, avec, mean, out, gout, speed, p, stream);
+}
+
 template <int Q, typename T>
 cudaError_t dispatch(const void* fpc, const void* gpc, const void* media, const void* avec,
                      const void* mean, void* out, void* gout, void* speed, const LbmPlan& p,
                      cudaStream_t stream) {
+  if (p.brick.by > 0 && !brick_ok<Q, T>(p, media != nullptr)) return cudaErrorInvalidValue;
   const bool mrt = p.mrt[0] || (p.two_lattice && p.mrt[1]);
   if (p.two_lattice)
-    return mrt ? launch<Q, T, true, true>(fpc, gpc, media, avec, mean, out, gout, speed, p,
-                                          stream)
-               : launch<Q, T, true, false>(fpc, gpc, media, avec, mean, out, gout, speed, p,
-                                           stream);
-  return mrt ? launch<Q, T, false, true>(fpc, gpc, media, avec, mean, out, gout, speed, p,
-                                         stream)
-             : launch<Q, T, false, false>(fpc, gpc, media, avec, mean, out, gout, speed, p,
-                                          stream);
+    return mrt ? launch_any<Q, T, true, true>(fpc, gpc, media, avec, mean, out, gout, speed, p,
+                                              stream)
+               : launch_any<Q, T, true, false>(fpc, gpc, media, avec, mean, out, gout, speed,
+                                               p, stream);
+  return mrt ? launch_any<Q, T, false, true>(fpc, gpc, media, avec, mean, out, gout, speed, p,
+                                             stream)
+             : launch_any<Q, T, false, false>(fpc, gpc, media, avec, mean, out, gout, speed, p,
+                                              stream);
 }
 
 template <int Q, typename T>
@@ -816,7 +510,7 @@ extern "C" cudaError_t mtt_lbm_tables(int q, int* e, int* op) {
 }
 
 // The plan's layout, for the wrapper to hold its ctypes mirror to: the
-// size, then the offsets of lat, lat[1], d, d.msm, f, f.msm.
+// size, then the offsets of lat, lat[1], d, d.msm, f, f.msm, brick.
 extern "C" int mtt_lbm_plan_layout(int64_t* out) {
   out[0] = (int64_t)sizeof(LbmPlan);
   out[1] = (int64_t)offsetof(LbmPlan, lat);
@@ -825,5 +519,6 @@ extern "C" int mtt_lbm_plan_layout(int64_t* out) {
   out[4] = (int64_t)(offsetof(LbmPlan, d) + offsetof(LbmCoef<double>, msm));
   out[5] = (int64_t)offsetof(LbmPlan, f);
   out[6] = (int64_t)(offsetof(LbmPlan, f) + offsetof(LbmCoef<float>, msm));
+  out[7] = (int64_t)offsetof(LbmPlan, brick);
   return 0;
 }

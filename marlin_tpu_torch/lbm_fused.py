@@ -34,7 +34,10 @@ them ever falls back to the eager chain.
 ``fused_substep`` launches the CUDA kernel of ``csrc/lbm_substep.cu`` (the
 counterpart of pallas_lbm.py:224 ``_make_kernel``) on CUDA tensors and
 computes its plain twin ``fused_substep_twin`` on CPU tensors; a CUDA
-tensor never reaches the twin.  A Smagorinsky plan first launches
+tensor never reaches the twin.  On 3-D plans whose rows suit the bulk
+copies the kernel walks bricks (``brick_plan`` chooses its rows a brick,
+stages and threads, packed into the plan); elsewhere it runs one thread a
+cell; both give the same bits.  A Smagorinsky plan first launches
 ``density_mean``'s two reduction passes (the streamed density's mean, on
 the device, with no host sync).  Each wrapper counts its launches.
 
@@ -851,8 +854,13 @@ def _coef(ct):
     return _Coef
 
 
+class _Brick(ctypes.Structure):
+    _fields_ = [("by", ctypes.c_int32), ("stages", ctypes.c_int32),
+                ("threads", ctypes.c_int32), ("smem", ctypes.c_int32)]
+
+
 class _Plan(ctypes.Structure):
-    """csrc/lbm_substep.cu ``LbmPlan``, field for field."""
+    """csrc/lbm_substep.cuh ``LbmPlan``, field for field."""
 
     _fields_ = [("nx", ctypes.c_int64), ("ny", ctypes.c_int64),
                 ("nz", ctypes.c_int64), ("two_lattice", ctypes.c_int32),
@@ -862,7 +870,7 @@ class _Plan(ctypes.Structure):
                 ("guo", ctypes.c_int32), ("mrt", ctypes.c_int32 * 2),
                 ("proj", ctypes.c_int32 * 2), ("bf_on", ctypes.c_int32 * 3),
                 ("two_d", ctypes.c_int32), ("smag", ctypes.c_int32),
-                ("lat", _Faces * 2), ("d", _coef(ctypes.c_double)),
+                ("brick", _Brick), ("lat", _Faces * 2), ("d", _coef(ctypes.c_double)),
                 ("f", _coef(ctypes.c_float))]
 
 
@@ -877,7 +885,7 @@ LIBRARY = uf.CudaLibrary("lbm_substep", {
                             + [ctypes.c_double, uf._P, uf._P],
     # q; the compiled-in e (q·3) and op (q) tables out
     "mtt_lbm_tables": [ctypes.c_int, uf._P, uf._P],
-    # the plan's size and field offsets out (int64[7])
+    # the plan's size and field offsets out (int64[8])
     "mtt_lbm_plan_layout": [uf._P],
 }, source=os.path.join(uf.CSRC, "lbm_substep.cu"),
     # no contraction (the eager chain's bits); the register report; the 24
@@ -936,9 +944,87 @@ def _pack_faces(lat: _Faces, cfg: FusedLBMConfig, faces, post_bcs, perturbed):
                 post.tp, post.tm = tp, tm
 
 
-def pack(cfg: FusedLBMConfig) -> _Plan:
-    """The kernel's plan struct for ``cfg``; raises for what the kernel
-    does not take."""
+@dataclass(frozen=True)
+class BrickPlan:
+    """The brick walk of a 3-D plan (csrc/lbm_substep.cuh ``LbmBrick``): a
+    brick is one x-plane, ``by`` rows of y and every z; a block of
+    ``threads`` threads (a producer warp and the consumer warps that update
+    the cells) holds ``stages`` bricks in flight in ``smem`` bytes of
+    shared memory."""
+
+    by: int
+    stages: int
+    threads: int
+    smem: int
+
+
+SMEM_BLOCK = 232448  # 227 KB: the shared memory a block may have on an H100
+STAGE_BYTES = 20 * 1024  # a brick's stage aims at this size (lbm_probe.py)
+
+
+def brick_threads(cfg: FusedLBMConfig) -> int:
+    """The most threads a brick block of ``cfg`` runs (csrc/lbm_substep.cuh
+    ``kBrickThreads``): a producer warp and eight consumer warps on one
+    lattice's D3Q19 plans, four on D3Q27 and two-lattice plans."""
+    return 160 if cfg.two_lattice or cfg.q == 27 else 288
+
+
+def brick_stages(cfg: FusedLBMConfig) -> int:
+    """Bricks in flight a block: three on one lattice's D3Q19 plans, two on
+    D3Q27 and on two-lattice MRT plans, one on two-lattice BGK plans, whose
+    three blocks an SM then fit its shared memory (lbm_probe.py)."""
+    if cfg.two_lattice:
+        return 2 if cfg.msm is not None or cfg.msm2 is not None else 1
+    return 2 if cfg.q == 27 else 3
+
+
+def brick_layout(cfg: FusedLBMConfig, itemsize: int, by: int, stages: int) -> int:
+    """Shared memory a block of the brick kernel takes (csrc/lbm_substep.cuh
+    ``brick_layout``): each stage holds [lattice][q][by][nz] values and, on
+    media plans, [3][by + 2][nz] media bytes, rounded up to 16 bytes; then
+    two 8-byte mbarriers a stage; then, on MRT plans, each lattice's q x q
+    MRT matrix, its rows padded to 16 bytes."""
+    lattices = 2 if cfg.two_lattice else 1
+    stage = lattices * cfg.q * by * cfg.nz * itemsize
+    if cfg.has_media:
+        stage += 3 * (by + 2) * cfg.nz
+    stage = -(-stage // 16) * 16
+    mrt = cfg.msm is not None or (cfg.two_lattice and cfg.msm2 is not None)
+    row = -(-cfg.q * itemsize // 16) * 16
+    return stages * stage + 16 * stages + (lattices * cfg.q * row if mrt else 0)
+
+
+def brick_plan(cfg: FusedLBMConfig, dtype, stage_bytes: int = STAGE_BYTES,
+               stages: Optional[int] = None, threads: Optional[int] = None
+               ) -> Optional[BrickPlan]:
+    """The brick walk of the kernel for ``cfg`` in ``dtype``, or None where
+    the flat kernel runs: 2-D plans, rows (of the distribution, and of the
+    media on media plans) that are not a multiple of 16 bytes, as the bulk
+    copies need, and a stage that does not fit a block.  ``by`` is the most
+    rows whose stage stays within ``stage_bytes`` (at least one, at most
+    ny); ``stages`` is ``brick_stages`` by default, and fewer where they
+    do not fit a block; ``threads`` (at most ``brick_threads``, the
+    default) is cut to no more consumer warps than the brick has cells.
+    The defaults are the probe's choice at 256³."""
+    itemsize = torch.empty((), dtype=dtype).element_size()
+    if cfg.nz == 1 or (cfg.nz * itemsize) % 16 or (cfg.has_media and cfg.nz % 16):
+        return None
+    lattices = 2 if cfg.two_lattice else 1
+    by = max(1, min(cfg.ny, stage_bytes // (lattices * cfg.q * cfg.nz * itemsize)))
+    stages = stages or brick_stages(cfg)
+    while stages > 1 and brick_layout(cfg, itemsize, by, stages) > SMEM_BLOCK:
+        stages -= 1
+    smem = brick_layout(cfg, itemsize, by, stages)
+    if smem > SMEM_BLOCK:
+        return None
+    threads = min(threads or brick_threads(cfg), brick_threads(cfg))
+    threads = 32 + min(threads - 32, -(-by * cfg.nz // 32) * 32)
+    return BrickPlan(by=by, stages=stages, threads=threads, smem=smem)
+
+
+def pack(cfg: FusedLBMConfig, brick: Optional[BrickPlan] = None) -> _Plan:
+    """The kernel's plan struct for ``cfg`` (with the brick walk ``brick``,
+    or none: the flat kernel); raises for what the kernel does not take."""
     q = cfg.q
     fc = cfg.force
     p = _Plan(nx=cfg.nx, ny=cfg.ny, nz=cfg.nz, two_lattice=int(cfg.two_lattice),
@@ -949,6 +1035,9 @@ def pack(cfg: FusedLBMConfig) -> _Plan:
               force_dir=fc.direction if fc is not None else 0,
               guo=int(fc is not None and bool(fc.apply_tau)),
               two_d=int(cfg.two_d), smag=int(cfg.smag is not None))
+    if brick is not None:
+        p.brick.by, p.brick.stages = brick.by, brick.stages
+        p.brick.threads, p.brick.smem = brick.threads, brick.smem
     p.mrt[:] = [int(cfg.msm is not None), int(cfg.msm2 is not None)]
     p.proj[:] = [int(cfg.proj), int(cfg.proj2)]
     # 2-D: the velocity has no z component, so no z body force either
@@ -997,13 +1086,13 @@ def _check_tables(cfg: FusedLBMConfig):
         raise FusedChainError(f"lbm_backend = PALLAS: the kernel takes q = 9, 19 "
                               f"or 27 (got {cfg.q})")
     lib = LIBRARY.load()
-    layout = np.zeros(7, np.int64)
+    layout = np.zeros(8, np.int64)
     lib.mtt_lbm_plan_layout(layout.ctypes.data)
     coef_d, coef_f = _Plan.d.offset, _Plan.f.offset
     ours = [ctypes.sizeof(_Plan), _Plan.lat.offset,
             _Plan.lat.offset + ctypes.sizeof(_Faces), coef_d,
             coef_d + type(_Plan().d).msm.offset, coef_f,
-            coef_f + type(_Plan().f).msm.offset]
+            coef_f + type(_Plan().f).msm.offset, _Plan.brick.offset]
     if layout.tolist() != ours:
         raise RuntimeError(f"lbm_substep: the ctypes plan {ours} differs from "
                            f"csrc/lbm_substep.cu's LbmPlan {layout.tolist()}")
@@ -1035,10 +1124,10 @@ def _check_inputs(fpc_qm, media, cfg: FusedLBMConfig, what):
 
 
 def _kernel_args(fpc_qm, media, cfg: FusedLBMConfig, gpc_qm, what):
-    """Contiguity, then the packed plan and the perturbed inlets' a(y) rows
-    (one (n, ny) tensor, or None) for a launch: built once per plan, dtype
-    and device (packing takes ~0.1 ms of host time, longer than a 2-D
-    launch at its shipped size)."""
+    """Contiguity, then the packed plan (with ``brick_plan``'s walk) and the
+    perturbed inlets' a(y) rows (one (n, ny) tensor, or None) for a launch:
+    built once per plan, dtype and device (packing takes ~0.1 ms of host
+    time, longer than a 2-D launch at its shipped size)."""
     if not fpc_qm.is_contiguous() or (media is not None and not media.is_contiguous()) \
             or (gpc_qm is not None and not gpc_qm.is_contiguous()):
         raise ValueError(f"{what}: inputs must be contiguous")
@@ -1051,7 +1140,7 @@ def _kernel_args(fpc_qm, media, cfg: FusedLBMConfig, gpc_qm, what):
         if perturbed:
             avec = torch.stack([perturb_profile(bc, cfg.ny, fpc_qm.dtype, fpc_qm.device)
                                 for bc in perturbed]).contiguous()
-        args = _KERNEL_ARGS[key] = (pack(cfg), avec)
+        args = _KERNEL_ARGS[key] = (pack(cfg, brick_plan(cfg, fpc_qm.dtype)), avec)
     return args
 
 
@@ -1103,6 +1192,17 @@ def fused_substep(fpc_qm: torch.Tensor, media: Optional[torch.Tensor],
         return fused_substep_twin(fpc_qm, media, cfg, gpc_qm)
     mean = density_mean(fpc_qm, media, cfg) if cfg.smag is not None else None
     plan, avec = _kernel_args(fpc_qm, media, cfg, gpc_qm, "fused_substep")
+    got = launch_substep(fpc_qm, media, cfg, gpc_qm, plan, avec, mean)
+    fused_substep.launches += 1
+    return got
+
+
+def launch_substep(fpc_qm, media, cfg: FusedLBMConfig, gpc_qm, plan: "_Plan", avec=None,
+                   mean=None):
+    """One launch of ``mtt_lbm_substep`` with a packed ``plan`` (its brick
+    fields choose the brick or the flat kernel) on checked CUDA inputs;
+    returns what ``fused_substep`` returns.  ``fused_substep`` is the entry
+    point; ``lbm_probe`` calls this with a plan of its own."""
     out = torch.empty_like(fpc_qm)
     gout = torch.empty_like(gpc_qm) if gpc_qm is not None else None
     speed = torch.empty(fpc_qm.shape[1:], dtype=fpc_qm.dtype, device=fpc_qm.device)
@@ -1110,7 +1210,6 @@ def fused_substep(fpc_qm: torch.Tensor, media: Optional[torch.Tensor],
                uf._ptr(media), uf._ptr(avec), uf._ptr(mean), uf._ptr(out),
                uf._ptr(gout), uf._ptr(speed), cfg.q, int(fpc_qm.dtype == torch.float64),
                ctypes.addressof(plan), device=fpc_qm.device, name="fused_substep")
-    fused_substep.launches += 1
     if gout is None:
         return out, speed
     return out, gout, speed

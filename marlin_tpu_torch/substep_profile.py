@@ -120,14 +120,15 @@ def main(argv=None) -> int:
     kernels = [e for e in prof.key_averages()
                if e.device_type == torch.autograd.DeviceType.CUDA]
     busy_us = sum(e.self_device_time_total for e in kernels)
-    # the hand kernels: the fused LBM substep; the FFT kernels (cuFFT's
-    # carry "fft" in their names, the port's "lanes"; the fused update
-    # kernel is the forward sublanes kernel with an epilogue, so it counts)
+    # the hand kernels: the fused LBM substep (flat or brick); the FFT
+    # kernels (cuFFT's carry "fft" in their names, the port's "lanes"; the
+    # fused update kernel is the forward sublanes kernel with an epilogue,
+    # so it counts)
     if problem.is_lbm:
         what = "LBM substep and density-mean kernels"
         hand_us = sum(e.self_device_time_total for e in kernels
-                      if "lbm_substep_kernel" in e.key or "lbm_density_kernel" in e.key
-                      or "lbm_mean_kernel" in e.key)
+                      if any(k in e.key for k in ("lbm_substep_kernel", "lbm_brick_kernel",
+                                                  "lbm_density_kernel", "lbm_mean_kernel")))
     else:
         what = "FFT kernels"
         hand_us = sum(e.self_device_time_total for e in kernels

@@ -873,6 +873,13 @@ def test_plan_packs_for_the_kernel(case):
     cfg = port_plan(case).config
     p = lf.pack(cfg)
     q = cfg.q
+    # no brick walk: the flat kernel
+    assert (p.brick.by, p.brick.stages, p.brick.threads, p.brick.smem) == (0, 0, 0, 0)
+    big = dataclasses.replace(cfg, nx=64, ny=64, nz=64)
+    walk = lf.brick_plan(big, torch.float32)
+    b = lf.pack(big, walk).brick
+    assert (b.by, b.stages, b.threads, b.smem) == (walk.by, walk.stages, walk.threads,
+                                                   walk.smem)
     assert (p.nx, p.ny, p.nz) == (cfg.nx, cfg.ny, cfg.nz)
     assert (p.two_lattice, p.collide) == (cfg.two_lattice, cfg.collide)
     assert p.speed == {"none": 0, "umag": 1, "t": 2}[cfg.speed_kind]
@@ -908,49 +915,233 @@ def test_plan_packs_for_the_kernel(case):
         assert (p.d.g_rho0, p.d.t0) == (fc.g * fc.rho0, fc.T0)
 
 
+# -- the brick walk of 3-D plans ---------------------------------------------------------
+
+_CONFIGS = {}
+
+
+def plan_config(case):
+    if case not in _CONFIGS:
+        _CONFIGS[case] = port_plan(case).config
+    return _CONFIGS[case]
+
+
+BRICK_EXTENTS = [(9, 9, 9), (33, 17, 20), (64, 64, 64), (256, 256, 256)]
+DTYPES = [torch.float32, torch.float64]
+
+
+def _wrap(i, d, n):
+    """csrc/lbm_substep.cuh ``wrap``: (i + d) mod n for d in -1..1."""
+    v = i + d
+    return np.where(v < 0, v + n, np.where(v >= n, v - n, v))
+
+
+def _bricks(cfg, walk):
+    """csrc/lbm_substep.cuh ``brick_at`` of every brick: (x, y0, rows)."""
+    nyb = -(-cfg.ny // walk.by)
+    b = np.arange(cfg.nx * nyb)
+    y0 = (b % nyb) * walk.by
+    return b // nyb, y0, np.minimum(walk.by, cfg.ny - y0)
+
+
+@pytest.mark.parametrize("dtype", DTYPES, ids=["f32", "f64"])
+@pytest.mark.parametrize("extent", BRICK_EXTENTS, ids=lambda e: "x".join(map(str, e)))
+@pytest.mark.parametrize("case", PLAN_CASES)
+def test_brick_walk_covers_every_cell_once(case, extent, dtype):
+    """A mirror of the brick kernel's walk: the persistent blocks (at any
+    grid) take every brick once, and the bricks' cells (row j = i / nz,
+    z = i mod nz of each brick's rows × nz) are every cell once."""
+    cfg = dataclasses.replace(plan_config(case), nx=extent[0], ny=extent[1], nz=extent[2])
+    walk = lf.brick_plan(cfg, dtype)
+    if walk is None:
+        # the flat kernel runs: the rule is held by test_brick_plan_fits_or_is_none
+        assert extent == (9, 9, 9) or (cfg.has_media and cfg.nz % 16)
+        return
+    x, y0, rows = _bricks(cfg, walk)
+    bricks = len(x)
+    for grid in (1, 7, 264, bricks):
+        grid = min(grid, bricks)
+        taken = np.concatenate([np.arange(blk, bricks, grid) for blk in range(grid)])
+        assert np.array_equal(np.sort(taken), np.arange(bricks))
+    seen = np.zeros((cfg.nx, cfg.ny), np.int64)
+    for j in range(walk.by):
+        live = j < rows
+        np.add.at(seen, (x[live], y0[live] + j), 1)
+    assert (seen == 1).all()
+    for r in set(rows.tolist()):
+        i = np.arange(r * cfg.nz)
+        jz = np.stack([i // cfg.nz, i - i // cfg.nz * cfg.nz], 1)
+        assert len({tuple(v) for v in jz.tolist()}) == r * cfg.nz
+        assert jz[:, 0].max() == r - 1 and jz[:, 1].max() == cfg.nz - 1
+
+
+@pytest.mark.parametrize("extent", [(33, 17, 20), (40, 24, 36), (64, 64, 64)],
+                         ids=lambda e: "x".join(map(str, e)))
+@pytest.mark.parametrize("case", ["mixed_8", "porous_8", "thermal", "pebbles",
+                                  "allface_d3q27"])
+def test_brick_pull_sources_wrap(case, extent):
+    """A mirror of the brick's index maps: the stage row of direction q at
+    brick row j comes from plane (x - e_x) mod nx, row (y0 + j - e_y) mod
+    ny (brick_fetch), the cell at z reads it at Around(z).v[1 - e_z]
+    (brick_stream), so each direction's pull source is ((x - e_x) mod nx,
+    (y - e_y) mod ny, (z - e_z) mod nz), wrapped rows and planes included;
+    the media byte read for the obstacle test (Stage::m) comes from the
+    same cell, and the cell's own media byte from (x, y, z)."""
+    cfg = dataclasses.replace(plan_config(case), nx=extent[0], ny=extent[1], nz=extent[2])
+    walk = lf.brick_plan(cfg, torch.float32)
+    if walk is None:
+        assert cfg.has_media and cfg.nz % 16
+        return
+    nx, ny, nz, by = cfg.nx, cfg.ny, cfg.nz, walk.by
+    x, y0, rows = _bricks(cfg, walk)
+    z = np.arange(nz)
+    zs = np.stack([_wrap(z, -1, nz), z, _wrap(z, 1, nz)])  # Around(z).v
+    # media rows of the stage: [dx][jj] from plane x + dx - 1, row y0 + jj - 1
+    media_x = [_wrap(x, dx - 1, nx) for dx in range(3)]
+    media_y = [(y0 + jj - 1 + ny) % ny for jj in range(by + 2)]
+    wrapped = 0
+    for j in range(by):
+        live = j < rows
+        xl, yl = x[live], y0[live] + j
+        for q, (ex, ey, ez) in enumerate(cfg.e):
+            sx = _wrap(xl, -ex, nx)            # the stage row's plane
+            sy = _wrap(yl, -ey, ny)            # and row
+            sz = zs[1 - ez]                    # the cell's read in the row
+            assert np.array_equal(sx, (xl - ex) % nx)
+            assert np.array_equal(sy, (yl - ey) % ny)
+            assert np.array_equal(sz, (z - ez) % nz)
+            wrapped += int(((xl - ex) % nx != xl - ex).sum() + ((yl - ey) % ny != yl - ey).sum())
+            # Stage::m(-e_x, j, -e_y, z): media row [1 - e_x][j + 1 - e_y]
+            assert np.array_equal(media_x[1 - ex][live], (xl - ex) % nx)
+            assert np.array_equal(media_y[j + 1 - ey][live], (yl - ey) % ny)
+        assert np.array_equal(media_x[1][live], xl)
+        assert np.array_equal(media_y[j + 1][live], yl)
+    assert wrapped > 0  # the bricks at x = 0 and y = 0 pull from the far side
+
+
+FIT_CASES = ([(case, e) for case in PLAN_CASES
+              for e in BRICK_EXTENTS + [(40, 24, 36), (4, 4, 1024)]]
+             + [(case, (33, 17, 1)) for case in PLAN_CASES_2D])
+
+
+@pytest.mark.parametrize("dtype", DTYPES, ids=["f32", "f64"])
+@pytest.mark.parametrize("case,extent", FIT_CASES,
+                         ids=[f"{c}-{'x'.join(map(str, e))}" for c, e in FIT_CASES])
+def test_brick_plan_fits_or_is_none(case, extent, dtype):
+    """``brick_plan`` gives None exactly where the flat kernel must run (a
+    2-D plan, rows of the distribution or of the media that are not a
+    multiple of 16 bytes, or one stage of one row that does not fit 227
+    KB), and otherwise a walk whose stages fit 227 KB, with csrc's
+    layout, at least one and at most ny rows, the plan class's stages
+    where they fit, and whole warps of threads, no more than the brick has
+    cells."""
+    cfg = dataclasses.replace(plan_config(case), nx=extent[0], ny=extent[1], nz=extent[2])
+    item = torch.empty((), dtype=dtype).element_size()
+    walk = lf.brick_plan(cfg, dtype)
+    flat = (cfg.nz == 1 or (cfg.nz * item) % 16 != 0 or (cfg.has_media and cfg.nz % 16 != 0)
+            or lf.brick_layout(cfg, item, 1, 1) > lf.SMEM_BLOCK)
+    assert (walk is None) == flat
+    if walk is None:
+        return
+    lattices = 2 if cfg.two_lattice else 1
+    stage = -(-(lattices * cfg.q * walk.by * cfg.nz * item + (
+        3 * (walk.by + 2) * cfg.nz if cfg.has_media else 0)) // 16) * 16
+    mrt = cfg.msm is not None or (cfg.two_lattice and cfg.msm2 is not None)
+    msm = lattices * cfg.q * (-(-cfg.q * item // 16) * 16) if mrt else 0
+    assert walk.smem == walk.stages * stage + 16 * walk.stages + msm
+    assert walk.smem == lf.brick_layout(cfg, item, walk.by, walk.stages) <= lf.SMEM_BLOCK
+    assert 1 <= walk.by <= cfg.ny
+    # the plan class's stages, fewer only where they do not fit a block
+    want = (1 + mrt) if cfg.two_lattice else (2 if cfg.q == 27 else 3)
+    assert walk.stages <= want
+    if walk.stages < want:
+        assert (walk.stages + 1) * (stage + 16) + msm > lf.SMEM_BLOCK
+    # a producer warp and whole consumer warps, no more than the brick's cells
+    assert walk.threads % 32 == 0 and 64 <= walk.threads <= lf.brick_threads(cfg)
+    assert walk.threads - 32 <= -(-walk.by * cfg.nz // 32) * 32
+    # the most rows within the stage budget
+    if walk.by < cfg.ny:
+        assert (walk.by + 1) * lattices * cfg.q * cfg.nz * item > lf.STAGE_BYTES
+
+
 # -- on the card -------------------------------------------------------------------------
+
+
+CARD_EXTENTS = [(33, 17, 20), (40, 24, 36), (64, 64, 64)]
+
+
+def _card_inputs(cfg, dtype, device, seed):
+    """A random distribution (and media code) at the plan's extent, as the
+    card tests draw them."""
+    shape = (cfg.nx, cfg.ny, cfg.nz)
+    gen = torch.Generator(device=device).manual_seed(seed)
+    w = torch.tensor(cfg.w, dtype=dtype, device=device)[:, None, None, None]
+
+    def distribution():
+        return w * (1.0 + 0.1 * torch.randn((cfg.q,) + shape, generator=gen,
+                                            device=device, dtype=dtype))
+
+    fpc = distribution()
+    gpc = distribution() if cfg.two_lattice else None
+    media = None
+    if cfg.has_media:
+        media = (torch.rand(shape, generator=gen, device=device) > 0.2).to(torch.int8)
+        fpc = torch.where(media == 0, 0.0, fpc).contiguous()
+        if gpc is not None:
+            gpc = torch.where(media == 0, 0.0, gpc).contiguous()
+    return fpc, gpc, media
 
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
 @pytest.mark.parametrize("case", PLAN_CASES + PLAN_CASES_2D)
 def test_kernel_matches_twin_on_card(cuda, case, dtype):
-    """The CUDA kernel against its twin on the card at 33×17×20 (2-D plans
-    at 33×17×1): the same operations in the same order, so equal bit for
-    bit (NaN where both give it: random media can leave a fluid face cell
-    that copies a solid inner neighbour with no mass).  A Smagorinsky plan
-    also takes its two density-mean launches, equal to the twin's mean."""
+    """The CUDA kernel against its twin on the card, at 33×17×20, 40×24×36
+    and 64³ (extents whose rows, bricks and wrapped source rows straddle
+    the brick kernel's edges; the brick kernel runs where ``brick_plan``
+    gives a walk, the flat one elsewhere) and at 33×17×1 for 2-D plans:
+    the same operations in the same order, so equal bit for bit (NaN where
+    both give it: random media can leave a fluid face cell that copies a
+    solid inner neighbour with no mass).  A Smagorinsky plan also takes
+    its two density-mean launches, equal to the twin's mean."""
     base = port_plan(case).config
-    shape = (33, 17, 1) if base.two_d else (33, 17, 20)
-    cfg = dataclasses.replace(base, nx=shape[0], ny=shape[1], nz=shape[2])
-    gen = torch.Generator(device=cuda).manual_seed(5)
-    w = torch.tensor(cfg.w, dtype=dtype, device=cuda)[:, None, None, None]
+    for shape in [(33, 17, 1)] if base.two_d else CARD_EXTENTS:
+        cfg = dataclasses.replace(base, nx=shape[0], ny=shape[1], nz=shape[2])
+        fpc, gpc, media = _card_inputs(cfg, dtype, cuda, 5)
+        before = lf.launches()
+        got = lf.fused_substep(fpc, media, cfg, gpc)
+        torch.cuda.synchronize()
+        smag = 2 if cfg.smag is not None else 0
+        assert lf.launches() == {"lbm_substep": before["lbm_substep"] + 1,
+                                 "lbm_density_mean": before["lbm_density_mean"] + smag}
+        if smag:
+            torch.testing.assert_close(lf.density_mean(fpc, media, cfg),
+                                       lf.density_mean_twin(fpc, media, cfg), rtol=0,
+                                       atol=0)
+        ref = lf.fused_substep_twin(fpc, media, cfg, gpc)
+        assert len(got) == len(ref)
+        for g, r in zip(got, ref):
+            torch.testing.assert_close(g, r, rtol=0, atol=0, equal_nan=True)
 
-    def distribution():
-        return w * (1.0 + 0.1 * torch.randn((cfg.q,) + shape, generator=gen,
-                                            device=cuda, dtype=dtype))
 
-    fpc = distribution()
-    gpc = distribution() if cfg.two_lattice else None
-    media = None
-    if cfg.has_media:
-        media = (torch.rand(shape, generator=gen, device=cuda) > 0.2).to(torch.int8)
-        fpc = torch.where(media == 0, 0.0, fpc).contiguous()
-        if gpc is not None:
-            gpc = torch.where(media == 0, 0.0, gpc).contiguous()
-    before = lf.launches()
-    got = lf.fused_substep(fpc, media, cfg, gpc)
-    torch.cuda.synchronize()
-    smag = 2 if cfg.smag is not None else 0
-    assert lf.launches() == {"lbm_substep": before["lbm_substep"] + 1,
-                             "lbm_density_mean": before["lbm_density_mean"] + smag}
-    if smag:
-        torch.testing.assert_close(lf.density_mean(fpc, media, cfg),
-                                   lf.density_mean_twin(fpc, media, cfg), rtol=0, atol=0)
-    ref = lf.fused_substep_twin(fpc, media, cfg, gpc)
-    assert len(got) == len(ref)
-    for g, r in zip(got, ref):
-        torch.testing.assert_close(g, r, rtol=0, atol=0, equal_nan=True)
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+@pytest.mark.parametrize("case", PLAN_CASES)
+def test_brick_matches_flat_on_card(cuda, case, dtype):
+    """At 64³ every 3-D plan has a brick walk; the brick kernel gives the
+    flat kernel's bits on it (and on the other walks the probe times)."""
+    cfg = dataclasses.replace(port_plan(case).config, nx=64, ny=64, nz=64)
+    fpc, gpc, media = _card_inputs(cfg, dtype, cuda, 7)
+    _plan, avec = lf._kernel_args(fpc, media, cfg, gpc, "test")
+    ref = lf.launch_substep(fpc, media, cfg, gpc, lf.pack(cfg), avec)
+    walks = [lf.brick_plan(cfg, dtype), lf.brick_plan(cfg, dtype, stages=2),
+             lf.brick_plan(cfg, dtype, stage_bytes=lf.STAGE_BYTES // 4, threads=96)]
+    assert all(w is not None for w in walks)
+    for walk in walks:
+        got = lf.launch_substep(fpc, media, cfg, gpc, lf.pack(cfg, walk), avec)
+        torch.cuda.synchronize()
+        for g, r in zip(got, ref):
+            torch.testing.assert_close(g, r, rtol=0, atol=0, equal_nan=True)
 
 
 @pytest.mark.cuda
