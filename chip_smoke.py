@@ -30,8 +30,12 @@ Phases, one line each, flushed as they finish:
    alone).  The 2-D (D2Q9) plans at 800×200 and 4096×2048 in
    float32 (the channel with BGK and with MRT, the 2-D thermal pair, the
    Kármán plan: Smagorinsky with the projection, a perturbed inlet and the
-   cylinder) and at 33×17 and 1000×333; the Kármán plan's two density-mean
-   passes (``lbm_density_mean``) against their twin at the same extents;
+   cylinder) and at 33×17 and 1000×333, each with the kernel it takes
+   (the flat one; the Kármán plan the plane kernel, with its cooperative
+   grid); the Kármán plan's mean density (``lbm_density_mean``, 7′,
+   computed inside the plane kernel's launch) against its twin at the
+   same extents, its own device time at the main extents taken as the
+   plane launch's less the flat kernel's given the mean;
 3. main path: the 3-D Cahn-Hilliard deck at 512³ through ``run_deck`` with
    ``fft_backend = PALLAS`` in float32 (10 substeps, 2 steps, dt = 1): the
    launch counters rise by exactly the count the path implies, c is finite
@@ -68,11 +72,13 @@ Phases, one line each, flushed as they finish:
 11. LBM Kármán: ``decks.KARMAN_DECK`` (D2Q9, Smagorinsky with the Hermite
    projection, the cylinder of ``decks.karman_media``, a perturbed Zou-He
    inlet, a zero-gradient outlet) at 800×200, float32, 100 substeps × 3
-   steps, on PALLAS and JNP: exactly 2 × 99 ``lbm_substep`` launches and
-   2 × 198 ``lbm_density_mean`` launches on PALLAS, none on JNP; on f, fpc,
-   feq, density, velocity and speed max |PALLAS − JNP| ≤ 1e-5 of the JNP
+   steps, on PALLAS and JNP: exactly 2 × 99 ``lbm_substep`` launches on
+   PALLAS, each computing its mean density inside (``lbm_density_mean``
+   counts them: no launch of its own), none on JNP; on f, fpc, feq,
+   density, velocity and speed max |PALLAS − JNP| ≤ 1e-5 of the JNP
    buffer's largest magnitude; every buffer finite; ms a substep, MLUPS and
-   peak device memory on both.
+   peak device memory on both; then the host's µs a fused substep (the
+   fused loop's wrapper, 1000 back-to-back calls at 800×200).
 
 Then one JSON line with every kernel's numbers (a kernel timed at more
 than one main shape also lists each under ``shapes``) and, last, the JSON
@@ -547,24 +553,20 @@ def phase_lbm_kernel(lf, dev):
                 if gpc is not None:
                     gpc = torch.where(media == 0, 0.0, gpc).contiguous()
             fpc = fpc.contiguous()
-            kernel = lambda: lf.fused_substep(fpc, media, cfg, gpc)
+            step = lf.substepper(fpc, media, cfg, gpc)  # the fused loop's wrapper
+            kernel = lambda: step(fpc, gpc)
             twin = lambda: lf.fused_substep_twin(fpc, media, cfg, gpc)
             cells = math.prod(shape)
+            lattices = 2 if cfg.two_lattice else 1
+            n_bytes = (2 * lattices * nbytes(fpc) + cells * 4
+                       + (cells if media is not None else 0))
             if cfg.smag is not None:
-                mean_rows += lbm_density_mean_check(lf, fpc, media, cfg, shape, shape in main)
+                mean_rows += lbm_mean_check(lf, fpc, media, cfg, shape, shape in main)
             if shape not in main:
                 err = check(f"lbm_substep {name}", shape, kernel(), twin())
                 say(f"[kernels] lbm_substep {name} {shape}: max_abs_err {err:.3e}")
                 continue
-            lattices = 2 if cfg.two_lattice else 1
-            n_bytes = (2 * lattices * nbytes(fpc) + cells * 4
-                       + (cells if media is not None else 0))
-            if not cfg.two_d:
-                walk = lf.brick_plan(cfg, fpc.dtype)
-                say(f"[kernels] lbm_substep {name} {shape}: " + (
-                    "flat kernel" if walk is None else
-                    f"brick kernel, by {walk.by}, {walk.stages} stages, {walk.threads} "
-                    f"threads, {walk.smem} B shared memory"))
+            say(f"[kernels] lbm_substep {name} {shape}: {walk_text(lf, cfg, fpc.dtype)}")
             row = measure(f"lbm_substep {name}", (lattices, cfg.q) + shape, kernel,
                           twin, None, n_bytes, lbm_flops(cfg) * cells,
                           flop_rate=F32_NO_FMA_FLOP_PER_S)
@@ -577,21 +579,78 @@ def phase_lbm_kernel(lf, dev):
     return rows, mean_rows
 
 
-def lbm_density_mean_check(lf, fpc, media, cfg, shape, timed):
-    """The Smagorinsky plan's density mean (two launches) against its twin,
-    exactly as the kernel's check: ≤ 1e-5 of the twin's magnitude; on a
-    main extent also its times, bound by the bytes it reads (the q planes
-    and the media byte)."""
-    kernel = lambda: lf.density_mean(fpc, media, cfg)
+def walk_text(lf, cfg, dtype):
+    """The kernel a plan takes and its walk."""
+    walk = lf.walk_plan(cfg, dtype, torch.cuda.get_device_properties(0).multi_processor_count)
+    if walk is None:
+        return "flat kernel"
+    if isinstance(walk, lf.PlanePlan):
+        return (f"plane kernel, cooperative grid of {walk.grid} x {walk.threads} threads, "
+                f"{min(cfg.nx * cfg.ny, walk.grid * walk.threads)} of {cfg.nx * cfg.ny} cells "
+                f"held across the mean")
+    return (f"brick kernel, by {walk.by}, {walk.stages} stages, {walk.threads} threads, "
+            f"{walk.smem} B shared memory")
+
+
+def lbm_mean_check(lf, fpc, media, cfg, shape, timed):
+    """The Smagorinsky plan's mean density, computed inside the plane
+    kernel's launch (7′: no launch of its own), against its twin, as the
+    kernel's check: ≤ 1e-5 of the twin's magnitude.  On a main extent also
+    its own device time, measured as a difference: the plane kernel's launch
+    (the substep with its mean) less the flat kernel's launch of the same
+    substep given the twin's mean, in turn (plane, flat, flat, plane); the
+    twin's mean alone as the plain time, also by device time; the bound of
+    its own work (each cell's q values and media byte read once, its q
+    additions)."""
+    plane = lf.substepper(fpc, media, cfg)  # the fused loop's wrapper
+    _plan, avec = lf._kernel_args(fpc, media, cfg, None, "chip_smoke")
+    flat = lf.plan_stepper(fpc, media, cfg, None, lf.pack(cfg), avec)
+
+    def kernel():
+        mean = torch.full((), float("nan"), dtype=fpc.dtype, device=fpc.device)
+        plane(fpc, None, mean)
+        return mean
+
     twin = lambda: lf.density_mean_twin(fpc, media, cfg)
+    err = check("lbm_density_mean", shape, kernel(), twin())
     if not timed:
-        err = check("lbm_density_mean", shape, kernel(), twin())
-        say(f"[kernels] lbm_density_mean {shape}: max_abs_err {err:.3e}")
+        say(f"[kernels] lbm_density_mean {shape} (inside lbm_substep): max_abs_err {err:.3e}")
         return []
+    given = twin()
+    with_mean, without = [], []
+    for order in (0, 1):
+        runs = [(with_mean, lambda: plane(fpc)), (without, lambda: flat(fpc, None, given))]
+        for times, fn in (runs if order == 0 else runs[::-1]):
+            times.append(device_ms(fn))
+    ms = sum(with_mean) / 2 - sum(without) / 2
+    plain = device_ms(twin)
     cells = math.prod(shape)
-    n_bytes = nbytes(fpc) + (cells if media is not None else 0)
-    return [measure("lbm_density_mean", shape, kernel, twin, None, n_bytes, cfg.q * cells,
-                    flop_rate=F32_NO_FMA_FLOP_PER_S)]
+    n_bytes = cells * (cfg.q * fpc.element_size() + (media is not None))
+    bnd, by = bound_ms(n_bytes, cells * cfg.q, F32_NO_FMA_FLOP_PER_S)
+    say(f"[kernels] lbm_density_mean {shape} (inside lbm_substep): max_abs_err {err:.3e}, "
+        f"device ms: plane launch {sum(with_mean) / 2:.4f} less flat launch given the mean "
+        f"{sum(without) / 2:.4f} = {ms:.4f}, twin {plain:.4f}, bound {bnd:.4f} ({by})")
+    torch.cuda.empty_cache()
+    return [{"shape": list(shape), "max_abs_err": err, "ms": ms, "plain_ms": plain,
+             "library_ms": None, "bound_ms": bnd, "bound_by": by,
+             "plane_launch_ms": sum(with_mean) / 2, "flat_launch_ms": sum(without) / 2}]
+
+
+def device_ms(fn, calls=20):
+    """Device ms a call: the time of the kernels ``fn`` launches, by
+    torch.profiler over ``calls`` calls (at 800×200 the host cannot keep
+    the card busy, so CUDA events would time the host)."""
+    fn()
+    torch.cuda.synchronize()
+    acts = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
+    with torch.profiler.profile(activities=acts) as prof:
+        for _ in range(calls):
+            fn()
+        torch.cuda.synchronize()
+    us = sum(e.self_device_time_total for e in prof.key_averages()
+             if e.device_type == torch.autograd.DeviceType.CUDA)
+    assert us > 0, "the profiler saw no device time"
+    return us / calls / 1e3
 
 
 LBM_PATHS = {
@@ -750,7 +809,8 @@ def phase_karman(dev):
             torch.cuda.synchronize()
             wall = time.perf_counter() - t0
         launched = lf.launches()
-        want = ({"lbm_substep": fused, "lbm_density_mean": 2 * fused} if backend == "PALLAS"
+        # one launch a fused substep, its mean density inside it
+        want = ({"lbm_substep": fused, "lbm_density_mean": fused} if backend == "PALLAS"
                 else {"lbm_substep": 0, "lbm_density_mean": 0})
         say(f"[karman] {backend} {KARMAN[0]}x{KARMAN[1]}, {LBM_STEPS} steps x "
             f"{KARMAN_SUBSTEPS} substeps: run_deck {wall:.2f} s, launches {launched} "
@@ -772,6 +832,32 @@ def phase_karman(dev):
         say(f"[karman] max|{k}_PALLAS - {k}_JNP| {d:.3e} (limit {KERNEL_TOL} x {mag:.4e})")
         assert d <= KERNEL_TOL * mag, (k, d, mag)
     return out["PALLAS"][2], out["PALLAS"][1], out["JNP"][1]
+
+
+HOST_CALLS = 1000
+
+
+def karman_host_us(lf, dev):
+    """The host's µs a fused Kármán substep at 800×200: the fused loop's
+    wrapper (``substepper``'s step), HOST_CALLS back-to-back calls with one
+    sync, over HOST_CALLS (the device's time a substep is well below it)."""
+    import dataclasses
+
+    from marlin_tpu_torch.decks import karman_media
+    from marlin_tpu_torch.lbm_probe import deck_plans
+
+    cfg = dataclasses.replace(deck_plans()["karman"], nx=KARMAN[0], ny=KARMAN[1])
+    gen = torch.Generator(device=dev).manual_seed(2)
+    media = torch.as_tensor(karman_media(*KARMAN), device=dev)[..., None].to(torch.int8)
+    fpc = torch.where(media == 0, 0.0, lbm_rand(cfg, KARMAN + (1,), gen, dev)).contiguous()
+    step = lf.substepper(fpc, media, cfg)
+    step(fpc)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(HOST_CALLS):
+        step(fpc)
+    torch.cuda.synchronize()
+    return 1e6 * (time.perf_counter() - t0) / HOST_CALLS
 
 
 def transient(deck, dt, buffer):
@@ -1026,10 +1112,12 @@ def main():
     kname = f"karman {KARMAN[0]}x{KARMAN[1]}"
     lbm_launches += karman_launches["lbm_substep"]
     lbm_ms[kname] = (ms_pallas_k, ms_jnp_k)
-    say(f"[karman] lbm_substep {lbm_rows[kname]['ms']:.4f} ms a launch (bound "
-        f"{lbm_rows[kname]['bound_ms']:.4f}), lbm_density_mean {mean_rows[0]['ms']:.4f} "
-        f"ms a pair (bound {mean_rows[0]['bound_ms']:.4f}); ms/substep PALLAS "
+    say(f"[karman] lbm_substep {lbm_rows[kname]['ms']:.4f} ms a launch, its mean density "
+        f"inside (bound {lbm_rows[kname]['bound_ms']:.4f}); ms/substep PALLAS "
         f"{ms_pallas_k:.4f}, JNP {ms_jnp_k:.4f}")
+    host_us = karman_host_us(lf, dev)
+    say(f"[karman] host {host_us:.2f} us a fused substep at {KARMAN[0]}x{KARMAN[1]} (the fused "
+        f"loop's wrapper, {HOST_CALLS} back-to-back calls, one sync)")
     lbm = summarise([lbm_rows[name] for name in list(LBM_PATHS) + [kname]])
     lbm["yardstick"] = "the eager JNP substep (run_deck, lbm_backend = JNP)"
     lbm["yardstick_ms"] = sum(jnp for _p, jnp in lbm_ms.values()) / len(lbm_ms)
@@ -1039,6 +1127,10 @@ def main():
     kernels["lbm_density_mean"] = summarise(mean_rows[:1])
     kernels["lbm_density_mean"]["plans"] = {f"karman {x}x{y}": row
                                             for (x, y), row in zip(LBM_2D, mean_rows)}
+    kernels["lbm_density_mean"]["note"] = (
+        "no launch of its own: launches counts the lbm_substep launches that computed the "
+        "mean inside; ms is that launch's device time less the flat lbm_substep launch "
+        "given the mean; plain_ms is density_mean_twin's device time")
     say(f"[done] {time.perf_counter() - t_start:.1f} s")
 
     # -- result -----------------------------------------------------------------

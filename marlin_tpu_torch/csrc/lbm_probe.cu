@@ -9,8 +9,8 @@
 //           bounce-back and solid masking (no post-stream faces, moments
 //           or collision).
 //
-// Each mode is given on the flat one-thread-a-cell map and on the brick
-// map of the shipped kernel.  The variants are built from the shipped
+// Each mode is given on the flat one-thread-a-cell map (3-D and 2-D plans)
+// and on the brick map of the shipped kernel (3-D plans).  The variants are built from the shipped
 // kernels' own pieces (stream_cell, the brick walk and its stage), with
 // the same block shape and shared memory, so they change with them.  The
 // whole kernels are the shipped ones (mtt_lbm_substep with a flat or a
@@ -42,15 +42,16 @@ __device__ __forceinline__ void flat_values(const LbmPlan& p, const LbmFaces& L,
   }
 }
 
-// The flat kernel's map (x and y from the grid, z along the block); both
-// lattices are read before either is written, as the shipped kernel does.
+// The flat kernel's map (x and y from the grid, z along the block; on a
+// 2-D plan the flattened grid); both lattices are read before either is
+// written, as the shipped kernel does.
 template <int Q, typename T, bool TWO, int MODE>
 __global__ void __launch_bounds__(256)
 flat_probe(const T* __restrict__ fpc, const T* __restrict__ gpc,
            const int8_t* __restrict__ media, T* __restrict__ out, T* __restrict__ gout) {
   const LbmPlan& p = c_plan;
   Cell c;
-  if (!thread_cell(p, false, c)) return;
+  if (!thread_cell(p, p.nz == 1, c)) return;
   const long long N = p.nx * p.ny * p.nz;
   const int at = cell_index(p, c);
   T f[Q];
@@ -68,8 +69,11 @@ flat_probe(const T* __restrict__ fpc, const T* __restrict__ gpc,
 template <int Q, typename T, bool TWO, int MODE>
 cudaError_t launch_flat(const void* fpc, const void* gpc, const void* media, void* out,
                         void* gout, const LbmPlan& p, cudaStream_t stream) {
-  const int threads = p.nz >= 256 ? 256 : (int)((p.nz + 31) / 32 * 32);
-  const dim3 grid((unsigned)((p.nz + threads - 1) / threads), (unsigned)p.ny, (unsigned)p.nx);
+  const bool flat = p.nz == 1;
+  const int threads = flat || p.nz >= 256 ? 256 : (int)((p.nz + 31) / 32 * 32);
+  const dim3 grid = flat ? dim3((unsigned)((p.nx * p.ny + threads - 1) / threads))
+                         : dim3((unsigned)((p.nz + threads - 1) / threads), (unsigned)p.ny,
+                                (unsigned)p.nx);
   cudaError_t err = cudaMemcpyToSymbolAsync(c_plan, &p, sizeof(LbmPlan), 0,
                                             cudaMemcpyHostToDevice, stream);
   if (err != cudaSuccess) return err;
@@ -178,17 +182,19 @@ cudaError_t by_mode(int mode, const void* fpc, const void* gpc, const void* medi
 
 // fpc, out (and gpc, gout on two-lattice plans): (q, nx, ny, nz) float32;
 // media: (nx, ny, nz) int8 or null; mode 0, 1 or 2 (above) on the flat
-// map.  Only the 3-D float32 stencils the decks use: q = 19 and 27.
+// map (on a 2-D plan, nz = 1, one thread a cell of the flattened grid).
+// Only the float32 stencils the decks use: q = 9, 19 and 27.
 extern "C" cudaError_t probe_lbm_flat(int mode, int q, const void* fpc, const void* gpc,
                                       const void* media, void* out, void* gout,
                                       const LbmPlan* plan, cudaStream_t stream) {
   const LbmPlan& p = *plan;
-  if (p.nz == 1 || p.nx > 65535 || p.ny > 65535) return cudaErrorInvalidValue;
+  if (p.nz != 1 && (p.nx > 65535 || p.ny > 65535)) return cudaErrorInvalidValue;
   if (p.two_lattice && (!gpc || !gout)) return cudaErrorInvalidValue;
 #define PROBE(Q)                                                                          \
   return p.two_lattice                                                                    \
              ? by_mode<Q, float, true>(mode, fpc, gpc, media, out, gout, p, stream)       \
              : by_mode<Q, float, false>(mode, fpc, gpc, media, out, gout, p, stream)
+  if (q == 9) PROBE(9);
   if (q == 19) PROBE(19);
   if (q == 27) PROBE(27);
 #undef PROBE
@@ -218,3 +224,4 @@ extern "C" cudaError_t probe_lbm_brick(int mode, int q, const void* fpc, const v
 #undef PROBE
   return cudaErrorInvalidValue;
 }
+

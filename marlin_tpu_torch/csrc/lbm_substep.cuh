@@ -1,8 +1,8 @@
 // The pieces of kernel 7 (csrc/lbm_substep.cu): the plan in constant memory,
 // the velocity sets, and the per-cell stream, face, moment and collision
-// steps that the flat and the brick kernels share (and that lbm_probe.cu
-// builds its stripped variants from).  The design notes are at the head of
-// lbm_substep.cu.
+// steps that the flat, the brick and the plane kernels share (and that
+// lbm_probe.cu builds its stripped variants from).  The design notes are at
+// the head of lbm_substep.cu.
 
 #pragma once
 
@@ -14,8 +14,6 @@
 #define LBM_MAX_FACES 8
 #define LBM_MAX_POST 8
 
-#define LBM_DENSITY_BLOCK 256
-#define LBM_MEAN_THREADS 1024
 
 struct LbmPost {
   int32_t kind;  // 0: Zou-He fixed-order, 1: zero-gradient
@@ -56,13 +54,15 @@ struct LbmCoef {
   T msm[2][LBM_MAX_Q * LBM_MAX_Q];  // MRT: M^-1 S' M per lattice, q x q
 };
 
-// The brick walk of a 3-D plan (lbm_fused.brick_plan), or by = 0 for the
-// flat kernel.
+// The brick walk of a 3-D plan (lbm_fused.brick_plan: by > 0), the
+// cooperative launch of a 2-D Smagorinsky plan (lbm_fused.plane_plan: by =
+// 0, grid > 0), or neither: the flat kernel.
 struct LbmBrick {
   int32_t by;       // rows of y a brick
   int32_t stages;   // bricks in flight a block
   int32_t threads;  // threads a block
   int32_t smem;     // dynamic shared memory a block, bytes (brick_layout)
+  int32_t grid;     // the plane kernel's blocks, every one resident
 };
 
 struct LbmPlan {

@@ -34,12 +34,15 @@ them ever falls back to the eager chain.
 ``fused_substep`` launches the CUDA kernel of ``csrc/lbm_substep.cu`` (the
 counterpart of pallas_lbm.py:224 ``_make_kernel``) on CUDA tensors and
 computes its plain twin ``fused_substep_twin`` on CPU tensors; a CUDA
-tensor never reaches the twin.  On 3-D plans whose rows suit the bulk
-copies the kernel walks bricks (``brick_plan`` chooses its rows a brick,
-stages and threads, packed into the plan); elsewhere it runs one thread a
-cell; both give the same bits.  A Smagorinsky plan first launches
-``density_mean``'s two reduction passes (the streamed density's mean, on
-the device, with no host sync).  Each wrapper counts its launches.
+tensor never reaches the twin.  ``substepper`` takes its checks and its
+packed arguments once, for the fused loop, which then makes one launch a
+substep.  3-D plans whose rows suit the bulk copies walk bricks
+(``brick_plan``); 2-D plans and the other 3-D extents run one thread a
+cell; all give the same bits.  A 2-D Smagorinsky plan computes the
+streamed density's mean inside the same launch (the plane kernel: one
+thread a cell on a cooperative launch with a grid-wide barrier, in
+``tree_mean``'s order; ``plane_plan`` sizes it).  The wrapper counts its
+launches, and of them those that computed the mean.
 
 Kernel, twin and the eager chain (computes/lbm.py, computes/lbm_bc.py) do
 the same operations in the same order, so ``PALLAS`` and ``JNP`` give the
@@ -525,8 +528,8 @@ def match_chain(problem) -> FusedLBMPlan:
     smag = None
     if collision is not None and type(collision) is L.LBMSmagorinskyCollision:
         # the per-cell τ needs the GLOBAL mean density inside the substep;
-        # the JAX package fuses it on 2-D decks only (the kernel's two
-        # reduction passes would take any grid)
+        # the JAX package fuses it on 2-D decks only, and so does the port:
+        # its plane kernel, which computes the mean, is a D2Q9 kernel
         if not two_d:
             _reject("Smagorinsky collisions fuse on 2-D decks only (the "
                     "global mean density needs the single-block kernel)")
@@ -856,7 +859,8 @@ def _coef(ct):
 
 class _Brick(ctypes.Structure):
     _fields_ = [("by", ctypes.c_int32), ("stages", ctypes.c_int32),
-                ("threads", ctypes.c_int32), ("smem", ctypes.c_int32)]
+                ("threads", ctypes.c_int32), ("smem", ctypes.c_int32),
+                ("grid", ctypes.c_int32)]
 
 
 class _Plan(ctypes.Structure):
@@ -876,25 +880,23 @@ class _Plan(ctypes.Structure):
 
 LIBRARY = uf.CudaLibrary("lbm_substep", {
     # fpc, gpc (or null), media (or null), the perturbed inlets' a(y) rows
-    # (or null), the mean density (or null), fpc_new, gpc_new (or null),
-    # speed; q, double?; the host plan; stream
-    "mtt_lbm_substep": [uf._P] * 8 + [ctypes.c_int] * 2 + [uf._P, uf._P],
-    # fpc, media (or null), a(y) rows (or null), partial sums, mean out; q,
-    # double?, 1/(nx·ny·nz); the host plan; stream
-    "mtt_lbm_density_mean": [uf._P] * 5 + [ctypes.c_int] * 2
-                            + [ctypes.c_double, uf._P, uf._P],
+    # (or null), the mean density (or null: read by the flat kernel,
+    # written by the plane kernel), the plane kernel's scratch (or null),
+    # fpc_new, gpc_new (or null), speed; q, double?; the host plan; stream
+    "mtt_lbm_substep": [uf._P] * 9 + [ctypes.c_int] * 2 + [uf._P, uf._P],
     # q; the compiled-in e (q·3) and op (q) tables out
     "mtt_lbm_tables": [ctypes.c_int, uf._P, uf._P],
     # the plan's size and field offsets out (int64[8])
     "mtt_lbm_plan_layout": [uf._P],
 }, source=os.path.join(uf.CSRC, "lbm_substep.cu"),
-    # no contraction (the eager chain's bits); the register report; the 24
-    # substep instantiations optimized on every core (-split-compile=0; a
+    # no contraction (the eager chain's bits); the register report; the 48
+    # kernel instantiations optimized on every core (-split-compile=0; a
     # third of the single-threaded build time, PERF.md)
     flags=["-fmad=false", "-Xptxas=-v", "-split-compile=0"])
 
 _SPEED_KIND = {"none": 0, "umag": 1, "t": 2}
-DENSITY_BLOCK = 256  # csrc/lbm_substep.cu LBM_DENSITY_BLOCK: cells a partial sum
+MEAN_CHUNK = 256  # csrc/lbm_substep.cu PLANE_CHUNK: cells a chunk sum of the mean
+MEAN_FINAL = 2048  # csrc/lbm_substep.cu PLANE_FINAL: chunk sums a block reads at most
 
 
 def _mask(dirs) -> int:
@@ -958,8 +960,22 @@ class BrickPlan:
     smem: int
 
 
+@dataclass(frozen=True)
+class PlanePlan:
+    """The cooperative launch of a 2-D Smagorinsky plan's plane kernel
+    (csrc/lbm_substep.cu ``lbm_plane_kernel``, packed as ``LbmBrick``'s
+    threads and grid): ``grid`` blocks of ``threads``, every one resident;
+    thread t takes cells t, t + grid·threads, ...  Each thread's first
+    cell keeps its streamed lattice in registers across the mean; the
+    others stream again."""
+
+    threads: int
+    grid: int
+
+
 SMEM_BLOCK = 232448  # 227 KB: the shared memory a block may have on an H100
 STAGE_BYTES = 20 * 1024  # a brick's stage aims at this size (lbm_probe.py)
+PLANE_THREADS = 256  # csrc/lbm_substep.cu kPlaneThreads
 
 
 def brick_threads(cfg: FusedLBMConfig) -> int:
@@ -1022,9 +1038,36 @@ def brick_plan(cfg: FusedLBMConfig, dtype, stage_bytes: int = STAGE_BYTES,
     return BrickPlan(by=by, stages=stages, threads=threads, smem=smem)
 
 
-def pack(cfg: FusedLBMConfig, brick: Optional[BrickPlan] = None) -> _Plan:
-    """The kernel's plan struct for ``cfg`` (with the brick walk ``brick``,
-    or none: the flat kernel); raises for what the kernel does not take."""
+def plane_blocks(cfg: FusedLBMConfig, itemsize: int) -> int:
+    """Plane blocks an SM (csrc/lbm_substep.cu ``kPlaneBlocks``): five in
+    float32 with one lattice, two otherwise."""
+    return 5 if itemsize == 4 and not cfg.two_lattice else 2
+
+
+def plane_plan(cfg: FusedLBMConfig, dtype, sms: int) -> Optional[PlanePlan]:
+    """The plane kernel's cooperative launch for a 2-D Smagorinsky plan on
+    a card of ``sms`` SMs (None for any other plan): a block for each
+    PLANE_THREADS cells, at most ``plane_blocks`` an SM, so that every
+    block is resident."""
+    if cfg.nz != 1 or cfg.smag is None:
+        return None
+    itemsize = torch.empty((), dtype=dtype).element_size()
+    cells = cfg.nx * cfg.ny
+    grid = min(-(-cells // PLANE_THREADS), sms * plane_blocks(cfg, itemsize))
+    return PlanePlan(threads=PLANE_THREADS, grid=grid)
+
+
+def walk_plan(cfg: FusedLBMConfig, dtype, sms: int):
+    """The walk the kernel takes for ``cfg``: the plane kernel's launch of
+    a 2-D Smagorinsky plan (``plane_plan``), the brick walk of a 3-D plan
+    (``brick_plan``), or None: the flat kernel."""
+    return plane_plan(cfg, dtype, sms) if cfg.nz == 1 else brick_plan(cfg, dtype)
+
+
+def pack(cfg: FusedLBMConfig, walk=None) -> _Plan:
+    """The kernel's plan struct for ``cfg`` with ``walk``: a BrickPlan (the
+    brick kernel), a PlanePlan (the plane kernel) or None (the flat
+    kernel); raises for what the kernel does not take."""
     q = cfg.q
     fc = cfg.force
     p = _Plan(nx=cfg.nx, ny=cfg.ny, nz=cfg.nz, two_lattice=int(cfg.two_lattice),
@@ -1035,9 +1078,11 @@ def pack(cfg: FusedLBMConfig, brick: Optional[BrickPlan] = None) -> _Plan:
               force_dir=fc.direction if fc is not None else 0,
               guo=int(fc is not None and bool(fc.apply_tau)),
               two_d=int(cfg.two_d), smag=int(cfg.smag is not None))
-    if brick is not None:
-        p.brick.by, p.brick.stages = brick.by, brick.stages
-        p.brick.threads, p.brick.smem = brick.threads, brick.smem
+    if isinstance(walk, PlanePlan):
+        p.brick.threads, p.brick.grid = walk.threads, walk.grid
+    elif walk is not None:
+        p.brick.by, p.brick.stages = walk.by, walk.stages
+        p.brick.threads, p.brick.smem = walk.threads, walk.smem
     p.mrt[:] = [int(cfg.msm is not None), int(cfg.msm2 is not None)]
     p.proj[:] = [int(cfg.proj), int(cfg.proj2)]
     # 2-D: the velocity has no z component, so no z body force either
@@ -1124,10 +1169,11 @@ def _check_inputs(fpc_qm, media, cfg: FusedLBMConfig, what):
 
 
 def _kernel_args(fpc_qm, media, cfg: FusedLBMConfig, gpc_qm, what):
-    """Contiguity, then the packed plan (with ``brick_plan``'s walk) and the
-    perturbed inlets' a(y) rows (one (n, ny) tensor, or None) for a launch:
-    built once per plan, dtype and device (packing takes ~0.1 ms of host
-    time, longer than a 2-D launch at its shipped size)."""
+    """Contiguity, then the packed plan (with ``walk_plan``'s walk for the
+    tensor's card) and the perturbed inlets' a(y) rows (one (n, ny)
+    tensor, or None) for a launch: built once per plan, dtype and device
+    (packing takes ~0.1 ms of host time, longer than a 2-D launch at its
+    shipped size)."""
     if not fpc_qm.is_contiguous() or (media is not None and not media.is_contiguous()) \
             or (gpc_qm is not None and not gpc_qm.is_contiguous()):
         raise ValueError(f"{what}: inputs must be contiguous")
@@ -1135,41 +1181,19 @@ def _kernel_args(fpc_qm, media, cfg: FusedLBMConfig, gpc_qm, what):
     args = _KERNEL_ARGS.get(key)
     if args is None:
         _check_tables(cfg)
+        dev = fpc_qm.device
         perturbed = _perturbed(cfg)
         avec = None
         if perturbed:
-            avec = torch.stack([perturb_profile(bc, cfg.ny, fpc_qm.dtype, fpc_qm.device)
+            avec = torch.stack([perturb_profile(bc, cfg.ny, fpc_qm.dtype, dev)
                                 for bc in perturbed]).contiguous()
-        args = _KERNEL_ARGS[key] = (pack(cfg, brick_plan(cfg, fpc_qm.dtype)), avec)
+        walk = walk_plan(cfg, fpc_qm.dtype,
+                         torch.cuda.get_device_properties(dev).multi_processor_count)
+        args = _KERNEL_ARGS[key] = (pack(cfg, walk), avec)
     return args
 
 
 _KERNEL_ARGS: Dict[tuple, tuple] = {}
-
-
-def density_mean(fpc_qm: torch.Tensor, media: Optional[torch.Tensor],
-                 cfg: FusedLBMConfig) -> torch.Tensor:
-    """The mean over the grid of the streamed density (fluid lattice, after
-    its faces), a 0-d tensor on the distribution's device: on a CUDA tensor
-    two launches of csrc/lbm_substep.cu (a partial tree sum a block of
-    DENSITY_BLOCK cells, then one block over the partials, both in
-    ``tree_mean``'s pairs), with no host sync; on a CPU tensor
-    ``density_mean_twin``.  Part of the port of pallas_lbm.py:224
-    ``_make_kernel`` (the mean of its ``smag_inv_tau``, :687)."""
-    _check_inputs(fpc_qm, media, cfg, "density_mean")
-    if not uf._launch_kernel(fpc_qm, "density_mean"):
-        return density_mean_twin(fpc_qm, media, cfg)
-    plan, avec = _kernel_args(fpc_qm, media, cfg, None, "density_mean")
-    cells = cfg.nx * cfg.ny * cfg.nz
-    partial = torch.empty(-(-cells // DENSITY_BLOCK), dtype=fpc_qm.dtype,
-                          device=fpc_qm.device)
-    mean = torch.empty((), dtype=fpc_qm.dtype, device=fpc_qm.device)
-    uf._launch(LIBRARY.load().mtt_lbm_density_mean, uf._ptr(fpc_qm), uf._ptr(media),
-               uf._ptr(avec), uf._ptr(partial), uf._ptr(mean), cfg.q,
-               int(fpc_qm.dtype == torch.float64), 1.0 / cells, ctypes.addressof(plan),
-               device=fpc_qm.device, name="density_mean")
-    density_mean.launches += 2
-    return mean
 
 
 def fused_substep(fpc_qm: torch.Tensor, media: Optional[torch.Tensor],
@@ -1178,9 +1202,21 @@ def fused_substep(fpc_qm: torch.Tensor, media: Optional[torch.Tensor],
     distribution (and on two-lattice plans the second lattice's,
     ``gpc_qm``); ``media`` is the (nx, ny, nz) int8 media code
     (TensorProblem.lbm_media) or None.  Returns (fpc_new_qm, speed), or
-    (fpc_new_qm, gpc_new_qm, speed) on two-lattice plans.  A Smagorinsky
-    plan first takes ``density_mean``.  Replaces pallas_lbm.py:224
-    ``_make_kernel`` (via ``fused_substep``)."""
+    (fpc_new_qm, gpc_new_qm, speed) on two-lattice plans.  One launch of
+    csrc/lbm_substep.cu (a Smagorinsky plan's mean density computed inside
+    it) on CUDA tensors, ``fused_substep_twin`` on CPU tensors.  Replaces
+    pallas_lbm.py:224 ``_make_kernel`` (via ``fused_substep``)."""
+    return substepper(fpc_qm, media, cfg, gpc_qm)(fpc_qm, gpc_qm)
+
+
+def substepper(fpc_qm: torch.Tensor, media: Optional[torch.Tensor],
+               cfg: FusedLBMConfig, gpc_qm: Optional[torch.Tensor] = None):
+    """``fused_substep`` with its checks and its packed arguments taken
+    once, for a loop: returns ``step(fpc_qm, gpc_qm=None)``, one substep of
+    distributions like these (the same shape, dtype and device; each
+    step's outputs are the next one's inputs), one kernel launch a call on
+    CUDA tensors and no other host work than its three output allocations
+    (``plan_stepper``)."""
     _check_inputs(fpc_qm, media, cfg, "fused_substep")
     if cfg.two_lattice != (gpc_qm is not None):
         raise ValueError("fused_substep: gpc must be given exactly when the plan "
@@ -1189,41 +1225,77 @@ def fused_substep(fpc_qm: torch.Tensor, media: Optional[torch.Tensor],
                                or gpc_qm.device != fpc_qm.device):
         raise TypeError("fused_substep: gpc must match fpc's shape, dtype and device")
     if not uf._launch_kernel(fpc_qm, "fused_substep"):
-        return fused_substep_twin(fpc_qm, media, cfg, gpc_qm)
-    mean = density_mean(fpc_qm, media, cfg) if cfg.smag is not None else None
+        return lambda f, g=None: fused_substep_twin(f, media, cfg, g)
     plan, avec = _kernel_args(fpc_qm, media, cfg, gpc_qm, "fused_substep")
-    got = launch_substep(fpc_qm, media, cfg, gpc_qm, plan, avec, mean)
-    fused_substep.launches += 1
-    return got
+    return plan_stepper(fpc_qm, media, cfg, gpc_qm, plan, avec)
 
 
-def launch_substep(fpc_qm, media, cfg: FusedLBMConfig, gpc_qm, plan: "_Plan", avec=None,
-                   mean=None):
-    """One launch of ``mtt_lbm_substep`` with a packed ``plan`` (its brick
-    fields choose the brick or the flat kernel) on checked CUDA inputs;
-    returns what ``fused_substep`` returns.  ``fused_substep`` is the entry
-    point; ``lbm_probe`` calls this with a plan of its own."""
-    out = torch.empty_like(fpc_qm)
-    gout = torch.empty_like(gpc_qm) if gpc_qm is not None else None
-    speed = torch.empty(fpc_qm.shape[1:], dtype=fpc_qm.dtype, device=fpc_qm.device)
-    uf._launch(LIBRARY.load().mtt_lbm_substep, uf._ptr(fpc_qm), uf._ptr(gpc_qm),
-               uf._ptr(media), uf._ptr(avec), uf._ptr(mean), uf._ptr(out),
-               uf._ptr(gout), uf._ptr(speed), cfg.q, int(fpc_qm.dtype == torch.float64),
-               ctypes.addressof(plan), device=fpc_qm.device, name="fused_substep")
-    if gout is None:
-        return out, speed
-    return out, gout, speed
+def plan_stepper(fpc_qm, media, cfg: FusedLBMConfig, gpc_qm, plan: "_Plan", avec=None):
+    """The one launch of ``mtt_lbm_substep`` that every caller makes:
+    returns ``step(f, g=None, mean=None)`` for CUDA distributions like
+    ``fpc_qm`` (and ``gpc_qm``) on a packed ``plan`` (its walk chooses the
+    plane, brick or flat kernel) with ``_kernel_args``'s ``avec``, the
+    plane kernel's scratch (``_plane_scratch``) allocated here, once.  A
+    plane plan writes the mean density it used into ``mean`` (a 0-d
+    tensor) where given; the flat kernel of a Smagorinsky plan reads it
+    from there.  ``substepper`` builds it on the plan of ``walk_plan``;
+    ``lbm_probe``, the card tests and ``chip_smoke.py`` on plans of their
+    own."""
+    fn = LIBRARY.load().mtt_lbm_substep
+    shape, dtype, device = fpc_qm.shape, fpc_qm.dtype, fpc_qm.device
+    plane = plan.brick.grid > 0
+    scratch = _plane_scratch(cfg, fpc_qm) if plane else None
+    const = (uf._ptr(media), uf._ptr(avec))
+    tail = (cfg.q, int(dtype == torch.float64), ctypes.addressof(plan))
+    ptr_scratch = uf._ptr(scratch)
+
+    def step(f, g=None, mean=None):
+        if f.shape != shape or f.dtype != dtype or f.device != device \
+                or not f.is_contiguous() or (g is None) != (gpc_qm is None):
+            raise ValueError("fused_substep: a step takes distributions like the "
+                             "substepper's")
+        out = torch.empty_like(f)
+        gout = None if g is None else torch.empty_like(g)
+        speed = torch.empty(shape[1:], dtype=dtype, device=device)
+        args = (f.data_ptr(), None if g is None else g.data_ptr(), *const, uf._ptr(mean),
+                ptr_scratch, out.data_ptr(), None if gout is None else gout.data_ptr(),
+                speed.data_ptr(), *tail)
+        if torch.cuda.current_device() == device.index:
+            err = fn(*args, torch.cuda.current_stream().cuda_stream)
+        else:
+            with torch.cuda.device(device):
+                err = fn(*args, torch.cuda.current_stream().cuda_stream)
+        if err != 0:
+            raise uf.KernelLaunchError(f"fused_substep: CUDA error {err}")
+        fused_substep.launches += 1
+        fused_substep.means += plane
+        return (out, speed) if gout is None else (out, gout, speed)
+
+    step.holds = (plan, media, avec, scratch)  # what its pointers point to
+    return step
 
 
-fused_substep.launches = 0
-density_mean.launches = 0
+def _plane_scratch(cfg: FusedLBMConfig, like: torch.Tensor) -> torch.Tensor:
+    """The plane kernel's scratch: a streamed density a cell, the sum over
+    each aligned chunk of MEAN_CHUNK cells, and the sums of those in
+    aligned runs of MEAN_CHUNK."""
+    cells = cfg.nx * cfg.ny * cfg.nz
+    chunks = -(-cells // MEAN_CHUNK)
+    return torch.empty(cells + chunks + -(-chunks // MEAN_CHUNK), dtype=like.dtype,
+                       device=like.device)
+
+
+fused_substep.launches = 0  # kernel 7's launches
+fused_substep.means = 0  # of them, plane launches: each computed the Smagorinsky mean (7')
 
 
 def reset_launches():
     fused_substep.launches = 0
-    density_mean.launches = 0
+    fused_substep.means = 0
 
 
 def launches() -> Dict[str, int]:
+    """Kernel 7's launches, and those of them inside which the Smagorinsky
+    mean density (7') was computed."""
     return {"lbm_substep": fused_substep.launches,
-            "lbm_density_mean": density_mean.launches}
+            "lbm_density_mean": fused_substep.means}

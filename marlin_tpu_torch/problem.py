@@ -573,8 +573,10 @@ class TensorProblem:
         fpc_qm = q_major(plan.fpc)
         gpc_qm = q_major(plan.fpc2) if cfg.two_lattice else None
         media = self.lbm_media() if cfg.has_media else None
+        # checks and packed arguments once; then one launch a substep
+        step = lbm_fused.substepper(fpc_qm, media, cfg, gpc_qm)
         for _ in range(n_fused):
-            out = lbm_fused.fused_substep(fpc_qm, media, cfg, gpc_qm)
+            out = step(fpc_qm, gpc_qm)
             if cfg.two_lattice:
                 fpc_qm, gpc_qm, speed = out
             else:

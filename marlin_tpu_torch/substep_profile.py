@@ -19,7 +19,10 @@ problem construction and ``init_state``, warms up with one step (two for
 LBM, whose first step runs no substeps), then traces one more step with
 ``torch.profiler``: device time by kernel name, split into the hand
 kernels and the rest, the step's wall time and the share of it in which
-the device ran no kernel.  Prints one line per finding; needs a CUDA card.
+the device ran no kernel.  On ``lbm_backend = PALLAS`` it then traces the
+fused loop alone (the substeps but the last of one step) and counts its
+kernel launches by name and its host-to-device copies.  Prints one line
+per finding; needs a CUDA card.
 """
 
 from __future__ import annotations
@@ -42,6 +45,7 @@ LBM_SUBSTEPS = 20
 KARMAN = (800, 200)
 KARMAN_SUBSTEPS = 100
 TOP = 12
+LBM_KERNELS = ("lbm_substep_kernel", "lbm_brick_kernel", "lbm_plane_kernel")
 
 
 def main(argv=None) -> int:
@@ -125,10 +129,9 @@ def main(argv=None) -> int:
     # fused update kernel is the forward sublanes kernel with an epilogue,
     # so it counts)
     if problem.is_lbm:
-        what = "LBM substep and density-mean kernels"
+        what = "LBM substep kernels"
         hand_us = sum(e.self_device_time_total for e in kernels
-                      if any(k in e.key for k in ("lbm_substep_kernel", "lbm_brick_kernel",
-                                                  "lbm_density_kernel", "lbm_mean_kernel")))
+                      if any(k in e.key for k in LBM_KERNELS))
     else:
         what = "FFT kernels"
         hand_us = sum(e.self_device_time_total for e in kernels
@@ -144,7 +147,30 @@ def main(argv=None) -> int:
                     reverse=True)[:TOP]:
         print(f"[profile]   {e.self_device_time_total / 1e3:9.3f} ms  "
               f"x{e.count:<4d} {e.key[:90]}")
+    if problem.is_lbm and ns.lbm_backend == "PALLAS":
+        fused_loop(problem, state, acts)
     return 0
+
+
+def fused_loop(problem, state, acts):
+    """Trace the fused loop of one step alone (``_lbm_fused_substeps``, the
+    substeps but the last) and count, on the device, each kernel's
+    launches and the host-to-device copies."""
+    with torch.profiler.profile(activities=acts) as prof:
+        problem._lbm_fused_substeps(state)
+        torch.cuda.synchronize()
+    events = [e for e in prof.key_averages()
+              if e.device_type == torch.autograd.DeviceType.CUDA]
+    n = problem.lbm_substeps - 1
+    copies = sum(e.count for e in events if "HtoD" in e.key)
+    launches = {e.key: e.count for e in events if "Memcpy" not in e.key
+                and "Memset" not in e.key}
+    lbm = sum(c for k, c in launches.items() if any(x in k for x in LBM_KERNELS))
+    print(f"[profile] fused loop ({n} substeps): {lbm} LBM kernel launches "
+          f"({lbm / n:.2f} a substep), {sum(launches.values())} kernel launches in all, "
+          f"{copies} host-to-device copies ({copies / n:.2f} a substep)", flush=True)
+    for k, c in sorted(launches.items(), key=lambda kc: -kc[1]):
+        print(f"[profile]   x{c:<5d} {k[:90]}", flush=True)
 
 
 if __name__ == "__main__":

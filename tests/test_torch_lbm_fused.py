@@ -26,6 +26,7 @@ package is imported inside a fixture, so they run where there is no jax
 (nor h5py: the port takes the media as arrays).
 """
 
+import ctypes
 import dataclasses
 from types import SimpleNamespace
 
@@ -465,13 +466,21 @@ def test_pallas_is_jnp_bit_for_bit(case, precision):
 
 def test_fused_loop_runs_all_but_the_last_substep(tmp_path, monkeypatch):
     """(steps − 1)·(substeps − 1) fused substeps: none in the first MOOSE
-    step, and the last substep of each step is the eager chain's."""
-    calls = []
-    orig = lf.fused_substep
-    monkeypatch.setattr(lf, "fused_substep", lambda *a: calls.append(1) or orig(*a))
+    step, and the last substep of each step is the eager chain's; the loop
+    takes its substep wrapper once a step."""
+    calls, steppers = [], []
+    orig = lf.substepper
+
+    def counted(*a):
+        steppers.append(1)
+        step = orig(*a)
+        return lambda *b: calls.append(1) or step(*b)
+
+    monkeypatch.setattr(lf, "substepper", counted)
     text = decks.MIXED_DECK.format(n=6, substeps=5, backend="PALLAS")
     s = run_port(text, steps=4)
     assert len(calls) == 3 * 4
+    assert len(steppers) == 3
     assert s["n_advances"] == 3 * 5 + 3
     assert s["buffers"]["fpc"].shape == (6, 6, 6, 19)
 
@@ -1064,10 +1073,184 @@ def test_brick_plan_fits_or_is_none(case, extent, dtype):
         assert (walk.by + 1) * lattices * cfg.q * cfg.nz * item > lf.STAGE_BYTES
 
 
+# -- the plane kernel of 2-D Smagorinsky plans -------------------------------------------
+
+PLANE_EXTENTS = [(33, 17), (1000, 333), (800, 200), (4096, 2048)]
+H100_SMS = 132  # the card the chooser's shapes are checked for
+
+
+@pytest.mark.parametrize("dtype", DTYPES, ids=["f32", "f64"])
+@pytest.mark.parametrize("extent", PLANE_EXTENTS, ids=lambda e: "x".join(map(str, e)))
+@pytest.mark.parametrize("case", PLAN_CASES_2D)
+def test_plane_walk_covers_every_cell_once(case, extent, dtype):
+    """A mirror of the 2-D walk: the plane kernel's thread t (t = block ·
+    threads + lane, of grid · threads) takes cells t, t + grid·threads,
+    ..., each (x, y) = (i / ny, i mod ny) at flattened index x·ny + y, so
+    every cell once; its first cell, held in registers across the mean, is
+    min(cells, grid · threads) cells in all, and at 800×200 in float32
+    every cell on an H100 (its resident threads outnumber them).  A plan
+    without the Smagorinsky mean takes the flat kernel, one thread a
+    cell."""
+    cfg = dataclasses.replace(plan_config(case), nx=extent[0], ny=extent[1])
+    walk = lf.plane_plan(cfg, dtype, H100_SMS)
+    cells = cfg.nx * cfg.ny
+    i = np.arange(cells)
+    if cfg.smag is None:
+        assert walk is None and lf.walk_plan(cfg, dtype, H100_SMS) is None
+        held = cells  # the flat kernel: a thread a cell
+    else:
+        step = walk.grid * walk.threads
+        # thread i mod step takes cell i as its (i / step)-th: the threads'
+        # first cells are 0 .. min(cells, step) - 1, each once
+        firsts = i[i // step == 0]
+        assert np.array_equal(firsts % step, np.arange(min(cells, step)))
+        held = len(firsts)
+        assert held == min(cells, step)
+    x, y = i // cfg.ny, i % cfg.ny
+    seen = np.zeros((cfg.nx, cfg.ny), np.int64)
+    np.add.at(seen, (x, y), 1)
+    assert (seen == 1).all() and np.array_equal(x * cfg.ny + y, i)
+    if extent == (800, 200) and dtype == torch.float32:
+        assert held == cells
+
+
+@pytest.mark.parametrize("dtype", DTYPES, ids=["f32", "f64"])
+@pytest.mark.parametrize("extent", PLANE_EXTENTS, ids=lambda e: "x".join(map(str, e)))
+@pytest.mark.parametrize("case", PLAN_CASES_2D)
+def test_plane_pull_sources_wrap(case, extent, dtype):
+    """A mirror of the flat map's pull (csrc/lbm_substep.cuh stream_cell on
+    a 2-D plan, in both kernels that run it): direction q of cell (x, y)
+    reads flattened index Around(x).v[1 - e_x]·ny + Around(y).v[1 - e_y],
+    which is ((x - e_x) mod nx, (y - e_y) mod ny), wrapped in x and in y;
+    the obstacle test reads the media byte at the same index, and the
+    element offset q·nx·ny + index stays within 32-bit indices."""
+    cfg = dataclasses.replace(plan_config(case), nx=extent[0], ny=extent[1])
+    nx, ny = cfg.nx, cfg.ny
+    item = torch.empty((), dtype=dtype).element_size()
+    assert (cfg.q * nx * ny - 1) < 2 ** 31 and cfg.q * nx * ny * item > 0
+    # every y of the rows at both x ends (where x wraps) and one between
+    rows = np.unique([0, 1, nx // 2, nx - 2, nx - 1])
+    x, y = np.meshgrid(rows, np.arange(ny), indexing="ij")
+    xs = np.stack([_wrap(x, -1, nx), x, _wrap(x, 1, nx)])  # Around(x).v
+    ys = np.stack([_wrap(y, -1, ny), y, _wrap(y, 1, ny)])
+    wrapped = 0
+    for ex, ey, _ez in cfg.e:
+        src = xs[1 - ex] * ny + ys[1 - ey]
+        assert np.array_equal(src, ((x - ex) % nx) * ny + (y - ey) % ny)
+        wrapped += int(((x - ex) % nx != x - ex).sum() + ((y - ey) % ny != y - ey).sum())
+    assert wrapped > 0
+
+
+PLANE_FIT = PLANE_EXTENTS + [(1, 1), (7, 9), (500, 500)]
+
+
+@pytest.mark.parametrize("dtype", DTYPES, ids=["f32", "f64"])
+@pytest.mark.parametrize("extent", PLANE_FIT, ids=lambda e: "x".join(map(str, e)))
+@pytest.mark.parametrize("case", PLAN_CASES_2D + ["mixed_8"])
+def test_plane_plan_fits_or_is_none(case, extent, dtype):
+    """``plane_plan`` gives the plane kernel's launch to 2-D Smagorinsky
+    plans only (None elsewhere: the flat kernel, or on 3-D plans
+    ``brick_plan``'s walk): a block of PLANE_THREADS for each as many
+    cells, at most ``plane_blocks`` an SM of the card's (an H100's 132
+    here), so that every block of the cooperative launch is resident.
+    Kármán at its shipped 800×200 (media rows of 200 bytes) in float32
+    takes 625 blocks, a thread a cell."""
+    base = plan_config(case)
+    nz = 1 if base.two_d else 8
+    cfg = dataclasses.replace(base, nx=extent[0], ny=extent[1], nz=nz)
+    item = torch.empty((), dtype=dtype).element_size()
+    walk = lf.plane_plan(cfg, dtype, H100_SMS)
+    if not cfg.two_d or cfg.smag is None:
+        assert walk is None
+        if cfg.two_d:
+            assert lf.walk_plan(cfg, dtype, H100_SMS) is None
+        return
+    blocks = lf.plane_blocks(cfg, item)
+    assert blocks == (5 if item == 4 and not cfg.two_lattice else 2)
+    cells = cfg.nx * cfg.ny
+    assert walk.threads == lf.PLANE_THREADS == 256
+    assert walk.grid == min(-(-cells // 256), H100_SMS * blocks) >= 1
+    assert lf.walk_plan(cfg, dtype, H100_SMS) == walk
+    assert lf.plane_plan(cfg, dtype, sms=2).grid == min(-(-cells // 256), 2 * blocks)
+    if extent == (800, 200) and item == 4:
+        assert walk.grid == 625 and walk.grid * walk.threads == cells
+
+
+@pytest.mark.parametrize("case", PLAN_CASES_2D)
+def test_plane_plan_packs(case):
+    """The packed plan of each walk (``LbmBrick``): the plane kernel's
+    threads and grid (no brick rows), zeros for the flat kernel, and a 3-D
+    brick walk with no grid; the ctypes mirror's layout."""
+    cfg = dataclasses.replace(plan_config(case), nx=800, ny=200)
+    walk = lf.walk_plan(cfg, torch.float32, H100_SMS)
+    b = lf.pack(cfg, walk).brick
+    if cfg.smag is not None:
+        assert (b.by, b.stages, b.threads, b.smem, b.grid) == (0, 0, 256, 0, walk.grid)
+    else:
+        assert walk is None and (b.by, b.stages, b.threads, b.smem, b.grid) == (0, 0, 0, 0, 0)
+    assert lf._Brick.grid.offset == 16 and ctypes.sizeof(lf._Brick) == 20
+    big = dataclasses.replace(plan_config("mixed_8"), nx=64, ny=64, nz=64)
+    b3 = lf.pack(big, lf.walk_plan(big, torch.float32, H100_SMS)).brick
+    assert b3.by > 0 and b3.grid == 0
+
+
+def _pairs(v):
+    """Rows of v summed in adjacent pairs, level by level (a perfect tree
+    a row)."""
+    while v.shape[-1] > 1:
+        v = v[..., 0::2] + v[..., 1::2]
+    return v[..., 0]
+
+
+def _tree_of(v):
+    """csrc/lbm_substep.cu ``tree_of``: m values zero-padded to 256 runs of
+    a power of two, each run as a binary counter carries (a perfect tree),
+    then the 256 run sums in adjacent pairs."""
+    m = v.numel()
+    m2 = 1 << (m - 1).bit_length()
+    run = m2 // 256 if m2 > 256 else 1
+    return _pairs(_pairs(torch.cat([v, v.new_zeros(256 * run - m)]).reshape(256, run)))
+
+
+def _chunk_mean(rho):
+    """A mirror of the plane kernel's mean in torch ops: each aligned chunk
+    of 256 cells summed in adjacent pairs (the block's warps, then its
+    eight warp sums); above MEAN_FINAL chunk sums, their aligned runs of
+    256 summed the same way; then ``_tree_of`` the sums, times 1/n."""
+    n = rho.numel()
+    c = lf.MEAN_CHUNK
+
+    def chunks(v):
+        m = -(-v.numel() // c)
+        return _pairs(torch.cat([v, v.new_zeros(m * c - v.numel())]).reshape(m, c))
+
+    sums = chunks(rho)
+    if sums.numel() > lf.MEAN_FINAL:
+        sums = chunks(sums)
+    return _tree_of(sums) * (1.0 / n)
+
+
+@pytest.mark.parametrize("dtype", DTYPES, ids=["f32", "f64"])
+@pytest.mark.parametrize("nx,ny", PLANE_EXTENTS + [(1, 1), (7, 9), (257, 1), (300, 301),
+                                                   (129, 512), (1025, 512)])
+def test_chunk_mean_is_tree_mean(nx, ny, dtype):
+    """The plane kernel's order of the Smagorinsky mean equals ``tree_mean``
+    (the eager chain's and the twin's) bit for bit: every chunk and every
+    run is an aligned power-of-two subtree, and zeros added are exact
+    (odd extents, one chunk, 257 chunks, runs of two to eight, a second
+    level of 9 and of 128 sums)."""
+    from marlin_tpu_torch.computes.lbm import tree_mean
+
+    rho = torch.from_numpy(np.random.RandomState(nx * 7 + ny).uniform(
+        0.5, 1.5, (nx, ny, 1))).to(dtype)
+    assert torch.equal(_chunk_mean(rho.reshape(-1)), tree_mean(rho))
+
+
 # -- on the card -------------------------------------------------------------------------
 
 
 CARD_EXTENTS = [(33, 17, 20), (40, 24, 36), (64, 64, 64)]
+CARD_EXTENTS_2D = [(33, 17, 1), (800, 200, 1), (1000, 333, 1)]
 
 
 def _card_inputs(cfg, dtype, device, seed):
@@ -1099,29 +1282,36 @@ def test_kernel_matches_twin_on_card(cuda, case, dtype):
     """The CUDA kernel against its twin on the card, at 33×17×20, 40×24×36
     and 64³ (extents whose rows, bricks and wrapped source rows straddle
     the brick kernel's edges; the brick kernel runs where ``brick_plan``
-    gives a walk, the flat one elsewhere) and at 33×17×1 for 2-D plans:
-    the same operations in the same order, so equal bit for bit (NaN where
+    gives a walk, the flat one elsewhere) and for 2-D plans at 33×17,
+    800×200 and 1000×333 (the flat kernel, and the plane kernel on
+    Smagorinsky plans): the same operations in the same order, so equal
+    bit for bit (NaN where
     both give it: random media can leave a fluid face cell that copies a
-    solid inner neighbour with no mass).  A Smagorinsky plan also takes
-    its two density-mean launches, equal to the twin's mean."""
+    solid inner neighbour with no mass).  One launch a substep; a
+    Smagorinsky plan computes its mean density inside it, and the mean it
+    writes equals the twin's."""
     base = port_plan(case).config
-    for shape in [(33, 17, 1)] if base.two_d else CARD_EXTENTS:
+    for shape in CARD_EXTENTS_2D if base.two_d else CARD_EXTENTS:
         cfg = dataclasses.replace(base, nx=shape[0], ny=shape[1], nz=shape[2])
         fpc, gpc, media = _card_inputs(cfg, dtype, cuda, 5)
         before = lf.launches()
         got = lf.fused_substep(fpc, media, cfg, gpc)
         torch.cuda.synchronize()
-        smag = 2 if cfg.smag is not None else 0
+        smag = int(cfg.smag is not None)
         assert lf.launches() == {"lbm_substep": before["lbm_substep"] + 1,
                                  "lbm_density_mean": before["lbm_density_mean"] + smag}
-        if smag:
-            torch.testing.assert_close(lf.density_mean(fpc, media, cfg),
-                                       lf.density_mean_twin(fpc, media, cfg), rtol=0,
-                                       atol=0)
         ref = lf.fused_substep_twin(fpc, media, cfg, gpc)
         assert len(got) == len(ref)
         for g, r in zip(got, ref):
             torch.testing.assert_close(g, r, rtol=0, atol=0, equal_nan=True)
+        if smag:
+            mean = torch.full((), float("nan"), dtype=dtype, device=cuda)
+            again = lf.substepper(fpc, media, cfg, gpc)(fpc, gpc, mean)
+            torch.cuda.synchronize()
+            torch.testing.assert_close(mean, lf.density_mean_twin(fpc, media, cfg), rtol=0,
+                                       atol=0)
+            for g, r in zip(again, ref):
+                torch.testing.assert_close(g, r, rtol=0, atol=0, equal_nan=True)
 
 
 @pytest.mark.cuda
@@ -1133,13 +1323,68 @@ def test_brick_matches_flat_on_card(cuda, case, dtype):
     cfg = dataclasses.replace(port_plan(case).config, nx=64, ny=64, nz=64)
     fpc, gpc, media = _card_inputs(cfg, dtype, cuda, 7)
     _plan, avec = lf._kernel_args(fpc, media, cfg, gpc, "test")
-    ref = lf.launch_substep(fpc, media, cfg, gpc, lf.pack(cfg), avec)
+    ref = lf.plan_stepper(fpc, media, cfg, gpc, lf.pack(cfg), avec)(fpc, gpc)
     walks = [lf.brick_plan(cfg, dtype), lf.brick_plan(cfg, dtype, stages=2),
              lf.brick_plan(cfg, dtype, stage_bytes=lf.STAGE_BYTES // 4, threads=96)]
     assert all(w is not None for w in walks)
     for walk in walks:
-        got = lf.launch_substep(fpc, media, cfg, gpc, lf.pack(cfg, walk), avec)
+        got = lf.plan_stepper(fpc, media, cfg, gpc, lf.pack(cfg, walk), avec)(fpc, gpc)
         torch.cuda.synchronize()
+        for g, r in zip(got, ref):
+            torch.testing.assert_close(g, r, rtol=0, atol=0, equal_nan=True)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+@pytest.mark.parametrize("extent", [(33, 17), (800, 200), (1000, 333), (1025, 512)],
+                         ids=lambda e: "x".join(map(str, e)))
+def test_plane_kernel_matches_flat_on_card(cuda, extent, dtype):
+    """The plane kernel (Kármán's Smagorinsky plan) on its own grid, on 37
+    blocks (most cells streamed again after the mean) and on one, gives
+    the flat kernel's bits, the flat kernel reading the twin's mean; the
+    mean it writes equals the twin's on every grid (at 1025×512, 2050
+    chunk sums, behind the second barrier)."""
+    cfg = dataclasses.replace(port_plan("karman").config, nx=extent[0], ny=extent[1])
+    fpc, gpc, media = _card_inputs(cfg, dtype, cuda, 7)
+    _plan, avec = lf._kernel_args(fpc, media, cfg, gpc, "test")
+    twin_mean = lf.density_mean_twin(fpc, media, cfg)
+    ref = lf.plan_stepper(fpc, media, cfg, gpc, lf.pack(cfg), avec)(fpc, gpc, twin_mean)
+    chosen = lf.plane_plan(cfg, dtype, torch.cuda.get_device_properties(cuda).multi_processor_count)
+    for walk in (chosen, dataclasses.replace(chosen, grid=min(37, chosen.grid)),
+                 dataclasses.replace(chosen, grid=1)):
+        mean = torch.full((), float("nan"), dtype=dtype, device=cuda)
+        got = lf.plan_stepper(fpc, media, cfg, gpc, lf.pack(cfg, walk), avec)(fpc, gpc, mean)
+        torch.cuda.synchronize()
+        for g, r in zip(got, ref):
+            torch.testing.assert_close(g, r, rtol=0, atol=0, equal_nan=True)
+        torch.testing.assert_close(mean, twin_mean, rtol=0, atol=0)
+
+
+@pytest.mark.cuda
+def test_graph_replay_never_runs_a_stale_plan(cuda):
+    """The plan sits in constant memory, copied only when it changes on a
+    live stream.  A substep captured into a CUDA graph carries its own
+    copy, and after a capture every launch copies: a replay that rewrites
+    the plan between two launches of another plan leaves both right.
+    Kármán's plane plan is captured; the channel's flat plan runs before
+    and after its replay; each equals its twin bit for bit."""
+    a = dataclasses.replace(port_plan("karman").config, nx=64, ny=32)
+    b = dataclasses.replace(port_plan("channel2d").config, nx=64, ny=32)
+    fa, _ga, ma = _card_inputs(a, torch.float32, cuda, 3)
+    fb, _gb, mb = _card_inputs(b, torch.float32, cuda, 4)
+    ref_a = lf.fused_substep_twin(fa, ma, a)
+    ref_b = lf.fused_substep_twin(fb, mb, b)
+    step_a, step_b = lf.substepper(fa, ma, a), lf.substepper(fb, mb, b)
+    step_a(fa), step_b(fb)
+    torch.cuda.synchronize()
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        captured = step_a(fa)
+    runs = [(step_b(fb), ref_b)]
+    graph.replay()
+    runs += [(step_b(fb), ref_b), (captured, ref_a), (step_a(fa), ref_a)]
+    torch.cuda.synchronize()
+    for got, ref in runs:
         for g, r in zip(got, ref):
             torch.testing.assert_close(g, r, rtol=0, atol=0, equal_nan=True)
 
