@@ -11,11 +11,15 @@ Phases, one line each, flushed as they finish:
    library of the 3-D Cahn-Hilliard µ fused into the forward lanes read,
    one nvcc each, all started together, with ptxas's registers and spills
    of every FFT and LBM kernel, forward and inverse (and the register FFT
-   kernels' shared memory), the LBM substep's flat and brick kernels;
+   kernels' shared memory), the LBM substep's flat and brick kernels.  The
+   LBM substep library, the slowest to build, builds while phase 2's
+   spectral rows and phases 3-6 run; its report and phase 2's LBM rows
+   follow phase 6.  A ``[time]`` line closes each group of phases;
 2. kernels: each kernel at its 512³ main-path shapes (and at n = 64, 200,
-   384) against its plain PyTorch twin, max error ≤ 1e-5 of the twin's
-   largest magnitude; kernel, twin, bound and yardstick times, and which
-   path (register or tile) each FFT shape takes, forward and inverse.  The LBM
+   384, and at benchmark 1a's 200² shapes) against its plain PyTorch twin,
+   max error ≤ 1e-5 of the twin's largest magnitude; kernel, twin, bound
+   and yardstick times, and which path (register or tile) each FFT shape
+   takes, forward and inverse.  The LBM
    substep kernel (``lbm_substep``) at 256³ in float32 on nine plans (the
    porous deck's, the mixed deck's, a D3Q27 all-faces plan with a z body
    force, a zeroth-order Zou-He channel; the thermal deck's two lattices
@@ -53,8 +57,8 @@ Phases, one line each, flushed as they finish:
    ``fwd_x_update_poly`` launch per fused substep;
 7. LBM porous: ``decks.POROUS_DECK`` (D3Q19 BGK through the benchmark's
    sphere pack, ``decks.porous_media``, handed in as an array so no HDF5
-   file is needed) at 256³, float32, 20 substeps × 3 steps, through
-   ``run_deck`` with ``lbm_backend = PALLAS`` and ``JNP``: exactly 2 × 19
+   file is needed) at 256³, float32, 10 substeps × 3 steps, through
+   ``run_deck`` with ``lbm_backend = PALLAS`` and ``JNP``: exactly 2 × 9
    ``lbm_substep`` launches on PALLAS and none on JNP; on f, fpc, density,
    velocity and speed max |PALLAS − JNP| ≤ 1e-5 of the JNP buffer's
    largest magnitude; the fluid mass Σρ (float64) within 1e-5 of its start
@@ -78,11 +82,31 @@ Phases, one line each, flushed as they finish:
    density, velocity and speed max |PALLAS − JNP| ≤ 1e-5 of the JNP
    buffer's largest magnitude; every buffer finite; ms a substep, MLUPS and
    peak device memory on both; then the host's µs a fused substep (the
-   fused loop's wrapper, 1000 back-to-back calls at 800×200).
+   fused loop's wrapper, 1000 back-to-back calls at 800×200);
+12. benchmark 1a: ``decks.BENCH_1A_DECK`` (the 2-D spinodal decomposition,
+   the stand-in for the reference's 1a.i) at 200², 1000 substeps a step,
+   through ``run_deck`` to its end (t = 10500, or the Terminator's
+   ``change < 1e-4``), four times: DEFAULT (torch.fft) in float64, the
+   card's reference, and in float32; PALLAS unfused in float32 (kernels
+   1-4 on the tile path at n = 200, in every substep and in the
+   free-energy group); PALLAS with ``carry_reciprocal`` and
+   ``fused_spectral`` in float32 (kernels 1′ with the 1a µ, 5, 4 and 2,
+   and kernels 1-4 in the group).  Each after a warm-up of 3 steps that
+   builds and loads its kernels.  Gates: F(0) against a numpy float64
+   evaluation of the same formula (1e-9 relative in float64, 1e-5 in
+   float32); the same steps and final t in all four runs; exact launch
+   counts (none on DEFAULT); c_integral within 1e-10 (float64) or 1e-5
+   (float32) of its start and mass (cbar's k = 0 slot) equal to it within
+   the same bound at every step; c finite; each float32 run's F within
+   1e-3 of the float64 run's while t ≤ 10, and its final F within 10%.
+   Each run's seconds to the finished transient, ms a substep, steps,
+   t_final, F_final, peak device memory and perf-graph sections, beside
+   the card's name and power limit and the reference's 45 s on an L4.
 
 Then one JSON line with every kernel's numbers (a kernel timed at more
-than one main shape also lists each under ``shapes``) and, last, the JSON
-result line.  Any failure ends the run with a non-zero exit and no result line.
+than one main shape also lists each under ``shapes``; ``launches`` sums
+the main paths that reached it, ``launches_by_path`` splits them) and,
+last, the JSON result line.  Any failure ends the run with a non-zero exit and no result line.
 Needs one CUDA card; fails without one, and fails where the package is not
 beside it.
 """
@@ -117,17 +141,34 @@ MULTI_TOL = 5e-5
 MASS_TOL = 1e-5
 FUSED = "carry_reciprocal = true\n  fused_spectral = true"
 LBM_N = 256
-LBM_SUBSTEPS = 20
+LBM_SUBSTEPS = 10  # the 3-D LBM decks (phases 7-10); Kármán has its own
 LBM_STEPS = 3
 LBM_ODD = [(9, 9, 9), (33, 17, 20)]
 KARMAN = (800, 200)  # the reference cylinder.i's shipped extent
 LBM_2D = [KARMAN, (4096, 2048)]  # the shipped 2-D size, and one above launch cost
 LBM_ODD_2D = [(33, 17), (1000, 333)]  # 1000×333: the mean's chunked finish
 KARMAN_SUBSTEPS = 100
+BENCH_1A_N = 200  # benchmark 1a: 200², 1000 substeps a step, to t = 10500
+BENCH_1A_SUBSTEPS = 1000
+BENCH_1A_WARM_STEPS = 3
+BENCH_1A_F0_TOL = {torch.float64: 1e-9, torch.float32: 1e-5}  # relative
+BENCH_1A_MASS_TOL = {torch.float64: 1e-10, torch.float32: 1e-5}  # relative
+BENCH_1A_EARLY = (10.0, 1e-3)  # float32 F within 1e-3 of float64's while t <= 10
+BENCH_1A_FINAL_TOL = 0.10  # final F, float32 against float64 (relative)
+PFHUB_F0 = 319.03  # PFHub's F(0) of benchmark 1a (prismspf, BASELINE.md:9)
+REFERENCE_1A = "45 s and 277 MB on an NVIDIA L4 (the reference's, BASELINE.md:7)"
+BENCH_1A_RUNS = {  # run: its route in marlin_tpu_torch.bench_1a_runs.ROUTES
+    "DEFAULT float64": "D64", "DEFAULT float32": "D32",
+    "PALLAS float32": "P32", "PALLAS fused float32": "F32",
+}
 
 
 def say(*parts):
     print(*parts, flush=True)
+
+
+def lap(phases, t_start):
+    say(f"[time] phase {phases} done at {time.perf_counter() - t_start:.1f} s")
 
 
 def run(cmd):
@@ -240,11 +281,16 @@ def phase_fft_kernels(uf, dev, gen):
         "inv_sublanes": [((1, N, plane), torch.complex64),
                          ((N, N, N), torch.complex64)],
     }
+    a = BENCH_1A_N  # benchmark 1a's shapes: lanes (200, 200), sublanes (1, 200, 200)
     small = {
-        "fwd_lanes": [((4096, n), torch.float32) for n in (64, 200, 384)],
-        "inv_lanes": [((4096, n), torch.complex64) for n in (64, 200, 384)],
-        "fwd_sublanes": [((8, n, 300), torch.float32) for n in (64, 200, 384)],
-        "inv_sublanes": [((8, n, 300), torch.complex64) for n in (64, 200, 384)],
+        "fwd_lanes": [((4096, n), torch.float32) for n in (64, 200, 384)]
+        + [((a, a), torch.float32)],
+        "inv_lanes": [((4096, n), torch.complex64) for n in (64, 200, 384)]
+        + [((a, a), torch.complex64)],
+        "fwd_sublanes": [((8, n, 300), torch.float32) for n in (64, 200, 384)]
+        + [((1, a, a), torch.complex64)],
+        "inv_sublanes": [((8, n, 300), torch.complex64) for n in (64, 200, 384)]
+        + [((1, a, a), torch.complex64)],
     }
     library = {
         "fwd_lanes": lambda x: torch.fft.fft(x, dim=-1),
@@ -291,11 +337,12 @@ def phase_fused_kernels(uf, sp, dev, gen, pre, k2):
     results = {}
     # -- kernel 1 with the fused µ read: c-like values around 0.5
     pre_ops = pre.expr.cuda_source(pre.var).count("\n")  # one flop a statement
-    for n in (64, 200, 384):
-        x = make((4096, n), torch.float32, 0.05, 0.5)
-        err = check("fwd_lanes_pre", (4096, n), uf.fwd_lanes(x, pre=pre),
+    a = BENCH_1A_N  # and benchmark 1a's (200, 200), the same µ in 2-D
+    for shape in [(4096, n) for n in (64, 200, 384)] + [(a, a)]:
+        x = make(shape, torch.float32, 0.05, 0.5)
+        err = check("fwd_lanes_pre", shape, uf.fwd_lanes(x, pre=pre),
                     uf.fwd_lanes_plain(pre(x)))
-        say(f"[kernels] fwd_lanes_pre (4096, {n}) float32: max_abs_err {err:.3e}")
+        say(f"[kernels] fwd_lanes_pre {shape} float32: max_abs_err {err:.3e}")
     x = make((N * N, N), torch.float32, 0.05, 0.5)
     results["fwd_lanes_pre"] = summarise([measure(
         "fwd_lanes_pre", x.shape, lambda: uf.fwd_lanes(x, pre=pre),
@@ -326,13 +373,14 @@ def phase_fused_kernels(uf, sp, dev, gen, pre, k2):
                           None if mobility is None else -k2 * mobility)
 
     for form, (mobility, lin) in forms.items():
-        for n in (64, 200, 384):
-            m, u, o = (make((n, 300), torch.complex64) for _ in range(3))
-            kx2, kyz2 = tables(n, 300)
-            err = check("fwd_x_update", (n, 300),
+        # (200, 200): benchmark 1a's update
+        for n, L in [(64, 300), (200, 300), (384, 300), (a, a)]:
+            m, u, o = (make((n, L), torch.complex64) for _ in range(3))
+            kx2, kyz2 = tables(n, L)
+            err = check("fwd_x_update", (n, L),
                         sp.fwd_x_update(m, u, o, kx2, kyz2, *args, mobility, lin),
                         sp.fwd_x_update_plain(m, u, o, kx2, kyz2, *args, mobility, lin))
-            say(f"[kernels] fwd_x_update {form} ({n}, 300): max_abs_err {err:.3e}")
+            say(f"[kernels] fwd_x_update {form} ({n}, {L}): max_abs_err {err:.3e}")
     rows = []
     kx2, kyz2 = k2
     L = N * N
@@ -944,6 +992,151 @@ def reset(uf, sp):
     sp.reset_launches()
 
 
+# -- benchmark 1a ------------------------------------------------------------------
+
+
+def bench_1a_deck(run, warm=False):
+    """decks.BENCH_1A_DECK at 200², 1000 substeps a step, for one of
+    BENCH_1A_RUNS; the warm-up is BENCH_1A_WARM_STEPS steps without the perf
+    graph."""
+    from marlin_tpu_torch.bench_1a_runs import deck_text
+
+    deck = deck_text(BENCH_1A_RUNS[run], BENCH_1A_N, BENCH_1A_SUBSTEPS)
+    if warm:
+        deck = deck.replace("  perf_graph = true\n", "").replace(
+            "  end_time = 10500\n",
+            f"  end_time = 10500\n  num_steps = {BENCH_1A_WARM_STEPS}\n")
+    return deck
+
+
+def bench_1a_launches(run, steps, substeps):
+    """Each kernel's launches in a 2-D 1a run of ``steps`` steps: the solve
+    chain's every substep, and the postprocess group (FFTGradientSquare of
+    c: one forward transform, lanes then sublanes, and two inverse ones,
+    sublanes then lanes) at INITIAL and every TIMESTEP_END."""
+    zero = {"fwd_lanes": 0, "fwd_lanes_pre": 0, "fwd_sublanes": 0, "inv_sublanes": 0,
+            "inv_lanes": 0, "fwd_x_update": 0, "fwd_x_update_poly": 0}
+    if not run.startswith("PALLAS"):
+        return zero
+    S, groups = substeps, steps + 1
+    if "fused" in run:
+        # a step: the ū seed fft(c); S - 1 fused substeps, each µ fused into
+        # the lanes read, the x axis with the update, and ifft(ū); the
+        # trailing regular substep fft(µ) and ifft(ū) (fft(c) is pruned)
+        solve = {"fwd_lanes": 2, "fwd_lanes_pre": S - 1, "fwd_sublanes": 2,
+                 "fwd_x_update": S - 1, "inv_sublanes": S, "inv_lanes": S}
+    else:
+        # a substep: fft(µ) and fft(c), then ifft(ū)
+        solve = {"fwd_lanes": 2 * S, "fwd_sublanes": 2 * S,
+                 "inv_sublanes": S, "inv_lanes": S}
+    group = {"fwd_lanes": 1, "fwd_sublanes": 1, "inv_sublanes": 2, "inv_lanes": 2}
+    return {k: steps * solve.get(k, 0) + groups * group.get(k, 0) for k in zero}
+
+
+def free_energy_numpy(n, full_spectrum):
+    """F(0) of the 1a deck on its n² grid (h = 1), independent of both
+    packages: the initial condition in numpy float64, its gradient by the
+    periodic spectral derivative, f = 5(c−0.3)²(0.7−c)² + |∇c|² summed over
+    the cells.  The initial condition is not periodic on the box, so the
+    Nyquist frequencies carry weight and each backend's convention is
+    followed: DEFAULT the reference's half spectrum along the last axis
+    (numpy's rfft2, that axis' Nyquist positive), PALLAS the full spectrum
+    (``full_spectrum``: numpy's fft2, the real part; every Nyquist
+    negative).  At 200² the two differ by 1.2e-6 of F(0)."""
+    x = np.arange(n) + 0.5
+    X, Y = np.meshgrid(x, x, indexing="ij")
+    c = 0.5 + 0.01 * (np.cos(0.105 * X) * np.cos(0.11 * Y)
+                      + (np.cos(0.13 * X) * np.cos(0.087 * Y)) ** 2
+                      + np.cos(0.025 * X - 0.15 * Y) * np.cos(0.07 * X - 0.02 * Y))
+    kx = 2 * np.pi * np.fft.fftfreq(n, d=1.0)[:, None]
+    if full_spectrum:
+        ky = kx.T
+        ch = np.fft.fft2(c)
+        gx, gy = (np.fft.ifft2(1j * k * ch).real for k in (kx, ky))
+    else:
+        ky = 2 * np.pi * np.fft.rfftfreq(n, d=1.0)[None, :]
+        ch = np.fft.rfft2(c)
+        gx, gy = (np.fft.irfft2(1j * k * ch, s=(n, n)) for k in (kx, ky))
+    return float(np.sum(5 * (c - 0.3) ** 2 * (0.7 - c) ** 2 + gx ** 2 + gy ** 2))
+
+
+def phase_bench_1a(uf, sp, dev, smi):
+    """Benchmark 1a whole, four times (BENCH_1A_RUNS), each after a warm-up
+    of BENCH_1A_WARM_STEPS steps that builds and loads its kernels; the
+    gates of each run, then across runs.  Returns {run: launches}."""
+    from marlin_tpu_torch import hit
+    from marlin_tpu_torch.executioner import run_deck
+
+    f0_refs = {full: free_energy_numpy(BENCH_1A_N, full) for full in (False, True)}
+    say(f"[1a] F(0) by numpy float64 {f0_refs[False]:.9f} (half spectrum, DEFAULT), "
+        f"{f0_refs[True]:.9f} (full spectrum, PALLAS); PFHub, prismspf: {PFHUB_F0} "
+        f"(information only)")
+    out = {}
+    for run in BENCH_1A_RUNS:
+        with tempfile.TemporaryDirectory() as out_dir:
+            run_deck(hit.parse(bench_1a_deck(run, warm=True)), output_dir=out_dir,
+                     device=dev)
+            torch.cuda.synchronize()
+            torch.cuda.empty_cache()
+            torch.cuda.reset_peak_memory_stats()
+            held = torch.cuda.memory_allocated()
+            reset(uf, sp)
+            t0 = time.perf_counter()
+            tr = run_deck(hit.parse(bench_1a_deck(run)), output_dir=out_dir, device=dev)
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+        launched = counters(uf, sp)
+        rows = tr.csv.rows
+        c = tr.state["buffers"]["c"]
+        dtype = tr.problem.domain.dtype
+        sub = tr.step_count * BENCH_1A_SUBSTEPS
+        peak = torch.cuda.max_memory_allocated()
+        say(f"[1a] {run}: {wall:.3f} s to t = {tr.time} ({tr.step_count} steps x "
+            f"{BENCH_1A_SUBSTEPS} substeps), {1e3 * wall / sub:.5f} ms a substep, "
+            f"F_final {rows[-1]['F']:.9f}, peak device memory {peak / 2**20:.1f} MiB "
+            f"({held / 2**20:.1f} MiB held before the run); {smi}; beside "
+            f"{REFERENCE_1A}")
+        say(f"[1a] {run} perf graph: " + ", ".join(
+            f"{name} {secs:.3f} s x{calls}" for name, (secs, calls)
+            in sorted(tr.perf.sections.items(), key=lambda kv: -kv[1][0])))
+        # -- the gates of one run
+        want = bench_1a_launches(run, tr.step_count, BENCH_1A_SUBSTEPS)
+        say(f"[1a] {run} launches {launched} (expected {want})")
+        assert launched == want, (run, launched, want)
+        assert c.shape == (BENCH_1A_N,) * 2 and c.dtype == dtype
+        assert bool(torch.isfinite(c).all()), run
+        f0, f0_ref = rows[0]["F"], f0_refs[run.startswith("PALLAS")]
+        say(f"[1a] {run} F(0) {f0:.9f}, relative to numpy "
+            f"{abs(f0 - f0_ref) / f0_ref:.3e} (limit {BENCH_1A_F0_TOL[dtype]})")
+        assert abs(f0 - f0_ref) <= BENCH_1A_F0_TOL[dtype] * f0_ref, (run, f0, f0_ref)
+        m0, tol = rows[0]["c_integral"], BENCH_1A_MASS_TOL[dtype]
+        drift = max(abs(r["c_integral"] - m0) for r in rows) / m0
+        slot = max(abs(r["mass"] - r["c_integral"]) for r in rows[1:]) / m0
+        say(f"[1a] {run} c_integral drift {drift:.3e}, |mass - c_integral| {slot:.3e} "
+            f"(relative, limit {tol}); c in [{rows[-1]['c_min']:.6f}, "
+            f"{rows[-1]['c_max']:.6f}], last change {rows[-1]['change']:.3e}")
+        assert drift <= tol and slot <= tol, (run, drift, slot)
+        out[run] = (tr.step_count, tr.time, [(r["time"], r["F"]) for r in rows],
+                    launched, wall)
+        del tr, c
+    # -- across runs: the float64 DEFAULT run is the reference
+    steps, t_end, ref, _l, _w = out["DEFAULT float64"]
+    f_ref = dict(ref)
+    t_early, early_tol = BENCH_1A_EARLY
+    for run, (n, t, series, _l, _w) in out.items():
+        assert (n, t) == (steps, t_end), (run, n, t, steps, t_end)
+        if run == "DEFAULT float64":
+            continue
+        early = max(abs(F - f_ref[tt]) / f_ref[tt] for tt, F in series if tt <= t_early)
+        final = abs(series[-1][1] - ref[-1][1]) / ref[-1][1]
+        say(f"[1a] {run} against DEFAULT float64: F while t <= {t_early} within "
+            f"{early:.3e} (limit {early_tol}), final F {final:.3e} (limit "
+            f"{BENCH_1A_FINAL_TOL})")
+        assert early <= early_tol and final <= BENCH_1A_FINAL_TOL, (run, early, final)
+    say(f"[1a] every run {steps} steps to t = {t_end}; {smi}")
+    return {run: v[3] for run, v in out.items()}
+
+
 def main():
     if not torch.cuda.is_available():
         say("chip_smoke: torch.cuda.is_available() is False; needs a CUDA card")
@@ -973,7 +1166,7 @@ def main():
     ).replace("[TensorSolver]", f"[TensorSolver]\n  {FUSED}")), device=dev)
     pre = sp.match_chain(small.solver).pre
     libs = {"unordered_fft": uf.LIBRARY, "spectral_update": sp.LIBRARY,
-            "lbm_substep": lf.LIBRARY, "fwd_lanes_pre (CH3D µ)": pre.library}
+            "lbm_substep": lf.LIBRARY, "fwd_lanes_pre (Cahn-Hilliard µ)": pre.library}
     cold = {k: not os.path.exists(lib.path()) for k, lib in libs.items()}
 
     def timed_build(lib):
@@ -982,20 +1175,26 @@ def main():
         return time.perf_counter() - t0
 
     t0 = time.perf_counter()
-    with concurrent.futures.ThreadPoolExecutor(len(libs)) as pool:
-        times = dict(zip(libs, pool.map(timed_build, libs.values())))
-    for k, lib in libs.items():
-        lib.load()
-        say(f"[build] {'built' if cold[k] else 'reused'} {k}: "
-            f"{os.path.relpath(lib.path(), HERE)} in {times[k]:.2f} s")
-    say(f"[build] all libraries in {time.perf_counter() - t0:.2f} s")
-    for line in ptxas_report(lf.LIBRARY.log, lbm_kernel_name):
-        say(f"[build] ptxas {line}")
-    for k in ("unordered_fft", "spectral_update", "fwd_lanes_pre (CH3D µ)"):
+    # the LBM substep library takes the longest: the spectral phases (2's FFT
+    # rows, 3-6) run while it builds, and its rows of phase 2 wait for it
+    pool = concurrent.futures.ThreadPoolExecutor(len(libs))
+    builds = {k: pool.submit(timed_build, lib) for k, lib in libs.items()}
+
+    def loaded(keys):
+        for k in keys:
+            seconds = builds[k].result()
+            libs[k].load()
+            say(f"[build] {'built' if cold[k] else 'reused'} {k}: "
+                f"{os.path.relpath(libs[k].path(), HERE)} in {seconds:.2f} s")
+
+    spectral = ("unordered_fft", "spectral_update", "fwd_lanes_pre (Cahn-Hilliard µ)")
+    loaded(spectral)
+    for k in spectral:
         for line in ptxas_report(libs[k].log, fft_kernel_namer(uf)):
             say(f"[build] ptxas {k}: {line}")
+    lap("1 (spectral libraries)", t_start)
 
-    # -- 2: kernels against their twins ---------------------------------------
+    # -- 2: kernels against their twins (the FFT and k-space update rows) --------
     gen = torch.Generator().manual_seed(0)
     kernels = phase_fft_kernels(uf, dev, gen)
     dom = TensorProblem(hit.parse(CH3D_DECK.format(n=N, substeps=2).replace(
@@ -1003,8 +1202,7 @@ def main():
         device=dev).domain
     kernels.update(phase_fused_kernels(uf, sp, dev, gen, pre, sp._k2_tables(dom)))
     del dom
-    lbm_rows, mean_rows = phase_lbm_kernel(lf, dev)
-    say("[kernels] ok")
+    lap("2 (spectral kernels)", t_start)
 
     # -- 3: the main path -----------------------------------------------------
     reset(uf, sp)
@@ -1095,6 +1293,18 @@ def main():
         f"{ms_multi_unfused:.3f} ms/substep (run_deck {wall_u:.2f} s); peak "
         f"device memory {torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
     del tr_u, fields
+    lap("3-6 (3-D spectral paths)", t_start)
+
+    # -- 1 and 2, the rest: the LBM substep library and its kernel rows -----------
+    loaded(["lbm_substep"])
+    pool.shutdown()
+    say(f"[build] all libraries in {time.perf_counter() - t0:.2f} s (the spectral "
+        f"phases ran meanwhile)")
+    for line in ptxas_report(lf.LIBRARY.log, lbm_kernel_name):
+        say(f"[build] ptxas {line}")
+    lbm_rows, mean_rows = phase_lbm_kernel(lf, dev)
+    say("[kernels] ok")
+    lap("2 (LBM kernels)", t_start)
 
     # -- 7 to 10: the LBM paths ------------------------------------------------
     lbm_launches = 0
@@ -1131,6 +1341,12 @@ def main():
         "no launch of its own: launches counts the lbm_substep launches that computed the "
         "mean inside; ms is that launch's device time less the flat lbm_substep launch "
         "given the mean; plain_ms is density_mean_twin's device time")
+
+    lap("7-11 (LBM paths)", t_start)
+
+    # -- 12: benchmark 1a, the 200² spinodal decomposition whole --------------------
+    launches_1a = phase_bench_1a(uf, sp, dev, smi)
+    lap("12 (benchmark 1a)", t_start)
     say(f"[done] {time.perf_counter() - t_start:.1f} s")
 
     # -- result -----------------------------------------------------------------
@@ -1150,12 +1366,19 @@ def main():
         ("lbm_density_mean", "lbm_substep.cu", "marlin_tpu/pallas_lbm.py:687",
          karman_launches),
     ]
-    line = {"kernels": [
-        {"name": name, "route": "cuda",
-         "source": f"marlin_tpu_torch/csrc/{src}", "replaces": replaces,
-         "launches": counts[name], **kernels[name]}
-        for name, src, replaces, counts in table
-    ]}
+    # the 1a runs' launches join those of the path each kernel was timed on
+    paths_1a = {f"1a {run}": counts for run, counts in launches_1a.items()
+                if run.startswith("PALLAS")}
+
+    def entry(name, src, replaces, counts):
+        by_path = {"main": counts[name], **{k: v[name] for k, v in paths_1a.items()
+                                            if name in v}}
+        return {"name": name, "route": "cuda",
+                "source": f"marlin_tpu_torch/csrc/{src}", "replaces": replaces,
+                "launches": sum(by_path.values()), "launches_by_path": by_path,
+                **kernels[name]}
+
+    line = {"kernels": [entry(*row) for row in table]}
     say(json.dumps(line))
     say(smi)
     say(json.dumps({"ok": True, "device": {

@@ -8,6 +8,7 @@ src/tensor_computes/ (each class docstring names its counterpart).
 from __future__ import annotations
 
 import math
+import zlib
 from typing import Dict
 
 import numpy as np
@@ -177,6 +178,97 @@ class ConstantTensor(TensorCompute):
         return {self.out: Spec(tuple(self._shape()), self.domain.dtype)}
 
 
+@computes.register("ConstantReciprocalTensor")
+class ConstantReciprocalTensor(TensorCompute):
+    """Constant reciprocal-space tensor (complex)
+    (reference: src/tensor_computes/ConstantTensor.C, reciprocal variant)."""
+
+    def __init__(self, name, params: Params, problem):
+        super().__init__(name, params, problem)
+        self.real = self.constant("real", 0.0)
+        self.imaginary = self.constant("imaginary", 0.0)
+
+    def apply(self, state, ctx):
+        dom = self.domain
+        return {self.out: torch.full(dom.reciprocal_shape,
+                                     complex(self.real, self.imaginary),
+                                     dtype=dom.cdtype, device=dom.device)}
+
+    def output_specs(self, specs):
+        return {self.out: Spec(self.domain.reciprocal_shape, self.domain.cdtype)}
+
+
+@computes.register("RandomTensor")
+class RandomTensor(TensorCompute):
+    """Uniform random field between min and max
+    (reference: src/tensor_computes/RandomTensor.C:17-55), serial mode.
+
+    Every draw comes from a generator of this compute, never from torch's
+    global one.  ``generate_on_cpu = true`` (the default, as the
+    reference) draws float64 on the CPU, seeded with ``seed`` at each
+    draw, then casts to the buffer's dtype and moves to the device: the
+    stream of ``torch.manual_seed(seed); torch.rand(..., float64)``, so a
+    seeded float64 field equals the JAX package's (and the reference's)
+    bit for bit, and a float32 buffer holds the same field rounded (a
+    float32 draw would be another field).  ``generate_on_cpu = false``
+    draws on the device from a generator seeded with ``seed``, or with
+    crc32 of the compute's name; that stream is the device's own and
+    matches neither the CPU stream nor the JAX package's ``jax.random``.
+    Unseeded, the compute's generator is seeded once from fresh entropy
+    (CPU) or from its name (device), so two unseeded computes draw
+    independent noise.
+    """
+
+    def __init__(self, name, params: Params, problem):
+        super().__init__(name, params, problem)
+        self.min = params.get_float("min", required=True)
+        self.max = params.get_float("max", required=True)
+        self.seed = params.get_int("seed") if params.has("seed") else None
+        self.generate_on_cpu = params.get_bool("generate_on_cpu", True)
+        self._generator = None  # the unseeded compute's own stream
+
+    def _draw(self, shape) -> torch.Tensor:
+        dom = self.domain
+        if self.generate_on_cpu:
+            if self.seed is not None:
+                g = torch.Generator().manual_seed(self.seed)
+            else:
+                if self._generator is None:
+                    self._generator = torch.Generator()
+                    self._generator.seed()
+                g = self._generator
+            return torch.rand(shape, dtype=torch.float64, generator=g).to(
+                dtype=dom.dtype, device=dom.device)
+        if self.seed is not None:
+            g = torch.Generator(dom.device).manual_seed(self.seed)
+        else:
+            if self._generator is None:
+                self._generator = torch.Generator(dom.device).manual_seed(
+                    zlib.crc32(self.name.encode()))
+            g = self._generator
+        return torch.rand(shape, dtype=dom.dtype, generator=g, device=dom.device)
+
+    def apply(self, state, ctx):
+        u = self._draw(list(self.domain.shape))
+        return {self.out: u * (self.max - self.min) + self.min}
+
+    def output_specs(self, specs):
+        return {self.out: Spec(self.domain.shape, self.domain.dtype)}
+
+
+@computes.register("ParsedTensor")
+class ParsedTensor(ParsedCompute):
+    """Legacy spelling used by reference test/tests/tensor_ics/sineic.i:
+    the expression lives in `function =` and coordinate symbols are on."""
+
+    def __init__(self, name, params: Params, problem):
+        if params.has("function") and not params.has("expression"):
+            params.node.set_param("expression", params.node.get("function"))
+        if not params.has("extra_symbols"):
+            params.node.set_param("extra_symbols", "true")
+        super().__init__(name, params, problem)
+
+
 @computes.register("ForwardFFT")
 class ForwardFFT(TensorCompute):
     """ū = fft(u) (reference: src/tensor_computes/PerformFFT.C, forward)."""
@@ -255,3 +347,63 @@ class SwiftHohenbergLinear(TensorCompute):
 
     def output_specs(self, specs):
         return {self.out: Spec(self.domain.reciprocal_shape, self.domain.dtype)}
+
+
+class _SpectralGradient(TensorCompute):
+    """Shared input handling of the spectral gradients: ``input`` is a real
+    field, transformed here, or with ``input_is_reciprocal`` already its
+    spectrum.  Under ``fft_backend = PALLAS`` both transforms run through
+    the domain's unordered-FFT kernels, with the permuted reciprocal axes."""
+
+    def __init__(self, name, params: Params, problem):
+        super().__init__(name, params, problem)
+        self.input = self.input_buffer("input")
+        self.input_is_reciprocal = params.get_bool("input_is_reciprocal", False)
+
+    def _spectrum(self, state):
+        u = state[self.input]
+        return u if self.input_is_reciprocal else self.domain.fft(u)
+
+    def _derivative(self, r, d):
+        dom = self.domain
+        return dom.ifft(r * dom.reciprocal_axis(d) * 1j)
+
+    def output_specs(self, specs):
+        sp = specs[self.input]
+        if not self.input_is_reciprocal:
+            sp = Spec(*self.domain.fft_spec(*sp))
+        return {self.out: Spec(*self.domain.ifft_spec(*sp))}
+
+
+@computes.register("FFTGradient")
+class FFTGradient(_SpectralGradient):
+    """∂u/∂x_d = ifft(i·k_d·ū) (reference: src/tensor_computes/FFTGradient.C:26-40)."""
+
+    DIRS = {"X": 0, "Y": 1, "Z": 2}
+
+    def __init__(self, name, params: Params, problem):
+        super().__init__(name, params, problem)
+        self.direction = self.DIRS[params.get_enum("direction", ["X", "Y", "Z"], "X")]
+
+    def apply(self, state, ctx):
+        return {self.out: self._derivative(self._spectrum(state), self.direction)}
+
+
+@computes.register("FFTGradientSquare")
+class FFTGradientSquare(_SpectralGradient):
+    """factor · Σ_d (∂u/∂x_d)²
+    (reference: src/tensor_computes/FFTGradientSquare.C)."""
+
+    def __init__(self, name, params: Params, problem):
+        super().__init__(name, params, problem)
+        self.factor = self.constant("factor", 1.0)
+
+    def apply(self, state, ctx):
+        r = self._spectrum(state)
+        u = None
+        for d in range(self.domain.dim):
+            g = self._derivative(r, d)
+            u = g * g if u is None else u + g * g
+        if self.factor != 1.0:
+            u = u * self.factor
+        return {self.out: u}

@@ -230,7 +230,7 @@ cudaError_t launch(K kernel, dim3 grid, unsigned threads, size_t smem,
 // (the real part on lanes, as the solver's last inverse writes it).
 InvStore inv_store(void* out, int64_t n, bool lanes) {
   return InvStore{lanes ? (float*)out : nullptr, lanes ? nullptr : (float2*)out,
-                  1.0f / (float)n};
+                  (float)n};
 }
 
 }  // namespace

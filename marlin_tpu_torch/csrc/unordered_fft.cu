@@ -11,7 +11,7 @@
 // kernels' blocking: with n = b*r (b = base(n) in unordered_fft.py), a
 // forward transform stores the natural frequency k = t + r*s at slot
 // k' = t*b + s, and an inverse transform reads that order and writes
-// natural-order real space scaled by 1/n.  The kernels and their launchers
+// natural-order real space divided by n.  The kernels and their launchers
 // live in fft_tile.cuh, shared with the fused kernels; the direction
 // follows the epilogue (Store forward, InvStore inverse), and the fused
 // pointwise read of _fwd_lanes_kernel (`pre`) is the same forward lanes
@@ -58,8 +58,7 @@ cudaError_t mtt_inv_lanes(const void* x, void* out_real, void* out_cplx,
                           cudaStream_t stream) {
   return launch_lanes(nullptr, (const float2*)x, (const float2*)tw, B, n, b,
                       stream, Identity(),
-                      InvStore{(float*)out_real, (float2*)out_cplx,
-                               1.0f / (float)n});
+                      InvStore{(float*)out_real, (float2*)out_cplx, (float)n});
 }
 
 // x_real or x_cplx (the other null): (P, n, L); out: (P, n, L) complex.
@@ -77,7 +76,7 @@ cudaError_t mtt_inv_sublanes(const void* x, void* out, const void* tw,
                              cudaStream_t stream) {
   return launch_sublanes(nullptr, (const float2*)x, (const float2*)tw, P, n,
                          L, b, stream,
-                         InvStore{nullptr, (float2*)out, 1.0f / (float)n});
+                         InvStore{nullptr, (float2*)out, (float)n});
 }
 
 }  // extern "C"

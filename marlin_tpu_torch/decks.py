@@ -46,6 +46,20 @@ each copy equal to its original.
 The 2-D decks below are the port's own, not copies: the reference decks
 of their patterns are not in the repository.
 
+- ``BENCH_1A_DECK``: benchmark 1a, the PFHub spinodal decomposition (the
+  reference's benchmarks/01_spinodal_decomposition/1a.i, which is not in
+  the repository; this deck stands in for it).  Built from what the repo
+  holds: the initial condition, µ, M̄ and κ̄̄ of
+  ``__graft_entry__._CH_DECK``; bench.py's ``build_run`` schedule (dt0 1,
+  growth 1.1, dtmax 300, end time 10500, stop when ``change < 1e-4``);
+  and its free energy f = 5(c−0.3)²(0.7−c)² + |∇c|² (bench.py:258-263,
+  κ/2 = 1), computed by a ``[Postprocess]`` group.  Postprocessors: F
+  and c_integral (also at INITIAL, so CSV row 0 holds F(0) and the
+  starting mass), change, c_min, c_max, mass (the k = 0 slot of cbar),
+  dt_crit (1/max|κ̄̄|) and F_per_cell.  ``[Outputs]`` writes the CSV and
+  the perf graph.  Formatted with ``n`` (nx = ny = xmax = ymax; 1a is
+  200), ``substeps`` (1a: 1000), ``domain_extra`` and ``solver_extra``.
+
 - ``CHANNEL2D_DECK``: a D2Q9 BGK channel (the pattern of the reference's
   test/tests/lbm/channel2D.i): bounce-back walls on the bottom and top, a
   Zou-He velocity inlet on the left, a zero-gradient outlet on the right;
@@ -2194,3 +2208,153 @@ def porous_media(n: int, seed: int = 42) -> np.ndarray:
         media.flat[(((c[0] + ox) % n) * n + (c[1] + oy) % n) * n
                    + (c[2] + oz) % n] = 0
     return media
+
+
+BENCH_1A_DECK = """
+[Domain]
+  dim = 2
+  nx = {n}
+  ny = {n}
+  xmax = {n}
+  ymax = {n}
+  {domain_extra}
+[]
+[TensorComputes]
+  [Initialize]
+    [c]
+      type = ParsedCompute
+      buffer = c
+      extra_symbols = true
+      expression = 'c0+epsilon*(cos(0.105*x)*cos(0.11*y)+(cos(0.13*x)*cos(0.087*y))^2+cos(0.025*x-0.15*y)*cos(0.07*x-0.02*y))'
+      constant_names = 'c0 epsilon'
+      constant_expressions = '0.5 0.01'
+    []
+    [Mbar]
+      type = ReciprocalLaplacianFactor
+      factor = 5
+      buffer = Mbar
+    []
+    [kappabarbar]
+      type = ReciprocalLaplacianSquareFactor
+      factor = -10
+      buffer = kappabarbar
+    []
+  []
+  [Solve]
+    [mu]
+      type = ParsedCompute
+      buffer = mu
+      expression = 'rho_s*(c-c_alpha)^2*(c_beta-c)^2'
+      constant_names = 'rho_s c_alpha c_beta'
+      constant_expressions = '5 0.3 0.7'
+      derivatives = c
+      inputs = c
+    []
+    [mubar]
+      type = ForwardFFT
+      buffer = mubar
+      input = mu
+    []
+    [Mbarmubar]
+      type = ParsedCompute
+      buffer = Mbarmubar
+      expression = 'Mbar*mubar'
+      inputs = 'Mbar mubar'
+    []
+    [cbar]
+      type = ForwardFFT
+      buffer = cbar
+      input = c
+    []
+  []
+  [Postprocess]
+    [gradient_energy]
+      type = FFTGradientSquare
+      buffer = gradient_energy
+      input = c
+      factor = 1
+      execute_on = 'INITIAL TIMESTEP_END'
+    []
+    [f]
+      type = ParsedCompute
+      buffer = f
+      expression = 'rho_s*(c-c_alpha)^2*(c_beta-c)^2 + gradient_energy'
+      constant_names = 'rho_s c_alpha c_beta'
+      constant_expressions = '5 0.3 0.7'
+      inputs = 'c gradient_energy'
+      execute_on = 'INITIAL TIMESTEP_END'
+    []
+  []
+[]
+[TensorSolver]
+  type = AdamsBashforthMoulton
+  buffer = c
+  reciprocal_buffer = cbar
+  linear_reciprocal = kappabarbar
+  nonlinear_reciprocal = Mbarmubar
+  substeps = {substeps}
+  {solver_extra}
+[]
+[Problem]
+  type = TensorProblem
+[]
+[Postprocessors]
+  [F]
+    type = TensorIntegralPostprocessor
+    buffer = f
+    execute_on = 'INITIAL TIMESTEP_END'
+  []
+  [c_integral]
+    type = TensorIntegralPostprocessor
+    buffer = c
+    execute_on = 'INITIAL TIMESTEP_END'
+  []
+  [change]
+    type = TensorIntegralChangePostprocessor
+    buffer = c
+  []
+  [c_min]
+    type = TensorExtremeValuePostprocessor
+    buffer = c
+    value_type = MIN
+  []
+  [c_max]
+    type = TensorExtremeValuePostprocessor
+    buffer = c
+    value_type = MAX
+  []
+  [mass]
+    type = ReciprocalIntegral
+    buffer = cbar
+  []
+  [dt_crit]
+    type = SemiImplicitCriticalTimeStep
+    buffer = kappabarbar
+  []
+  [F_per_cell]
+    type = ParsedPostprocessor
+    expression = 'F / ({n} * {n})'
+    pp_names = F
+  []
+[]
+[UserObjects]
+  [terminator]
+    type = Terminator
+    expression = 'change < 1e-4'
+  []
+[]
+[Executioner]
+  type = Transient
+  end_time = 10500
+  dtmax = 300
+  [TimeStepper]
+    type = IterationAdaptiveDT
+    dt = 1
+    growth_factor = 1.1
+  []
+[]
+[Outputs]
+  csv = true
+  perf_graph = true
+[]
+"""

@@ -94,6 +94,7 @@ class Domain:
             self.maxs[d] - self.mins[d] for d in range(dim)
         )
         self.n_cells_global = math.prod(self.n_global)
+        self._cells_t = {}  # dtype -> N as a 0-d device tensor (ifft)
         self._build_axes()
 
     # -- axes -------------------------------------------------------------
@@ -200,6 +201,12 @@ class Domain:
         return self.shape + tuple(shape)[self.dim:], self.dtype
 
     def ifft(self, t: torch.Tensor) -> torch.Tensor:
+        """Inverse FFT, divided by the cell count.  A division, not torch's
+        product with the rounded 1/N: float32(1/N) is off by a fixed
+        relative amount where N is not a power of two (-2.5e-8 at 200²),
+        which would scale the field's mean at every inverse, and a solver
+        that transforms back and forth each substep would drift its mass
+        (the kernels' InvStore divides for the same reason)."""
         spatial = tuple(range(self.dim))
         if self.fft_backend == "PALLAS":
             self._scalar_only(t)
@@ -210,8 +217,18 @@ class Domain:
         # degeneracy this shape test shares
         if (t.shape[last] != self.reciprocal_shape[last]
                 and t.shape[last] == self.shape[last]):
-            return torch.fft.ifftn(t, dim=spatial).real.to(self.dtype)
-        return torch.fft.irfftn(t, s=self.shape, dim=spatial).to(self.dtype)
+            u = torch.fft.ifftn(t, dim=spatial, norm="forward").real
+        else:
+            u = torch.fft.irfftn(t, s=self.shape, dim=spatial, norm="forward")
+        return (u / self._cells(u.dtype)).to(self.dtype)
+
+    def _cells(self, dtype: torch.dtype) -> torch.Tensor:
+        """N = prod(n) as a 0-d tensor on the device: dividing by a host
+        number would become a product with its reciprocal on the card."""
+        if dtype not in self._cells_t:
+            self._cells_t[dtype] = torch.tensor(float(self.n_cells_global),
+                                                dtype=dtype, device=self.device)
+        return self._cells_t[dtype]
 
     def __repr__(self):
         return (

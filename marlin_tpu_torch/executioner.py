@@ -2,8 +2,10 @@
 
 The ported subset of marlin_tpu/executioner.py: the host-side time loop
 around the eager step.  Only scalar postprocessor values cross to the host
-each step.  Field outputs (Exodus, XDMF, VTK), vector postprocessors,
-checkpoints and the perf graph are not ported yet and are rejected by name.
+each step.  ``[Outputs] perf_graph = true`` times the JAX executioner's
+sections (``perf.PerfGraph``; the port's "outputs" are its CSV).  Field
+outputs (Exodus, XDMF, VTK), vector postprocessors and checkpoints are not
+ported yet and are rejected by name.
 """
 
 from __future__ import annotations
@@ -14,6 +16,7 @@ from typing import Dict, List, Optional
 from .expression import fparse
 from .hit import HitNode
 from .params import Params, check_unused
+from .perf import PerfGraph
 from .problem import TensorProblem
 
 
@@ -184,9 +187,8 @@ class Transient:
         op = Params(outputs_node, gp)
         deck_file_base = op.get_str("file_base", None)
         self.file_base = file_base or deck_file_base or "out"
-        for knob in ("exodus", "perf_graph"):
-            if op.get_bool(knob, False):
-                op.error(knob, "is not ported to marlin_tpu_torch yet (CSV only)")
+        if op.get_bool("exodus", False):
+            op.error("exodus", "is not ported to marlin_tpu_torch yet (CSV only)")
         csv_enabled = op.get_bool("csv", False)
         if outputs_node is not None:
             for b in outputs_node.blocks():
@@ -199,6 +201,8 @@ class Transient:
         if csv_enabled:
             os.makedirs(self.output_dir, exist_ok=True)
             self.csv = CSVWriter(os.path.join(self.output_dir, self.file_base + ".csv"))
+        # perf graph (reference `perf_graph = true`, MOOSE TIME_SECTION)
+        self.perf = PerfGraph(enabled=op.get_bool("perf_graph", False))
 
         self.state = None
         self.time = self.start_time
@@ -209,7 +213,8 @@ class Transient:
         self._lbm_residual: Optional[float] = None
 
     def init(self):
-        self.state = self.problem.init_state()
+        with self.perf.section("problem::init_state (build + ICs)"):
+            self.state = self.problem.init_state()
         self.time = self.start_time
         # EXEC_INITIAL: CSV row 0 reports 0 for TIMESTEP_END-only
         # postprocessors (MOOSE semantics)
@@ -219,7 +224,8 @@ class Transient:
         self.pp_values = {pp.name: 0.0 for pp in self.problem.postprocessors}
         self.pp_values.update(initial)
         if self.csv is not None:
-            self.csv.add_row(self.time, dict(self.pp_values))
+            with self.perf.section("outputs"):
+                self.csv.add_row(self.time, dict(self.pp_values))
 
     def run(self) -> Dict[str, float]:
         if self.state is None:
@@ -248,10 +254,17 @@ class Transient:
             # pre-step state is never written in place, so rejection is free.
             prev_state = self.state
             while True:
-                self.state, values = self.problem.step_with_pps(
-                    prev_state, self.time, dt, dt_old,
-                    first_step=(self.step_count == 1),
+                section = (
+                    "solver::step (first; incl. compile)"
+                    if self.step_count == 1
+                    else "solver::step"
                 )
+                # ends at the postprocessors' fetch, the step's one sync
+                with self.perf.section(section):
+                    self.state, values = self.problem.step_with_pps(
+                        prev_state, self.time, dt, dt_old,
+                        first_step=(self.step_count == 1),
+                    )
                 soft_fired = any(
                     t.check({**self.pp_values, **values})
                     for t in self.terminators if t.fail_mode == "SOFT"
@@ -277,8 +290,9 @@ class Transient:
             self._lbm_residual = values.pop("_lbm_residual", None)
             self.pp_values.update(values)
             if self.csv is not None:
-                self.csv.add_row(self.time, dict(self.pp_values))
-                self.csv.write()
+                with self.perf.section("outputs"):
+                    self.csv.add_row(self.time, dict(self.pp_values))
+                    self.csv.write()
 
             hard_fired = [t for t in self.terminators
                           if t.fail_mode == "HARD" and t.check(self.pp_values)]
@@ -293,7 +307,10 @@ class Transient:
                 break
 
         if self.csv is not None:
-            self.csv.write()
+            with self.perf.section("outputs"):
+                self.csv.write()
+        if self.perf.enabled:
+            print(self.perf.report())
         return self.pp_values
 
 

@@ -1,10 +1,13 @@
 """CLI entry point: run a MOOSE-format deck with the PyTorch port.
 
     python -m marlin_tpu_torch deck.i [path/to/param=value ...] [--compute-device cpu]
+        [--timing] [--x64]
 
 The device is ``--compute-device``, else ``MARLIN_TORCH_DEVICE``, else
 ``cuda`` (as marlin_tpu/main.py:41-51 reads them); without a card only an
-explicit ``cpu`` runs.
+explicit ``cpu`` runs.  ``--timing`` is ``[Outputs] perf_graph = true``;
+``--x64`` makes ``floating_precision = DEVICE_DEFAULT`` (the default)
+float64 on the card too.
 """
 
 from __future__ import annotations
@@ -18,6 +21,15 @@ from . import hit
 from .executioner import run_deck
 
 
+def force_x64(root):
+    """``--x64``: a deck whose precision is DEVICE_DEFAULT (set or left
+    out) runs in float64 on every device; SINGLE and DOUBLE stay."""
+    domain = root.children.get("Domain")
+    if domain is not None and domain.get(
+            "floating_precision", "DEVICE_DEFAULT") == "DEVICE_DEFAULT":
+        domain.set_param("floating_precision", "DOUBLE")
+
+
 def main(argv=None):
     parser = argparse.ArgumentParser(prog="marlin_tpu_torch")
     parser.add_argument("-i", "--input", help="input deck")
@@ -26,6 +38,11 @@ def main(argv=None):
                         help=f"torch device (cuda, cpu); default "
                         f"${_device.ENV_VAR} or cuda")
     parser.add_argument("--output-dir", default=None)
+    parser.add_argument("--x64", action="store_true",
+                        help="DEVICE_DEFAULT precision is float64 on every device")
+    parser.add_argument("--timing", action="store_true",
+                        help="print the perf-graph summary (same as "
+                        "`[Outputs] perf_graph = true` in the deck)")
     ns = parser.parse_args(argv)
 
     deck = ns.input
@@ -39,7 +56,9 @@ def main(argv=None):
         parser.error("no input deck given")
     dev = _device.from_cli(ns.compute_device)
 
-    root = hit.load(deck, overrides)
+    root = hit.load(deck, overrides + (["Outputs/perf_graph=true"] if ns.timing else []))
+    if ns.x64:
+        force_x64(root)
     stem = os.path.splitext(os.path.basename(deck))[0]
     out_node = root.children.get("Outputs")
     file_base = out_node.get("file_base") if out_node is not None else None

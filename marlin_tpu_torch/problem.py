@@ -218,6 +218,9 @@ class TensorProblem:
                 self.postprocessors.append(
                     pp_registry.create(p.get_str("type", required=True), b.name, p, self)
                 )
+        # cross-postprocessor checks once all are built (forward references)
+        for pp in self.postprocessors:
+            pp.check(self)
 
     # ------------------------------------------------------------------
     def _build_compute(self, node: HitNode) -> TensorCompute:
@@ -352,8 +355,9 @@ class TensorProblem:
             )
 
     def history_requests(self) -> Dict[str, int]:
-        """The solver's and every compute's requests, deepest wins
-        (marlin_tpu/problem.py:history_requests)."""
+        """The solver's, every postprocessor's and every compute's requests,
+        deepest wins (marlin_tpu/problem.py:history_requests; the
+        predictors' wait for their port)."""
         req: Dict[str, int] = {}
 
         def merge(d):
@@ -362,6 +366,8 @@ class TensorProblem:
 
         if self.solver is not None:
             merge(self.solver.history_requests())
+        for pp in self.postprocessors:
+            merge(pp.history_requests())
 
         def walk(members):
             for m in members:
@@ -597,19 +603,27 @@ class TensorProblem:
         }
 
     def _pp_values(self, state, pps, t, dt, extra=None) -> Dict[str, float]:
-        """The postprocessors' values, and the 0-d tensors of ``extra``,
-        fetched to the host in one transfer."""
-        ctx = {"t": t, "dt": dt}
-        buffers = dict(state["buffers"])
-        buffers.update(self.pp_computes.apply(buffers, ctx))
-        st = {**state, "buffers": buffers}
-        vals = {pp.name: pp.compute(st, ctx) for pp in pps}
-        vals.update(extra or {})
-        if not vals:
-            return {}
-        host = torch.stack([torch.as_tensor(v, device=self.domain.device)
-                            .to(torch.float64).reshape(()) for v in vals.values()])
-        return dict(zip(vals, host.tolist()))
+        """The postprocessors' values at time ``t``: the tensor ones, and
+        the 0-d tensors of ``extra``, fetched to the host in one transfer,
+        then the ``depends_on_pps`` ones on the host from those values, in
+        declaration order (marlin_tpu/problem.py:execute_postprocessors)."""
+        tensor_pps = [pp for pp in pps if not getattr(pp, "depends_on_pps", False)]
+        vals = dict(extra or {})
+        if tensor_pps:
+            ctx = {"t": t, "dt": dt}
+            buffers = dict(state["buffers"])
+            buffers.update(self.pp_computes.apply(buffers, ctx))
+            st = {**state, "buffers": buffers}
+            vals = {**{pp.name: pp.compute(st, ctx) for pp in tensor_pps}, **vals}
+        result: Dict[str, float] = {}
+        if vals:
+            host = torch.stack([torch.as_tensor(v, device=self.domain.device)
+                                .to(torch.float64).reshape(()) for v in vals.values()])
+            result = dict(zip(vals, host.tolist()))
+        for pp in pps:
+            if getattr(pp, "depends_on_pps", False):
+                result[pp.name] = float(pp.compute_host(result, float(t)))
+        return result
 
     def step_with_pps(self, state, t, dt, dt_old, first_step: bool):
         """Timestep + TIMESTEP_END postprocessors; returns (state, host

@@ -175,7 +175,9 @@ def fwd_lanes_plain(x: torch.Tensor) -> torch.Tensor:
 
 def inv_lanes_plain(x: torch.Tensor, real_output: bool = True) -> torch.Tensor:
     """Inverse along the last axis of (B, n), permuted input, natural-order
-    output times 1/n (real part only with ``real_output``)."""
+    output divided by n (real part only with ``real_output``): a division,
+    as the kernel's, not a product with the rounded 1/n.  n is a 0-d tensor
+    on x's device: a host number would become that product on the card."""
     B, n = x.shape
     b = base(n)
     r = n // b
@@ -183,8 +185,11 @@ def inv_lanes_plain(x: torch.Tensor, real_output: bool = True) -> torch.Tensor:
     a = (x.to(torch.complex64).reshape(B * r, b) @ w).reshape(B, r, b)
     c = a * tw  # twiddle W_n^{+m·t}
     u = _radix([c[:, t, :] for t in range(r)], r, inverse=True)
-    out = torch.stack(u, dim=1).reshape(B, n) * (1.0 / n)  # x[m + b·u]
-    return out.real.contiguous() if real_output else out
+    out = torch.stack(u, dim=1).reshape(B, n)  # x[m + b·u]
+    d = torch.tensor(float(n), dtype=out.real.dtype, device=x.device)
+    if real_output:
+        return (out.real / d).contiguous()
+    return torch.complex(out.real / d, out.imag / d)
 
 
 def _sublanes_via_lanes(fn, x: torch.Tensor, *args) -> torch.Tensor:
@@ -463,7 +468,7 @@ def fwd_lanes_pre(x: torch.Tensor, pre: Pointwise) -> torch.Tensor:
 
 def inv_lanes(x: torch.Tensor, real_output: bool = True) -> torch.Tensor:
     """Inverse along the last axis of (B, n) complex64, permuted input;
-    natural-order float32 (``real_output``) or complex64 output times 1/n.
+    natural-order float32 (``real_output``) or complex64 output divided by n.
     Replaces pallas_fft._inv_lanes_kernel."""
     B, n = x.shape
     _check(x, n, "inv_lanes", complex_only=True)
@@ -499,7 +504,7 @@ def fwd_sublanes(x: torch.Tensor) -> torch.Tensor:
 
 def inv_sublanes(x: torch.Tensor) -> torch.Tensor:
     """Inverse along axis 1 of (P, n, L) complex64, permuted input;
-    natural-order complex64 output times 1/n.  Replaces
+    natural-order complex64 output divided by n.  Replaces
     pallas_fft._inv_sublanes_kernel."""
     P_, n, L = x.shape
     _check(x, n, "inv_sublanes", complex_only=True)

@@ -91,6 +91,34 @@ def test_multi_3d_deck_is_test_copy():
             ] == ["512"] * 6
 
 
+@pytest.mark.parametrize("path", ["TensorComputes/Initialize", "TensorComputes/Solve",
+                                  "TensorSolver"])
+def test_bench_1a_deck_holds_the_ch_deck(path):
+    """BENCH_1A_DECK's physics is __graft_entry__._CH_DECK's, block for
+    block, at every extent."""
+    a = hit.parse(decks.BENCH_1A_DECK.format(n=200, substeps=1000,
+                                             domain_extra="", solver_extra=""))
+    b = jhit.parse(_CH_DECK.format(nx=200, ny=200, substeps=1000))
+    assert _tree(a.child(path)) == _tree(b.child(path))
+    assert _tree(a.child("Domain")) == _tree(b.child("Domain"))
+
+
+def test_bench_1a_deck_schedule_is_bench_run():
+    """dt0 1, growth 1.1, dtmax 300, end 10500, change < 1e-4: the
+    arguments bench.py gives build_run for benchmark 1a."""
+    root = hit.parse(decks.BENCH_1A_DECK.format(n=200, substeps=1000,
+                                                domain_extra="", solver_extra=""))
+    ex = root.child("Executioner")
+    ts = ex.child("TimeStepper")
+    assert (ts.get("dt"), ts.get("growth_factor"), ex.get("dtmax"),
+            ex.get("end_time")) == ("1", "1.1", "300", "10500")
+    assert root.child("UserObjects/terminator").get("expression") == "change < 1e-4"
+    src = open(bench.__file__).read()
+    assert ("build_run(problem, num_steps=1000, dt0=1.0, growth=1.1,\n"
+            "                            dtmax=300.0, end_time=10500.0, "
+            "change_tol=1e-4)") in src
+
+
 def test_unbalanced_deck_raises_in_both():
     with pytest.raises(hit.HitError):
         hit.parse("[A]\n x = 1\n")

@@ -11,7 +11,10 @@ Tolerances:
 - float32 PALLAS path (twins against interpret-mode kernels, float32
   sums in different orders): 5e-5 on ``c`` after 2 steps, the tolerance of
   tests/test_pallas_fft.py::test_ch_solver_physics_parity, and 1e-4 of the
-  scale of each spectrum (see test_pallas_f32_matches_jax_interpret).
+  scale of each spectrum (see test_pallas_f32_matches_jax_interpret);
+- benchmark 1a's fused float32 path against the JAX package's: 5e-5 on
+  ``c`` (tests/test_torch_spectral.py's fused-deck tolerance) and 5e-5 of
+  each postprocessor value's magnitude (at least 1).
 """
 
 import jax
@@ -26,7 +29,7 @@ from marlin_tpu import hit as jhit
 from marlin_tpu.executioner import run_deck as jax_run_deck
 from marlin_tpu.problem import TensorProblem as JaxProblem
 from marlin_tpu_torch import hit, state as port_state
-from marlin_tpu_torch.decks import CH3D_DECK
+from marlin_tpu_torch.decks import BENCH_1A_DECK, CH3D_DECK
 from marlin_tpu_torch.executioner import run_deck
 from marlin_tpu_torch.problem import TensorProblem
 
@@ -317,3 +320,111 @@ def test_terminators_and_cutback_match_jax(name, expr, mode, cap, tmp_path):
     np.testing.assert_allclose(pt.state["buffers"]["c"].numpy(),
                                np.asarray(jt.state["buffers"]["c"]),
                                rtol=0, atol=F64_TOL)
+
+
+# -- benchmark 1a's deck (decks.BENCH_1A_DECK) ---------------------------------------
+
+BENCH_1A_STEPS = 12
+
+
+def _bench_1a(change_tol="1e-4", domain_extra="", solver_extra=""):
+    """BENCH_1A_DECK at 64², 10 substeps, cut to 12 steps."""
+    text = BENCH_1A_DECK.format(n=64, substeps=10, domain_extra=domain_extra,
+                                solver_extra=solver_extra)
+    return text.replace("'change < 1e-4'", f"'change < {change_tol}'").replace(
+        "  end_time = 10500\n", f"  end_time = 10500\n  num_steps = {BENCH_1A_STEPS}\n")
+
+
+def _assert_rows_match(pt, jt, tol):
+    """Every CSV row (INITIAL, then each step) in both packages, each
+    value within ``tol`` of its magnitude (at least 1)."""
+    assert len(pt.csv.rows) == len(jt.csv.rows) == pt.step_count + 1
+    for a, b in zip(jt.csv.rows, pt.csv.rows):
+        assert set(a) == set(b)
+        for k, v in a.items():
+            assert b[k] == pytest.approx(v, rel=0, abs=tol * max(1.0, abs(v))), k
+
+
+@pytest.mark.parametrize("change_tol,steps", [("1e-4", BENCH_1A_STEPS), ("1", 2)],
+                         ids=["runs_out", "terminator_fires"])
+def test_bench_1a_f64_default_matches_jax(change_tol, steps, tmp_path, capsys):
+    """BENCH_1A_DECK through both packages' run_deck: every postprocessor
+    column and c within 1e-10 in float64, equal step counts and times; with
+    ``change < 1`` the Terminator fires at step 2 in both (change is
+    Σ|c − c_old|·Πh over the last substep: 0.63 at step 2, then above 0.9)."""
+    deck = _bench_1a(change_tol)
+    jt = jax_run_deck(jhit.parse(deck), output_dir=str(tmp_path / "jax"))
+    pt = run_deck(hit.parse(deck), output_dir=str(tmp_path / "port"), device="cpu")
+    assert pt.step_count == jt.step_count == steps
+    assert pt.time == jt.time
+    _assert_rows_match(pt, jt, F64_TOL)
+    np.testing.assert_allclose(pt.state["buffers"]["c"].numpy(),
+                               np.asarray(jt.state["buffers"]["c"]), rtol=0, atol=F64_TOL)
+    row0 = pt.csv.rows[0]
+    # CSV row 0: F(0) and the starting mass; TIMESTEP_END-only values 0
+    assert row0["F"] > 0 and row0["c_integral"] > 0 and row0["change"] == 0.0
+    assert pt.pp_values["F_per_cell"] == pytest.approx(pt.pp_values["F"] / 64**2)
+    assert pt.pp_values["mass"] == pytest.approx(pt.pp_values["c_integral"], rel=1e-12)
+    assert capsys.readouterr().out.count("Performance Graph:") == 2
+
+
+_FUSED_1A = ("fft_backend = PALLAS\n  floating_precision = SINGLE",
+             "carry_reciprocal = true\n  fused_spectral = true")
+
+
+def test_bench_1a_fused_pallas_f32_matches_jax(tmp_path):
+    """The 1a deck on the fused path (kernels 1′ and 5 in the port, their
+    Pallas counterparts in interpret mode) against the JAX package's fused
+    path, float32."""
+    deck = _bench_1a("1e-4", *_FUSED_1A)
+    jt = jax_run_deck(jhit.parse(deck), output_dir=str(tmp_path / "jax"))
+    pt = run_deck(hit.parse(deck), output_dir=str(tmp_path / "port"), device="cpu")
+    assert pt.step_count == jt.step_count == BENCH_1A_STEPS
+    assert pt.time == jt.time
+    assert pt.state["n_advances"] == int(jt.state["n_advances"])
+    _assert_rows_match(pt, jt, 5e-5)
+    np.testing.assert_allclose(pt.state["buffers"]["c"].numpy(),
+                               np.asarray(jt.state["buffers"]["c"]), rtol=0, atol=5e-5)
+
+
+@pytest.mark.parametrize("extra", [("", ""), _FUSED_1A], ids=["default_f64", "fused_f32"])
+def test_bench_1a_change_reads_the_last_substep(extra):
+    """On both paths change compares c with the start of the step's last
+    substep (c's depth-1 history, advanced between substeps and, on the
+    fused path, once after the fused loop), as in the JAX package; not with
+    the start of the step."""
+    p = TensorProblem(hit.parse(_bench_1a("1e-4", *extra)), device="cpu")
+    s = p.step(p.init_state(), 0.0, 1.0, 0.0, True)
+    start = s["buffers"]["c"]
+    s, vals = p.step_with_pps(s, 1.0, 1.1, 1.0, False)
+    c, old = s["buffers"]["c"], s["old"]["c"][0]
+    cell = 1.0  # xmax = nx
+    last = torch.sum(torch.abs(c - old)).item() * cell
+    whole = torch.sum(torch.abs(c - start)).item() * cell
+    assert vals["change"] == pytest.approx(last, rel=1e-6)
+    assert not torch.equal(old, start) and whole > 5 * last
+
+
+@pytest.mark.parametrize("n", [200, 64])
+def test_bench_1a_pallas_operators_equal_default(n):
+    """M̄ and κ̄̄ of the 1a deck under PALLAS, unpermuted along both axes,
+    equal DEFAULT's on its half spectrum bit for bit, and are even in k: the
+    permuted layout, with every Nyquist frequency negative, gives the solve
+    the same operator as the half spectrum (only a gradient sees the
+    Nyquist sign)."""
+    from marlin_tpu_torch import unordered_fft as uf
+
+    def buffers(domain_extra):
+        deck = BENCH_1A_DECK.format(n=n, substeps=2, domain_extra=domain_extra,
+                                    solver_extra="")
+        return TensorProblem(hit.parse(deck), device="cpu").init_state()["buffers"]
+
+    half = buffers("floating_precision = SINGLE")
+    full = buffers("fft_backend = PALLAS\n  floating_precision = SINGLE")
+    order = uf.true_k_order(n)
+    mirror = (-np.arange(n)) % n
+    for name in ("Mbar", "kappabarbar"):
+        natural = np.empty((n, n), np.float32)
+        natural[np.ix_(order, order)] = full[name].numpy()
+        np.testing.assert_array_equal(natural[:, : n // 2 + 1], half[name].numpy())
+        np.testing.assert_array_equal(natural, natural[np.ix_(mirror, mirror)])
