@@ -16,10 +16,15 @@ Phases, one line each, flushed as they finish:
    spectral rows and phases 3-6 run; its report and phase 2's LBM rows
    follow phase 6.  A ``[time]`` line closes each group of phases;
 2. kernels: each kernel at its 512³ main-path shapes (and at n = 64, 200,
-   384, and at benchmark 1a's 200² shapes) against its plain PyTorch twin,
-   max error ≤ 1e-5 of the twin's largest magnitude; kernel, twin, bound
-   and yardstick times, and which path (register or tile) each FFT shape
-   takes, forward and inverse.  The LBM
+   384) against its plain PyTorch twin, max error ≤ 1e-5 of the twin's
+   largest magnitude; kernel, twin, bound and yardstick times, and which
+   path (register, small or tile) each FFT shape takes, forward and
+   inverse.  The small-extent path (b = n) over SMALL_SWEEP, kernels 1-4,
+   and measured at benchmark 1a's 200² shapes, kernels 1-4, 1′ and 5: each
+   also within 2.4e-7 of its largest output of the correctly rounded
+   transform (torch.fft in complex128 rounded to complex64, the fused
+   kernels' update in torch ops), device µs by the profiler beside the
+   same-function torch call (or a composite) and the bound.  The LBM
    substep kernel (``lbm_substep``) at 256³ in float32 on nine plans (the
    porous deck's, the mixed deck's, a D3Q27 all-faces plan with a z body
    force, a zeroth-order Zou-He channel; the thermal deck's two lattices
@@ -88,10 +93,10 @@ Phases, one line each, flushed as they finish:
    through ``run_deck`` to its end (t = 10500, or the Terminator's
    ``change < 1e-4``), four times: DEFAULT (torch.fft) in float64, the
    card's reference, and in float32; PALLAS unfused in float32 (kernels
-   1-4 on the tile path at n = 200, in every substep and in the
+   1-4 on the small-extent path at n = 200, in every substep and in the
    free-energy group); PALLAS with ``carry_reciprocal`` and
    ``fused_spectral`` in float32 (kernels 1′ with the 1a µ, 5, 4 and 2,
-   and kernels 1-4 in the group).  Each after a warm-up of 3 steps that
+   and kernels 1-4 in the group).  Each after a warm-up of 1 step that
    builds and loads its kernels.  Gates: F(0) against a numpy float64
    evaluation of the same formula (1e-9 relative in float64, 1e-5 in
    float32); the same steps and final t in all four runs; exact launch
@@ -104,9 +109,10 @@ Phases, one line each, flushed as they finish:
    the card's name and power limit and the reference's 45 s on an L4.
 
 Then one JSON line with every kernel's numbers (a kernel timed at more
-than one main shape also lists each under ``shapes``; ``launches`` sums
-the main paths that reached it, ``launches_by_path`` splits them) and,
-last, the JSON result line.  Any failure ends the run with a non-zero exit and no result line.
+than one main shape also lists each under ``shapes``; ``launches_by_path``
+splits ``launches`` by the paths that reached it; the small-extent kernels
+stand as their own entries, ``<wrapper> small``, timed at 200² and
+launched by phase 12's PALLAS runs) and, last, the JSON result line.  Any failure ends the run with a non-zero exit and no result line.
 Needs one CUDA card; fails without one, and fails where the package is not
 beside it.
 """
@@ -135,6 +141,14 @@ F32_FLOP_PER_S = 67e12     # H100 SXM data sheet, float32 outside tensor cores
 # issues on its own, at half the rate that counts an FMA as two
 F32_NO_FMA_FLOP_PER_S = F32_FLOP_PER_S / 2
 KERNEL_TOL = 1e-5
+# the small-extent path against torch.fft in complex128 rounded to complex64:
+# 2 float32 ulps of the largest output (the kernel's rounding and the
+# reference's)
+C128_TOL = 2.4e-7
+# b = n extents the small-extent kernels are held at: every radix, primes
+# above 7, both ends of the range
+SMALL_SWEEP = [8, 9, 12, 25, 49, 64, 97, 100, 125, 199, 200, 243, 343, 397, 400]
+PATHS = {0: "tile", 1: "register", 2: "small"}
 ANCHOR_TOL = 5e-5
 FUSED_ANCHOR_TOL = 2e-4
 MULTI_TOL = 5e-5
@@ -150,7 +164,7 @@ LBM_ODD_2D = [(33, 17), (1000, 333)]  # 1000×333: the mean's chunked finish
 KARMAN_SUBSTEPS = 100
 BENCH_1A_N = 200  # benchmark 1a: 200², 1000 substeps a step, to t = 10500
 BENCH_1A_SUBSTEPS = 1000
-BENCH_1A_WARM_STEPS = 3
+BENCH_1A_WARM_STEPS = 1  # a step runs every kernel of its run
 BENCH_1A_F0_TOL = {torch.float64: 1e-9, torch.float32: 1e-5}  # relative
 BENCH_1A_MASS_TOL = {torch.float64: 1e-10, torch.float32: 1e-5}  # relative
 BENCH_1A_EARLY = (10.0, 1e-3)  # float32 F within 1e-3 of float64's while t <= 10
@@ -233,6 +247,9 @@ def summarise(rows):
     if "yardstick_ms" in rows[0]:
         out["yardstick_ms"] = mean("yardstick_ms")
         out["yardstick"] = rows[0]["yardstick"]
+    if "path" in rows[0]:  # the small-extent rows
+        out["path"] = rows[0]["path"]
+        out["c128_rel_err"] = max(r["c128_rel_err"] for r in rows)
     if k > 1:
         out["shapes"] = rows
     return out
@@ -267,10 +284,125 @@ def measure(name, shape, kernel, twin, library, n_bytes, flops, yardstick=None,
     return row
 
 
+def fft_path(uf, name, n):
+    """The path the library takes for wrapper ``name`` at extent n."""
+    lib = uf.LIBRARY.load()
+    which = lib.mtt_fwd_path if name.startswith("fwd") else lib.mtt_inv_path
+    return PATHS[which(n, uf.base(n))]
+
+
+class ExactTransforms:
+    """Within the block, the plain twins' transforms are torch.fft in
+    complex128 rounded once to complex64 (the inverse's real part to
+    float32): the correctly rounded DFT of the same input, for extents with
+    b = n (natural order).  The fused twins (kernels 1′ and 5) call the
+    transform twins, so they give the exact transform and the update in
+    torch ops."""
+    NAMES = ("fwd_lanes_plain", "inv_lanes_plain", "fwd_sublanes_plain", "inv_sublanes_plain")
+
+    def __init__(self, uf):
+        self.uf = uf
+
+    @staticmethod
+    def fwd(x, dim):
+        return torch.fft.fft(x.to(torch.complex128), dim=dim).to(torch.complex64)
+
+    @staticmethod
+    def inv(x, dim, real_output=False):
+        y = torch.fft.ifft(x.to(torch.complex128), dim=dim)
+        return y.real.to(torch.float32) if real_output else y.to(torch.complex64)
+
+    def __enter__(self):
+        self.saved = {k: getattr(self.uf, k) for k in self.NAMES}
+        self.uf.fwd_lanes_plain = lambda x: self.fwd(x, -1)
+        self.uf.inv_lanes_plain = lambda x, real_output=True: self.inv(x, -1, real_output)
+        self.uf.fwd_sublanes_plain = lambda x: self.fwd(x, 1)
+        self.uf.inv_sublanes_plain = lambda x: self.inv(x, 1)
+        return self
+
+    def __exit__(self, *exc):
+        for k, v in self.saved.items():
+            setattr(self.uf, k, v)
+
+
+def check_c128(name, shape, got, exact):
+    """max |got − exact| against C128_TOL of exact's largest magnitude, over
+    every output; returns the error relative to that magnitude."""
+    got = got if isinstance(got, tuple) else (got,)
+    exact = exact if isinstance(exact, tuple) else (exact,)
+    rel = 0.0
+    for g, e in zip(got, exact):
+        r = (g - e).abs().max().item() / e.abs().max().item()
+        assert r <= C128_TOL, (name, shape, "complex128", r)
+        rel = max(rel, r)
+    return rel
+
+
+def measure_1a(uf, name, path, shape, kernel, twin, library, n_bytes, flops,
+               yardstick=None):
+    """One row at benchmark 1a's 200² shapes: the kernel against its twin
+    (KERNEL_TOL) and against the correctly rounded transform (C128_TOL),
+    then device ms a call by the profiler of the kernel, the twin and the
+    same-function torch call (``library``, (label, call)) or the composite
+    ``yardstick`` (label, call), and the bound."""
+    got = kernel()
+    torch.cuda.synchronize()
+    err = check(name, shape, got, twin())
+    with ExactTransforms(uf):
+        rel = check_c128(name, shape, got, twin())
+    del got
+    ms, plain = device_ms(kernel), device_ms(twin)
+    lib = None if library is None else device_ms(library[1])
+    bnd, by = bound_ms(n_bytes, flops)
+    row = {"shape": list(shape), "path": path, "max_abs_err": err, "c128_rel_err": rel,
+           "ms": ms, "plain_ms": plain, "library_ms": lib, "bound_ms": bnd, "bound_by": by}
+    text = (f"[kernels] {name} {tuple(shape)}: {path} path, max_abs_err {err:.3e} "
+            f"(twin), {rel:.3e} of the largest output (complex128 rounded, limit "
+            f"{C128_TOL}); device us: kernel {1e3 * ms:.2f}, twin {1e3 * plain:.2f}, "
+            f"bound {1e3 * bnd:.3f} ({by})")
+    if lib is not None:
+        text += f", {library[0]} {1e3 * lib:.2f}"
+    if yardstick is not None:
+        label, fn = yardstick
+        row["yardstick"] = label
+        row["yardstick_ms"] = device_ms(fn)
+        text += f", {label} {1e3 * row['yardstick_ms']:.2f}"
+    say(text)
+    torch.cuda.empty_cache()
+    return row
+
+
+def phase_small_sweep(uf, dev, gen):
+    """The small-extent kernels over SMALL_SWEEP, forward and inverse, lanes
+    and sublanes, against their twins and the correctly rounded transform;
+    each must take the small path."""
+    shapes = {"fwd_lanes": ((64, None), torch.float32),
+              "inv_lanes": ((64, None), torch.complex64),
+              "fwd_sublanes": ((2, None, 64), torch.complex64),
+              "inv_sublanes": ((2, None, 64), torch.complex64)}
+    for name, (shape_of, dtype) in shapes.items():
+        kernel, errs = getattr(uf, name), []
+        for n in SMALL_SWEEP:
+            path = fft_path(uf, name, n)
+            assert path == "small" == uf.path(n), (name, n, path)
+            shape = tuple(n if d is None else d for d in shape_of)
+            x = torch.randn(shape, generator=gen, dtype=dtype, device=dev)
+            got = kernel(x)
+            torch.cuda.synchronize()
+            err = check(name, shape, got, getattr(uf, name + "_plain")(x))
+            with ExactTransforms(uf):
+                rel = check_c128(name, shape, got, getattr(uf, name + "_plain")(x))
+            errs.append(f"{n}: {err:.1e} / {rel:.1e}")
+        say(f"[kernels] {name} small path at n = {SMALL_SWEEP[0]}..{SMALL_SWEEP[-1]} "
+            f"(max_abs_err against the twin / against complex128, relative): "
+            + ", ".join(errs))
+
+
 def phase_fft_kernels(uf, dev, gen):
-    """Kernels 1-4 against their twins."""
+    """Kernels 1-4 against their twins; the small-extent path over its sweep
+    and, measured, at benchmark 1a's shapes."""
     def make(shape, dtype):
-        return torch.randn(shape, generator=gen, dtype=dtype).to(dev)
+        return torch.randn(shape, generator=gen, dtype=dtype, device=dev)
 
     plane = N * N
     main_shapes = {
@@ -283,22 +415,27 @@ def phase_fft_kernels(uf, dev, gen):
     }
     a = BENCH_1A_N  # benchmark 1a's shapes: lanes (200, 200), sublanes (1, 200, 200)
     small = {
-        "fwd_lanes": [((4096, n), torch.float32) for n in (64, 200, 384)]
-        + [((a, a), torch.float32)],
-        "inv_lanes": [((4096, n), torch.complex64) for n in (64, 200, 384)]
-        + [((a, a), torch.complex64)],
-        "fwd_sublanes": [((8, n, 300), torch.float32) for n in (64, 200, 384)]
-        + [((1, a, a), torch.complex64)],
-        "inv_sublanes": [((8, n, 300), torch.complex64) for n in (64, 200, 384)]
-        + [((1, a, a), torch.complex64)],
+        "fwd_lanes": [((4096, n), torch.float32) for n in (64, 200, 384)],
+        "inv_lanes": [((4096, n), torch.complex64) for n in (64, 200, 384)],
+        "fwd_sublanes": [((8, n, 300), torch.float32) for n in (64, 200, 384)],
+        "inv_sublanes": [((8, n, 300), torch.complex64) for n in (64, 200, 384)],
     }
+    shapes_1a = {"fwd_lanes": ((a, a), torch.float32),
+                 "inv_lanes": ((a, a), torch.complex64),
+                 "fwd_sublanes": ((1, a, a), torch.complex64),
+                 "inv_sublanes": ((1, a, a), torch.complex64)}
     library = {
         "fwd_lanes": lambda x: torch.fft.fft(x, dim=-1),
         "inv_lanes": lambda x: torch.fft.ifft(x, dim=-1),
         "fwd_sublanes": lambda x: torch.fft.fft(x, dim=1),
         "inv_sublanes": lambda x: torch.fft.ifft(x, dim=1),
     }
+    # the same function as one torch call at 1a's shapes (kernel 2's takes
+    # .real, a view: one device kernel)
+    labels_1a = {"fwd_lanes": "torch.fft.fft(x, -1)", "inv_lanes": "torch.fft.ifft(x, -1).real",
+                 "fwd_sublanes": "torch.fft.fft(x, 1)", "inv_sublanes": "torch.fft.ifft(x, 1)"}
     results = {}
+    phase_small_sweep(uf, dev, gen)
     for name in main_shapes:
         kernel = getattr(uf, name)
         twin = getattr(uf, name + "_plain")
@@ -307,16 +444,26 @@ def phase_fft_kernels(uf, dev, gen):
             got = kernel(x)
             torch.cuda.synchronize()
             err = check(name, shape, got, twin(x))
+            n = shape[1] if "sub" in name else shape[-1]
             say(f"[kernels] {name} {tuple(shape)} {str(dtype)[6:]}: "
-                f"max_abs_err {err:.3e}")
+                f"{fft_path(uf, name, n)} path, max_abs_err {err:.3e}")
+        shape, dtype = shapes_1a[name]
+        x = make(shape, dtype)
+        call = library[name]
+        same = (lambda: call(x).real) if name == "inv_lanes" else (lambda: call(x))
+        out_bytes = x.numel() * (4 if name == "inv_lanes" else 8)
+        results[name + " small"] = summarise([measure_1a(
+            uf, name, fft_path(uf, name, a), shape, lambda: kernel(x),
+            lambda: getattr(uf, name + "_plain")(x),
+            (labels_1a[name], same),
+            nbytes(x) + out_bytes + uf.small_plan_bytes(a), fft_flops(x.numel() // a, a))])
+        del x
         rows = []
         for shape, dtype in main_shapes[name]:
             x = make(shape, dtype)
             n = shape[1] if "sub" in name else shape[-1]
             out_bytes = x.numel() * (4 if name == "inv_lanes" else 8)
-            lib = uf.LIBRARY.load()
-            which = lib.mtt_fwd_path if name.startswith("fwd") else lib.mtt_inv_path
-            path = "register" if which(n, uf.base(n)) else "tile"
+            path = fft_path(uf, name, n)
             say(f"[kernels] {name} {tuple(shape)}: {path} path")
             rows.append(measure(
                 name, shape, lambda: kernel(x), lambda: twin(x),
@@ -332,17 +479,24 @@ def phase_fused_kernels(uf, sp, dev, gen, pre, k2):
     """fwd_lanes_pre, fwd_x_update and fwd_x_update_poly against their
     twins."""
     def make(shape, dtype, scale=1.0, shift=0.0):
-        return (shift + scale * torch.randn(shape, generator=gen, dtype=dtype)).to(dev)
+        return shift + scale * torch.randn(shape, generator=gen, dtype=dtype, device=dev)
 
     results = {}
     # -- kernel 1 with the fused µ read: c-like values around 0.5
     pre_ops = pre.expr.cuda_source(pre.var).count("\n")  # one flop a statement
     a = BENCH_1A_N  # and benchmark 1a's (200, 200), the same µ in 2-D
-    for shape in [(4096, n) for n in (64, 200, 384)] + [(a, a)]:
+    for shape in [(4096, n) for n in (64, 200, 384)]:
         x = make(shape, torch.float32, 0.05, 0.5)
         err = check("fwd_lanes_pre", shape, uf.fwd_lanes(x, pre=pre),
                     uf.fwd_lanes_plain(pre(x)))
         say(f"[kernels] fwd_lanes_pre {shape} float32: max_abs_err {err:.3e}")
+    x = make((a, a), torch.float32, 0.05, 0.5)
+    results["fwd_lanes_pre small"] = summarise([measure_1a(
+        uf, "fwd_lanes_pre", fft_path(uf, "fwd_lanes", a), x.shape,
+        lambda: uf.fwd_lanes(x, pre=pre), lambda: uf.fwd_lanes_plain(pre(x)), None,
+        nbytes(x) + 2 * nbytes(x) + uf.small_plan_bytes(a),
+        fft_flops(a, a) + pre_ops * x.numel(),
+        ("composite µ (torch ops) + torch.fft.fft", lambda: torch.fft.fft(pre(x), dim=-1)))])
     x = make((N * N, N), torch.float32, 0.05, 0.5)
     results["fwd_lanes_pre"] = summarise([measure(
         "fwd_lanes_pre", x.shape, lambda: uf.fwd_lanes(x, pre=pre),
@@ -372,15 +526,28 @@ def phase_fused_kernels(uf, sp, dev, gen, pre, k2):
         return sp._update(mb, u, o, *args, lb,
                           None if mobility is None else -k2 * mobility)
 
+    rows_1a = []
     for form, (mobility, lin) in forms.items():
-        # (200, 200): benchmark 1a's update
-        for n, L in [(64, 300), (200, 300), (384, 300), (a, a)]:
+        for n, L in [(64, 300), (200, 300), (384, 300)]:
             m, u, o = (make((n, L), torch.complex64) for _ in range(3))
             kx2, kyz2 = tables(n, L)
             err = check("fwd_x_update", (n, L),
                         sp.fwd_x_update(m, u, o, kx2, kyz2, *args, mobility, lin),
                         sp.fwd_x_update_plain(m, u, o, kx2, kyz2, *args, mobility, lin))
             say(f"[kernels] fwd_x_update {form} ({n}, {L}): max_abs_err {err:.3e}")
+        # (200, 200): benchmark 1a's update, measured
+        m, u, o = (make((a, a), torch.complex64) for _ in range(3))
+        kx2a, kyz2a = tables(a, a)
+        rows_1a.append(measure_1a(
+            uf, f"fwd_x_update {form}", fft_path(uf, "fwd_sublanes", a), m.shape,
+            lambda: sp.fwd_x_update(m, u, o, kx2a, kyz2a, *args, mobility, lin),
+            lambda: sp.fwd_x_update_plain(m, u, o, kx2a, kyz2a, *args, mobility, lin),
+            None, 5 * nbytes(m) + nbytes(kx2a, kyz2a) + uf.small_plan_bytes(a),
+            fft_flops(a, a) + 25 * m.numel(),
+            ("composite torch.fft.fft(dim=0) + update (torch ops)",
+             lambda: composite(m, u, o, kx2a, kyz2a, mobility, lin))))
+        del m, u, o
+    results["fwd_x_update small"] = summarise(rows_1a)
     rows = []
     kx2, kyz2 = k2
     L = N * N
@@ -509,7 +676,8 @@ def lbm_kernel_name(mangled):
             f"two={two}, mrt={mrt}>")
 
 
-FFT_KERNEL = re.compile(r"(reg_lanes|reg_sublanes|tile_lanes|tile_sublanes)_kernel")
+FFT_KERNEL = re.compile(
+    r"(reg_lanes|reg_sublanes|small_lanes|small_sublanes|tile_lanes|tile_sublanes)_kernel")
 TEMPLATE_ARG = re.compile(r"L[ib](\d+)E|NS_(\d+)")
 
 
@@ -554,7 +722,7 @@ def fft_kernel_namer(uf):
         except (ValueError, IndexError):
             return mangled
         label = f"{kind}_kernel<{', '.join(args)}>"
-        if kind.startswith("tile"):  # the generic tile: its shared memory goes by extent
+        if not kind.startswith("reg"):  # its shared memory goes by extent
             return label
         smem = uf.LIBRARY.load().mtt_smem(int(args[0]), 128, int(kind == "reg_sublanes"))
         return f"{label} ({smem} B shared memory)"
@@ -1195,7 +1363,8 @@ def main():
     lap("1 (spectral libraries)", t_start)
 
     # -- 2: kernels against their twins (the FFT and k-space update rows) --------
-    gen = torch.Generator().manual_seed(0)
+    # inputs drawn on the card: a 512³ complex draw takes seconds on the host
+    gen = torch.Generator(device=dev).manual_seed(0)
     kernels = phase_fft_kernels(uf, dev, gen)
     dom = TensorProblem(hit.parse(CH3D_DECK.format(n=N, substeps=2).replace(
         "[Domain]", "[Domain]\n  fft_backend = PALLAS\n  floating_precision = SINGLE")),
@@ -1366,19 +1535,36 @@ def main():
         ("lbm_density_mean", "lbm_substep.cu", "marlin_tpu/pallas_lbm.py:687",
          karman_launches),
     ]
-    # the 1a runs' launches join those of the path each kernel was timed on
+    # the small-extent kernels, timed at benchmark 1a's 200²: their launches
+    # are those of the 1a runs (every transform there is at n = 200)
     paths_1a = {f"1a {run}": counts for run, counts in launches_1a.items()
                 if run.startswith("PALLAS")}
+    table_small = [
+        ("fwd_lanes", "small_lanes_kernel<Identity, Store>", "marlin_tpu/pallas_fft.py:237"),
+        ("inv_lanes", "small_lanes_kernel<Identity, InvStore>", "marlin_tpu/pallas_fft.py:276"),
+        ("fwd_sublanes", "small_sublanes_kernel<Store>", "marlin_tpu/pallas_fft.py:340"),
+        ("inv_sublanes", "small_sublanes_kernel<InvStore>", "marlin_tpu/pallas_fft.py:355"),
+        ("fwd_lanes_pre", "small_lanes_kernel<Pre, Store>", "marlin_tpu/pallas_fft.py:237"),
+        ("fwd_x_update", "small_sublanes_kernel<Update>", "marlin_tpu/pallas_spectral.py:120"),
+    ]
 
     def entry(name, src, replaces, counts):
-        by_path = {"main": counts[name], **{k: v[name] for k, v in paths_1a.items()
-                                            if name in v}}
         return {"name": name, "route": "cuda",
                 "source": f"marlin_tpu_torch/csrc/{src}", "replaces": replaces,
-                "launches": sum(by_path.values()), "launches_by_path": by_path,
+                "launches": counts[name], "launches_by_path": {"main": counts[name]},
                 **kernels[name]}
 
-    line = {"kernels": [entry(*row) for row in table]}
+    def entry_small(name, kernel, replaces):
+        by_path = {k: v[name] for k, v in paths_1a.items() if v[name]}
+        return {"name": f"{name} small", "kernel": kernel, "route": "cuda",
+                "source": "marlin_tpu_torch/csrc/fft_tile.cuh", "replaces": replaces,
+                "launches": sum(by_path.values()), "launches_by_path": by_path,
+                **kernels[f"{name} small"]}
+
+    line = {"kernels": [entry(*row) for row in table]
+            + [entry_small(*row) for row in table_small]}
+    for k in line["kernels"]:
+        assert k["launches"] > 0, (k["name"], k["launches_by_path"])
     say(json.dumps(line))
     say(smi)
     say(json.dumps({"ok": True, "device": {

@@ -19,9 +19,14 @@
 // any extent the tile takes, forward only) and for the register kernels
 // (`reg_*`, at n = 512, forward or inverse); `inverse` picks the direction
 // (the inverse lanes variants write the real part, as the solver's last
-// inverse does).  The variants are built from the shipped kernels' own
-// pieces (the ring's fetch and read, reg_fft, reg_out, the epilogues),
-// with the same block shape and shared memory, so they change with them.
+// inverse does).  The small-extent kernels (`small_*`, any extent with b =
+// n) have mode 0, copy only (the plan and input fetch, the widening to
+// float64 and the epilogue's rounded store, no stages), and mode 1, the
+// shipped kernel whole on `width` transforms a block (its rows or columns;
+// 0 takes the launcher's own).  The variants are built from the shipped
+// kernels' own pieces (the ring's fetch and read, reg_fft, reg_out, the
+// small path's fetch and widening, the epilogues), with the same block
+// shape and shared memory, so they change with them.
 
 #include "fft_tile.cuh"
 
@@ -208,6 +213,51 @@ reg_sublanes_probe(const float* __restrict__ xr, const float2* __restrict__ xc,
   if (MODE == 1 && never(acc)) epi(0, 0, 0, 0, make_float2(acc, 0.f));
 }
 
+// small_lanes_kernel without its stages: each row handed on as it was read.
+template <class Epi>
+__global__ void __launch_bounds__(kSmallMaxWarps * 32)
+small_lanes_copy(const float* __restrict__ xr, const float2* __restrict__ xc,
+                 const void* __restrict__ plan_g, int plan_bytes, int n, int64_t B,
+                 Epi epi) {
+  extern __shared__ __align__(16) char small_smem[];
+  const int G = blockDim.x >> 5, w = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const int64_t row0 = (int64_t)blockIdx.x * G;
+  const int rows = (int)(B - row0 < G ? B - row0 : G);
+  char* staged = small_smem + plan_bytes;
+  double2* a = reinterpret_cast<double2*>(staged + round16(G * n * 8)) + w * (2 * n + 1);
+  small_lanes_fetch(small_smem, staged, plan_g, plan_bytes, xr, xc, row0, rows, n);
+  if (w >= rows) return;
+  small_lanes_widen(a, staged, xr != nullptr, w, n, lane, Identity());
+  const int64_t r = row0 + w;
+  for (int k = lane; k < n; k += 32) small_emit(epi, r * n + k, k, r, 0, a[k]);
+}
+
+// small_sublanes_kernel without its stages.
+template <class Epi>
+__global__ void __launch_bounds__(kSmallMaxWarps * 32)
+small_sublanes_copy(const float* __restrict__ xr, const float2* __restrict__ xc,
+                    const void* __restrict__ plan_g, int plan_bytes, int n, int64_t L,
+                    Epi epi) {
+  extern __shared__ __align__(16) char small_smem[];
+  const int C = blockDim.x >> 5, logC = __ffs(C) - 1;
+  const int w = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const int64_t col0 = (int64_t)blockIdx.x * C, base = (int64_t)blockIdx.y * n * L;
+  const int cols = (int)(L - col0 < C ? L - col0 : C);
+  char* staged = small_smem + plan_bytes;
+  double2* bufs = reinterpret_cast<double2*>(staged + round16(n * (C + 1) * 8));
+  small_sublanes_fetch(small_smem, staged, plan_g, plan_bytes, xr, xc, base, col0,
+                       cols, n, L, C, logC);
+  if (w < cols) small_sublanes_widen(bufs + w * (2 * n + 1), staged, xr != nullptr, w, n, C, lane);
+  __syncthreads();
+  for (int i = threadIdx.x; i < n * C; i += blockDim.x) {
+    const int k = i >> logC, c = i & (C - 1);
+    if (c >= cols) continue;
+    const int64_t col = col0 + c;
+    small_emit(epi, base + (int64_t)k * L + col, k, col, (int)blockIdx.y,
+               bufs[c * (2 * n + 1) + k]);
+  }
+}
+
 // InvStore on the other cluster size (mode 3).
 struct InvStoreOther : InvStore {};
 template <>
@@ -356,6 +406,58 @@ cudaError_t probe_reg_sublanes(int mode, int inverse, const void* xr,
     return mode == 0 ? MTT_PROBE(0, InvStore, inv) : MTT_PROBE(1, InvStore, inv);
   return mode == 0 ? MTT_PROBE(0, Store, st) : MTT_PROBE(1, Store, st);
 #undef MTT_PROBE
+}
+
+// mode 0 (copy only) or 1 (whole) of the small-extent lanes kernel over (B,
+// n), `width` rows a block (0: the launcher's).
+cudaError_t probe_small_lanes(int mode, int inverse, const void* xr,
+                              const void* xc, void* out, const void* plan,
+                              int64_t B, int64_t n, int64_t b, int width,
+                              cudaStream_t stream) {
+  const int warps = width ? width : kSmallRows;
+  if (B < 1 || !small_path(n, b) || mode < 0 || mode > 1 || warps < 1 ||
+      warps > kSmallMaxWarps)
+    return cudaErrorInvalidValue;
+  const float* r = (const float*)xr;
+  const float2* c = (const float2*)xc;
+  const Store st{(float2*)out};
+  const InvStore inv = inv_store(out, n, true);
+  if (mode == 1)
+    return inverse ? launch_small_lanes(r, c, plan, B, n, warps, stream, Identity(), inv)
+                   : launch_small_lanes(r, c, plan, B, n, warps, stream, Identity(), st);
+  int bytes = small_plan_bytes(n), ni = (int)n;
+  const dim3 grid((unsigned)((B + warps - 1) / warps));
+  const size_t smem = small_smem_bytes(n, warps, false);
+  void* fwd[] = {&r, &c, &plan, &bytes, &ni, &B, (void*)&st};
+  void* back[] = {&r, &c, &plan, &bytes, &ni, &B, (void*)&inv};
+  return inverse ? launch(small_lanes_copy<InvStore>, grid, warps * 32, smem, stream, back)
+                 : launch(small_lanes_copy<Store>, grid, warps * 32, smem, stream, fwd);
+}
+
+// mode 0 (copy only) or 1 (whole) of the small-extent sublanes kernel over
+// (P, n, L), `width` columns a block (a power of two; 0: the launcher's).
+cudaError_t probe_small_sublanes(int mode, int inverse, const void* xr,
+                                 const void* xc, void* out, const void* plan,
+                                 int64_t P, int64_t n, int64_t L, int64_t b,
+                                 int width, cudaStream_t stream) {
+  const int warps = width ? width : kSmallCols;
+  if (P < 1 || P > 65535 || L < 1 || !small_path(n, b) || mode < 0 || mode > 1 ||
+      warps < 1 || warps > kSmallMaxWarps || (warps & (warps - 1)))
+    return cudaErrorInvalidValue;
+  const float* r = (const float*)xr;
+  const float2* c = (const float2*)xc;
+  const Store st{(float2*)out};
+  const InvStore inv = inv_store(out, n, false);
+  if (mode == 1)
+    return inverse ? launch_small_sublanes(r, c, plan, P, n, L, warps, stream, inv)
+                   : launch_small_sublanes(r, c, plan, P, n, L, warps, stream, st);
+  int bytes = small_plan_bytes(n), ni = (int)n;
+  const dim3 grid((unsigned)((L + warps - 1) / warps), (unsigned)P);
+  const size_t smem = small_smem_bytes(n, warps, true);
+  void* fwd[] = {&r, &c, &plan, &bytes, &ni, &L, (void*)&st};
+  void* back[] = {&r, &c, &plan, &bytes, &ni, &L, (void*)&inv};
+  return inverse ? launch(small_sublanes_copy<InvStore>, grid, warps * 32, smem, stream, back)
+                 : launch(small_sublanes_copy<Store>, grid, warps * 32, smem, stream, fwd);
 }
 
 }  // extern "C"

@@ -10,9 +10,9 @@
 //
 // A kernel's direction follows its epilogue (is_inverse<Epi>): InvStore's
 // kernels are the inverse (permuted input, the conjugate table, natural
-// output times 1/n), every other epilogue's the forward (natural input,
-// permuted output).  Two paths, chosen on the host by the extent
-// (reg_path):
+// output divided by n), every other epilogue's the forward (natural input,
+// permuted output).  Three paths, chosen on the host by the extent
+// (fft_path):
 //
 // * n = 128, 256, 512, 1024 (b = 128): the register-resident kernels
 //   reg_lanes_kernel<N> and reg_sublanes_kernel<N>, which replace
@@ -45,7 +45,11 @@
 //   (kernels 3 and 4) its blocks run in clusters of 8 that take adjacent
 //   tiles in step, so that each row is read and written 8 tiles wide at a
 //   time.  Every index is a shift or a mask: N is a template parameter.
-// * any other extent: the generic tile (tile_fft) below.
+// * every extent with b = n but 128 (8 .. 400): the small-extent kernels
+//   small_lanes_kernel and small_sublanes_kernel, one warp a transform,
+//   float64 stages (their section below);
+// * n = 384, 640, 768, 896 (b = 128, r = 3, 5, 6, 7): the generic tile
+//   (tile_fft) below.
 //
 // Generic tile algorithm: one block holds a tile of T transforms of length
 // n in shared memory and runs a mixed-radix Stockham FFT over it, one stage
@@ -96,67 +100,62 @@ __device__ __forceinline__ int true_k(int kp, const Plan& p) {
 __device__ __forceinline__ float2 cmul(float2 a, float2 b) {
   return make_float2(fmaf(a.x, b.x, -a.y * b.y), fmaf(a.x, b.y, a.y * b.x));
 }
+__device__ __forceinline__ double2 cmul(double2 a, double2 b) {
+  return make_double2(fma(a.x, b.x, -a.y * b.y), fma(a.x, b.y, a.y * b.x));
+}
 
 __device__ __forceinline__ float2 cadd(float2 a, float2 b) {
   return make_float2(a.x + b.x, a.y + b.y);
+}
+__device__ __forceinline__ double2 cadd(double2 a, double2 b) {
+  return make_double2(a.x + b.x, a.y + b.y);
 }
 
 __device__ __forceinline__ float2 csub(float2 a, float2 b) {
   return make_float2(a.x - b.x, a.y - b.y);
 }
+__device__ __forceinline__ double2 csub(double2 a, double2 b) {
+  return make_double2(a.x - b.x, a.y - b.y);
+}
+
+__device__ __forceinline__ float2 cplx(float re, float im) {
+  return make_float2(re, im);
+}
+__device__ __forceinline__ double2 cplx(double re, double im) {
+  return make_double2(re, im);
+}
 
 // s*i*a for s = -1 (forward) or +1 (inverse)
-template <bool INV>
-__device__ __forceinline__ float2 mul_si(float2 a) {
-  return INV ? make_float2(-a.y, a.x) : make_float2(a.y, -a.x);
+template <bool INV, class C>
+__device__ __forceinline__ C mul_si(C a) {
+  return INV ? cplx(-a.y, a.x) : cplx(a.y, -a.x);
 }
 
-// In-register DFT_R, R in {2, 4, 8}: V[t] = sum_q v[q] W_R^{-+qt}.
-template <int R, bool INV>
-__device__ __forceinline__ void dft(float2 (&v)[R]);
-
-template <>
-__device__ __forceinline__ void dft<2, false>(float2 (&v)[2]) {
-  const float2 a = v[0];
-  v[0] = cadd(a, v[1]);
-  v[1] = csub(a, v[1]);
-}
-template <>
-__device__ __forceinline__ void dft<2, true>(float2 (&v)[2]) {
-  dft<2, false>(v);
-}
-
-template <bool INV>
-__device__ __forceinline__ void dft4(float2& a, float2& b, float2& c,
-                                     float2& d) {
-  const float2 apc = cadd(a, c), amc = csub(a, c);
-  const float2 bpd = cadd(b, d), bmd = mul_si<INV>(csub(b, d));
+// In-register DFT_R, V[t] = sum_q v[q] W_R^{-+qt}, on float2 (the register
+// path and the tile) or double2 values (the small-extent path): R = 2, 4, 8
+// as butterflies, R = 3, 5, 7 by their symmetric pairs (dft_odd).
+template <bool INV, class C>
+__device__ __forceinline__ void dft4(C& a, C& b, C& c, C& d) {
+  const C apc = cadd(a, c), amc = csub(a, c);
+  const C bpd = cadd(b, d), bmd = mul_si<INV>(csub(b, d));
   a = cadd(apc, bpd);
   b = cadd(amc, bmd);
   c = csub(apc, bpd);
   d = csub(amc, bmd);
 }
 
-template <>
-__device__ __forceinline__ void dft<4, false>(float2 (&v)[4]) {
-  dft4<false>(v[0], v[1], v[2], v[3]);
-}
-template <>
-__device__ __forceinline__ void dft<4, true>(float2 (&v)[4]) {
-  dft4<true>(v[0], v[1], v[2], v[3]);
-}
-
-template <bool INV>
-__device__ __forceinline__ void dft8(float2 (&v)[8]) {
+template <bool INV, class C>
+__device__ __forceinline__ void dft8(C (&v)[8]) {
+  using S = decltype(v[0].x);
   // even and odd halves, then W_8^k (k = 0..3) on the odd half
   dft4<INV>(v[0], v[2], v[4], v[6]);
   dft4<INV>(v[1], v[3], v[5], v[7]);
-  const float h = 0.70710678118654752f;
-  const float s = INV ? 1.f : -1.f;
-  const float2 o1 = cmul(v[3], make_float2(h, s * h));
-  const float2 o2 = mul_si<INV>(v[5]);
-  const float2 o3 = cmul(v[7], make_float2(-h, s * h));
-  const float2 e0 = v[0], e1 = v[2], e2 = v[4], e3 = v[6];
+  const S h = S(0.70710678118654752440);
+  const S s = INV ? S(1) : S(-1);
+  const C o1 = cmul(v[3], cplx(h, s * h));
+  const C o2 = mul_si<INV>(v[5]);
+  const C o3 = cmul(v[7], cplx(-h, s * h));
+  const C e0 = v[0], e1 = v[2], e2 = v[4], e3 = v[6];
   v[0] = cadd(e0, v[1]);
   v[4] = csub(e0, v[1]);
   v[1] = cadd(e1, o1);
@@ -167,13 +166,70 @@ __device__ __forceinline__ void dft8(float2 (&v)[8]) {
   v[7] = csub(e3, o3);
 }
 
-template <>
-__device__ __forceinline__ void dft<8, false>(float2 (&v)[8]) {
-  dft8<false>(v);
+// cos and sin of 2 pi m / R for R = 3, 5, 7 and 0 <= m < R, correctly
+// rounded to double (selects on m, which the unrolled loops fold away)
+__host__ __device__ constexpr double root_cos(int R, int m) {
+  const int k = m < R - m ? m : R - m;
+  if (k == 0) return 1.0;
+  if (R == 3) return -0.5;
+  if (R == 5) return k == 1 ? 0.3090169943749474241 : -0.8090169943749474241;
+  return k == 1 ? 0.62348980185873353053
+       : k == 2 ? -0.22252093395631440429 : -0.90096886790241912624;
 }
-template <>
-__device__ __forceinline__ void dft<8, true>(float2 (&v)[8]) {
-  dft8<true>(v);
+__host__ __device__ constexpr double root_sin(int R, int m) {
+  const int k = m < R - m ? m : R - m;
+  const double s = k == 0 ? 0.0
+                 : R == 3 ? 0.86602540378443864676
+                 : R == 5 ? (k == 1 ? 0.95105651629515357212 : 0.58778525229247312917)
+                 : k == 1 ? 0.78183148246802980871
+                 : k == 2 ? 0.97492791218182360702 : 0.43388373911755812048;
+  return m < R - m ? s : -s;
+}
+
+// Odd R (3, 5, 7) in double2: with a_k = v_k + v_{R-k}, b_k = v_k - v_{R-k},
+// V_t = v_0 + sum_k cos(2 pi kt/R) a_k -+ i sum_k sin(2 pi kt/R) b_k and
+// V_{R-t} the same with the other sign, k, t = 1 .. (R-1)/2.
+template <int R, bool INV>
+__device__ __forceinline__ void dft_odd(double2 (&v)[R]) {
+  constexpr int M = (R - 1) / 2;
+  double2 a[M + 1], b[M + 1];
+  const double2 x0 = v[0];
+  double2 y0 = x0;
+#pragma unroll
+  for (int k = 1; k <= M; ++k) {
+    a[k] = cadd(v[k], v[R - k]);
+    b[k] = csub(v[k], v[R - k]);
+    y0 = cadd(y0, a[k]);
+  }
+#pragma unroll
+  for (int t = 1; t <= M; ++t) {
+    double2 re = x0, im = make_double2(0.0, 0.0);
+#pragma unroll
+    for (int k = 1; k <= M; ++k) {
+      const double c = root_cos(R, k * t % R), s = root_sin(R, k * t % R);
+      re = make_double2(fma(c, a[k].x, re.x), fma(c, a[k].y, re.y));
+      im = make_double2(fma(s, b[k].x, im.x), fma(s, b[k].y, im.y));
+    }
+    const double2 si = mul_si<INV>(im);
+    v[t] = cadd(re, si);
+    v[R - t] = csub(re, si);
+  }
+  v[0] = y0;
+}
+
+template <int R, bool INV, class C>
+__device__ __forceinline__ void dft(C (&v)[R]) {
+  if constexpr (R == 2) {
+    const C a = v[0];
+    v[0] = cadd(a, v[1]);
+    v[1] = csub(a, v[1]);
+  } else if constexpr (R == 4) {
+    dft4<INV>(v[0], v[1], v[2], v[3]);
+  } else if constexpr (R == 8) {
+    dft8<INV>(v);
+  } else {
+    dft_odd<R, INV>(v);
+  }
 }
 
 // Element (k, l) of a tile (k along the transform, l the transform's index
@@ -368,6 +424,15 @@ struct InvStore {
       out_r[g] = __fdiv_rn(v.x, n);
     else
       out_c[g] = make_float2(__fdiv_rn(v.x, n), __fdiv_rn(v.y, n));
+  }
+  // The small-extent path's store: the float64 value divided by n in
+  // float64, then rounded once to float.
+  __device__ __forceinline__ void wide(int64_t g, double2 v) const {
+    const double d = n;
+    if (out_r)
+      out_r[g] = __double2float_rn(v.x / d);
+    else
+      out_c[g] = make_float2(__double2float_rn(v.x / d), __double2float_rn(v.y / d));
   }
 };
 
@@ -953,9 +1018,414 @@ cudaError_t launch_reg_sublanes(const float* xr, const float2* xc,
                     stream, xr, xc, tw, L, ncols, P * ncols, epi);
 }
 
+// ---------------------------------------------------------------------------
+// Small-extent kernels for every extent with b = n but 128 (n = 8 .. 400)
+// ---------------------------------------------------------------------------
+//
+// At b = n the spectrum is in natural order (r = 1: true_k is the identity),
+// so each kernel computes one plain DFT along its axis, the JAX package's
+// direct DFT matmul (marlin_tpu/pallas_fft.py:52-67).  Benchmark 1a runs them
+// at n = 200 on (200, 200) and (1, 200, 200): 200 transforms of 1.6 kB a
+// pass, bound neither by bytes (0.14-0.48 us at 3.35 TB/s) nor by operations
+// (7.6 kflop a transform), but by latency.  The generic tile gave each of 10
+// blocks 20 transforms and ran 24-27 us a launch on an NVIDIA H100 80GB
+// HBM3 (700 W), its stages serial behind block barriers, with runtime
+// division and modulo in every index (PERF.md section 6).  Here one warp owns one transform, so that 200 transforms are
+// 200 warps: a lanes block takes G = blockDim.x/32 rows (2: 100 blocks at
+// 1a), a strided-axis block C = blockDim.x/32 adjacent columns (4, 32 bytes
+// of each row: 50 blocks at 1a).  A block first fetches, by cp.async in one
+// group, the host-built plan (from L2) and its input tile (from DRAM), so the
+// two latencies overlap; each warp then widens its transform to float64 in
+// shared memory and runs a mixed-radix Stockham FFT there, its stages apart
+// by __syncwarp only, in the plan's order (odd primes first, then 2, 4, 8),
+// the radices 2-8 as float64 butterflies in registers (dft), two a lane at
+// a time, a prime above 7 summed directly over its roots.  Each output is rounded to float once, on its way to the
+// epilogue (small_emit; InvStore divides by n in float64 first), so the
+// result is within about one rounding of the correctly rounded DFT of the
+// float32 input: the non-DC modes no longer leak into the mean through
+// float32 twiddles, which is what drifted benchmark 1a's mass (ROADMAP
+// section 3).  A stage's index j/Ns is (j + 1/2) times the host's float 1/Ns,
+// rounded down: exact for j, Ns < 2^12, no division in the loops.
+//
+// The plan (unordered_fft.py small_plan, one per extent and direction,
+// uploaded once a device) is 16-byte aligned:
+//   int32 words 0-3: n, stages, inverse, twiddles;
+//   words 4 + 5s ..: stage s's radix R, Ns (the product of the radices
+//     before it), nb = n/R, its first twiddle (a double2 index from the
+//     plan's start), the bits of float(1/Ns);
+//   from byte 256, double2: each stage's (R-1) Ns twiddles
+//     W_{Ns R}^{-+q j}, [q-1][j], and after them, for a prime R > 7, its R
+//     roots W_R^{-+m} (the conjugates for the inverse).
+// Its size is small_plan_bytes(n): n - 1 stage twiddles and the roots.
+
+constexpr int kSmallMaxN = 400;         // unordered_fft.py DIRECT_MAX
+constexpr int kSmallHeaderBytes = 256;  // the plan's int32 header
+constexpr int kSmallStageWords = 5;     // R, Ns, nb, first twiddle, 1/Ns
+constexpr int kSmallMaxWarps = 8;       // transforms a block, at most
+constexpr int kSmallRows = 2;           // rows of a lanes block
+constexpr int kSmallCols = 4;           // columns of a strided-axis block
+
+inline bool small_path(int64_t n, int64_t b) {
+  return b == n && n >= 8 && n <= kSmallMaxN && !reg_path(n, b);
+}
+
+// The plan's bytes at extent n: the header, n - 1 stage twiddles and, for
+// each prime factor p > 7 of n (with multiplicity), its p roots.
+inline int small_plan_bytes(int64_t n) {
+  int64_t m = n, roots = 0;
+  for (int p = 2; p <= 7; ++p)
+    while (m % p == 0) m /= p;
+  for (int64_t p = 11; m > 1; p += 2)
+    while (m % p == 0) {
+      roots += p;
+      m /= p;
+    }
+  return kSmallHeaderBytes + 16 * (int)(n - 1 + roots);
+}
+
+__host__ __device__ constexpr int round16(int bytes) { return (bytes + 15) & ~15; }
+
+// Shared memory of a block of `warps` transforms: the plan, the input as
+// fetched (a lanes block's rows back to back; a strided-axis block's tile
+// [position][column], C + 1 values a position) and two float64 buffers of n
+// a warp, 2n + 1 apart.
+inline size_t small_smem_bytes(int64_t n, int warps, bool sublanes) {
+  const int staged = sublanes ? (int)n * (warps + 1) * 8 : warps * (int)n * 8;
+  return small_plan_bytes(n) + round16(staged) + (size_t)warps * (2 * n + 1) * 16;
+}
+
+// cp.async copies of `words` 32-bit words from global src to shared dst,
+// spread over the block: 16 bytes each where both are 16-byte aligned and
+// words is a multiple of 4, else one word each.  The caller commits.
+__device__ __forceinline__ void small_fetch(void* dst, const void* src, int words) {
+  if (aligned16(src) && aligned16(dst) && (words & 3) == 0) {
+    for (int i = threadIdx.x; i < words / 4; i += blockDim.x)
+      cp_async<16>(static_cast<char*>(dst) + 16 * i,
+                   static_cast<const char*>(src) + 16 * i);
+  } else {
+    for (int i = threadIdx.x; i < words; i += blockDim.x)
+      cp_async<4>(static_cast<uint32_t*>(dst) + i, static_cast<const uint32_t*>(src) + i);
+  }
+}
+
+struct SmallStage {
+  int R, Ns, nb;
+  const double2* tw;  // [q-1][j mod Ns], then a prime's roots
+  float rNs;          // float(1/Ns)
+};
+
+__device__ __forceinline__ SmallStage small_stage(const char* plan, int s) {
+  const int* w = reinterpret_cast<const int*>(plan) + 4 + kSmallStageWords * s;
+  return {w[0], w[1], w[2], reinterpret_cast<const double2*>(plan) + w[3],
+          __int_as_float(w[4])};
+}
+
+// Butterfly j's j / Ns, by the float reciprocal (exact here, see above).
+__device__ __forceinline__ int small_div(int j, float rNs) {
+  return (int)__fmul_rn(__fadd_rn(__int2float_rn(j), 0.5f), rNs);
+}
+
+// H butterflies of one radix-R Stockham stage from lane j0 (j0 and j0 + 32
+// when H = 2; the second a copy of the first, not stored, where `two` is
+// false), so that their dependent float64 chains overlap: a block an SM has
+// two or four warps, nothing else to hide latency.  Butterfly j reads a[j +
+// q nb], takes twiddle (q-1) Ns + j mod Ns (none in a first stage, Ns = 1),
+// runs DFT_R and writes c[(j/Ns) Ns R + j mod Ns + t Ns].
+template <int R, bool INV, int H>
+__device__ __forceinline__ void small_butterflies(const double2* a, double2* c,
+                                                  const SmallStage& st, int j0,
+                                                  bool two) {
+  double2 u[H][R];
+  int jl[H], out0[H];
+#pragma unroll
+  for (int h = 0; h < H; ++h) {
+    const int j = two ? j0 + 32 * h : j0;
+    const int jh = small_div(j, st.rNs);
+    jl[h] = j - jh * st.Ns;
+    out0[h] = jh * st.Ns * R + jl[h];
+#pragma unroll
+    for (int q = 0; q < R; ++q) u[h][q] = a[j + q * st.nb];
+  }
+#pragma unroll
+  for (int h = 0; h < H; ++h) {
+    if (st.Ns > 1)
+#pragma unroll
+      for (int q = 1; q < R; ++q) u[h][q] = cmul(u[h][q], st.tw[(q - 1) * st.Ns + jl[h]]);
+    dft<R, INV>(u[h]);
+  }
+#pragma unroll
+  for (int h = 0; h < H; ++h)
+    if (h == 0 || two)
+#pragma unroll
+      for (int t = 0; t < R; ++t) c[out0[h] + t * st.Ns] = u[h][t];
+}
+
+// One radix-R stage of the warp's transform, a -> c: butterflies j = lane,
+// lane + 32, ..., two a lane at a time while the warp's first lane has two.
+template <int R, bool INV>
+__device__ __forceinline__ void small_radix(const double2* a, double2* c,
+                                            const SmallStage& st, int lane) {
+  int j0 = lane;
+  for (; j0 - lane + 32 < st.nb; j0 += 64)
+    small_butterflies<R, INV, 2>(a, c, st, j0, j0 + 32 < st.nb);
+  if (j0 < st.nb) small_butterflies<R, INV, 1>(a, c, st, j0, false);
+}
+
+// A prime radix R > 7: every output of butterfly j summed directly, sum_q
+// a[j + q nb] twiddle_q W_R^{-+qt}, the lanes taking t = lane, lane + 32, ...
+// of one butterfly after another.
+__device__ __forceinline__ void small_direct(const double2* a, double2* c,
+                                             const SmallStage& st, int lane) {
+  const int R = st.R;
+  const double2* roots = st.tw + (R - 1) * st.Ns;
+  for (int j = 0; j < st.nb; ++j) {
+    const int jh = small_div(j, st.rNs), jl = j - jh * st.Ns;
+    const int out0 = jh * st.Ns * R + jl;
+    for (int t = lane; t < R; t += 32) {
+      double2 acc = a[j];
+      int m = t;  // q t mod R
+      for (int q = 1; q < R; ++q) {
+        const double2 v = cmul(a[j + q * st.nb], st.tw[(q - 1) * st.Ns + jl]);
+        const double2 w = roots[m];
+        acc.x = fma(v.x, w.x, fma(-v.y, w.y, acc.x));
+        acc.y = fma(v.x, w.y, fma(v.y, w.x, acc.y));
+        m += t;
+        if (m >= R) m -= R;
+      }
+      c[out0 + t * st.Ns] = acc;
+    }
+  }
+}
+
+// Every stage of the warp's transform over its buffers a and c (the input
+// in a); returns the one that holds the natural-order result.
+template <bool INV>
+__device__ __forceinline__ double2* small_fft(double2* a, double2* c,
+                                              const char* plan, int lane) {
+  const int stages = reinterpret_cast<const int*>(plan)[1];
+  for (int s = 0; s < stages; ++s) {
+    const SmallStage st = small_stage(plan, s);
+    switch (st.R) {
+      case 2: small_radix<2, INV>(a, c, st, lane); break;
+      case 3: small_radix<3, INV>(a, c, st, lane); break;
+      case 4: small_radix<4, INV>(a, c, st, lane); break;
+      case 5: small_radix<5, INV>(a, c, st, lane); break;
+      case 7: small_radix<7, INV>(a, c, st, lane); break;
+      case 8: small_radix<8, INV>(a, c, st, lane); break;
+      default: small_direct(a, c, st, lane);
+    }
+    __syncwarp();
+    double2* t = a;
+    a = c;
+    c = t;
+  }
+  return a;
+}
+
+// An output of the small path to its epilogue, rounded once: the inverse's
+// store divides by n in float64 (InvStore::wide), every other epilogue gets
+// the value rounded to float2.
+template <class Epi>
+__device__ __forceinline__ void small_emit(const Epi& epi, int64_t g, int k,
+                                           int64_t col, int prefix, double2 v) {
+  if constexpr (is_inverse<Epi>)
+    epi.wide(g, v);
+  else
+    epi(g, k, col, prefix, make_float2(__double2float_rn(v.x), __double2float_rn(v.y)));
+}
+
+__device__ __forceinline__ double2 widen(float2 v) { return make_double2(v.x, v.y); }
+
+// A lanes block's fetch: the plan and its `rows` rows from row0, back to back
+// in `staged`, in one cp.async group; then a block barrier.
+__device__ __forceinline__ void small_lanes_fetch(char* plan, char* staged,
+                                                  const void* plan_g, int plan_bytes,
+                                                  const float* xr, const float2* xc,
+                                                  int64_t row0, int rows, int n) {
+  small_fetch(plan, plan_g, plan_bytes / 4);
+  if (xr)
+    small_fetch(staged, xr + row0 * n, rows * n);
+  else
+    small_fetch(staged, xc + row0 * n, 2 * rows * n);
+  cp_async_commit();
+  cp_async_wait<0>();
+  __syncthreads();
+}
+
+// Warp w's row of the staged rows into its float64 buffer, reals through pre.
+template <class Pre>
+__device__ __forceinline__ void small_lanes_widen(double2* a, const char* staged,
+                                                  bool real, int w, int n, int lane,
+                                                  Pre pre) {
+  if (real) {
+    const float* src = reinterpret_cast<const float*>(staged) + w * n;
+    for (int k = lane; k < n; k += 32) a[k] = make_double2(pre(src[k]), 0.0);
+  } else {
+    const float2* src = reinterpret_cast<const float2*>(staged) + w * n;
+    for (int k = lane; k < n; k += 32) a[k] = widen(src[k]);
+  }
+  __syncwarp();
+}
+
+// The contiguous axis of (B, n), forward or inverse by `epi`: a block takes
+// the G = blockDim.x/32 rows from blockIdx.x G, row w to warp w, which hands
+// its outputs on in natural order, neighbouring lanes on neighbouring
+// addresses.  `pre` maps each real input as it is widened.
+template <class Pre, class Epi>
+__global__ void __launch_bounds__(kSmallMaxWarps * 32)
+small_lanes_kernel(const float* __restrict__ xr, const float2* __restrict__ xc,
+                   const void* __restrict__ plan_g, int plan_bytes, int n,
+                   int64_t B, Pre pre, Epi epi) {
+  constexpr bool INV = is_inverse<Epi>;
+  extern __shared__ __align__(16) char small_smem[];
+  const int G = blockDim.x >> 5, w = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const int64_t row0 = (int64_t)blockIdx.x * G;
+  const int rows = (int)(B - row0 < G ? B - row0 : G);
+  char* staged = small_smem + plan_bytes;
+  double2* a = reinterpret_cast<double2*>(staged + round16(G * n * 8)) + w * (2 * n + 1);
+  small_lanes_fetch(small_smem, staged, plan_g, plan_bytes, xr, xc, row0, rows, n);
+  if (w >= rows) return;
+  small_lanes_widen(a, staged, xr != nullptr, w, n, lane, pre);
+  const double2* res = small_fft<INV>(a, a + n, small_smem, lane);
+  const int64_t r = row0 + w;
+  for (int k = lane; k < n; k += 32) small_emit(epi, r * n + k, k, r, 0, res[k]);
+}
+
+// A strided-axis block's fetch: the plan and the tile of its `cols` columns
+// from col0 of prefix batch base/(n L), [position][column] with C + 1 values
+// a position, thread i fetching position i/C, column i mod C; one cp.async
+// group, then a block barrier.
+__device__ __forceinline__ void small_sublanes_fetch(char* plan, char* staged,
+                                                     const void* plan_g, int plan_bytes,
+                                                     const float* xr, const float2* xc,
+                                                     int64_t base, int64_t col0, int cols,
+                                                     int n, int64_t L, int C, int logC) {
+  small_fetch(plan, plan_g, plan_bytes / 4);
+  for (int i = threadIdx.x; i < n * C; i += blockDim.x) {
+    const int p = i >> logC, c = i & (C - 1);
+    if (c >= cols) continue;
+    const int64_t g = base + (int64_t)p * L + col0 + c;
+    if (xr)
+      cp_async<4>(reinterpret_cast<float*>(staged) + p * (C + 1) + c, xr + g);
+    else
+      cp_async<8>(reinterpret_cast<float2*>(staged) + p * (C + 1) + c, xc + g);
+  }
+  cp_async_commit();
+  cp_async_wait<0>();
+  __syncthreads();
+}
+
+// Warp w's column of the staged tile into its float64 buffer.
+__device__ __forceinline__ void small_sublanes_widen(double2* a, const char* staged,
+                                                     bool real, int w, int n, int C,
+                                                     int lane) {
+  if (real) {
+    const float* src = reinterpret_cast<const float*>(staged);
+    for (int p = lane; p < n; p += 32) a[p] = make_double2(src[p * (C + 1) + w], 0.0);
+  } else {
+    const float2* src = reinterpret_cast<const float2*>(staged);
+    for (int p = lane; p < n; p += 32) a[p] = widen(src[p * (C + 1) + w]);
+  }
+  __syncwarp();
+}
+
+// Axis 1 of (P, n, L), forward or inverse by `epi`: block (x, y) takes the C =
+// blockDim.x/32 adjacent columns from x C of prefix batch y, column w to warp
+// w.  The outputs go to `epi` from thread i as position i/C, column i mod C,
+// so each row's C values are written by neighbouring threads.  C is a power
+// of two; columns past L are neither read nor handed on.
+template <class Epi>
+__global__ void __launch_bounds__(kSmallMaxWarps * 32)
+small_sublanes_kernel(const float* __restrict__ xr, const float2* __restrict__ xc,
+                      const void* __restrict__ plan_g, int plan_bytes, int n,
+                      int64_t L, Epi epi) {
+  constexpr bool INV = is_inverse<Epi>;
+  extern __shared__ __align__(16) char small_smem[];
+  const int C = blockDim.x >> 5, logC = __ffs(C) - 1;
+  const int w = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const int64_t col0 = (int64_t)blockIdx.x * C, base = (int64_t)blockIdx.y * n * L;
+  const int cols = (int)(L - col0 < C ? L - col0 : C);
+  char* staged = small_smem + plan_bytes;
+  double2* bufs = reinterpret_cast<double2*>(staged + round16(n * (C + 1) * 8));
+  small_sublanes_fetch(small_smem, staged, plan_g, plan_bytes, xr, xc, base, col0,
+                       cols, n, L, C, logC);
+  if (w < cols) {
+    double2* a = bufs + w * (2 * n + 1);
+    small_sublanes_widen(a, staged, xr != nullptr, w, n, C, lane);
+    small_fft<INV>(a, a + n, small_smem, lane);
+  }
+  __syncthreads();
+  // the result is in each warp's second buffer after an odd number of stages
+  const int res = reinterpret_cast<const int*>(small_smem)[1] & 1 ? n : 0;
+  for (int i = threadIdx.x; i < n * C; i += blockDim.x) {
+    const int k = i >> logC, c = i & (C - 1);
+    if (c >= cols) continue;
+    const int64_t col = col0 + c;
+    small_emit(epi, base + (int64_t)k * L + col, k, col, (int)blockIdx.y,
+               bufs[c * (2 * n + 1) + res + k]);
+  }
+}
+
+// Raises `kernel`'s dynamic shared-memory limit on the current device to
+// `bytes`, once per kernel, device and size: `allowed` is the launcher's
+// record of what each device has been given.
+template <class K>
+cudaError_t allow_smem_once(K kernel, size_t bytes, size_t (&allowed)[kRegDevices]) {
+  int dev = 0;
+  cudaError_t e = cudaGetDevice(&dev);
+  if (e != cudaSuccess) return e;
+  if (dev >= kRegDevices) return cudaErrorInvalidDevice;
+  if (bytes <= allowed[dev]) return cudaSuccess;
+  e = allow_smem(kernel, bytes);
+  if (e == cudaSuccess) allowed[dev] = bytes;
+  return e;
+}
+
+// The small-extent kernels on `warps` transforms a block (small_path(n, n)
+// must hold; `plan` is the extent's plan for the epilogue's direction).
+template <class Pre, class Epi>
+cudaError_t launch_small_lanes(const float* xr, const float2* xc, const void* plan,
+                               int64_t B, int64_t n, int warps, cudaStream_t stream,
+                               Pre pre, Epi epi) {
+  static size_t allowed[kRegDevices];
+  const size_t smem = small_smem_bytes(n, warps, false);
+  const int64_t blocks = (B + warps - 1) / warps;
+  if (warps < 1 || warps > kSmallMaxWarps || blocks > 0x7fffffffLL)
+    return cudaErrorInvalidValue;
+  cudaError_t e = allow_smem_once(small_lanes_kernel<Pre, Epi>, smem, allowed);
+  if (e != cudaSuccess) return e;
+  small_lanes_kernel<Pre, Epi><<<(unsigned)blocks, warps * 32, smem, stream>>>(
+      xr, xc, plan, small_plan_bytes(n), (int)n, B, pre, epi);
+  return cudaGetLastError();
+}
+
+template <class Epi>
+cudaError_t launch_small_sublanes(const float* xr, const float2* xc, const void* plan,
+                                  int64_t P, int64_t n, int64_t L, int warps,
+                                  cudaStream_t stream, Epi epi) {
+  static size_t allowed[kRegDevices];
+  const size_t smem = small_smem_bytes(n, warps, true);
+  const int64_t blocks = (L + warps - 1) / warps;
+  if (warps < 1 || warps > kSmallMaxWarps || (warps & (warps - 1)) ||
+      blocks > 0x7fffffffLL)
+    return cudaErrorInvalidValue;
+  cudaError_t e = allow_smem_once(small_sublanes_kernel<Epi>, smem, allowed);
+  if (e != cudaSuccess) return e;
+  small_sublanes_kernel<Epi><<<dim3((unsigned)blocks, (unsigned)P), warps * 32, smem,
+                               stream>>>(xr, xc, plan, small_plan_bytes(n), (int)n, L,
+                                         epi);
+  return cudaGetLastError();
+}
+
+// The path the kernels of extent n (DFT size b) take: 1 the register
+// kernels, 2 the small-extent kernels, 0 the generic tile.
+inline int fft_path(int64_t n, int64_t b) {
+  return reg_path(n, b) ? 1 : small_path(n, b) ? 2 : 0;
+}
+
 // Dynamic shared memory a block of the kernels takes at extent n (either
-// direction): the register kernels' ring and stage table, or the generic
-// tile.
+// direction): the register kernels' ring and stage table, the small-extent
+// kernels' plan, input and buffers, or the generic tile.
 template <int N>
 constexpr size_t reg_smem_n(bool sublanes) {
   return reg_smem<N>(sublanes ? N * reg_cols(N) : kRegLanesElems);
@@ -970,6 +1440,8 @@ inline size_t smem_bytes_n(int64_t n, int64_t b, bool sublanes) {
       case 1024: return reg_smem_n<1024>(sublanes);
     }
   }
+  if (small_path(n, b))
+    return small_smem_bytes(n, sublanes ? kSmallCols : kSmallRows, sublanes);
   Plan p;
   return make_plan(&p, n, b) ? smem_bytes(p) : 0;
 }
@@ -1002,20 +1474,25 @@ cudaError_t launch_reg_sublanes_n(const float* xr, const float2* xc,
 }
 
 // Host launchers along the contiguous axis of (B, n) and along axis 1 of
-// (P, n, L), forward or inverse by `epi`: the register kernels where
-// reg_path holds, else the generic tile.  Each returns the launch's
-// cudaGetLastError() (or cudaErrorInvalidValue for a shape the kernels do
-// not take).
+// (P, n, L), forward or inverse by `epi`, on the path fft_path(n, b) names:
+// `tab` is the table the host built for it (unordered_fft.py _table: W_n^j
+// as float2 for the register kernels and the tile, the small-extent plan).
+// Each returns the launch's cudaGetLastError() (or cudaErrorInvalidValue for
+// a shape the kernels do not take).
 template <class Pre, class Epi>
-cudaError_t launch_lanes(const float* xr, const float2* xc, const float2* tw,
+cudaError_t launch_lanes(const float* xr, const float2* xc, const void* tab,
                          int64_t B, int64_t n, int64_t b, cudaStream_t stream,
                          Pre pre, Epi epi) {
   Plan p;
   if (B < 1 || !make_plan(&p, n, b)) return cudaErrorInvalidValue;
+  const float2* tw = static_cast<const float2*>(tab);
   if (reg_path(n, b))
     return launch_reg_lanes_n(xr, xc, tw, B, n, stream, pre, epi);
+  if (small_path(n, b))
+    return launch_small_lanes(xr, xc, tab, B, n, kSmallRows, stream, pre, epi);
+  static size_t allowed[kRegDevices];
   const size_t smem = smem_bytes(p);
-  cudaError_t e = allow_smem(tile_lanes_kernel<Pre, Epi>, smem);
+  cudaError_t e = allow_smem_once(tile_lanes_kernel<Pre, Epi>, smem, allowed);
   if (e != cudaSuccess) return e;
   const int64_t blocks = (B + p.T - 1) / p.T;
   if (blocks > 0x7fffffffLL) return cudaErrorInvalidValue;
@@ -1025,16 +1502,20 @@ cudaError_t launch_lanes(const float* xr, const float2* xc, const float2* tw,
 }
 
 template <class Epi>
-cudaError_t launch_sublanes(const float* xr, const float2* xc,
-                            const float2* tw, int64_t P, int64_t n, int64_t L,
-                            int64_t b, cudaStream_t stream, Epi epi) {
+cudaError_t launch_sublanes(const float* xr, const float2* xc, const void* tab,
+                            int64_t P, int64_t n, int64_t L, int64_t b,
+                            cudaStream_t stream, Epi epi) {
   Plan p;
   if (P < 1 || P > 65535 || L < 1 || !make_plan(&p, n, b))
     return cudaErrorInvalidValue;
+  const float2* tw = static_cast<const float2*>(tab);
   if (reg_path(n, b))
     return launch_reg_sublanes_n(xr, xc, tw, P, n, L, stream, epi);
+  if (small_path(n, b))
+    return launch_small_sublanes(xr, xc, tab, P, n, L, kSmallCols, stream, epi);
+  static size_t allowed[kRegDevices];
   const size_t smem = smem_bytes(p);
-  cudaError_t e = allow_smem(tile_sublanes_kernel<Epi>, smem);
+  cudaError_t e = allow_smem_once(tile_sublanes_kernel<Epi>, smem, allowed);
   if (e != cudaSuccess) return e;
   const int64_t blocks = (L + p.T - 1) / p.T;
   if (blocks > 0x7fffffffLL) return cudaErrorInvalidValue;

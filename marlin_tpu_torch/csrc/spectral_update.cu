@@ -35,7 +35,11 @@
 // in the clusters kernel 3 takes, which made these epilogues slower; the
 // epilogue called from registers with neighbouring threads on neighbouring
 // columns, so the reads of u-bar, N-bar_old and kyz2 stay coalesced), at
-// other extents the generic shared-memory tile.
+// b = n (benchmark 1a's n = 200) the small-extent kernel of fft_tile.cuh
+// (one warp a column, float64 stages, the epilogue called with each value
+// rounded once, neighbouring threads on neighbouring columns), at n = 384,
+// 640, 768, 896 the generic shared-memory tile.  `tw` is the table the host
+// built for the path (unordered_fft.py _table).
 
 #include "fft_tile.cuh"
 

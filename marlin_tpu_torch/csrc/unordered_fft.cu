@@ -24,17 +24,21 @@
 // 256, 512 and 1024 (a persistent block, a cp.async ring of tiles, 8
 // values a thread, the exchanges in the tile's own ring slot; the forward
 // stores straight to the permuted slot, the inverse reads from it and
-// stores in natural order) and the generic shared-memory tile otherwise;
-// the launchers choose by n (mtt_fwd_path and mtt_inv_path say which).
+// stores in natural order), the small-extent path for b = n (one warp a
+// transform, float64 stages; benchmark 1a's n = 200) and the generic
+// shared-memory tile at n = 384, 640, 768, 896; the launchers choose by n
+// (mtt_fwd_path and mtt_inv_path say which).  `tw` is the table the host
+// built for that path (unordered_fft.py _table).
 
 #include "fft_tile.cuh"
 
 extern "C" {
 
-// 1 when the forward (inverse) kernels of extent n (DFT size b) take the
-// register path of fft_tile.cuh, 0 for the generic tile.
-int mtt_fwd_path(int64_t n, int64_t b) { return reg_path(n, b) ? 1 : 0; }
-int mtt_inv_path(int64_t n, int64_t b) { return reg_path(n, b) ? 1 : 0; }
+// The path of fft_tile.cuh the forward (inverse) kernels of extent n (DFT
+// size b) take: 1 the register path, 2 the small-extent path, 0 the
+// generic tile.
+int mtt_fwd_path(int64_t n, int64_t b) { return fft_path(n, b); }
+int mtt_inv_path(int64_t n, int64_t b) { return fft_path(n, b); }
 
 // Bytes of dynamic shared memory a block of the lanes (sublanes = 0) or
 // sublanes kernels of extent n takes, either direction; 0 for an extent
@@ -48,16 +52,14 @@ cudaError_t mtt_fwd_lanes(const void* x_real, const void* x_cplx, void* out,
                           const void* tw, int64_t B, int64_t n, int64_t b,
                           cudaStream_t stream) {
   return launch_lanes((const float*)x_real, (const float2*)x_cplx,
-                      (const float2*)tw, B, n, b, stream, Identity(),
-                      Store{(float2*)out});
+                      tw, B, n, b, stream, Identity(), Store{(float2*)out});
 }
 
 // x: (B, n) complex, permuted; out_real or out_cplx (the other null).
 cudaError_t mtt_inv_lanes(const void* x, void* out_real, void* out_cplx,
                           const void* tw, int64_t B, int64_t n, int64_t b,
                           cudaStream_t stream) {
-  return launch_lanes(nullptr, (const float2*)x, (const float2*)tw, B, n, b,
-                      stream, Identity(),
+  return launch_lanes(nullptr, (const float2*)x, tw, B, n, b, stream, Identity(),
                       InvStore{(float*)out_real, (float2*)out_cplx, (float)n});
 }
 
@@ -65,17 +67,15 @@ cudaError_t mtt_inv_lanes(const void* x, void* out_real, void* out_cplx,
 cudaError_t mtt_fwd_sublanes(const void* x_real, const void* x_cplx,
                              void* out, const void* tw, int64_t P, int64_t n,
                              int64_t L, int64_t b, cudaStream_t stream) {
-  return launch_sublanes((const float*)x_real, (const float2*)x_cplx,
-                         (const float2*)tw, P, n, L, b, stream,
-                         Store{(float2*)out});
+  return launch_sublanes((const float*)x_real, (const float2*)x_cplx, tw, P, n,
+                         L, b, stream, Store{(float2*)out});
 }
 
 // x: (P, n, L) complex, permuted along n; out: (P, n, L) complex.
 cudaError_t mtt_inv_sublanes(const void* x, void* out, const void* tw,
                              int64_t P, int64_t n, int64_t L, int64_t b,
                              cudaStream_t stream) {
-  return launch_sublanes(nullptr, (const float2*)x, (const float2*)tw, P, n,
-                         L, b, stream,
+  return launch_sublanes(nullptr, (const float2*)x, tw, P, n, L, b, stream,
                          InvStore{nullptr, (float2*)out, (float)n});
 }
 

@@ -1,7 +1,7 @@
 """Diagnosis of the unordered-FFT kernels on the card: each kernel beside
 its stripped variants and one torch.fft call.
 
-    python -m marlin_tpu_torch.fft_probe [--reps 20] [--rounds 6]
+    python -m marlin_tpu_torch.fft_probe [--shape 512 | 1a] [--reps 20] [--rounds 6]
 
 At the 512³ main-path shapes of kernel 1 (``fwd_lanes``, (262144, 512)
 float32), kernel 3 (``fwd_sublanes``, (1, 512, 262144) and (512, 512,
@@ -23,6 +23,19 @@ rounds the kernel was the faster.  The byte bound is the input read once
 and the output written once at 3.35 TB/s.  Prints the card's name and
 power limit and the probe library's ptxas report.  Needs a CUDA card; no
 solver path runs it.
+
+``--shape 1a`` probes the small-extent path at benchmark 1a's shapes:
+kernels 1 and 2 at (200, 200) (float32 in, float32 out), kernels 3 and 4
+at (1, 200, 200) complex64.  Each kernel through its wrapper, its
+same-function torch call (``torch.fft.fft`` or ``ifft`` along its axis;
+kernel 2's is ``ifft(x).real``, whose ``.real`` is a view), the generic
+tile kernel whole (which the small path replaces at n = 200), the small
+kernel copy only (fetch, widening and rounded store, no stages) and whole
+on other rows or columns a block and on its radices in the tile's order
+(8, 4, 2 first, a plan of its own); device µs a call by the profiler (at
+this size CUDA events time the host), in ``--rounds`` interleaved rounds.
+The small kernel is checked against the tile within 1e-5 of the tile's
+largest output.
 """
 
 from __future__ import annotations
@@ -45,6 +58,7 @@ _SUBLANES = [ctypes.c_int] * 2 + [uf._P] * 4 + [uf._I] * 4 + [ctypes.c_int, uf._
 LIBRARY = uf.CudaLibrary("fft_probe", {
     "probe_tile_lanes": _LANES, "probe_tile_sublanes": _SUBLANES,
     "probe_reg_lanes": _LANES, "probe_reg_sublanes": _SUBLANES,
+    "probe_small_lanes": _LANES, "probe_small_sublanes": _SUBLANES,
 }, source=os.path.join(uf.CSRC, "fft_probe.cu"), flags=["-Xptxas=-v"])
 
 # (label, library function, mode), forward and inverse
@@ -79,25 +93,104 @@ def cuda_ms(fn, reps, warmup=3):
     return start.elapsed_time(end) / reps
 
 
-def _variant(fn_name, mode, inverse, kind, x, out):
+def _variant(fn_name, mode, inverse, kind, x, out, width=0, plan=None):
+    """A probe variant as a call; `width` is a small kernel's rows or
+    columns a block (0: the launcher's), `plan` a small plan of its own
+    (a device tensor; by default the extent's)."""
     lib = LIBRARY.load()
     fn = getattr(lib, fn_name.format(kind))
     real = x.dtype == torch.float32
     xr, xc = (uf._ptr(x), None) if real else (None, uf._ptr(x))
-    tw = uf._ptr(uf._twiddle_table(N, inverse, x.device))
+    n = x.shape[-1] if kind == "lanes" else x.shape[1]
+    # the small variants read the small plan, the others W_n^j
+    table = uf._small_plan if "small" in fn_name else uf._twiddle_table
+    tw = uf._ptr(table(n, bool(inverse), x.device) if plan is None else plan)
     if kind == "lanes":
-        B, n = x.shape
-        args = (mode, inverse, xr, xc, uf._ptr(out), tw, B, n, uf.base(n), 0)
+        B = x.shape[0]
+        args = (mode, inverse, xr, xc, uf._ptr(out), tw, B, n, uf.base(n), width)
     else:
-        P_, n, L = x.shape
-        args = (mode, inverse, xr, xc, uf._ptr(out), tw, P_, n, L, uf.base(n), 0)
+        P_, _, L = x.shape
+        args = (mode, inverse, xr, xc, uf._ptr(out), tw, P_, n, L, uf.base(n), width)
     return lambda: uf._launch(fn, *args, device=x.device, name=fn_name)
+
+
+def device_us(fn, calls=50):
+    """Device µs a call: every device event of ``calls`` calls, by
+    torch.profiler."""
+    fn()
+    torch.cuda.synchronize()
+    acts = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
+    with torch.profiler.profile(activities=acts) as prof:
+        for _ in range(calls):
+            fn()
+        torch.cuda.synchronize()
+    us = sum(e.self_device_time_total for e in prof.key_averages()
+             if e.device_type == torch.autograd.DeviceType.CUDA)
+    assert us > 0, "the profiler saw no device time"
+    return us / calls
+
+
+A = 200  # benchmark 1a's extent
+# (wrapper, shape, input dtype, axis, other widths of the small kernel)
+SHAPES_1A = [("fwd_lanes", (A, A), torch.float32, -1, (1, 4)),
+             ("inv_lanes", (A, A), torch.complex64, -1, (1, 4)),
+             ("fwd_sublanes", (1, A, A), torch.complex64, 1, (2, 8)),
+             ("inv_sublanes", (1, A, A), torch.complex64, 1, (2, 8))]
+
+
+def probe_1a(ns, dev):
+    """The small-extent kernels at benchmark 1a's shapes (``--shape 1a``)."""
+    gen = torch.Generator().manual_seed(0)
+    for name, shape, dtype, dim, widths in SHAPES_1A:
+        inverse = name.startswith("inv")
+        x = torch.randn(shape, generator=gen, dtype=dtype).to(dev)
+        kind = "lanes" if name.endswith("_lanes") else "sublanes"
+        odtype = torch.float32 if name == "inv_lanes" else torch.complex64
+        out = torch.empty(shape, dtype=odtype, device=dev)
+        wrapper = getattr(uf, name)
+        if name == "inv_lanes":
+            ref_name, library = "torch.fft.ifft(x).real", lambda: torch.fft.ifft(x, dim=dim).real
+        elif inverse:
+            ref_name, library = "torch.fft.ifft", lambda: torch.fft.ifft(x, dim=dim)
+        else:
+            ref_name, library = "torch.fft.fft", lambda: torch.fft.fft(x, dim=dim)
+        runs = {"kernel": lambda: wrapper(x), ref_name: library,
+                "tile whole": _variant("probe_tile_{}", 2, int(inverse), kind, x, out),
+                "small copy only": _variant("probe_small_{}", 0, int(inverse), kind, x, out)}
+        for w in widths:
+            unit = "rows" if kind == "lanes" else "columns"
+            runs[f"small whole, {w} {unit} a block"] = _variant(
+                "probe_small_{}", 1, int(inverse), kind, x, out, w)
+        # the tile's order of the radices, 8, 4, 2 first (the plan takes
+        # the odd ones first)
+        order = uf.radices(A)
+        plan = torch.from_numpy(uf.build_small_plan(A, order, inverse)).to(dev)
+        runs[f"small whole, radices {order}"] = _variant(
+            "probe_small_{}", 1, int(inverse), kind, x, out, 0, plan)
+        got = wrapper(x)
+        runs["tile whole"]()
+        torch.cuda.synchronize()
+        err = (got - out).abs().max().item() / out.abs().max().item()
+        assert err <= 1e-5, (name, err)
+        path = uf.path(shape[dim])
+        times = {k: [] for k in runs}
+        for i in range(ns.rounds):
+            for k in (list(runs) if i % 2 == 0 else list(reversed(runs))):
+                times[k].append(device_us(runs[k], ns.reps))
+        wins = sum(a <= b for a, b in zip(times["kernel"], times[ref_name]))
+        bound = 1e6 * (x.numel() * x.element_size() + out.numel() * out.element_size()
+                       + uf.small_plan_bytes(A)) / HBM_BYTES_PER_S
+        text = ", ".join(f"{k} {' / '.join(f'{t:.2f}' for t in v)}" for k, v in times.items())
+        print(f"[probe 1a] {name} {shape} {str(dtype)[6:]}: {path} path, within {err:.2e} "
+              f"of the tile; bound {bound:.3f} us; kernel no slower than {ref_name} in "
+              f"{wins} of {ns.rounds} rounds; device us a call: {text}", flush=True)
 
 
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(prog="marlin_tpu_torch.fft_probe")
     ap.add_argument("--reps", type=int, default=20)
     ap.add_argument("--rounds", type=int, default=6)
+    ap.add_argument("--shape", default="512", choices=["512", "1a"])
     ns = ap.parse_args(argv)
     if not torch.cuda.is_available():
         print("fft_probe: needs a CUDA card", file=sys.stderr)
@@ -111,6 +204,9 @@ def main(argv=None) -> int:
     for line in LIBRARY.log.splitlines():
         if "registers" in line or "spill" in line or "Compiling entry" in line:
             print(f"[probe] ptxas {line.strip()}", flush=True)
+    if ns.shape == "1a":
+        probe_1a(ns, dev)
+        return 0
     gen = torch.Generator().manual_seed(0)
     for name, shape, dtype, dim in SHAPES:
         inverse = name.startswith("inv")

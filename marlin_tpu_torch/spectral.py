@@ -195,7 +195,7 @@ def fwd_x_update(mubar, ubar, n_old, kx2, kyz2, dt, b0, b1, mobility, lin):
     lin0, lin1 = (lin[1], lin[2] * lin[2]) if sh else (lin[1], 0.0)
     uf._launch(LIBRARY.load().mtt_fwd_x_update, uf._ptr(mubar), uf._ptr(ubar),
                uf._ptr(n_old), uf._ptr(u_out), uf._ptr(n_out), uf._ptr(kx2),
-               uf._ptr(kyz2), uf._ptr(uf._twiddle_table(n, False, mubar.device)),
+               uf._ptr(kyz2), uf._ptr(uf._table(n, False, mubar.device)),
                n, L, uf.base(n), int(sh), int(mobility is not None),
                dt, b0, b1, lin0, lin1,
                0.0 if mobility is None else mobility,
@@ -221,7 +221,7 @@ def fwd_x_update_poly(mubar, ubar, n_old, kx2, kyz2, rows):
     uf._launch(LIBRARY.load().mtt_fwd_x_update_poly, uf._ptr(mubar),
                uf._ptr(ubar), uf._ptr(n_old), uf._ptr(u_out), uf._ptr(n_out),
                uf._ptr(kx2), uf._ptr(kyz2),
-               uf._ptr(uf._twiddle_table(n, False, mubar.device)),
+               uf._ptr(uf._table(n, False, mubar.device)),
                N, n, L, uf.base(n), rows.ctypes.data,
                device=mubar.device, name="fwd_x_update_poly")
     fwd_x_update_poly.launches += 1

@@ -30,17 +30,21 @@ built with ``nvcc`` for ``sm_90a`` into a plain C shared library at first
 use and loaded with ``ctypes``.  Bound at 512³ on an H100 SXM (3.35 TB/s):
 a real-input forward or real-output inverse lanes pass moves 1.61 GB
 (0.48 ms), a complex sublanes pass 2.15 GB (0.64 ms).  Every kernel takes
-one of two paths, chosen in C by the extent (``mtt_fwd_path``,
-``mtt_inv_path``): at n = 128, 256, 512 and 1024 a register-resident
-Stockham FFT (persistent blocks fed by a ring of asynchronous 16-byte
-copies, N/8 threads a transform with 8 values each, the exchanges through
-shared memory; the forward stores straight to the permuted slot, the
-inverse reads from it and stores in natural order); at every other extent
-a mixed-radix Stockham FFT over a tile in shared memory (radix-8/4/2
-butterflies in registers, odd radices summed directly) that permutes on
-the way out or in.  Both paths give the same bits.
-``python -m marlin_tpu_torch.fft_probe`` times the kernels beside
-stripped variants of both paths and torch.fft on the card.
+one of three paths, chosen in C by the extent (``mtt_fwd_path``,
+``mtt_inv_path``; ``path`` here): at n = 128, 256, 512 and 1024 a
+register-resident Stockham FFT (persistent blocks fed by a ring of
+asynchronous 16-byte copies, N/8 threads a transform with 8 values each,
+the exchanges through shared memory; the forward stores straight to the
+permuted slot, the inverse reads from it and stores in natural order); at
+every other extent with b = n (8 to 400, benchmark 1a's 200) a small-extent
+kernel that gives each transform a warp and runs its stages in float64
+over a plan built here (``small_plan``), each output rounded once; at n =
+384, 640, 768 and 896 a mixed-radix Stockham FFT over a tile in shared
+memory (radix-8/4/2 butterflies in registers, odd radices summed
+directly) that permutes on the way out or in.  The register path and the
+tile give the same bits.  ``python -m marlin_tpu_torch.fft_probe`` times
+the kernels beside stripped variants of each path and torch.fft on the
+card (``--shape 1a`` at benchmark 1a's 200²).
 
 The TPU kernel's fused pointwise producer (``pre``: µ = f′(c) evaluated in
 the forward lanes kernel's read, so µ never reaches memory) is a
@@ -100,6 +104,19 @@ def base(n: int) -> int:
 
 def supported(n: int) -> bool:
     return base(n) > 0
+
+
+def path(n: int):
+    """The path of the kernels at extent n, as ``mtt_fwd_path`` and
+    ``mtt_inv_path`` choose it in C: "register" at n = 128, 256, 512, 1024,
+    "small" at every other extent with b = n, "tile" at the rest (384,
+    640, 768, 896); None where the extent is not supported."""
+    b = base(n)
+    if b == 0:
+        return None
+    if b == P and n in (128, 256, 512, 1024):
+        return "register"
+    return "small" if b == n else "tile"
 
 
 def true_k_order(n: int) -> np.ndarray:
@@ -339,6 +356,104 @@ def _twiddle_table(n: int, inverse: bool, device: torch.device) -> torch.Tensor:
     return tab
 
 
+#: the small-extent plan's header (fft_tile.cuh): 64 int32 words, stage s
+#: at words 4 + 5s .. 8 + 5s
+SMALL_HEADER_BYTES = 256
+SMALL_STAGE_WORDS = 5
+
+
+def radices(n: int) -> list:
+    """The Stockham radices of n: 8, 4, 2, then odd primes ascending
+    (fft_tile.cuh make_plan)."""
+    out, m = [], n
+    for r in (8, 4, 2):
+        while m % r == 0:
+            out.append(r)
+            m //= r
+    f = 3
+    while m > 1:
+        while m % f == 0:
+            out.append(f)
+            m //= f
+        f += 2
+    return out
+
+
+def small_radices(n: int) -> list:
+    """The small-extent plan's radices: the odd primes ascending, then 2,
+    4, 8.  A first stage (Ns = 1) writes its outputs R values apart, which
+    for R = 8 puts a quarter-warp's 16-byte stores on one bank; an odd R
+    spreads them (``fft_probe.py --shape 1a`` times both orders, PERF.md
+    section 6)."""
+    return sorted(radices(n), key=lambda r: (r % 2 == 0, r))
+
+
+def small_plan_bytes(n: int) -> int:
+    """Bytes of the small-extent plan at n (fft_tile.cuh small_plan_bytes):
+    the header, n − 1 stage twiddles and the roots of each prime radix > 7,
+    16 bytes each."""
+    return SMALL_HEADER_BYTES + 16 * (n - 1 + sum(r for r in radices(n) if r > 8))
+
+
+@functools.lru_cache(maxsize=None)
+def small_plan(n: int, inverse: bool) -> np.ndarray:
+    """The plan the small-extent kernels read at extent n (b = n), as
+    float64 words; fft_tile.cuh documents the layout.  Its header holds n,
+    the number of stages, the direction, the number of twiddles and, per
+    stage, the radix R, Ns (the product of the radices before it), n/R,
+    the index of its first twiddle (in complex128 values from the plan's
+    start) and the bits of float32(1/Ns); then, per stage, the twiddles
+    W_{Ns·R}^{∓q·j} (q = 1..R−1, j < Ns), and for a prime R > 7 its roots
+    W_R^{∓m}, all computed in float64."""
+    return build_small_plan(n, small_radices(n), inverse)
+
+
+def build_small_plan(n: int, rads, inverse: bool) -> np.ndarray:
+    """``small_plan`` on the Stockham radices ``rads`` in that order (any
+    order of n's factors gives the transform; ``fft_probe.py`` times
+    another)."""
+    sign = 2j if inverse else -2j
+    header = np.zeros(SMALL_HEADER_BYTES // 4, np.int32)
+    tables, first, ns = [], SMALL_HEADER_BYTES // 16, 1
+    for s, r in enumerate(rads):
+        q = np.arange(1, r)[:, None]
+        j = np.arange(ns)[None, :]
+        w = np.exp(sign * np.pi * (q * j) / (ns * r)).ravel()
+        if r > 8:
+            w = np.concatenate([w, np.exp(sign * np.pi * np.arange(r) / r)])
+        rec = np.array([1.0 / ns], np.float32).view(np.int32)[0]
+        header[4 + SMALL_STAGE_WORDS * s:][:SMALL_STAGE_WORDS] = (r, ns, n // r, first, rec)
+        tables.append(w)
+        first += len(w)
+        ns *= r
+    twiddles = np.concatenate(tables).astype(np.complex128)
+    header[:4] = (n, len(rads), int(inverse), len(twiddles))
+    plan = np.frombuffer(header.tobytes() + twiddles.tobytes(), np.float64).copy()
+    assert plan.nbytes == small_plan_bytes(n), (n, plan.nbytes)
+    return plan
+
+
+_PLANS: Dict[Tuple[int, bool, str], torch.Tensor] = {}
+
+
+def _small_plan(n: int, inverse: bool, device: torch.device) -> torch.Tensor:
+    """``small_plan`` uploaded once per (n, direction, device)."""
+    key = (n, inverse, str(device))
+    tab = _PLANS.get(key)
+    if tab is None:
+        tab = torch.from_numpy(small_plan(n, inverse)).to(device)
+        _PLANS[key] = tab
+    return tab
+
+
+def _table(n: int, inverse: bool, device: torch.device) -> torch.Tensor:
+    """The table the kernels of extent n read: the small-extent plan on the
+    small path, W_n^{∓j} in complex64 on the others."""
+    if path(n) == "small":
+        return _small_plan(n, inverse, device)
+    return _twiddle_table(n, inverse, device)
+
+
 def _ptr(t):
     return None if t is None else ctypes.c_void_p(t.data_ptr())
 
@@ -440,7 +555,7 @@ def fwd_lanes(x: torch.Tensor, pre: Pointwise = None) -> torch.Tensor:
     real = x.dtype == torch.float32
     _launch(LIBRARY.load().mtt_fwd_lanes, _ptr(x) if real else None,
             None if real else _ptr(x), _ptr(out),
-            _ptr(_twiddle_table(n, False, x.device)), B, n, base(n),
+            _ptr(_table(n, False, x.device)), B, n, base(n),
             device=x.device, name="fwd_lanes")
     fwd_lanes.launches += 1
     return out
@@ -460,7 +575,7 @@ def fwd_lanes_pre(x: torch.Tensor, pre: Pointwise) -> torch.Tensor:
         return fwd_lanes_plain(pre(x))
     out = torch.empty((B, n), dtype=torch.complex64, device=x.device)
     _launch(pre.library.load().mtt_fwd_lanes_pre, _ptr(x), _ptr(out),
-            _ptr(_twiddle_table(n, False, x.device)), B, n, base(n),
+            _ptr(_table(n, False, x.device)), B, n, base(n),
             device=x.device, name="fwd_lanes_pre")
     fwd_lanes_pre.launches += 1
     return out
@@ -478,7 +593,7 @@ def inv_lanes(x: torch.Tensor, real_output: bool = True) -> torch.Tensor:
     out = torch.empty((B, n), dtype=dtype, device=x.device)
     _launch(LIBRARY.load().mtt_inv_lanes, _ptr(x), _ptr(out) if real_output else None,
             None if real_output else _ptr(out),
-            _ptr(_twiddle_table(n, True, x.device)), B, n, base(n),
+            _ptr(_table(n, True, x.device)), B, n, base(n),
             device=x.device, name="inv_lanes")
     inv_lanes.launches += 1
     return out
@@ -496,7 +611,7 @@ def fwd_sublanes(x: torch.Tensor) -> torch.Tensor:
     real = x.dtype == torch.float32
     _launch(LIBRARY.load().mtt_fwd_sublanes, _ptr(x) if real else None,
             None if real else _ptr(x), _ptr(out),
-            _ptr(_twiddle_table(n, False, x.device)), P_, n, L, base(n),
+            _ptr(_table(n, False, x.device)), P_, n, L, base(n),
             device=x.device, name="fwd_sublanes")
     fwd_sublanes.launches += 1
     return out
@@ -512,7 +627,7 @@ def inv_sublanes(x: torch.Tensor) -> torch.Tensor:
         return inv_sublanes_plain(x)
     out = torch.empty((P_, n, L), dtype=torch.complex64, device=x.device)
     _launch(LIBRARY.load().mtt_inv_sublanes, _ptr(x), _ptr(out),
-            _ptr(_twiddle_table(n, True, x.device)), P_, n, L, base(n),
+            _ptr(_table(n, True, x.device)), P_, n, L, base(n),
             device=x.device, name="inv_sublanes")
     inv_sublanes.launches += 1
     return out

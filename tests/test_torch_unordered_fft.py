@@ -289,11 +289,12 @@ def test_cuda_kernel_takes_unaligned_input(cuda, name, shape, dtype):
 
 @pytest.mark.cuda
 def test_cuda_forward_path(cuda):
-    """The forward kernels take the register path exactly at n = 128, 256,
-    512 and 1024 (b = 128); every other extent keeps the generic tile."""
+    """The forward kernels take the register path (1) exactly at n = 128,
+    256, 512 and 1024 (b = 128); every other extent keeps the small-extent
+    path (2) or the generic tile (0)."""
     lib = uf.LIBRARY.load()
     reg = [n for n in range(8, 1025) if uf.supported(n)
-           and lib.mtt_fwd_path(n, uf.base(n))]
+           and lib.mtt_fwd_path(n, uf.base(n)) == 1]
     assert reg == [128, 256, 512, 1024]
 
 
@@ -303,7 +304,7 @@ def test_cuda_inverse_path(cuda):
     extents, n = 128, 256, 512 and 1024 (b = 128)."""
     lib = uf.LIBRARY.load()
     reg = [n for n in range(8, 1025) if uf.supported(n)
-           and lib.mtt_inv_path(n, uf.base(n))]
+           and lib.mtt_inv_path(n, uf.base(n)) == 1]
     assert reg == [128, 256, 512, 1024]
 
 
@@ -311,7 +312,7 @@ def test_cuda_inverse_path(cuda):
 def test_cuda_roundtrip_register_path(cuda):
     """(8, 512, 512) forward and back, every launch on the register path."""
     lib = uf.LIBRARY.load()
-    assert lib.mtt_fwd_path(512, 128) and lib.mtt_inv_path(512, 128)
+    assert lib.mtt_fwd_path(512, 128) == lib.mtt_inv_path(512, 128) == 1
     gen = torch.Generator().manual_seed(3)
     x = torch.randn((8, 512, 512), generator=gen).to(cuda)
     uf.reset_launches()
