@@ -106,13 +106,32 @@ Phases, one line each, flushed as they finish:
    1e-3 of the float64 run's while t ≤ 10, and its final F within 10%.
    Each run's seconds to the finished transient, ms a substep, steps,
    t_final, F_final, peak device memory and perf-graph sections, beside
-   the card's name and power limit and the reference's 45 s on an L4.
+   the card's name and power limit and the reference's 45 s on an L4;
+13. outputs and restart: the PALLAS fused float32 1a deck at 200², 1000
+   substeps a step, with XDMF frames of c (binary: the card's machine has
+   no h5py), Exodus of c through a LAGRANGE aux variable and its
+   ``ElementAverageValue``, a ``TensorHistogram`` of c and a checkpoint
+   every 10 steps, run 20 steps, run 10, and resumed from that step-10
+   checkpoint to 20 (``run_deck(recover=...)``), each in its own
+   directory; the Kármán deck on PALLAS the same way, 4 steps resumed
+   from step 2.  Gates: the resumed state (every buffer, among them c, the
+   complex64 carried cbar and the LBM distributions, the history ring,
+   solver entries, n_advances, old_dt) and postprocessor values equal the
+   uninterrupted run's bit for bit; 1a's CSV rows and histogram files
+   11-20 identical, ``xdmfdiff.compare`` of its frames 11-20 at zero
+   tolerance, the step-20 ``.bin`` frame equal to c, the ``.e`` file read
+   back with 21 times; launches exactly phase 12's count (no INITIAL
+   group on the resumed run), Kármán's 99 a step after the first.  The
+   perf graph's outputs seconds a step, checkpoint bytes and seconds to
+   write and to read onto the card, and peak device memory, beside the
+   card's name and power limit.
 
 Then one JSON line with every kernel's numbers (a kernel timed at more
 than one main shape also lists each under ``shapes``; ``launches_by_path``
 splits ``launches`` by the paths that reached it; the small-extent kernels
 stand as their own entries, ``<wrapper> small``, timed at 200² and
-launched by phase 12's PALLAS runs) and, last, the JSON result line.  Any failure ends the run with a non-zero exit and no result line.
+launched by phase 12's PALLAS runs and phase 13's 1a runs; phase 13's
+Kármán runs add to ``lbm_substep``'s) and, last, the JSON result line.  Any failure ends the run with a non-zero exit and no result line.
 Needs one CUDA card; fails without one, and fails where the package is not
 beside it.
 """
@@ -175,6 +194,39 @@ BENCH_1A_RUNS = {  # run: its route in marlin_tpu_torch.bench_1a_runs.ROUTES
     "DEFAULT float64": "D64", "DEFAULT float32": "D32",
     "PALLAS float32": "P32", "PALLAS fused float32": "F32",
 }
+PROFILE_ATTEMPTS = 3  # device_ms: traces taken before an empty one fails
+RESUME_1A = (20, 10)  # phase 13: steps of 1a, and the checkpoint's step
+RESUME_KARMAN = (4, 2)  # the same for Kármán (100 substeps a step)
+# phase 13's 1a outputs: c mapped to a LAGRANGE aux variable for Exodus and
+# ElementAverageValue, XDMF frames of c (no h5py on the card), a histogram
+OUTPUTS_1A = """
+[TensorBuffers]
+  [c]
+    map_to_aux_variable = c_aux
+  []
+[]
+[AuxVariables]
+  [c_aux]
+    family = LAGRANGE
+  []
+[]
+[TensorOutputs]
+  [xdmf]
+    type = XDMFTensorOutput
+    buffer = c
+    enable_hdf5 = false
+  []
+[]
+[VectorPostprocessors]
+  [c_hist]
+    type = TensorHistogram
+    buffer = c
+    min = 0
+    max = 1
+    bins = 100
+  []
+[]
+"""
 
 
 def say(*parts):
@@ -859,14 +911,19 @@ def device_ms(fn, calls=20):
     fn()
     torch.cuda.synchronize()
     acts = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
-    with torch.profiler.profile(activities=acts) as prof:
-        for _ in range(calls):
-            fn()
-        torch.cuda.synchronize()
-    us = sum(e.self_device_time_total for e in prof.key_averages()
-             if e.device_type == torch.autograd.DeviceType.CUDA)
-    assert us > 0, "the profiler saw no device time"
-    return us / calls / 1e3
+    # a trace now and then comes back without its device activity: such a
+    # trace is taken again, and three empty ones in a row fail the run
+    for _attempt in range(PROFILE_ATTEMPTS):
+        with torch.profiler.profile(activities=acts) as prof:
+            for _ in range(calls):
+                fn()
+            torch.cuda.synchronize()
+        us = sum(e.self_device_time_total for e in prof.key_averages()
+                 if e.device_type == torch.autograd.DeviceType.CUDA)
+        if us > 0:
+            return us / calls / 1e3
+        say(f"[profile] a trace of {calls} calls saw no device time; taking it again")
+    raise AssertionError(f"the profiler saw no device time in {PROFILE_ATTEMPTS} traces")
 
 
 LBM_PATHS = {
@@ -1177,16 +1234,17 @@ def bench_1a_deck(run, warm=False):
     return deck
 
 
-def bench_1a_launches(run, steps, substeps):
+def bench_1a_launches(run, steps, substeps, initial=True):
     """Each kernel's launches in a 2-D 1a run of ``steps`` steps: the solve
     chain's every substep, and the postprocess group (FFTGradientSquare of
     c: one forward transform, lanes then sublanes, and two inverse ones,
-    sublanes then lanes) at INITIAL and every TIMESTEP_END."""
+    sublanes then lanes) at INITIAL (``initial``: not on a run resumed from
+    a checkpoint) and every TIMESTEP_END."""
     zero = {"fwd_lanes": 0, "fwd_lanes_pre": 0, "fwd_sublanes": 0, "inv_sublanes": 0,
             "inv_lanes": 0, "fwd_x_update": 0, "fwd_x_update_poly": 0}
     if not run.startswith("PALLAS"):
         return zero
-    S, groups = substeps, steps + 1
+    S, groups = substeps, steps + int(initial)
     if "fused" in run:
         # a step: the ū seed fft(c); S - 1 fused substeps, each µ fused into
         # the lanes read, the x axis with the update, and ifft(ū); the
@@ -1303,6 +1361,235 @@ def phase_bench_1a(uf, sp, dev, smi):
         assert early <= early_tol and final <= BENCH_1A_FINAL_TOL, (run, early, final)
     say(f"[1a] every run {steps} steps to t = {t_end}; {smi}")
     return {run: v[3] for run, v in out.items()}
+
+
+# -- outputs and restart --------------------------------------------------------------
+
+
+def states_equal(a, b):
+    """Every buffer, history slot and solver entry bit for bit, and the
+    advance count and dt ring."""
+    for part in ("buffers", "old", "solver"):
+        assert set(a[part]) == set(b[part]), part
+        for k, v in a[part].items():
+            w = b[part][k]
+            assert v.dtype == w.dtype and v.shape == w.shape, (part, k)
+            assert torch.equal(v, w), (part, k)
+    assert a["n_advances"] == b["n_advances"], (a["n_advances"], b["n_advances"])
+    assert a["old_dt"] == b["old_dt"], (a["old_dt"], b["old_dt"])
+
+
+def resume_runs(deck, steps, at, out_dir, dev, counters_of, reset_all, arrays=None):
+    """``deck`` run ``steps`` steps uninterrupted, ``at`` steps with a
+    checkpoint at the end, and resumed from that checkpoint to ``steps``;
+    each run_deck in its own directory under ``out_dir``, the launch counts
+    set to 0 just before each and read just after.  Returns {run:
+    (transient, launches, seconds)}."""
+    from marlin_tpu_torch import hit
+    from marlin_tpu_torch.executioner import run_deck
+
+    def root(n, interval):
+        r = hit.parse(deck)
+        ex = r.child("Executioner")
+        ex.set_param("num_steps", str(n))
+        ex.set_param("checkpoint_interval", str(interval))
+        return r
+
+    out = {}
+    for run, n, interval, recover in (
+            ("full", steps, at, None), ("part", at, at, None),
+            ("resumed", steps, at, "part")):
+        reset_all()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        tr = run_deck(root(n, interval), output_dir=os.path.join(out_dir, run), device=dev,
+                      arrays=arrays, deck_stem="field",
+                      recover=recover and out[recover][0].checkpoint_path)
+        torch.cuda.synchronize()
+        out[run] = (tr, counters_of(), time.perf_counter() - t0)
+    return out
+
+
+def text(*path):
+    with open(os.path.join(*path)) as f:
+        return f.read()
+
+
+def checkpoint_seconds(tr, dev):
+    """Seconds to write the finished transient's checkpoint again (the
+    same file) and to read it onto the card; (write s, read s, state)."""
+    from marlin_tpu_torch import checkpoint
+
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    tr.save_checkpoint()
+    write_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    state, _meta = checkpoint.load(tr.checkpoint_path, dev)
+    torch.cuda.synchronize()
+    return write_s, time.perf_counter() - t0, state
+
+
+def output_ms(tr):
+    """ms of one more output of each kind on the finished run's state, its
+    gates already read: each field output (XDMF with its writer thread
+    joined; Exodus collects a frame), the vector postprocessors, the CSV."""
+    def ms(fn):
+        t0 = time.perf_counter()
+        fn()
+        return 1e3 * (time.perf_counter() - t0)
+
+    out = {}
+    for o in tr.tensor_outputs:
+        if getattr(o, "wants_pp_values", False):
+            call = lambda: o.output(tr.problem, tr.state, tr.time, pp_values=tr.pp_values)
+        else:
+            call = lambda: (o.output(tr.problem, tr.state, tr.time), o.wait())
+        out[type(o).__name__] = ms(call)
+    out["vector postprocessors"] = ms(lambda: tr._write_vpps("TIMESTEP_END"))
+    out["CSV"] = ms(lambda: (tr.csv.add_row(tr.time, dict(tr.pp_values)), tr.csv.write()))
+    return out
+
+
+def truncated_xmf(path, keep_from, dest):
+    """A copy of the XDMF series ``path`` without its first ``keep_from``
+    frames (their .bin files stay where they are)."""
+    import xml.etree.ElementTree as ET
+
+    tree = ET.parse(path)
+    for dom in tree.getroot():
+        for grid in dom:
+            if grid.get("CollectionType") == "Temporal":
+                for frame in list(grid)[:keep_from]:
+                    grid.remove(frame)
+    tree.write(dest)
+    return dest
+
+
+def phase_outputs(uf, sp, lf, dev, smi):
+    """Phase 13: benchmark 1a fused and Kármán with their field outputs,
+    histogram and checkpoint, and each resumed from its checkpoint: bit for
+    bit equal to the uninterrupted run, with exact launch counts.  Returns
+    {path: launches} over the phase's runs."""
+    import io
+
+    from marlin_tpu_torch import xdmfdiff
+    from marlin_tpu_torch.bench_1a_runs import deck_text
+    from marlin_tpu_torch.exodus import read_exodus
+
+    steps, at = RESUME_1A
+    run = "PALLAS fused float32"
+    deck = deck_text(BENCH_1A_RUNS[run], BENCH_1A_N, BENCH_1A_SUBSTEPS) + OUTPUTS_1A
+    deck = deck.replace("  csv = true\n", "  csv = true\n  exodus = true\n").replace(
+        "[Postprocessors]\n", "[Postprocessors]\n  [c_avg]\n    type = ElementAverageValue\n"
+        "    variable = c_aux\n  []\n", 1)
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    held = torch.cuda.memory_allocated()  # by earlier phases' live objects
+    launches = {}
+    with tempfile.TemporaryDirectory() as out_dir:
+        runs = resume_runs(deck, steps, at, out_dir, dev, lambda: counters(uf, sp),
+                           lambda: reset(uf, sp))
+        peak = torch.cuda.max_memory_allocated()
+        full, _l, s_full = runs["full"]
+        part = runs["part"][0]
+        res, _l, s_res = runs["resumed"]
+        for name, (_tr, got, _s) in runs.items():
+            launches[f"13 outputs 1a {name}"] = got
+        # -- launches: phase 12's formula
+        for name, n, initial in (("full", steps, True), ("part", at, True),
+                                 ("resumed", steps - at, False)):
+            want = bench_1a_launches(run, n, BENCH_1A_SUBSTEPS, initial)
+            got = runs[name][1]
+            say(f"[outputs 1a] {name}: {runs[name][0].step_count} steps, launches {got} "
+                f"(expected {want})")
+            assert got == want, (name, got, want)
+        # -- the resumed run against the uninterrupted one, bit for bit
+        assert res.step_count == full.step_count == steps and res.time == full.time
+        states_equal(res.state, full.state)
+        assert res.state["buffers"]["cbar"].dtype == torch.complex64
+        assert res.pp_values == full.pp_values, (res.pp_values, full.pp_values)
+        d_full, d_res = (os.path.join(out_dir, r) for r in ("full", "resumed"))
+        rows = lambda d: text(d, "out.csv").splitlines()
+        assert rows(d_res)[1:] == rows(d_full)[at + 2:], "CSV rows after the checkpoint"
+        assert len(rows(d_full)) == steps + 2
+        for i in range(at + 1, steps + 1):
+            name = f"out_c_hist_{i:04d}.csv"
+            assert text(d_res, name) == text(d_full, name), name
+        series = io.StringIO()
+        tail = truncated_xmf(os.path.join(d_full, "field.xmf"), at + 1,
+                             os.path.join(d_full, "field_tail.xmf"))
+        fails = xdmfdiff.compare(tail, os.path.join(d_res, "field.xmf"), rtol=0.0, atol=0.0,
+                                 out=series)
+        say(f"[outputs 1a] xdmfdiff frames {at + 1}-{steps}, zero tolerance: {fails} "
+            f"failures")
+        assert fails == 0, series.getvalue()
+        c = full.state["buffers"]["c"]
+        frame = np.fromfile(os.path.join(d_full, f"field.c.{steps}.bin"), dtype=np.float32)
+        assert np.array_equal(frame.reshape(BENCH_1A_N, BENCH_1A_N).T, c.cpu().numpy())
+        exo = read_exodus(os.path.join(d_full, "out.e"))
+        assert len(exo["time"]) == steps + 1 and exo["time"][-1] == full.time
+        assert np.array_equal(exo["nodal"]["c_aux"][-1].reshape(
+            BENCH_1A_N + 1, BENCH_1A_N + 1, order="F")[:-1, :-1], c.double().cpu().numpy())
+        assert exo["glo"]["c_avg"][-1] == full.pp_values["c_avg"]
+        # -- sizes and seconds
+        path = part.checkpoint_path
+        write_s, read_s, state = checkpoint_seconds(part, dev)
+        states_equal(state, part.state)
+        out_s, out_calls = full.perf.sections["outputs"]
+        res_s, _calls = res.perf.sections["outputs"]
+        say(f"[outputs 1a] {run} {BENCH_1A_N}^2, {steps} steps x {BENCH_1A_SUBSTEPS} "
+            f"substeps: run_deck {s_full:.3f} s uninterrupted, {s_res:.3f} s resumed "
+            f"({steps - at} steps); perf graph outputs {out_s:.4f} s in {out_calls} calls, "
+            f"{out_s / steps:.5f} s a step (XDMF, Exodus, CSV, histogram; the first "
+            f"scipy import and the Exodus file at the end), resumed run "
+            f"{res_s / (steps - at):.5f} s a step; one more output, ms: "
+            + ", ".join(f"{k} {v:.3f}" for k, v in output_ms(full).items())
+            + f"; checkpoint {os.path.getsize(path)} bytes, written in "
+            f"{write_s:.4f} s, read onto the card in {read_s:.4f} s; peak "
+            f"device memory {peak / 2**20:.1f} MiB ({held / 2**20:.1f} MiB held before "
+            f"the runs); {smi}")
+        say(f"[outputs 1a] resumed run bit for bit: c, cbar ({res.state['buffers']['cbar'].dtype}),"
+            f" the old ring, solver, n_advances {res.state['n_advances']}, old_dt "
+            f"{res.state['old_dt']}, {len(res.pp_values)} pp values; CSV rows and "
+            f"histograms {at + 1}-{steps}; .e {len(exo['time'])} times")
+        del runs, full, part, res, state, c
+
+    # -- Kármán on PALLAS
+    steps, at = RESUME_KARMAN
+    deck, arrays = karman_deck("PALLAS")
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    held = torch.cuda.memory_allocated()
+    with tempfile.TemporaryDirectory() as out_dir:
+        runs = resume_runs(deck, steps, at, out_dir, dev, lf.launches, lf.reset_launches,
+                           arrays=arrays)
+        peak = torch.cuda.max_memory_allocated()
+        full, part, res = (runs[k][0] for k in ("full", "part", "resumed"))
+        for name, n in (("full", steps - 1), ("part", at - 1), ("resumed", steps - at)):
+            got = runs[name][1]
+            want = {"lbm_substep": n * (KARMAN_SUBSTEPS - 1),
+                    "lbm_density_mean": n * (KARMAN_SUBSTEPS - 1)}
+            launches[f"13 outputs karman {name}"] = got
+            say(f"[outputs karman] {name}: {runs[name][0].step_count} steps, launches "
+                f"{got} (expected {want})")
+            assert got == want, (name, got, want)
+        assert res.step_count == full.step_count == steps
+        for k in ("f", "feq", "density", "velocity", "speed"):
+            assert torch.equal(res.state["buffers"][k], full.state["buffers"][k]), k
+        states_equal(res.state, full.state)
+        path = part.checkpoint_path
+        write_s, read_s, state = checkpoint_seconds(part, dev)
+        states_equal(state, part.state)
+        say(f"[outputs karman] PALLAS {KARMAN[0]}x{KARMAN[1]}, {steps} steps x "
+            f"{KARMAN_SUBSTEPS} substeps: run_deck {runs['full'][2]:.3f} s uninterrupted, "
+            f"{runs['resumed'][2]:.3f} s resumed; resumed bit for bit (f, feq, density, "
+            f"velocity, speed and the whole state); checkpoint {os.path.getsize(path)} "
+            f"bytes, written in {write_s:.4f} s, read onto the card in {read_s:.4f} s; "
+            f"peak device memory "
+            f"{peak / 2**20:.1f} MiB ({held / 2**20:.1f} MiB held before the runs); {smi}")
+        del runs, full, part, res, state
+    return launches
 
 
 def main():
@@ -1516,6 +1803,10 @@ def main():
     # -- 12: benchmark 1a, the 200² spinodal decomposition whole --------------------
     launches_1a = phase_bench_1a(uf, sp, dev, smi)
     lap("12 (benchmark 1a)", t_start)
+
+    # -- 13: outputs and restart -------------------------------------------------------
+    launches_13 = phase_outputs(uf, sp, lf, dev, smi)
+    lap("13 (outputs and restart)", t_start)
     say(f"[done] {time.perf_counter() - t_start:.1f} s")
 
     # -- result -----------------------------------------------------------------
@@ -1539,6 +1830,8 @@ def main():
     # are those of the 1a runs (every transform there is at n = 200)
     paths_1a = {f"1a {run}": counts for run, counts in launches_1a.items()
                 if run.startswith("PALLAS")}
+    paths_1a.update({k: v for k, v in launches_13.items() if " 1a " in k})
+    paths_karman = {k: v for k, v in launches_13.items() if " karman " in k}
     table_small = [
         ("fwd_lanes", "small_lanes_kernel<Identity, Store>", "marlin_tpu/pallas_fft.py:237"),
         ("inv_lanes", "small_lanes_kernel<Identity, InvStore>", "marlin_tpu/pallas_fft.py:276"),
@@ -1549,9 +1842,12 @@ def main():
     ]
 
     def entry(name, src, replaces, counts):
+        # phase 13's Kármán runs launch the LBM kernel too
+        by_path = {"main": counts[name], **{k: v[name] for k, v in paths_karman.items()
+                                            if v.get(name)}}
         return {"name": name, "route": "cuda",
                 "source": f"marlin_tpu_torch/csrc/{src}", "replaces": replaces,
-                "launches": counts[name], "launches_by_path": {"main": counts[name]},
+                "launches": sum(by_path.values()), "launches_by_path": by_path,
                 **kernels[name]}
 
     def entry_small(name, kernel, replaces):

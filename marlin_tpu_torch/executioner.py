@@ -1,11 +1,15 @@
-"""Transient executioner, time steppers, Terminator, CSV output.
+"""Transient executioner, time steppers, Terminator, outputs, checkpoints.
 
-The ported subset of marlin_tpu/executioner.py: the host-side time loop
-around the eager step.  Only scalar postprocessor values cross to the host
-each step.  ``[Outputs] perf_graph = true`` times the JAX executioner's
-sections (``perf.PerfGraph``; the port's "outputs" are its CSV).  Field
-outputs (Exodus, XDMF, VTK), vector postprocessors and checkpoints are not
-ported yet and are rejected by name.
+A port of marlin_tpu/executioner.py: the host-side time loop around the
+eager step.  Only scalar postprocessor values cross to the host each step;
+field outputs ([TensorOutputs] XDMF, ``[Outputs] exodus``), vector
+postprocessors and checkpoints fetch buffers on their own cadence.
+``[Outputs] perf_graph = true`` times the JAX executioner's sections
+(``perf.PerfGraph``): "outputs" holds the CSV, the field outputs and the
+vector postprocessors, "checkpoint" the checkpoint writes.
+``checkpoint_interval = N`` writes ``<file_base>_checkpoint.npz`` every N
+steps (``checkpoint.py``, the JAX package's layout); ``Transient.recover``
+resumes from one, bit for bit.
 """
 
 from __future__ import annotations
@@ -13,8 +17,11 @@ from __future__ import annotations
 import os
 from typing import Dict, List, Optional
 
+from . import checkpoint
+from .exodus import ExodusOutput
 from .expression import fparse
 from .hit import HitNode
+from .outputs import build_tensor_outputs
 from .params import Params, check_unused
 from .perf import PerfGraph
 from .problem import TensorProblem
@@ -167,9 +174,6 @@ class Transient:
         self.stepper = build_stepper(exec_node, gp)
         if "dt" in (exec_node.params if exec_node is not None else {}):
             self.stepper.dt0 = p.get_float("dt")
-        if p.get_int("checkpoint_interval", 0):
-            p.error("checkpoint_interval",
-                    "checkpoints are not ported to marlin_tpu_torch yet")
 
         self.terminators: List[Terminator] = []
         if user_objects_node is not None:
@@ -187,20 +191,30 @@ class Transient:
         op = Params(outputs_node, gp)
         deck_file_base = op.get_str("file_base", None)
         self.file_base = file_base or deck_file_base or "out"
-        if op.get_bool("exodus", False):
-            op.error("exodus", "is not ported to marlin_tpu_torch yet (CSV only)")
         csv_enabled = op.get_bool("csv", False)
+        # [Outputs] exodus = true (or a type = Exodus sub-block): the aux
+        # variables and postprocessors to <file_base>.e (exodus.py)
+        exodus_enabled = op.get_bool("exodus", False)
         if outputs_node is not None:
             for b in outputs_node.blocks():
                 btype = Params(b, gp).get_str("type")
-                if btype != "CSV":
+                if btype == "CSV":
+                    csv_enabled = True
+                elif btype == "Exodus":
+                    exodus_enabled = True
+                elif btype is not None:
                     raise ValueError(
-                        f"[Outputs/{b.name}] type = {btype} is not ported to "
-                        "marlin_tpu_torch yet (CSV only)")
-                csv_enabled = True
+                        f"Unknown [Outputs] sub-block type '{btype}' "
+                        f"(block '{b.name}')"
+                    )
+        os.makedirs(self.output_dir, exist_ok=True)
         if csv_enabled:
-            os.makedirs(self.output_dir, exist_ok=True)
             self.csv = CSVWriter(os.path.join(self.output_dir, self.file_base + ".csv"))
+        # field outputs: Exodus here, [TensorOutputs] added by run_deck
+        self.tensor_outputs = []
+        if exodus_enabled:
+            self.tensor_outputs.append(ExodusOutput(
+                os.path.join(self.output_dir, self.file_base + ".e"), problem))
         # perf graph (reference `perf_graph = true`, MOOSE TIME_SECTION)
         self.perf = PerfGraph(enabled=op.get_bool("perf_graph", False))
 
@@ -211,6 +225,15 @@ class Transient:
         # an LBM problem's convergence residual, fetched with each step's
         # postprocessor values (None: not fetched yet)
         self._lbm_residual: Optional[float] = None
+        # the last step's dt (nonzero once a step ran or a checkpoint was
+        # recovered) and the vector postprocessors' file counter
+        self._last_dt = 0.0
+        self._vpp_counter = 0
+        # checkpoint/resume (the reference checkpoints no tensor buffers,
+        # SURVEY §5.4; this is the full-state superset)
+        self.checkpoint_interval = p.get_int("checkpoint_interval", 0)
+        self.checkpoint_path = os.path.join(
+            self.output_dir, self.file_base + "_checkpoint.npz")
 
     def init(self):
         with self.perf.section("problem::init_state (build + ICs)"):
@@ -223,15 +246,71 @@ class Transient:
         )
         self.pp_values = {pp.name: 0.0 for pp in self.problem.postprocessors}
         self.pp_values.update(initial)
-        if self.csv is not None:
-            with self.perf.section("outputs"):
+        # INITIAL-only aux kernels keep their t=0 projection even if the
+        # first output sampling happens at a later step
+        self.problem.aux.seed_initial(self.state)
+        self._vpp_counter = 0
+        with self.perf.section("outputs"):
+            if self.csv is not None:
                 self.csv.add_row(self.time, dict(self.pp_values))
+            self._run_outputs(initial=True)
+            self._write_vpps("INITIAL")
+
+    def _run_outputs(self, initial=False):
+        for out in self.tensor_outputs:
+            if getattr(out, "wants_pp_values", False):
+                out.output(self.problem, self.state, self.time,
+                           initial=initial, pp_values=self.pp_values)
+            else:
+                out.output(self.problem, self.state, self.time, initial=initial)
+
+    def _write_vpps(self, flag):
+        """Vector postprocessor CSV series: <file_base>_<name>_NNNN.csv
+        (MOOSE naming convention)."""
+        active = [v for v in self.problem.vector_postprocessors
+                  if flag in v.execute_on]
+        if flag == "TIMESTEP_END":
+            self._vpp_counter += 1
+        for v in active:
+            cols = v.compute(self.state, {"t": self.time})
+            path = os.path.join(
+                self.output_dir,
+                f"{self.file_base}_{v.name}_{self._vpp_counter:04d}.csv")
+            names = list(cols)
+            rows = zip(*[cols[c] for c in names])
+            with open(path, "w") as f:
+                f.write(",".join(names) + "\n")
+                for row in rows:
+                    f.write(",".join(CSVWriter._fmt(x) for x in row) + "\n")
+
+    def save_checkpoint(self):
+        with self.perf.section("checkpoint"):
+            checkpoint.save(
+                self.checkpoint_path, self.state, self.time, self.step_count,
+                self._last_dt, self.pp_values,
+                aux_cache=self.problem.aux._initial_cache)
+
+    def recover(self, path=None):
+        """Resume from a checkpoint of either package (default: this
+        run's own): restores the state, time, step count, last dt,
+        postprocessor values and INITIAL-only aux samples.  Works without
+        ``init()``; ``run()`` then goes on from the restored step."""
+        state, meta = self.problem.load_checkpoint(path or self.checkpoint_path)
+        self.state = state
+        self.time = meta["time"]
+        self.step_count = meta["step"]
+        self._vpp_counter = meta["step"]
+        self._last_dt = meta["dt"]
+        self._lbm_residual = None  # re-fetch from the restored state
+        self.pp_values = dict(meta.get("pp_values", {}))
+        # the saved samples are the only valid source: the t=0 state is gone
+        self.problem.aux._initial_cache.update(meta.get("aux_cache", {}))
 
     def run(self) -> Dict[str, float]:
         if self.state is None:
             self.init()
-        dt_old = 0.0
-        dt = self.stepper.dt0
+        dt_old = self._last_dt  # nonzero when resuming from a checkpoint
+        dt = self._last_dt or self.stepper.dt0
         while self.step_count < self.num_steps and self.time < self.end_time - 1e-13:
             # LBM convergence early-out (reference LatticeBoltzmannProblem::
             # execute :74 — once the residual drops below tolerance, all
@@ -283,16 +362,22 @@ class Transient:
                         "cannot continue!"
                     )
                 dt = max(self.stepper.failed_dt(dt), self.dtmin)
+            self._last_dt = dt
             self.time += dt
             dt_old = dt
             # internal early-out scalar: consume it before it reaches the
             # CSV and the console tables
             self._lbm_residual = values.pop("_lbm_residual", None)
             self.pp_values.update(values)
-            if self.csv is not None:
-                with self.perf.section("outputs"):
+            with self.perf.section("outputs"):
+                if self.csv is not None:
                     self.csv.add_row(self.time, dict(self.pp_values))
                     self.csv.write()
+                self._run_outputs()
+                self._write_vpps("TIMESTEP_END")
+            if (self.checkpoint_interval
+                    and self.step_count % self.checkpoint_interval == 0):
+                self.save_checkpoint()
 
             hard_fired = [t for t in self.terminators
                           if t.fail_mode == "HARD" and t.check(self.pp_values)]
@@ -306,9 +391,11 @@ class Transient:
                     print(msg)
                 break
 
-        if self.csv is not None:
-            with self.perf.section("outputs"):
+        with self.perf.section("outputs"):
+            if self.csv is not None:
                 self.csv.write()
+            for out in self.tensor_outputs:
+                out.finalize()
         if self.perf.enabled:
             print(self.perf.report())
         return self.pp_values
@@ -321,10 +408,14 @@ def run_deck(
     device=None,
     deck_dir: Optional[str] = None,
     arrays=None,
+    deck_stem: Optional[str] = None,
+    recover: Optional[str] = None,
 ) -> Transient:
     """Build and run a full deck on ``device`` (default "cuda"); returns the
     finished Transient (marlin_tpu/executioner.py:run_deck).  ``deck_dir``
-    and ``arrays`` go to TensorProblem (LBM buffer files)."""
+    and ``arrays`` go to TensorProblem (LBM buffer files); ``deck_stem`` is
+    the [TensorOutputs]' default file base; ``recover`` is a checkpoint to
+    resume from in place of the initial state."""
     problem = TensorProblem(root, device=device, deck_dir=deck_dir, arrays=arrays)
     transient = Transient(
         problem,
@@ -334,7 +425,16 @@ def run_deck(
         file_base=file_base,
         output_dir=output_dir,
     )
-    transient.init()
+    # [TensorOutputs]: XDMF field outputs
+    tout = root.children.get("TensorOutputs")
+    if tout is not None:
+        transient.tensor_outputs.extend(build_tensor_outputs(
+            tout, problem, output_dir=transient.output_dir,
+            default_file_base=deck_stem))
+    if recover is not None:
+        transient.recover(recover)
+    else:
+        transient.init()
     # unknown-parameter audit after every object has read its keys
     check_unused(
         root, strict=problem.problem_params.get_bool("strict_params", False)

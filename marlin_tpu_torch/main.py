@@ -69,6 +69,7 @@ def main(argv=None):
         output_dir=ns.output_dir or os.getcwd(),
         device=dev,
         deck_dir=os.path.dirname(os.path.abspath(deck)),
+        deck_stem=stem,
     )
     print(f"Finished after {transient.step_count} steps, t = {transient.time}")
     for k, v in transient.pp_values.items():

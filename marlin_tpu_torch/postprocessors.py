@@ -4,14 +4,19 @@ The ported subset of marlin_tpu/postprocessors.py (reference
 src/postprocessors/).  A tensor postprocessor is a function
 ``(state, ctx) -> 0-d tensor``; the problem fetches every tensor value of
 an output point to the host in one transfer.  A postprocessor with
-``depends_on_pps`` (``ParsedPostprocessor``) is evaluated after that
-transfer, on the host, from the values fetched (``compute_host``).
+``depends_on_pps`` (``ParsedPostprocessor``, ``ComputeGroupExecutionCount``)
+is evaluated after that transfer, on the host, from the values fetched
+(``compute_host``).  The aux-variable postprocessors reduce the buffer an
+aux variable reads on the device, inside the same transfer.  A vector
+postprocessor (``TensorHistogram``) returns columns of host arrays, written
+as one CSV a step by the executioner.
 """
 
 from __future__ import annotations
 
 import math
 
+import numpy as np
 import torch
 
 from .expression import CompiledExpression
@@ -192,3 +197,138 @@ class ParsedPostprocessor(Postprocessor):
             # initial 0 (MOOSE: the pp's current value)
             env[sym] = pp_values.get(name, 0.0)
         return self._expr.evaluate_host(env)
+
+
+@postprocessors.register("ComputeGroupExecutionCount")
+class ComputeGroupExecutionCount(Postprocessor):
+    """Execution count of the solver's compute group (reference
+    ComputeGroupExecutionCount.C): the static count the problem keeps,
+    ``group_evals_per_step`` a step; ``device_group_evals`` stays 0 until
+    an iterative solver accumulates data-dependent evaluations."""
+
+    depends_on_pps = True
+
+    def __init__(self, name, params: Params, problem):
+        super().__init__(name, params, problem)
+        self.compute_group = params.get_str("compute_group", None)
+
+    def compute_host(self, pp_values, t):
+        return float(self.problem.compute_count) + float(
+            getattr(self.problem, "device_group_evals", 0) or 0)
+
+
+@postprocessors.register("ComputeReynoldsNumber")
+class ComputeReynoldsNumber(TensorPostprocessor):
+    """LBM Reynolds number (reference ComputeReynoldsNumber.C)."""
+
+    def __init__(self, name, params: Params, problem):
+        super().__init__(name, params, problem)
+        self.tau = problem.get_constant(params.get_str("tau", required=True))
+        self.D = problem.get_constant(params.get_str("diameter", required=True))
+
+    def compute(self, state, ctx):
+        u = state["buffers"][self.buffer]
+        # the reference uses nu = (tau - 0.5)/sqrt(3), c_s and not the
+        # textbook c_s² = 1/3 (ComputeReynoldsNumber.C:34); kept for parity
+        kinematic_viscosity = 1.0 / math.sqrt(3.0) * (self.tau - 0.5)
+        avg_speed = torch.sum(u) / u.numel()
+        return avg_speed * self.D / kinematic_viscosity
+
+
+class AuxVariablePostprocessor(Postprocessor):
+    """Base for MOOSE postprocessors that read an aux variable fed from a
+    tensor buffer (the reference couples through MOOSE's FE aux system,
+    src/problems/TensorProblem.C:312-379; here the mapped buffer IS the
+    variable, so these reductions run on the device with the other tensor
+    postprocessors)."""
+
+    def __init__(self, name, params: Params, problem):
+        super().__init__(name, params, problem)
+        self.variable = params.get_str("variable", required=True)
+        if self.variable not in problem.aux.variables:
+            params.error("variable", f"unknown aux variable '{self.variable}'")
+
+    def _field(self, state):
+        buf = self.problem.aux.source_buffer(self.variable)
+        if buf is None:
+            return torch.zeros(self.domain.shape, dtype=self.domain.dtype,
+                               device=self.domain.device)
+        return state["buffers"][buf]
+
+
+@postprocessors.register("ElementExtremeValue", "NodalExtremeValue")
+class ElementExtremeValue(AuxVariablePostprocessor):
+    """MIN/MAX of an aux variable.  On the conforming mesh both the nodal
+    and elemental samplings take values from the buffer itself, so the
+    extremum equals the buffer extremum (MOOSE samples at quadrature points,
+    which for a multilinear variable is an interior bound)."""
+
+    def __init__(self, name, params: Params, problem):
+        super().__init__(name, params, problem)
+        self.value_type = params.get_enum("value_type", ["MIN", "MAX"], "MAX")
+
+    def compute(self, state, ctx):
+        u = self._field(state)
+        return torch.min(u) if self.value_type == "MIN" else torch.max(u)
+
+
+@postprocessors.register("ElementAverageValue")
+class ElementAverageValue(AuxVariablePostprocessor):
+    """Volume-average of an aux variable.  On the periodic conforming mesh
+    the exact FE integral of either a constant-monomial or multilinear
+    variable reduces to the plain cell mean."""
+
+    def compute(self, state, ctx):
+        u = self._field(state)
+        return torch.sum(u) / u.numel()
+
+
+@postprocessors.register("ElementIntegralVariablePostprocessor")
+class ElementIntegralVariablePostprocessor(ElementAverageValue):
+    def compute(self, state, ctx):
+        return super().compute(state, ctx) * self.domain.volume_global
+
+
+class VectorPostprocessor:
+    """Base for vector postprocessors (per-step CSV series)."""
+
+    def __init__(self, name, params: Params, problem):
+        self.name = name
+        self.params = params
+        self.problem = problem
+        self.domain = problem.domain
+        self.execute_on = set(
+            x.upper()
+            for x in params.get_str_vector("execute_on", default=["TIMESTEP_END"])
+        )
+
+    def compute(self, state, ctx):
+        """Return dict column -> 1-D host array."""
+        raise NotImplementedError
+
+
+@postprocessors.register("TensorHistogram")
+class TensorHistogram(VectorPostprocessor):
+    """Histogram of buffer values (reference
+    src/vectorpostprocessors/TensorHistogram.C): `bins` equal-width bins on
+    [min, max], columns `bin` (centers) and `count`.  The buffer is fetched
+    to the host and binned by numpy, as the JAX package bins it
+    (``torch.histc`` places its edges differently)."""
+
+    is_vector = True
+
+    def __init__(self, name, params: Params, problem):
+        super().__init__(name, params, problem)
+        self.buffer = params.get_str("buffer", required=True)
+        self.min = params.get_float("min", required=True)
+        self.max = params.get_float("max", required=True)
+        self.bins = params.get_int("bins", required=True)
+        if self.min > self.max:
+            params.error("min", "max must be greater than min")
+
+    def compute(self, state, ctx):
+        u = state["buffers"][self.buffer].detach().cpu().numpy().reshape(-1)
+        counts, _edges = np.histogram(u, bins=self.bins, range=(self.min, self.max))
+        step = (self.max - self.min) / self.bins
+        centers = self.min + step / 2.0 + step * np.arange(self.bins)
+        return {"bin": centers, "count": counts.astype(float)}

@@ -29,16 +29,18 @@ from typing import Dict, List, Optional
 import numpy as np
 import torch
 
+from . import checkpoint
 from . import computes as _computes_pkg  # noqa: F401  (registers compute types)
 from . import lbm_fused
 from . import postprocessors as _pp_pkg  # noqa: F401  (registers pp types)
 from . import solvers as _solvers_pkg  # noqa: F401  (registers solver types)
 from . import stencils as _stencils_pkg  # noqa: F401  (registers stencils)
+from .aux import AuxSystem
 from .computes.base import ComputeGroup, Spec, TensorCompute
 from .domain import FFT_BACKENDS, PARALLEL_MODES, PRECISIONS, Domain
 from .hit import HitNode
 from .params import Params
-from .postprocessors import Postprocessor
+from .postprocessors import Postprocessor, VectorPostprocessor
 from .registry import computes as compute_registry
 from .registry import postprocessors as pp_registry
 from .registry import solvers as solver_registry
@@ -52,11 +54,7 @@ class ProblemError(Exception):
 
 #: deck blocks whose features are not ported to marlin_tpu_torch yet
 UNSUPPORTED_BLOCKS = {
-    "TensorOutputs": "XDMF/HDF5 field outputs",
-    "AuxVariables": "the aux-variable (Exodus) coupling surface",
-    "AuxKernels": "the aux-variable (Exodus) coupling surface",
     "Functions": "MOOSE functions",
-    "VectorPostprocessors": "vector postprocessors",
     "TensorTimeIntegrators": "legacy [TensorTimeIntegrators] blocks",
 }
 
@@ -182,6 +180,10 @@ class TensorProblem:
             self._lbm_solves = ComputeGroup("_lbm_solve", gp, self,
                                             self.solve_computes).sort()
 
+        # -- aux-variable coupling surface (reference mapBuffersToAux /
+        # ProjectTensorAux, src/problems/TensorProblem.C:250-379) ------------
+        self.aux = AuxSystem(self, root)
+
         # -- solver ---------------------------------------------------------
         self.solver = None
         ts = root.children.get("TensorSolver")
@@ -221,6 +223,22 @@ class TensorProblem:
         # cross-postprocessor checks once all are built (forward references)
         for pp in self.postprocessors:
             pp.check(self)
+        # compute-group evaluations so far (ComputeGroupExecutionCount)
+        self.compute_count = 0
+        # the [Postprocess] group's outputs of the last postprocessor
+        # evaluation: (state buffers, t, outputs), reused by
+        # run_postprocess_computes for the same buffers at the same time
+        self._pp_group_last = None
+
+        # -- vector postprocessors --------------------------------------------
+        self.vector_postprocessors: List[VectorPostprocessor] = []
+        vpps = root.children.get("VectorPostprocessors")
+        if vpps is not None:
+            for b in vpps.blocks():
+                p = Params(b, self.global_params)
+                self.vector_postprocessors.append(
+                    pp_registry.create(p.get_str("type", required=True), b.name, p, self)
+                )
 
     # ------------------------------------------------------------------
     def _build_compute(self, node: HitNode) -> TensorCompute:
@@ -280,6 +298,12 @@ class TensorProblem:
             return self.domain.reciprocal_value_shape(vdims)
         return self.domain.value_shape(vdims)
 
+    def _declared_dtype(self, spec: Params) -> torch.dtype:
+        dom = self.domain
+        if self._is_lbm_buffer(spec):
+            return torch.int64 if spec.get_bool("is_integer", False) else dom.dtype
+        return dom.cdtype if spec.get_bool("reciprocal", False) else dom.dtype
+
     @staticmethod
     def _is_lbm_buffer(spec: Params) -> bool:
         return (spec.get_str("type", "PlainTensorBuffer") == "LBMTensorBuffer"
@@ -303,7 +327,7 @@ class TensorProblem:
         """LBM buffer: df -> trailing q, mv -> trailing dim, ms -> scalar;
         always 3 spatial dims (reference LBMTensorBuffer::init :96-125)."""
         shape = self._lbm_buffer_shape(spec)
-        dtype = torch.int64 if spec.get_bool("is_integer", False) else self.domain.dtype
+        dtype = self._declared_dtype(spec)
         if spec.has("file"):
             data = np.asarray(self._read_lbm_h5(spec.get_str("file")))
             if data.ndim < 3:
@@ -396,8 +420,8 @@ class TensorProblem:
             if self._is_lbm_buffer(spec):
                 buffers[name] = self._init_lbm_buffer(spec)
                 continue
-            dtype = dom.cdtype if spec.get_bool("reciprocal", False) else dom.dtype
-            buffers[name] = self._zeros(self.declared_buffer_shape(name), dtype)
+            buffers[name] = self._zeros(self.declared_buffer_shape(name),
+                                        self._declared_dtype(spec))
 
         # LBM binary media is available before ICs (file-loaded buffers,
         # reference LatticeBoltzmannProblem::init :60-68) so IC computes
@@ -612,7 +636,9 @@ class TensorProblem:
         if tensor_pps:
             ctx = {"t": t, "dt": dt}
             buffers = dict(state["buffers"])
-            buffers.update(self.pp_computes.apply(buffers, ctx))
+            group = self.pp_computes.apply(buffers, ctx)
+            self._pp_group_last = (state["buffers"], t, group)
+            buffers.update(group)
             st = {**state, "buffers": buffers}
             vals = {**{pp.name: pp.compute(st, ctx) for pp in tensor_pps}, **vals}
         result: Dict[str, float] = {}
@@ -631,6 +657,8 @@ class TensorProblem:
         convergence residual rides the same transfer as
         ``_lbm_residual``."""
         state = self.step(state, t, dt, dt_old, first_step)
+        if self.solver is not None:
+            self.compute_count += self.solver.group_evals_per_step()
         active = [pp for pp in self.postprocessors
                   if "TIMESTEP_END" in pp.execute_on]
         extra = None
@@ -644,3 +672,40 @@ class TensorProblem:
         if not active:
             return {}
         return self._pp_values(state, active, t, dt)
+
+    def run_postprocess_computes(self, state, t):
+        """The state with the [Postprocess] group's buffers materialised at
+        time ``t``, for field outputs (marlin_tpu/problem.py:
+        run_postprocess_computes).  Where the postprocessors of this very
+        state at ``t`` already ran the group, its outputs are reused: the
+        group runs once an output point."""
+        last = self._pp_group_last
+        if last is not None and last[0] is state["buffers"] and last[1] == t:
+            group = last[2]
+        else:
+            group = self.pp_computes.apply(dict(state["buffers"]), {"t": t})
+        return {**state, "buffers": {**state["buffers"], **group}}
+
+    def load_checkpoint(self, path: str):
+        """(state, meta) of a checkpoint of either package, the state's
+        tensors on this problem's device; an LBM problem's media are taken
+        from it as ``init_state`` takes them."""
+        state, meta = checkpoint.load(path, self.domain.device)
+        self._check_restored(state["buffers"], path)
+        self._capture_lbm_media(state["buffers"])
+        return state, meta
+
+    def _check_restored(self, buffers, path):
+        """Every declared buffer is in the checkpoint with the shape and
+        dtype ``init_state`` gives it (a checkpoint of another deck or
+        precision is a named error)."""
+        for name, spec in self.buffer_specs.items():
+            spec.has("file")  # an LBM buffer's data is the checkpoint's
+            dtype = self._declared_dtype(spec)
+            shape = tuple(self.declared_buffer_shape(name))
+            got = buffers.get(name)
+            if got is None or tuple(got.shape) != shape or got.dtype != dtype:
+                have = "missing" if got is None else f"{tuple(got.shape)} {got.dtype}"
+                raise ProblemError(
+                    f"checkpoint '{path}' does not fit this deck: buffer '{name}' "
+                    f"is {have}, the deck declares {shape} {dtype}")

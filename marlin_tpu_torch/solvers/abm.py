@@ -67,6 +67,9 @@ class AdamsBashforthMoulton(SplitOperatorBase):
                 "fused_spectral", "requires carry_reciprocal = true"
             )
 
+    def group_evals_per_step(self):
+        return self.substeps * (1 + self.corrector_steps)
+
     def step(self, state, t, dt, dt_old, first_step):
         if not self.fused_spectral or self.substeps <= 1:
             return super().step(state, t, dt, dt_old, first_step)

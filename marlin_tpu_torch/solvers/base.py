@@ -97,6 +97,11 @@ class TensorSolver:
         """Buffers the solver writes (integrated variables, forwards)."""
         return [b for b, _ in self.forwarded_buffers]
 
+    def group_evals_per_step(self) -> int:
+        """Compute-group evaluations per MOOSE timestep (feeds the
+        ComputeGroupExecutionCount postprocessor)."""
+        return self.substeps
+
     # -- execution helpers -------------------------------------------------
     def _run_group(self, state: Dict, t) -> Dict:
         """Evaluate the root compute and apply buffer forwarding
