@@ -13,8 +13,9 @@ Phases, one line each, flushed as they finish:
    of every FFT and LBM kernel, forward and inverse (and the register FFT
    kernels' shared memory), the LBM substep's flat and brick kernels.  The
    LBM substep library, the slowest to build, builds while phase 2's
-   spectral rows and phases 3-6 run; its report and phase 2's LBM rows
-   follow phase 6.  A ``[time]`` line closes each group of phases;
+   spectral rows, phases 3-6 and phase 12 run (phase 12 runs before the
+   LBM phases); its report and phase 2's LBM rows follow phase 12.  A
+   ``[time]`` line closes each group of phases;
 2. kernels: each kernel at its 512³ main-path shapes (and at n = 64, 200,
    384) against its plain PyTorch twin, max error ≤ 1e-5 of the twin's
    largest magnitude; kernel, twin, bound and yardstick times, and which
@@ -111,32 +112,61 @@ Phases, one line each, flushed as they finish:
    substeps a step, with XDMF frames of c (binary: the card's machine has
    no h5py), Exodus of c through a LAGRANGE aux variable and its
    ``ElementAverageValue``, a ``TensorHistogram`` of c and a checkpoint
-   every 10 steps, run 20 steps, run 10, and resumed from that step-10
-   checkpoint to 20 (``run_deck(recover=...)``), each in its own
+   every 5 steps, run 10 steps, run 5, and resumed from that step-5
+   checkpoint to 10 (``run_deck(recover=...)``), each in its own
    directory; the Kármán deck on PALLAS the same way, 4 steps resumed
    from step 2.  Gates: the resumed state (every buffer, among them c, the
    complex64 carried cbar and the LBM distributions, the history ring,
    solver entries, n_advances, old_dt) and postprocessor values equal the
    uninterrupted run's bit for bit; 1a's CSV rows and histogram files
-   11-20 identical, ``xdmfdiff.compare`` of its frames 11-20 at zero
-   tolerance, the step-20 ``.bin`` frame equal to c, the ``.e`` file read
-   back with 21 times; launches exactly phase 12's count (no INITIAL
+   6-10 identical, ``xdmfdiff.compare`` of its frames 6-10 at zero
+   tolerance, the step-10 ``.bin`` frame equal to c, the ``.e`` file read
+   back with 11 times; launches exactly phase 12's count (no INITIAL
    group on the resumed run), Kármán's 99 a step after the first.  The
    perf graph's outputs seconds a step, checkpoint bytes and seconds to
    write and to read onto the card, and peak device memory, beside the
-   card's name and power limit.
+   card's name and power limit;
+14. the rest of lattice Boltzmann and the spectral family's computes:
+   (a) the two-phase droplet (``decks.TWOPHASE2D_DECK``, D2Q9 at 512², 3
+   steps × 20 substeps, JNP) in float64 and float32: Σφ and the fluid mass
+   within 1e-10 (float64) or 1e-5 (float32) of their start, float32 within
+   1e-4 of float64's largest on φ and ρ, and the same deck on ``lbm_backend
+   = PALLAS`` refused with the JAX package's words; (b) pressure-driven flow
+   through the 256³ porous sample (``decks.PRESSURE_DECK``: Dirichlet
+   inlet on the left face, then on the wall cells, Neumann outlet,
+   bounce-back walls and media; float32, JNP, 2 steps × 5 substeps):
+   finite, no kernel-7 launch; (c) the 800×200 channel with specular walls,
+   Dirichlet inlet, Neumann outlet and the unit converter
+   (``decks.SPECULAR_CHANNEL_DECK``, 3 steps × 40 substeps), max |u|
+   within ``SPECULAR_MAX_U`` and float32 within 1e-4 of float64 on every
+   buffer; (d) the spectral family at 512²
+   (``decks.SMOOTHED_BOUNDARY_DECK``, 2 steps × 40 substeps) on DEFAULT
+   float64, DEFAULT float32 and PALLAS float32 (kernels 1-4 on the register
+   path): launches exactly ``sbm_launches``, PALLAS against DEFAULT
+   float32 and float32 against float64 within each buffer's ``SBM_TOL`` of its
+   largest (spectra compared on the half spectrum without the Nyquist row
+   and column); (e) ``batch_fft`` on the 2a stand-in at 200²
+   (``decks.OSTWALD_2A_DECK``, 2 steps × 40 substeps of 0.002) on the same three
+   routes, off and on: PALLAS batched equal to unbatched bit for bit,
+   DEFAULT within 1e-12 (float64) or 1e-6 (float32), the forward lanes
+   launches a substep one a batch group, ms a substep with device time;
+   (f) ``decks.BENCH_1A_LEGACY_DECK`` equal to ``BENCH_1A_DECK`` bit for
+   bit over 2 steps × 250 substeps on DEFAULT float32 and PALLAS fused, launches phase
+   12's formula.
 
 Then one JSON line with every kernel's numbers (a kernel timed at more
 than one main shape also lists each under ``shapes``; ``launches_by_path``
 splits ``launches`` by the paths that reached it; the small-extent kernels
 stand as their own entries, ``<wrapper> small``, timed at 200² and
-launched by phase 12's PALLAS runs and phase 13's 1a runs; phase 13's
-Kármán runs add to ``lbm_substep``'s) and, last, the JSON result line.  Any failure ends the run with a non-zero exit and no result line.
+launched by phase 12's PALLAS runs, phase 13's 1a runs and phase 14's 2a
+and 1a runs; phase 13's Kármán runs add to ``lbm_substep``'s, phase 14's
+512² spectral-family run to kernels 1-4's) and, last, the JSON result line.  Any failure ends the run with a non-zero exit and no result line.
 Needs one CUDA card; fails without one, and fails where the package is not
 beside it.
 """
 
 import concurrent.futures
+import gc
 import json
 import math
 import os
@@ -195,7 +225,7 @@ BENCH_1A_RUNS = {  # run: its route in marlin_tpu_torch.bench_1a_runs.ROUTES
     "PALLAS float32": "P32", "PALLAS fused float32": "F32",
 }
 PROFILE_ATTEMPTS = 3  # device_ms: traces taken before an empty one fails
-RESUME_1A = (20, 10)  # phase 13: steps of 1a, and the checkpoint's step
+RESUME_1A = (10, 5)  # phase 13: steps of 1a, and the checkpoint's step
 RESUME_KARMAN = (4, 2)  # the same for Kármán (100 substeps a step)
 # phase 13's 1a outputs: c mapped to a LAGRANGE aux variable for Exodus and
 # ElementAverageValue, XDMF frames of c (no h5py on the card), a histogram
@@ -1303,6 +1333,7 @@ def phase_bench_1a(uf, sp, dev, smi):
             run_deck(hit.parse(bench_1a_deck(run, warm=True)), output_dir=out_dir,
                      device=dev)
             torch.cuda.synchronize()
+            gc.collect()  # the earlier phases' problems, held in reference cycles
             torch.cuda.empty_cache()
             torch.cuda.reset_peak_memory_stats()
             held = torch.cuda.memory_allocated()
@@ -1592,6 +1623,431 @@ def phase_outputs(uf, sp, lf, dev, smi):
     return launches
 
 
+# -- phase 14: the rest of lattice Boltzmann and the spectral family ----------------
+
+TWOPHASE = (512, 3, 20)  # n, steps, substeps (the first step runs no substeps)
+TWOPHASE_MASS_TOL = {torch.float64: 1e-10, torch.float32: 1e-5}  # relative
+PRECISION_TOL = 1e-4  # float32 against float64, of the float64 buffer's largest
+PRESSURE = (256, 2, 5)
+SPECULAR = (800, 200, 3, 40)
+SPECULAR_MAX_U = 0.02  # twice the initial 0.01: a pumped channel shows as growth
+SBM = (512, 2, 40)  # n, steps, substeps; dt 1 a step
+# PALLAS against DEFAULT float32, and float32 against float64, each buffer of
+# the spectral-family deck: max |Δ| over the reference buffer's largest.  Each
+# limit is about twice the larger of the two readings on the H100 at SBM's
+# depth (PERF.md §6 lists them side by side), at least 1e-6 and at most 1e-4
+SBM_TOL = {
+    "grad_c_sq": 1e-4, "lap_c": 1e-4, "grad_c": 1e-4, "c": 7e-5,
+    "c_flux": 3e-5, "mu": 3e-5, "dfdc": 3e-5, "c_rate": 2e-5,
+    "dF_deta": 7e-6, "eta": 6e-6, "eta_raw": 5e-6, "eta_rate": 5e-6,
+    "etabar": 4e-6, "cbar": 3e-6, "mobility": 3e-6, "grad_c_peak": 2e-6,
+    "dealias": 2e-6, "c_linear": 1e-6, "psi": 1e-6, "eta_linear": 1e-6,
+    "L": 1e-6,
+}
+OSTWALD = (200, 2, 40)  # n, steps, substeps
+OSTWALD_DT = 0.08  # a step: substeps of 0.002, where the explicit terms are stable
+PROFILED_SUBSTEPS = 5  # the step whose device time the profiler reads
+BATCH_TOL = {torch.float64: 1e-12, torch.float32: 1e-6}  # DEFAULT batched/unbatched
+BATCH_FALLBACK_TOL = 1e-6  # PALLAS batched/unbatched where not bit for bit
+LEGACY_1A = (2, 250)  # steps, substeps
+TWOPHASE_REFUSAL = ("lbm_backend = PALLAS: solve compute 'grad_phi' "
+                    "(LBMIsotropicGradient) is not fusable (use the default JNP backend)")
+PRECISION = {"float64": "floating_precision = DOUBLE",
+             "float32": "floating_precision = SINGLE"}
+SPECTRAL_ROUTES = {"DEFAULT float64": "floating_precision = DOUBLE",
+                   "DEFAULT float32": "floating_precision = SINGLE",
+                   "PALLAS float32": "fft_backend = PALLAS\n  floating_precision = SINGLE"}
+TOTALS = """
+[Postprocessors]
+  [{0}_total]
+    type = TensorIntegralPostprocessor
+    buffer = {0}
+    execute_on = 'INITIAL TIMESTEP_END'
+  []
+  [{1}_total]
+    type = TensorIntegralPostprocessor
+    buffer = {1}
+    execute_on = 'INITIAL TIMESTEP_END'
+  []
+[]
+[Outputs]
+  csv = true
+[]
+"""
+
+
+def with_executioner(deck, steps, dt=1.0):
+    """``deck`` with its [Executioner] block (if any) replaced by a
+    Transient of ``steps`` steps of ``dt``."""
+    deck = re.sub(r"\[Executioner\]\n(  .*\n)*\[\]\n", "", deck)
+    assert "[Executioner]" not in deck
+    return deck + (f"\n[Executioner]\n  type = Transient\n  num_steps = {steps}\n"
+                   f"  dt = {dt}\n[]\n")
+
+
+def all_launches():
+    from marlin_tpu_torch import lbm_fused as lf
+    from marlin_tpu_torch import spectral as sp
+    from marlin_tpu_torch import unordered_fft as uf
+
+    return {**uf.launches(), **sp.launches(), **lf.launches()}
+
+
+def reset_all():
+    from marlin_tpu_torch import lbm_fused as lf
+    from marlin_tpu_torch import spectral as sp
+    from marlin_tpu_torch import unordered_fft as uf
+
+    uf.reset_launches()
+    sp.reset_launches()
+    lf.reset_launches()
+
+
+def deck_run(deck, dev, arrays=None):
+    """run_deck with every launch count set to 0 just before and read just
+    after: (transient, wall seconds, launches)."""
+    from marlin_tpu_torch import hit
+    from marlin_tpu_torch.executioner import run_deck
+
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    reset_all()
+    with tempfile.TemporaryDirectory() as out_dir:
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        tr = run_deck(hit.parse(deck), output_dir=out_dir, device=dev, arrays=arrays)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    return tr, wall, all_launches()
+
+
+def rel_diff(got, ref):
+    """max |got − ref| over max |ref|, in float64."""
+    got, ref = got.to(torch.complex128 if ref.is_complex() else torch.float64), \
+        ref.to(torch.complex128 if ref.is_complex() else torch.float64)
+    return ((got - ref).abs().max() / ref.abs().max().clamp_min(1e-300)).item()
+
+
+def finite(buffers, label):
+    for k, v in buffers.items():
+        assert bool(torch.isfinite(v).all()), (label, k)
+
+
+def step_ms(tr, substeps, dt=1.0):
+    """Wall ms a substep of the finished run: CUDA events over one more
+    step."""
+    p, st = tr.problem, tr.state
+    return cuda_ms(lambda: p.step(st, tr.time, dt, dt, False), reps=1, warmup=0) / substeps
+
+
+def step_device_ms(tr, substeps, dt=1.0):
+    """Device ms a substep: the profiler's device time over a step of
+    PROFILED_SUBSTEPS substeps of the same size (a trace of a whole step
+    holds up to 10^5 events, which the profiler takes minutes to read)."""
+    p, st = tr.problem, tr.state
+    holder, attr = (p, "lbm_substeps") if p.is_lbm else (p.solver, "substeps")
+    short = dt * PROFILED_SUBSTEPS / substeps
+    setattr(holder, attr, PROFILED_SUBSTEPS)
+    try:
+        dev = device_ms(lambda: p.step(st, tr.time, short, short, False), calls=1)
+    finally:
+        setattr(holder, attr, substeps)
+    return dev / PROFILED_SUBSTEPS
+
+
+def phase_twophase(dev, smi):
+    """(a) the two-phase droplet, D2Q9 JNP, float64 and float32: Σφ and the
+    fluid mass conserved, float32 against float64 on φ and ρ, and the
+    PALLAS refusal.  Returns {precision: ms a substep}."""
+    from marlin_tpu_torch import decks
+    from marlin_tpu_torch import lbm_fused as lf
+
+    n, steps, substeps = TWOPHASE
+    out, ms = {}, {}
+    for prec in ("float64", "float32"):
+        deck = decks.TWOPHASE2D_DECK.format(n=n, substeps=substeps, backend="JNP").replace(
+            "[Domain]", f"[Domain]\n  {PRECISION[prec]}")
+        tr, wall, launched = deck_run(with_executioner(deck, steps) + TOTALS.format(
+            "phi", "density"), dev)
+        dtype = tr.problem.domain.dtype
+        assert launched["lbm_substep"] == 0, launched
+        finite(tr.state["buffers"], f"twophase {prec}")
+        rows = tr.csv.rows
+        drifts = {}
+        for key in ("phi_total", "density_total"):
+            m0, m1 = rows[0][key], rows[-1][key]
+            drifts[key] = abs(m1 - m0) / abs(m0)
+            assert drifts[key] <= TWOPHASE_MASS_TOL[dtype], (prec, key, m0, m1)
+        ms[prec] = step_ms(tr, substeps)
+        speed = tr.state["buffers"]["velocity"].abs().max().item()
+        say(f"[14 twophase] {prec} {n}^2, {steps} steps x {substeps} substeps: run_deck "
+            f"{wall:.2f} s, {ms[prec]:.4f} ms a substep, "
+            f"drift of sum(phi) {drifts['phi_total']:.3e}, of the fluid mass "
+            f"{drifts['density_total']:.3e} (limit {TWOPHASE_MASS_TOL[dtype]}), max |u| "
+            f"{speed:.3e}, lbm_substep launches 0, peak device memory "
+            f"{torch.cuda.max_memory_allocated() / 2**20:.1f} MiB")
+        assert speed > 0, "the surface force moves no fluid"
+        out[prec] = {k: tr.state["buffers"][k] for k in ("phi", "density")}
+        del tr
+    for k in ("phi", "density"):
+        d = rel_diff(out["float32"][k], out["float64"][k])
+        say(f"[14 twophase] float32 against float64: {k} {d:.3e} (limit {PRECISION_TOL})")
+        assert d <= PRECISION_TOL, (k, d)
+    deck = decks.TWOPHASE2D_DECK.format(n=n, substeps=substeps, backend="PALLAS").replace(
+        "[Domain]", "[Domain]\n  floating_precision = SINGLE")
+    try:
+        deck_run(with_executioner(deck, 2), dev)
+    except lf.FusedChainError as e:
+        assert str(e) == TWOPHASE_REFUSAL, str(e)
+        say(f"[14 twophase] lbm_backend = PALLAS refused: {e}")
+    else:
+        raise AssertionError("the two-phase deck ran on lbm_backend = PALLAS")
+    return ms
+
+
+def phase_pressure(dev, smi):
+    """(b) pressure-driven flow through the 256³ porous sample: Dirichlet
+    inlet (on the left face, then on the wall cells), Neumann outlet,
+    bounce-back walls and media, JNP float32.  Returns {inlet: ms}."""
+    from marlin_tpu_torch import decks
+
+    n, steps, substeps = PRESSURE
+    media = decks.porous_media(n)
+    ms = {}
+    for inlet in ("left", "wall"):
+        deck = decks.PRESSURE_DECK.format(n=n, substeps=substeps, backend="JNP",
+                                          media_h5="media.h5", inlet=inlet)
+        deck = with_executioner(deck.replace("[Domain]", "[Domain]\n  floating_precision = SINGLE"),
+                                steps)
+        tr, wall, launched = deck_run(deck, dev, arrays={"media": media})
+        peak = torch.cuda.max_memory_allocated()
+        assert launched["lbm_substep"] == 0, launched
+        finite(tr.state["buffers"], f"pressure {inlet}")
+        ms[inlet] = step_ms(tr, substeps)
+        b = tr.state["buffers"]
+        say(f"[14 pressure] inlet on {inlet}, {n}^3 float32, {steps} steps x {substeps} "
+            f"substeps: run_deck {wall:.2f} s, {ms[inlet]:.3f} ms a substep "
+            f"(phase 7's JNP porous beside it), max |u| "
+            f"{b['velocity'].abs().max().item():.3e}, density in "
+            f"[{b['density'].min().item():.5f}, {b['density'].max().item():.5f}], "
+            f"lbm_substep launches 0, peak device memory {peak / 2**30:.2f} GiB; {smi}")
+        del tr, b
+    return ms
+
+
+def phase_specular(dev, smi):
+    """(c) the 800×200 channel with specular walls, Dirichlet inlet, Neumann
+    outlet and the unit converter at τ = 0.6: max |u| within SPECULAR_MAX_U
+    in each precision, float32 against float64.  Returns {precision: ms}."""
+    from marlin_tpu_torch import decks
+
+    nx, ny, steps, substeps = SPECULAR
+    out, ms = {}, {}
+    for prec in ("float64", "float32"):
+        deck = decks.SPECULAR_CHANNEL_DECK.format(nx=nx, ny=ny, substeps=substeps,
+                                                  backend="JNP")
+        deck = with_executioner(deck.replace("[Domain]", f"[Domain]\n  {PRECISION[prec]}"),
+                                steps)
+        tr, wall, launched = deck_run(deck, dev)
+        assert launched["lbm_substep"] == 0, launched
+        finite(tr.state["buffers"], f"specular {prec}")
+        ms[prec] = step_ms(tr, substeps)
+        top_u = tr.state["buffers"]["velocity"].abs().max().item()
+        rho = tr.state["buffers"]["density"]
+        say(f"[14 specular] {prec} {nx}x{ny}, {steps} steps x {substeps} substeps: run_deck "
+            f"{wall:.2f} s, {ms[prec]:.4f} ms a substep, max |u| {top_u:.4e} (limit "
+            f"{SPECULAR_MAX_U}), density in [{rho.min().item():.6f}, {rho.max().item():.6f}]")
+        assert top_u <= SPECULAR_MAX_U, (prec, top_u)
+        out[prec] = tr.state["buffers"]
+        del tr
+    worst = sorted(((rel_diff(out["float32"][k], ref), k) for k, ref in out["float64"].items()),
+                   reverse=True)
+    say(f"[14 specular] float32 against float64, every buffer (limit {PRECISION_TOL}): "
+        + ", ".join(f"{k} {d:.3e}" for d, k in worst))
+    assert worst[0][0] <= PRECISION_TOL, worst[0]
+    return ms
+
+
+def spectral_half(u, n):
+    """A spectrum on the DEFAULT layout's cells, without the Nyquist row and
+    column (where the backends' conventions differ): the PALLAS full
+    permuted spectrum put in natural order, then both cut to columns
+    0..n/2−1 and the Nyquist row dropped."""
+    from marlin_tpu_torch import unordered_fft as uf
+
+    if u.shape[1] == n:  # PALLAS: permuted, full
+        idx = torch.as_tensor(np.argsort(uf.true_k_order(n)), device=u.device)
+        u = u.index_select(0, idx).index_select(1, idx)
+    rows = torch.cat([torch.arange(n // 2), torch.arange(n // 2 + 1, n)]).to(u.device)
+    return u[:, : n // 2].index_select(0, rows)
+
+
+def sbm_launches(steps, substeps):
+    """Kernels 1-4 in a PALLAS run of the spectral-family deck: each step
+    the carried c̄ and η̄ seeded, 2 forward transforms; each substep 7
+    forward (ReciprocalMatDiffusion 5: ψ, µ, the two flux components, the
+    no-flux term; ReciprocalAllenCahn 1; GradientTensor 1) and 8 inverse
+    (ReciprocalMatDiffusion 4, GradientTensor 2, the solver's 2), each in
+    2-D one lanes and one sublanes launch; no transform at initialisation
+    or in the postprocessors."""
+    fwd, inv = steps * (2 + 7 * substeps), steps * 8 * substeps
+    return {"fwd_lanes": fwd, "fwd_lanes_pre": 0, "fwd_sublanes": fwd,
+            "inv_sublanes": inv, "inv_lanes": inv, "fwd_x_update": 0,
+            "fwd_x_update_poly": 0, "lbm_substep": 0, "lbm_density_mean": 0}
+
+
+def phase_spectral_family(dev, smi):
+    """(d) the spectral family at 512² on DEFAULT float64, DEFAULT float32 and
+    PALLAS float32: exact launches, PALLAS against DEFAULT float32 and
+    float32 against float64 on every buffer.  Returns (PALLAS launches, {route:
+    ms})."""
+    from marlin_tpu_torch import decks
+
+    n, steps, substeps = SBM
+    out, ms, pallas_launches = {}, {}, None
+    for route, domain in SPECTRAL_ROUTES.items():
+        deck = decks.SMOOTHED_BOUNDARY_DECK.format(n=n, lo=n // 8, hi=7 * n // 8,
+                                                   substeps=substeps, dt=1.0,
+                                                   domain_extra=domain)
+        tr, wall, launched = deck_run(deck, dev)
+        want = sbm_launches(steps, substeps) if route.startswith("PALLAS") else \
+            {k: 0 for k in sbm_launches(0, 0)}
+        say(f"[14 spectral] {route} {n}^2, {steps} steps x {substeps} substeps: run_deck "
+            f"{wall:.2f} s, launches {launched} (expected {want})")
+        assert launched == want, (route, launched, want)
+        if route.startswith("PALLAS"):
+            pallas_launches = launched
+        finite(tr.state["buffers"], route)
+        ms[route] = step_ms(tr, substeps)
+        pp = tr.pp_values
+        say(f"[14 spectral] {route} {ms[route]:.4f} ms a substep; c_integral "
+            f"{pp['c_integral']:.6e}, the integral of c(0)^2 "
+            f"{pp['c_initial_square_integral']:.6e}, max of the |dc/dx_i|^2 envelope "
+            f"{pp['grad_c_peak_max']:.6e}")
+        out[route] = tr.state["buffers"]
+        del tr
+    for a, b in (("PALLAS float32", "DEFAULT float32"),
+                 ("DEFAULT float32", "DEFAULT float64")):
+        worst = []
+        for k, ref in out[b].items():
+            got = out[a][k]
+            if got.shape != ref.shape:
+                got, ref = spectral_half(got, n), spectral_half(ref, n)
+            worst.append((rel_diff(got, ref), k))
+        assert sorted(k for _, k in worst) == sorted(SBM_TOL), sorted(k for _, k in worst)
+        say(f"[14 spectral] {a} against {b}, every buffer (its limit): "
+            + ", ".join(f"{k} {d:.2e} ({SBM_TOL[k]:.0e})"
+                        for d, k in sorted(worst, reverse=True)))
+        over = [(k, d) for d, k in worst if d > SBM_TOL[k]]
+        assert not over, (a, b, over)
+    return pallas_launches, ms
+
+
+def phase_batch_fft(dev, smi):
+    """(e) batch_fft on the 2a stand-in at 200², three routes, batched and
+    not.  Returns ({run: launches} of the PALLAS runs, {run: ms})."""
+    from marlin_tpu_torch import decks
+
+    n, steps, substeps = OSTWALD
+    S = steps * substeps
+    launches, ms = {}, {}
+    for route, domain in SPECTRAL_ROUTES.items():
+        runs = {}
+        for batched in (False, True):
+            deck = with_executioner(decks.OSTWALD_2A_DECK.format(
+                n=n, substeps=substeps, domain_extra=domain,
+                problem_extra="batch_fft = true" if batched else ""), steps, OSTWALD_DT)
+            tr, wall, launched = deck_run(deck, dev)
+            name = f"{route} {'batched' if batched else 'unbatched'}"
+            finite(tr.state["buffers"], name)
+            if route.startswith("PALLAS"):
+                # 10 forward transforms and 5 inverse a substep: one lanes and
+                # one sublanes launch each, or one each a batch group
+                groups = (1, 1) if batched else (10, 5)
+                want = {"fwd_lanes": groups[0] * S, "fwd_sublanes": groups[0] * S,
+                        "inv_sublanes": groups[1] * S, "inv_lanes": groups[1] * S}
+                got = {k: launched[k] for k in want}
+                assert got == want, (name, launched, want)
+                assert launched["fwd_lanes"] // S == groups[0]
+                launches[f"14 2a {name}"] = launched
+            else:
+                assert not any(launched.values()), (name, launched)
+            ms[name] = (step_ms(tr, substeps, OSTWALD_DT),
+                        step_device_ms(tr, substeps, OSTWALD_DT))
+            say(f"[14 2a] {name} {n}^2, {steps} steps x {substeps} substeps: run_deck "
+                f"{wall:.2f} s, {ms[name][0]:.4f} ms a substep ({ms[name][1]:.4f} device), "
+                f"forward lanes launches a substep {launched['fwd_lanes'] / S:g}")
+            runs[batched] = tr.state
+            del tr
+        a, b = runs[False], runs[True]
+        bitwise = all(torch.equal(b["buffers"][k], v) for k, v in a["buffers"].items())
+        worst = max(rel_diff(b["buffers"][k], v) for k, v in a["buffers"].items())
+        dtype = torch.float64 if "float64" in route else torch.float32
+        if route.startswith("PALLAS"):
+            tol = 0.0 if bitwise else BATCH_FALLBACK_TOL
+            if not bitwise:
+                say(f"[14 2a] FINDING: {route} batched differs from unbatched by {worst:.3e}")
+        else:
+            tol = BATCH_TOL[dtype]
+        say(f"[14 2a] {route}: batched against unbatched bit for bit: {bitwise}; largest "
+            f"relative difference {worst:.3e} (limit {tol})")
+        assert worst <= tol, (route, worst)
+    return launches, ms
+
+
+def phase_legacy_1a(dev, smi):
+    """(f) the legacy [TensorTimeIntegrators] form of benchmark 1a against
+    BENCH_1A_DECK at 200², LEGACY_1A steps and substeps, DEFAULT float32
+    and PALLAS fused float32: equal bit for bit, launches phase 12's
+    formula.  Returns {run: launches}."""
+    from marlin_tpu_torch import decks
+    from marlin_tpu_torch.bench_1a_runs import ROUTES
+
+    steps, substeps = LEGACY_1A
+    launches = {}
+    for run in ("DEFAULT float32", "PALLAS fused float32"):
+        domain, solver = ROUTES[BENCH_1A_RUNS[run]]
+        states = {}
+        for form, template in (("legacy", decks.BENCH_1A_LEGACY_DECK),
+                               ("solver", decks.BENCH_1A_DECK)):
+            deck = template.format(n=BENCH_1A_N, substeps=substeps,
+                                   domain_extra=domain, solver_extra=solver)
+            deck = deck.replace("  end_time = 10500\n",
+                                f"  end_time = 10500\n  num_steps = {steps}\n")
+            tr, wall, launched = deck_run(deck, dev)
+            launched = {k: launched[k] for k in bench_1a_launches(run, 1, 1)}
+            want = bench_1a_launches(run, steps, substeps)
+            say(f"[14 legacy 1a] {run} {form}: run_deck {wall:.2f} s, launches {launched} "
+                f"(expected {want})")
+            assert launched == want, (run, form, launched, want)
+            if run.startswith("PALLAS"):
+                launches[f"14 1a {run} {form}"] = launched
+            states[form] = (tr.state, tr.pp_values)
+            del tr
+        states_equal(states["legacy"][0], states["solver"][0])
+        assert states["legacy"][1] == states["solver"][1]
+        say(f"[14 legacy 1a] {run}: [TensorTimeIntegrators] equals [TensorSolver] bit for "
+            f"bit over {steps} steps x {substeps} substeps (state and pp values)")
+    return launches
+
+
+def phase_rest(dev, smi):
+    """Phase 14: (a)-(f).  Returns {path: launches} of its PALLAS runs, by
+    the kernels' path: "main" (the register path at 512²) and "small"
+    (200²)."""
+    t0 = time.perf_counter()
+    phase_twophase(dev, smi)
+    phase_pressure(dev, smi)
+    phase_specular(dev, smi)
+    sbm, _ms = phase_spectral_family(dev, smi)
+    small = {}
+    batch, _ms = phase_batch_fft(dev, smi)
+    small.update(batch)
+    small.update(phase_legacy_1a(dev, smi))
+    say(f"[14] {time.perf_counter() - t0:.1f} s; {smi}")
+    return {"main": {"14 spectral family PALLAS": sbm}, "small": small}
+
+
 def main():
     if not torch.cuda.is_available():
         say("chip_smoke: torch.cuda.is_available() is False; needs a CUDA card")
@@ -1631,7 +2087,7 @@ def main():
 
     t0 = time.perf_counter()
     # the LBM substep library takes the longest: the spectral phases (2's FFT
-    # rows, 3-6) run while it builds, and its rows of phase 2 wait for it
+    # rows, 3-6, 12) run while it builds, and its rows of phase 2 wait for it
     pool = concurrent.futures.ThreadPoolExecutor(len(libs))
     builds = {k: pool.submit(timed_build, lib) for k, lib in libs.items()}
 
@@ -1751,6 +2207,12 @@ def main():
     del tr_u, fields
     lap("3-6 (3-D spectral paths)", t_start)
 
+    # -- 12: benchmark 1a, the 200² spinodal decomposition whole --------------------
+    # run before the LBM phases: its host-bound runs need only the spectral
+    # libraries, and the LBM library goes on building meanwhile
+    launches_1a = phase_bench_1a(uf, sp, dev, smi)
+    lap("12 (benchmark 1a)", t_start)
+
     # -- 1 and 2, the rest: the LBM substep library and its kernel rows -----------
     loaded(["lbm_substep"])
     pool.shutdown()
@@ -1800,13 +2262,14 @@ def main():
 
     lap("7-11 (LBM paths)", t_start)
 
-    # -- 12: benchmark 1a, the 200² spinodal decomposition whole --------------------
-    launches_1a = phase_bench_1a(uf, sp, dev, smi)
-    lap("12 (benchmark 1a)", t_start)
-
     # -- 13: outputs and restart -------------------------------------------------------
     launches_13 = phase_outputs(uf, sp, lf, dev, smi)
     lap("13 (outputs and restart)", t_start)
+
+    # -- 14: the rest of lattice Boltzmann and the spectral family -----------------------
+    launches_14 = phase_rest(dev, smi)
+    lap("14 (two-phase, pressure, specular LBM; spectral family; batch_fft; legacy 1a)",
+        t_start)
     say(f"[done] {time.perf_counter() - t_start:.1f} s")
 
     # -- result -----------------------------------------------------------------
@@ -1831,7 +2294,9 @@ def main():
     paths_1a = {f"1a {run}": counts for run, counts in launches_1a.items()
                 if run.startswith("PALLAS")}
     paths_1a.update({k: v for k, v in launches_13.items() if " 1a " in k})
+    paths_1a.update(launches_14["small"])
     paths_karman = {k: v for k, v in launches_13.items() if " karman " in k}
+    paths_14 = launches_14["main"]
     table_small = [
         ("fwd_lanes", "small_lanes_kernel<Identity, Store>", "marlin_tpu/pallas_fft.py:237"),
         ("inv_lanes", "small_lanes_kernel<Identity, InvStore>", "marlin_tpu/pallas_fft.py:276"),
@@ -1844,14 +2309,15 @@ def main():
     def entry(name, src, replaces, counts):
         # phase 13's Kármán runs launch the LBM kernel too
         by_path = {"main": counts[name], **{k: v[name] for k, v in paths_karman.items()
-                                            if v.get(name)}}
+                                            if v.get(name)},
+                   **{k: v[name] for k, v in paths_14.items() if v.get(name)}}
         return {"name": name, "route": "cuda",
                 "source": f"marlin_tpu_torch/csrc/{src}", "replaces": replaces,
                 "launches": sum(by_path.values()), "launches_by_path": by_path,
                 **kernels[name]}
 
     def entry_small(name, kernel, replaces):
-        by_path = {k: v[name] for k, v in paths_1a.items() if v[name]}
+        by_path = {k: v[name] for k, v in paths_1a.items() if v.get(name)}
         return {"name": f"{name} small", "kernel": kernel, "route": "cuda",
                 "source": "marlin_tpu_torch/csrc/fft_tile.cuh", "replaces": replaces,
                 "launches": sum(by_path.values()), "launches_by_path": by_path,

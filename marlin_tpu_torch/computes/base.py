@@ -11,8 +11,9 @@ output computed from those of the inputs (the port's counterpart of
 ``jax.eval_shape``, which TensorProblem.init_state uses to give derived
 buffers their zeros without running anything).  Groups
 dependency-sort members by requested/supplied buffer names and run them in
-that order.  The batched-FFT rewrite (``fuse_ffts``, ``[Problem] batch_fft``)
-is not ported yet.
+that order.  Under ``[Problem] batch_fft = true`` a sorted group rewrites
+each run of independent same-direction transforms into one batched
+transform (``fuse_ffts``, ``core.BatchedFFT``).
 """
 
 from __future__ import annotations
@@ -85,6 +86,9 @@ class TensorCompute:
             return self.problem.get_constant(raw)
 
     # interface -----------------------------------------------------------
+    def check(self):
+        """Validation hook run once the whole problem is built."""
+
     def apply(self, state: Dict, ctx: Dict) -> Dict:
         raise NotImplementedError
 
@@ -104,6 +108,8 @@ class ComputeGroup(TensorCompute):
         super().__init__(name, params, problem)
         self.members = list(members)
         self.sorted_members: List[TensorCompute] = []
+        self._fused = False
+        self._fused_members: List[int] = []
         self._update_io()
 
     def _update_io(self):
@@ -119,6 +125,18 @@ class ComputeGroup(TensorCompute):
 
     def sort(self):
         """Topological sort by buffer dataflow; error on cycles."""
+        # a group whose execution list fuse_ffts() rewrote is sorted
+        # already: rebuilding it from self.members would drop the
+        # BatchedFFT nodes (init_state wraps the same members in a fresh
+        # group whose sort() recurses into this one)
+        if self._fused:
+            if [id(m) for m in self.members] != self._fused_members:
+                raise ComputeError(
+                    f"Compute group '{self.name}' was mutated after "
+                    "fuse_ffts(); re-run sort() + fuse_ffts() after any "
+                    "member change (prune passes must run before fusion)"
+                )
+            return self
         # first supplier wins as the producer; later suppliers of the same
         # buffer (legal in MOOSE's resolver, used by e.g. LBM residual decks)
         # keep their declaration order
@@ -158,6 +176,64 @@ class ComputeGroup(TensorCompute):
             if isinstance(m, ComputeGroup):
                 m.sort()
         return self
+
+    def check(self):
+        for m in self.members:
+            m.check()
+
+    def fuse_ffts(self):
+        """Rewrite the sorted execution list so that each run of
+        independent ForwardFFT (or InverseFFT) members evaluates as one
+        batched transform (``[Problem] batch_fft = true``; core.BatchedFFT).
+        Only consecutive runs in the topological order fuse, and a run splits
+        where a member consumes another member's output (an fft of an fft
+        keeps its order).  Recurses into nested groups, sorting each first:
+        nested groups run dependency-sorted even where the top level keeps
+        its declared order (a deck without a solver).  Runs after sort()
+        and after any carry_reciprocal pruning."""
+        from .core import BatchedFFT, ForwardFFT, InverseFFT
+
+        fused: List[TensorCompute] = []
+        run: List[TensorCompute] = []
+        run_cls = None
+
+        def flush():
+            nonlocal run, run_cls
+            if len(run) >= 2:
+                fused.append(BatchedFFT(run, self.problem, run_cls is InverseFFT))
+            else:
+                fused.extend(run)
+            run, run_cls = [], None
+
+        for m in self.sorted_members or self.members:
+            if isinstance(m, ComputeGroup):
+                flush()
+                m.sort().fuse_ffts()
+                fused.append(m)
+                continue
+            cls = type(m)
+            if cls in (ForwardFFT, InverseFFT):
+                if run and (cls is not run_cls or any(m.input == r.out for r in run)):
+                    flush()
+                run.append(m)
+                run_cls = cls
+            else:
+                flush()
+                fused.append(m)
+        flush()
+        self.sorted_members = fused
+        self._fused = True
+        self._fused_members = [id(m) for m in self.members]
+        return self
+
+    def execution_order(self) -> List[str]:
+        out = []
+        for m in self.sorted_members or self.members:
+            if isinstance(m, ComputeGroup):
+                out.extend(m.execution_order())
+            else:
+                out.append(m.name)
+        return out
 
     def output_specs(self, specs: Dict[str, Spec]) -> Dict[str, Spec]:
         scope = dict(specs)

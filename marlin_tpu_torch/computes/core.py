@@ -1,8 +1,13 @@
-"""Core spectral / phase-field computes (the ported subset of
+"""Core spectral / phase-field / utility computes (the port of
 marlin_tpu/computes/core.py).
 
 Eager PyTorch re-designs of the reference compute classes in
-src/tensor_computes/ (each class docstring names its counterpart).
+src/tensor_computes/ (each class docstring names its counterpart).  The
+spectral computes read the reciprocal axes from ``domain.reciprocal_axis``
+and never build a k-grid of their own, so under ``fft_backend = PALLAS``
+they see the kernels' permuted spectrum order.  Host-side initial
+conditions (SmoothRectangleCompute, MooseFunctionTensor) evaluate in
+numpy or float64 CPU tensors and copy to the device once a call.
 """
 
 from __future__ import annotations
@@ -17,7 +22,7 @@ import torch
 from ..expression import CompiledExpression, fparse
 from ..params import Params
 from ..registry import computes
-from .base import Spec, TensorCompute
+from .base import ComputeError, Spec, TensorCompute
 
 
 @computes.register("ParsedCompute")
@@ -269,6 +274,49 @@ class ParsedTensor(ParsedCompute):
         super().__init__(name, params, problem)
 
 
+@computes.register("RunningMaximum")
+class RunningMaximum(TensorCompute):
+    """out = max(out, input): a monotone envelope, the history variable
+    H(x) = max_t ψ(x, t) of phase-field fracture (marlin_tpu extension,
+    marlin_tpu/computes/core.py:284-328).  The output buffer carries the
+    envelope between substeps and steps, so its own initial condition
+    seeds it; reading its previous value is old-state access, not a graph
+    dependency.  Solvers that evaluate the graph on trial iterates are
+    refused in ``check``, since a rejected iterate would stay in the
+    envelope."""
+
+    def __init__(self, name, params: Params, problem):
+        super().__init__(name, params, problem)
+        self.input = self.input_buffer("input")
+
+    def check(self):
+        solver = getattr(self.problem, "solver", None)
+        if getattr(solver, "iterative", False):
+            raise ComputeError(
+                f"RunningMaximum '{self.name}': iterative solvers evaluate "
+                "the compute graph on trial iterates, which would be "
+                "absorbed into the envelope permanently — use a "
+                "non-iterative solver (ABM/ForwardEuler) for "
+                "history-tracked decks")
+
+    def apply(self, state, ctx):
+        # an undeclared output buffer is created from this compute's result
+        # like any other output
+        prev = state.get(self.out)
+        cur = state[self.input]
+        if prev is None:
+            return {self.out: cur}
+        return {self.out: torch.maximum(prev, cur)}
+
+    def output_specs(self, specs):
+        cur = specs[self.input]
+        prev = specs.get(self.out)
+        if prev is None:
+            return {self.out: cur}
+        shape = tuple(np.broadcast_shapes(prev.shape, cur.shape))
+        return {self.out: Spec(shape, torch.promote_types(prev.dtype, cur.dtype))}
+
+
 @computes.register("ForwardFFT")
 class ForwardFFT(TensorCompute):
     """ū = fft(u) (reference: src/tensor_computes/PerformFFT.C, forward)."""
@@ -297,6 +345,37 @@ class InverseFFT(TensorCompute):
 
     def output_specs(self, specs):
         return {self.out: Spec(*self.domain.ifft_spec(*specs[self.input]))}
+
+
+class BatchedFFT(TensorCompute):
+    """Several independent same-direction FFT computes evaluated as one
+    batched transform: fields stacked on a trailing value axis, which the
+    Domain transforms natively (marlin_tpu/computes/core.py:355-388;
+    ``[Problem] batch_fft = true``).  Built by ComputeGroup.fuse_ffts,
+    never from a deck block.  Fields group by shape and complexness at
+    each call; a field alone in its group takes the plain path."""
+
+    def __init__(self, members, problem, inverse: bool):
+        params = Params(None, problem.global_params)
+        name = ("batch_ifft(" if inverse else "batch_fft(") + \
+            ",".join(m.name for m in members) + ")"
+        super().__init__(name, params, problem)
+        self.members = list(members)
+        self.inverse = inverse
+        self.inputs = sorted({m.input for m in self.members})
+        self.outputs = sorted({m.out for m in self.members})
+
+    def apply(self, state, ctx):
+        from ..domain import batched_transform
+
+        op = self.domain.ifft if self.inverse else self.domain.fft
+        return batched_transform(op, [(m.out, state[m.input]) for m in self.members])
+
+    def output_specs(self, specs):
+        out = {}
+        for m in self.members:
+            out.update(m.output_specs(specs))
+        return out
 
 
 @computes.register("ReciprocalLaplacianFactor")
@@ -407,3 +486,266 @@ class FFTGradientSquare(_SpectralGradient):
         if self.factor != 1.0:
             u = u * self.factor
         return {self.out: u}
+
+
+@computes.register("DeAliasingTensor")
+class DeAliasingTensor(TensorCompute):
+    """De-aliasing filter: the SHARP 2/3 rule or the Hou-Li exponential
+    (reference: src/tensor_computes/DeAliasingTensor.C:31-56), from the
+    domain's reciprocal axes.  The filter depends on the grid only: it is
+    computed on the host once, from the axes in the domain's dtype, and
+    uploaded once."""
+
+    def __init__(self, name, params: Params, problem):
+        super().__init__(name, params, problem)
+        self.method = params.get_enum("method", ["SHARP", "HOULI"], None)
+        if self.method is None:
+            params.error("method", "is required")
+        self.p = params.get_float("p", 16.0)
+        self.alpha = params.get_float("alpha", 36.0)
+        self._filter = None
+
+    def _build(self):
+        dom = self.domain
+        axes = [np.abs(dom.reciprocal_axis(d).cpu().numpy()) for d in range(3)]
+        maxima = [float(a.max()) if a.size else 0.0 for a in axes]
+        if self.method == "SHARP":
+            mask = None
+            for a, m in zip(axes, maxima):
+                cond = a > 2.0 * m / 3.0
+                mask = cond if mask is None else mask | cond
+            u = np.where(mask, 0.0, 1.0)
+        else:
+            acc = None
+            for a, m in zip(axes, maxima):
+                term = np.power(a / (m if m else 1.0), self.p)
+                acc = term if acc is None else acc + term
+            u = np.exp(-self.alpha * acc)
+        return torch.as_tensor(u).to(dtype=dom.dtype, device=dom.device)
+
+    def apply(self, state, ctx):
+        if self._filter is None:
+            self._filter = self._build()
+        return {self.out: self._filter.expand(self.domain.reciprocal_shape)}
+
+    def output_specs(self, specs):
+        return {self.out: Spec(self.domain.reciprocal_shape, self.domain.dtype)}
+
+
+@computes.register("ReciprocalAllenCahn")
+class ReciprocalAllenCahn(TensorCompute):
+    """fft of −L·dF/dη masked by ψ > 0 (smoothed-boundary no-flux)
+    (reference: src/tensor_computes/ReciprocalAllenCahn.C:38-50)."""
+
+    def __init__(self, name, params: Params, problem):
+        super().__init__(name, params, problem)
+        self.dF = self.input_buffer("dF_chem_deta")
+        self.L = self.input_buffer("L")
+        self.psi = self.input_buffer("psi")
+        self.always_update_psi = params.get_bool("always_update_psi", False)
+
+    def apply(self, state, ctx):
+        rate = torch.where(state[self.psi] > 0.0,
+                           -1.0 * state[self.L] * state[self.dF], 0.0)
+        return {self.out: self.domain.fft(rate)}
+
+    def output_specs(self, specs):
+        shape = tuple(np.broadcast_shapes(*[specs[b].shape for b in
+                                            (self.psi, self.L, self.dF)]))
+        return {self.out: Spec(*self.domain.fft_spec(shape, self.domain.dtype))}
+
+
+@computes.register("ReciprocalMatDiffusion")
+class ReciprocalMatDiffusion(TensorCompute):
+    """Variable-mobility div(M∇µ) in k-space, with the smoothed-boundary
+    no-flux term when ``psi`` is given
+    (reference: src/tensor_computes/ReciprocalMatDiffusion.C:37-66).  The
+    flux loops over the grid's dimensions only: with ψ that is 3 + 3·dim
+    transforms a call (3 + dim forward, 2·dim inverse)."""
+
+    def __init__(self, name, params: Params, problem):
+        super().__init__(name, params, problem)
+        self.chem_pot = self.input_buffer("chemical_potential")
+        self.M = self.input_buffer("mobility")
+        self.psi = self.input_buffer("psi", required=False)
+        self.always_update_psi = params.get_bool("always_update_psi", False)
+
+    def apply(self, state, ctx):
+        dom = self.domain
+        dims = range(dom.dim)
+        k = [dom.reciprocal_axis(d) for d in dims]
+        M = state[self.M]
+        grad_psi_by_psi = None
+        psi_M = M
+        if self.psi is not None:
+            psi = state[self.psi]
+            psi_thresh = psi > 0.0
+            psibar = dom.fft(psi)
+            grad_psi_by_psi = [torch.where(psi_thresh, dom.ifft(k[d] * psibar * 1j) / psi, 0.0)
+                               for d in dims]
+            psi_M = M * psi_thresh
+        mubar = dom.fft(state[self.chem_pot])
+        J = [psi_M * dom.ifft(k[d] * mubar * 1j) for d in dims]
+        div_J_hat = 1j * sum(k[d] * dom.fft(J[d]) for d in dims)
+        if grad_psi_by_psi is None:
+            return {self.out: div_J_hat}
+        no_flux_hat = dom.fft(sum(grad_psi_by_psi[d] * J[d] for d in dims))
+        return {self.out: div_J_hat + no_flux_hat}
+
+    def output_specs(self, specs):
+        return {self.out: Spec(self.domain.reciprocal_shape, self.domain.cdtype)}
+
+
+@computes.register("SmoothRectangleCompute")
+class SmoothRectangleCompute(TensorCompute):
+    """Smoothed rectangle indicator
+    (reference: src/tensor_computes/SmoothRectangleCompute.C: a sharp box;
+    COS, 0.5 + 0.5·sin(π·m/w) of the clamped edge distance m; TANH,
+    0.5 + 0.5·tanh(4·m/w)), computed in numpy on the host as the JAX
+    package computes it, then uploaded."""
+
+    def __init__(self, name, params: Params, problem):
+        super().__init__(name, params, problem)
+        self.x1 = params.get_float("x1", required=True)
+        self.x2 = params.get_float("x2", required=True)
+        self.y1 = params.get_float("y1", required=True)
+        self.y2 = params.get_float("y2", required=True)
+        self.z1 = params.get_float("z1", 0.0)
+        self.z2 = params.get_float("z2", 0.0)
+        self.interpolation = params.get_enum("profile", ["COS", "TANH"], "COS")
+        self.int_width = params.get_float("int_width", 0.0)
+        self.inside = params.get_float("inside", 1.0)
+        self.outside = params.get_float("outside", 0.0)
+
+    def _profile(self):
+        dom = self.domain
+        dim = dom.dim
+        w = self.int_width
+        x = dom._np_axes[0]
+        y = dom._np_axes[1] if dim >= 2 else np.zeros(1)
+        z = dom._np_axes[2] if dim == 3 else np.zeros(1)
+        if w <= 0.0:
+            hx = (x >= self.x1) & (x <= self.x2)
+            hy = (y >= self.y1) & (y <= self.y2) if dim >= 2 else np.ones_like(y, bool)
+            hz = (z >= self.z1) & (z <= self.z2) if dim == 3 else np.ones_like(z, bool)
+            return (hx.reshape(-1, 1, 1) & hy.reshape(1, -1, 1)
+                    & hz.reshape(1, 1, -1)).astype(np.float64)
+        if self.interpolation == "COS":
+            def edge(a, lo, hi):
+                return np.clip(np.minimum(a - lo, hi - a), -w / 2, w / 2)
+            my = edge(y, self.y1, self.y2) if dim >= 2 else np.full_like(y, w / 2)
+            mz = edge(z, self.z1, self.z2) if dim == 3 else np.full_like(z, w / 2)
+            hx, hy, hz = (0.5 + 0.5 * np.sin(math.pi * m / w)
+                          for m in (edge(x, self.x1, self.x2), my, mz))
+        else:  # TANH
+            my = (np.minimum(y - self.y1, self.y2 - y) if dim >= 2
+                  else np.full_like(y, 10 * w))
+            mz = (np.minimum(z - self.z1, self.z2 - z) if dim == 3
+                  else np.full_like(z, 10 * w / 2.0))
+            hx, hy, hz = (0.5 + 0.5 * np.tanh(4 * m / w)
+                          for m in (np.minimum(x - self.x1, self.x2 - x), my, mz))
+        return hx.reshape(-1, 1, 1) * hy.reshape(1, -1, 1) * hz.reshape(1, 1, -1)
+
+    def apply(self, state, ctx):
+        dom = self.domain
+        h_box = self._profile()
+        u = np.squeeze(h_box * self.inside + (1 - h_box) * self.outside)
+        return {self.out: torch.as_tensor(u.reshape(dom.shape)).to(
+            dtype=dom.dtype, device=dom.device)}
+
+    def output_specs(self, specs):
+        return {self.out: Spec(self.domain.shape, self.domain.dtype)}
+
+
+@computes.register("FiniteDifferenceLaplacian")
+class FiniteDifferenceLaplacian(TensorCompute):
+    """3- or 5-point finite-difference Laplacian on the periodic grid
+    (reference: src/tensor_computes/FiniteDifferenceLaplacian.C:19-110),
+    by torch.roll over the spatial axes (serial: no ghost layers to ask
+    for)."""
+
+    def __init__(self, name, params: Params, problem):
+        super().__init__(name, params, problem)
+        self.input = self.input_buffer("input")
+        self.factor = params.get_float("factor", 1.0)
+        self.stencil = int(params.get_enum("stencil_width", ["3", "5"], "3"))
+
+    def apply(self, state, ctx):
+        dom = self.domain
+        u = state[self.input]
+        out = torch.zeros_like(u)
+        for d in range(dom.dim):
+            h2 = dom.grid_spacing[d] ** 2
+            if self.stencil == 3:
+                out = out + (torch.roll(u, 1, d) - 2.0 * u + torch.roll(u, -1, d)) / h2
+            else:
+                out = out + (
+                    -torch.roll(u, 2, d)
+                    + 16.0 * torch.roll(u, 1, d)
+                    - 30.0 * u
+                    + 16.0 * torch.roll(u, -1, d)
+                    - torch.roll(u, -2, d)
+                ) / (12.0 * h2)
+        return {self.out: out * self.factor}
+
+    def output_specs(self, specs):
+        return {self.out: specs[self.input]}
+
+
+@computes.register("MooseFunctionTensor")
+class MooseFunctionTensor(TensorCompute):
+    """A deck function (``[Functions]``) sampled onto the grid (reference
+    src/tensor_computes/MooseFunctionTensor.C).  The samples sit at
+    i·dx + dx/2 measured from zero, not from the domain minimum, as the
+    reference samples.  The function is evaluated on the host in float64
+    and the field copied to the device once a call."""
+
+    def __init__(self, name, params: Params, problem):
+        super().__init__(name, params, problem)
+        self.function = problem.get_function(params.get_str("function", required=True))
+
+    def apply(self, state, ctx):
+        dom = self.domain
+
+        def axis(d):
+            h = dom.grid_spacing[d]
+            a = np.arange(dom.n_global[d]) * h + h / 2.0
+            return torch.from_numpy(dom._np_align(a, d))
+
+        zero = torch.zeros([1] * dom.dim, dtype=torch.float64)
+        env = {
+            "x": axis(0),
+            "y": axis(1) if dom.dim > 1 else zero,
+            "z": axis(2) if dom.dim > 2 else zero,
+            "t": float(ctx["t"]),
+        }
+        u = torch.as_tensor(self.function(env), dtype=torch.float64)
+        return {self.out: u.expand(dom.shape).to(dtype=dom.dtype).to(dom.device)}
+
+    def output_specs(self, specs):
+        return {self.out: Spec(self.domain.shape, self.domain.dtype)}
+
+
+@computes.register("GradientTensor")
+class GradientTensor(TensorCompute):
+    """The FFT gradient stacked into a 3-vector field: always 3 components,
+    zeros past the grid's dimension (reference
+    src/tensor_computes/GradientTensor.C:28-53, a NEML2 Vec there, a plain
+    (..., 3) tensor here)."""
+
+    def __init__(self, name, params: Params, problem):
+        super().__init__(name, params, problem)
+        self.input = self.input_buffer("input")
+        self.input_is_reciprocal = params.get_bool("input_is_reciprocal", False)
+
+    def apply(self, state, ctx):
+        dom = self.domain
+        u = state[self.input]
+        r = (u if self.input_is_reciprocal else dom.fft(u)) * 1j
+        comps = [dom.ifft(r * dom.reciprocal_axis(d)) if d < dom.dim
+                 else torch.zeros(dom.shape, dtype=dom.dtype, device=dom.device)
+                 for d in range(3)]
+        return {self.out: torch.stack(comps, -1)}
+
+    def output_specs(self, specs):
+        return {self.out: Spec(self.domain.shape + (3,), self.domain.dtype)}

@@ -31,10 +31,12 @@ plan shares, and run their sums in the kernel's order.  The Smagorinsky
 τ needs the grid's mean density, which ``tree_mean`` sums by a fixed
 pairwise tree that the kernel's two reduction passes reproduce.
 
-Not ported yet, and so unregistered (a deck naming one fails with the
-registry's named error): LBMPhaseEquilibrium, LBMTensorUnitConverter,
-LBMComputeSurfaceForces, LBMComputeChemicalPotential,
-LBMIsotropicGradient and LBMIsotropicLaplacian.
+The two-phase chain (LBMPhaseEquilibrium, LBMComputeChemicalPotential,
+LBMComputeSurfaceForces, LBMIsotropicGradient and LBMIsotropicLaplacian)
+and LBMTensorUnitConverter run eagerly only: the fused kernel's plan
+refuses each with the JAX package's words, as pallas_lbm.match_chain does.
+The isotropic stencils pad by replicating the edge rows and columns (the
+reference's padScalarField), not by wrapping.
 """
 
 from __future__ import annotations
@@ -160,6 +162,30 @@ class LBMEquilibrium(LatticeBoltzmannOperator):
         vel = specs[self.velocity].shape[:-1] + (1,)
         shape = np.broadcast_shapes(rho + (1,), vel, (self.stencil.q,))
         return {self.out: Spec(tuple(shape), self.domain.dtype)}
+
+
+@computes.register("LBMPhaseEquilibrium")
+class LBMPhaseEquilibrium(LatticeBoltzmannOperator):
+    """Phase-field equilibrium γ_eq = w·φ (reference LBMPhaseEquilibrium.C,
+    whose interface term is commented out upstream), direction-major.
+    ``tau_phi`` and ``thickness`` are still required constants."""
+
+    def __init__(self, name, params: Params, problem):
+        super().__init__(name, params, problem)
+        self.phi = self.input_buffer("phi")
+        self.grad_phi = self.input_buffer("grad_phi")
+        self.tau_phi = problem.get_constant(params.get_str("tau_phi", required=True))
+        self.D = problem.get_constant(params.get_str("thickness", required=True))
+
+    def apply(self, state, ctx):
+        phi = _ensure3d(state[self.phi])
+        u = (self.table("weights")[:, None, None, None] * phi).movedim(0, -1)
+        return {self.out: self.masked_fill_solids(u)}
+
+    def output_specs(self, specs):
+        phi = specs[self.phi].shape
+        phi = phi + (1,) * max(0, 3 - len(phi))
+        return {self.out: Spec(phi + (self.stencil.q,), self.domain.dtype)}
 
 
 def mrt_matrix(stencil, tau: float) -> np.ndarray:
@@ -475,6 +501,22 @@ class LBMComputeVelocity(LatticeBoltzmannOperator):
         return {self.out: Spec(tuple(shape) + (self.domain.dim,), s.dtype)}
 
 
+@computes.register("LBMTensorUnitConverter")
+class LBMTensorUnitConverter(LatticeBoltzmannOperator):
+    """A buffer times a constant (reference LBMTensorUnitConverter.C)."""
+
+    def __init__(self, name, params: Params, problem):
+        super().__init__(name, params, problem)
+        self.tensor_buffer = self.input_buffer("tensor_buffer")
+        self.conversion = problem.get_constant(params.get_str("constant", required=True))
+
+    def apply(self, state, ctx):
+        return {self.out: state[self.tensor_buffer] * self.conversion}
+
+    def output_specs(self, specs):
+        return {self.out: specs[self.tensor_buffer]}
+
+
 @computes.register("LBMComputeForces")
 class LBMComputeForces(LatticeBoltzmannOperator):
     """Gravity/buoyancy force field (reference LBMComputeForces.C):
@@ -659,3 +701,128 @@ class LBMStackTensors(LatticeBoltzmannOperator):
         shape = _broadcast_spec(*ins) + (len(ins),)
         dtype = functools.reduce(torch.promote_types, [s.dtype for s in ins])
         return {self.out: Spec(shape, dtype)}
+
+
+@computes.register("LBMComputeSurfaceForces")
+class LBMComputeSurfaceForces(LatticeBoltzmannOperator):
+    """F = µ·∇φ (reference LBMComputeSurfaceForces.C)."""
+
+    def __init__(self, name, params: Params, problem):
+        super().__init__(name, params, problem)
+        self.chemical_potential = self.input_buffer("chemical_potential")
+        self.grad_phi = self.input_buffer("grad_phi")
+
+    def apply(self, state, ctx):
+        u = state[self.chemical_potential][..., None] * state[self.grad_phi]
+        return {self.out: self.masked_fill_solids(u)}
+
+    def output_specs(self, specs):
+        mu, grad = specs[self.chemical_potential], specs[self.grad_phi]
+        shape = np.broadcast_shapes(mu.shape + (1,), grad.shape)
+        return {self.out: Spec(tuple(shape), torch.promote_types(mu.dtype, grad.dtype))}
+
+
+@computes.register("LBMComputeChemicalPotential")
+class LBMComputeChemicalPotential(LatticeBoltzmannOperator):
+    """The Cahn-Hilliard chemical potential of the two-phase chain,
+    µ = σ/D·φ(φ − 1) − D·σ·∇²φ (reference LBMComputeChemicalPotential.C).
+    The reference unsqueezes the first term, its φ having the raw 2-D h5
+    shape; where the ranks already align it is not."""
+
+    def __init__(self, name, params: Params, problem):
+        super().__init__(name, params, problem)
+        self.phi = self.input_buffer("phi")
+        self.laplacian_phi = self.input_buffer("laplacian_phi")
+        self.D = problem.get_constant(params.get_str("thickness", required=True))
+        self.sigma = problem.get_constant(params.get_str("sigma", required=True))
+
+    def apply(self, state, ctx):
+        phi = state[self.phi]
+        part_1 = self.sigma / self.D * phi * (phi - 1.0)
+        part_2 = self.D * self.sigma * state[self.laplacian_phi]
+        if part_1.ndim == part_2.ndim:
+            return {self.out: part_1 - part_2}
+        return {self.out: part_1[..., None] - part_2}
+
+    def output_specs(self, specs):
+        phi, lap = specs[self.phi].shape, specs[self.laplacian_phi].shape
+        if len(phi) != len(lap):
+            phi = phi + (1,)
+        return {self.out: Spec(tuple(np.broadcast_shapes(phi, lap)),
+                               specs[self.phi].dtype)}
+
+
+@computes.register("LBMIsotropicGradient")
+class LBMIsotropicGradient(LatticeBoltzmannOperator):
+    """Isotropic gradient by the 3×3 weight kernels w·e_x and w·e_y
+    (reference LBMIsotropicGradient.C; 2-D stencils other than D3Q19
+    only): a cross-correlation over the field padded by replicating its
+    edges, divided by c_s²."""
+
+    def __init__(self, name, params: Params, problem):
+        super().__init__(name, params, problem)
+        self.scalar_field = self.input_buffer("scalar_field")
+        st = self.stencil
+        if st.q == 19:
+            raise ComputeError("Isotropic gradient cannot be computed for D3Q19 stencil")
+        if problem.domain.dim == 3:
+            raise ComputeError("LBMIsotropicGradient is not implemented for 3D")
+        w33 = st.weights[st.reorder_indices].reshape(3, 3)
+        ex33 = st.ex[st.reorder_indices].reshape(3, 3)
+        ey33 = st.ey[st.reorder_indices].reshape(3, 3)
+        self.kernels = [w33 * ex33, w33 * ey33]
+
+    @staticmethod
+    def _correlate(field2d, kernel):
+        """Σ_ab kernel[a, b]·padded[a:a+n0, b:b+n1] in (a, b) order, zero
+        entries skipped, the pad replicating the first and last rows and
+        columns (marlin_tpu/computes/lbm.py:_correlate)."""
+        n0, n1 = field2d.shape
+        dev = field2d.device
+        rows = torch.arange(-1, n0 + 1, device=dev).clamp(0, n0 - 1)
+        cols = torch.arange(-1, n1 + 1, device=dev).clamp(0, n1 - 1)
+        padded = field2d[rows][:, cols]
+        out = torch.zeros_like(field2d)
+        for a in range(3):
+            for b in range(3):
+                if kernel[a, b] == 0.0:
+                    continue
+                out = out + float(kernel[a, b]) * padded[a:a + n0, b:b + n1]
+        return out
+
+    @staticmethod
+    def _plane(field):
+        return field[..., 0] if field.ndim > 2 else field
+
+    def apply(self, state, ctx):
+        f2d = self._plane(state[self.scalar_field])
+        comps = [self._correlate(f2d, k)[..., None] for k in self.kernels]
+        u = torch.stack(comps, -1) / CS2
+        return {self.out: self.masked_fill_solids(u)}
+
+    def output_specs(self, specs):
+        s = specs[self.scalar_field]
+        plane = s.shape[:-1] if len(s.shape) > 2 else s.shape
+        return {self.out: Spec(tuple(plane) + (1, 2), s.dtype)}
+
+
+@computes.register("LBMIsotropicLaplacian")
+class LBMIsotropicLaplacian(LBMIsotropicGradient):
+    """Isotropic Laplacian, 2·(Σ w·φ_neighbour − φ·Σw)/c_s² (reference
+    LBMIsotropicLaplacian.C), not masked at solids (as the reference)."""
+
+    def __init__(self, name, params: Params, problem):
+        super().__init__(name, params, problem)
+        st = self.stencil
+        self.lap_kernel = st.weights[st.reorder_indices].reshape(3, 3)
+
+    def apply(self, state, ctx):
+        f2d = self._plane(state[self.scalar_field])
+        lap1 = 2.0 * self._correlate(f2d, self.lap_kernel)
+        lap2 = 2.0 * f2d * float(self.stencil.weights.sum())
+        return {self.out: ((lap1 - lap2) / CS2)[..., None]}
+
+    def output_specs(self, specs):
+        s = specs[self.scalar_field]
+        plane = s.shape[:-1] if len(s.shape) > 2 else s.shape
+        return {self.out: Spec(tuple(plane) + (1,), s.dtype)}

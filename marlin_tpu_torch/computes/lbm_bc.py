@@ -1,10 +1,13 @@
 """Lattice Boltzmann boundary conditions.
 
-The ported subset of marlin_tpu/computes/lbm_bc.py (reference
+The port of marlin_tpu/computes/lbm_bc.py (reference
 src/tensor_computes/LBMBoundaryCondition.C, LBMBounceBack.C,
-LBMFixedFirstOrderBC.C, LBMFixedZerothOrderBC.C,
-LBMMicroscopicZeroGradientBC.C).  LBMDirichletBC, LBMNeumannBC and
-LBMSpecularReflectionBoundary are not ported yet and so unregistered.
+LBMFixedFirstOrderBC.C, LBMFixedZerothOrderBC.C, LBMDirichletBC.C,
+LBMNeumannBC.C, LBMMicroscopicZeroGradientBC.C,
+LBMSpecularReflectionBoundary.C).  The Dirichlet, Neumann and specular
+conditions run eagerly only: the fused kernel's plan refuses them with
+the JAX package's words.  What they precompute (face direction lists,
+specular partners, wall and region masks) is built once, on the device.
 
 Face conventions (reference include/tensor_computes/LBMBoundaryCondition.h):
 left x=0, right x=nx-1, bottom y=0, top y=ny-1, front z=0, back z=nz-1;
@@ -26,12 +29,13 @@ from __future__ import annotations
 
 import dataclasses
 
+import numpy as np
 import torch
 
 from ..params import Params
 from ..registry import computes
 from .base import ComputeError
-from .lbm import LatticeBoltzmannOperator
+from .lbm import LatticeBoltzmannOperator, _ensure3d, _equilibrium
 
 BOUNDARIES = ["top", "bottom", "left", "right", "front", "back", "wall", "regional"]
 
@@ -44,6 +48,21 @@ class LBMBoundaryCondition(LatticeBoltzmannOperator):
         self.boundary = params.get_enum("boundary", BOUNDARIES, None)
         if self.boundary is None:
             params.error("boundary", "is required")
+
+    def boundary_adjacent_mask(self):
+        """The media with every fluid cell next to a solid one (along any
+        stencil direction) marked -1 (reference LBMBounceBack.C ctor,
+        binary-media block), on the device; None without media."""
+        media = self.problem.lbm_media_ids()
+        if media is None:
+            return None
+        st = self.stencil
+        marked = media.clone()
+        for ic in range(1, st.q):
+            shifted = torch.roll(media, (int(st.ex[ic]), int(st.ey[ic]), int(st.ez[ic])),
+                                 (0, 1, 2))
+            marked = torch.where((shifted == 0) & (media >= 1), -1, marked)
+        return marked
 
     def apply(self, state, ctx):
         u = state[self.out]
@@ -270,3 +289,172 @@ class LBMMicroscopicZeroGradientBC(LBMBoundaryCondition):
     def back_boundary(self, u, state, ctx):
         return self._copy(u, (slice(None), slice(None), -1),
                           (slice(None), slice(None), -2))
+
+
+#: (axis, position) of each face's plane
+_FACES = {"left": (0, 0), "right": (0, -1), "bottom": (1, 0), "top": (1, -1),
+          "front": (2, 0), "back": (2, -1)}
+
+
+def _plane(t, axis, pos):
+    """The face plane of ``t`` along ``axis`` kept as a plane of extent 1,
+    so the spatial rank stays 3."""
+    return t.narrow(axis, pos % t.shape[axis], 1)
+
+
+def _face_dirs(stencil, face):
+    """The directions a face's condition writes: the stencil's incoming set
+    on a low face, the opposites of the low face's set on the high face (a
+    D2Q9 stencil has no front set: AttributeError, as in the JAX package)."""
+    low = {"right": "left", "top": "bottom", "back": "front"}.get(face)
+    if low is None:
+        return [int(d) for d in getattr(stencil, face)]
+    return [int(stencil.op[int(d)]) for d in getattr(stencil, low)]
+
+
+class _EquilibriumBC(LBMBoundaryCondition):
+    """Non-equilibrium extrapolation: the boundary's equilibrium plus the
+    non-equilibrium part f_old − feq, f_old read from its history slot 0
+    (reference LBMDirichletBC.C / LBMNeumannBC.C).  A face computes on its
+    plane only; ``wall`` (cells marked by ``boundary_adjacent_mask``) and
+    ``regional`` (media == region_id) compute on the grid and take a mask
+    built once on the device."""
+
+    def __init__(self, name, params: Params, problem):
+        super().__init__(name, params, problem)
+        self.f_old = params.get_str("f_old", required=True)
+        self.feq = self.input_buffer("feq")
+        self.rho = self.input_buffer("rho")
+        self.velocity = self.input_buffer("velocity")
+        self.region_id = params.get_int("region_id", None) if params.has("region_id") else None
+        self._mask = None
+        dirs = self.face_dirs() if self.boundary in _FACES else None
+        # the directions a face writes, None for all of them
+        self._dirs = None if dirs is None else torch.as_tensor(
+            dirs, dtype=torch.long, device=self.domain.device)
+
+    def face_dirs(self):
+        return None
+
+    def history_requests(self):
+        return {self.f_old: 1}
+
+    def boundary_feq(self, rho, velocity):
+        raise NotImplementedError
+
+    def _corrected(self, state, ctx, cut=lambda t: t):
+        """feq_boundary + (f_old − feq) on ``cut`` of the grid."""
+        feq = cut(state[self.feq])
+        fneq = cut(ctx["old"][self.f_old][0]) - feq
+        rho = cut(_ensure3d(state[self.rho]))
+        return self.boundary_feq(rho, cut(state[self.velocity])) + fneq
+
+    def _face(self, u, state, ctx):
+        axis, pos = _FACES[self.boundary]
+        corr = self._corrected(state, ctx, lambda t: _plane(t, axis, pos))
+        u = u.clone()
+        face = _plane(u, axis, pos)
+        if self._dirs is None:
+            face.copy_(corr)
+        else:
+            face[..., self._dirs] = corr.index_select(-1, self._dirs)
+        return u
+
+    def _mask_update(self, u, state, ctx, target, marked=True):
+        if self._mask is None:
+            mesh = self.boundary_adjacent_mask() if marked else \
+                self.problem.lbm_media_ids()
+            if mesh is None:
+                raise ComputeError("wall/regional boundary requires binary media")
+            self._mask = (mesh == target)[..., None]
+        return torch.where(self._mask, self._corrected(state, ctx), u)
+
+    def left_boundary(self, u, state, ctx):
+        return self._face(u, state, ctx)
+
+    top_boundary = bottom_boundary = right_boundary = left_boundary
+    front_boundary = back_boundary = left_boundary
+
+    def wall_boundary(self, u, state, ctx):
+        return self._mask_update(u, state, ctx, -1)
+
+    def regional_boundary(self, u, state, ctx):
+        return self._mask_update(u, state, ctx, self.region_id or 0, marked=False)
+
+
+@computes.register("LBMDirichletBC")
+class LBMDirichletBC(_EquilibriumBC):
+    """The equilibrium at the density ``value`` and the local velocity,
+    written in every direction of the boundary's cells."""
+
+    def __init__(self, name, params: Params, problem):
+        super().__init__(name, params, problem)
+        self.boundary_value = params.get_float("value", 0.0)
+
+    def boundary_feq(self, rho, velocity):
+        return _equilibrium(self, self.boundary_value, velocity, self.domain.dim)
+
+
+@computes.register("LBMNeumannBC")
+class LBMNeumannBC(_EquilibriumBC):
+    """The equilibrium at the local density plus ``gradient`` and the local
+    velocity, written in a face's incoming directions (every direction on
+    wall and regional boundaries)."""
+
+    def __init__(self, name, params: Params, problem):
+        super().__init__(name, params, problem)
+        self.gradient = params.get_float("gradient", 0.0)
+
+    def face_dirs(self):
+        return _face_dirs(self.stencil, self.boundary)
+
+    def boundary_feq(self, rho, velocity):
+        return _equilibrium(self, rho + self.gradient, velocity, self.domain.dim)
+
+
+@computes.register("LBMSpecularReflectionBoundary")
+class LBMSpecularReflectionBoundary(LBMBoundaryCondition):
+    """Slip/specular reflection (reference LBMSpecularReflectionBoundary.C,
+    "under development and not tested" upstream; the JAX package's mix):
+    each incoming direction d of a face takes r·f_old[op(d)] +
+    (1 − r)·f_old[s(d)], s(d) the direction with the same tangential
+    components and the normal one flipped (op(d) where the stencil has
+    none).  The partners are found once, at build."""
+
+    def __init__(self, name, params: Params, problem):
+        super().__init__(name, params, problem)
+        self.f_old = params.get_str("f_old", required=True)
+        self.r = params.get_float("r", 0.5)
+        self._index = None
+        if self.boundary in _FACES:
+            st = self.stencil
+            axis = _FACES[self.boundary][0]
+            e = np.stack([st.ex, st.ey, st.ez], 1)
+            dirs = _face_dirs(st, self.boundary)
+            bounce, partner = [], []
+            for d in dirs:
+                o = int(st.op[d])
+                want = e[d].copy()
+                want[axis] = -want[axis]
+                hits = np.flatnonzero((e == want).all(1))
+                bounce.append(o)
+                partner.append(int(hits[0]) if hits.size else o)
+            dev = self.domain.device
+            self._index = tuple(torch.as_tensor(x, dtype=torch.long, device=dev)
+                                for x in (dirs, bounce, partner))
+
+    def history_requests(self):
+        return {self.f_old: 1}
+
+    def left_boundary(self, u, state, ctx):
+        axis, pos = _FACES[self.boundary]
+        dirs, bounce, partner = self._index
+        fold = _plane(ctx["old"][self.f_old][0], axis, pos)
+        value = self.r * fold.index_select(-1, bounce) + \
+            (1.0 - self.r) * fold.index_select(-1, partner)
+        u = u.clone()
+        _plane(u, axis, pos)[..., dirs] = value
+        return u
+
+    top_boundary = bottom_boundary = right_boundary = left_boundary
+    front_boundary = back_boundary = left_boundary

@@ -76,6 +76,56 @@ of their patterns are not in the repository.
   {"binary_media": ...}``), a perturbed Zou-He inlet on the left, a
   zero-gradient outlet on the right, bounce-back on the bottom and top;
   ``nx``, ``ny``, ``substeps``, ``backend``.
+- ``TWOPHASE2D_DECK``: a static droplet (radius n/8, interface thickness
+  4) in a periodic D2Q9 box, the two-phase chain: the fluid lattice f and
+  the phase lattice g streamed together, φ = Σg, ∇φ and ∇²φ by the
+  isotropic stencils, the chemical potential, the surface force into the
+  Guo source and the velocity, g's equilibrium w·φ; ``n``, ``substeps``,
+  ``backend``.  It stands in for the reference's two-phase decks, which
+  are not in the repository.
+- ``PRESSURE_DECK``: ``POROUS_DECK`` driven by pressure instead of a body
+  force (a permeability estimate on a micro-CT subvolume): an
+  ``LBMDirichletBC`` inlet of density 1.01 on ``inlet`` (a face, or
+  ``wall``: the cells next to the media), an ``LBMNeumannBC`` outlet on
+  the right, bounce-back on the other four faces and the media; the
+  fields of ``POROUS_DECK`` and ``inlet``.
+- ``SPECULAR_CHANNEL_DECK``: ``CHANNEL2D_DECK`` with an
+  ``LBMDirichletBC`` inlet (1.001), an ``LBMNeumannBC`` outlet,
+  ``LBMSpecularReflectionBoundary`` walls (r = 0.5) and the velocity in
+  physical units (``LBMTensorUnitConverter``, 0.05), and feq set to the
+  initial equilibrium: both equilibrium conditions write feq_b + (f_old −
+  feq), so a feq left at zero (every buffer starts at zero, as in the
+  reference) doubles the boundary columns' populations in the first
+  substep (inlet density 2.001), a shock that blows the walled channel up
+  within 200 substeps; ``nx``, ``ny``, ``substeps``, ``backend``, no
+  [Executioner].
+- ``SMOOTHED_BOUNDARY_DECK``: the spectral family's computes together,
+  a smoothed-boundary Cahn-Hilliard field c and Allen-Cahn field η: ψ from
+  ``SmoothRectangleCompute`` (TANH, the box [lo, hi]²), c(0) from a
+  composed ``[Functions]`` ParsedFunction through ``MooseFunctionTensor``,
+  the flux by ``ReciprocalMatDiffusion`` with ψ and a c-dependent
+  mobility, µ with a ``FiniteDifferenceLaplacian`` term, η's rate by
+  ``ReciprocalAllenCahn`` masked by ψ, a HOULI ``DeAliasingTensor`` on
+  both nonlinear terms, ``GradientTensor`` squared into a
+  ``RunningMaximum``, a ``FunctionElementIntegral`` postprocessor, c̄ and
+  η̄ carried (``carry_reciprocal``); ``n``, ``lo``, ``hi``, ``substeps``,
+  ``dt``, ``domain_extra``.  Mean-free fields in the stable wells of both
+  free energies and a slow mobility, so that float32 stays within 1e-4 of
+  float64 on every buffer over 200 substeps.  The port's own: the
+  reference's smoothed-boundary decks are not in the repository.
+- ``OSTWALD_2A_DECK``: benchmark 2a, Ostwald ripening (the reference's
+  benchmarks/02_oswald_ripening/2a.i, not in the repository; this deck
+  stands in for it until it is): c and four order parameters with the
+  free energy and initial condition of PFHub benchmark 2 (Jokisaari et
+  al., Comput. Mater. Sci. 126 (2017) 139), five parsed chemical
+  potentials, 10 forward and 5 inverse transforms a substep (bench.py's
+  ``bench_2a``); ``n``, ``substeps``, ``domain_extra``, ``problem_extra``
+  (``batch_fft = true`` there).
+- ``BENCH_1A_LEGACY_DECK``: ``BENCH_1A_DECK`` in the reference 1a.i's
+  legacy form, a ``[TensorTimeIntegrators]`` FFTSemiImplicit block with
+  ``[Problem] spectral_solve_substeps``; ``solver_extra`` goes to
+  ``[Problem]`` (carry_reciprocal and fused_spectral are taken from
+  there).
 """
 
 import numpy as np
@@ -2358,3 +2408,647 @@ BENCH_1A_DECK = """
   perf_graph = true
 []
 """
+
+
+_BC_IN_OUT = """    [{name}]
+      type = {type}
+      buffer = f
+      f_old = fpc
+      feq = feq
+      rho = density
+      velocity = velocity
+      {value}
+      boundary = {boundary}
+    []
+"""
+
+
+def _bounce(name, boundary):
+    return (f"    [{name}]\n      type = LBMBounceBack\n      buffer = f\n"
+            f"      f_old = fpc\n      boundary = {boundary}\n    []\n")
+
+
+TWOPHASE2D_DECK = """
+[Domain]
+  dim = 2
+  nx = {n}
+  ny = {n}
+  mesh_mode = DUMMY
+[]
+[Stencil]
+  [s]
+    type = LBMD2Q9
+  []
+[]
+[TensorBuffers]
+  [f]
+    type = LBMTensorBuffer
+    buffer_type = df
+  []
+  [feq]
+    type = LBMTensorBuffer
+    buffer_type = df
+  []
+  [fpc]
+    type = LBMTensorBuffer
+    buffer_type = df
+  []
+  [g]
+    type = LBMTensorBuffer
+    buffer_type = df
+  []
+  [geq]
+    type = LBMTensorBuffer
+    buffer_type = df
+  []
+  [gpc]
+    type = LBMTensorBuffer
+    buffer_type = df
+  []
+  [velocity]
+    type = LBMTensorBuffer
+    buffer_type = mv
+  []
+  [forces]
+    type = LBMTensorBuffer
+    buffer_type = mv
+  []
+  [grad_phi]
+    type = LBMTensorBuffer
+    buffer_type = mv
+  []
+  [density]
+    type = LBMTensorBuffer
+    buffer_type = ms
+  []
+  [phi]
+    type = LBMTensorBuffer
+    buffer_type = ms
+  []
+  [laplacian_phi]
+    type = LBMTensorBuffer
+    buffer_type = ms
+  []
+  [mu]
+    type = LBMTensorBuffer
+    buffer_type = ms
+  []
+[]
+[TensorComputes]
+  [Initialize]
+    [initial_phi]
+      type = ParsedCompute
+      buffer = phi
+      extra_symbols = true
+      expression = '0.5 + 0.5*tanh(2*(0.125 - sqrt((x - 0.5)^2 + (y - 0.5)^2))*{n}/thickness)'
+      constant_names = thickness
+      constant_expressions = 4
+    []
+    [initial_density]
+      type = LBMConstantTensor
+      buffer = density
+      constants = 1.0
+    []
+    [initial_velocity]
+      type = LBMConstantTensor
+      buffer = velocity
+      constants = '0.0 0.0'
+    []
+    [initial_f]
+      type = LBMEquilibrium
+      buffer = f
+      bulk = density
+      velocity = velocity
+    []
+    [initial_fpc]
+      type = LBMEquilibrium
+      buffer = fpc
+      bulk = density
+      velocity = velocity
+    []
+    [initial_g]
+      type = LBMPhaseEquilibrium
+      buffer = g
+      phi = phi
+      grad_phi = grad_phi
+      tau_phi = tau_phi
+      thickness = thickness
+    []
+    [initial_gpc]
+      type = LBMPhaseEquilibrium
+      buffer = gpc
+      phi = phi
+      grad_phi = grad_phi
+      tau_phi = tau_phi
+      thickness = thickness
+    []
+  []
+  [Solve]
+    [phi]
+      type = LBMComputeDensity
+      buffer = phi
+      f = g
+    []
+    [grad_phi]
+      type = LBMIsotropicGradient
+      buffer = grad_phi
+      scalar_field = phi
+    []
+    [laplacian_phi]
+      type = LBMIsotropicLaplacian
+      buffer = laplacian_phi
+      scalar_field = phi
+    []
+    [mu]
+      type = LBMComputeChemicalPotential
+      buffer = mu
+      phi = phi
+      laplacian_phi = laplacian_phi
+      thickness = thickness
+      sigma = sigma
+    []
+    [forces]
+      type = LBMComputeSurfaceForces
+      buffer = forces
+      chemical_potential = mu
+      grad_phi = grad_phi
+    []
+    [density]
+      type = LBMComputeDensity
+      buffer = density
+      f = f
+    []
+    [velocity]
+      type = LBMComputeVelocity
+      buffer = velocity
+      f = f
+      rho = density
+      enable_forces = true
+      forces = forces
+    []
+    [feq]
+      type = LBMEquilibrium
+      buffer = feq
+      bulk = density
+      velocity = velocity
+    []
+    [collision]
+      type = LBMBGKCollision
+      buffer = fpc
+      f = f
+      feq = feq
+      tau0 = tau0
+    []
+    [surface_tension]
+      type = LBMApplyForces
+      buffer = fpc
+      rho = density
+      forces = forces
+      tau0 = tau0
+    []
+    [geq]
+      type = LBMPhaseEquilibrium
+      buffer = geq
+      phi = phi
+      grad_phi = grad_phi
+      tau_phi = tau_phi
+      thickness = thickness
+    []
+    [phase_collision]
+      type = LBMBGKCollision
+      buffer = gpc
+      f = g
+      feq = geq
+      tau0 = tau_phi
+    []
+  []
+[]
+[TensorSolver]
+  type = LBMStream
+  buffer = 'f g'
+  f_old = 'fpc gpc'
+[]
+[Problem]
+  type = LatticeBoltzmannProblem
+  substeps = {substeps}
+  lbm_backend = {backend}
+  scalar_constant_names = 'tau0 tau_phi thickness sigma'
+  scalar_constant_values = '1.0 1.0 4.0 0.01'
+[]
+"""
+
+PRESSURE_DECK = POROUS_DECK.replace("""      add_body_force = true
+      body_force_x = 0.0001
+""", "").replace("""  [Boundary]
+    [wall]
+      type = LBMBounceBack
+      buffer = f
+      f_old = fpc
+      boundary = wall
+    []
+  []""", "  [Boundary]\n" + "".join(
+    _bounce(b, b) for b in ("bottom", "top", "front", "back", "wall")) + _BC_IN_OUT.format(
+        name="inlet", type="LBMDirichletBC", value="value = 1.01", boundary="{inlet}")
+    + _BC_IN_OUT.format(name="outlet", type="LBMNeumannBC", value="gradient = 0",
+                        boundary="right") + "  []")
+
+SPECULAR_CHANNEL_DECK = CHANNEL2D_DECK.replace("""    [initial_fpc]""", """    [initial_feq]
+      type = LBMEquilibrium
+      buffer = feq
+      bulk = density
+      velocity = velocity
+    []
+    [initial_fpc]""").replace("""    [velocity]
+      type = LBMTensorBuffer
+      buffer_type = mv
+    []""", """    [velocity]
+      type = LBMTensorBuffer
+      buffer_type = mv
+    []
+    [velocity_physical]
+      type = LBMTensorBuffer
+      buffer_type = mv
+    []""").replace("""    [residual]
+      type = LBMComputeResidual""", """    [velocity_physical]
+      type = LBMTensorUnitConverter
+      buffer = velocity_physical
+      tensor_buffer = velocity
+      constant = 0.05
+    []
+    [residual]
+      type = LBMComputeResidual""").replace("""  [Boundary]
+    [bottom]
+      type = LBMBounceBack
+      buffer = f
+      f_old = fpc
+      boundary = bottom
+    []
+    [top]
+      type = LBMBounceBack
+      buffer = f
+      f_old = fpc
+      boundary = top
+    []
+    [inlet]
+      type = LBMFixedFirstOrderBC
+      buffer = f
+      f = f
+      value = 0.01
+      boundary = left
+    []
+    [outlet]
+      type = LBMMicroscopicZeroGradientBC
+      buffer = f
+      boundary = right
+    []
+  []""", "  [Boundary]\n" + "".join(
+    f"    [{b}]\n      type = LBMSpecularReflectionBoundary\n      buffer = f\n"
+    f"      f_old = fpc\n      r = 0.5\n      boundary = {b}\n    []\n"
+    for b in ("bottom", "top")) + _BC_IN_OUT.format(
+        name="inlet", type="LBMDirichletBC", value="value = 1.001", boundary="left")
+    + _BC_IN_OUT.format(name="outlet", type="LBMNeumannBC", value="gradient = 0",
+                        boundary="right") + "  []").replace("""[Executioner]
+  type = Transient
+  num_steps = 3
+[]
+""", "")
+
+SMOOTHED_BOUNDARY_DECK = """
+[Domain]
+  dim = 2
+  nx = {n}
+  ny = {n}
+  xmax = {n}
+  ymax = {n}
+  {domain_extra}
+[]
+[Functions]
+  [c_wave]
+    type = ParsedFunction
+    expression = 'c0 + amp*cos(2*pi*x/len)*cos(2*pi*y/len)'
+    symbol_names = 'c0 amp len'
+    symbol_values = '0 0.1 8'
+  []
+  [c_initial]
+    type = ParsedFunction
+    expression = 'wave + 0.01*sin(6*pi*x/{n})'
+    symbol_names = wave
+    symbol_values = c_wave
+  []
+  [c_initial_square]
+    type = ParsedFunction
+    expression = 'c*c'
+    symbol_names = c
+    symbol_values = c_initial
+  []
+[]
+[TensorComputes]
+  [Initialize]
+    [psi]
+      type = SmoothRectangleCompute
+      buffer = psi
+      x1 = {lo}
+      x2 = {hi}
+      y1 = {lo}
+      y2 = {hi}
+      profile = TANH
+      int_width = 8
+      inside = 1
+      outside = 0.001
+    []
+    [c]
+      type = MooseFunctionTensor
+      buffer = c
+      function = c_initial
+    []
+    [eta]
+      type = ParsedCompute
+      buffer = eta
+      extra_symbols = true
+      expression = '0.05*cos(2*pi*x/{n})*sin(4*pi*y/{n})'
+    []
+    [L]
+      type = ConstantTensor
+      buffer = L
+      real = 0.05
+    []
+    [dealias]
+      type = DeAliasingTensor
+      buffer = dealias
+      method = HOULI
+    []
+    [c_linear]
+      type = ReciprocalLaplacianSquareFactor
+      buffer = c_linear
+      factor = -0.1
+    []
+    [eta_linear]
+      type = ReciprocalLaplacianFactor
+      buffer = eta_linear
+      factor = 0.05
+    []
+  []
+  [Solve]
+    [mobility]
+      type = ParsedCompute
+      buffer = mobility
+      expression = '0.01*(1 - 0.5*c*(1 - c))'
+      inputs = c
+    []
+    [lap_c]
+      type = FiniteDifferenceLaplacian
+      buffer = lap_c
+      input = c
+      stencil_width = 5
+    []
+    [dfdc]
+      type = ParsedCompute
+      buffer = dfdc
+      expression = '5*(c - 0.3)^2*(0.7 - c)^2'
+      derivatives = c
+      inputs = c
+    []
+    [mu]
+      type = ParsedCompute
+      buffer = mu
+      expression = 'dfdc - 0.1*lap_c'
+      inputs = 'dfdc lap_c'
+    []
+    [c_flux]
+      type = ReciprocalMatDiffusion
+      buffer = c_flux
+      chemical_potential = mu
+      mobility = mobility
+      psi = psi
+    []
+    [c_rate]
+      type = ParsedCompute
+      buffer = c_rate
+      expression = 'dealias*c_flux'
+      inputs = 'dealias c_flux'
+    []
+    [dF_deta]
+      type = ParsedCompute
+      buffer = dF_deta
+      expression = 'eta^2*(1 - eta)^2 + 0.1*eta*c'
+      derivatives = eta
+      inputs = 'eta c'
+    []
+    [eta_raw]
+      type = ReciprocalAllenCahn
+      buffer = eta_raw
+      dF_chem_deta = dF_deta
+      L = L
+      psi = psi
+    []
+    [eta_rate]
+      type = ParsedCompute
+      buffer = eta_rate
+      expression = 'dealias*eta_raw'
+      inputs = 'dealias eta_raw'
+    []
+    [cbar]
+      type = ForwardFFT
+      buffer = cbar
+      input = c
+    []
+    [etabar]
+      type = ForwardFFT
+      buffer = etabar
+      input = eta
+    []
+    [grad_c]
+      type = GradientTensor
+      buffer = grad_c
+      input = c
+    []
+    [grad_c_sq]
+      type = ParsedCompute
+      buffer = grad_c_sq
+      expression = 'grad_c*grad_c'
+      inputs = grad_c
+    []
+    [grad_c_peak]
+      type = RunningMaximum
+      buffer = grad_c_peak
+      input = grad_c_sq
+    []
+  []
+[]
+[TensorSolver]
+  type = AdamsBashforthMoulton
+  buffer = 'c eta'
+  reciprocal_buffer = 'cbar etabar'
+  linear_reciprocal = 'c_linear eta_linear'
+  nonlinear_reciprocal = 'c_rate eta_rate'
+  substeps = {substeps}
+  predictor_order = 2
+  carry_reciprocal = true
+[]
+[Problem]
+  type = TensorProblem
+[]
+[Postprocessors]
+  [c_initial_square_integral]
+    type = FunctionElementIntegral
+    function = c_initial_square
+  []
+  [c_integral]
+    type = TensorIntegralPostprocessor
+    buffer = c
+  []
+  [grad_c_peak_max]
+    type = TensorExtremeValuePostprocessor
+    buffer = grad_c_peak
+    value_type = MAX
+  []
+[]
+[Executioner]
+  type = Transient
+  num_steps = 2
+  dt = {dt}
+[]
+"""
+
+
+def _ostwald_2a_free_energy() -> str:
+    """The chemical free energy of PFHub benchmark 2 (Jokisaari et al.,
+    Comput. Mater. Sci. 126 (2017) 139): f = ρ²(c − c_α)²(1 − h) +
+    ρ²(c_β − c)²·h + w·g, h = Σ η_i³(6η_i² − 15η_i + 10), g = Σ η_i²(1 −
+    η_i)² + α Σ_{i≠j} η_i²η_j², with ρ² = 2, c_α = 0.3, c_β = 0.7, w = 1,
+    α = 5."""
+    eta = [f"n{i}" for i in range(1, 5)]
+    h = " + ".join(f"{n}^3*(6*{n}^2 - 15*{n} + 10)" for n in eta)
+    g = " + ".join(f"{n}^2*(1 - {n})^2" for n in eta)
+    pairs = " + ".join(f"{a}^2*{b}^2" for i, a in enumerate(eta) for b in eta[i + 1:])
+    return (f"2*(c - 0.3)^2*(1 - ({h})) + 2*(0.7 - c)^2*({h}) + ({g}) "
+            f"+ 10*({pairs})")
+
+
+def _ostwald_2a_eta(i: int) -> str:
+    """η_i(x, y) of the benchmark's initial condition, ε_η = 0.1, ψ = 1.5."""
+    a = 0.01 * i
+    return (f"0.1*(cos({a:g}*x - 4)*cos({0.007 + a:g}*y) + cos({0.11 + a:g}*x)"
+            f"*cos({0.11 + a:g}*y) + 1.5*(cos({0.046 + 0.001 * i:g}*x + "
+            f"{0.0405 + 0.001 * i:g}*y)*cos({0.031 + 0.001 * i:g}*x - "
+            f"{0.004 + 0.001 * i:g}*y))^2)^2")
+
+
+def _ostwald_2a_deck() -> str:
+    names = ["c", "n1", "n2", "n3", "n4"]
+    f = _ostwald_2a_free_energy()
+    ic = "".join(f"""    [{n}]
+      type = ParsedCompute
+      buffer = {n}
+      extra_symbols = true
+      expression = '{_ostwald_2a_eta(i)}'
+    []
+""" for i, n in enumerate(names[1:], 1))
+    mus = "".join(f"""    [mu_{n}]
+      type = ParsedCompute
+      buffer = mu_{n}
+      expression = '({f})*{"1" if n == "c" else "(-5)"}'
+      derivatives = {n}
+      inputs = 'c n1 n2 n3 n4'
+    []
+""" for n in names)
+    mu_bars = "".join(f"""    [mu_{n}_bar]
+      type = ForwardFFT
+      buffer = mu_{n}_bar
+      input = mu_{n}
+    []
+""" for n in names)
+    bars = "".join(f"""    [{n}_bar]
+      type = ForwardFFT
+      buffer = {n}_bar
+      input = {n}
+    []
+""" for n in names)
+    return """
+[Domain]
+  dim = 2
+  nx = {n}
+  ny = {n}
+  xmax = {n}
+  ymax = {n}
+  {domain_extra}
+[]
+[TensorComputes]
+  [Initialize]
+    [c]
+      type = ParsedCompute
+      buffer = c
+      extra_symbols = true
+      expression = '0.5 + 0.05*(cos(0.105*x)*cos(0.11*y) + (cos(0.13*x)*cos(0.087*y))^2 + cos(0.025*x - 0.15*y)*cos(0.07*x - 0.02*y))'
+    []
+""".replace("{", "{{").replace("}", "}}").replace("{{n}}", "{n}").replace(
+        "{{domain_extra}}", "{domain_extra}") + (ic + """    [M_bar]
+      type = ReciprocalLaplacianFactor
+      factor = 5
+      buffer = M_bar
+    []
+    [c_linear]
+      type = ReciprocalLaplacianSquareFactor
+      factor = -15
+      buffer = c_linear
+    []
+    [eta_linear]
+      type = ReciprocalLaplacianFactor
+      factor = 15
+      buffer = eta_linear
+    []
+  []
+  [Solve]
+""" + mus + mu_bars + """    [M_mu_c_bar]
+      type = ParsedCompute
+      buffer = M_mu_c_bar
+      expression = 'M_bar*mu_c_bar'
+      inputs = 'M_bar mu_c_bar'
+    []
+""" + bars + """  []
+[]
+""").replace("{", "{{").replace("}", "}}") + """[TensorSolver]
+  type = AdamsBashforthMoulton
+  buffer = 'c n1 n2 n3 n4'
+  reciprocal_buffer = 'c_bar n1_bar n2_bar n3_bar n4_bar'
+  linear_reciprocal = 'c_linear eta_linear eta_linear eta_linear eta_linear'
+  nonlinear_reciprocal = 'M_mu_c_bar mu_n1_bar mu_n2_bar mu_n3_bar mu_n4_bar'
+  substeps = {substeps}
+  predictor_order = 2
+[]
+[Problem]
+  type = TensorProblem
+  {problem_extra}
+[]
+"""
+
+
+OSTWALD_2A_DECK = _ostwald_2a_deck()
+
+BENCH_1A_LEGACY_DECK = BENCH_1A_DECK.replace("""[TensorSolver]
+  type = AdamsBashforthMoulton
+  buffer = c
+  reciprocal_buffer = cbar
+  linear_reciprocal = kappabarbar
+  nonlinear_reciprocal = Mbarmubar
+  substeps = {substeps}
+  {solver_extra}
+[]
+[Problem]
+  type = TensorProblem
+[]""", """[TensorTimeIntegrators]
+  [c]
+    type = FFTSemiImplicit
+    buffer = c
+    reciprocal_buffer = cbar
+    linear_reciprocal = kappabarbar
+    nonlinear_reciprocal = Mbarmubar
+    history_size = 1
+  []
+[]
+[Problem]
+  type = TensorProblem
+  spectral_solve_substeps = {substeps}
+  {solver_extra}
+[]""")
+assert BENCH_1A_LEGACY_DECK != BENCH_1A_DECK

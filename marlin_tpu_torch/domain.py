@@ -15,7 +15,12 @@ semantic choices of the reference DomainAction are kept
 unchanged) transforms with the unordered-FFT kernels of ``unordered_fft``:
 the full complex spectrum in permuted order along every axis, with
 reciprocal axes from ``permuted_freqs``.  It keeps the JAX package's three
-rejections: serial only, float32 only, and extents by ``supported()``.
+rejections: serial only, float32 only, and extents by ``supported()``.  A
+tensor-valued field (trailing value axes, as ``batched_transform`` stacks
+them) transforms with its value axes moved to the front, where they join
+the rows of the lanes kernels and the prefix of the sublanes kernels: one
+launch of each kernel an axis, whatever the number of fields
+(marlin_tpu/domain.py:420-441 forward, :492-511 inverse).
 """
 
 from __future__ import annotations
@@ -30,6 +35,28 @@ from . import unordered_fft
 from .device import COMPLEX_FOR, default_float_dtype, resolve
 
 PARALLEL_MODES = ("NONE", "REAL_SPACE", "FFT_SLAB", "FFT_PENCIL")
+
+
+def batched_transform(op, pairs):
+    """{key: op(t)} for ``pairs = [(key, t), ...]``: fields of the same
+    shape and complexness are stacked on a trailing value axis and
+    transformed in one call; a field alone in its group takes the plain
+    path (marlin_tpu/domain.py:batched_transform).  The one batching rule
+    of ``[Problem] batch_fft = true``, for core.BatchedFFT and the
+    solvers' inverse transforms alike."""
+    groups = {}
+    for k, t in pairs:
+        groups.setdefault((tuple(t.shape), t.is_complex()), []).append((k, t))
+    out = {}
+    for items in groups.values():
+        if len(items) == 1:
+            k, t = items[0]
+            out[k] = op(t)
+        else:
+            res = op(torch.stack([t for _, t in items], dim=-1))
+            for i, (k, _) in enumerate(items):
+                out[k] = res[..., i]
+    return out
 PRECISIONS = ("DEVICE_DEFAULT", "SINGLE", "DOUBLE")
 FFT_BACKENDS = ("DEFAULT", "PALLAS")
 
@@ -101,6 +128,7 @@ class Domain:
     def _build_axes(self):
         npdtype = np.float64 if self.dtype == torch.float64 else np.float32
         self.axes = []  # real-space, aligned tensors on the device
+        self._np_axes = []  # unaligned 1-D numpy (host-side initial conditions)
         self.reciprocal_axes = []
         self._np_raxes = []  # unaligned 1-D numpy
         self.n_reciprocal_global = []
@@ -110,6 +138,7 @@ class Domain:
             ax = np.linspace(
                 self.mins[d] + h / 2.0, self.maxs[d] - h / 2.0, n
             ).astype(npdtype)
+            self._np_axes.append(ax)
             self.axes.append(self._aligned(ax, d))
             if self.fft_backend == "PALLAS":
                 # full complex spectrum in the kernels' permuted order
@@ -166,28 +195,34 @@ class Domain:
         return torch.zeros([1] * self.dim, dtype=self.dtype, device=self.device)
 
     # -- transforms --------------------------------------------------------
-    def _scalar_only(self, t: torch.Tensor):
-        if t.ndim != self.dim:
-            raise NotImplementedError(
-                "fft_backend = PALLAS supports scalar fields only in "
-                f"marlin_tpu_torch (got a rank-{t.ndim} tensor on a "
-                f"{self.dim}-D grid)"
-            )
+    def _value_axes_first(self, t: torch.Tensor) -> torch.Tensor:
+        """A field's trailing value axes moved in front of its spatial
+        axes (no copy for a scalar field)."""
+        if t.ndim < self.dim:
+            raise ValueError(
+                f"fft_backend = PALLAS: a rank-{t.ndim} tensor has fewer axes "
+                f"than the {self.dim}-D grid")
+        nv = t.ndim - self.dim
+        return t.movedim(tuple(range(self.dim, t.ndim)), tuple(range(nv))) if nv else t
+
+    def _value_axes_last(self, u: torch.Tensor) -> torch.Tensor:
+        nv = u.ndim - self.dim
+        return u.movedim(tuple(range(nv)), tuple(range(self.dim, u.ndim))) if nv else u
 
     def fft(self, t: torch.Tensor) -> torch.Tensor:
         """Forward FFT over the spatial axes (reference fftSerial :853-867);
         trailing value dims pass through."""
-        spatial = tuple(range(self.dim))
+        tb = self._value_axes_first(t)
+        dims = tuple(range(tb.ndim - self.dim, tb.ndim))
         if self.fft_backend == "PALLAS":
-            self._scalar_only(t)
-            if t.is_complex():
-                u = unordered_fft.fftn_unordered(t.to(torch.complex64))
-            else:
-                u = unordered_fft.fftn_unordered(t.to(torch.float32))
-            return u.to(self.cdtype)
+            x = tb.to(torch.complex64 if t.is_complex() else torch.float32)
+            return self._value_axes_last(unordered_fft.fwd_axes(x, dims)).to(self.cdtype)
+        if tb is not t:
+            # each field a contiguous block: the bits it has alone
+            tb = tb.contiguous()
         if t.is_complex():
-            return torch.fft.fftn(t, dim=spatial).to(self.cdtype)
-        return torch.fft.rfftn(t, dim=spatial).to(self.cdtype)
+            return self._value_axes_last(torch.fft.fftn(tb, dim=dims)).to(self.cdtype)
+        return self._value_axes_last(torch.fft.rfftn(tb, dim=dims)).to(self.cdtype)
 
     def fft_spec(self, shape, dtype):
         """(shape, dtype) that ``fft`` gives a tensor of this shape and dtype."""
@@ -209,8 +244,12 @@ class Domain:
         (the kernels' InvStore divides for the same reason)."""
         spatial = tuple(range(self.dim))
         if self.fft_backend == "PALLAS":
-            self._scalar_only(t)
-            return unordered_fft.ifftn_unordered(t, self.shape).to(self.dtype)
+            tb = self._value_axes_first(t)
+            shape = tuple(tb.shape[:tb.ndim - self.dim]) + self.shape
+            u = unordered_fft.inv_axes(tb.reshape(shape),
+                                       range(tb.ndim - self.dim, tb.ndim),
+                                       real_output=True)
+            return self._value_axes_last(u).to(self.dtype)
         last = self.dim - 1
         # a full spectrum (forward transform of a complex field) would be
         # cropped by irfftn; see marlin_tpu/domain.py:ifft for the n <= 2

@@ -135,6 +135,40 @@ class SemiImplicitCriticalTimeStep(TensorPostprocessor):
                            torch.full_like(max_norm_k, 1e30))
 
 
+@postprocessors.register("FunctionElementIntegral")
+class FunctionElementIntegral(Postprocessor):
+    """Integral of a deck function (``[Functions]``) over the grid by
+    2-point Gauss quadrature an element (the MOOSE built-in the reference's
+    test/tests/misc/shiftedfunction.i uses), evaluated on the host in
+    float64 (marlin_tpu/postprocessors.py:242-276).  The value is a 0-d
+    CPU tensor; the problem fetches it with the others."""
+
+    def __init__(self, name, params: Params, problem):
+        super().__init__(name, params, problem)
+        self.function = problem.get_function(params.get_str("function", required=True))
+
+    def compute(self, state, ctx):
+        dom = self.domain
+        g = 1.0 / np.sqrt(3.0)
+        axes = []
+        for d in range(dom.dim):
+            h = dom.grid_spacing[d]
+            centers = dom._np_axes[d]
+            axes.append(np.sort(np.concatenate([centers - g * h / 2.0,
+                                                centers + g * h / 2.0])))
+        while len(axes) < 3:
+            axes.append(np.zeros(1))
+        shape = [len(a) for a in axes]
+        env = {k: torch.from_numpy(np.ascontiguousarray(a.reshape(s)))
+               for k, a, s in zip("xyz", axes, ((-1, 1, 1), (1, -1, 1), (1, 1, -1)))}
+        env["t"] = float(ctx["t"])
+        vals = torch.as_tensor(self.function(env)).expand(shape)
+        weight = 1.0
+        for d in range(dom.dim):
+            weight *= dom.grid_spacing[d] / 2.0
+        return torch.sum(vals) * weight
+
+
 @postprocessors.register("TensorInterfaceVelocityPostprocessor")
 class TensorInterfaceVelocityPostprocessor(TensorPostprocessor):
     """Interface velocity max|du/dt / ∇u|, 0 before the first advance

@@ -9,8 +9,12 @@ the JAX package's keys
              "old_dt": (float, ...), "solver": {...}}
 
 and advances it one MOOSE timestep at a time.  Deck features outside the
-ported slice fail at build with a named error (UNSUPPORTED_BLOCKS and the
-checks in ``__init__``), never by being skipped.
+ported slice fail at build with a named error (the checks in
+``__init__``), never by being skipped.  ``[Functions]`` are parsed
+expressions of (x, y, z, t) evaluated on the host; the legacy
+``[TensorTimeIntegrators]`` block maps onto an AdamsBashforthMoulton
+solver; ``[Problem] batch_fft = true`` fuses runs of independent
+transforms into batched ones (``ComputeGroup.fuse_ffts``).
 
 An LBM problem (``[Problem] type = LatticeBoltzmannProblem``) runs
 ``substeps`` lattice updates a step, from the second step on: stream,
@@ -38,6 +42,7 @@ from . import stencils as _stencils_pkg  # noqa: F401  (registers stencils)
 from .aux import AuxSystem
 from .computes.base import ComputeGroup, Spec, TensorCompute
 from .domain import FFT_BACKENDS, PARALLEL_MODES, PRECISIONS, Domain
+from .expression import CompiledExpression
 from .hit import HitNode
 from .params import Params
 from .postprocessors import Postprocessor, VectorPostprocessor
@@ -50,13 +55,6 @@ from .solvers.base import advance_state
 
 class ProblemError(Exception):
     pass
-
-
-#: deck blocks whose features are not ported to marlin_tpu_torch yet
-UNSUPPORTED_BLOCKS = {
-    "Functions": "MOOSE functions",
-    "TensorTimeIntegrators": "legacy [TensorTimeIntegrators] blocks",
-}
 
 
 def build_domain(node: Optional[HitNode], device=None) -> Domain:
@@ -88,26 +86,27 @@ class TensorProblem:
 
     def __init__(self, root: HitNode, device=None, deck_dir: Optional[str] = None,
                  arrays: Optional[Dict[str, np.ndarray]] = None):
-        for block, what in UNSUPPORTED_BLOCKS.items():
-            if block in root.children:
-                raise ProblemError(
-                    f"[{block}] ({what}) is not ported to marlin_tpu_torch yet")
         gp = root.children.get("GlobalParams")
         self.global_params = dict(gp.params) if gp is not None else {}
-
-        self.domain = build_domain(root.children.get("Domain"), device=device)
-
-        # -- problem-level constants (reference TensorProblem.C:38-39,57-60)
-        self.constants: Dict[str, float] = {}
         prob = root.children.get("Problem")
         self.problem_params = Params(prob, self.global_params)
         ptype = self.problem_params.get_str("type", "TensorProblem")
         if ptype not in ("TensorProblem", "LatticeBoltzmannProblem"):
             raise ProblemError(
                 f"[Problem] type = {ptype} is not ported to marlin_tpu_torch yet")
+        self.is_lbm = ptype == "LatticeBoltzmannProblem"
+        # batch independent same-shape transforms (ComputeGroup.fuse_ffts
+        # and the solvers' inverse transforms)
+        self.batch_fft = self.problem_params.get_bool("batch_fft", False)
+        if self.batch_fft:
+            self._check_batch_fft(root, self.is_lbm)
+
+        self.domain = build_domain(root.children.get("Domain"), device=device)
+
+        # -- problem-level constants (reference TensorProblem.C:38-39,57-60)
+        self.constants: Dict[str, float] = {}
         self.deck_dir = deck_dir
         self.arrays = dict(arrays or {})
-        self.is_lbm = ptype == "LatticeBoltzmannProblem"
         # LBM problem options (reference LatticeBoltzmannProblem.C:14-33)
         self.lbm_substeps = self.problem_params.get_int("substeps", 1)
         self.lbm_tolerance = self.problem_params.get_float("tolerance", 1.0e-15)
@@ -120,15 +119,20 @@ class TensorProblem:
         self._lbm_fused_plan = None
         self._lbm_solid_mask = None
         self._lbm_media = None
-        if self.problem_params.get_bool("batch_fft", False):
-            raise ProblemError(
-                "[Problem] batch_fft = true is not ported to marlin_tpu_torch yet")
+        self._lbm_media_raw = None
+        self.spectral_solve_substeps = self.problem_params.get_int(
+            "spectral_solve_substeps", 1)
         names = self.problem_params.get_str_vector("scalar_constant_names")
         values = self.problem_params.get_float_vector("scalar_constant_values")
         if len(names) != len(values):
             raise ProblemError("scalar_constant_names/values length mismatch")
         self.constants.update(dict(zip(names, values)))
         self._fetched_constants: List[str] = []
+
+        self.functions: Dict[str, object] = {}
+        fns = root.children.get("Functions")
+        if fns is not None:
+            self._build_functions(fns)
 
         # -- explicit buffers ----------------------------------------------
         self.buffer_specs: Dict[str, Params] = {}
@@ -186,30 +190,8 @@ class TensorProblem:
 
         # -- solver ---------------------------------------------------------
         self.solver = None
-        ts = root.children.get("TensorSolver")
-        if ts is not None:
-            params = Params(ts, self.global_params)
-            cls = solver_registry.get(params.get_str("type", required=True))
-            self.solver = cls(ts.name, params, self)
-            if "Predictors" in ts.children:
-                raise ProblemError(
-                    "[TensorSolver/Predictors] is not ported to "
-                    "marlin_tpu_torch yet")
-            root_name = params.get_str("root_compute")
-            if root_name is not None:
-                named = {c.name: c for c in self.solve_computes}
-                if root_name not in named:
-                    raise ProblemError(f"root_compute '{root_name}' not found")
-                root_compute = named[root_name]
-            else:
-                root_compute = ComputeGroup(
-                    "_solve_root", Params(None, self.global_params), self,
-                    self.solve_computes)
-            if isinstance(root_compute, ComputeGroup):
-                root_compute.sort()
-            self.solver.bind(root_compute)
-            if getattr(self.solver, "carry_reciprocal", False):
-                self.solver.prune_reciprocal_ffts()
+        self._solverless_group = None  # the per-step computes of a deck without a solver
+        self._build_solver(root)
 
         # -- postprocessors --------------------------------------------------
         self.postprocessors: List[Postprocessor] = []
@@ -254,6 +236,162 @@ class TensorProblem:
         members = [self._build_compute(b) for b in node.blocks()] if node is not None else []
         return ComputeGroup(name, Params(None, self.global_params), self, members)
 
+    def _build_functions(self, fns: HitNode):
+        """``[Functions]`` (marlin_tpu/problem.py:184-252): ParsedFunction
+        blocks are expressions of (x, y, z, t) with constants from
+        ``symbol_names``/``symbol_values`` (or the legacy ``vars``/``vals``);
+        a non-numeric value names another function, evaluated at the same
+        point (composition).  ShiftedFunction wraps a function with a
+        space and time offset (reference src/functions/ShiftedFunction.C)
+        and is resolved once every ParsedFunction exists."""
+        for b in fns.blocks():
+            p = Params(b, self.global_params)
+            if p.get_str("type", "ParsedFunction") == "ShiftedFunction":
+                continue
+            expr = p.get_str("expression", p.get_str("value", "0"))
+            consts = {"pi": math.pi, "e": math.e}
+            syms = p.get_str_vector("symbol_names", p.get_str_vector("vars"))
+            vals = p.get_str_vector("symbol_values", p.get_str_vector("vals"))
+            composed = []
+            for sname, sval in zip(syms, vals):
+                try:
+                    consts[sname] = float(sval)
+                except ValueError:
+                    composed.append((sname, sval))
+            ce = CompiledExpression(expr, ["x", "y", "z", "t"] + [n for n, _ in composed],
+                                    constants=consts)
+            self.functions[b.name] = self._composed(ce, composed) if composed else ce
+        for b in fns.blocks():
+            p = Params(b, self.global_params)
+            if p.get_str("type") != "ShiftedFunction":
+                continue
+            inner = self.functions[p.get_str("function", required=True)]
+            shift = p.get_float_vector("shift", [0.0, 0.0, 0.0])
+            shift = list(shift) + [0.0] * (3 - len(shift))
+            self.functions[b.name] = self._shifted(inner, shift,
+                                                   p.get_float("delta_t", 0.0))
+
+    def _composed(self, ce, composed):
+        def call(env):
+            scope = dict(env)
+            for sname, fname in composed:
+                scope[sname] = self.functions[fname](env)
+            return ce(scope)
+
+        return call
+
+    @staticmethod
+    def _shifted(inner, shift, tshift):
+        def call(env):
+            return inner({"x": env["x"] + shift[0], "y": env["y"] + shift[1],
+                          "z": env["z"] + shift[2], "t": env["t"] + tshift})
+
+        return call
+
+    def get_function(self, name: str):
+        if name not in self.functions:
+            raise ProblemError(f"Function '{name}' not found")
+        return self.functions[name]
+
+    def _build_solver(self, root: HitNode):
+        """The solver of ``[TensorSolver]``, or of the legacy
+        ``[TensorTimeIntegrators]`` (marlin_tpu/problem.py:_build_solver),
+        bound to its root compute; without either, the per-step computes'
+        wrapper group, fused under batch_fft."""
+        ts = root.children.get("TensorSolver")
+        tti = root.children.get("TensorTimeIntegrators")
+        if ts is not None:
+            params = Params(ts, self.global_params)
+            cls = solver_registry.get(params.get_str("type", required=True))
+            self.solver = cls(ts.name, params, self)
+            if "Predictors" in ts.children:
+                raise ProblemError(
+                    "[TensorSolver/Predictors] is not ported to "
+                    "marlin_tpu_torch yet")
+            root_name = params.get_str("root_compute")
+        elif tti is not None:
+            self.solver = self._legacy_integrators(tti)
+            root_name = None
+        else:
+            # the top-level per-step computes run in declared order
+            # (reference TensorProblem::execute else-branch), so the
+            # wrapper group is never sorted; fuse_ffts sorts nested groups
+            self._solverless_group = ComputeGroup(
+                "_solve_root", Params(None, self.global_params), self,
+                self.solve_computes)
+            if self.batch_fft:
+                self._solverless_group.fuse_ffts()
+            return
+        if root_name is not None:
+            named = {c.name: c for c in self.solve_computes}
+            if root_name not in named:
+                raise ProblemError(f"root_compute '{root_name}' not found")
+            root_compute = named[root_name]
+        else:
+            root_compute = ComputeGroup(
+                "_solve_root", Params(None, self.global_params), self,
+                self.solve_computes)
+        if isinstance(root_compute, ComputeGroup):
+            root_compute.sort()
+        self.solver.bind(root_compute)
+        if getattr(self.solver, "carry_reciprocal", False):
+            self.solver.prune_reciprocal_ffts()
+        if self.batch_fft and isinstance(root_compute, ComputeGroup):
+            root_compute.fuse_ffts()
+
+    def _legacy_integrators(self, tti: HitNode):
+        """Legacy ``[TensorTimeIntegrators]`` FFTSemiImplicit blocks (the
+        reference's benchmarks/01_spinodal_decomposition/1a.i:114-121) as
+        one AdamsBashforthMoulton of predictor order history_size + 1,
+        with ``[Problem] spectral_solve_substeps`` substeps and
+        ``carry_reciprocal``/``fused_spectral`` taken from ``[Problem]``
+        (marlin_tpu/problem.py:349-395)."""
+        buffers, rbufs, lins, nonlins = [], [], [], []
+        history = 1
+        for b in tti.blocks():
+            p = Params(b, self.global_params)
+            if p.get_str("type") != "FFTSemiImplicit":
+                raise ProblemError(
+                    f"Unsupported TensorTimeIntegrator type {p.get_str('type')}")
+            buffers.append(p.get_str("buffer", required=True))
+            rbufs.append(p.get_str("reciprocal_buffer", required=True))
+            lins.append(p.get_str("linear_reciprocal", "0"))
+            nonlins.append(p.get_str("nonlinear_reciprocal", required=True))
+            history = max(history, p.get_int("history_size", 1))
+        synth = HitNode("_fft_semi_implicit")
+        for key, value in (("buffer", buffers), ("reciprocal_buffer", rbufs),
+                           ("linear_reciprocal", lins),
+                           ("nonlinear_reciprocal", nonlins)):
+            synth.set_param(key, " ".join(value))
+        synth.set_param("predictor_order", str(history + 1))
+        synth.set_param("corrector_steps", "0")
+        synth.set_param("substeps", str(self.spectral_solve_substeps))
+        for extra in ("carry_reciprocal", "fused_spectral"):
+            v = self.problem_params.get_str(extra, None)
+            if v is not None:
+                synth.set_param(extra, v)
+        cls = solver_registry.get("AdamsBashforthMoulton")
+        return cls(synth.name, Params(synth, self.global_params), self)
+
+    @staticmethod
+    def _check_batch_fft(root: HitNode, is_lbm: bool):
+        """``[Problem] batch_fft = true`` applies to serial spectral decks
+        only (marlin_tpu/problem.py:444-467, its words).  Checked before the
+        Domain is built, whose own refusal of every parallel_mode would
+        otherwise speak first."""
+        if is_lbm:
+            raise ProblemError(
+                "[Problem] batch_fft = true does not apply to "
+                "LatticeBoltzmannProblem (LBM solve chains contain no "
+                "spectral transforms); remove it")
+        dom = root.children.get("Domain")
+        if dom is not None and Params(dom).get_str("parallel_mode", "NONE") != "NONE":
+            raise ProblemError(
+                "[Problem] batch_fft = true is serial-only (the "
+                "distributed transforms shard per field); remove it "
+                "for parallel_mode != NONE decks")
+
+
     # -- services used by computes ------------------------------------------
     def lbm_stencil(self):
         if len(self.stencils) != 1:
@@ -267,6 +405,11 @@ class TensorProblem:
         device, or None (reference maskedFillSolids is a no-op without
         binary media)."""
         return self._lbm_solid_mask
+
+    def lbm_media_ids(self) -> Optional[torch.Tensor]:
+        """The binary-media buffer as the deck gives it, (nx, ny, nz) on the
+        device, or None: the region ids of ``regional`` boundaries."""
+        return self._lbm_media_raw
 
     def lbm_media(self) -> Optional[torch.Tensor]:
         """The binary media as an int8 code on the device, (nx, ny, nz):
@@ -363,6 +506,7 @@ class TensorProblem:
         media = buffers[self.lbm_binary_media]
         while media.ndim < 3:
             media = media[..., None]
+        self._lbm_media_raw = media
         self._lbm_solid_mask = media == 0
         self._lbm_media = torch.where(
             media == 0, 0, torch.where(media >= 1, 1, -1)).to(torch.int8).contiguous()
@@ -452,6 +596,8 @@ class TensorProblem:
             "_all_solve", Params(None, self.global_params), self, self.solve_computes
         ).sort()
         groups = [solve_all, self.pp_computes.sort()]
+        for g in groups:
+            g.check()
         self._shape_complete(groups, buffers, set(ic_outputs))
 
         if self.solver is not None:
@@ -523,8 +669,7 @@ class TensorProblem:
         # TensorProblem::execute else-branch, :185-188)
         buffers = dict(state["buffers"])
         ctx = {"t": t, "old": state["old"], "n_advances": state["n_advances"]}
-        for c in self.solve_computes:
-            buffers.update(c.apply(buffers, ctx))
+        buffers.update(self._solverless_group.apply(buffers, ctx))
         return {**state, "buffers": buffers}
 
     def _lbm_step(self, state, t, dt, first_step: bool):

@@ -177,7 +177,6 @@ class AdamsBashforthMoulton(SplitOperatorBase):
     def substep(self, state, sub_time, sub_dt, dt, dt_old, substep_index, first_step):
         state = self._run_group(state, sub_time)
         buffers = dict(state["buffers"])
-        dom = self.domain
         dt_changed = dt != dt_old
 
         def select_order(threshold, fallback, n_old_b, maxo):
@@ -199,7 +198,7 @@ class AdamsBashforthMoulton(SplitOperatorBase):
             if v.linear_reciprocal is not None:
                 ubar = ubar / (1.0 - sub_dt * buffers[v.linear_reciprocal])
             final_ubar[v.buffer] = ubar
-        buffers.update({k: dom.ifft(u) for k, u in final_ubar.items()})
+        buffers.update(self._ifft_all(list(final_ubar.items())))
 
         # -- Adams-Moulton corrector (reference :118-186) ------------------
         if self.corrector_steps:
@@ -228,7 +227,7 @@ class AdamsBashforthMoulton(SplitOperatorBase):
                     if v.linear_reciprocal is not None:
                         ubar = ubar / (1.0 - sub_dt * buffers[v.linear_reciprocal])
                     final_ubar[v.buffer] = ubar
-                buffers.update({k: dom.ifft(u) for k, u in final_ubar.items()})
+                buffers.update(self._ifft_all(list(final_ubar.items())))
 
         if self.carry_reciprocal:
             # the pruned ForwardFFT's role: the next substep reads ū directly

@@ -139,6 +139,18 @@ class TensorSolver:
     def substep(self, state, sub_time, sub_dt, dt, dt_old, substep_index, first_step):
         raise NotImplementedError
 
+    def _ifft_all(self, pairs):
+        """{key: ifft(ū)} for a list of (key, ū) pairs.  Under ``[Problem]
+        batch_fft = true`` spectra of the same shape and complexness
+        transform as one batched inverse, by the rule core.BatchedFFT uses
+        (marlin_tpu/solvers/base.py:171-184)."""
+        from ..domain import batched_transform
+
+        dom = self.domain
+        if not getattr(self.problem, "batch_fft", False) or len(pairs) < 2:
+            return {k: dom.ifft(u) for k, u in pairs}
+        return batched_transform(dom.ifft, pairs)
+
     # -- history helpers ---------------------------------------------------
     def n_old(self, state: Dict, buffer: str) -> int:
         """Valid old-state count for a buffer."""

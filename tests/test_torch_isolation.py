@@ -156,21 +156,66 @@ def test_cli_runs_on_cpu_when_asked(tmp_path, monkeypatch, capsys, how):
     assert rows[0] == "time,c_mean" and len(rows) == 5
 
 
+FUNCTION_IC = ("[Functions]\n  [f]\n    type = ParsedFunction\n    expression = 'a*x'\n"
+               "    symbol_names = a\n    symbol_values = 0.5\n  []\n[]\n")
+LEGACY_SOLVER = ("[TensorTimeIntegrators]\n  [c]\n    type = {type}\n    buffer = c\n"
+                 "    reciprocal_buffer = cbar\n    linear_reciprocal = kappabarbar\n"
+                 "    nonlinear_reciprocal = Mbarmubar\n  []\n[]\n")
+
+
+def _without_solver(text):
+    """_CH_DECK with its [TensorSolver] block taken out."""
+    start = text.index("[TensorSolver]")
+    return text[:start] + text[text.index("[]", start) + 3:]
+
+
 @pytest.mark.parametrize("extra,match", [
-    ("[Functions]\n  [f]\n    type = ParsedFunction\n    expression = x\n  []\n[]\n",
-     "Functions"),
-    ("[TensorTimeIntegrators]\n  [c]\n  []\n[]\n", "TensorTimeIntegrators"),
+    (FUNCTION_IC.replace("[]\n[]\n", "[]\n  [g]\n    type = ShiftedFunction\n"
+                         "    function = missing\n  []\n[]\n"), "missing"),
+    (LEGACY_SOLVER.format(type="FFTExplicit"), "Unsupported TensorTimeIntegrator type "
+                                               "FFTExplicit"),
     ("[TensorOutputs]\n  [x]\n    type = XDMFTensorOutput\n    buffer = c\n  []\n[]\n",
      "parallel_mode"),
 ], ids=["functions", "time_integrators", "xdmf"])
 def test_unported_features_are_named_errors(extra, match):
-    """What stays unported: MOOSE functions, the legacy integrator blocks,
-    and the per-rank XDMF writer (every parallel_mode is refused)."""
+    """[Functions] and the legacy integrator blocks are ported; what stays a
+    named error there is what the JAX package refuses (a function that
+    names no function, an integrator other than FFTSemiImplicit), and the
+    per-rank XDMF writer (every parallel_mode is refused)."""
     text = _CH_DECK.format(nx=16, ny=16, substeps=1) + extra
+    if match != "parallel_mode" and "TensorTimeIntegrators" in extra:
+        text = _without_solver(text)
     if match == "parallel_mode":
         text = text.replace("[Domain]", "[Domain]\n  parallel_mode = FFT_SLAB")
     with pytest.raises(Exception, match=match):
         run_deck(hit.parse(text), device="cpu")
+
+
+@pytest.mark.parametrize("case", ["functions", "time_integrators"])
+def test_functions_and_integrators_run_on_cpu(case, tmp_path):
+    """A deck sampling a [Functions] ParsedFunction through
+    MooseFunctionTensor, and the legacy [TensorTimeIntegrators] form of the
+    Cahn-Hilliard deck, run on the CPU when asked."""
+    text = _CH_DECK.format(nx=16, ny=16, substeps=2)
+    if case == "functions":
+        root = hit.parse(text + FUNCTION_IC)
+        fx = root.child("TensorComputes").child("Postprocess", create=True).child(
+            "fx", create=True)
+        for key, value in (("type", "MooseFunctionTensor"), ("buffer", "fx"),
+                           ("function", "f")):
+            fx.set_param(key, value)
+    else:
+        root = hit.parse(_without_solver(text) + LEGACY_SOLVER.format(type="FFTSemiImplicit"))
+        root.child("Problem").set_param("spectral_solve_substeps", "2")
+    root.child("Executioner", create=True).set_param("num_steps", "2")
+    tr = run_deck(root, device="cpu", output_dir=str(tmp_path))
+    assert tr.step_count == 2
+    assert bool(torch.isfinite(tr.state["buffers"]["c"]).all())
+    if case == "functions":
+        fx = tr.problem.run_postprocess_computes(tr.state, 0.0)["buffers"]["fx"]
+        assert float(fx.max()) == 0.5 * 15.5  # a·x at the last sample, 15·dx + dx/2
+    else:
+        assert tr.problem.solver.substeps == 2
 
 
 @pytest.mark.parametrize("extra,written", [
@@ -227,7 +272,13 @@ def test_fused_spectral_path_is_a_named_error(knob):
 
 
 def test_tensor_valued_field_under_pallas_is_a_named_error():
+    """Tensor-valued fields transform under PALLAS (value axes first, see
+    tests/test_torch_batch_fft.py); a tensor with fewer axes than the grid
+    stays a named error."""
     dom = Domain(dim=2, n=[64, 64], fft_backend="PALLAS", device="cpu")
-    with pytest.raises(NotImplementedError, match="scalar fields only"):
-        dom.fft(torch.zeros(64, 64, 2, 2))
+    assert dom.fft(torch.zeros(64, 64, 2, 2)).shape == (64, 64, 2, 2)
+    with pytest.raises(ValueError, match="fewer axes than the 2-D grid"):
+        dom.fft(torch.zeros(64))
+    with pytest.raises(ValueError, match="fewer axes than the 2-D grid"):
+        dom.ifft(torch.zeros(64, dtype=torch.complex64))
     assert ProblemError  # the problem's own error type is importable

@@ -824,23 +824,34 @@ def test_unported_feature_is_a_named_error(jx, feature):
     ((COLLISION, COLLISION.replace("LBMBGKCollision", "LBMSmagorinskyCollision")),
      lf.FusedChainError, "Smagorinsky collisions fuse on 2-D decks only"),
     ((RESIDUAL, RESIDUAL + "    [surface]\n      type = LBMComputeSurfaceForces\n"
-                           "      buffer = forces\n    []\n"),
-     KeyError, "LBMComputeSurfaceForces"),
+                           "      buffer = forces\n      chemical_potential = density\n"
+                           "      grad_phi = velocity\n    []\n"),
+     lf.FusedChainError, "lbm_backend = PALLAS: solve compute 'surface' "
+                         "(LBMComputeSurfaceForces) is not fusable (use the default "
+                         "JNP backend)"),
     ((RESIDUAL, RESIDUAL + "    [convert]\n      type = LBMTensorUnitConverter\n"
-                           "      buffer = converted\n    []\n"),
-     KeyError, "LBMTensorUnitConverter"),
+                           "      buffer = converted\n      tensor_buffer = velocity\n"
+                           "      constant = 2\n    []\n"),
+     lf.FusedChainError, "lbm_backend = PALLAS: solve compute 'convert' "
+                         "(LBMTensorUnitConverter) is not fusable (use the default "
+                         "JNP backend)"),
     (("[Domain]", "[Domain]\n  parallel_mode = REAL_SPACE"), NotImplementedError,
      "parallel_mode"),
-    ((TOP, TOP.replace("LBMBounceBack", "LBMDirichletBC")), KeyError, "LBMDirichletBC"),
+    ((TOP, TOP.replace("LBMBounceBack", "LBMDirichletBC").replace(
+        "f_old = fpc\n", "f_old = fpc\n      feq = feq\n      rho = density\n"
+                         "      velocity = velocity\n      value = 1.0\n")),
+     lf.FusedChainError, "lbm_backend = PALLAS: boundary compute 'top' (LBMDirichletBC) "
+                         "is not fusable (use the default JNP backend)"),
 ], ids=["smagorinsky_mrt", "smagorinsky", "surface_forces", "unit_converter",
         "sharded", "dirichlet"])
 def test_unported_compute_fails_at_build(edit, error, match):
-    """The surface forces, the unit converter, sharded domains and the
-    unported boundary conditions fail when the deck is built, by name,
-    before either backend could run.  The Smagorinsky collisions are
-    ported: they build, and this 3-D deck's PALLAS step refuses them with
-    the JAX package's words (``test_rejection_is_the_jax_message`` holds
-    the whole message)."""
+    """Sharded domains fail when the deck is built, by name, before either
+    backend could run.  The Smagorinsky collisions, the surface forces, the
+    unit converter and the Dirichlet condition are ported: they build, and
+    this 3-D deck's PALLAS step refuses them with the JAX package's words
+    (``test_rejection_is_the_jax_message`` holds the Smagorinsky messages
+    against the JAX package's, tests/test_torch_lbm_phase_bc.py the
+    others)."""
     text = _edit(edit)
     if error is lf.FusedChainError:
         assert match in _port_message(text)
