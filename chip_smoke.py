@@ -112,16 +112,16 @@ Phases, one line each, flushed as they finish:
    substeps a step, with XDMF frames of c (binary: the card's machine has
    no h5py), Exodus of c through a LAGRANGE aux variable and its
    ``ElementAverageValue``, a ``TensorHistogram`` of c and a checkpoint
-   every 5 steps, run 10 steps, run 5, and resumed from that step-5
-   checkpoint to 10 (``run_deck(recover=...)``), each in its own
+   every 3 steps, run 6 steps, run 3, and resumed from that step-3
+   checkpoint to 6 (``run_deck(recover=...)``), each in its own
    directory; the Kármán deck on PALLAS the same way, 4 steps resumed
    from step 2.  Gates: the resumed state (every buffer, among them c, the
    complex64 carried cbar and the LBM distributions, the history ring,
    solver entries, n_advances, old_dt) and postprocessor values equal the
    uninterrupted run's bit for bit; 1a's CSV rows and histogram files
-   6-10 identical, ``xdmfdiff.compare`` of its frames 6-10 at zero
-   tolerance, the step-10 ``.bin`` frame equal to c, the ``.e`` file read
-   back with 11 times; launches exactly phase 12's count (no INITIAL
+   4-6 identical, ``xdmfdiff.compare`` of its frames 4-6 at zero
+   tolerance, the step-6 ``.bin`` frame equal to c, the ``.e`` file read
+   back with 7 times; launches exactly phase 12's count (no INITIAL
    group on the resumed run), Kármán's 99 a step after the first.  The
    perf graph's outputs seconds a step, checkpoint bytes and seconds to
    write and to read onto the card, and peak device memory, beside the
@@ -146,13 +146,41 @@ Phases, one line each, flushed as they finish:
    float32 and float32 against float64 within each buffer's ``SBM_TOL`` of its
    largest (spectra compared on the half spectrum without the Nyquist row
    and column); (e) ``batch_fft`` on the 2a stand-in at 200²
-   (``decks.OSTWALD_2A_DECK``, 2 steps × 40 substeps of 0.002) on the same three
+   (``decks.OSTWALD_2A_DECK``, 2 steps × 20 substeps of 0.002) on the same three
    routes, off and on: PALLAS batched equal to unbatched bit for bit,
    DEFAULT within 1e-12 (float64) or 1e-6 (float32), the forward lanes
    launches a substep one a batch group, ms a substep with device time;
    (f) ``decks.BENCH_1A_LEGACY_DECK`` equal to ``BENCH_1A_DECK`` bit for
-   bit over 2 steps × 250 substeps on DEFAULT float32 and PALLAS fused, launches phase
+   bit over 2 steps × 100 substeps on DEFAULT float32 and PALLAS fused, launches phase
    12's formula.
+
+15. the rest of the solver family and the iteration-driven timestepper:
+   (a) ETDRK4 on the 3-D Cahn-Hilliard deck (``decks.CH3D_ETDRK4_DECK``) at
+   512³, float32, 10 substeps × 2 steps, with the Cox-Matthews tables on
+   PALLAS and DEFAULT (max |c_PALLAS − c_DEFAULT| ≤ 5e-5, mass within
+   1e-5, kernels 1-4 launched as 4 group evaluations and 4 inverse
+   transforms a substep imply) and with the reference's tables on PALLAS
+   (one step; launches; whether c stays finite is printed: the CPU tests
+   find those tables non-finite from 32³ on); then the Cox-Matthews order
+   on the 1-D deck of tests/test_etdrk4_cox_matthews.py, float64 on the
+   card, 4/8/64 substeps, in (3.5, 4.8); (b) SecantSolver and (c)
+   BroydenSolver on the 2a stand-ins (``decks.OSTWALD_2A_SECANT_DECK``,
+   ``..._BROYDEN_DECK``) at 200², 2 steps × 5 substeps, iteration-adaptive
+   dt (Broyden's at a constant dt), on PALLAS float32 (kernels 1-4 on the
+   small path), DEFAULT float64 and float32: every substep converged, c's
+   integral within 1e-5 (float32) or 1e-10 (float64), the float32 routes
+   within ``ITERATIVE_FIELD_TOL`` of DEFAULT float64, launches exactly the
+   group evaluations and inverses the iteration counts imply, PALLAS
+   batched equal to unbatched bit for bit; Broyden's M through a
+   checkpoint bit for bit; then a start dt
+   too large: a rejected step re-attempted at a quarter, time not advanced
+   by it, dt not grown after; each route's ms, iterations and host syncs a
+   substep, the secant's device busy share on PALLAS; (d) the coupled ABM
+   (``decks.COUPLED_DECK``) at 512², predictor orders 1, 2, 4 with 0, 1, 2
+   corrector steps, PALLAS float32 within 1e-5 of DEFAULT float64, which is
+   within 1e-4 of the exact solution; (e) forward Euler
+   (``decks.EXPLICIT_DECK``) at 1024² on PALLAS and DEFAULT (within 1e-5)
+   and in real space, and LinearTensorPredictor's iterations on (b)'s deck.
 
 Then one JSON line with every kernel's numbers (a kernel timed at more
 than one main shape also lists each under ``shapes``; ``launches_by_path``
@@ -225,7 +253,7 @@ BENCH_1A_RUNS = {  # run: its route in marlin_tpu_torch.bench_1a_runs.ROUTES
     "PALLAS float32": "P32", "PALLAS fused float32": "F32",
 }
 PROFILE_ATTEMPTS = 3  # device_ms: traces taken before an empty one fails
-RESUME_1A = (10, 5)  # phase 13: steps of 1a, and the checkpoint's step
+RESUME_1A = (6, 3)  # phase 13: steps of 1a, and the checkpoint's step
 RESUME_KARMAN = (4, 2)  # the same for Kármán (100 substeps a step)
 # phase 13's 1a outputs: c mapped to a LAGRANGE aux variable for Exodus and
 # ElementAverageValue, XDMF frames of c (no h5py on the card), a histogram
@@ -1404,6 +1432,10 @@ def states_equal(a, b):
         assert set(a[part]) == set(b[part]), part
         for k, v in a[part].items():
             w = b[part][k]
+            if not isinstance(v, torch.Tensor):
+                # an iterative solver's host counts
+                assert v == w and type(v) is type(w), (part, k, v, w)
+                continue
             assert v.dtype == w.dtype and v.shape == w.shape, (part, k)
             assert torch.equal(v, w), (part, k)
     assert a["n_advances"] == b["n_advances"], (a["n_advances"], b["n_advances"])
@@ -1644,12 +1676,12 @@ SBM_TOL = {
     "dealias": 2e-6, "c_linear": 1e-6, "psi": 1e-6, "eta_linear": 1e-6,
     "L": 1e-6,
 }
-OSTWALD = (200, 2, 40)  # n, steps, substeps
-OSTWALD_DT = 0.08  # a step: substeps of 0.002, where the explicit terms are stable
+OSTWALD = (200, 2, 20)  # n, steps, substeps
+OSTWALD_DT = 0.04  # a step: substeps of 0.002, where the explicit terms are stable
 PROFILED_SUBSTEPS = 5  # the step whose device time the profiler reads
 BATCH_TOL = {torch.float64: 1e-12, torch.float32: 1e-6}  # DEFAULT batched/unbatched
 BATCH_FALLBACK_TOL = 1e-6  # PALLAS batched/unbatched where not bit for bit
-LEGACY_1A = (2, 250)  # steps, substeps
+LEGACY_1A = (2, 100)  # steps, substeps
 TWOPHASE_REFUSAL = ("lbm_backend = PALLAS: solve compute 'grad_phi' "
                     "(LBMIsotropicGradient) is not fusable (use the default JNP backend)")
 PRECISION = {"float64": "floating_precision = DOUBLE",
@@ -2048,6 +2080,404 @@ def phase_rest(dev, smi):
     return {"main": {"14 spectral family PALLAS": sbm}, "small": small}
 
 
+# -- phase 15: the rest of the solver family and the iteration-driven timestepper -------------
+
+ETDRK4_RUNS = {  # run: (fft_backend, cox_matthews, steps)
+    "PALLAS cox_matthews": ("PALLAS", True, STEPS),
+    "DEFAULT cox_matthews": ("DEFAULT", True, STEPS),
+    "PALLAS reference tables": ("PALLAS", False, 1),
+}
+ETDRK4_ORDER = (3.5, 4.8)  # tests/test_etdrk4_cox_matthews.py's bounds
+ITERATIVE = (200, 2, 5)  # n, steps, substeps: benchmark 2a's grid
+ITERATIVE_ROUTES = {"PALLAS float32": ("SINGLE", "fft_backend = PALLAS\n  floating_precision = SINGLE"),
+                    "DEFAULT float64": ("DOUBLE", "floating_precision = DOUBLE"),
+                    "DEFAULT float32": ("SINGLE", "floating_precision = SINGLE")}
+ITERATIVE_MASS_TOL = {"SINGLE": 1e-5, "DOUBLE": 1e-10}  # relative, c's integral
+# float32 (relative tolerance 1e-2) against DEFAULT float64 (the secant's
+# 1e-9, Broyden's 1e-4), of the float64 field's largest: the CPU at 200²
+# measured 7.2e-6 on c and at most 1.1e-4 on the order parameters (secant);
+# the card 8.0e-6 and 1.1e-4 (secant), 2.0e-4 and 1.9e-4 (Broyden)
+ITERATIVE_FIELD_TOL = {"SecantSolver": {"c": 5e-5, "n1": 5e-4, "n2": 5e-4, "n3": 5e-4, "n4": 5e-4},
+                       "BroydenSolver": {k: 1e-3 for k in ("c", "n1", "n2", "n3", "n4")}}
+BIG_DT_STEPS = {"SecantSolver": 2, "BroydenSolver": 1}  # each failed try: max_iterations a substep
+COUPLED = (512, 2, 10, 0.01)  # n, steps, substeps, dt
+COUPLED_CASES = [(1, 0), (2, 1), (4, 2)]  # (order, corrector steps)
+COUPLED_TOL = 1e-5  # PALLAS float32 against DEFAULT float64, of its largest
+COUPLED_EXACT_TOL = 1e-4  # DEFAULT float64 against the exact solution, of its largest
+EXPLICIT = (1024, 2, 10, 5e-4)  # n, steps, substeps, dt: 0.05·2·512²·5e-5 = 1.3 < 2
+EXPLICIT_TOL = 1e-5  # PALLAS against DEFAULT float32, of the largest
+
+
+def solver_counts(tr):
+    c = tr.problem.solver.counts
+    return c.substeps, c.iterations, c.syncs, c.failed
+
+
+def one_substep(tr, dt, fn):
+    """``fn(step)`` with ``step()`` one more substep of a finished run (a
+    step of one substep of dt/substeps from its state)."""
+    p, st = tr.problem, tr.state
+    n = p.solver.substeps
+    p.solver.substeps = 1
+    try:
+        return fn(lambda: p.step(st, tr.time, dt / n, dt / n, False))
+    finally:
+        p.solver.substeps = n
+
+
+def substep_wall_ms(tr, dt):
+    """Wall ms of one more substep of a finished run, by CUDA events."""
+    return one_substep(tr, dt, lambda step: cuda_ms(step, reps=1, warmup=0))
+
+
+def iterative_step(tr, dt):
+    """One more substep of a finished iterative run: (wall ms by CUDA
+    events, its iterations, its host syncs)."""
+    before = solver_counts(tr)
+    ms = substep_wall_ms(tr, dt)
+    _sub, its, syncs, _ = (a - b for a, b in zip(solver_counts(tr), before))
+    return ms, its, syncs
+
+
+def substep_device_ms(tr, dt):
+    """(device ms, iterations) of one more substep of a finished iterative
+    run, by the profiler (a whole step's trace takes long to read)."""
+    before = solver_counts(tr)[1]
+    ms = one_substep(tr, dt, lambda step: device_ms(step, calls=1))
+    # device_ms makes the call twice: a warm-up and the traced one
+    return ms, (solver_counts(tr)[1] - before) / 2
+
+
+def phase_etdrk4(dev, smi):
+    """(a) ETDRK4 on the 3-D Cahn-Hilliard deck at 512³, float32, 10
+    substeps × 2 steps; then the Cox-Matthews order in float64.  Returns
+    {run: launches} of the PALLAS runs."""
+    from marlin_tpu_torch import decks, hit
+    from marlin_tpu_torch.problem import TensorProblem
+
+    launches, c = {}, {}
+    for run, (backend, cm, steps) in ETDRK4_RUNS.items():
+        S = steps * SUBSTEPS
+        # each substep: four group evaluations of fft(µ) and fft(c) (one
+        # lanes and two sublanes launches each) and four inverse transforms
+        # (two sublanes, one lanes)
+        want = {"fwd_lanes": 8 * S, "fwd_sublanes": 16 * S, "inv_lanes": 4 * S,
+                "inv_sublanes": 8 * S, "fwd_lanes_pre": 0, "fwd_x_update": 0,
+                "fwd_x_update_poly": 0}
+        gc.collect()
+        deck = transient(decks.CH3D_ETDRK4_DECK.format(
+            n=N, substeps=SUBSTEPS, solver_extra="cox_matthews = true" if cm else "").replace(
+                "[Domain]", f"[Domain]\n  fft_backend = {backend}\n  floating_precision = SINGLE"),
+            1, "c").replace(f"num_steps = {STEPS}\n", f"num_steps = {steps}\n")
+        tr, wall, launched = deck_run(deck, dev)
+        got = {k: launched[k] for k in want}
+        ms = f"{substep_wall_ms(tr, 1.0):.3f} ms a substep, " if cm else ""
+        fin = bool(torch.isfinite(tr.state["buffers"]["c"]).all())
+        say(f"[15a etdrk4] {run} {N}^3, {steps} steps x {SUBSTEPS} substeps: run_deck "
+            f"{wall:.2f} s, {ms}group evaluations a step "
+            f"{tr.problem.solver.group_evals_per_step()}, c finite {fin}, launches {got}; "
+            f"peak device memory {torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
+        if backend == "PALLAS":
+            assert got == want, (run, got, want)
+            launches[f"15 etdrk4 {run}"] = launched
+        else:
+            assert not any(launched.values()), (run, launched)
+        if cm:
+            assert fin, run
+            mass(tr, f"15a {run}")
+            c[backend] = tr.state["buffers"]["c"]
+        else:
+            # the reference's tables divide by (L·dt)³, 2.3e-8 at the smallest
+            # |L·dt| here: tests/test_torch_solvers.py finds them non-finite
+            # from 32³ on, in float64 too
+            say(f"[15a etdrk4] {run}: the reference's phi tables give c finite {fin} at "
+                f"{N}^3 (non-finite from 32^3 on, in float64 too: the CPU tests)")
+        del tr
+    diff = (c["PALLAS"] - c["DEFAULT"]).abs().max().item()
+    say(f"[15a etdrk4] cox_matthews max|c_PALLAS - c_DEFAULT| {diff:.3e} (limit {ANCHOR_TOL})")
+    assert diff <= ANCHOR_TOL, diff
+    del c
+    gc.collect()
+    # the fourth order of the Cox-Matthews tables, float64 on the card
+    errors = []
+    runs = {}
+    for substeps in (64, 4, 8):
+        p = TensorProblem(hit.parse(decks.ETDRK4_ORDER_DECK.format(
+            substeps=substeps, cm="true")), device=dev)
+        runs[substeps] = p.step(p.init_state(), 0.0, 0.5, 0.5, True)["buffers"]["u"]
+    for substeps in (4, 8):
+        errors.append((runs[substeps] - runs[64]).abs().max().item())
+    order = math.log2(errors[0] / errors[1])
+    say(f"[15a etdrk4] cox_matthews order on the 1-D Allen-Cahn deck, float64: errors "
+        f"{errors[0]:.3e} (4 substeps), {errors[1]:.3e} (8); order {order:.3f} "
+        f"(bounds {ETDRK4_ORDER})")
+    assert ETDRK4_ORDER[0] < order < ETDRK4_ORDER[1], order
+    return launches
+
+
+def iterative_deck(solver, route, dt, steps, problem_extra="", constant_dt=False):
+    """The 2a stand-in of ``solver`` at ITERATIVE's grid on a route."""
+    from marlin_tpu_torch import decks
+
+    n, _steps, substeps = ITERATIVE
+    precision, domain = ITERATIVE_ROUTES[route]
+    deck = (decks.OSTWALD_2A_SECANT_DECK if solver == "SecantSolver"
+            else decks.OSTWALD_2A_BROYDEN_DECK).format(
+        n=n, substeps=substeps, dt=dt, num_steps=steps, domain_extra=domain,
+        problem_extra=problem_extra, solver_extra="",
+        relative_tolerance=decks.OSTWALD_2A_TOL[(solver, precision)])
+    if constant_dt:
+        deck = re.sub(r"  \[TimeStepper\]\n(    .*\n)*  \[\]\n", f"  dt = {dt}\n", deck)
+        assert "TimeStepper" not in deck
+    return deck + "[Outputs]\n  csv = true\n[]\n"
+
+
+def iterative_launches(substeps, iterations, failed, batched, stacked):
+    """Kernel 1-4 launches of a PALLAS run of the 2a stand-in: every group
+    evaluation (one a substep and one an iteration) transforms ten fields
+    forward, one lanes and one sublanes launch each, or one of each a
+    batch; every inverse of the five fields (the bootstrap or the first
+    M·R, each iteration, a rollback) likewise."""
+    evals = substeps + iterations
+    inverses = (iterations if stacked else substeps + iterations) + failed
+    fwd = 1 if batched else 10
+    inv = 1 if batched else 5
+    return {"fwd_lanes": fwd * evals, "fwd_sublanes": fwd * evals,
+            "inv_lanes": inv * inverses, "inv_sublanes": inv * inverses}
+
+
+def run_iterative(solver, route, dt, steps, dev, problem_extra="", constant_dt=False,
+                  label=None):
+    """One run of the 2a stand-in; checks its launches; returns (transient,
+    launches, (c's integral at the start, at the end))."""
+    deck = iterative_deck(solver, route, dt, steps, problem_extra, constant_dt)
+    torch.cuda.synchronize()
+    tr, wall, launched = deck_run(deck, dev)
+    sub, its, syncs, failed = solver_counts(tr)
+    name = label or f"{solver} {route}{' batched' if problem_extra else ''}"
+    finite(tr.state["buffers"], name)
+    if route.startswith("PALLAS"):
+        want = iterative_launches(sub, its, failed if solver == "SecantSolver" else 0,
+                                  bool(problem_extra), solver == "BroydenSolver")
+        got = {k: launched[k] for k in want}
+        assert got == want, (name, got, want)
+    else:
+        assert not any(launched.values()), (name, launched)
+    rows = tr.csv.rows
+    m0, m1 = rows[0]["c_total"], rows[-1]["c_total"]
+    say(f"[15 {solver}] {name}: run_deck {wall:.2f} s, {steps} steps, substeps {sub}, "
+        f"iterations a substep {its / sub:.2f}, syncs a substep {syncs / sub:.2f}, "
+        f"not converged {failed}, rejected steps {tr.rejected_steps}, t {tr.time:.6g}, group "
+        f"evaluations a step {rows[-1]['group_evals'] / steps:.1f}, c integral {m0:.12g} -> "
+        f"{m1:.12g}")
+    return tr, launched, (m0, m1)
+
+
+def phase_iterative(solver, dev, smi):
+    """(b) SecantSolver or (c) BroydenSolver on the 2a stand-in at 200²,
+    2 steps × 5 substeps, on ITERATIVE_ROUTES, unbatched and batched; then
+    the too-large start dt (DEFAULT float64).  Returns ({run: launches} of
+    the PALLAS runs."""
+    from marlin_tpu_torch import decks
+
+    _n, steps, substeps = ITERATIVE
+    dt, big_dt = decks.OSTWALD_2A_DT[solver]
+    launches, fields = {}, {}
+    for route, (precision, _domain) in ITERATIVE_ROUTES.items():
+        # Broyden's routes run at a constant dt: its float32 and float64
+        # iteration counts (1-5 and 14-50) fall on both sides of any one
+        # window of the adaptive rule, which would move the routes to other
+        # times; the secant's (4 and 14) fit its window
+        runs = {}
+        # batched against unbatched on PALLAS, where it holds bit for bit
+        for extra in ("", "batch_fft = true")[:2 if route.startswith("PALLAS") else 1]:
+            tr, launched, (m0, m1) = run_iterative(solver, route, dt, steps, dev, extra,
+                                                   constant_dt=solver == "BroydenSolver")
+            sub, its, syncs, failed = solver_counts(tr)
+            assert failed == 0 and tr.rejected_steps == 0, (route, failed)
+            assert abs(m1 - m0) <= ITERATIVE_MASS_TOL[precision] * abs(m0), (route, m0, m1)
+            if route.startswith("PALLAS"):
+                launches[f"15 {solver} {route}{' batched' if extra else ''}"] = launched
+            if not extra:
+                ms, its1, syncs1 = iterative_step(tr, tr._last_dt)
+                busy = ""
+                if route.startswith("PALLAS") and solver == "SecantSolver":
+                    dev_ms, dev_its = substep_device_ms(tr, tr._last_dt)
+                    busy = (f"; profiled substep: device {dev_ms:.4f} ms, {dev_its:g} iterations, "
+                            f"busy {dev_ms / dev_its / (ms / its1):.1%} of the timed substep's "
+                            f"wall ms an iteration")
+                say(f"[15 {solver}] {route}: one more substep {ms:.4f} ms (CUDA events), "
+                    f"{its1} iterations, {syncs1} host syncs{busy}")
+                fields[route] = {k: tr.state["buffers"][k] for k in ("c", "n1", "n2", "n3", "n4")}
+            runs[bool(extra)] = tr.state
+            if solver == "BroydenSolver" and route.startswith("PALLAS") and not extra:
+                broyden_resume(route, dt, dev, tr.state)
+            del tr
+        if route.startswith("PALLAS"):
+            states_equal(runs[False], runs[True])
+            say(f"[15 {solver}] {route}: batched equal to unbatched bit for bit (buffers, "
+                f"history, solver entries)")
+    ref = fields["DEFAULT float64"]
+    for route in ("PALLAS float32", "DEFAULT float32"):
+        diffs = {k: rel_diff(v, ref[k]) for k, v in fields[route].items()}
+        say(f"[15 {solver}] {route} against DEFAULT float64, of its largest: "
+            + ", ".join(f"{k} {d:.3e}" for k, d in diffs.items()))
+        over = {k: d for k, d in diffs.items() if d > ITERATIVE_FIELD_TOL[solver][k]}
+        assert not over, (route, over, ITERATIVE_FIELD_TOL[solver])
+    # the too-large start dt: its first attempt fails, is re-attempted at a
+    # quarter, and dt does not grow on the step after
+    tr, _launched, _ = run_iterative(solver, "DEFAULT float64", big_dt, BIG_DT_STEPS[solver],
+                                     dev, label=f"{solver} DEFAULT float64, start dt {big_dt}")
+    dts = [b["time"] - a["time"] for a, b in zip(tr.csv.rows, tr.csv.rows[1:])]
+    say(f"[15 {solver}] start dt {big_dt}: rejected steps {tr.rejected_steps}, accepted dt "
+        f"{dts}")
+    assert tr.rejected_steps >= 1, tr.rejected_steps
+    # an accepted dt at most a quarter of the one before (the step's first
+    # try, or the start dt), and the next no larger
+    seq = [big_dt] + dts
+    cuts = [i for i in range(1, len(seq)) if seq[i] <= seq[i - 1] * 0.25 * (1 + 1e-12)]
+    assert cuts and all(seq[i + 1] <= seq[i] * (1 + 1e-12) for i in cuts
+                        if i + 1 < len(seq)), seq
+    assert abs(tr.time - sum(dts)) <= 1e-12 * tr.time
+    del tr
+    return launches
+
+
+def broyden_resume(route, dt, dev, whole):
+    """Broyden's M through a checkpoint: 1 step, its checkpoint, resumed
+    to step 2, equal to the whole run bit for bit."""
+    _n, steps, _substeps = ITERATIVE
+    deck = iterative_deck("BroydenSolver", route, dt, steps, constant_dt=True)
+    with tempfile.TemporaryDirectory() as out_dir:
+        out = resume_runs(deck, steps, 1, out_dir, dev, all_launches, reset_all)
+    resumed = out["resumed"][0].state
+    states_equal(out["full"][0].state, resumed)
+    states_equal(whole, resumed)
+    say(f"[15 BroydenSolver] {route}: checkpoint after step 1 resumed to step {steps} equals "
+        f"the whole run bit for bit, M {tuple(resumed['solver']['M'].shape)} included")
+
+
+def phase_coupled(dev, smi):
+    """(d) the coupled ABM on decks.COUPLED_DECK at 512²: PALLAS float32
+    and DEFAULT float64 at COUPLED_CASES; PALLAS within COUPLED_TOL of
+    DEFAULT, DEFAULT within COUPLED_EXACT_TOL of the exact solution.
+    Returns {run: launches} of the PALLAS runs."""
+    from marlin_tpu_torch import decks
+
+    n, steps, substeps, dt = COUPLED
+    S = steps * substeps
+    launches = {}
+    for order, cs in COUPLED_CASES:
+        out = {}
+        for route, domain in (("PALLAS float32", ITERATIVE_ROUTES["PALLAS float32"][1]),
+                              ("DEFAULT float64", "floating_precision = DOUBLE")):
+            deck = with_executioner(decks.COUPLED_DECK.format(
+                n=n, h=decks.half_cell(n), substeps=substeps, order=order,
+                corrector_steps=cs, domain_extra=domain, solver_extra=""), steps, dt)
+            tr, wall, launched = deck_run(deck, dev)
+            finite(tr.state["buffers"], route)
+            # each group evaluation transforms u, v, N_u, N_v forward; each
+            # solve transforms u and v back: one lanes and one sublanes
+            # launch each
+            want = {"fwd_lanes": 4 * S * (1 + cs), "fwd_sublanes": 4 * S * (1 + cs),
+                    "inv_lanes": 2 * S * (1 + cs), "inv_sublanes": 2 * S * (1 + cs)}
+            if route.startswith("PALLAS"):
+                got = {k: launched[k] for k in want}
+                assert got == want, (route, got, want)
+                launches[f"15 coupled order {order} cs {cs}"] = launched
+            else:
+                assert not any(launched.values()), launched
+            ms = step_ms(tr, substeps, dt)
+            say(f"[15d coupled] order {order}, corrector steps {cs}, {route} {n}^2, {steps} "
+                f"steps x {substeps} substeps: run_deck {wall:.2f} s, {ms:.4f} ms a substep, "
+                f"group evaluations a step {tr.problem.solver.group_evals_per_step()}")
+            out[route] = tr
+        b0 = out["DEFAULT float64"].problem.init_state()["buffers"]
+        exact = dict(zip("uv", decks.coupled_exact(b0["u"], b0["v"], steps * dt)))
+        for k in "uv":
+            d = rel_diff(out["PALLAS float32"].state["buffers"][k],
+                         out["DEFAULT float64"].state["buffers"][k])
+            e = rel_diff(out["DEFAULT float64"].state["buffers"][k], exact[k])
+            say(f"[15d coupled] order {order}, cs {cs}: {k} PALLAS against DEFAULT {d:.3e} "
+                f"(limit {COUPLED_TOL}); DEFAULT against exact {e:.3e} (limit "
+                f"{COUPLED_EXACT_TOL})")
+            assert d <= COUPLED_TOL and e <= COUPLED_EXACT_TOL, (order, cs, k, d, e)
+        del out
+    return launches
+
+
+def phase_explicit(dev, smi):
+    """(e) forward Euler on decks.EXPLICIT_DECK at 1024² (PALLAS and
+    DEFAULT float32, then the real-space form), and LinearTensorPredictor
+    on (b)'s deck.  Returns {run: launches} of the PALLAS runs."""
+    from marlin_tpu_torch import decks
+
+    n, steps, substeps, dt = EXPLICIT
+    S = steps * substeps
+    launches, u = {}, {}
+    for route, template, domain in (
+            ("PALLAS", decks.EXPLICIT_DECK, "fft_backend = PALLAS\n  floating_precision = SINGLE"),
+            ("DEFAULT", decks.EXPLICIT_DECK, "floating_precision = SINGLE"),
+            ("real space", decks.EXPLICIT_REAL_SPACE_DECK, "floating_precision = SINGLE")):
+        deck = with_executioner(template.format(n=n, substeps=substeps, domain_extra=domain),
+                                steps, dt)
+        tr, wall, launched = deck_run(deck, dev)
+        finite(tr.state["buffers"], route)
+        if route == "PALLAS":
+            want = {"fwd_lanes": S, "fwd_sublanes": S, "inv_lanes": S, "inv_sublanes": S}
+            got = {k: launched[k] for k in want}
+            assert got == want, (got, want)
+            launches["15 forward Euler"] = launched
+        else:
+            assert not any(launched.values()), launched
+        ms = step_ms(tr, substeps, dt)
+        u[route] = tr.state["buffers"]["u"]
+        say(f"[15e explicit] {route} {n}^2, {steps} steps x {substeps} substeps: run_deck "
+            f"{wall:.2f} s, {ms:.4f} ms a substep")
+        del tr
+    d = rel_diff(u["PALLAS"], u["DEFAULT"])
+    fd = rel_diff(u["real space"], u["DEFAULT"])
+    say(f"[15e explicit] forward Euler PALLAS against DEFAULT {d:.3e} (limit {EXPLICIT_TOL}); "
+        f"real space (finite differences) against spectral {fd:.3e}")
+    assert d <= EXPLICIT_TOL, d
+    # the predictor on (b)'s deck, float64: iterations a substep with and without
+    predictors = "  [Predictors]\n" + "".join(f"""    [{k}]
+      type = LinearTensorPredictor
+      buffer = {k}
+    []
+""" for k in ("c", "n1", "n2", "n3", "n4")) + "  []\n"
+    its = {}
+    for label, extra in (("without", ""), ("with", predictors)):
+        deck = iterative_deck("SecantSolver", "DEFAULT float64",
+                              decks.OSTWALD_2A_DT["SecantSolver"][0], 2).replace(
+            "  absolute_tolerance = 1e-9\n", "  absolute_tolerance = 1e-9\n" + extra)
+        tr, _wall, _l = deck_run(deck, dev)
+        sub, n_its, _s, failed = solver_counts(tr)
+        its[label] = n_its / sub
+        say(f"[15e predictor] secant 2a DEFAULT float64, 2 steps, {label} "
+            f"LinearTensorPredictors on its five fields: iterations a substep {its[label]:.2f}, not "
+            f"converged {failed}")
+        del tr
+    return launches
+
+
+def phase_solvers(dev, smi):
+    """Phase 15: (a)-(e).  Returns {path: launches} of its PALLAS runs, by
+    the kernels' path: "main" (the register path: 512³, 512², 1024²) and
+    "small" (200²)."""
+    t0 = time.perf_counter()
+    main_paths = phase_etdrk4(dev, smi)
+    say(f"[15] (a) done at {time.perf_counter() - t0:.1f} s")
+    small = {}
+    for solver in ("SecantSolver", "BroydenSolver"):
+        small.update(phase_iterative(solver, dev, smi))
+        say(f"[15] {solver} done at {time.perf_counter() - t0:.1f} s")
+    main_paths.update(phase_coupled(dev, smi))
+    say(f"[15] (d) done at {time.perf_counter() - t0:.1f} s")
+    main_paths.update(phase_explicit(dev, smi))
+    say(f"[15] {time.perf_counter() - t0:.1f} s; {smi}")
+    return {"main": main_paths, "small": small}
+
 def main():
     if not torch.cuda.is_available():
         say("chip_smoke: torch.cuda.is_available() is False; needs a CUDA card")
@@ -2270,6 +2700,10 @@ def main():
     launches_14 = phase_rest(dev, smi)
     lap("14 (two-phase, pressure, specular LBM; spectral family; batch_fft; legacy 1a)",
         t_start)
+
+    # -- 15: the rest of the solver family and the iteration-driven timestepper ----------
+    launches_15 = phase_solvers(dev, smi)
+    lap("15 (ETDRK4, secant, Broyden, coupled ABM, forward Euler, predictor)", t_start)
     say(f"[done] {time.perf_counter() - t_start:.1f} s")
 
     # -- result -----------------------------------------------------------------
@@ -2290,13 +2724,15 @@ def main():
          karman_launches),
     ]
     # the small-extent kernels, timed at benchmark 1a's 200²: their launches
-    # are those of the 1a runs (every transform there is at n = 200)
+    # are those of the 1a runs and of the 2a stand-ins' (every transform
+    # there is at n = 200)
     paths_1a = {f"1a {run}": counts for run, counts in launches_1a.items()
                 if run.startswith("PALLAS")}
     paths_1a.update({k: v for k, v in launches_13.items() if " 1a " in k})
     paths_1a.update(launches_14["small"])
+    paths_1a.update(launches_15["small"])
     paths_karman = {k: v for k, v in launches_13.items() if " karman " in k}
-    paths_14 = launches_14["main"]
+    paths_14 = {**launches_14["main"], **launches_15["main"]}
     table_small = [
         ("fwd_lanes", "small_lanes_kernel<Identity, Store>", "marlin_tpu/pallas_fft.py:237"),
         ("inv_lanes", "small_lanes_kernel<Identity, InvStore>", "marlin_tpu/pallas_fft.py:276"),

@@ -27,7 +27,7 @@ from typing import Dict, Tuple
 
 import numpy as np
 
-from .state import from_numpy
+from .state import as_numpy, from_numpy
 
 
 def _flatten(tree: Dict, prefix="") -> Dict[str, np.ndarray]:
@@ -42,7 +42,7 @@ def _flatten(tree: Dict, prefix="") -> Dict[str, np.ndarray]:
             else:
                 out.update(_flatten(v, key + "/"))
         else:
-            out[key] = v.detach().cpu().numpy()
+            out[key] = as_numpy(v)
     return out
 
 

@@ -126,9 +126,51 @@ of their patterns are not in the repository.
   ``[Problem] spectral_solve_substeps``; ``solver_extra`` goes to
   ``[Problem]`` (carry_reciprocal and fused_spectral are taken from
   there).
+
+The solver family's decks, the port's own as well: the reference decks
+they stand in for are not in the repository, and replace them once they
+are.
+
+- ``CH3D_ETDRK4_DECK``: ``CH3D_DECK``'s Cahn-Hilliard under ETDRK4Solver
+  (L̄ = −Mκk⁴, N̄ = M̄·µ̄ with M̄ = −Mk²), for the reference's
+  test/tests/solvers/etdrk4_diffusion.i; ``n``, ``substeps``,
+  ``solver_extra`` (``cox_matthews = true``).  The reference's phi tables
+  divide by (L·dt)³ and turn non-finite from 32³ on here; the Cox-Matthews
+  tables do not.
+- ``ETDRK4_ORDER_DECK``: tests/test_etdrk4_cox_matthews.py's 1-D deck
+  (``substeps``, ``cm``), for the fourth-order check on the card.
+- ``OSTWALD_2A_SECANT_DECK``, ``OSTWALD_2A_BROYDEN_DECK``:
+  ``OSTWALD_2A_DECK`` under SecantSolver and BroydenSolver, for the
+  reference's benchmarks/02_oswald_ripening/2a_secant.i and 2a_broyden.i:
+  ``max_iterations`` (30, 60), ``relative_tolerance`` (a field: 1e-9 and
+  1e-4 in float64, 1e-2 in float32, ``OSTWALD_2A_TOL``), a
+  TensorSolveIterationAdaptiveDT around ``optimal_iterations`` (10 ± 8,
+  30 ± 20), postprocessors c_total, iterations
+  (``TensorSolverIterations``) and group_evals; ``n``, ``substeps``,
+  ``dt``, ``num_steps``, ``domain_extra``, ``problem_extra``,
+  ``solver_extra``, ``relative_tolerance``.  ``OSTWALD_2A_DT`` holds each
+  one's start dt, where every substep converges at 5 substeps a step, and
+  a larger one whose first attempts fail (at 64² and above).  Broyden's
+  initial inverse Jacobian is −I (``initial_jacobian_guess = -1``).
+- ``COUPLED_DECK``: two fields u and v with diffusion (−0.1k², −0.2k²), an
+  explicit decay −0.3 in N̄ and a constant off-diagonal coupling 0.5
+  (``linear_offdiag``, row 0, column 1) under
+  AdamsBashforthMoultonCoupled, for the reference's
+  test/tests/solvers/coupled.i: each mode evolves as exp(E·t)
+  (``COUPLED_RATES``; the reference's stacking reads the coupling
+  transposed), and the fields are even about the half cell (``h =
+  half_cell(n)``), so their spectra are real and the solve's real cast
+  drops nothing; ``n``, ``h``, ``substeps``, ``order``,
+  ``corrector_steps``, ``domain_extra``, ``solver_extra``
+  (``assume_symmetric = true``).
+- ``EXPLICIT_DECK``: spectral diffusion ū' = −0.05k²ū under
+  ForwardEulerSolver; ``EXPLICIT_REAL_SPACE_DECK`` the same under
+  RealSpaceForwardEuler with a FiniteDifferenceLaplacian; ``n``,
+  ``substeps``, ``domain_extra``.
 """
 
 import numpy as np
+import torch
 
 CH3D_DECK = """
 [Domain]
@@ -3052,3 +3094,359 @@ BENCH_1A_LEGACY_DECK = BENCH_1A_DECK.replace("""[TensorSolver]
   {solver_extra}
 []""")
 assert BENCH_1A_LEGACY_DECK != BENCH_1A_DECK
+
+CH3D_ETDRK4_DECK = CH3D_DECK.replace("""  type = AdamsBashforthMoulton
+  buffer = c""", """  type = ETDRK4Solver
+  buffer = c""").replace("""  substeps = {substeps}
+[]""", """  substeps = {substeps}
+  {solver_extra}
+[]""")
+assert CH3D_ETDRK4_DECK.count("ETDRK4Solver") == 1 and "{solver_extra}" in CH3D_ETDRK4_DECK
+
+_OSTWALD_2A_ABM = """[TensorSolver]
+  type = AdamsBashforthMoulton
+  buffer = 'c n1 n2 n3 n4'
+  reciprocal_buffer = 'c_bar n1_bar n2_bar n3_bar n4_bar'
+  linear_reciprocal = 'c_linear eta_linear eta_linear eta_linear eta_linear'
+  nonlinear_reciprocal = 'M_mu_c_bar mu_n1_bar mu_n2_bar mu_n3_bar mu_n4_bar'
+  substeps = {substeps}
+  predictor_order = 2
+[]"""
+
+_OSTWALD_2A_ITERATIVE = """[TensorSolver]
+  type = <solver>
+  buffer = 'c n1 n2 n3 n4'
+  reciprocal_buffer = 'c_bar n1_bar n2_bar n3_bar n4_bar'
+  linear_reciprocal = 'c_linear eta_linear eta_linear eta_linear eta_linear'
+  nonlinear_reciprocal = 'M_mu_c_bar mu_n1_bar mu_n2_bar mu_n3_bar mu_n4_bar'
+  substeps = {substeps}
+  max_iterations = <max_iterations>
+  relative_tolerance = {relative_tolerance}
+  absolute_tolerance = 1e-9
+  <iteration_extra>
+  {solver_extra}
+[]
+[Postprocessors]
+  [c_total]
+    type = TensorIntegralPostprocessor
+    buffer = c
+    execute_on = 'INITIAL TIMESTEP_END'
+  []
+  [iterations]
+    type = TensorSolverIterations
+  []
+  [group_evals]
+    type = ComputeGroupExecutionCount
+  []
+[]
+[Executioner]
+  type = Transient
+  num_steps = {num_steps}
+  [TimeStepper]
+    type = TensorSolveIterationAdaptiveDT
+    dt = {dt}
+    optimal_iterations = <optimal_iterations>
+    iteration_window = <iteration_window>
+    growth_factor = 1.5
+    cutback_factor = 0.5
+    cutback_factor_at_failure = 0.25
+  []
+[]"""
+
+
+def _ostwald_2a_iterative(**fields) -> str:
+    """``OSTWALD_2A_DECK`` with its ABM block replaced by an iterative
+    solver, its postprocessors and an iteration-adaptive Transient; the
+    <field> tokens of the template filled from ``fields``."""
+    block = _OSTWALD_2A_ITERATIVE
+    for key, value in fields.items():
+        block = block.replace(f"<{key}>", str(value))
+    assert "<" not in block and _OSTWALD_2A_ABM in OSTWALD_2A_DECK
+    return OSTWALD_2A_DECK.replace(_OSTWALD_2A_ABM, block)
+
+
+OSTWALD_2A_SECANT_DECK = _ostwald_2a_iterative(
+    solver="SecantSolver", max_iterations=30, iteration_extra="",
+    optimal_iterations=10, iteration_window=8)
+
+OSTWALD_2A_BROYDEN_DECK = _ostwald_2a_iterative(
+    solver="BroydenSolver", max_iterations=60,
+    iteration_extra="initial_jacobian_guess = -1",
+    optimal_iterations=30, iteration_window=20)
+
+#: the start dt of each iterative 2a deck at which every substep converges
+#: (five substeps a step), and one too large, whose first attempt fails
+OSTWALD_2A_DT = {"SecantSolver": (0.01, 0.1), "BroydenSolver": (2e-4, 1e-2)}
+
+#: relative tolerances of the iterative 2a decks: the reference's 1e-9 in
+#: float64; in float32 the residual stalls at the FFT round trip's rounding
+#: of c's mean (|R| ~ 1e-2 at 200², up to 3e-3 of |R0|), so 1e-2 there.
+#: Broyden's per-point rank-one update wanders near 1e-5 of |R0| on this
+#: five-field deck, so its float64 tolerance is 1e-4.
+OSTWALD_2A_TOL = {("SecantSolver", "DOUBLE"): "1e-9", ("SecantSolver", "SINGLE"): "1e-2",
+                  ("BroydenSolver", "DOUBLE"): "1e-4", ("BroydenSolver", "SINGLE"): "1e-2"}
+
+
+def half_cell(n: int) -> str:
+    """π/n, the half cell of a 2π box of n cells: a field even about it has
+    a real spectrum on the cell-centred grid."""
+    return repr(np.pi / n)
+
+
+COUPLED_DECK = """
+[Domain]
+  dim = 2
+  nx = {n}
+  ny = {n}
+  xmax = 6.283185307179586
+  ymax = 6.283185307179586
+  {domain_extra}
+[]
+[TensorComputes]
+  [Initialize]
+    [u]
+      type = ParsedCompute
+      buffer = u
+      extra_symbols = true
+      expression = 'cos(x - {h}) + 0.5*cos(2*(y - {h}))'
+    []
+    [v]
+      type = ParsedCompute
+      buffer = v
+      extra_symbols = true
+      expression = '0.8*cos(2*(x - {h}))*cos(y - {h})'
+    []
+    [Lu]
+      type = ReciprocalLaplacianFactor
+      factor = 0.1
+      buffer = Lu
+    []
+    [Lv]
+      type = ReciprocalLaplacianFactor
+      factor = 0.2
+      buffer = Lv
+    []
+    [Luv]
+      type = ConstantReciprocalTensor
+      real = 0.5
+      buffer = Luv
+    []
+  []
+  [Solve]
+    [Nu]
+      type = ParsedCompute
+      buffer = Nu
+      expression = '-0.3*u'
+      inputs = u
+    []
+    [Nv]
+      type = ParsedCompute
+      buffer = Nv
+      expression = '-0.3*v'
+      inputs = v
+    []
+    [Nubar]
+      type = ForwardFFT
+      buffer = Nubar
+      input = Nu
+    []
+    [Nvbar]
+      type = ForwardFFT
+      buffer = Nvbar
+      input = Nv
+    []
+    [ubar]
+      type = ForwardFFT
+      buffer = ubar
+      input = u
+    []
+    [vbar]
+      type = ForwardFFT
+      buffer = vbar
+      input = v
+    []
+  []
+[]
+[TensorSolver]
+  type = AdamsBashforthMoultonCoupled
+  buffer = 'u v'
+  reciprocal_buffer = 'ubar vbar'
+  linear_reciprocal = 'Lu Lv'
+  nonlinear_reciprocal = 'Nubar Nvbar'
+  linear_offdiag = Luv
+  linear_offdiag_rows = 0
+  linear_offdiag_cols = 1
+  substeps = {substeps}
+  predictor_order = {order}
+  corrector_order = {order}
+  corrector_steps = {corrector_steps}
+  {solver_extra}
+[]
+[Problem]
+  type = TensorProblem
+[]
+"""
+
+#: the coupled deck's operator: ū' = E ū per mode, E[r][s] = Lmap(s, r) − 0.3
+#: δ_rs with Lmap(0, 0) = −0.1k², Lmap(1, 1) = −0.2k², Lmap(0, 1) = 0.5 (and
+#: Lmap(1, 0) = 0.5 under assume_symmetric): the reference's stacking reads
+#: the coupling transposed
+COUPLED_RATES = {"diffusivity": (0.1, 0.2), "coupling": 0.5, "explicit": -0.3}
+
+
+def coupled_exact(u0, v0, t, symmetric=False):
+    """``COUPLED_DECK``'s exact (u, v) at ``t`` from (u0, v0) on its 2π box:
+    each mode of the float64 fields times exp(E·t) (``COUPLED_RATES``)."""
+    n = u0.shape
+    k2 = sum(torch.as_tensor(f * f, dtype=torch.float64, device=u0.device)
+             for f in torch.meshgrid(torch.fft.fftfreq(n[0], 1.0 / n[0], dtype=torch.float64),
+                                     torch.fft.rfftfreq(n[1], 1.0 / n[1], dtype=torch.float64),
+                                     indexing="ij"))
+    E = torch.zeros(k2.shape + (2, 2), dtype=torch.float64, device=u0.device)
+    E[..., 0, 0] = -COUPLED_RATES["diffusivity"][0] * k2 + COUPLED_RATES["explicit"]
+    E[..., 1, 1] = -COUPLED_RATES["diffusivity"][1] * k2 + COUPLED_RATES["explicit"]
+    E[..., 1, 0] = COUPLED_RATES["coupling"]
+    if symmetric:
+        E[..., 0, 1] = COUPLED_RATES["coupling"]
+    x = torch.stack([torch.fft.rfftn(u0.double()), torch.fft.rfftn(v0.double())], -1)
+    y = (torch.linalg.matrix_exp(E * t).to(x.dtype) @ x.unsqueeze(-1))[..., 0]
+    return tuple(torch.fft.irfftn(y[..., i], s=n) for i in range(2))
+
+EXPLICIT_DECK = """
+[Domain]
+  dim = 2
+  nx = {n}
+  ny = {n}
+  xmax = 6.283185307179586
+  ymax = 6.283185307179586
+  {domain_extra}
+[]
+[TensorComputes]
+  [Initialize]
+    [u]
+      type = ParsedCompute
+      buffer = u
+      extra_symbols = true
+      expression = 'cos(x) + 0.5*sin(3*y) + 0.2*cos(5*x + 2*y)'
+    []
+    [Lbar]
+      type = ReciprocalLaplacianFactor
+      factor = 0.05
+      buffer = Lbar
+    []
+  []
+  [Solve]
+    [ubar]
+      type = ForwardFFT
+      buffer = ubar
+      input = u
+    []
+    [dubar]
+      type = ParsedCompute
+      buffer = dubar
+      expression = 'Lbar*ubar'
+      inputs = 'Lbar ubar'
+    []
+  []
+[]
+[TensorSolver]
+  type = ForwardEulerSolver
+  buffer = u
+  reciprocal_buffer = ubar
+  time_derivative_reciprocal = dubar
+  substeps = {substeps}
+[]
+[Problem]
+  type = TensorProblem
+[]
+"""
+
+EXPLICIT_REAL_SPACE_DECK = EXPLICIT_DECK.replace("""  [Solve]
+    [ubar]
+      type = ForwardFFT
+      buffer = ubar
+      input = u
+    []
+    [dubar]
+      type = ParsedCompute
+      buffer = dubar
+      expression = 'Lbar*ubar'
+      inputs = 'Lbar ubar'
+    []
+  []""", """  [Solve]
+    [du]
+      type = FiniteDifferenceLaplacian
+      buffer = du
+      input = u
+      factor = 0.05
+    []
+  []""").replace("""  type = ForwardEulerSolver
+  buffer = u
+  reciprocal_buffer = ubar
+  time_derivative_reciprocal = dubar""", """  type = RealSpaceForwardEuler
+  buffer = u
+  time_derivative = du""")
+assert "RealSpaceForwardEuler" in EXPLICIT_REAL_SPACE_DECK and "dubar" not in EXPLICIT_REAL_SPACE_DECK
+
+#: tests/test_etdrk4_cox_matthews.py's DECK: 1-D Allen-Cahn-type u − u³ under
+#: ETDRK4Solver, formatted with ``substeps`` and ``cm`` (cox_matthews)
+ETDRK4_ORDER_DECK = """
+[Domain]
+  dim = 1
+  nx = 64
+  xmax = 6.283185307179586
+  floating_precision = DOUBLE
+[]
+[TensorBuffers]
+  [u][]
+  [ubar][]
+  [Lbar][]
+  [Nbar][]
+  [mu][]
+[]
+[TensorComputes]
+  [Initialize]
+    [u]
+      type = ParsedCompute
+      buffer = u
+      extra_symbols = true
+      expression = '0.1*sin(x) + 0.05*cos(2*x)'
+    []
+    [Lbar]
+      type = ReciprocalLaplacianFactor
+      factor = 1
+      buffer = Lbar
+    []
+  []
+  [Solve]
+    [mu]
+      type = ParsedCompute
+      buffer = mu
+      expression = 'u - u^3'
+      inputs = u
+    []
+    [Nbar]
+      type = ForwardFFT
+      buffer = Nbar
+      input = mu
+    []
+    [ubar]
+      type = ForwardFFT
+      buffer = ubar
+      input = u
+    []
+  []
+[]
+[TensorSolver]
+  type = ETDRK4Solver
+  buffer = u
+  reciprocal_buffer = ubar
+  linear_reciprocal = Lbar
+  nonlinear_reciprocal = Nbar
+  substeps = {substeps}
+  cox_matthews = {cm}
+[]
+[Problem]
+  type = TensorProblem
+[]
+"""

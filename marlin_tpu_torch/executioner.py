@@ -31,36 +31,72 @@ class TimeStepper:
     def __init__(self, params: Params):
         self.dt0 = params.get_float("dt", 1.0)
 
-    def dt(self, step: int, dt_old: float) -> float:
+    def dt(self, step: int, dt_old: float, solver_info: Optional[dict]) -> float:
         return self.dt0
 
 
 class IterationAdaptiveDT(TimeStepper):
     """MOOSE IterationAdaptiveDT / the reference's
     TensorSolveIterationAdaptiveDT (src/timesteppers/
-    TensorSolveIterationAdaptiveDT.C:12-160), for solvers that report no
-    iteration count (the ported ones): grow dt by growth_factor from step 2
-    on, re-attempt a failed step at dt × cutback_factor_at_failure without
-    growth on the next step, and cap dt by the smallest
-    `timestep_limiting_postprocessor` value from step 2 on."""
+    TensorSolveIterationAdaptiveDT.C:12-160; marlin_tpu/executioner.py:31-98):
+
+    - with iteration bounds (``optimal_iterations`` ± ``iteration_window``,
+      or ``min_iterations``/``max_iterations``) and an iterative solver:
+      cut dt by cutback_factor when the last substep took more than
+      max_iterations, grow it by growth_factor only below min_iterations,
+      hold it otherwise; without either, grow from step 2 on;
+    - a FAILED (non-converged) solve re-attempts the same step at dt ×
+      cutback_factor_at_failure (computeFailedDT :111-129), and dt does not
+      grow on the first step after a cutback (computeDT :76-94);
+    - dt is capped by the smallest `timestep_limiting_postprocessor` value
+      from step 2 on (limitDTToPostprocessorValue :131-159)."""
 
     def __init__(self, params: Params):
         super().__init__(params)
         self.growth_factor = params.get_float("growth_factor", 2.0)
+        self.cutback_factor = params.get_float("cutback_factor", 0.5)
         self.cutback_factor_at_failure = params.get_float(
             "cutback_factor_at_failure", 0.5
         )
+        self.optimal_iterations = params.get_int("optimal_iterations", None)
+        self.iteration_window = params.get_int(
+            "iteration_window",
+            int(self.optimal_iterations / 5) if self.optimal_iterations else 0,
+        )
+        self.min_iterations = params.get_int("min_iterations", None)
+        self.max_iterations = params.get_int("max_iterations", None)
+        if self.optimal_iterations is not None:
+            if self.min_iterations is None:
+                self.min_iterations = self.optimal_iterations - self.iteration_window
+            if self.max_iterations is None:
+                self.max_iterations = self.optimal_iterations + self.iteration_window
         self.limiting_pps = params.get_str_vector(
             "timestep_limiting_postprocessor", []
         )
         self.cutback_occurred = False
 
-    def dt(self, step, dt_old):
+    def dt(self, step, dt_old, solver_info):
         if step <= 1:
             return self.dt0
         allow_growth = not self.cutback_occurred
         self.cutback_occurred = False
-        return dt_old * self.growth_factor if allow_growth else dt_old
+        dt = dt_old
+        iteration_based = (
+            self.min_iterations is not None or self.max_iterations is not None
+        )
+        if solver_info is not None and iteration_based:
+            its = solver_info.get("iterations", 0)
+            if self.max_iterations is not None and its > self.max_iterations:
+                dt = dt_old * self.cutback_factor
+            elif (
+                allow_growth
+                and self.min_iterations is not None
+                and its < self.min_iterations
+            ):
+                dt = dt_old * self.growth_factor
+        elif allow_growth:
+            dt = dt_old * self.growth_factor
+        return dt
 
     def failed_dt(self, dt):
         self.cutback_occurred = True
@@ -221,6 +257,8 @@ class Transient:
         self.state = None
         self.time = self.start_time
         self.step_count = 0
+        # attempts re-run at a cut dt: non-converged solves, SOFT terminators
+        self.rejected_steps = 0
         self.pp_values: Dict[str, float] = {}
         # an LBM problem's convergence residual, fetched with each step's
         # postprocessor values (None: not fetched yet)
@@ -311,6 +349,7 @@ class Transient:
             self.init()
         dt_old = self._last_dt  # nonzero when resuming from a checkpoint
         dt = self._last_dt or self.stepper.dt0
+        solver_info = None
         while self.step_count < self.num_steps and self.time < self.end_time - 1e-13:
             # LBM convergence early-out (reference LatticeBoltzmannProblem::
             # execute :74 — once the residual drops below tolerance, all
@@ -322,15 +361,18 @@ class Transient:
                 if res < self.problem.lbm_tolerance:
                     break
             self.step_count += 1
-            dt = self.stepper.dt(self.step_count, dt)
+            dt = self.stepper.dt(self.step_count, dt, solver_info)
             if hasattr(self.stepper, "limit_to_pps"):
                 dt = self.stepper.limit_to_pps(dt, self.step_count, self.pp_values)
             dt = min(dt, self.dtmax, self.end_time - self.time)
             dt = max(dt, self.dtmin)
 
-            # attempt the step; a SOFT terminator fails the CURRENT step and
-            # it is re-attempted at cut dt (MOOSE Transient semantics).  The
-            # pre-step state is never written in place, so rejection is free.
+            # attempt the step; a solve that did not converge, or a SOFT
+            # terminator, fails the CURRENT step and it is re-attempted at
+            # cut dt (MOOSE Transient semantics; the reference's
+            # computeFailedDT, TensorSolveIterationAdaptiveDT.C:111-129).
+            # The pre-step state is never written in place, so rejection
+            # costs no copy.
             prev_state = self.state
             while True:
                 section = (
@@ -344,23 +386,31 @@ class Transient:
                         prev_state, self.time, dt, dt_old,
                         first_step=(self.step_count == 1),
                     )
+                solver_info = self._solver_info()
                 soft_fired = any(
                     t.check({**self.pp_values, **values})
                     for t in self.terminators if t.fail_mode == "SOFT"
                 )
-                if not soft_fired:
+                solve_ok = solver_info is None or solver_info["converged"]
+                if solve_ok and not soft_fired:
                     break
                 if not hasattr(self.stepper, "failed_dt"):
-                    raise RuntimeError(
-                        "Terminator fired with fail_mode = SOFT but the "
-                        "TimeStepper cannot cut back the timestep (no "
-                        "IterationAdaptiveDT); cannot continue!"
-                    )
+                    if soft_fired:
+                        raise RuntimeError(
+                            "Terminator fired with fail_mode = SOFT but the "
+                            "TimeStepper cannot cut back the timestep (no "
+                            "IterationAdaptiveDT); cannot continue!"
+                        )
+                    # a solve that did not converge under a constant dt:
+                    # the solver rolled back to the old solution, and the
+                    # run continues (SecantSolver.C:185-193)
+                    break
                 if dt <= self.dtmin:
                     raise RuntimeError(
                         "Solve failed and timestep already at dtmin, "
                         "cannot continue!"
                     )
+                self.rejected_steps += 1
                 dt = max(self.stepper.failed_dt(dt), self.dtmin)
             self._last_dt = dt
             self.time += dt
@@ -399,6 +449,15 @@ class Transient:
         if self.perf.enabled:
             print(self.perf.report())
         return self.pp_values
+
+    def _solver_info(self):
+        """The last substep's iterations and convergence of an iterative
+        solver, or None (marlin_tpu/executioner.py:500-507); host values."""
+        sstate = self.state["solver"]
+        if "iterations" not in sstate:
+            return None
+        return {"iterations": int(sstate["iterations"]),
+                "converged": bool(sstate["converged"])}
 
 
 def run_deck(

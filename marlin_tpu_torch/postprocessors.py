@@ -237,8 +237,9 @@ class ParsedPostprocessor(Postprocessor):
 class ComputeGroupExecutionCount(Postprocessor):
     """Execution count of the solver's compute group (reference
     ComputeGroupExecutionCount.C): the static count the problem keeps,
-    ``group_evals_per_step`` a step; ``device_group_evals`` stays 0 until
-    an iterative solver accumulates data-dependent evaluations."""
+    ``group_evals_per_step`` a step, plus ``device_group_evals``, the
+    evaluations an iterative solver's iterations made (its state's
+    ``group_evals``, as of the last step)."""
 
     depends_on_pps = True
 
@@ -247,8 +248,16 @@ class ComputeGroupExecutionCount(Postprocessor):
         self.compute_group = params.get_str("compute_group", None)
 
     def compute_host(self, pp_values, t):
-        return float(self.problem.compute_count) + float(
-            getattr(self.problem, "device_group_evals", 0) or 0)
+        return float(self.problem.compute_count + self.problem.device_group_evals)
+
+
+@postprocessors.register("IterationPostprocessor", "TensorSolverIterations")
+class TensorSolverIterations(Postprocessor):
+    """Iteration count of the iterative tensor solver's last substep, 0
+    for other solvers (marlin_tpu/postprocessors.py:188)."""
+
+    def compute(self, state, ctx):
+        return state["solver"].get("iterations", 0)
 
 
 @postprocessors.register("ComputeReynoldsNumber")

@@ -48,6 +48,7 @@ from .params import Params
 from .postprocessors import Postprocessor, VectorPostprocessor
 from .registry import computes as compute_registry
 from .registry import postprocessors as pp_registry
+from .registry import predictors as predictor_registry
 from .registry import solvers as solver_registry
 from .registry import stencils as stencil_registry
 from .solvers.base import advance_state
@@ -205,8 +206,11 @@ class TensorProblem:
         # cross-postprocessor checks once all are built (forward references)
         for pp in self.postprocessors:
             pp.check(self)
-        # compute-group evaluations so far (ComputeGroupExecutionCount)
+        # compute-group evaluations so far (ComputeGroupExecutionCount): the
+        # static count, group_evals_per_step a step, and an iterative
+        # solver's iteration evaluations as of the last step
         self.compute_count = 0
+        self.device_group_evals = 0
         # the [Postprocess] group's outputs of the last postprocessor
         # evaluation: (state buffers, t, outputs), reused by
         # run_postprocess_computes for the same buffers at the same time
@@ -304,11 +308,17 @@ class TensorProblem:
             params = Params(ts, self.global_params)
             cls = solver_registry.get(params.get_str("type", required=True))
             self.solver = cls(ts.name, params, self)
-            if "Predictors" in ts.children:
-                raise ProblemError(
-                    "[TensorSolver/Predictors] is not ported to "
-                    "marlin_tpu_torch yet")
             root_name = params.get_str("root_compute")
+            # [TensorSolver/Predictors]: built for every solver, applied by
+            # those that hold a `predictors` list (SecantSolver's alone
+            # applies them)
+            preds = ts.children.get("Predictors")
+            if preds is not None:
+                for b in preds.blocks():
+                    p = Params(b, self.global_params)
+                    pred = predictor_registry.create(
+                        p.get_str("type", required=True), b.name, p, self)
+                    getattr(self.solver, "predictors", []).append(pred)
         elif tti is not None:
             self.solver = self._legacy_integrators(tti)
             root_name = None
@@ -523,9 +533,9 @@ class TensorProblem:
             )
 
     def history_requests(self) -> Dict[str, int]:
-        """The solver's, every postprocessor's and every compute's requests,
-        deepest wins (marlin_tpu/problem.py:history_requests; the
-        predictors' wait for their port)."""
+        """The solver's, its predictors', every postprocessor's and every
+        compute's requests, deepest wins
+        (marlin_tpu/problem.py:history_requests)."""
         req: Dict[str, int] = {}
 
         def merge(d):
@@ -534,6 +544,8 @@ class TensorProblem:
 
         if self.solver is not None:
             merge(self.solver.history_requests())
+            for p in getattr(self.solver, "predictors", []):
+                merge(p.history_requests())
         for pp in self.postprocessors:
             merge(pp.history_requests())
 
@@ -613,7 +625,7 @@ class TensorProblem:
             cur = buffers[name]
             old[name] = self._zeros((n_states,) + tuple(cur.shape), cur.dtype)
             old_max = max(old_max, n_states)
-        solver_state = {}
+        solver_state = {} if self.solver is None else self.solver.init_solver_state()
         if self.is_lbm:
             # convergence residual starts at 1 (reference
             # LatticeBoltzmannProblem _convergence_residual initial value)
@@ -804,6 +816,9 @@ class TensorProblem:
         state = self.step(state, t, dt, dt_old, first_step)
         if self.solver is not None:
             self.compute_count += self.solver.group_evals_per_step()
+        # an iterative solver's iteration evaluations, a host count in its
+        # state (marlin_tpu/problem.py:_fetch_group_evals fetches it)
+        self.device_group_evals = int(state["solver"].get("group_evals", 0))
         active = [pp for pp in self.postprocessors
                   if "TIMESTEP_END" in pp.execute_on]
         extra = None

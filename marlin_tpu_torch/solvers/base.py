@@ -10,11 +10,14 @@ State layout (the JAX package's keys, managed here and by TensorProblem):
       "old":        {name: Tensor[S, ...]},  # stacked old states
       "n_advances": int,                     # effective advanceState calls
       "old_dt":     tuple of floats,         # old MOOSE-dt ring
-      "solver":     {},                      # solver internals
+      "solver":     {...},                   # solver internals
     }
 
 ``n_advances`` and ``old_dt`` are host values: the eager loop branches on
-them, and keeping them off the device costs no synchronisation.
+them, and keeping them off the device costs no synchronisation.  So are an
+iterative solver's ``iterations``, ``converged`` and ``group_evals``
+(``IterativeCounts``): its host loop fetches what it decides on once an
+iteration, and knows them.
 ``advance_state`` mirrors reference TensorBuffer::advanceState
 (include/tensor_buffers/TensorBuffer.h:63-80).  Tensors in the state are
 never written in place, so a depth-1 ring holds the current tensor itself.
@@ -59,6 +62,29 @@ class SplitVariable:
     nonlinear_reciprocal: str
 
 
+@dataclass
+class ExplicitVariable:
+    """Variable binding for explicit solvers (reference: ExplicitSolverBase)."""
+
+    buffer: str
+    reciprocal_buffer: str
+    time_derivative_reciprocal: str
+
+
+@dataclass
+class IterativeCounts:
+    """What an iterative solver's host loop saw since the solver was built:
+    substeps, iterations, device-to-host fetches (one an iteration, and
+    Broyden's one before its first), substeps that did not converge.  Read
+    by chip_smoke.py; the state keeps the JAX package's per-substep
+    entries."""
+
+    substeps: int = 0
+    iterations: int = 0
+    syncs: int = 0
+    failed: int = 0
+
+
 class TensorSolver:
     """Base solver: substep loop + buffer forwarding (reference
     TensorSolver.C:104-107: the state advances between substeps)."""
@@ -87,6 +113,11 @@ class TensorSolver:
 
     def history_requests(self) -> Dict[str, int]:
         """buffer name -> number of old states requested."""
+        return {}
+
+    def init_solver_state(self) -> Dict:
+        """The solver's entries of ``state["solver"]``, built once by
+        ``TensorProblem.init_state`` (marlin_tpu/problem.py:845-846)."""
         return {}
 
     def extra_input_buffers(self) -> List[str]:
@@ -150,6 +181,17 @@ class TensorSolver:
         if not getattr(self.problem, "batch_fft", False) or len(pairs) < 2:
             return {k: dom.ifft(u) for k, u in pairs}
         return batched_transform(dom.ifft, pairs)
+
+    def _ifft_stacked(self, names, stacked):
+        """{name: ifft(stacked[..., i])} for a value-stacked spectrum
+        (variable order on the trailing axis).  Under batch_fft the stack
+        transforms whole, one launch of each inverse kernel an axis under
+        PALLAS (marlin_tpu/solvers/base.py:186-195)."""
+        dom = self.domain
+        if getattr(self.problem, "batch_fft", False) and len(names) >= 2:
+            res = dom.ifft(stacked)
+            return {k: res[..., i] for i, k in enumerate(names)}
+        return {k: dom.ifft(stacked[..., i]) for i, k in enumerate(names)}
 
     # -- history helpers ---------------------------------------------------
     def n_old(self, state: Dict, buffer: str) -> int:
@@ -274,3 +316,62 @@ class SplitOperatorBase(TensorSolver):
 
     def output_buffers(self):
         return super().output_buffers() + [v.buffer for v in self.variables]
+
+
+class ExplicitSolverBase(TensorSolver):
+    """Binds variables {u, ū, dū/dt} (reference ExplicitSolverBase.C:14-30)."""
+
+    def __init__(self, name, params: Params, problem):
+        super().__init__(name, params, problem)
+        buffers = params.get_str_vector("buffer")
+        rbufs = params.get_str_vector("reciprocal_buffer")
+        tds = params.get_str_vector("time_derivative_reciprocal")
+        n = len(buffers)
+        if len(rbufs) != n or len(tds) != n:
+            params.error(
+                "buffer",
+                "Must have the same number of entries as 'reciprocal_buffer' "
+                "and 'time_derivative_reciprocal'.",
+            )
+        self.variables = [
+            ExplicitVariable(buffers[i], rbufs[i], tds[i]) for i in range(n)
+        ]
+
+    def extra_input_buffers(self):
+        out = super().extra_input_buffers()
+        for v in self.variables:
+            out += [v.reciprocal_buffer, v.time_derivative_reciprocal]
+        return out
+
+    def output_buffers(self):
+        return super().output_buffers() + [v.buffer for v in self.variables]
+
+
+class IterativeSolver(SplitOperatorBase):
+    """Shared state of the iterative solvers: the JAX package's per-substep
+    ``iterations``, ``converged`` and ``group_evals`` entries, kept on the
+    host, and the loop's counts (``IterativeCounts``)."""
+
+    iterative = True
+
+    def __init__(self, name, params: Params, problem):
+        super().__init__(name, params, problem)
+        self.counts = IterativeCounts()
+
+    def init_solver_state(self):
+        # group_evals: the iteration loops' group evaluations, summed (the
+        # one initial evaluation a substep is counted by
+        # group_evals_per_step); ComputeGroupExecutionCount adds it
+        return {"iterations": 0, "converged": True, "group_evals": 0}
+
+    def _record(self, state, it, converged, syncs, extra=None):
+        """The substep's solver entries (and ``extra``'s), counted."""
+        self.counts.substeps += 1
+        self.counts.iterations += it
+        self.counts.syncs += syncs
+        self.counts.failed += not converged
+        solver_state = {**state.get("solver", {}), **(extra or {})}
+        solver_state["iterations"] = it
+        solver_state["converged"] = converged
+        solver_state["group_evals"] = int(solver_state.get("group_evals", 0)) + it
+        return solver_state

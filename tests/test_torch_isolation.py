@@ -69,7 +69,9 @@ def test_sources_cover_the_port():
                    "solvers/abm.py", "lbm_fused.py", "computes/lbm.py",
                    "computes/lbm_bc.py", "solvers/lbm_stream.py", "stencils.py",
                    "outputs.py", "xdmf.py", "xdmfdiff.py", "vtk.py", "exodus.py",
-                   "aux.py", "checkpoint.py"):
+                   "aux.py", "checkpoint.py", "smallsolve.py", "solvers/etdrk4.py",
+                   "solvers/forward_euler.py", "solvers/secant.py", "solvers/broyden.py",
+                   "solvers/abm_coupled.py", "solvers/predictors.py"):
         assert os.path.join("marlin_tpu_torch", module) in names, module
 
 
