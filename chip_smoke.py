@@ -95,7 +95,10 @@ Phases, one line each, flushed as they finish:
    ``change < 1e-4``), four times: DEFAULT (torch.fft) in float64, the
    card's reference, and in float32; PALLAS unfused in float32 (kernels
    1-4 on the small-extent path at n = 200, in every substep and in the
-   free-energy group); PALLAS with ``carry_reciprocal`` and
+   free-energy group), cut to its first 12 of 85 steps
+   (``BENCH_1A_CUT``: the host-bound route, its kernels held at 200² by
+   phase 2), its last F held within 1e-3 of the float64 run's at the same
+   step; PALLAS with ``carry_reciprocal`` and
    ``fused_spectral`` in float32 (kernels 1′ with the 1a µ, 5, 4 and 2,
    and kernels 1-4 in the group).  Each after a warm-up of 1 step that
    builds and loads its kernels.  Gates: F(0) against a numpy float64
@@ -181,6 +184,31 @@ Phases, one line each, flushed as they finish:
    within 1e-4 of the exact solution; (e) forward Euler
    (``decks.EXPLICIT_DECK``) at 1024² on PALLAS and DEFAULT (within 1e-5)
    and in real space, and LinearTensorPredictor's iterations on (b)'s deck.
+16. FFT micromechanics (the deGeus Newton around matrix-free CG, one host
+   fetch a CG iteration): kernels 1-4 at this path's tensor-valued shapes
+   (9 × 128³ on the register path, 9 × 32³ and 4 × 96² on the small path)
+   against their twins, device ms beside torch.fft and the byte bound;
+   (a) ``decks.MECH_DECK`` at 128³, the analytic tangent, float32, 2 steps
+   × 10 substeps, on PALLAS and DEFAULT: every substep converged, <F> the
+   last substep's applied strain I + t·e01 within 1e-5, |F_PALLAS −
+   F_DEFAULT| ≤ 2e-5, DEFAULT float32 after step 1 within 1e-4 of a
+   one-step float64 run, kernels 1-4 launched 3 forward and 3 inverse a
+   Green projection (one a CG iteration that ran, and the right-hand side
+   and residuals of each solve); ms a step and a CG iteration, Newton and
+   CG iterations, host fetches, the busy share and device operations a CG
+   iteration, peak memory, the two forms of ``tangent_apply`` and the TF32
+   setting; (b) the same at the shipped 32³, 1 step; (c)
+   ``preconditioner = REFERENCE_MEDIUM`` at 31³ in float64 on DEFAULT
+   under tests/test_cg.py's tight tolerances: F within 2e-6 and stress
+   within 2e-5 of the plain solve, in fewer CG iterations; (d)
+   ``decks.COUPLED_PF_MECH_DECK`` at 256³, float32, 2 steps × 10 substeps:
+   |c_PALLAS − c_DEFAULT| ≤ 5e-5, mass within 1e-5, displacements finite
+   with 0 < max|u| < 0.1, launches exact; (e) ComputeDisplacements and
+   ComputeVonMisesStress on (a)'s final state as [Postprocess] computes:
+   (129, 129, 129, 3), PALLAS within 1e-4 of DEFAULT's max|u|; (f) the AT2
+   fracture deck (examples/phase_field_fracture/fracture.i, binary XDMF)
+   at its 96², 4 of its 40 steps: PALLAS float32 against DEFAULT float64
+   on d and its three postprocessors within ``FRACTURE_TOL``.
 
 Then one JSON line with every kernel's numbers (a kernel timed at more
 than one main shape also lists each under ``shapes``; ``launches_by_path``
@@ -188,7 +216,9 @@ splits ``launches`` by the paths that reached it; the small-extent kernels
 stand as their own entries, ``<wrapper> small``, timed at 200² and
 launched by phase 12's PALLAS runs, phase 13's 1a runs and phase 14's 2a
 and 1a runs; phase 13's Kármán runs add to ``lbm_substep``'s, phase 14's
-512² spectral-family run to kernels 1-4's) and, last, the JSON result line.  Any failure ends the run with a non-zero exit and no result line.
+512² spectral-family run and phase 16's 128³ and 256³ runs to kernels
+1-4's, phase 16's 32³ and 96² runs to the small-extent entries; phase 16's
+rows at its shapes stand under ``mechanics_shapes``) and, last, the JSON result line.  Any failure ends the run with a non-zero exit and no result line.
 Needs one CUDA card; fails without one, and fails where the package is not
 beside it.
 """
@@ -252,6 +282,12 @@ BENCH_1A_RUNS = {  # run: its route in marlin_tpu_torch.bench_1a_runs.ROUTES
     "DEFAULT float64": "D64", "DEFAULT float32": "D32",
     "PALLAS float32": "P32", "PALLAS fused float32": "F32",
 }
+# runs cut short: PALLAS float32 unfused, host-bound (55-66 s whole), runs
+# its first 12 of 85 steps (past the t <= 10 gate); its kernels are held at
+# 200² by phase 2 and its launches come again in phases 13-15.  Its last F
+# is held against the float64 run's at the same step, within
+# BENCH_1A_EARLY's tolerance
+BENCH_1A_CUT = {"PALLAS float32": 12}
 PROFILE_ATTEMPTS = 3  # device_ms: traces taken before an empty one fails
 RESUME_1A = (6, 3)  # phase 13: steps of 1a, and the checkpoint's step
 RESUME_KARMAN = (4, 2)  # the same for Kármán (100 substeps a step)
@@ -966,9 +1002,19 @@ def device_ms(fn, calls=20):
     """Device ms a call: the time of the kernels ``fn`` launches, by
     torch.profiler over ``calls`` calls (at 800×200 the host cannot keep
     the card busy, so CUDA events would time the host)."""
-    fn()
+    return device_profile(fn, calls)[0]
+
+
+def device_profile(fn, calls=20, warm=True, cpu=True):
+    """(device ms, device operations) a call of ``fn``, by torch.profiler
+    over ``calls`` calls (after one untraced call with ``warm``); without
+    ``cpu`` the trace holds the device's activity alone (quicker to read
+    where a call makes thousands of launches)."""
+    if warm:
+        fn()
     torch.cuda.synchronize()
-    acts = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
+    acts = [torch.profiler.ProfilerActivity.CUDA] + (
+        [torch.profiler.ProfilerActivity.CPU] if cpu else [])
     # a trace now and then comes back without its device activity: such a
     # trace is taken again, and three empty ones in a row fail the run
     for _attempt in range(PROFILE_ATTEMPTS):
@@ -976,10 +1022,11 @@ def device_ms(fn, calls=20):
             for _ in range(calls):
                 fn()
             torch.cuda.synchronize()
-        us = sum(e.self_device_time_total for e in prof.key_averages()
-                 if e.device_type == torch.autograd.DeviceType.CUDA)
+        device = [e for e in prof.key_averages()
+                  if e.device_type == torch.autograd.DeviceType.CUDA]
+        us = sum(e.self_device_time_total for e in device)
         if us > 0:
-            return us / calls / 1e3
+            return us / calls / 1e3, sum(e.count for e in device) / calls
         say(f"[profile] a trace of {calls} calls saw no device time; taking it again")
     raise AssertionError(f"the profiler saw no device time in {PROFILE_ATTEMPTS} traces")
 
@@ -1286,9 +1333,11 @@ def bench_1a_deck(run, warm=False):
 
     deck = deck_text(BENCH_1A_RUNS[run], BENCH_1A_N, BENCH_1A_SUBSTEPS)
     if warm:
-        deck = deck.replace("  perf_graph = true\n", "").replace(
-            "  end_time = 10500\n",
-            f"  end_time = 10500\n  num_steps = {BENCH_1A_WARM_STEPS}\n")
+        deck = deck.replace("  perf_graph = true\n", "")
+    steps = BENCH_1A_WARM_STEPS if warm else BENCH_1A_CUT.get(run)
+    if steps:
+        deck = deck.replace("  end_time = 10500\n",
+                            f"  end_time = 10500\n  num_steps = {steps}\n")
     return deck
 
 
@@ -1409,16 +1458,24 @@ def phase_bench_1a(uf, sp, dev, smi):
     f_ref = dict(ref)
     t_early, early_tol = BENCH_1A_EARLY
     for run, (n, t, series, _l, _w) in out.items():
-        assert (n, t) == (steps, t_end), (run, n, t, steps, t_end)
+        if run in BENCH_1A_CUT:
+            # the same times as the float64 run's first steps
+            assert n == BENCH_1A_CUT[run] and [tt for tt, _F in series] == [
+                tt for tt, _F in ref[:len(series)]], (run, n, t)
+        else:
+            assert (n, t) == (steps, t_end), (run, n, t, steps, t_end)
         if run == "DEFAULT float64":
             continue
         early = max(abs(F - f_ref[tt]) / f_ref[tt] for tt, F in series if tt <= t_early)
-        final = abs(series[-1][1] - ref[-1][1]) / ref[-1][1]
+        last_t, last_F = series[-1]
+        last = abs(last_F - f_ref[last_t]) / f_ref[last_t]
+        last_tol = early_tol if run in BENCH_1A_CUT else BENCH_1A_FINAL_TOL
         say(f"[1a] {run} against DEFAULT float64: F while t <= {t_early} within "
-            f"{early:.3e} (limit {early_tol}), final F {final:.3e} (limit "
-            f"{BENCH_1A_FINAL_TOL})")
-        assert early <= early_tol and final <= BENCH_1A_FINAL_TOL, (run, early, final)
-    say(f"[1a] every run {steps} steps to t = {t_end}; {smi}")
+            f"{early:.3e} (limit {early_tol}), {'last' if run in BENCH_1A_CUT else 'final'} F "
+            f"(step {n}, t = {last_t}) {last:.3e} (limit {last_tol})")
+        assert early <= early_tol and last <= last_tol, (run, early, last)
+    cut = ", ".join(f"{r} cut to {k}" for r, k in BENCH_1A_CUT.items())
+    say(f"[1a] every run {steps} steps to t = {t_end} ({cut}); {smi}")
     return {run: v[3] for run, v in out.items()}
 
 
@@ -2478,6 +2535,483 @@ def phase_solvers(dev, smi):
     say(f"[15] {time.perf_counter() - t0:.1f} s; {smi}")
     return {"main": main_paths, "small": small}
 
+# -- phase 16: FFT micromechanics ----------------------------------------------------
+
+MECH_N = 128  # (a) the deGeus RVE at 128³: kernels 1-4 on the register path
+MECH_SHIPPED_N = 32  # (b) mech.i's shipped extent: the small path
+MECH_STEPS = {MECH_N: 2, MECH_SHIPPED_N: 1}
+MECH_DT = 0.01  # the deck's dt, 10 substeps a step
+MECH_SUBSTEPS = 10
+MECH_ROUTES = {"PALLAS float32": "fft_backend = PALLAS\n  floating_precision = SINGLE",
+               "DEFAULT float32": "floating_precision = SINGLE"}
+MECH_F64 = "floating_precision = DOUBLE"
+MECH_MEAN_TOL = {torch.float32: 1e-5, torch.float64: 1e-12}  # <F> against I + t·e01
+MECH_ROUTE_TOL = 2e-5  # |F_PALLAS − F_DEFAULT| (tests/test_pallas_fft.py:317-337)
+MECH_F64_TOL = 1e-4  # float32 after step 1 against float64 (test_mechanics_parallel.py)
+MECH_TIGHT = ("l_tol = 1e-8", "nl_rel_tol = 1e-8", "nl_abs_tol = 1e-10")  # test_cg.py
+PRECOND_SUBSTEPS = 2  # (c): one step, the second substep a solve under the ramp
+# (c) runs at an odd extent: at an even one the Green operator is no
+# projection on the Nyquist planes, and under the tight tolerances Newton
+# exhausts nl_max_its with or without the preconditioner, in the JAX
+# package too (ROADMAP §3); at 31³ it converges in three iterations
+PRECOND_N = 31
+PRECOND_TOL = {"F": 2e-6, "stress": 2e-5}  # tests/test_cg.py
+COUPLED_MECH_N = 256  # (d) COUPLED_PF_MECH_DECK, STEPS × SUBSTEPS, dt 1
+DISP_TOL = 1e-4  # (e) u PALLAS against DEFAULT, of max|u|
+DISP_MAX = 0.1  # the JAX smoke test's bound on the eigenstrain displacements
+FRACTURE_STEPS = 4  # (f) of fracture.i's 40, at its shipped 96²
+FRACTURE_ROUTES = {"PALLAS float32": ["Domain/fft_backend=PALLAS",
+                                      "Domain/floating_precision=SINGLE"],
+                   "DEFAULT float64": ["Domain/floating_precision=DOUBLE"]}
+# PALLAS float32 against DEFAULT float64 after 4 steps: d absolute, the
+# postprocessors relative; ten to twenty times what the CPU's twins give
+# (5.7e-7, 2.2e-7, 1.9e-6, 8.8e-6; PERF.md §6)
+FRACTURE_TOL = {"d": 1e-5, "max_d": 5e-6, "crack_area": 2e-5, "max_sV": 2e-4}
+MECH_POSTPROCESS = """  [Postprocess]
+    [u]
+      type = ComputeDisplacements
+      buffer = u
+      F = F
+    []
+    [sV]
+      type = ComputeVonMisesStress
+      buffer = sV
+      stress = stress
+    []
+  []
+"""
+# the tensor-valued transforms of this path: a (…, 3, 3) field's 9
+# components (a 2-D (…, 2, 2) field's 4) in front of the grid, one launch of
+# each kernel an axis (marlin_tpu_torch/domain.py:fft)
+MECH_KERNEL_SHAPES = {
+    f"9 x {MECH_N}^3": {
+        "fwd_lanes": [(9 * MECH_N ** 2, MECH_N)], "inv_lanes": [(9 * MECH_N ** 2, MECH_N)],
+        "fwd_sublanes": [(9 * MECH_N, MECH_N, MECH_N), (9, MECH_N, MECH_N ** 2)],
+        "inv_sublanes": [(9, MECH_N, MECH_N ** 2), (9 * MECH_N, MECH_N, MECH_N)]},
+    f"9 x {MECH_SHIPPED_N}^3": {
+        "fwd_lanes": [(9 * MECH_SHIPPED_N ** 2, MECH_SHIPPED_N)],
+        "inv_lanes": [(9 * MECH_SHIPPED_N ** 2, MECH_SHIPPED_N)],
+        "fwd_sublanes": [(9 * MECH_SHIPPED_N, MECH_SHIPPED_N, MECH_SHIPPED_N),
+                         (9, MECH_SHIPPED_N, MECH_SHIPPED_N ** 2)],
+        "inv_sublanes": [(9, MECH_SHIPPED_N, MECH_SHIPPED_N ** 2),
+                         (9 * MECH_SHIPPED_N, MECH_SHIPPED_N, MECH_SHIPPED_N)]},
+    "4 x 96^2": {"fwd_lanes": [(4 * 96, 96)], "inv_lanes": [(4 * 96, 96)],
+                 "fwd_sublanes": [(4, 96, 96)], "inv_sublanes": [(4, 96, 96)]},
+}
+FFT_CALLS = {  # the same function as one torch call
+    "fwd_lanes": lambda x: torch.fft.fft(x, dim=-1),
+    "inv_lanes": lambda x: torch.fft.ifft(x, dim=-1).real,
+    "fwd_sublanes": lambda x: torch.fft.fft(x, dim=1),
+    "inv_sublanes": lambda x: torch.fft.ifft(x, dim=1),
+}
+
+
+def device_split(kernel, library, calls=20):
+    """(kernel ms, library ms) a call, device time by one profiler trace of
+    ``calls`` calls of each, split by name: the FFT kernels of
+    csrc/fft_tile.cuh (``*lanes_kernel``) against the rest."""
+    kernel()
+    library()
+    torch.cuda.synchronize()
+    acts = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
+    for _attempt in range(PROFILE_ATTEMPTS):
+        with torch.profiler.profile(activities=acts) as prof:
+            for fn in (kernel, library):
+                for _ in range(calls):
+                    fn()
+            torch.cuda.synchronize()
+        ours = theirs = 0.0
+        for e in prof.key_averages():
+            if e.device_type == torch.autograd.DeviceType.CUDA:
+                if "lanes_kernel" in e.key:
+                    ours += e.self_device_time_total
+                else:
+                    theirs += e.self_device_time_total
+        if ours > 0 and theirs > 0:
+            return ours / calls / 1e3, theirs / calls / 1e3
+        say(f"[profile] a trace of {calls} calls saw no device time; taking it again")
+    raise AssertionError(f"the profiler saw no device time in {PROFILE_ATTEMPTS} traces")
+
+
+def phase_mech_kernels(uf, dev, gen):
+    """Kernels 1-4 at the shapes of this path against their twins; the
+    kernel beside the same-function torch call, device ms by the profiler
+    (one trace a row; at 128³ by CUDA events, where the card is busy), the
+    twin by CUDA events, and the byte bound.  Each CG iteration is one
+    Green projection: one launch of each row's kernel (both sublanes shapes
+    in 3-D).  Returns {(kernel, on the small path): rows}."""
+    rows = {}
+    for fields, shapes in MECH_KERNEL_SHAPES.items():
+        for name, shape_list in shapes.items():
+            kernel, twin = getattr(uf, name), getattr(uf, name + "_plain")
+            for shape in shape_list:
+                dtype = torch.float32 if name == "fwd_lanes" else torch.complex64
+                x = torch.randn(shape, generator=gen, dtype=dtype, device=dev)
+                n = shape[1] if "sub" in name else shape[-1]
+                path = fft_path(uf, name, n)
+                got = kernel(x)
+                torch.cuda.synchronize()
+                err = check(name, shape, got, twin(x))
+                del got
+                if path == "small":
+                    ms, lib = device_split(lambda: kernel(x), lambda: FFT_CALLS[name](x))
+                else:
+                    ms, lib = cuda_ms(lambda: kernel(x)), cuda_ms(lambda: FFT_CALLS[name](x))
+                plain = cuda_ms(lambda: twin(x), reps=3, warmup=1)
+                plan = uf.small_plan_bytes(n) if path == "small" else n * 8
+                out_bytes = x.numel() * (4 if name == "inv_lanes" else 8)
+                bnd, by = bound_ms(nbytes(x) + out_bytes + plan, fft_flops(x.numel() // n, n))
+                row = {"fields": fields, "shape": list(shape), "path": path,
+                       "max_abs_err": err, "ms": ms, "plain_ms": plain, "library_ms": lib,
+                       "bound_ms": bnd, "bound_by": by, "launches_a_cg_iteration": 1}
+                say(f"[16 kernels] {name} {fields} {tuple(shape)}: {path} path, max_abs_err "
+                    f"{err:.3e}; ms: kernel {ms:.4f}, torch.fft {lib:.4f} ("
+                    f"{'device, the profiler' if path == 'small' else 'CUDA events'}), twin "
+                    f"{plain:.4f} (CUDA events), bound {bnd:.4f} ({by}); one launch a CG "
+                    f"iteration")
+                rows.setdefault((name, path == "small"), []).append(row)
+                del x
+    torch.cuda.empty_cache()
+    return rows
+
+
+def mech_text(n, domain, steps, extra=(), post=False, substeps=MECH_SUBSTEPS):
+    """decks.MECH_DECK at n³ on ``domain``, ``steps`` steps; ``extra``
+    lines in the FFTMechanics block; ``post`` adds ComputeDisplacements and
+    ComputeVonMisesStress as [Postprocess] computes."""
+    from marlin_tpu_torch import decks
+
+    deck = decks.MECH_DECK.format(n=n, domain_extra=domain)
+    strain = "        applied_macroscopic_strain = applied_strain\n"
+    deck = deck.replace(strain, strain + "".join(f"        {line}\n" for line in extra))
+    deck = deck.replace("  substeps = 10\n", f"  substeps = {substeps}\n")
+    if post:
+        deck = deck.replace("  [Solve]\n", MECH_POSTPROCESS + "  [Solve]\n", 1)
+    return with_executioner(deck, steps, MECH_DT)
+
+
+def mech_counts(tr):
+    return dict(vars(tr.problem.get_compute("mech").counts))
+
+
+def mech_run(text, dev, steps, first_f=False):
+    """deck_run of a mechanics deck; with ``first_f`` it runs one step,
+    keeps F, and runs the Transient on to ``steps``.  Returns (transient,
+    wall seconds, launches, F after step 1 or None, peak MiB)."""
+    tr, wall, _ = deck_run(with_executioner(text, 1, MECH_DT) if first_f else text, dev)
+    F1 = None
+    if first_f:
+        F1 = tr.state["buffers"]["F"].clone()
+        tr.num_steps = steps
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        tr.run()
+        torch.cuda.synchronize()
+        wall += time.perf_counter() - t0
+    return tr, wall, all_launches(), F1, torch.cuda.max_memory_allocated() / 2**20
+
+
+def projection_launches(P, dim):
+    """Kernels 1-4's launches for P Green projections: a forward transform
+    (the lanes kernel, then a sublanes kernel an axis) and an inverse one."""
+    zero = {"fwd_lanes_pre": 0, "fwd_x_update": 0, "fwd_x_update_poly": 0}
+    return {**zero, "fwd_lanes": P, "fwd_sublanes": (dim - 1) * P,
+            "inv_sublanes": (dim - 1) * P, "inv_lanes": P}
+
+
+def mech_gates(tr, launched, route, steps, label):
+    """Every substep converged, <F> the last substep's applied strain,
+    launches exactly the projections' (none on DEFAULT); returns the
+    counts."""
+    c = mech_counts(tr)
+    F = tr.state["buffers"]["F"]
+    assert c["failed"] == 0 and bool(tr.state["buffers"]["__converged_mech__"]), (label, c)
+    want = torch.eye(3, dtype=torch.float64, device=F.device)
+    want[0, 1] = (steps - 1) * MECH_DT + (MECH_SUBSTEPS - 1) * MECH_DT / MECH_SUBSTEPS
+    mean_err = (F.double().mean((0, 1, 2)) - want).abs().max().item()
+    say(f"[{label}] <F> against I + t·e01 (t = {want[0, 1].item():.3f}): {mean_err:.3e} "
+        f"(limit {MECH_MEAN_TOL[F.dtype]})")
+    assert mean_err <= MECH_MEAN_TOL[F.dtype], (label, mean_err)
+    # one projection for each solve's right-hand side, each CG iteration that
+    # ran and each Newton iteration's initial and final residual but the
+    # first and the last
+    P = c["projections"]
+    assert P == 2 * c["newton"] - c["solves"] + c["cg_device"], (label, c)
+    want_l = projection_launches(P, 3) if route.startswith("PALLAS") else {
+        k: 0 for k in projection_launches(0, 3)}
+    got = {k: launched[k] for k in want_l}
+    say(f"[{label}] launches {got} (expected {want_l})")
+    assert got == want_l, (label, got, want_l)
+    return c
+
+
+def mech_timing(tr, wall, steps, label, smi, profile):
+    """ms a step (the run's wall over its steps), then one more substep of
+    the finished run: its ms and ms a CG iteration by CUDA events, with
+    ``profile`` under a profiler that records the device's activity alone
+    (little host cost), for the busy share and the device operations a CG
+    iteration; the run's counts."""
+    p, st = tr.problem, tr.state
+    c0 = mech_counts(tr)
+    sub = MECH_DT / MECH_SUBSTEPS
+    p.solver.substeps = 1
+    try:
+        one = lambda: p.step(st, tr.time, sub, sub, False)
+        if profile:
+            box = {}
+
+            def timed():
+                box["ms"] = cuda_ms(one, reps=1, warmup=0)
+
+            dev_ms, ops = device_profile(timed, calls=1, warm=False, cpu=False)
+            wall_sub = box["ms"]
+        else:
+            wall_sub, dev_ms, ops = cuda_ms(one, reps=1, warmup=0), None, None
+        cg = mech_counts(tr)["cg_device"] - c0["cg_device"]
+    finally:
+        p.solver.substeps = MECH_SUBSTEPS
+    ms_cg = wall_sub / max(cg, 1)
+    busy = "" if dev_ms is None else (
+        f", device {dev_ms:.2f} ms (busy {100 * dev_ms / wall_sub:.1f}%), "
+        f"{ops / max(cg, 1):.1f} device operations a CG iteration")
+    say(f"[{label}] {1e3 * wall / steps:.1f} ms a step; one more substep {wall_sub:.2f} ms "
+        f"({cg} CG iterations: {ms_cg:.3f} ms a CG iteration, Newton's share in it){busy}; "
+        f"over the run {c0['newton'] / c0['solves']:.2f} Newton iterations a substep, "
+        f"{c0['cg'] / c0['newton']:.1f} CG iterations a Newton iteration, "
+        f"{c0['fetches'] / c0['solves']:.1f} host fetches a substep; {smi}")
+
+
+def phase_mech_rve(n, dev, smi):
+    """(a) at 128³ or (b) at 32³: MECH_DECK on PALLAS and DEFAULT float32,
+    DEFAULT float32 after step 1 against a one-step float64 run.  At 128³
+    also ComputeDisplacements and ComputeVonMisesStress on the final state
+    (e) and the two forms of tangent_apply.  Returns {run: launches}."""
+    from marlin_tpu_torch.computes import mechanics as M
+
+    steps, tag = MECH_STEPS[n], "16a" if n == MECH_N else "16b"
+    F, F1, nodes, launches = {}, None, {}, {}
+    for route, domain in MECH_ROUTES.items():
+        if n == MECH_N:
+            gc.collect()
+        label = f"{tag} mech {route} {n}^3"
+        first = route.startswith("DEFAULT")
+        tr, wall, launched, f1, peak = mech_run(
+            mech_text(n, domain, steps, post=n == MECH_N), dev, steps, first_f=first)
+        say(f"[{label}] {steps} steps x {MECH_SUBSTEPS} substeps: run_deck {wall:.2f} s, "
+            f"analytic tangent {tr.problem.get_compute('mech').analytic_tangent}, counts "
+            f"{mech_counts(tr)}, peak device memory {peak:.1f} MiB")
+        mech_gates(tr, launched, route, steps, label)
+        if route.startswith("PALLAS"):
+            launches[f"16 mech {n}^3 {route}"] = launched
+        F[route] = tr.state["buffers"]["F"]
+        if first:
+            F1 = f1
+        if n == MECH_N:
+            reset_all()
+            post = tr.problem.run_postprocess_computes(tr.state, tr.time)["buffers"]
+            got = {k: v for k, v in all_launches().items() if v}
+            u = post["u"]
+            assert tuple(u.shape) == (n + 1,) * 3 + (3,), u.shape
+            assert bool(torch.isfinite(u).all()) and bool(torch.isfinite(post["sV"]).all())
+            want = projection_launches(1, 3) if route.startswith("PALLAS") else {}
+            assert got == {k: v for k, v in want.items() if v}, (label, got)
+            if route.startswith("PALLAS"):
+                launches[f"16 displacements {n}^3 {route}"] = all_launches()
+            nodes[route] = (u, post["sV"])
+            if route.startswith("PALLAS"):
+                con = tr.problem.get_compute("hyper_elasticity")
+                fields = con.tangent_fields(tr.state["buffers"])
+                dF = torch.randn(F[route].shape, device=dev, generator=torch.Generator(
+                    device=dev).manual_seed(16))
+                forms = {"the port's broadcast products": con.tangent_apply,
+                         "the JAX file's component sums": M.tangent_apply_components,
+                         "batched torch.matmul": M.tangent_apply_matmul}
+                ref = con.tangent_apply(fields, dF)
+                text = []
+                for form, fn in forms.items():
+                    rel = ((fn(fields, dF) - ref).abs().max() / ref.abs().max()).item()
+                    assert rel <= 1e-5, (form, rel)
+                    # the card is busy at 128³: CUDA events time the device
+                    ms_f = cuda_ms(lambda: fn(fields, dF), reps=3, warmup=1)
+                    text.append(f"{form} {ms_f:.3f} ms, {rel:.1e} from the first")
+                say(f"[{label}] tangent_apply at {n}^3 (CUDA events): " + "; ".join(text)
+                    + " (TF32 matmul "
+                    f"{torch.backends.cuda.matmul.allow_tf32}, cuDNN "
+                    f"{torch.backends.cudnn.allow_tf32})")
+                del fields, dF, ref
+        mech_timing(tr, wall, steps, label, smi, profile=n == MECH_N)
+        del tr
+    diff = (F["PALLAS float32"] - F["DEFAULT float32"]).abs().max().item()
+    say(f"[{tag} mech {n}^3] max|F_PALLAS - F_DEFAULT| {diff:.3e} (limit {MECH_ROUTE_TOL})")
+    assert diff <= MECH_ROUTE_TOL, diff
+    tr64, wall64, _l, _f, peak64 = mech_run(mech_text(n, MECH_F64, 1), dev, 1)
+    mech_gates(tr64, _l, "DEFAULT", 1, f"{tag} mech DEFAULT float64 {n}^3")
+    d64 = (F1.double() - tr64.state["buffers"]["F"]).abs().max().item()
+    say(f"[{tag} mech {n}^3] DEFAULT float64, 1 step: run_deck {wall64:.2f} s, counts "
+        f"{mech_counts(tr64)}, peak {peak64:.1f} MiB; float32 after step 1 against it "
+        f"{d64:.3e} (limit {MECH_F64_TOL})")
+    assert d64 <= MECH_F64_TOL, d64
+    del tr64, F, F1
+    if nodes:
+        (up, sp), (ud, sd) = nodes["PALLAS float32"], nodes["DEFAULT float32"]
+        du = ((up - ud).abs().max() / ud.abs().max()).item()
+        ds = ((sp - sd).abs().max() / sd.abs().max()).item()
+        say(f"[16e displacements] ComputeDisplacements {tuple(up.shape)}, max|u| "
+            f"{ud.abs().max().item():.4e}: PALLAS against DEFAULT {du:.3e} of max|u| (limit "
+            f"{DISP_TOL}); ComputeVonMisesStress {ds:.3e} of max sV")
+        assert du <= DISP_TOL, du
+    return launches
+
+
+def phase_mech_precond(dev, smi):
+    """(c) REFERENCE_MEDIUM at PRECOND_N³, float64 on DEFAULT, test_cg.py's
+    tight tolerances, against the unpreconditioned solve."""
+    res = {}
+    for pre in ("NONE", "REFERENCE_MEDIUM"):
+        text = mech_text(PRECOND_N, MECH_F64, 1, MECH_TIGHT + (f"preconditioner = {pre}",),
+                         substeps=PRECOND_SUBSTEPS)
+        tr, wall, launched, _f, _peak = mech_run(text, dev, 1)
+        c = mech_counts(tr)
+        assert c["failed"] == 0 and not any(launched.values()), (pre, c)
+        say(f"[16c precond] {pre} {PRECOND_N}^3 float64, 1 step x {PRECOND_SUBSTEPS} "
+            f"substeps: run_deck {wall:.2f} s, {c['cg']} CG iterations in {c['newton']} Newton "
+            f"iterations, {1e3 * wall / max(c['cg_device'], 1):.3f} ms a CG iteration")
+        res[pre] = {k: tr.state["buffers"][k] for k in ("F", "stress")}
+        res[pre]["cg"] = c["cg"]
+        del tr
+    for k, tol in PRECOND_TOL.items():
+        d = (res["REFERENCE_MEDIUM"][k] - res["NONE"][k]).abs().max().item()
+        say(f"[16c precond] max|{k} REFERENCE_MEDIUM - NONE| {d:.3e} (limit {tol})")
+        assert d <= tol, (k, d)
+    assert res["REFERENCE_MEDIUM"]["cg"] < res["NONE"]["cg"], res
+
+
+def phase_coupled_mech(dev, smi):
+    """(d) COUPLED_PF_MECH_DECK at 256³, float32, STEPS × SUBSTEPS, PALLAS
+    and DEFAULT.  Returns {run: launches}."""
+    from marlin_tpu_torch import decks
+
+    c, launches = {}, {}
+    S = STEPS * SUBSTEPS
+    # a substep: fft of µ, c and the three displacements, ifft of the three
+    # displacements and of ū
+    want = {"fwd_lanes": 5 * S, "fwd_sublanes": 10 * S, "inv_sublanes": 8 * S,
+            "inv_lanes": 4 * S, "fwd_lanes_pre": 0, "fwd_x_update": 0, "fwd_x_update_poly": 0}
+    gc.collect()
+    for route, domain in MECH_ROUTES.items():
+        label = f"16d coupled {route} {COUPLED_MECH_N}^3"
+        deck = transient(decks.COUPLED_PF_MECH_DECK.format(
+            n=COUPLED_MECH_N, substeps=SUBSTEPS, domain_extra=domain), 1, "c")
+        tr, wall, launched = deck_run(deck, dev)
+        got = {k: launched[k] for k in want}
+        say(f"[{label}] {STEPS} steps x {SUBSTEPS} substeps: run_deck {wall:.2f} s, "
+            f"{step_ms(tr, SUBSTEPS):.3f} ms a substep, launches {got}, peak device memory "
+            f"{torch.cuda.max_memory_allocated() / 2**20:.1f} MiB; {smi}")
+        if route.startswith("PALLAS"):
+            assert got == want, (label, got, want)
+            launches[f"16 coupled {route}"] = launched
+        else:
+            assert not any(launched.values()), (label, launched)
+        mass(tr, label)
+        b = tr.state["buffers"]
+        finite({k: b[k] for k in ("c", "disp_x", "disp_y", "disp_z")}, label)
+        umax = max(b[k].abs().max().item() for k in ("disp_x", "disp_y", "disp_z"))
+        say(f"[{label}] max|u| {umax:.3e} (bounds 0, {DISP_MAX})")
+        assert 0 < umax < DISP_MAX, umax
+        c[route] = b["c"]
+        del tr, b
+    diff = (c["PALLAS float32"] - c["DEFAULT float32"]).abs().max().item()
+    say(f"[16d coupled] max|c_PALLAS - c_DEFAULT| {diff:.3e} (limit {ANCHOR_TOL})")
+    assert diff <= ANCHOR_TOL, diff
+    return launches
+
+
+def phase_fracture(dev, smi):
+    """(f) the AT2 fracture deck (examples/phase_field_fracture/fracture.i)
+    at its shipped 96², FRACTURE_STEPS of its 40 steps, its XDMF output
+    binary (no h5py on the card): PALLAS float32 against DEFAULT float64 on
+    d and the deck's three postprocessors.  Returns {run: launches}."""
+    from marlin_tpu_torch import decks, hit
+    from marlin_tpu_torch.executioner import run_deck
+
+    out, launches = {}, {}
+    for route, over in FRACTURE_ROUTES.items():
+        reset_all()
+        root = hit.load(decks.FRACTURE_DECK, over + [
+            f"Executioner/num_steps={FRACTURE_STEPS}", "TensorOutputs/xdmf/enable_hdf5=false"])
+        with tempfile.TemporaryDirectory() as out_dir:
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            tr = run_deck(root, output_dir=out_dir, device=dev, deck_stem="fracture")
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+            frames = sorted(os.listdir(out_dir))
+        launched = all_launches()
+        c = mech_counts(tr)
+        S = tr.step_count * tr.problem.solver.substeps
+        label = f"16f fracture {route}"
+        say(f"[{label}] {tr.step_count} steps x {tr.problem.solver.substeps} substeps at 96^2: "
+            f"run_deck {wall:.2f} s, analytic tangent "
+            f"{tr.problem.get_compute('mech').analytic_tangent}, counts {c}, pp {tr.pp_values}, "
+            f"{len(frames)} output files")
+        assert c["failed"] == 0 and bool(tr.state["buffers"]["__converged_mech__"]), c
+        finite({k: tr.state["buffers"][k] for k in ("d", "F", "sV", "H")}, label)
+        P = c["projections"]
+        assert P == 2 * c["newton"] - c["solves"] + c["cg_device"], c
+        # a substep: the projections, fft of Nreal and d, ifft of ū
+        want = projection_launches(P, 2)
+        want.update({"fwd_lanes": P + 2 * S, "fwd_sublanes": P + 2 * S,
+                     "inv_sublanes": P + S, "inv_lanes": P + S})
+        got = {k: launched[k] for k in want}
+        if route.startswith("PALLAS"):
+            say(f"[{label}] launches {got} (expected {want})")
+            assert got == want, (got, want)
+            launches[f"16 fracture {route}"] = launched
+        else:
+            assert not any(launched.values()), launched
+        out[route] = (tr.state["buffers"]["d"].double(), dict(tr.pp_values))
+        del tr
+    (dp, pp), (dd, pd) = out["PALLAS float32"], out["DEFAULT float64"]
+    errs = {"d": (dp - dd).abs().max().item()}
+    errs.update({k: abs(pp[k] - pd[k]) / abs(pd[k]) for k in ("max_d", "crack_area", "max_sV")})
+    say(f"[16f fracture] PALLAS float32 against DEFAULT float64: {errs} (limits "
+        f"{FRACTURE_TOL}; d absolute, the postprocessors relative); {smi}")
+    for k, tol in FRACTURE_TOL.items():
+        assert errs[k] <= tol, (k, errs[k], tol)
+    return launches
+
+
+def phase_mechanics(uf, dev, smi):
+    """Phase 16: FFT micromechanics.  Returns (the kernel rows at its
+    shapes, {run: launches} on the register path, on the small path)."""
+    t0 = time.perf_counter()
+    # the earlier phases' garbage once, then out of every later collection:
+    # the collections between this phase's runs scan only its own objects
+    gc.collect()
+    gc.freeze()
+    gen = torch.Generator(device=dev).manual_seed(16)
+    assert not torch.backends.cuda.matmul.allow_tf32 and not torch.backends.cudnn.allow_tf32
+    parts = {}
+
+    def part(name, fn, *args):
+        t = time.perf_counter()
+        out = fn(*args)
+        parts[name] = time.perf_counter() - t
+        return out
+
+    rows = part("kernels", phase_mech_kernels, uf, dev, gen)
+    register = part("(a) 128^3", phase_mech_rve, MECH_N, dev, smi)
+    small = part("(b) 32^3", phase_mech_rve, MECH_SHIPPED_N, dev, smi)
+    part("(c)", phase_mech_precond, dev, smi)
+    register.update(part("(d)", phase_coupled_mech, dev, smi))
+    small.update(part("(f)", phase_fracture, dev, smi))
+    say(f"[16] FFT micromechanics in {time.perf_counter() - t0:.1f} s ("
+        + ", ".join(f"{k} {v:.1f} s" for k, v in parts.items())
+        + f"; TF32 off: matmul {torch.backends.cuda.matmul.allow_tf32}, cuDNN "
+        f"{torch.backends.cudnn.allow_tf32})")
+    return rows, register, small
+
+
 def main():
     if not torch.cuda.is_available():
         say("chip_smoke: torch.cuda.is_available() is False; needs a CUDA card")
@@ -2704,6 +3238,13 @@ def main():
     # -- 15: the rest of the solver family and the iteration-driven timestepper ----------
     launches_15 = phase_solvers(dev, smi)
     lap("15 (ETDRK4, secant, Broyden, coupled ABM, forward Euler, predictor)", t_start)
+
+    # -- 16: FFT micromechanics -------------------------------------------------------
+    mech_rows, launches_16, launches_16_small = phase_mechanics(uf, dev, smi)
+    for (name, on_small), rows in mech_rows.items():
+        kernels[f"{name} small" if on_small else name]["mechanics_shapes"] = rows
+    lap("16 (FFT micromechanics: deGeus RVE, preconditioner, eigenstrain chain, "
+        "displacements, AT2 fracture)", t_start)
     say(f"[done] {time.perf_counter() - t_start:.1f} s")
 
     # -- result -----------------------------------------------------------------
@@ -2731,8 +3272,9 @@ def main():
     paths_1a.update({k: v for k, v in launches_13.items() if " 1a " in k})
     paths_1a.update(launches_14["small"])
     paths_1a.update(launches_15["small"])
+    paths_1a.update(launches_16_small)
     paths_karman = {k: v for k, v in launches_13.items() if " karman " in k}
-    paths_14 = {**launches_14["main"], **launches_15["main"]}
+    paths_14 = {**launches_14["main"], **launches_15["main"], **launches_16}
     table_small = [
         ("fwd_lanes", "small_lanes_kernel<Identity, Store>", "marlin_tpu/pallas_fft.py:237"),
         ("inv_lanes", "small_lanes_kernel<Identity, InvStore>", "marlin_tpu/pallas_fft.py:276"),

@@ -167,7 +167,27 @@ are.
   ForwardEulerSolver; ``EXPLICIT_REAL_SPACE_DECK`` the same under
   RealSpaceForwardEuler with a FiniteDifferenceLaplacian; ``n``,
   ``substeps``, ``domain_extra``.
+- ``MECH_DECK``: bench.py's ``_MECH_DECK``, the stand-in for the
+  reference's examples/degeus_mechanics/mech.i (the deGeus hyperelastic
+  RVE: two phases of PhaseMechanicsTest, HyperElasticIsotropic,
+  FFTMechanics' Newton and CG under a MacroscopicShearTensor ramp, 10
+  substeps a step of ForwardEulerSolver forwarding Fnew to F), its box
+  2π written out (bench's ``${fparse 2*pi}``); ``n``, ``domain_extra``.
+  ``MECH_2D_DECK`` is its 2-D form.
+- ``COUPLED_PF_MECH_DECK``: the stand-in for the reference's absent
+  test/tests/tensor_compute/coupled_pf_mech.i: ``CH3D_DECK``'s
+  Cahn-Hilliard chain with the small-strain eigenstrain solve,
+  FFTQuasistaticElasticity giving the displacements from c̄ and
+  FFTElasticChemicalPotential adding its µ̄ into the nonlinear term; µ =
+  λ = 1 and e0 = 0.01, small, so the elastic term perturbs the chain (a
+  few 1e-3 of µ̄) and the displacements stay far below 0.1; ``n``,
+  ``substeps``, ``domain_extra``.
+- ``FRACTURE_DECK``: the path of examples/phase_field_fracture/fracture.i
+  (AT2 phase-field fracture on FFT micromechanics, 96²), the JAX package's
+  showcase deck, loaded as it is by both packages.
 """
+
+import os
 
 import numpy as np
 import torch
@@ -3450,3 +3470,121 @@ ETDRK4_ORDER_DECK = """
   type = TensorProblem
 []
 """
+
+MECH_DECK = """[Domain]
+  dim = 3
+  nx = {n}
+  ny = {n}
+  nz = {n}
+  xmax = 6.283185307179586
+  ymax = 6.283185307179586
+  zmax = 6.283185307179586
+  mesh_mode = DUMMY
+  {domain_extra}
+[]
+[TensorComputes]
+  [Initialize]
+    [Finit]
+      type = RankTwoIdentity
+      buffer = F
+    []
+    [phase]
+      type = PhaseMechanicsTest
+      buffer = phase
+    []
+    [K]
+      type = ParsedCompute
+      buffer = K
+      expression = '(1-phase)*Ka + phase*Kb'
+      inputs = phase
+      constant_names = 'Ka Kb'
+      constant_expressions = '0.833 8.33'
+    []
+    [mu]
+      type = ParsedCompute
+      buffer = mu
+      expression = '(1-phase)*mua + phase*mub'
+      inputs = phase
+      constant_names = 'mua mub'
+      constant_expressions = '0.386 3.86'
+    []
+  []
+  [Solve]
+    [hyper_elasticity]
+      type = HyperElasticIsotropic
+      buffer = stress
+      F = Fnew
+      K = K
+      mu = mu
+    []
+    [root]
+      [applied_strain]
+        type = MacroscopicShearTensor
+        buffer = applied_strain
+      []
+      [mech]
+        type = FFTMechanics
+        buffer = Fnew
+        F = F
+        K = K
+        mu = mu
+        l_tol = 1e-2
+        nl_rel_tol = 2e-2
+        nl_abs_tol = 2e-2
+        constitutive_model = hyper_elasticity
+        stress = stress
+        applied_macroscopic_strain = applied_strain
+      []
+    []
+  []
+[]
+[TensorSolver]
+  type = ForwardEulerSolver
+  root_compute = root
+  forward_buffer = F
+  forward_buffer_new = Fnew
+  substeps = 10
+[]
+[Executioner]
+  type = Transient
+  num_steps = 100
+  dt = 0.01
+[]
+"""
+
+MECH_2D_DECK = MECH_DECK.replace("  dim = 3\n", "  dim = 2\n").replace(
+    "  nz = {n}\n", "").replace("  zmax = 6.283185307179586\n", "")
+
+COUPLED_PF_MECH_DECK = CH3D_DECK.replace("""    [cbar]
+      type = ForwardFFT
+      buffer = cbar
+      input = c
+    []
+""", """    [cbar]
+      type = ForwardFFT
+      buffer = cbar
+      input = c
+    []
+    [displacements]
+      type = FFTQuasistaticElasticity
+      displacements = 'disp_x disp_y disp_z'
+      cbar = cbar
+      mu = 1
+      lambda = 1
+      e0 = 0.01
+    []
+    [mubar_el]
+      type = FFTElasticChemicalPotential
+      buffer = mubar_el
+      displacements = 'disp_x disp_y disp_z'
+      cbar = cbar
+      mu = 1
+      lambda = 1
+      e0 = 0.01
+    []
+""").replace("expression = 'Mbar*mubar'\n      inputs = 'Mbar mubar'",
+             "expression = 'Mbar*(mubar+mubar_el)'\n      inputs = 'Mbar mubar mubar_el'").replace(
+    "  zmax = {n}\n", "  zmax = {n}\n  {domain_extra}\n")
+
+FRACTURE_DECK = os.path.join(os.path.dirname(os.path.dirname(os.path.abspath(__file__))),
+                             "examples", "phase_field_fracture", "fracture.i")

@@ -186,6 +186,35 @@ class Domain:
             ks = ks + self._aligned(self._np_raxes[d] ** 2, d)
         return ks
 
+    def np_k_square(self) -> np.ndarray:
+        """|k|² as a full-grid numpy array, for host-side consumers
+        (marlin_tpu/domain.py:np_k_square)."""
+        ks = self._np_align(self._np_raxes[0] ** 2, 0)
+        for d in range(1, self.dim):
+            ks = ks + self._np_align(self._np_raxes[d] ** 2, d)
+        return np.broadcast_to(ks, self.reciprocal_shape)
+
+    def _stacked(self, axes, shape) -> torch.Tensor:
+        """The 1-D ``axes`` broadcast over ``shape`` and stacked on a
+        trailing axis ((*shape, dim); in 1-D the axis itself)."""
+        if self.dim == 1:
+            return torch.from_numpy(np.ascontiguousarray(axes[0])).to(self.device)
+        grid = np.stack([np.broadcast_to(self._np_align(a, d), shape)
+                         for d, a in enumerate(axes)], axis=-1)
+        return torch.from_numpy(grid).to(self.device)
+
+    @property
+    def x_grid(self) -> torch.Tensor:
+        """Cell-centre coordinates, (*shape, dim) for dim > 1 (reference
+        DomainAction.C:1457-1477; marlin_tpu/domain.py:x_grid)."""
+        return self._stacked(self._np_axes, self.shape)
+
+    @property
+    def k_grid(self) -> torch.Tensor:
+        """Reciprocal coordinates, (*reciprocal_shape, dim) for dim > 1; under
+        PALLAS in the kernels' permuted order, as ``reciprocal_axis``."""
+        return self._stacked(self._np_raxes, self.reciprocal_shape)
+
     def axis(self, d: int) -> torch.Tensor:
         return self.axes[d]
 
@@ -260,6 +289,15 @@ class Domain:
         else:
             u = torch.fft.irfftn(t, s=self.shape, dim=spatial, norm="forward")
         return (u / self._cells(u.dtype)).to(self.dtype)
+
+    # -- reductions --------------------------------------------------------
+    def sum(self, t: torch.Tensor) -> torch.Tensor:
+        """Sum over the spatial axes; trailing value axes stay
+        (marlin_tpu/domain.py:sum)."""
+        return t.sum(dim=tuple(range(self.dim)))
+
+    def average(self, t: torch.Tensor) -> torch.Tensor:
+        return self.sum(t) / self.n_cells_global
 
     def _cells(self, dtype: torch.dtype) -> torch.Tensor:
         """N = prod(n) as a 0-d tensor on the device: dividing by a host

@@ -87,6 +87,7 @@ class TensorProblem:
 
     def __init__(self, root: HitNode, device=None, deck_dir: Optional[str] = None,
                  arrays: Optional[Dict[str, np.ndarray]] = None):
+        self.root = root
         gp = root.children.get("GlobalParams")
         self.global_params = dict(gp.params) if gp is not None else {}
         prob = root.children.get("Problem")
@@ -427,6 +428,59 @@ class TensorProblem:
         ids), or None.  Captured once; the fused kernel reads it as is."""
         return self._lbm_media
 
+    def get_compute(self, name: str) -> TensorCompute:
+        """A compute by name anywhere in the solve, IC, postprocess and
+        boundary chains (marlin_tpu/problem.py:get_compute; reference
+        TensorProblem::getComputes)."""
+
+        def search(members):
+            for m in members:
+                if m.name == name:
+                    return m
+                if isinstance(m, ComputeGroup):
+                    found = search(m.members)
+                    if found is not None:
+                        return found
+            return None
+
+        for pool in (self.solve_computes, [self.ic_computes, self.pp_computes],
+                     self.bc_computes):
+            found = search(pool)
+            if found is not None:
+                return found
+        raise ProblemError(f"Compute '{name}' not found.")
+
+    def newton_diag_keys(self) -> List[str]:
+        """The pseudo-buffer keys of Newton convergence flags (FFTMechanics)
+        in the solve, IC and postprocess chains
+        (marlin_tpu/problem.py:newton_diag_keys)."""
+        if getattr(self, "_newton_diag_keys", None) is not None:
+            return self._newton_diag_keys
+        keys = []
+
+        def walk(members):
+            for m in members:
+                if isinstance(m, ComputeGroup):
+                    walk(m.members)
+                elif getattr(m, "converged_key", None):
+                    keys.append(m.converged_key)
+
+        walk(self.solve_computes)
+        walk([self.pp_computes, self.ic_computes])
+        self._newton_diag_keys = keys
+        return keys
+
+    @staticmethod
+    def check_newton_diags(values):
+        """Raise if a Newton solve exhausted nl_max_its (the reference's
+        FFTMechanics.C error); ``values`` maps pseudo-key -> host float,
+        0.0 where the solve did not converge."""
+        from .computes.mechanics import newton_exhausted_message
+
+        for key, ok in values.items():
+            if not ok:
+                raise RuntimeError(newton_exhausted_message(key[len("__converged_"):-2]))
+
     def get_constant(self, name: str) -> float:
         """Fetch a named constant; fetch-before-declare is reported at init
         (reference TensorProblem.C:156-166)."""
@@ -625,6 +679,11 @@ class TensorProblem:
             cur = buffers[name]
             old[name] = self._zeros((n_states,) + tuple(cur.shape), cur.dtype)
             old_max = max(old_max, n_states)
+        # Newton convergence flags (FFTMechanics) start True; each solve ANDs
+        # its own in, and the step's one transfer reads them
+        for key in self.newton_diag_keys():
+            buffers[key] = torch.ones((), dtype=torch.bool, device=dom.device)
+
         solver_state = {} if self.solver is None else self.solver.init_solver_state()
         if self.is_lbm:
             # convergence residual starts at 1 (reference
@@ -798,11 +857,16 @@ class TensorProblem:
             buffers.update(group)
             st = {**state, "buffers": buffers}
             vals = {**{pp.name: pp.compute(st, ctx) for pp in tensor_pps}, **vals}
+            # the flags of an FFTMechanics in the postprocess chain, which
+            # exist only in its outputs, ride the same transfer
+            vals.update({k: group[k] for k in self.newton_diag_keys() if k in group})
         result: Dict[str, float] = {}
         if vals:
             host = torch.stack([torch.as_tensor(v, device=self.domain.device)
                                 .to(torch.float64).reshape(()) for v in vals.values()])
             result = dict(zip(vals, host.tolist()))
+        self.check_newton_diags({k: result.pop(k) for k in self.newton_diag_keys()
+                                 if k in result})
         for pp in pps:
             if getattr(pp, "depends_on_pps", False):
                 result[pp.name] = float(pp.compute_host(result, float(t)))
@@ -821,9 +885,12 @@ class TensorProblem:
         self.device_group_evals = int(state["solver"].get("group_evals", 0))
         active = [pp for pp in self.postprocessors
                   if "TIMESTEP_END" in pp.execute_on]
-        extra = None
+        extra = {}
         if self.is_lbm and "residual" in state["solver"]:
-            extra = {"_lbm_residual": state["solver"]["residual"]}
+            extra["_lbm_residual"] = state["solver"]["residual"]
+        # the solve chain's Newton flags (marlin_tpu/problem.py:1192)
+        extra.update({k: state["buffers"][k] for k in self.newton_diag_keys()
+                      if k in state["buffers"]})
         return state, self._pp_values(state, active, t + dt, dt, extra)
 
     def execute_postprocessors(self, state, flag: str, t, dt) -> Dict[str, float]:

@@ -367,6 +367,48 @@ def test_port_checkpoint_resumes_in_jax(tmp_path):
     _assert_close_to_jax(full, res)
 
 
+def _mech(n=16):
+    """MECH_DECK at n³ in float64, the analytic tangent, 2 substeps a step."""
+    text = decks.MECH_DECK.format(n=n, domain_extra="floating_precision = DOUBLE")
+    strain = "        applied_macroscopic_strain = applied_strain\n"
+    return text.replace(strain, strain + "        analytic_tangent = true\n").replace(
+        "  substeps = 10\n", "  substeps = 2\n")
+
+
+def test_mech_deck_resumes_bit_exact(tmp_path):
+    """MECH_DECK at 16³ with a checkpoint at step 1 resumes to step 3 equal
+    to 3 uninterrupted steps bit for bit: F, the (3, 3) applied strain and
+    the 0-d bool Newton flag among the buffers."""
+    text = _mech()
+    full = run_deck(_steps(text, 3), output_dir=str(tmp_path / "full"), device="cpu")
+    part = run_deck(_steps(text, 1, interval=1), output_dir=str(tmp_path / "part"),
+                    device="cpu")
+    res = run_deck(_steps(text, 3), output_dir=str(tmp_path / "res"), device="cpu",
+                   recover=part.checkpoint_path)
+    _assert_states_equal(res.state, full.state)
+    flag = res.state["buffers"]["__converged_mech__"]
+    assert flag.dtype == torch.bool and flag.shape == () and bool(flag)
+    assert res.state["buffers"]["applied_strain"].shape == (3, 3)
+
+
+def test_jax_mech_checkpoint_resumes_in_the_port(tmp_path):
+    """A JAX checkpoint of MECH_DECK at step 1, resumed by the port to step
+    3, equals the JAX package's 3 uninterrupted steps within 1e-10, the
+    Newton flag included."""
+    import jax
+
+    jax.config.update("jax_enable_x64", True)
+    text = _mech()
+    part = _jax_transient(text, tmp_path / "jax_part", 1)
+    part.run()
+    part.save_checkpoint()
+    full = _jax_transient(text, tmp_path / "jax_full", 3)
+    full.run()
+    res = run_deck(_steps(text, 3), output_dir=str(tmp_path / "port"), device="cpu",
+                   recover=part.checkpoint_path)
+    _assert_close_to_jax(res, full)
+
+
 @pytest.fixture
 def cuda():
     if not torch.cuda.is_available():

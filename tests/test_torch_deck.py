@@ -75,6 +75,18 @@ def test_ch3d_deck_is_bench_copy():
     assert CH3D_DECK == bench._CH3D_DECK
 
 
+def test_mech_deck_is_bench_copy():
+    """MECH_DECK at n = 32 is bench's _MECH_DECK with its box 2π written
+    out, which is what ${fparse 2*pi} gives; n sets every extent."""
+    text = decks.MECH_DECK.format(n=32, domain_extra="")
+    lines = [line for line in text.splitlines() if line.strip()]
+    want = bench._MECH_DECK.replace("${fparse 2*pi}", "6.283185307179586")
+    assert lines == [line for line in want.splitlines() if line.strip()]
+    root = jhit.parse(bench._MECH_DECK)
+    jhit.expand_braces(root)
+    assert root.child("Domain").get("xmax") == "6.283185307179586"
+
+
 @pytest.mark.parametrize("name,original", [
     ("CH_DECK", "_CH"), ("SH_DECK", "_SH"), ("MULTI_DECK", "_MULTI")])
 def test_spectral_decks_are_test_copies(name, original):
