@@ -93,21 +93,24 @@ Phases, one line each, flushed as they finish:
    the stand-in for the reference's 1a.i) at 200², 1000 substeps a step,
    through ``run_deck`` to its end (t = 10500, or the Terminator's
    ``change < 1e-4``), four times: DEFAULT (torch.fft) in float64, the
-   card's reference, and in float32; PALLAS unfused in float32 (kernels
-   1-4 on the small-extent path at n = 200, in every substep and in the
-   free-energy group), cut to its first 12 of 85 steps
-   (``BENCH_1A_CUT``: the host-bound route, its kernels held at 200² by
-   phase 2), its last F held within 1e-3 of the float64 run's at the same
-   step; PALLAS with ``carry_reciprocal`` and
+   card's reference, and in float32, cut to its first 12 of 85 steps
+   (``BENCH_1A_CUT``: phase 17's room in the cold start); PALLAS
+   unfused in float32 (kernels 1-4 on the small-extent path at n = 200, in
+   every substep and in the free-energy group), cut to its first 12
+   (``BENCH_1A_CUT``: the host-bound route, its kernels held at
+   200² by phase 2); each cut route's last F held within 1e-3 of the
+   float64 run's at the same step; PALLAS with ``carry_reciprocal`` and
    ``fused_spectral`` in float32 (kernels 1′ with the 1a µ, 5, 4 and 2,
    and kernels 1-4 in the group).  Each after a warm-up of 1 step that
    builds and loads its kernels.  Gates: F(0) against a numpy float64
    evaluation of the same formula (1e-9 relative in float64, 1e-5 in
-   float32); the same steps and final t in all four runs; exact launch
+   float32); the same steps and final t in the uncut runs, the float64
+   run's first steps in the cut ones; exact launch
    counts (none on DEFAULT); c_integral within 1e-10 (float64) or 1e-5
    (float32) of its start and mass (cbar's k = 0 slot) equal to it within
    the same bound at every step; c finite; each float32 run's F within
-   1e-3 of the float64 run's while t ≤ 10, and its final F within 10%.
+   1e-3 of the float64 run's while t ≤ 10, the fused run's final F within
+   10%.
    Each run's seconds to the finished transient, ms a substep, steps,
    t_final, F_final, peak device memory and perf-graph sections, beside
    the card's name and power limit and the reference's 45 s on an L4;
@@ -209,6 +212,30 @@ Phases, one line each, flushed as they finish:
    fracture deck (examples/phase_field_fracture/fracture.i, binary XDMF)
    at its 96², 4 of its 40 steps: PALLAS float32 against DEFAULT float64
    on d and its three postprocessors within ``FRACTURE_TOL``.
+17. the NN Gibbs surrogate and NEML2 (ROADMAP §1 items 6-7): (a)
+   ``decks.KKS_NN_3D_DECK`` (the two-field chain's µ's from one
+   LibtorchGibbsEnergy, TorchScript run natively with autograd) with the
+   ``"analytic"`` surrogate at 512³, float32, 2 steps × 10 substeps, on
+   PALLAS and DEFAULT: against ``decks.KKS_PARSED_3D_DECK`` (the same G
+   parsed) on PALLAS and PALLAS against DEFAULT, max |Δ| ≤ 5e-5 on c and
+   n1; mass within 1e-5; kernels 1-4 launched exactly 4 forward and 2
+   inverse transforms a substep; the module on the card in float32; three
+   evaluations of one input equal bit for bit; TF32 off; the fused flags
+   refused with the JAX package's words; (b) the ``"mlp"`` surrogate (2→32
+   →32→1, tanh, seeded) at 256³: G and both jacobian groups within 1e-5 of
+   their largest against a float64 evaluation of the module on the card,
+   PALLAS against DEFAULT within 5e-5, ms a substep, the compute's ms (CUDA
+   events), peak memory; (c) examples/neml2_creep/creep.i at its 64², 20
+   steps, in float64 and float32 (its tolerance 1e-9, ``NEML2_F32_ABS_TOL``):
+   the showcase's physics (tests/test_examples.py), every Newton solve
+   converged, float32 within 1e-4 of float64 on ep and sm; then 1024²,
+   5 steps; (d) ``decks.NEML2_PERZYNA_DECK`` at 128³, 3 steps (the
+   implicit Perzyna update, n = 7 unknowns a point, host Newton with one
+   fetch an iteration; the Miehe split of ``decks.NEML2_SPECTRAL_MODEL``):
+   float32 within 1e-4 of float64 on Ep, ep, S, ψ⁺ and ψ⁻; Newton iterations
+   a step, fetches, ms an iteration; eigvalsh at 128³ in chunks of 16384
+   (cuSOLVER refuses one call) and the split's tangent finite at repeated
+   eigenvalues.
 
 Then one JSON line with every kernel's numbers (a kernel timed at more
 than one main shape also lists each under ``shapes``; ``launches_by_path``
@@ -216,8 +243,9 @@ splits ``launches`` by the paths that reached it; the small-extent kernels
 stand as their own entries, ``<wrapper> small``, timed at 200² and
 launched by phase 12's PALLAS runs, phase 13's 1a runs and phase 14's 2a
 and 1a runs; phase 13's Kármán runs add to ``lbm_substep``'s, phase 14's
-512² spectral-family run and phase 16's 128³ and 256³ runs to kernels
-1-4's, phase 16's 32³ and 96² runs to the small-extent entries; phase 16's
+512² spectral-family run and phase 16's 128³ and 256³ runs and phase 17's 512³ and
+256³ runs to kernels 1-4's, phase 16's 32³ and 96² runs to the
+small-extent entries; phase 16's
 rows at its shapes stand under ``mechanics_shapes``) and, last, the JSON result line.  Any failure ends the run with a non-zero exit and no result line.
 Needs one CUDA card; fails without one, and fails where the package is not
 beside it.
@@ -282,12 +310,13 @@ BENCH_1A_RUNS = {  # run: its route in marlin_tpu_torch.bench_1a_runs.ROUTES
     "DEFAULT float64": "D64", "DEFAULT float32": "D32",
     "PALLAS float32": "P32", "PALLAS fused float32": "F32",
 }
-# runs cut short: PALLAS float32 unfused, host-bound (55-66 s whole), runs
-# its first 12 of 85 steps (past the t <= 10 gate); its kernels are held at
-# 200² by phase 2 and its launches come again in phases 13-15.  Its last F
-# is held against the float64 run's at the same step, within
-# BENCH_1A_EARLY's tolerance
-BENCH_1A_CUT = {"PALLAS float32": 12}
+# runs cut short, each to its first 12 of 85 steps (past the t <= 10 gate):
+# PALLAS float32 unfused, host-bound (55-66 s whole), its
+# kernels held at 200² by phase 2 and its launches again in phases 13-15;
+# DEFAULT float32 (room for phase 17; 42-46 s whole), torch.fft
+# alone.  Each last F is held against the float64 run's at the same step,
+# within BENCH_1A_EARLY's tolerance
+BENCH_1A_CUT = {"PALLAS float32": 12, "DEFAULT float32": 12}
 PROFILE_ATTEMPTS = 3  # device_ms: traces taken before an empty one fails
 RESUME_1A = (6, 3)  # phase 13: steps of 1a, and the checkpoint's step
 RESUME_KARMAN = (4, 2)  # the same for Kármán (100 substeps a step)
@@ -3012,6 +3041,316 @@ def phase_mechanics(uf, dev, smi):
     return rows, register, small
 
 
+# -- the NN Gibbs surrogate and NEML2 ------------------------------------------------
+
+KKS_N = 512  # (a) the analytic surrogate on the two-field chain, 2 steps x 10 substeps
+KKS_MLP_N = 256  # (b) the MLP surrogate
+SURROGATE_TOL = 1e-5  # (b) float32 G and jacobian against float64, of the largest
+KKS_REFUSAL = "Compute 'gibbs' has outputs ['G', 'dGdn1', 'mu_c']"  # the JAX words
+CREEP_DECK = os.path.join(HERE, "examples", "neml2_creep", "creep.i")
+CREEP_STEPS = 20  # (c) creep.i's own, at its shipped 64²
+CREEP_BIG = (1024, 5)  # then 1024², 5 steps
+NEML2_N = 128  # (d) the Perzyna deck and the spectral split
+NEML2_STEPS = 3
+NEML2_DT = 0.1
+NEML2_TOL = 1e-4  # (c), (d): float32 against float64, of the float64 buffer's largest
+# ImplicitUpdate's absolute tolerance in float32, through the compute's
+# cli_args: the models' own (creep.i's default 1e-10, the Perzyna model's
+# 1e-9) sit at or below float32's rounding of a residual (unknowns of 5e-4 to
+# 5e-3, ulp 6e-11 to 5e-10, some ten operations), where CPU runs took the
+# 50-iteration cap at every step of creep.i and at the Perzyna deck's third
+NEML2_F32_ABS_TOL = {"creep": "1e-9", "perzyna": "1e-8"}
+
+
+def kks_deck(deck, model, backend, n, solver_extra=""):
+    return transient(deck.format(
+        n=n, model=model, solver_extra=solver_extra,
+        domain_extra=f"fft_backend = {backend}\n  floating_precision = SINGLE").replace(
+        "substeps = 5", f"substeps = {SUBSTEPS}"), MULTI_DT, "c")
+
+
+def kks_launches():
+    """Kernels 1-4 on the unfused two-field chain, a substep: the group's
+    four forward transforms (µ_c, µ_n1, c, n1: one lanes and two sublanes
+    launches each) and the inverse of c and n1 (two sublanes, one lanes)."""
+    n_sub = STEPS * SUBSTEPS
+    return {"fwd_lanes": 4 * n_sub, "fwd_lanes_pre": 0, "fwd_sublanes": 8 * n_sub,
+            "inv_sublanes": 4 * n_sub, "inv_lanes": 2 * n_sub, "fwd_x_update": 0,
+            "fwd_x_update_poly": 0}
+
+
+def max_rel(got, ref):
+    """max |got - ref| over the largest |ref| (0 where both vanish)."""
+    scale = ref.abs().max().item()
+    diff = (got.double() - ref.double()).abs().max().item()
+    return diff / scale if scale else diff
+
+
+def step_ms_once(tr):
+    """Device ms a substep of one more step of a finished run (CUDA events;
+    the run warmed every kernel of its step)."""
+    p, st = tr.problem, tr.state
+    return cuda_ms(lambda: p.step(st, tr.time, MULTI_DT, MULTI_DT, False),
+                   reps=1, warmup=0) / SUBSTEPS
+
+
+def gibbs_gates(gibbs, tr, dev, label):
+    """The surrogate's module on the card in float32; three evaluations of
+    the final state's rows equal bit for bit; the compute's device ms."""
+    held = list(gibbs.model.parameters()) + list(gibbs.model.buffers())
+    assert all(t.device.type == dev.type and t.dtype == torch.float32 for t in held), label
+    b = tr.state["buffers"]
+    X = torch.stack([b["n1"], b["c"]], -1).reshape(-1, 2)
+    runs = [gibbs.evaluate(X) for _ in range(3)]
+    assert all(torch.equal(G, runs[0][0]) and torch.equal(J, runs[0][1])
+               for G, J in runs[1:]), label
+    ms = cuda_ms(lambda: gibbs.apply(b, {}), reps=3, warmup=1)
+    say(f"[17] {label}: module on {held[0].device if held else dev} "
+        f"({len(held)} tensors, float32), 3 evaluations bit for bit; the compute "
+        f"{ms:.3f} ms (CUDA events)")
+    return X, ms
+
+
+def phase_surrogate(uf, sp, dev, tmp, smi):
+    """Phase 17 (a) and (b): the NN Gibbs surrogate on the two-field chain.
+    Returns {run: launches}."""
+    from marlin_tpu_torch import decks, hit
+    from marlin_tpu_torch.computes.nn import gibbs_and_jacobian
+    from marlin_tpu_torch.executioner import run_deck
+
+    assert not torch.backends.cuda.matmul.allow_tf32 and not torch.backends.cudnn.allow_tf32
+    analytic = decks.gibbs_surrogate("analytic", os.path.join(tmp, "analytic.pt"))
+    launches = {}
+    # (a) 512³: PALLAS, its parsed twin, DEFAULT
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    reset(uf, sp)
+    tr, wall = run_main_path(kks_deck(decks.KKS_NN_3D_DECK, analytic, "PALLAS", KKS_N), dev)
+    launched = counters(uf, sp)
+    say(f"[17] (a) KKS surrogate {KKS_N}^3 PALLAS float32, {STEPS} steps x {SUBSTEPS} "
+        f"substeps: run_deck {wall:.2f} s, launches {launched}")
+    assert launched == kks_launches(), (launched, kks_launches())
+    launches["kks 512 PALLAS"] = launched
+    mass(tr, "17a")
+    finite(tr.state["buffers"], "17a")
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    gibbs_gates(tr.problem.get_compute("gibbs"), tr, dev, "(a) analytic")
+    ms_nn = step_ms_once(tr)
+    fields = {k: tr.state["buffers"][k].clone() for k in ("c", "n1")}
+    del tr
+    tr, wall_p = run_main_path(kks_deck(decks.KKS_PARSED_3D_DECK, "", "PALLAS", KKS_N), dev)
+    ms_parsed = step_ms_once(tr)
+    for k, v in fields.items():
+        d = (v - tr.state["buffers"][k]).abs().max().item()
+        say(f"[17] (a) max|{k}_surrogate - {k}_parsed| (PALLAS) {d:.3e} (limit {ANCHOR_TOL})")
+        assert d <= ANCHOR_TOL, (k, d)
+    del tr
+    tr, wall_d = run_main_path(kks_deck(decks.KKS_NN_3D_DECK, analytic, "DEFAULT", KKS_N), dev)
+    ms_default = step_ms_once(tr)
+    for k, v in fields.items():
+        d = (v - tr.state["buffers"][k]).abs().max().item()
+        say(f"[17] (a) max|{k}_PALLAS - {k}_DEFAULT| (surrogate) {d:.3e} (limit {ANCHOR_TOL})")
+        assert d <= ANCHOR_TOL, (k, d)
+    del tr, fields
+    say(f"[17] (a) ms a substep: surrogate PALLAS {ms_nn:.3f}, parsed twin PALLAS "
+        f"{ms_parsed:.3f}, surrogate DEFAULT {ms_default:.3f}; run_deck {wall:.2f} / "
+        f"{wall_p:.2f} / {wall_d:.2f} s; peak device memory {peak:.2f} GiB; {smi}")
+    # the fused flags: refused with the JAX package's words
+    fused = kks_deck(decks.KKS_NN_3D_DECK, analytic, "PALLAS", 16, FUSED)
+    try:
+        with tempfile.TemporaryDirectory() as out_dir:
+            run_deck(hit.parse(fused), output_dir=out_dir, device=dev)
+        raise AssertionError("the fused path took the surrogate deck")
+    except Exception as e:  # noqa: BLE001 - the words are the gate
+        assert str(e) == KKS_REFUSAL, repr(e)
+    say(f"[17] (a) carry_reciprocal + fused_spectral refused: {KKS_REFUSAL!r}")
+
+    # (b) the MLP surrogate at 256³
+    mlp = decks.gibbs_surrogate("mlp", os.path.join(tmp, "mlp.pt"), seed=0)
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    reset(uf, sp)
+    tr, wall = run_main_path(kks_deck(decks.KKS_NN_3D_DECK, mlp, "PALLAS", KKS_MLP_N), dev)
+    launches["kks mlp 256 PALLAS"] = counters(uf, sp)
+    assert launches["kks mlp 256 PALLAS"] == kks_launches(), launches
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    mass(tr, "17b")
+    gibbs = tr.problem.get_compute("gibbs")
+    X, ms_compute = gibbs_gates(gibbs, tr, dev, "(b) mlp")
+    G32, J32 = gibbs.evaluate(X)
+    G64, J64 = gibbs_and_jacobian(torch.jit.load(mlp, map_location=dev).double(), X.double())
+    errs = {"G": max_rel(G32, G64), "dGdn1": max_rel(J32[:, 0], J64[:, 0]),
+            "mu_c": max_rel(J32[:, 1], J64[:, 1])}
+    say(f"[17] (b) float32 module against float64 on the card, of the largest: "
+        + ", ".join(f"{k} {v:.3e}" for k, v in errs.items()) + f" (limit {SURROGATE_TOL})")
+    assert max(errs.values()) <= SURROGATE_TOL, errs
+    ms_mlp = step_ms_once(tr)
+    fields = {k: tr.state["buffers"][k].clone() for k in ("c", "n1")}
+    del tr, X, G32, J32, G64, J64
+    tr, wall_d = run_main_path(kks_deck(decks.KKS_NN_3D_DECK, mlp, "DEFAULT", KKS_MLP_N), dev)
+    for k, v in fields.items():
+        d = (v - tr.state["buffers"][k]).abs().max().item()
+        say(f"[17] (b) max|{k}_PALLAS - {k}_DEFAULT| {d:.3e} (limit {ANCHOR_TOL})")
+        assert d <= ANCHOR_TOL, (k, d)
+    say(f"[17] (b) MLP surrogate {KKS_MLP_N}^3: {ms_mlp:.3f} ms a substep (PALLAS), the "
+        f"compute {ms_compute:.3f} ms, DEFAULT {step_ms_once(tr):.3f} ms a substep; "
+        f"run_deck {wall:.2f} / {wall_d:.2f} s; peak device memory {peak:.2f} GiB; {smi}")
+    del tr, fields
+    return launches
+
+
+def neml2_model_of(tr, name):
+    return tr.problem.get_compute(name).model
+
+
+def run_creep(dev, tmp, overrides):
+    from marlin_tpu_torch import hit
+    from marlin_tpu_torch.executioner import run_deck
+
+    out_dir = tempfile.mkdtemp(dir=tmp)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    tr = run_deck(hit.load(CREEP_DECK, overrides), output_dir=out_dir, device=dev,
+                  deck_dir=os.path.dirname(CREEP_DECK))
+    torch.cuda.synchronize()
+    return tr, time.perf_counter() - t0
+
+
+def creep_physics(tr, label):
+    """tests/test_examples.py::test_neml2_creep_showcase's assertions: the
+    stress below the elastic value, 0 <= ep <= e, the hot side relaxed
+    more than ten times as far as the cold side."""
+    b = tr.state["buffers"]
+    sm, ep = b["sm"].double(), b["ep"].double()
+    e = torch.broadcast_to(b["e"].double(), sm.shape)
+    tol = 1e-6 if b["sm"].dtype == torch.float64 else 1e-5
+    assert bool((sm <= 1000.0 * e + tol).all()), label
+    assert bool((ep >= -1e-12).all()) and bool((ep <= e + 1e-9).all()), label
+    nx = sm.shape[0]
+    cold = (1000.0 * e - sm)[: nx // 4].mean().item()
+    hot = (1000.0 * e - sm)[-nx // 4:].mean().item()
+    assert hot > 10 * max(cold, 1e-9), (label, hot, cold)
+    return hot, cold
+
+
+def phase_neml2(dev, tmp, smi):
+    """Phase 17 (c) and (d): NEML2 on the card."""
+    from marlin_tpu_torch import decks, hit
+    from marlin_tpu_torch.computes import neml2
+    from marlin_tpu_torch.executioner import run_deck
+
+    # (c) examples/neml2_creep/creep.i at its 64², all 20 steps, both precisions
+    runs = {}
+    f32_tol = ("TensorComputes/Solve/creep/cli_args=Models/impl/absolute_tolerance="
+               + NEML2_F32_ABS_TOL["creep"])
+    for prec in ("DOUBLE", "SINGLE"):
+        tr, wall = run_creep(dev, tmp, [f"Domain/floating_precision={prec}"]
+                             + ([f32_tol] if prec == "SINGLE" else []))
+        assert tr.step_count == CREEP_STEPS, tr.step_count
+        finite(tr.state["buffers"], f"17c {prec}")
+        hot, cold = creep_physics(tr, f"17c {prec}")
+        model = neml2_model_of(tr, "creep")
+        counts = model.counts
+        assert max(counts.log) < model.miter, (prec, counts.log)
+        say(f"[17] (c) creep.i 64^2 {prec}: {wall:.2f} s for {tr.step_count} steps, "
+            f"Newton {counts.iterations} iterations ({counts.log}), {counts.fetches} "
+            f"fetches; relaxed hot {hot:.4e}, cold {cold:.4e}")
+        runs[prec] = tr.state["buffers"]
+    for k in ("ep", "sm"):
+        d = max_rel(runs["SINGLE"][k], runs["DOUBLE"][k])
+        say(f"[17] (c) creep.i float32 against float64: {k} {d:.3e} of the largest "
+            f"(limit {NEML2_TOL})")
+        assert d <= NEML2_TOL, (k, d)
+    n, steps = CREEP_BIG
+    tr, wall = run_creep(dev, tmp, [f"Domain/nx={n}", f"Domain/ny={n}",
+                                    "Domain/floating_precision=SINGLE", f32_tol,
+                                    f"Executioner/num_steps={steps}"])
+    finite(tr.state["buffers"], "17c 1024")
+    model = neml2_model_of(tr, "creep")
+    counts = model.counts
+    assert max(counts.log) < model.miter, counts.log
+    say(f"[17] (c) creep.i {n}^2 float32, {steps} steps: {wall:.2f} s, "
+        f"{1e3 * wall / steps:.1f} ms a step, Newton {counts.log}, {counts.fetches} fetches")
+    del tr, runs
+
+    # (d) the Perzyna deck and the spectral split at 128³
+    model = os.path.join(tmp, "perzyna.i")
+    spectral = os.path.join(tmp, "spectral.i")
+    with open(model, "w") as f:
+        f.write(decks.NEML2_PERZYNA_MODEL)
+    with open(spectral, "w") as f:
+        f.write(decks.NEML2_SPECTRAL_MODEL)
+    out = {}
+    for prec, cli in (("DOUBLE", ""), ("SINGLE", "cli_args = 'Models/impl/absolute_"
+                                                  f"tolerance={NEML2_F32_ABS_TOL['perzyna']}'")):
+        text = decks.NEML2_PERZYNA_DECK.format(
+            n=NEML2_N, domain_extra=f"floating_precision = {prec}", dt=NEML2_DT,
+            steps=NEML2_STEPS, model=model, spectral_model=spectral, cli_args=cli)
+        with tempfile.TemporaryDirectory() as out_dir:
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            tr = run_deck(hit.parse(text), output_dir=out_dir, device=dev)
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+        b = tr.state["buffers"]
+        finite(b, f"17d {prec}")
+        comp = tr.problem.get_compute("perzyna")
+        counts = comp.model.counts
+        assert max(counts.log) < comp.model.miter, (prec, counts.log)
+        steps_log, fetches = list(counts.log), counts.fetches
+        # one more solve from the virgin state at the last step's strain
+        virgin = {**b, "Ep_old": torch.zeros_like(b["Ep_old"]),
+                  "ep_old": torch.zeros_like(b["ep_old"])}
+        ms_solve = cuda_ms(lambda: comp.apply(virgin, {}), reps=1, warmup=0)
+        its = counts.log[-1]
+        say(f"[17] (d) Perzyna {NEML2_N}^3 {prec}: {wall:.2f} s for {NEML2_STEPS} steps; "
+            f"Newton iterations a step {steps_log}, {fetches} fetches; a solve from the virgin state {ms_solve:.1f} ms for {its} iterations "
+            f"({ms_solve / max(its, 1):.2f} ms an iteration, the first residual and the "
+            f"final forward included); plastic share {(b['ep'] > 0).double().mean().item():.3f}")
+        out[prec] = {k: b[k] for k in ("Ep", "ep", "S", "psi", "psi_inactive")}
+        del tr, b, virgin
+    for k in out["DOUBLE"]:
+        d = max_rel(out["SINGLE"][k], out["DOUBLE"][k])
+        say(f"[17] (d) float32 against float64: {k} {d:.3e} of the largest "
+            f"(limit {NEML2_TOL})")
+        assert d <= NEML2_TOL, (k, d)
+    # eigvalsh at 128³ and its tangent at repeated eigenvalues, on the card
+    E = torch.randn((NEML2_N,) * 3 + (3, 3), device=dev, generator=torch.Generator(
+        device=dev).manual_seed(17))
+    E = 0.5 * (E + E.transpose(-1, -2))
+    ms_eig = cuda_ms(lambda: neml2.eigvalsh_3x3(E), reps=3, warmup=1)
+    whole = {}
+    for dtype in (torch.float32, torch.float64):  # one call over the whole batch
+        try:
+            whole[dtype] = f"{cuda_ms(lambda: torch.linalg.eigvalsh(E.to(dtype)), 1, 1):.2f} ms"
+        except RuntimeError as e:
+            whole[dtype] = f"refused ({str(e).splitlines()[0][:60]})"
+    psis = neml2.load_neml2_model(spectral, "psis", device=dev)
+    for point in ([0.0] * 6, [0.01, 0, 0, 0, 0, 0], [0.01, 0.01, 0.01, 0, 0, 0]):
+        x = torch.tensor([point] * 4, device=dev)
+        _, tan = torch.func.jvp(lambda e: psis.forward({"forces/Em": e}),
+                                (x,), (torch.ones_like(x),))
+        assert all(bool(torch.isfinite(t).all()) for t in tan.values()), point
+    say(f"[17] (d) eigvalsh on ({NEML2_N}^3, 3, 3) float32 {ms_eig:.2f} ms in chunks of "
+        f"{neml2.EIGVALSH_CHUNK} (CUDA events); one call: float32 {whole[torch.float32]}, "
+        f"float64 {whole[torch.float64]}; the split's tangent finite at E = 0, uniaxial "
+        f"and hydrostatic; {smi}")
+
+
+def phase_surrogate_neml2(uf, sp, dev, smi):
+    """Phase 17: the NN Gibbs surrogate and NEML2.  Returns {run: launches}."""
+    t0 = time.perf_counter()
+    with tempfile.TemporaryDirectory() as tmp:
+        t = time.perf_counter()
+        launches = phase_surrogate(uf, sp, dev, tmp, smi)
+        t_ab = time.perf_counter() - t
+        phase_neml2(dev, tmp, smi)
+    say(f"[17] the NN surrogate and NEML2 in {time.perf_counter() - t0:.1f} s ((a)-(b) "
+        f"{t_ab:.1f} s; TF32 off: matmul {torch.backends.cuda.matmul.allow_tf32}, cuDNN "
+        f"{torch.backends.cudnn.allow_tf32})")
+    return launches
+
+
 def main():
     if not torch.cuda.is_available():
         say("chip_smoke: torch.cuda.is_available() is False; needs a CUDA card")
@@ -3245,6 +3584,10 @@ def main():
         kernels[f"{name} small" if on_small else name]["mechanics_shapes"] = rows
     lap("16 (FFT micromechanics: deGeus RVE, preconditioner, eigenstrain chain, "
         "displacements, AT2 fracture)", t_start)
+
+    # -- 17: the NN Gibbs surrogate and NEML2 -------------------------------------------
+    launches_17 = phase_surrogate_neml2(uf, sp, dev, smi)
+    lap("17 (NN Gibbs surrogate, NEML2)", t_start)
     say(f"[done] {time.perf_counter() - t_start:.1f} s")
 
     # -- result -----------------------------------------------------------------
@@ -3274,7 +3617,7 @@ def main():
     paths_1a.update(launches_15["small"])
     paths_1a.update(launches_16_small)
     paths_karman = {k: v for k, v in launches_13.items() if " karman " in k}
-    paths_14 = {**launches_14["main"], **launches_15["main"], **launches_16}
+    paths_14 = {**launches_14["main"], **launches_15["main"], **launches_16, **launches_17}
     table_small = [
         ("fwd_lanes", "small_lanes_kernel<Identity, Store>", "marlin_tpu/pallas_fft.py:237"),
         ("inv_lanes", "small_lanes_kernel<Identity, InvStore>", "marlin_tpu/pallas_fft.py:276"),

@@ -1,10 +1,9 @@
-"""Tensor compute library (the ops layer) — the ported subset.
+"""Tensor compute library (the ops layer).
 
 Importing this package registers the compute types with
-marlin_tpu_torch.registry.computes.  What marlin_tpu/computes holds beyond
-it, the NN surrogate (``LibtorchGibbsEnergy``, nn.py) and NEML2
-(``NEML2TensorCompute``, neml2.py), is not ported yet; a deck naming one of
-them fails at build with the registry's named error.
+marlin_tpu_torch.registry.computes: the core spectral computes, lattice
+Boltzmann, FFT micromechanics, the NN surrogate (``LibtorchGibbsEnergy``,
+nn.py) and NEML2 (``NEML2TensorCompute`` and its 56 model types, neml2.py).
 """
 
-from . import base, core, lbm, lbm_bc, mechanics  # noqa: F401
+from . import base, core, lbm, lbm_bc, mechanics, neml2, nn  # noqa: F401

@@ -3588,3 +3588,323 @@ COUPLED_PF_MECH_DECK = CH3D_DECK.replace("""    [cbar]
 
 FRACTURE_DECK = os.path.join(os.path.dirname(os.path.dirname(os.path.abspath(__file__))),
                              "examples", "phase_field_fracture", "fracture.i")
+
+
+# -- the NN Gibbs surrogate and NEML2 ---------------------------------------------
+
+_KKS_MU = """    [mu_c]
+      type = ParsedCompute
+      buffer = mu_c
+      expression = '(2*(c-0.3)^2*(0.7-c)^2 + n1^2*c)*5'
+      derivatives = c
+      inputs = 'c n1'
+    []
+    [mu_n1]
+      type = ParsedCompute
+      buffer = mu_n1
+      expression = '(n1^2*(1-n1)^2 + n1^2*c)*(-5)'
+      derivatives = n1
+      inputs = 'c n1'
+    []
+"""
+assert _KKS_MU in MULTI_3D_DECK
+
+#: the surrogate's Gibbs energy G(n1, c): its dG/dc is MULTI_3D_DECK's µ_c
+#: and its −dG/dn1 that deck's µ_n1
+KKS_G = "5*(2*(c-0.3)^2*(0.7-c)^2 + n1^2*(1-n1)^2 + n1^2*c)"
+
+_KKS_MU_N1 = """    [mu_n1]
+      type = ParsedCompute
+      buffer = mu_n1
+      expression = '-dGdn1'
+      inputs = dGdn1
+    []
+"""
+
+KKS_NN_3D_DECK = MULTI_3D_DECK.replace(_KKS_MU, """    [gibbs]
+      type = LibtorchGibbsEnergy
+      buffer = G
+      phase_fractions = n1
+      concentrations = c
+      domega_detas = dGdn1
+      chem_pots = mu_c
+      libtorch_model_file = {model}
+    []
+""" + _KKS_MU_N1)
+
+KKS_PARSED_3D_DECK = MULTI_3D_DECK.replace(_KKS_MU, f"""    [G]
+      type = ParsedCompute
+      buffer = G
+      expression = '{KKS_G}'
+      inputs = 'n1 c'
+    []
+    [dGdn1]
+      type = ParsedCompute
+      buffer = dGdn1
+      expression = '{KKS_G}'
+      derivatives = n1
+      inputs = 'n1 c'
+    []
+    [mu_c]
+      type = ParsedCompute
+      buffer = mu_c
+      expression = '{KKS_G}'
+      derivatives = c
+      inputs = 'n1 c'
+    []
+""" + _KKS_MU_N1)
+
+
+def _kks_gibbs(n1, c):
+    return 5.0 * (2.0 * (c - 0.3) ** 2 * (0.7 - c) ** 2 + n1 ** 2 * (1.0 - n1) ** 2
+                  + n1 ** 2 * c)
+
+
+class AnalyticGibbs(torch.nn.Module):
+    """KKS_G on rows (n1, c), elementwise."""
+
+    def forward(self, x):
+        return _kks_gibbs(x[:, 0], x[:, 1])
+
+
+class MLPGibbs(torch.nn.Module):
+    """KKS_G plus a small MLP correction (2→32→32→1, tanh), scaled by
+    ``scale``; its weights drawn from numpy's generator seeded with
+    ``seed``, so that every torch version builds the same model."""
+
+    def __init__(self, seed: int, width: int = 32, scale: float = 0.01):
+        super().__init__()
+        rng = np.random.RandomState(seed)
+        self.l1 = torch.nn.Linear(2, width)
+        self.l2 = torch.nn.Linear(width, width)
+        self.l3 = torch.nn.Linear(width, 1)
+        with torch.no_grad():
+            for layer in (self.l1, self.l2, self.l3):
+                bound = 1.0 / np.sqrt(layer.in_features)
+                layer.weight.copy_(torch.from_numpy(
+                    rng.uniform(-bound, bound, tuple(layer.weight.shape))))
+                layer.bias.copy_(torch.from_numpy(rng.uniform(-bound, bound, layer.out_features)))
+        self.scale = scale
+
+    def forward(self, x):
+        h = torch.tanh(self.l2(torch.tanh(self.l1(x))))
+        return _kks_gibbs(x[:, 0], x[:, 1]) + self.scale * self.l3(h).squeeze(1)
+
+
+def gibbs_surrogate(kind: str, path: str, seed: int = 0) -> str:
+    """Save the surrogate ``kind`` as a TorchScript module at ``path`` (the
+    weights both packages load): ``"analytic"``, KKS_G as an elementwise
+    scripted module; ``"mlp"``, KKS_G plus MLPGibbs's seeded correction.
+    Returns ``path``."""
+    model = {"analytic": AnalyticGibbs, "mlp": lambda: MLPGibbs(seed)}[kind]()
+    torch.jit.save(torch.jit.script(model.eval()), path)
+    return path
+
+
+#: tests/test_neml2.py::test_neml2_implicit_perzyna_viscoplasticity's
+#: model.i: elasticity on Ee = E − Ep, von Mises, linear hardening,
+#: Perzyna flow, normality, associative flow, backward Euler on Ep (Mandel
+#: 6) and ep (1) under ImplicitUpdate, n = 7 unknowns a point
+NEML2_PERZYNA_MODEL = """
+[Models]
+  [elastic_strain]
+    type = SR2LinearCombination
+    from_var = 'forces/E state/internal/Ep'
+    to_var = 'state/internal/Ee'
+    coefficients = '1 -1'
+  []
+  [elasticity]
+    type = LinearIsotropicElasticity
+    strain = 'state/internal/Ee'
+    stress = 'state/S'
+    coefficients = '200e3 0.3'
+    coefficient_types = 'YOUNGS_MODULUS POISSONS_RATIO'
+  []
+  [vm]
+    type = SR2Invariant
+    invariant_type = VONMISES
+    tensor = 'state/S'
+    invariant = 'state/internal/sm'
+  []
+  [hard]
+    type = LinearIsotropicHardening
+    hardening_modulus = 1000
+  []
+  [yield]
+    type = YieldFunction
+    yield_stress = 100
+    stress_measure = 'state/internal/sm'
+    isotropic_hardening = 'state/internal/k'
+  []
+  [flow]
+    type = PerzynaPlasticFlowRate
+    reference_stress = 50
+    exponent = 2
+  []
+  [normality]
+    type = Normality
+    stress = 'state/S'
+    flow_direction = 'state/internal/NM'
+  []
+  [epflow]
+    type = AssociativePlasticFlow
+    plastic_strain_rate = 'state/internal/Ep_rate'
+  []
+  [eprate]
+    type = AssociativeIsotropicPlasticHardening
+  []
+  [integ_Ep]
+    type = SR2BackwardEulerTimeIntegration
+    variable = 'state/internal/Ep'
+  []
+  [integ_ep]
+    type = ScalarBackwardEulerTimeIntegration
+    variable = 'state/internal/ep'
+  []
+  [system]
+    type = ComposedModel
+    models = 'elastic_strain elasticity vm hard yield flow normality
+              epflow eprate integ_Ep integ_ep'
+  []
+  [impl]
+    type = ImplicitUpdate
+    implicit_model = system
+    absolute_tolerance = 1e-9
+    relative_tolerance = 1e-12
+  []
+[]
+"""
+
+#: the Miehe tension/compression split of the strain energy of E less a
+#: thermal eigenstrain α·T·I (so that the principal strains take both signs
+#: where T is high)
+NEML2_SPECTRAL_MODEL = """
+[Models]
+  [eigen]
+    type = ThermalEigenstrain
+    CTE = 1e-5
+    reference_temperature = 0
+    temperature = 'forces/T'
+    eigenstrain = 'forces/Eg'
+  []
+  [mechanical]
+    type = SR2LinearCombination
+    from_var = 'forces/E forces/Eg'
+    to_var = 'forces/Em'
+    coefficients = '1 -1'
+  []
+  [psis]
+    type = StrainEnergyDensity
+    lambda = 100.0
+    mu = 50.0
+    decomposition = SPECTRAL
+    strain = 'forces/Em'
+  []
+  [split]
+    type = ComposedModel
+    models = 'eigen mechanical psis'
+  []
+[]
+"""
+
+NEML2_PERZYNA_DECK = """
+[Domain]
+  dim = 3
+  nx = {n}
+  ny = {n}
+  nz = {n}
+  {domain_extra}
+[]
+[TensorBuffers]
+  [dir]
+    type = SR2Tensor
+  []
+  [E]
+    type = SR2Tensor
+  []
+  [Ep_old]
+    type = SR2Tensor
+  []
+  [Ep]
+    type = SR2Tensor
+  []
+  [S]
+    type = SR2Tensor
+  []
+  [ep_old][]
+  [ep][]
+  [t_now][]
+  [t_old][]
+  [T][]
+  [psi][]
+  [psi_inactive][]
+[]
+[TensorComputes]
+  [Initialize]
+    [dir]
+      type = ConstantTensor
+      buffer = dir
+      real = 1
+    []
+  []
+  [Solve]
+    [t_now]
+      type = ParsedCompute
+      buffer = t_now
+      expression = 't'
+      extra_symbols = true
+    []
+    [t_old]
+      type = ParsedCompute
+      buffer = t_old
+      expression = 't - {dt}'
+      extra_symbols = true
+    []
+    [E]
+      type = ParsedCompute
+      buffer = E
+      expression = 'dir*0.002*t*(1+x)'
+      inputs = dir
+      extra_symbols = true
+    []
+    [T]
+      type = ParsedCompute
+      buffer = T
+      expression = '200*t*y'
+      extra_symbols = true
+    []
+    [perzyna]
+      type = NEML2TensorCompute
+      neml2_input_file = {model}
+      neml2_model = impl
+      marlin_inputs = 'E Ep_old ep_old t_now t_old'
+      neml2_inputs = 'forces/E old_state/internal/Ep old_state/internal/ep forces/t old_forces/t'
+      neml2_outputs = 'state/internal/Ep state/internal/ep state/S'
+      marlin_outputs = 'Ep ep S'
+      {cli_args}
+    []
+    [psi]
+      type = NEML2TensorCompute
+      neml2_input_file = {spectral_model}
+      neml2_model = split
+      marlin_inputs = 'E T'
+      neml2_inputs = 'forces/E forces/T'
+      neml2_outputs = 'state/internal/psi state/internal/psi_inactive'
+      marlin_outputs = 'psi psi_inactive'
+    []
+  []
+[]
+[TensorSolver]
+  type = ForwardEulerSolver
+  forward_buffer = 'Ep_old ep_old'
+  forward_buffer_new = 'Ep ep'
+[]
+[Problem]
+  type = TensorProblem
+[]
+[Executioner]
+  type = Transient
+  num_steps = {steps}
+  dt = {dt}
+[]
+"""

@@ -58,6 +58,13 @@ class ProblemError(Exception):
     pass
 
 
+#: NEML2 primitive-typed buffers and their default trailing value dims
+#: (reference src/tensor_buffers/NEML2TensorBuffer.C; Mandel SR2 and SSR4,
+#: modified Rodrigues parameters for Rot)
+NEML2_VALUE_DIMS = {"VectorTensor": [3], "SR2Tensor": [6], "R2Tensor": [3, 3],
+                    "SSR4Tensor": [6, 6], "RotTensor": [3]}
+
+
 def build_domain(node: Optional[HitNode], device=None) -> Domain:
     """The Domain of a deck's [Domain] block
     (marlin_tpu/problem.py:build_domain)."""
@@ -143,11 +150,11 @@ class TensorProblem:
             for b in tb.blocks():
                 spec = Params(b, self.global_params)
                 btype = spec.get_str("type", "PlainTensorBuffer")
-                if btype not in ("PlainTensorBuffer", "LBMTensorBuffer"):
+                if btype not in ("PlainTensorBuffer", "LBMTensorBuffer", *NEML2_VALUE_DIMS):
                     raise ProblemError(
                         f"[TensorBuffers/{b.name}] type = {btype} is not "
-                        "ported to marlin_tpu_torch yet (PlainTensorBuffer "
-                        "and LBMTensorBuffer only)")
+                        "ported to marlin_tpu_torch yet (PlainTensorBuffer, "
+                        "LBMTensorBuffer and the NEML2 primitive types only)")
                 self.buffer_specs[b.name] = spec
 
         # -- stencils (LBM) -------------------------------------------------
@@ -500,7 +507,8 @@ class TensorProblem:
             return None
         if self._is_lbm_buffer(spec):
             return self._lbm_buffer_shape(spec)
-        vdims = spec.get_int_vector("value_dimensions", [])
+        vdims = (spec.get_int_vector("value_dimensions", [])
+                 or NEML2_VALUE_DIMS.get(spec.get_str("type", "PlainTensorBuffer"), []))
         if spec.get_bool("reciprocal", False):
             return self.domain.reciprocal_value_shape(vdims)
         return self.domain.value_shape(vdims)

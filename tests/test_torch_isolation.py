@@ -182,18 +182,23 @@ def _without_solver(text):
                                                "FFTExplicit"),
     ("[TensorOutputs]\n  [x]\n    type = XDMFTensorOutput\n    buffer = c\n  []\n[]\n",
      "parallel_mode"),
-    (UNPORTED_COMPUTE.format(type="LibtorchGibbsEnergy"),
-     "Unknown object type 'LibtorchGibbsEnergy'"),
-    (UNPORTED_COMPUTE.format(type="NEML2TensorCompute"),
-     "Unknown object type 'NEML2TensorCompute'"),
+    (UNPORTED_COMPUTE.format(type="LibtorchGibbsEnergy").replace(
+        "      buffer = x\n", "      buffer = x\n      phase_fractions = c\n"
+        "      concentrations = c\n      domega_detas = dx\n      chem_pots = mx\n"
+        "      libtorch_model_file = missing_model.pt\n"),
+     "Data file 'missing_model.pt' not found"),
+    (UNPORTED_COMPUTE.format(type="NEML2TensorCompute").replace(
+        "      buffer = x\n", "      neml2_input_file = missing_model.i\n"
+        "      neml2_model = m\n      marlin_outputs = x\n      neml2_outputs = state/x\n"),
+     "Data file 'missing_model.i' not found"),
 ], ids=["functions", "time_integrators", "xdmf", "nn", "neml2"])
 def test_unported_features_are_named_errors(extra, match):
     """[Functions] and the legacy integrator blocks are ported; what stays a
     named error there is what the JAX package refuses (a function that
     names no function, an integrator other than FFTSemiImplicit), the
-    per-rank XDMF writer (every parallel_mode is refused), and the two
-    compute types not ported yet, the NN surrogate and NEML2 (the
-    registry's named error)."""
+    per-rank XDMF writer (every parallel_mode is refused).  The NN
+    surrogate and NEML2 are ported: the port builds both types, and a
+    missing model file is the JAX package's named error."""
     text = _CH_DECK.format(nx=16, ny=16, substeps=1) + extra
     if match != "parallel_mode" and "TensorTimeIntegrators" in extra:
         text = _without_solver(text)
