@@ -93,7 +93,8 @@ Phases, one line each, flushed as they finish:
    the stand-in for the reference's 1a.i) at 200², 1000 substeps a step,
    through ``run_deck`` to its end (t = 10500, or the Terminator's
    ``change < 1e-4``), four times: DEFAULT (torch.fft) in float64, the
-   card's reference, and in float32, cut to its first 12 of 85 steps
+   card's reference (run first, while the libraries build: it needs no
+   kernel of the port), and in float32, cut to its first 12 of 85 steps
    (``BENCH_1A_CUT``: phase 17's room in the cold start); PALLAS
    unfused in float32 (kernels 1-4 on the small-extent path at n = 200, in
    every substep and in the free-energy group), cut to its first 12
@@ -236,6 +237,28 @@ Phases, one line each, flushed as they finish:
    a step, fetches, ms an iteration; eigvalsh at 128³ in chunks of 16384
    (cuSOLVER refuses one call) and the split's tangent finite at repeated
    eigenvalues.
+18. the distributed modes (ROADMAP §1 item 8): (a) in one process, kernels
+   5-6 in their slab form at 512³ (the rank's X-sharded block (512/p, 512,
+   512) for p = 1, 2, 4, kernel 6 with two fields at p = 1, 2; p = 1 is
+   (b)'s stack) against their twins, ms a launch beside serial kernel 5's;
+   kernel 7's halo branch on the porous (media), all-faces D3Q27 and
+   thermal (two lattices) plans at 256³ cut 2 and 4 ways along x and
+   2 × 2 (porous also uncut: (b)'s world-of-one block, its ring its own
+   periodic wrap), and on the D2Q9 channel at
+   800×200 cut 2 and 4 ways: each block's halos sliced from its
+   neighbours, the blocks put together equal to the unsharded flat kernel
+   bit for bit and within 1e-5 of the twin; a block's ms beside the flat
+   and brick kernels on an unsharded plan of its shape and its byte bound;
+   (b) on a real NCCL group of world size 1 (formed here, destroyed
+   after): decks.CH3D_DECK at 512³ float32 on FFT_SLAB, DEFAULT, PALLAS
+   and PALLAS fused, 2 steps × 10 substeps: |c_slab − c_serial| ≤ 5e-5
+   (fused 2e-4) against phases 3-5's end states, mass within 1e-5, kernel
+   launches and all_to_alls exact, ms a substep beside phases 3-5's;
+   MULTI_3D_DECK fused on the slab (5e-5 of phase 6's); POROUS_DECK at
+   256³ on REAL_SPACE, PALLAS and JNP, 3 steps × 10 substeps, within 1e-5
+   of phase 7's end states, launches exact; one all_to_all of a 512³
+   complex64 block and one halo ring of a 256³ D3Q19 block, ms; the NCCL
+   version and the world size.
 
 Then one JSON line with every kernel's numbers (a kernel timed at more
 than one main shape also lists each under ``shapes``; ``launches_by_path``
@@ -246,12 +269,16 @@ and 1a runs; phase 13's Kármán runs add to ``lbm_substep``'s, phase 14's
 512² spectral-family run and phase 16's 128³ and 256³ runs and phase 17's 512³ and
 256³ runs to kernels 1-4's, phase 16's 32³ and 96² runs to the
 small-extent entries; phase 16's
-rows at its shapes stand under ``mechanics_shapes``) and, last, the JSON result line.  Any failure ends the run with a non-zero exit and no result line.
+rows at its shapes stand under ``mechanics_shapes``; kernels 5-6's slab
+form and kernel 7's halo branch stand as their own entries, ``<wrapper>
+slab`` and ``lbm_substep halo``, timed by phase 18 (a) and launched by its
+(b) runs; ``collective`` holds (b)'s all_to_all and halo ring ms) and, last, the JSON result line.  Any failure ends the run with a non-zero exit and no result line.
 Needs one CUDA card; fails without one, and fails where the package is not
 beside it.
 """
 
 import concurrent.futures
+import functools
 import gc
 import json
 import math
@@ -1168,6 +1195,9 @@ def phase_lbm_path(name, dev):
             say(f"[lbm {name}] {backend} fluid mass {m0:.6f} -> {m1:.6f}")
             assert abs(m1 - m0) <= MASS_TOL * m0, (name, backend, m0, m1)
         out[backend] = (tr.state["buffers"], ms, launched)
+        if name == "porous":  # phase 18's serial anchor
+            SERIAL[f"porous {backend}"] = {k: tr.state["buffers"][k].cpu()
+                                           for k in ("fpc", "density", "speed")}
         del tr, problem
     for k in keys:
         a, b = out["PALLAS"][0][k], out["JNP"][0][k]
@@ -1422,19 +1452,29 @@ def free_energy_numpy(n, full_spectrum):
     return float(np.sum(5 * (c - 0.3) ** 2 * (0.7 - c) ** 2 + gx ** 2 + gy ** 2))
 
 
-def phase_bench_1a(uf, sp, dev, smi):
-    """Benchmark 1a whole, four times (BENCH_1A_RUNS), each after a warm-up
-    of BENCH_1A_WARM_STEPS steps that builds and loads its kernels; the
-    gates of each run, then across runs.  Returns {run: launches}."""
-    from marlin_tpu_torch import hit
-    from marlin_tpu_torch.executioner import run_deck
-
+@functools.lru_cache(None)
+def bench_1a_f0():
+    """F(0) of benchmark 1a by numpy in float64, {full spectrum: F}."""
     f0_refs = {full: free_energy_numpy(BENCH_1A_N, full) for full in (False, True)}
     say(f"[1a] F(0) by numpy float64 {f0_refs[False]:.9f} (half spectrum, DEFAULT), "
         f"{f0_refs[True]:.9f} (full spectrum, PALLAS); PFHub, prismspf: {PFHUB_F0} "
         f"(information only)")
-    out = {}
-    for run in BENCH_1A_RUNS:
+    return f0_refs
+
+
+def phase_bench_1a(uf, sp, dev, smi, runs=tuple(BENCH_1A_RUNS), done=None):
+    """Benchmark 1a whole, four times (BENCH_1A_RUNS), each after a warm-up
+    of BENCH_1A_WARM_STEPS steps that builds and loads its kernels; the
+    gates of each run, then, once every run is in ``done``, across runs.
+    ``runs`` are the runs to make now, ``done`` the results of those made
+    before (the float64 reference, which needs no kernel of the port, runs
+    while the libraries build).  Returns {run: result}."""
+    from marlin_tpu_torch import hit
+    from marlin_tpu_torch.executioner import run_deck
+
+    f0_refs = bench_1a_f0()
+    out = dict(done or {})
+    for run in runs:
         with tempfile.TemporaryDirectory() as out_dir:
             run_deck(hit.parse(bench_1a_deck(run, warm=True)), output_dir=out_dir,
                      device=dev)
@@ -1482,6 +1522,8 @@ def phase_bench_1a(uf, sp, dev, smi):
         out[run] = (tr.step_count, tr.time, [(r["time"], r["F"]) for r in rows],
                     launched, wall)
         del tr, c
+    if len(out) < len(BENCH_1A_RUNS):
+        return out
     # -- across runs: the float64 DEFAULT run is the reference
     steps, t_end, ref, _l, _w = out["DEFAULT float64"]
     f_ref = dict(ref)
@@ -1505,7 +1547,7 @@ def phase_bench_1a(uf, sp, dev, smi):
         assert early <= early_tol and last <= last_tol, (run, early, last)
     cut = ", ".join(f"{r} cut to {k}" for r, k in BENCH_1A_CUT.items())
     say(f"[1a] every run {steps} steps to t = {t_end} ({cut}); {smi}")
-    return {run: v[3] for run, v in out.items()}
+    return out
 
 
 # -- outputs and restart --------------------------------------------------------------
@@ -3351,6 +3393,301 @@ def phase_surrogate_neml2(uf, sp, dev, smi):
     return launches
 
 
+# -- 18: the distributed modes --------------------------------------------------------
+SLAB_P = (1, 2, 4)  # (a) kernel 5's slab form at 512³ cut p ways
+SLAB_POLY_P = (1, 2)  # (a) kernel 6's: p = 1 is (b)'s world-of-one stack
+HALO_PLANS = {  # (a) kernel 7's halo branch: plan -> (shape, [(px, py), ...]);
+    # (1, 1) is (b)'s world-of-one block, its ring its own periodic wrap
+    "porous": ((LBM_N,) * 3, [(1, 1), (2, 1), (4, 1), (2, 2)]),
+    "allface_d3q27": ((LBM_N,) * 3, [(2, 1), (4, 1)]),
+    "thermal": ((LBM_N,) * 3, [(2, 1), (2, 2)]),
+    "channel2d": (KARMAN + (1,), [(2, 1), (4, 1)]),
+}
+SLAB_TOL = {"DEFAULT": ANCHOR_TOL, "PALLAS": ANCHOR_TOL, "PALLAS fused": FUSED_ANCHOR_TOL}
+SLAB_ROUTES = {"DEFAULT": ("DEFAULT", ""), "PALLAS": ("PALLAS", ""),
+               "PALLAS fused": ("PALLAS", FUSED)}
+SERIAL = {}  # host copies of phases 3-7's end states, for phase 18's gates
+
+
+def nccl_world_of_one(dev):
+    """A real NCCL process group of world size 1 on this process's card (a
+    tcp store on a free localhost port), and its mesh's NCCL version."""
+    import socket
+
+    import torch.distributed as dist
+
+    with socket.socket() as sock:
+        sock.bind(("localhost", 0))
+        port = sock.getsockname()[1]
+    dist.init_process_group("nccl", init_method=f"tcp://localhost:{port}", rank=0,
+                            world_size=1, device_id=torch.device("cuda", dev.index or 0))
+    return ".".join(str(v) for v in torch.cuda.nccl.version())
+
+
+def slab_kernel_rows(sp, dev, gen, serial_ms):
+    """(a) kernels 5-6 in their slab form at 512³: the rank's X-sharded block
+    (512/p, 512, 512) for p in SLAB_P (kernel 6: two fields, p in
+    SLAB_POLY_P), against the twin, ms a launch beside serial kernel 5's
+    (phase 2) and the byte bound."""
+    def make(shape, dtype):
+        return torch.randn(shape, generator=gen, dtype=dtype, device=dev)
+
+    args = (0.1, 1.5, -0.5)
+    rows = []
+    for p in SLAB_P:
+        shape = (N // p, N, N)
+        m, u, o = (make(shape, torch.complex64) for _ in range(3))
+        ky2 = make((N,), torch.float32).abs().contiguous()
+        kxz2 = make((shape[0] * N,), torch.float32).abs().contiguous()
+        row = measure(f"fwd_x_update slab p={p}", shape,
+                      lambda: sp.fwd_x_update(m, u, o, ky2, kxz2, *args, 5.0, ("lapsq", -10.0)),
+                      lambda: sp.fwd_x_update_plain(m, u, o, ky2, kxz2, *args, 5.0,
+                                                    ("lapsq", -10.0)),
+                      None, 5 * nbytes(m) + nbytes(ky2, kxz2),
+                      fft_flops(shape[0] * N, N) + 25 * m.numel())
+        say(f"[18a] fwd_x_update slab p={p} {shape}: {row['ms']:.3f} ms a launch "
+            f"({row['ms'] * p:.3f} ms for the whole grid's {p} blocks), serial kernel 5 at "
+            f"{N}^3 {serial_ms:.3f} ms")
+        rows.append(row)
+        del m, u, o
+    coef = np.asarray([[0.0, -5.0, 0.0, 0.0, -10.0], [1.0, 0.0, 0.0, -15.0, 0.0]], np.float32)
+    rows8 = np.concatenate([np.tile(np.asarray(args, np.float32), (2, 1)), coef], 1)
+    poly = []
+    for p in SLAB_POLY_P:
+        shape = (2, N // p, N, N)
+        m, u, o = (make(shape, torch.complex64) for _ in range(3))
+        ky2 = make((N,), torch.float32).abs().contiguous()
+        kxz2 = make((N // p * N,), torch.float32).abs().contiguous()
+        row = measure(f"fwd_x_update_poly slab p={p}", shape,
+                      lambda: sp.fwd_x_update_poly(m, u, o, ky2, kxz2, rows8),
+                      lambda: sp.fwd_x_update_poly_plain(m, u, o, ky2, kxz2, rows8),
+                      None, 5 * nbytes(m) + nbytes(ky2, kxz2),
+                      2 * fft_flops(N // p * N, N) + 25 * m.numel())
+        say(f"[18a] fwd_x_update_poly slab p={p} {shape}: {row['ms']:.3f} ms a launch")
+        poly.append(row)
+        del m, u, o
+        torch.cuda.empty_cache()
+    return rows, poly
+
+
+def halo_kernel_rows(lf, dev):
+    """(a) kernel 7's halo branch: each plan of HALO_PLANS cut as its splits
+    say, each block's halos sliced from its neighbours (lf.block_halo), run
+    block by block; the blocks put together equal the unsharded flat kernel
+    bit for bit and the twin within 1e-5.  ms a block's launch beside the
+    flat and the brick kernel on an unsharded plan of the block's shape,
+    and the block's byte bound (the rings included)."""
+    import dataclasses
+    import itertools
+
+    from marlin_tpu_torch.decks import porous_media
+    from marlin_tpu_torch.lbm_probe import deck_plans
+
+    gen = torch.Generator(device=dev).manual_seed(18)
+    plans = deck_plans()
+    rows = []
+    for name, (shape, splits) in HALO_PLANS.items():
+        cfg = dataclasses.replace(plans[name], nx=shape[0], ny=shape[1], nz=shape[2])
+        fpc = lbm_rand(cfg, shape, gen, dev).contiguous()
+        gpc = lbm_rand(cfg, shape, gen, dev).contiguous() if cfg.two_lattice else None
+        media = None
+        if cfg.has_media:
+            media = torch.as_tensor(porous_media(shape[0]), device=dev).to(torch.int8).contiguous()
+            fpc = torch.where(media == 0, 0.0, fpc).contiguous()
+        _plan, avec = lf._kernel_args(fpc, media, cfg, gpc, "chip_smoke")
+        whole = lf.plan_stepper(fpc, media, cfg, gpc, lf.pack(cfg), avec)(fpc, gpc)
+        twin = lf.fused_substep_twin(fpc, media, cfg, gpc)
+        torch.cuda.synchronize()
+        for split in splits:
+            blocks, outs = {}, {}
+            for ij in itertools.product(range(split[0]), range(split[1])):
+                b, offs = lf.shard_plan(cfg, split, ij)
+                fb, fr = lf.block_halo(fpc, b, offs, 1)
+                gb, gr = lf.block_halo(gpc, b, offs, 1) if gpc is not None else (None, None)
+                mb, mr = (lf.block_halo(media, b, offs, 0) if media is not None
+                          else (None, None))
+                blocks[ij] = (b, offs, fb, gb, mb, (fr, gr, mr))
+                outs[ij] = lf.fused_substep(fb, mb, b, gb, rings=(fr, gr, mr), offsets=offs)
+            err = 0.0
+            for k in range(len(whole)):
+                got = torch.cat([torch.cat([outs[(i, j)][k] for j in range(split[1])], dim=-2)
+                                 for i in range(split[0])], dim=-3)
+                assert torch.equal(got, whole[k]), (name, split, k)
+                err = max(err, check(f"lbm_substep halo {name} {split}", shape, got, twin[k]))
+            b, offs, fb, gb, mb, rings = blocks[(0, 0)]
+            step = lf.substepper(fb, mb, b, gb, offs)
+            ms = cuda_ms(lambda: step(fb, gb, rings=rings))
+            local = dataclasses.replace(cfg, nx=b.nx, ny=b.ny)
+            flat = lf.plan_stepper(fb, mb, local, gb, lf.pack(local), avec)
+            ms_flat = cuda_ms(lambda: flat(fb, gb))
+            walk = lf.walk_plan(local, fb.dtype, torch.cuda.get_device_properties(dev)
+                                .multi_processor_count)
+            ms_brick = None
+            if walk is not None and not isinstance(walk, lf.PlanePlan):
+                brick = lf.plan_stepper(fb, mb, local, gb, lf.pack(local, walk), avec)
+                ms_brick = cuda_ms(lambda: brick(fb, gb))
+            plain = cuda_ms(lambda: lf.fused_substep_twin(fb, mb, b, gb, rings, offs), reps=2,
+                            warmup=1)
+            lattices = 2 if cfg.two_lattice else 1
+            cells = b.nx * b.ny * b.nz
+            n_bytes = (2 * lattices * nbytes(fb) + cells * 4 + (cells if mb is not None else 0)
+                       + nbytes(*[r for r in rings if r is not None]))
+            bnd, by = bound_ms(n_bytes, lbm_flops(b) * cells, F32_NO_FMA_FLOP_PER_S)
+            say(f"[18a] lbm_substep halo {name} {shape} split {split}: blocks equal the flat "
+                f"kernel bit for bit, twin max_abs_err {err:.3e}; block "
+                f"{(b.nx, b.ny, b.nz)}: {ms:.3f} ms a launch, flat unsharded {ms_flat:.3f} ms, "
+                f"brick {'-' if ms_brick is None else f'{ms_brick:.3f}'} ms, twin "
+                f"{plain:.3f} ms, bound {bnd:.3f} ms ({by})")
+            rows.append({"shape": [name, list(shape), list(split)], "max_abs_err": err,
+                         "ms": ms, "plain_ms": plain, "library_ms": None, "bound_ms": bnd,
+                         "bound_by": by, "flat_ms": ms_flat, "brick_ms": ms_brick})
+            del blocks, outs
+        del fpc, gpc, media, whole, twin
+        torch.cuda.empty_cache()
+    return rows
+
+
+def slab_deck(route, dev):
+    """CH3D_DECK at 512³ float32 on FFT_SLAB over the world-of-one mesh."""
+    backend, extra = SLAB_ROUTES[route]
+    return ch3d_deck(backend, extra).replace("[Domain]",
+                                             "[Domain]\n  parallel_mode = FFT_SLAB")
+
+
+def mesh_run(deck, dev, mesh, arrays=None):
+    from marlin_tpu_torch import hit
+    from marlin_tpu_torch.executioner import run_deck
+
+    with tempfile.TemporaryDirectory() as out_dir:
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        tr = run_deck(hit.parse(deck), output_dir=out_dir, device=dev, mesh=mesh,
+                      arrays=arrays)
+        torch.cuda.synchronize()
+    return tr, time.perf_counter() - t0
+
+
+def phase_distributed(uf, sp, lf, dev, smi, serial_ms):
+    """Phase 18: the distributed modes.  (a) kernels 5-6 in slab form and
+    kernel 7's halo branch at P > 1 in one process; (b) the decks on an
+    NCCL group of world size 1.  Returns (rows, launches of (b))."""
+    import torch.distributed as dist
+
+    from marlin_tpu_torch import parallel
+
+    t0 = time.perf_counter()
+    gen = torch.Generator(device=dev).manual_seed(181)
+    slab_rows, poly_rows = slab_kernel_rows(sp, dev, gen, serial_ms["kernel5"])
+    halo_rows = halo_kernel_rows(lf, dev)
+    t_a = time.perf_counter() - t0
+
+    version = nccl_world_of_one(dev)
+    launches = {}
+    try:
+        mesh = parallel.make_mesh("FFT_SLAB")
+        say(f"[18b] NCCL {version}, world size {dist.get_world_size()}, mesh {mesh}")
+        n_sub = STEPS * SUBSTEPS
+        for route in SLAB_ROUTES:
+            reset(uf, sp)
+            parallel.reset_calls()
+            tr, wall = mesh_run(slab_deck(route, dev), dev, mesh)
+            got = counters(uf, sp)
+            calls = parallel.calls()
+            S = SUBSTEPS
+            if route == "DEFAULT":
+                want = {k: 0 for k in got}
+                a2a = 3 * n_sub
+            elif route == "PALLAS":
+                want = {"fwd_lanes": 2 * n_sub, "fwd_lanes_pre": 0,
+                        "fwd_sublanes": 4 * n_sub, "inv_sublanes": 2 * n_sub,
+                        "inv_lanes": n_sub, "fwd_x_update": 0, "fwd_x_update_poly": 0}
+                a2a = 3 * n_sub
+            else:
+                want = {"fwd_lanes": STEPS * 2, "fwd_lanes_pre": STEPS * (S - 1),
+                        "fwd_sublanes": STEPS * (2 + (S - 1) + 2),
+                        "fwd_x_update": STEPS * (S - 1), "fwd_x_update_poly": 0,
+                        "inv_sublanes": STEPS * 2 * S, "inv_lanes": STEPS * S}
+                a2a = STEPS * (2 * S + 1)
+            assert got == want, (route, got, want)
+            assert calls["all_to_all"] == a2a, (route, calls, a2a)
+            launches[f"slab {route}"] = got
+            c = tr.state["buffers"]["c"]
+            assert c.shape == (N, N, N) and bool(torch.isfinite(c).all()), route
+            mass(tr, f"18b slab {route}")
+            d = (c.cpu() - SERIAL[route]).abs().max().item()
+            ms = substep_ms(tr, 1.0)
+            say(f"[18b] CH3D {N}^3 FFT_SLAB {route}: run_deck {wall:.2f} s, {ms:.3f} "
+                f"ms/substep (serial {serial_ms[route]:.3f}), max|c_slab - c_serial| "
+                f"{d:.3e} (limit {SLAB_TOL[route]}), launches exact, all_to_all {a2a}")
+            assert d <= SLAB_TOL[route], (route, d)
+            del tr, c
+            torch.cuda.empty_cache()
+        # the collective layer: one all_to_all of a 512³ complex64 block
+        blk = torch.randn((N, N, N), generator=gen, dtype=torch.complex64, device=dev)
+        a2a_ms = cuda_ms(lambda: parallel.all_to_all(mesh, blk, 0, 1), reps=5)
+        say(f"[18b] all_to_all of a {N}^3 complex64 block at world size 1: {a2a_ms:.3f} ms "
+            f"(3 a substep unfused, 2 fused)")
+        del blk
+        reset(uf, sp)
+        tr, wall = mesh_run(multi_deck(FUSED).replace(
+            "[Domain]", "[Domain]\n  parallel_mode = FFT_SLAB"), dev, mesh)
+        got = counters(uf, sp)
+        assert got["fwd_x_update_poly"] == STEPS * (SUBSTEPS - 1), got
+        launches["slab multi fused"] = got
+        mass(tr, "18b slab multi")
+        for k in ("c", "n1"):
+            d = (tr.state["buffers"][k].cpu() - SERIAL[f"multi {k}"]).abs().max().item()
+            say(f"[18b] MULTI_3D {N}^3 FFT_SLAB fused: max|{k}_slab - {k}_serial| {d:.3e} "
+                f"(limit {MULTI_TOL})")
+            assert d <= MULTI_TOL, (k, d)
+        say(f"[18b] MULTI_3D fused slab {substep_ms(tr, MULTI_DT):.3f} ms/substep, "
+            f"run_deck {wall:.2f} s")
+        del tr
+        torch.cuda.empty_cache()
+
+        lmesh = parallel.make_mesh("REAL_SPACE")
+        for backend in ("PALLAS", "JNP"):
+            deck, arrays = lbm_deck("porous", backend)
+            deck = deck.replace("[Domain]", "[Domain]\n  parallel_mode = REAL_SPACE")
+            lf.reset_launches()
+            parallel.reset_calls()
+            tr, wall = mesh_run(deck, dev, lmesh, arrays)
+            n = lf.launches()["lbm_substep"]
+            want = (LBM_STEPS - 1) * (LBM_SUBSTEPS - 1) if backend == "PALLAS" else 0
+            assert n == want, (backend, n, want)
+            launches[f"real_space porous {backend}"] = {"lbm_substep": n}
+            worst = 0.0
+            for k, ref in SERIAL[f"porous {backend}"].items():
+                v = tr.state["buffers"][k]
+                assert bool(torch.isfinite(v).all()), (backend, k)
+                d = (v.cpu() - ref).abs().max().item()
+                mag = ref.abs().max().item()
+                assert d <= KERNEL_TOL * mag, (backend, k, d, mag)
+                worst = max(worst, d / mag)
+            ms = lbm_substep_ms(tr)
+            say(f"[18b] POROUS {LBM_N}^3 REAL_SPACE {backend}: run_deck {wall:.2f} s, "
+                f"{ms:.3f} ms/substep (serial {serial_ms['porous ' + backend]:.3f}), "
+                f"lbm_substep launches {n}, exchanges {parallel.calls()['exchange']}, "
+                f"max relative |slab - serial| {worst:.3e} (limit {KERNEL_TOL})")
+            del tr
+            torch.cuda.empty_cache()
+        fpc = torch.rand((19,) + (LBM_N,) * 3, generator=gen, device=dev)
+        ring_ms = cuda_ms(lambda: parallel.halo_ring(lmesh, fpc, 1, False), reps=5)
+        say(f"[18b] halo ring of a {LBM_N}^3 D3Q19 float32 block at world size 1: "
+            f"{ring_ms:.3f} ms (one a fused substep)")
+        del fpc
+    finally:
+        dist.destroy_process_group()
+    torch.cuda.empty_cache()
+    say(f"[18] distributed modes in {time.perf_counter() - t0:.1f} s ((a) {t_a:.1f} s); "
+        f"{smi}")
+    rows = {"fwd_x_update slab": summarise(slab_rows),
+            "fwd_x_update_poly slab": summarise(poly_rows),
+            "lbm_substep halo": summarise(halo_rows),
+            "collective": {"all_to_all_ms": a2a_ms, "halo_ring_ms": ring_ms}}
+    return rows, launches
+
+
 def main():
     if not torch.cuda.is_available():
         say("chip_smoke: torch.cuda.is_available() is False; needs a CUDA card")
@@ -3401,6 +3738,10 @@ def main():
             say(f"[build] {'built' if cold[k] else 'reused'} {k}: "
                 f"{os.path.relpath(libs[k].path(), HERE)} in {seconds:.2f} s")
 
+    # phase 12's float64 reference run needs torch.fft alone: it runs while
+    # the libraries build, the rest of phase 12 after phase 6
+    ref_1a = phase_bench_1a(uf, sp, dev, smi, runs=["DEFAULT float64"])
+    lap("12 (benchmark 1a: DEFAULT float64, beside the builds)", t_start)
     spectral = ("unordered_fft", "spectral_update", "fwd_lanes_pre (Cahn-Hilliard µ)")
     loaded(spectral)
     for k in spectral:
@@ -3433,6 +3774,7 @@ def main():
         f"run_deck {wall:.2f} s, launches {launches}")
     assert launches == expected, (launches, expected)
     c_pallas = tr.state["buffers"]["c"]
+    SERIAL["PALLAS"] = c_pallas.cpu()  # phase 18's serial anchors
     assert c_pallas.shape == (N, N, N) and c_pallas.dtype == torch.float32
     assert bool(torch.isfinite(c_pallas).all())
     mass(tr, "main")
@@ -3445,6 +3787,7 @@ def main():
     tr_def, wall_def = run_main_path(ch3d_deck("DEFAULT"), dev)
     ms_default = substep_ms(tr_def, 1.0)
     c_default = tr_def.state["buffers"]["c"]
+    SERIAL["DEFAULT"] = c_default.cpu()
     diff = (c_default - c_pallas).abs().max().item()
     say(f"[anchor] DEFAULT run_deck {wall_def:.2f} s, {ms_default:.3f} ms/substep; "
         f"PALLAS {ms_pallas:.3f} ms/substep; max|c_PALLAS - c_DEFAULT| {diff:.3e} "
@@ -3470,6 +3813,7 @@ def main():
         f"{wall:.2f} s, launches {fused_launches}")
     assert fused_launches == expected, (fused_launches, expected)
     c_fused = tr.state["buffers"]["c"]
+    SERIAL["PALLAS fused"] = c_fused.cpu()
     assert c_fused.shape == (N, N, N) and bool(torch.isfinite(c_fused).all())
     mass(tr, "fused")
     diff_f = (c_fused - c_default).abs().max().item()
@@ -3496,6 +3840,7 @@ def main():
     mass(tr_m, "multi")
     ms_multi = substep_ms(tr_m, MULTI_DT)
     fields = {k: tr_m.state["buffers"][k] for k in ("c", "n1")}
+    SERIAL.update({f"multi {k}": v.cpu() for k, v in fields.items()})
     del tr_m
     tr_u, wall_u = run_main_path(multi_deck("carry_reciprocal = true"), dev)
     ms_multi_unfused = substep_ms(tr_u, MULTI_DT)
@@ -3513,7 +3858,8 @@ def main():
     # -- 12: benchmark 1a, the 200² spinodal decomposition whole --------------------
     # run before the LBM phases: its host-bound runs need only the spectral
     # libraries, and the LBM library goes on building meanwhile
-    launches_1a = phase_bench_1a(uf, sp, dev, smi)
+    launches_1a = {run: v[3] for run, v in phase_bench_1a(
+        uf, sp, dev, smi, [r for r in BENCH_1A_RUNS if r not in ref_1a], ref_1a).items()}
     lap("12 (benchmark 1a)", t_start)
 
     # -- 1 and 2, the rest: the LBM substep library and its kernel rows -----------
@@ -3588,6 +3934,14 @@ def main():
     # -- 17: the NN Gibbs surrogate and NEML2 -------------------------------------------
     launches_17 = phase_surrogate_neml2(uf, sp, dev, smi)
     lap("17 (NN Gibbs surrogate, NEML2)", t_start)
+
+    # -- 18: the distributed modes ----------------------------------------------------
+    dist_rows, launches_18 = phase_distributed(uf, sp, lf, dev, smi, {
+        "kernel5": kernels["fwd_x_update"]["ms"], "DEFAULT": ms_default,
+        "PALLAS": ms_pallas, "PALLAS fused": ms_fused,
+        "porous PALLAS": lbm_ms["porous"][0], "porous JNP": lbm_ms["porous"][1]})
+    SERIAL.clear()
+    lap("18 (distributed modes: slab and halo kernels, NCCL world of one)", t_start)
     say(f"[done] {time.perf_counter() - t_start:.1f} s")
 
     # -- result -----------------------------------------------------------------
@@ -3644,8 +3998,27 @@ def main():
                 "launches": sum(by_path.values()), "launches_by_path": by_path,
                 **kernels[f"{name} small"]}
 
+    def entry_dist(name, src, replaces, runs):
+        # the slab and halo forms: launched by phase 18's (b) runs
+        base = name.split()[0]
+        by_path = {k: v[base] for k, v in launches_18.items() if k in runs and v.get(base)}
+        return {"name": name, "route": "cuda",
+                "source": f"marlin_tpu_torch/csrc/{src}", "replaces": replaces,
+                "launches": sum(by_path.values()), "launches_by_path": by_path,
+                **dist_rows[name]}
+
+    table_dist = [
+        ("fwd_x_update slab", "spectral_update.cu", "marlin_tpu/pallas_spectral.py:308",
+         ("slab PALLAS fused",)),
+        ("fwd_x_update_poly slab", "spectral_update.cu", "marlin_tpu/pallas_spectral.py:336",
+         ("slab multi fused",)),
+        ("lbm_substep halo", "lbm_substep.cu", "marlin_tpu/pallas_lbm.py:224",
+         ("real_space porous PALLAS",)),
+    ]
     line = {"kernels": [entry(*row) for row in table]
-            + [entry_small(*row) for row in table_small]}
+            + [entry_small(*row) for row in table_small]
+            + [entry_dist(*row) for row in table_dist],
+            "collective": dist_rows["collective"]}
     for k in line["kernels"]:
         assert k["launches"] > 0, (k["name"], k["launches_by_path"])
     say(json.dumps(line))

@@ -206,7 +206,7 @@ class ConstantReciprocalTensor(TensorCompute):
 @computes.register("RandomTensor")
 class RandomTensor(TensorCompute):
     """Uniform random field between min and max
-    (reference: src/tensor_computes/RandomTensor.C:17-55), serial mode.
+    (reference: src/tensor_computes/RandomTensor.C:17-55).
 
     Every draw comes from a generator of this compute, never from torch's
     global one.  ``generate_on_cpu = true`` (the default, as the
@@ -254,7 +254,13 @@ class RandomTensor(TensorCompute):
         return torch.rand(shape, dtype=dom.dtype, generator=g, device=dom.device)
 
     def apply(self, state, ctx):
-        u = self._draw(list(self.domain.shape))
+        dom = self.domain
+        # on a mesh: the whole grid's stream, this rank's block of it, so
+        # that a sharded run draws the serial run's field (the JAX package
+        # tiles each rank's own local draw, as the reference's MPI ranks do)
+        u = self._draw(list(dom.n_global))
+        if dom.mesh is not None:
+            u = dom.local(u).contiguous()
         return {self.out: u * (self.max - self.min) + self.min}
 
     def output_specs(self, specs):

@@ -402,7 +402,12 @@ class _SmagorinskyBase(_CollisionBase):
         as the reference's ``mean(sum(f, 3))``."""
         st = self.stencil
         f = state[self.f]
-        mean = tree_mean(_direction_sum(_q_major(f)))
+        rho = _direction_sum(_q_major(f))
+        if self.domain.mesh is not None:
+            # the whole grid's density, so that the tree's order (and its
+            # bits) are the serial run's
+            rho = self.domain.gather(rho)
+        mean = tree_mean(rho)
         return smagorinsky_inv_tau(fneq, np.stack([st.ex, st.ey, st.ez], 1), mean,
                                    self.C_s, self.tau_0, f.shape[2] == 1)
 
@@ -637,8 +642,8 @@ class LBMComputeResidual(LatticeBoltzmannOperator):
         if old is None:
             return {"__residual__": torch.ones((), dtype=speed.dtype,
                                                device=speed.device)}
-        num = torch.sum(torch.abs(speed - old[0]))
-        den = torch.sum(speed)
+        num = self.domain.reduce(torch.sum(torch.abs(speed - old[0])))
+        den = self.domain.reduce(torch.sum(speed))
         residual = torch.where((den == 0) | (num == 0), 1.0, num / den)
         n_old = ctx.get("n_advances")
         if n_old is not None and not n_old > 0:
@@ -767,6 +772,13 @@ class LBMIsotropicGradient(LatticeBoltzmannOperator):
             raise ComputeError("Isotropic gradient cannot be computed for D3Q19 stencil")
         if problem.domain.dim == 3:
             raise ComputeError("LBMIsotropicGradient is not implemented for 3D")
+        if problem.domain.halo_dims():
+            # its edge-replicating pad would need the neighbours' planes
+            # clamped at the grid's faces
+            raise ComputeError(
+                f"{type(self).__name__} under REAL_SPACE on a mesh is not "
+                "ported to marlin_tpu_torch yet (REAL_SPACE stencils outside "
+                "the LBM stream wait for a later slice)")
         w33 = st.weights[st.reorder_indices].reshape(3, 3)
         ex33 = st.ex[st.reorder_indices].reshape(3, 3)
         ey33 = st.ey[st.reorder_indices].reshape(3, 3)

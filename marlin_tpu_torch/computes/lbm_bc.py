@@ -16,6 +16,13 @@ left x=0, right x=nx-1, bottom y=0, top y=ny-1, front z=0, back z=nz-1;
 A boundary condition returns a new tensor: it clones its buffer once and
 writes the clone, so no tensor of the state is written in place.
 
+Under REAL_SPACE on a mesh a face's condition runs on the ranks whose
+block holds that face of the grid (``Domain.holds_face``), the others
+leave their block as it is; the masks built from shifted media take the
+shift across ranks (``Domain.padded``); the perturbed inlet reads its
+profile over the global y.  Corner exclusion along an axis the mesh cuts
+is a named error.
+
 Faithfulness note: the generic (q != 9) fixed-order BCs replicate the
 reference's negative-index selection `f[..., -neutral_x]` verbatim
 (LBMFixedFirstOrderBC.C leftBoundary) — the gold files encode exactly this
@@ -58,16 +65,16 @@ class LBMBoundaryCondition(LatticeBoltzmannOperator):
             return None
         st = self.stencil
         marked = media.clone()
-        for ic in range(1, st.q):
-            shifted = torch.roll(media, (int(st.ex[ic]), int(st.ey[ic]), int(st.ez[ic])),
-                                 (0, 1, 2))
+        for ic, shifted in _shifts(self.domain, media, st):
             marked = torch.where((shifted == 0) & (media >= 1), -1, marked)
         return marked
 
     def apply(self, state, ctx):
         u = state[self.out]
-        handler = getattr(self, self.boundary + "_boundary")
-        u = handler(u, state, ctx)
+        face = _FACE_SIDE.get(self.boundary)
+        if face is None or self.domain.holds_face(*face):
+            handler = getattr(self, self.boundary + "_boundary")
+            u = handler(u, state, ctx)
         return {self.out: self.masked_fill_solids(u)}
 
     def output_specs(self, specs):
@@ -89,6 +96,26 @@ class LBMBoundaryCondition(LatticeBoltzmannOperator):
     regional_boundary = _unimplemented
 
 
+#: (axis, side) of each face
+_FACE_SIDE = {"left": (0, 0), "right": (0, 1), "bottom": (1, 0), "top": (1, 1),
+              "front": (2, 0), "back": (2, 1)}
+
+
+def _shifts(dom, media, st):
+    """(ic, media rolled by e_ic) for every direction but the rest one,
+    across ranks on a mesh (one padding for all of them)."""
+    halo = dom.halo_dims()
+    src = dom.padded(media) if halo else media
+    for ic in range(1, st.q):
+        e = (int(st.ex[ic]), int(st.ey[ic]), int(st.ez[ic]))
+        if halo:
+            from ..parallel import shifted
+
+            yield ic, shifted(src, e, (0, 1, 2), halo)
+        else:
+            yield ic, torch.roll(media, e, (0, 1, 2))
+
+
 def _face_index(axis, pos, sels, last=None):
     """The index of the plane ``pos`` along ``axis`` with the transverse
     selections ``sels``, and direction ``last`` when given."""
@@ -107,6 +134,11 @@ class LBMBounceBack(LBMBoundaryCondition):
         self.xsel = slice(1, -1) if params.get_bool("exclude_corners_x") else slice(None)
         self.ysel = slice(1, -1) if params.get_bool("exclude_corners_y") else slice(None)
         self.zsel = slice(1, -1) if params.get_bool("exclude_corners_z") else slice(None)
+        for axis, sel in enumerate((self.xsel, self.ysel, self.zsel)):
+            if sel.start is not None and axis in self.domain.halo_dims():
+                raise ComputeError(
+                    f"{name}: exclude_corners_{'xyz'[axis]} along an axis the "
+                    "REAL_SPACE mesh cuts is not ported to marlin_tpu_torch yet")
         self._wall_mask = None
 
     def history_requests(self):
@@ -168,11 +200,8 @@ class LBMBounceBack(LBMBoundaryCondition):
                 raise ComputeError("wall boundary requires binary media")
             bits = torch.zeros(media.shape, dtype=torch.int32, device=media.device)
             fluid = media >= 1
-            for ic in range(1, st.q):
-                upstream_solid = torch.roll(
-                    media, (int(st.ex[ic]), int(st.ey[ic]), int(st.ez[ic])),
-                    (0, 1, 2)) == 0
-                bits |= (upstream_solid & fluid).to(torch.int32) << ic
+            for ic, shifted in _shifts(self.domain, media, st):
+                bits |= ((shifted == 0) & fluid).to(torch.int32) << ic
             self._wall_mask = bits
         fold = self._fold(ctx)
         # direction-major, as the stream builds u (computes/lbm.py)
@@ -216,7 +245,10 @@ class _FixedOrderBC(LBMBoundaryCondition):
         plane = f[index].movedim(-1, 0)  # (q, transverse, nz)
         a = None
         if spec.perturb_value:
-            a = perturb_profile(spec, f.shape[1], f.dtype, f.device)[:, None]
+            # the profile over the global y, this block's rows of it
+            dom = self.domain
+            a = perturb_profile(spec, dom.n_global[1], f.dtype, f.device)[
+                dom.real_slice[1]][:, None]
         u = u.clone()
         for d, val in apply_zouhe(spec, plane, a).items():
             u[index + (Ellipsis, d)] = val

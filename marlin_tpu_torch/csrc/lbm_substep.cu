@@ -16,6 +16,23 @@
 //         mean    the grid's mean density (Smagorinsky plans)
 //   write fpc_new (q, nx, ny, nz), gpc_new, speed (nx, ny, nz): |u|, T or 0
 //
+// On a block of a REAL_SPACE mesh (the sharded branch of the TPU kernel,
+// pallas_lbm.py:250-343, :382-399) the flat kernel also reads
+//
+//   fring, gring (q, H) and mring (H): the halo rings parallel.halo_ring
+//         packs from the neighbours' boundary planes (x-lo, x-hi; on a
+//         2-D mesh also the y-lo and y-hi rows and the four corner
+//         columns, so that diagonal pulls are exact)
+//
+// and a pull that leaves the block reads its ring in place of the wrap;
+// the bounce-back and Zou-He faces are found on the grid's coordinates
+// (the plan's offsets and global extents), the perturbed inlet's a(y) on
+// the global y.  That branch is a run-time flag of the plan, uniform over
+// a launch (the unsharded plans read the same fields with offsets 0).  The
+// brick and plane kernels stay unsharded: a sharded plan takes the flat
+// kernel.  Bound of the sharded substep: the flat kernel's bytes plus the
+// rings (2 planes a direction, negligible at 256^3).
+//
 // Bound on an H100 SXM: bytes.  Each cell reads q values and writes q a
 // lattice, plus the carried scalar and the media byte (at 256^3 with D3Q19
 // in float32: 157 B a cell, 0.79 ms at 3.35 TB/s; two lattices 309 B,
@@ -122,19 +139,20 @@ namespace {
 // One cell of the flat kernel from its streamed lattice f (lattice 1,
 // after its faces): the second lattice's stream, the moments, the carried
 // scalar and both collisions, both lattices held from load to store.
-template <int Q, typename T, bool TWO, bool MRT>
+template <int Q, typename T, bool TWO, bool MRT, bool HALO = true>
 __device__ __forceinline__ void flat_update(const LbmPlan& p, Cell c, T (&f)[Q],
                                             const T* __restrict__ gpc,
                                             const int8_t* __restrict__ media,
                                             const T* __restrict__ avec,
                                             const T* __restrict__ mean, T* __restrict__ out,
-                                            T* __restrict__ gout, T* __restrict__ speed) {
+                                            T* __restrict__ gout, T* __restrict__ speed,
+                                            Ring<T> gring = {nullptr, nullptr}) {
   const LbmCoef<T>& k = coef<T>();
   const long long N = p.nx * p.ny * p.nz;
   const int at = cell_index(p, c);
   const bool solid = media && media[at] == 0;
   T g[TWO ? Q : 1];
-  if constexpr (TWO) load_lattice<Q, T>(p, p.lat[1], gpc, media, avec, N, c, g);
+  if constexpr (TWO) load_lattice<Q, T, HALO>(p, p.lat[1], gpc, media, avec, N, c, g, gring);
   // the thermal lattice's zeroth moment (LBMComputeDensity on g)
   T temp = T(0);
   if constexpr (TWO) {
@@ -167,13 +185,16 @@ __global__ void __launch_bounds__(256)
 lbm_substep_kernel(const T* __restrict__ fpc, const T* __restrict__ gpc,
                    const int8_t* __restrict__ media, const T* __restrict__ avec,
                    const T* __restrict__ mean, T* __restrict__ out,
-                   T* __restrict__ gout, T* __restrict__ speed, bool flat) {
+                   T* __restrict__ gout, T* __restrict__ speed, bool flat,
+                   const T* __restrict__ fring, const T* __restrict__ gring,
+                   const int8_t* __restrict__ mring) {
   const LbmPlan& p = c_plan;
   Cell c;
   if (!thread_cell(p, flat, c)) return;
   T f[Q];
-  load_lattice<Q, T>(p, p.lat[0], fpc, media, avec, p.nx * p.ny * p.nz, c, f);
-  flat_update<Q, T, TWO, MRT>(p, c, f, gpc, media, avec, mean, out, gout, speed);
+  load_lattice<Q, T>(p, p.lat[0], fpc, media, avec, p.nx * p.ny * p.nz, c, f, {fring, mring});
+  flat_update<Q, T, TWO, MRT>(p, c, f, gpc, media, avec, mean, out, gout, speed,
+                              {gring, mring});
 }
 
 // One cell of the brick kernel (row j of its brick).  One lattice streams
@@ -381,7 +402,7 @@ lbm_plane_kernel(const T* __restrict__ fpc, const T* __restrict__ gpc,
   for (long long i = first; i < N; i += step) {
     const Cell c = {(int)(i / ny), (int)(i % ny), 0};
     T f[Q];
-    load_lattice<Q, T>(p, p.lat[0], fpc, media, avec, N, c, f);
+    load_lattice<Q, T, false>(p, p.lat[0], fpc, media, avec, N, c, f);
     T rho = f[0];
 #pragma unroll
     for (int q = 1; q < Q; ++q) rho = rho + f[q];
@@ -429,9 +450,9 @@ lbm_plane_kernel(const T* __restrict__ fpc, const T* __restrict__ gpc,
 #pragma unroll
       for (int q = 0; q < Q; ++q) f[q] = held[q];
     } else {
-      load_lattice<Q, T>(p, p.lat[0], fpc, media, avec, N, c, f);
+      load_lattice<Q, T, false>(p, p.lat[0], fpc, media, avec, N, c, f);
     }
-    flat_update<Q, T, TWO, MRT>(p, c, f, gpc, media, avec, &mean, out, gout, speed);
+    flat_update<Q, T, TWO, MRT, false>(p, c, f, gpc, media, avec, &mean, out, gout, speed);
   }
 }
 
@@ -480,8 +501,8 @@ cudaError_t copy_plan(const LbmPlan& p, cudaStream_t stream) {
 
 template <int Q, typename T, bool TWO, bool MRT>
 cudaError_t launch(const void* fpc, const void* gpc, const void* media, const void* avec,
-                   const void* mean, void* out, void* gout, void* speed, const LbmPlan& p,
-                   cudaStream_t stream) {
+                   const void* mean, void* out, void* gout, void* speed, const void* const* rings,
+                   const LbmPlan& p, cudaStream_t stream) {
   // one thread a cell: x and y from the grid, z along the block; a 2-D
   // plan over the flattened grid
   const bool flat = p.nz == 1;
@@ -493,7 +514,8 @@ cudaError_t launch(const void* fpc, const void* gpc, const void* media, const vo
   if (err != cudaSuccess) return err;
   lbm_substep_kernel<Q, T, TWO, MRT><<<grid, threads, 0, stream>>>(
       (const T*)fpc, (const T*)gpc, (const int8_t*)media, (const T*)avec, (const T*)mean,
-      (T*)out, (T*)gout, (T*)speed, flat);
+      (T*)out, (T*)gout, (T*)speed, flat, (const T*)rings[0], (const T*)rings[1],
+      (const int8_t*)rings[2]);
   return cudaGetLastError();
 }
 
@@ -601,7 +623,7 @@ cudaError_t launch_plane(const void* fpc, const void* gpc, const void* media, co
 template <int Q, typename T, bool TWO, bool MRT>
 cudaError_t launch_any(const void* fpc, const void* gpc, const void* media, const void* avec,
                        void* scratch, void* mean, void* out, void* gout, void* speed,
-                       const LbmPlan& p, cudaStream_t stream) {
+                       const void* const* rings, const LbmPlan& p, cudaStream_t stream) {
   if constexpr (Q == 9) {
     if (p.brick.grid > 0) {
       if (!scratch) return cudaErrorInvalidValue;
@@ -615,19 +637,25 @@ cudaError_t launch_any(const void* fpc, const void* gpc, const void* media, cons
                                           stream);
   }
   if (p.smag && !mean) return cudaErrorInvalidValue;
-  return launch<Q, T, TWO, MRT>(fpc, gpc, media, avec, mean, out, gout, speed, p, stream);
+  return launch<Q, T, TWO, MRT>(fpc, gpc, media, avec, mean, out, gout, speed, rings, p,
+                                stream);
 }
 
 template <int Q, typename T>
 cudaError_t dispatch(const void* fpc, const void* gpc, const void* media, const void* avec,
                      void* scratch, void* mean, void* out, void* gout, void* speed,
-                     const LbmPlan& p, cudaStream_t stream) {
+                     const void* const* rings, const LbmPlan& p, cudaStream_t stream) {
   if ((p.brick.grid > 0 && !(Q == 9 && plane_ok(p))) ||
       (p.brick.by > 0 && !brick_ok<Q, T>(p, media != nullptr)))
     return cudaErrorInvalidValue;
+  // a block of a mesh takes the flat kernel, with its rings
+  if (p.halo.on && (p.brick.grid > 0 || p.brick.by > 0 || !rings[0] ||
+                    (p.two_lattice && !rings[1]) || (media && !rings[2])))
+    return cudaErrorInvalidValue;
   const bool mrt = p.mrt[0] || (p.two_lattice && p.mrt[1]);
-#define LBM_LAUNCH(TWO, MRT) \
-  launch_any<Q, T, TWO, MRT>(fpc, gpc, media, avec, scratch, mean, out, gout, speed, p, stream)
+#define LBM_LAUNCH(TWO, MRT)                                                                  \
+  launch_any<Q, T, TWO, MRT>(fpc, gpc, media, avec, scratch, mean, out, gout, speed, rings, p, \
+                             stream)
   if (p.two_lattice) return mrt ? LBM_LAUNCH(true, true) : LBM_LAUNCH(true, false);
   return mrt ? LBM_LAUNCH(false, true) : LBM_LAUNCH(false, false);
 #undef LBM_LAUNCH
@@ -668,18 +696,23 @@ static bool plan_ok(const LbmPlan& p, const void* avec) {
 // `mean` (one value) unless null; the flat kernel reads the mean from
 // `mean`.  `plan` is a host
 // pointer, copied to constant memory on `stream` where it is not there
-// already.
+// already.  On a block of a mesh (plan->halo.on) fring, gring (on
+// two-lattice plans) and mring (on media plans) are the halo rings, (q, H)
+// and (H) with H = plan->halo.stride; null otherwise.
 extern "C" cudaError_t mtt_lbm_substep(const void* fpc, const void* gpc, const void* media,
                                        const void* avec, void* mean, void* scratch, void* out,
-                                       void* gout, void* speed, int q, int is_double,
-                                       const LbmPlan* plan, cudaStream_t stream) {
+                                       void* gout, void* speed, const void* fring,
+                                       const void* gring, const void* mring, int q,
+                                       int is_double, const LbmPlan* plan,
+                                       cudaStream_t stream) {
   const LbmPlan& p = *plan;
   if (!plan_ok(p, avec) || (p.two_lattice && (!gpc || !gout))) return cudaErrorInvalidValue;
+  const void* rings[3] = {fring, gring, mring};
 #define LBM_DISPATCH(Q)                                                                 \
   return is_double ? dispatch<Q, double>(fpc, gpc, media, avec, scratch, mean, out, gout, \
-                                         speed, p, stream)                               \
+                                         speed, rings, p, stream)                        \
                    : dispatch<Q, float>(fpc, gpc, media, avec, scratch, mean, out, gout,  \
-                                        speed, p, stream)
+                                        speed, rings, p, stream)
   if (q == 9) LBM_DISPATCH(9);
   if (q == 19) LBM_DISPATCH(19);
   if (q == 27) LBM_DISPATCH(27);
@@ -697,7 +730,7 @@ extern "C" cudaError_t mtt_lbm_tables(int q, int* e, int* op) {
 }
 
 // The plan's layout, for the wrapper to hold its ctypes mirror to: the
-// size, then the offsets of lat, lat[1], d, d.msm, f, f.msm, brick.
+// size, then the offsets of lat, lat[1], d, d.msm, f, f.msm, brick, halo.
 extern "C" int mtt_lbm_plan_layout(int64_t* out) {
   out[0] = (int64_t)sizeof(LbmPlan);
   out[1] = (int64_t)offsetof(LbmPlan, lat);
@@ -707,5 +740,6 @@ extern "C" int mtt_lbm_plan_layout(int64_t* out) {
   out[5] = (int64_t)offsetof(LbmPlan, f);
   out[6] = (int64_t)(offsetof(LbmPlan, f) + offsetof(LbmCoef<float>, msm));
   out[7] = (int64_t)offsetof(LbmPlan, brick);
+  out[8] = (int64_t)offsetof(LbmPlan, halo);
   return 0;
 }

@@ -54,6 +54,21 @@ struct LbmCoef {
   T msm[2][LBM_MAX_Q * LBM_MAX_Q];  // MRT: M^-1 S' M per lattice, q x q
 };
 
+// A block of a REAL_SPACE mesh (lbm_fused.FusedLBMConfig.sharded; the
+// sharded branch of marlin_tpu/pallas_lbm.py:224 _make_kernel): a pull that
+// leaves the block along x (and on a 2-D mesh along y) reads the ring of
+// halos the neighbours sent (parallel.halo_ring) in place of the periodic
+// wrap, and faces are found on the grid's coordinates.  Unsharded plans
+// carry on = 0, offsets 0 and the block's own extents, so on_face reads
+// the same fields on every plan.
+struct LbmHalo {
+  int32_t on;       // 1: a block of a mesh, halos from the rings
+  int32_t shard_y;  // 1: a 2-D mesh (y rows and their corners in the ring)
+  int64_t xoff, yoff;  // the block's first cell in the grid
+  int64_t gnx, gny;    // the grid's x and y extents
+  int64_t stride;      // a direction's values in a ring (parallel.ring_size)
+};
+
 // The brick walk of a 3-D plan (lbm_fused.brick_plan: by > 0), the
 // cooperative launch of a 2-D Smagorinsky plan (lbm_fused.plane_plan: by =
 // 0, grid > 0), or neither: the flat kernel.
@@ -77,6 +92,7 @@ struct LbmPlan {
   int32_t bf_on[3];  // non-zero body force component
   int32_t two_d;     // 1: no z velocity component
   int32_t smag;      // 1: the Smagorinsky collision on lattice 1
+  LbmHalo halo;
   LbmBrick brick;
   LbmFaces lat[2];
   LbmCoef<double> d;
@@ -173,11 +189,57 @@ __device__ __forceinline__ int cell_index(const LbmPlan& p, Cell c) {
   return (c.x * (int)p.ny + c.y) * (int)p.nz + c.z;
 }
 
+// A face of the grid: with GRID on the grid's coordinates (the block's
+// offset added; the flat kernel, which blocks of a mesh take), else on the
+// block's own (the brick and plane kernels, unsharded only, keep the code
+// they had before the halo branch).
+template <bool GRID = true>
 __device__ __forceinline__ bool on_face(const LbmPlan& p, int axis, int side, Cell c) {
+  if (GRID) {
+    const int v = axis == 0 ? c.x + (int)p.halo.xoff : (axis == 1 ? c.y + (int)p.halo.yoff : c.z);
+    const int n = (int)(axis == 0 ? p.halo.gnx : (axis == 1 ? p.halo.gny : p.nz));
+    return v == (side == 0 ? 0 : n - 1);
+  }
   const int v = axis == 0 ? c.x : (axis == 1 ? c.y : c.z);
   const int n = (int)(axis == 0 ? p.nx : (axis == 1 ? p.ny : p.nz));
   return v == (side == 0 ? 0 : n - 1);
 }
+
+// The pull source of direction e at cell c of a block of a mesh: an index
+// into the block, or (ring) into a direction's ring, laid out as
+// parallel.halo_ring packs it: the x-lo and x-hi planes (ny nz each), then
+// on a 2-D mesh the y-lo and y-hi rows (nx nz each) and the corner columns
+// x-lo/y-lo, x-lo/y-hi, x-hi/y-lo, x-hi/y-hi (nz each).  z wraps in the
+// block; y wraps on a 1-D mesh.
+struct HaloSrc {
+  int i;
+  bool ring;
+};
+
+__device__ __forceinline__ HaloSrc halo_source(const LbmPlan& p, Cell c, int ex, int ey,
+                                               int ez) {
+  const int nx = (int)p.nx, ny = (int)p.ny, nz = (int)p.nz;
+  int sx = c.x - ex, sy = c.y - ey, sz = c.z - ez;
+  sz = sz < 0 ? nz - 1 : (sz == nz ? 0 : sz);
+  const bool xo = sx < 0 || sx == nx;
+  bool yo = sy < 0 || sy == ny;
+  if (yo && !p.halo.shard_y) {
+    sy = sy < 0 ? ny - 1 : 0;
+    yo = false;
+  }
+  if (!xo && !yo) return {(sx * ny + sy) * nz + sz, false};
+  if (!yo) return {((sx < 0 ? 0 : 1) * ny + sy) * nz + sz, true};
+  const int rows = 2 * ny * nz;
+  if (!xo) return {rows + ((sy < 0 ? 0 : 1) * nx + sx) * nz + sz, true};
+  return {rows + 2 * nx * nz + ((sx < 0 ? 0 : 2) + (sy < 0 ? 0 : 1)) * nz + sz, true};
+}
+
+// A lattice's ring of halos and the media's, null on unsharded plans.
+template <typename T>
+struct Ring {
+  const T* f;
+  const int8_t* m;
+};
 
 // i - 1, i, i + 1 around a periodic axis of n: the pull source along an
 // axis for e = +1, 0, -1 (the table is indexed by 1 - e)
@@ -199,11 +261,12 @@ __device__ __forceinline__ Cell inner(const LbmPlan& p, const LbmPost& bc, Cell 
 
 // The cell whose state after face `level` of lattice L becomes this cell's
 // final state.
+template <bool GRID = true>
 __device__ __forceinline__ Cell cell_at_level(const LbmPlan& p, const LbmFaces& L, Cell c,
                                               int level) {
   for (int k = L.n_post; k > level; --k) {
     const LbmPost& bc = L.post[k - 1];
-    if (bc.kind == 1 && on_face(p, bc.axis, bc.side, c)) c = inner(p, bc, c);
+    if (bc.kind == 1 && on_face<GRID>(p, bc.axis, bc.side, c)) c = inner(p, bc, c);
   }
   return c;
 }
@@ -213,11 +276,14 @@ __device__ __forceinline__ Cell cell_at_level(const LbmPlan& p, const LbmFaces& 
 // Every bounce-back rule, in whatever deck order, writes the same value
 // (the opposite direction at the cell), so they reduce to one direction
 // mask.
-template <int Q, typename T>
+// HALO: the flat kernel's form, faces on the grid's coordinates and the
+// rings read on a block of a mesh; the brick and plane kernels take the
+// unsharded form (HALO false).
+template <int Q, typename T, bool HALO = true>
 __device__ __forceinline__ void stream_cell(const LbmPlan& p, const LbmFaces& L,
                                             const T* __restrict__ fpc,
                                             const int8_t* __restrict__ media, long long N,
-                                            Cell c, T (&f)[Q]) {
+                                            Cell c, T (&f)[Q], Ring<T> ring = {nullptr, nullptr}) {
   using D = Lattice<Q>;
   const int ny = (int)p.ny, nz = (int)p.nz;
   const Around xs(c.x, (int)p.nx), ys(c.y, ny), zs(c.z, nz);
@@ -228,9 +294,23 @@ __device__ __forceinline__ void stream_cell(const LbmPlan& p, const LbmFaces& L,
   bool wall = false;    // obstacle bounce-back in the plan
   for (int i = 0; i < L.n_faces; ++i) {
     if (L.face_axis[i] < 0) wall = true;
-    else if (on_face(p, L.face_axis[i], L.face_side[i], c)) bounce |= L.face_dirs[i];
+    else if (on_face<HALO>(p, L.face_axis[i], L.face_side[i], c)) bounce |= L.face_dirs[i];
   }
   wall = wall && fluid;
+  if (HALO && p.halo.on) {
+    // a block of a mesh: the pulls that leave it read the rings
+    const long long H = p.halo.stride;
+#pragma unroll
+    for (int q = 0; q < Q; ++q) {
+      const HaloSrc s = halo_source(p, c, D::ex(q), D::ey(q), D::ez(q));
+      T a = s.ring ? ring.f[q * H + s.i] : fpc[q * N + s.i];
+      if (((bounce >> q) & 1u) ||
+          (q != 0 && wall && (s.ring ? ring.m[s.i] : media[s.i]) == 0))
+        a = fpc[D::op(q) * N + at];
+      f[q] = solid ? T(0) : a;
+    }
+    return;
+  }
 #pragma unroll
   for (int q = 0; q < Q; ++q) {
     const int src = (xs.v[1 - D::ex(q)] * ny + ys.v[1 - D::ey(q)]) * nz + zs.v[1 - D::ez(q)];
@@ -243,20 +323,22 @@ __device__ __forceinline__ void stream_cell(const LbmPlan& p, const LbmFaces& L,
 
 // The streamed distribution of lattice L at cell c after its post-stream
 // faces, in deck order.
-template <int Q, typename T>
+template <int Q, typename T, bool HALO = true>
 __device__ __forceinline__ void load_lattice(const LbmPlan& p, const LbmFaces& L,
                                              const T* __restrict__ fpc,
                                              const int8_t* __restrict__ media,
                                              const T* __restrict__ avec, long long N,
-                                             Cell c, T (&f)[Q]) {
+                                             Cell c, T (&f)[Q], Ring<T> ring = {nullptr, nullptr}) {
   using D = Lattice<Q>;
   bool on_post = false;
-  for (int k = 0; k < L.n_post; ++k) on_post |= on_face(p, L.post[k].axis, L.post[k].side, c);
-  stream_cell<Q, T>(p, L, fpc, media, N, on_post ? cell_at_level(p, L, c, 0) : c, f);
+  for (int k = 0; k < L.n_post; ++k)
+    on_post |= on_face<HALO>(p, L.post[k].axis, L.post[k].side, c);
+  stream_cell<Q, T, HALO>(p, L, fpc, media, N,
+                          on_post ? cell_at_level<HALO>(p, L, c, 0) : c, f, ring);
   for (int k = 1; on_post && k <= L.n_post; ++k) {
     const LbmPost& bc = L.post[k - 1];
-    const Cell ck = cell_at_level(p, L, c, k);
-    if (!on_face(p, bc.axis, bc.side, ck)) continue;
+    const Cell ck = cell_at_level<HALO>(p, L, c, k);
+    if (!on_face<HALO>(p, bc.axis, bc.side, ck)) continue;
     const bool solid_k = media && media[cell_index(p, ck)] == 0;
     if (bc.kind == 1) {
       // f already holds the inner neighbour's state after face k - 1
@@ -279,7 +361,9 @@ __device__ __forceinline__ void load_lattice(const LbmPlan& p, const LbmFaces& L
     for (int q = 0; q < Q; ++q)
       if ((bc.sum2 >> q) & 1u) fsum = fsum + T(2) * f[q];
     // lbm_fused.apply_zouhe; the perturbed inlet's a(y) by row
-    const T a = bc.perturb >= 0 ? avec[bc.perturb * p.ny + ck.y] : T(bc.a);
+    const T a = bc.perturb < 0 ? T(bc.a)
+                : HALO ? avec[bc.perturb * p.halo.gny + ck.y + p.halo.yoff]
+                       : avec[bc.perturb * p.ny + ck.y];
     const T m = a * fsum + T(bc.b);
     T g[Q];
 #pragma unroll
@@ -881,7 +965,7 @@ __device__ __forceinline__ void brick_stream(const LbmPlan& p, const LbmFaces& L
   bool wall = false;
   for (int i = 0; i < L.n_faces; ++i) {
     if (L.face_axis[i] < 0) wall = true;
-    else if (on_face(p, L.face_axis[i], L.face_side[i], c)) bounce |= L.face_dirs[i];
+    else if (on_face<false>(p, L.face_axis[i], L.face_side[i], c)) bounce |= L.face_dirs[i];
   }
   wall = wall && fluid;
 #pragma unroll
@@ -905,8 +989,9 @@ __device__ __forceinline__ void brick_lattice(const LbmPlan& p, const LbmFaces& 
                                               const T* __restrict__ avec, long long N,
                                               Cell c, int j, T (&f)[Q]) {
   bool on_post = false;
-  for (int k = 0; k < L.n_post; ++k) on_post |= on_face(p, L.post[k].axis, L.post[k].side, c);
-  if (on_post) load_lattice<Q, T>(p, L, fpc, media, avec, N, c, f);
+  for (int k = 0; k < L.n_post; ++k)
+    on_post |= on_face<false>(p, L.post[k].axis, L.post[k].side, c);
+  if (on_post) load_lattice<Q, T, false>(p, L, fpc, media, avec, N, c, f);
   else brick_stream<Q, T>(p, L, st, l, fpc, N, c, j, f);
 }
 

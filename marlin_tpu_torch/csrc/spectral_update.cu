@@ -23,6 +23,15 @@
 // is vmapped over them).  The operation order is the TPU kernel's:
 // den = 1 / (1 - dt L-bar), then (u-bar + dt acc) * den.
 //
+// The slab form (FFT_SLAB, marlin_tpu/pallas_spectral.py:308
+// ch_substep_sharded and :336 ch_substep_sharded_multi, which vmap the TPU
+// kernels over the local x rows) is the same launch over the X-sharded
+// block (nx/p, ny, nz): `rows` = nx/p local x rows are the prefix (times
+// N fields for kernel 6, field = prefix / rows), the transform axis is y,
+// and k^2 = ky2[k'] + kxz2[row][col] with kxz2 a (rows, L) table of
+// kx^2 + kz^2 (`kyz2` holds it; `kx2` holds ky2).  rows = 0 is the serial
+// form.  The branch on rows is uniform across a launch.
+//
 // Bound: it reads mu-bar, u-bar and N-bar_old and writes u-bar' and N-bar,
 // 5 x 8 bytes an element: 5.37 GB a field at 512^3, 1.60 ms at 3.35 TB/s.
 // The FFT and the update come to about 5 n log2(n) / n + 25 flop an element
@@ -61,10 +70,12 @@ struct Update {
   float dt, b0, b1;
   float lin0, lin1;  // kappa (lapsq), or r and alpha^2 (sh)
   float mobility;
+  int rows;   // the slab form's local x rows (0: serial)
+  int64_t L;  // its columns
 
   __device__ __forceinline__ void operator()(int64_t g, int kp, int64_t col,
-                                             int, float2 m) const {
-    const float k2 = kx2[kp] + kyz2[col];
+                                             int f, float2 m) const {
+    const float k2 = kx2[kp] + kyz2[rows ? (int64_t)(f % rows) * L + col : col];
     float lb;
     if (SH) {
       const float om = 1.f - k2;
@@ -95,13 +106,15 @@ struct PolyUpdate {
   float2* n_out;
   const float* kx2;
   const float* kyz2;
+  int rows;   // the slab form's local x rows (0: serial)
+  int64_t L;  // its columns
   float row[kMaxFields][8];  // dt, b0, b1, m0, m1, la0, la1, la2
 
   __device__ __forceinline__ void operator()(int64_t g, int kp, int64_t col,
                                              int f, float2 m) const {
-    const float* r = row[f];
+    const float* r = row[rows ? f / rows : f];
     const float dt = r[0], b0 = r[1], b1 = r[2];
-    const float k2 = kx2[kp] + kyz2[col];
+    const float k2 = kx2[kp] + kyz2[rows ? (int64_t)(f % rows) * L + col : col];
     const float lb = r[5] + r[6] * k2 + r[7] * (k2 * k2);
     const float mb = r[3] + r[4] * k2;
     const float2 nv = make_float2(mb * m.x, mb * m.y);
@@ -119,44 +132,49 @@ struct PolyUpdate {
 
 extern "C" {
 
-// mu, ubar, nold, u_out, n_out: (n, L) complex; kx2: (n,) and kyz2: (L,)
-// float, permuted |k|^2.  sh: L-bar form (0 lapsq, 1 sh); mob: 1 when
-// N-bar = -k^2 * mobility * mu-bar, 0 when N-bar = mu-bar.
+// mu, ubar, nold, u_out, n_out: (n, L) complex, or in the slab form
+// (rows, n, L); kx2: (n,) and kyz2: (L,) float, permuted |k|^2, or in the
+// slab form ky2 (n,) and kxz2 (rows, L).  sh: L-bar form (0 lapsq, 1 sh);
+// mob: 1 when N-bar = -k^2 * mobility * mu-bar, 0 when N-bar = mu-bar.
 cudaError_t mtt_fwd_x_update(const void* mu, const void* ubar,
                              const void* nold, void* u_out, void* n_out,
                              const void* kx2, const void* kyz2, const void* tw,
-                             int64_t n, int64_t L, int64_t b, int sh, int mob,
-                             float dt, float b0, float b1, float lin0,
-                             float lin1, float mobility, cudaStream_t stream) {
+                             int64_t rows, int64_t n, int64_t L, int64_t b,
+                             int sh, int mob, float dt, float b0, float b1,
+                             float lin0, float lin1, float mobility,
+                             cudaStream_t stream) {
   const float2* m = (const float2*)mu;
   const float2* t = (const float2*)tw;
+  if (rows < 0 || rows > 65535) return cudaErrorInvalidValue;
 #define MTT_UPDATE(SH_, MOB_)                                              \
   launch_sublanes(                                                         \
-      nullptr, m, t, 1, n, L, b, stream,                                   \
+      nullptr, m, t, rows ? rows : 1, n, L, b, stream,                     \
       Update<SH_, MOB_>{(const float2*)ubar, (const float2*)nold,          \
                         (float2*)u_out, (float2*)n_out, (const float*)kx2, \
                         (const float*)kyz2, dt, b0, b1, lin0, lin1,        \
-                        mobility})
+                        mobility, (int)rows, L})
   if (sh) return mob ? MTT_UPDATE(true, true) : MTT_UPDATE(true, false);
   return mob ? MTT_UPDATE(false, true) : MTT_UPDATE(false, false);
 #undef MTT_UPDATE
 }
 
-// mu, ubar, nold, u_out, n_out: (N, n, L) complex; rows: N x 8 floats in
-// host memory, copied into the launch's arguments.
+// mu, ubar, nold, u_out, n_out: (N, n, L) complex, or in the slab form
+// (N, rows, n, L) with kxz2 (rows, L) as kernel 5's; coef: N x 8 floats
+// in host memory, copied into the launch's arguments.
 cudaError_t mtt_fwd_x_update_poly(const void* mu, const void* ubar,
                                   const void* nold, void* u_out, void* n_out,
                                   const void* kx2, const void* kyz2,
-                                  const void* tw, int64_t N, int64_t n,
-                                  int64_t L, int64_t b, const float* rows,
-                                  cudaStream_t stream) {
-  if (N < 1 || N > kMaxFields) return cudaErrorInvalidValue;
+                                  const void* tw, int64_t N, int64_t rows,
+                                  int64_t n, int64_t L, int64_t b,
+                                  const float* coef, cudaStream_t stream) {
+  if (N < 1 || N > kMaxFields || rows < 0 || rows > 65535) return cudaErrorInvalidValue;
   PolyUpdate op{(const float2*)ubar, (const float2*)nold, (float2*)u_out,
-                (float2*)n_out, (const float*)kx2, (const float*)kyz2, {}};
+                (float2*)n_out, (const float*)kx2, (const float*)kyz2, (int)rows, L,
+                {}};
   for (int64_t f = 0; f < N; ++f)
-    for (int j = 0; j < 8; ++j) op.row[f][j] = rows[f * 8 + j];
-  return launch_sublanes(nullptr, (const float2*)mu, (const float2*)tw, N, n,
-                         L, b, stream, op);
+    for (int j = 0; j < 8; ++j) op.row[f][j] = coef[f * 8 + j];
+  return launch_sublanes(nullptr, (const float2*)mu, (const float2*)tw,
+                         N * (rows ? rows : 1), n, L, b, stream, op);
 }
 
 }  // extern "C"

@@ -1,6 +1,6 @@
-"""Domain: grid geometry, real/reciprocal axes, FFT dispatch (serial mode).
+"""Domain: grid geometry, real/reciprocal axes, FFT dispatch, device mesh.
 
-The PyTorch counterpart of marlin_tpu/domain.py, serial mode only.  The
+The PyTorch counterpart of marlin_tpu/domain.py.  The
 semantic choices of the reference DomainAction are kept
 (reference: src/actions/DomainAction.C — axes :226-338, fft/ifft :833-1078):
 
@@ -21,6 +21,18 @@ them) transforms with its value axes moved to the front, where they join
 the rows of the lanes kernels and the prefix of the sublanes kernels: one
 launch of each kernel an axis, whatever the number of fields
 (marlin_tpu/domain.py:420-441 forward, :492-511 inverse).
+
+``parallel_mode = FFT_SLAB`` and ``REAL_SPACE`` run over a ``parallel.Mesh``
+of ranks: the Domain then holds the global extents (``n_global``) and this
+rank's block of them (``real_slice``, ``reciprocal_slice``), and ``shape``,
+``reciprocal_shape``, the axes and the k-tables are the block's, so that
+every compute works on the local block as it would on the whole grid.
+``fft``/``ifft`` go through ``parallel.fft``/``ifft``, ``sum``/``average``
+reduce over the group.  Without a mesh a parallel-mode deck runs its
+layouts on one device, as the JAX package does with ``mesh=None``: 3-D
+FFT_SLAB rfft's z as serial mode does, 2-D FFT_SLAB keeps the full
+spectrum.  FFT_PENCIL waits for the next slice of the port and is a named
+error.
 """
 
 from __future__ import annotations
@@ -31,7 +43,7 @@ from typing import Optional, Sequence, Tuple
 import numpy as np
 import torch
 
-from . import unordered_fft
+from . import parallel, unordered_fft
 from .device import COMPLEX_FOR, default_float_dtype, resolve
 
 PARALLEL_MODES = ("NONE", "REAL_SPACE", "FFT_SLAB", "FFT_PENCIL")
@@ -62,7 +74,8 @@ FFT_BACKENDS = ("DEFAULT", "PALLAS")
 
 
 class Domain:
-    """Uniform periodic grid with spectral transforms on one device.
+    """Uniform periodic grid with spectral transforms, on one device or one
+    rank's block of a mesh.
 
     Parameters mirror the reference ``[Domain]`` block
     (reference: src/actions/DomainAction.C:29-92)."""
@@ -77,21 +90,54 @@ class Domain:
         floating_precision: str = "DEVICE_DEFAULT",
         fft_backend: str = "DEFAULT",
         device=None,
+        mesh: Optional["parallel.Mesh"] = None,
+        debug: bool = False,
     ):
         if dim not in (1, 2, 3):
             raise ValueError(f"Unsupported dimension {dim}")
-        if parallel_mode != "NONE":
+        if parallel_mode not in PARALLEL_MODES:
+            raise ValueError(f"[Domain] parallel_mode = {parallel_mode} is not one "
+                             f"of {PARALLEL_MODES}")
+        if parallel_mode == "FFT_PENCIL":
             raise NotImplementedError(
-                f"[Domain] parallel_mode = {parallel_mode} is not ported to "
-                "marlin_tpu_torch yet (serial mode only)"
-            )
+                "[Domain] parallel_mode = FFT_PENCIL is not ported to "
+                "marlin_tpu_torch yet: it waits for the next slice of the port "
+                "(FFT_SLAB and REAL_SPACE run)")
         self.dim = dim
         self.device = resolve(device)
         self.n_global = tuple(int(x) for x in n[:dim])
         self.mins = tuple(float(x) for x in mins[:dim])
         self.maxs = tuple(float(x) for x in maxs[:dim])
+        self.parallel_mode = parallel_mode
+        self.mesh = mesh if parallel_mode != "NONE" else None
+        self.debug = debug
         self.fft_backend = fft_backend
+        self.uneven = False
+        if self.mesh is not None:
+            want = "nccl" if self.device.type == "cuda" else "gloo"
+            if self.mesh.backend != want:
+                raise ValueError(
+                    f"[Domain] the mesh's process group is {self.mesh.backend} but "
+                    f"the domain's device is {self.device} (NCCL on the card, "
+                    "gloo on the CPU)")
+            if parallel_mode == "REAL_SPACE" and len(self.mesh.shape) > dim:
+                raise ValueError(
+                    f"[Domain] a {len(self.mesh.shape)}-D REAL_SPACE mesh does "
+                    f"not fit a {dim}-D grid")
+            if parallel_mode == "REAL_SPACE" and len(self.mesh.shape) > 2:
+                raise NotImplementedError(
+                    "[Domain] a 3-D REAL_SPACE mesh (z cut) is not ported to "
+                    "marlin_tpu_torch yet: its halos cut x, or x and y (a 1-D or "
+                    "2-D mesh); the z cut waits for a later slice")
         if fft_backend == "PALLAS":
+            if parallel_mode not in ("NONE", "FFT_SLAB") \
+                    or (parallel_mode == "FFT_SLAB" and dim != 3):
+                raise ValueError(
+                    "[Domain] fft_backend = PALLAS supports serial mode and "
+                    "3-D FFT_SLAB (z and x kernels run per-shard, one planar "
+                    "all_to_all, y kernel after the transpose); use the "
+                    "DEFAULT backend for pencil/2-D-slab decompositions"
+                )
             bad = [x for x in self.n_global if not unordered_fft.supported(x)]
             if bad:
                 raise ValueError(
@@ -99,6 +145,14 @@ class Domain:
                     f"extent to factor as {unordered_fft.SUPPORTED_RULE}; "
                     f"got {bad}"
                 )
+            if parallel_mode == "FFT_SLAB" and self.mesh is not None:
+                reason = unordered_fft.slab_grid_unsupported_reason(
+                    self.n_global, self.mesh.size)
+                if reason:
+                    raise ValueError(
+                        f"[Domain] fft_backend = PALLAS cannot tile this "
+                        f"grid: {reason}"
+                    )
             if floating_precision == "DOUBLE":
                 raise ValueError(
                     "[Domain] fft_backend = PALLAS is single-precision "
@@ -123,34 +177,74 @@ class Domain:
         self.n_cells_global = math.prod(self.n_global)
         self._cells_t = {}  # dtype -> N as a 0-d device tensor (ifft)
         self._build_axes()
+        if self.mesh is not None:
+            parallel.validate_mesh(self)
 
     # -- axes -------------------------------------------------------------
+    def use_rfft(self, d: int) -> bool:
+        """Which axis carries the half spectrum (marlin_tpu/domain.py
+        _use_rfft): the last in serial mode, z on 3-D FFT_SLAB grids (z is
+        whole in both slab layouts), none on 2-D FFT_SLAB, REAL_SPACE or
+        PALLAS (the full permuted spectrum)."""
+        if self.fft_backend == "PALLAS":
+            return False
+        if self.parallel_mode == "NONE":
+            return d == self.dim - 1
+        if self.parallel_mode == "FFT_SLAB":
+            # nz > 2 keeps the half extent distinct from nz, so the inverse
+            # can tell half from full spectra by shape
+            return self.dim == 3 and d == 2 and self.n_global[2] > 2
+        return False
+
     def _build_axes(self):
         npdtype = np.float64 if self.dtype == torch.float64 else np.float32
+        self._np_axes_global = []
+        self._np_raxes_global = []
+        for d in range(self.dim):
+            h = self.grid_spacing[d]
+            n = self.n_global[d]
+            self._np_axes_global.append(np.linspace(
+                self.mins[d] + h / 2.0, self.maxs[d] - h / 2.0, n).astype(npdtype))
+            if self.parallel_mode == "REAL_SPACE":
+                freq = np.zeros((0,))  # no spectral axes (marlin_tpu/domain.py:267)
+            elif self.fft_backend == "PALLAS":
+                # full complex spectrum in the kernels' permuted order
+                freq = unordered_fft.permuted_freqs(n, d=h)
+            elif self.use_rfft(d):
+                freq = np.fft.rfftfreq(n, d=h)
+            else:
+                freq = np.fft.fftfreq(n, d=h)
+            self._np_raxes_global.append((freq * 2.0 * math.pi).astype(npdtype))
+        self.global_reciprocal_shape = tuple(k.shape[0] for k in self._np_raxes_global)
+        # the full (not halved) spectrum's extents, which fftn of a complex
+        # field gives
+        self.global_full_shape = tuple(
+            self.n_global[d] if self.use_rfft(d) else self.global_reciprocal_shape[d]
+            for d in range(self.dim))
+        if self.mesh is not None:
+            self.real_slice = parallel.block_slices(
+                self.mesh, parallel.real_spec(self, self.dim), self.n_global)
+            self.reciprocal_slice = parallel.block_slices(
+                self.mesh, parallel.reciprocal_spec(self, self.dim),
+                self.global_reciprocal_shape)
+            self.full_slice = parallel.block_slices(
+                self.mesh, parallel.reciprocal_spec(self, self.dim), self.global_full_shape)
+        else:
+            self.real_slice = tuple(slice(0, n) for n in self.n_global)
+            self.reciprocal_slice = tuple(slice(0, n) for n in self.global_reciprocal_shape)
+            self.full_slice = tuple(slice(0, n) for n in self.global_full_shape)
         self.axes = []  # real-space, aligned tensors on the device
         self._np_axes = []  # unaligned 1-D numpy (host-side initial conditions)
         self.reciprocal_axes = []
         self._np_raxes = []  # unaligned 1-D numpy
-        self.n_reciprocal_global = []
         for d in range(self.dim):
-            h = self.grid_spacing[d]
-            n = self.n_global[d]
-            ax = np.linspace(
-                self.mins[d] + h / 2.0, self.maxs[d] - h / 2.0, n
-            ).astype(npdtype)
+            ax = self._np_axes_global[d][self.real_slice[d]]
             self._np_axes.append(ax)
             self.axes.append(self._aligned(ax, d))
-            if self.fft_backend == "PALLAS":
-                # full complex spectrum in the kernels' permuted order
-                freq = unordered_fft.permuted_freqs(n, d=h)
-            elif d == self.dim - 1:
-                freq = np.fft.rfftfreq(n, d=h)
-            else:
-                freq = np.fft.fftfreq(n, d=h)
-            k = (freq * 2.0 * math.pi).astype(npdtype)
+            k = self._np_raxes_global[d][self.reciprocal_slice[d]]
             self._np_raxes.append(k)
             self.reciprocal_axes.append(self._aligned(k, d))
-            self.n_reciprocal_global.append(k.shape[0])
+        self.n_reciprocal_global = list(self.global_reciprocal_shape)
 
     def _np_align(self, a: np.ndarray, d: int) -> np.ndarray:
         shape = [1] * self.dim
@@ -164,17 +258,24 @@ class Domain:
     # -- shapes -----------------------------------------------------------
     @property
     def shape(self) -> Tuple[int, ...]:
-        return self.n_global
+        """This rank's real-space block (the whole grid without a mesh)."""
+        return tuple(s.stop - s.start for s in self.real_slice)
 
     @property
     def reciprocal_shape(self) -> Tuple[int, ...]:
-        return tuple(self.n_reciprocal_global)
+        """This rank's reciprocal-space block."""
+        return tuple(s.stop - s.start for s in self.reciprocal_slice)
 
     def value_shape(self, extra_dims: Sequence[int] = ()) -> Tuple[int, ...]:
         return self.shape + tuple(extra_dims)
 
     def reciprocal_value_shape(self, extra_dims: Sequence[int] = ()) -> Tuple[int, ...]:
         return self.reciprocal_shape + tuple(extra_dims)
+
+    def local(self, a):
+        """This rank's block of a global real-space array (numpy or torch;
+        trailing value axes kept)."""
+        return a[self.real_slice]
 
     # -- derived grids ----------------------------------------------------
     @property
@@ -238,9 +339,26 @@ class Domain:
         nv = u.ndim - self.dim
         return u.movedim(tuple(range(nv)), tuple(range(self.dim, u.ndim))) if nv else u
 
+    def _check_spectral(self, what: str):
+        if self.parallel_mode == "REAL_SPACE":
+            raise RuntimeError(f"{what} is not available in REAL_SPACE parallel mode.")
+
+    def _check_slab_scalar(self, t: torch.Tensor):
+        if self.mesh is not None and self.fft_backend == "PALLAS" and t.ndim != self.dim:
+            raise RuntimeError(
+                "fft_backend = PALLAS supports scalar fields only in "
+                f"FFT_SLAB mode (got a rank-{t.ndim} tensor on a "
+                f"{self.dim}-D grid)"
+            )
+
     def fft(self, t: torch.Tensor) -> torch.Tensor:
-        """Forward FFT over the spatial axes (reference fftSerial :853-867);
-        trailing value dims pass through."""
+        """Forward FFT over the spatial axes (reference fftSerial :853-867;
+        the slab transforms of ``parallel`` on a mesh); trailing value dims
+        pass through."""
+        self._check_spectral("FFT")
+        if self.mesh is not None:
+            self._check_slab_scalar(t)
+            return parallel.fft(self, t)
         tb = self._value_axes_first(t)
         dims = tuple(range(tb.ndim - self.dim, tb.ndim))
         if self.fft_backend == "PALLAS":
@@ -249,7 +367,9 @@ class Domain:
         if tb is not t:
             # each field a contiguous block: the bits it has alone
             tb = tb.contiguous()
-        if t.is_complex():
+        if t.is_complex() or not self.use_rfft(self.dim - 1):
+            # a complex field, or the full spectrum of 2-D FFT_SLAB run
+            # without a mesh (marlin_tpu/domain.py:453-465)
             return self._value_axes_last(torch.fft.fftn(tb, dim=dims)).to(self.cdtype)
         return self._value_axes_last(torch.fft.rfftn(tb, dim=dims)).to(self.cdtype)
 
@@ -257,7 +377,9 @@ class Domain:
         """(shape, dtype) that ``fft`` gives a tensor of this shape and dtype."""
         shape = tuple(shape)
         if dtype.is_complex and self.fft_backend == "DEFAULT":
-            return shape, self.cdtype  # fftn keeps the full spectrum
+            # fftn keeps the full spectrum
+            full = tuple(s.stop - s.start for s in self.full_slice)
+            return full + shape[self.dim:], self.cdtype
         return self.reciprocal_shape + shape[self.dim:], self.cdtype
 
     def ifft_spec(self, shape, dtype):
@@ -271,6 +393,10 @@ class Domain:
         which would scale the field's mean at every inverse, and a solver
         that transforms back and forth each substep would drift its mass
         (the kernels' InvStore divides for the same reason)."""
+        self._check_spectral("IFFT")
+        if self.mesh is not None:
+            self._check_slab_scalar(t)
+            return parallel.ifft(self, t)
         spatial = tuple(range(self.dim))
         if self.fft_backend == "PALLAS":
             tb = self._value_axes_first(t)
@@ -280,11 +406,13 @@ class Domain:
                                        real_output=True)
             return self._value_axes_last(u).to(self.dtype)
         last = self.dim - 1
-        # a full spectrum (forward transform of a complex field) would be
-        # cropped by irfftn; see marlin_tpu/domain.py:ifft for the n <= 2
-        # degeneracy this shape test shares
-        if (t.shape[last] != self.reciprocal_shape[last]
-                and t.shape[last] == self.shape[last]):
+        # a full spectrum (forward transform of a complex field, or any of
+        # 2-D FFT_SLAB run without a mesh) would be cropped by irfftn; see
+        # marlin_tpu/domain.py:ifft for the n <= 2 degeneracy this shape
+        # test shares
+        if (not self.use_rfft(last)
+                or (t.shape[last] != self.reciprocal_shape[last]
+                    and t.shape[last] == self.shape[last])):
             u = torch.fft.ifftn(t, dim=spatial, norm="forward").real
         else:
             u = torch.fft.irfftn(t, s=self.shape, dim=spatial, norm="forward")
@@ -293,11 +421,68 @@ class Domain:
     # -- reductions --------------------------------------------------------
     def sum(self, t: torch.Tensor) -> torch.Tensor:
         """Sum over the spatial axes; trailing value axes stay
-        (marlin_tpu/domain.py:sum)."""
-        return t.sum(dim=tuple(range(self.dim)))
+        (marlin_tpu/domain.py:sum); over the whole mesh on a mesh."""
+        return self.reduce(t.sum(dim=tuple(range(self.dim))))
 
     def average(self, t: torch.Tensor) -> torch.Tensor:
         return self.sum(t) / self.n_cells_global
+
+    def reduce(self, t: torch.Tensor, op: str = "sum") -> torch.Tensor:
+        """``t`` (a rank's partial result) reduced over the mesh: sum, max
+        or min; ``t`` itself without a mesh."""
+        return parallel.all_reduce(self.mesh, t, op)
+
+    def gather(self, t: torch.Tensor) -> torch.Tensor:
+        """The whole grid's field from every rank's real-space block
+        (trailing value axes kept); ``t`` itself without a mesh."""
+        if self.mesh is None:
+            return t
+        shape = tuple(self.n_global) + tuple(t.shape[self.dim:])
+        return parallel._gather(self.mesh, t, parallel.real_spec(self, t.ndim), shape)
+
+    def numel(self, t: torch.Tensor) -> int:
+        """The element count of a field over the whole mesh (``t.numel()``
+        without one): from the block's shape where it is a real- or
+        reciprocal-space block, else by a reduction."""
+        if self.mesh is None:
+            return t.numel()
+        head = tuple(t.shape[:self.dim])
+        for local, whole in ((self.shape, self.n_global),
+                             (self.reciprocal_shape, self.global_reciprocal_shape)):
+            if head == local and math.prod(local):
+                return t.numel() // math.prod(local) * math.prod(whole)
+        return int(parallel.all_reduce(
+            self.mesh, torch.tensor(float(t.numel()), dtype=torch.float64,
+                                    device=self.device)).item())
+
+    # -- REAL_SPACE halos ----------------------------------------------------
+    def halo_dims(self) -> Tuple[int, ...]:
+        """The spatial axes cut by the mesh (REAL_SPACE: the first
+        ``len(mesh.shape)`` axes)."""
+        if self.mesh is None or self.parallel_mode != "REAL_SPACE":
+            return ()
+        return tuple(range(len(self.mesh.shape)))
+
+    def padded(self, t: torch.Tensor, lead: int = 0) -> torch.Tensor:
+        """``t`` (``lead`` axes before its spatial ones) with one plane of
+        its neighbours' on each side of every cut axis (the periodic wrap
+        where the neighbour is this rank): the fused kernel's halo ring
+        (``parallel.halo_ring``) put back around the block."""
+        dims = self.halo_dims()
+        if not dims:
+            return t
+        flat = t.dim() - lead == 2  # a 2-D field: z of extent 1
+        u = t.unsqueeze(-1) if flat else t
+        shard_y = len(dims) == 2
+        out = parallel.ring_to_padded(u, parallel.halo_ring(self.mesh, u, lead, shard_y),
+                                      lead, shard_y)
+        return out.squeeze(-1) if flat else out
+
+    def holds_face(self, axis: int, side: int) -> bool:
+        """True when this rank's block holds the grid's face on ``axis``
+        (side 0 low, 1 high)."""
+        sl = self.real_slice[axis]
+        return sl.start == 0 if side == 0 else sl.stop == self.n_global[axis]
 
     def _cells(self, dtype: torch.dtype) -> torch.Tensor:
         """N = prod(n) as a 0-d tensor on the device: dividing by a host
@@ -311,5 +496,5 @@ class Domain:
         return (
             f"Domain(dim={self.dim}, n={self.n_global}, "
             f"box={list(zip(self.mins, self.maxs))}, device={self.device}, "
-            f"fft_backend={self.fft_backend})"
+            f"mode={self.parallel_mode}, fft_backend={self.fft_backend})"
         )

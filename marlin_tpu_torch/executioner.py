@@ -224,6 +224,10 @@ class Transient:
 
         self.output_dir = output_dir or "."
         self.csv = None
+        # on a mesh every rank runs the loop; rank 0 alone writes the CSV
+        # and prints (the postprocessor values are the group's already)
+        mesh = problem.domain.mesh
+        self.rank0 = mesh is None or mesh.rank == 0
         op = Params(outputs_node, gp)
         deck_file_base = op.get_str("file_base", None)
         self.file_base = file_base or deck_file_base or "out"
@@ -244,7 +248,11 @@ class Transient:
                         f"(block '{b.name}')"
                     )
         os.makedirs(self.output_dir, exist_ok=True)
-        if csv_enabled:
+        if exodus_enabled:
+            _serial_only(problem, "[Outputs] exodus (the per-rank Exodus writer)")
+        if problem.vector_postprocessors:
+            _serial_only(problem, "[VectorPostprocessors]")
+        if csv_enabled and self.rank0:
             self.csv = CSVWriter(os.path.join(self.output_dir, self.file_base + ".csv"))
         # field outputs: Exodus here, [TensorOutputs] added by run_deck
         self.tensor_outputs = []
@@ -270,6 +278,9 @@ class Transient:
         # checkpoint/resume (the reference checkpoints no tensor buffers,
         # SURVEY §5.4; this is the full-state superset)
         self.checkpoint_interval = p.get_int("checkpoint_interval", 0)
+        if self.checkpoint_interval:
+            _serial_only(problem, "[Executioner] checkpoint_interval (the "
+                         "sharded checkpoint)")
         self.checkpoint_path = os.path.join(
             self.output_dir, self.file_base + "_checkpoint.npz")
 
@@ -333,6 +344,8 @@ class Transient:
         run's own): restores the state, time, step count, last dt,
         postprocessor values and INITIAL-only aux samples.  Works without
         ``init()``; ``run()`` then goes on from the restored step."""
+        _serial_only(self.problem, "recover (the sharded checkpoint and "
+                     "RandomTensor resume)")
         state, meta = self.problem.load_checkpoint(path or self.checkpoint_path)
         self.state = state
         self.time = meta["time"]
@@ -437,7 +450,7 @@ class Transient:
                     f"Terminator expression '{t.expression}' is true")
                 if t.error_level == "ERROR":
                     raise RuntimeError(msg)
-                if t.error_level != "NONE":
+                if t.error_level != "NONE" and self.rank0:
                     print(msg)
                 break
 
@@ -446,7 +459,7 @@ class Transient:
                 self.csv.write()
             for out in self.tensor_outputs:
                 out.finalize()
-        if self.perf.enabled:
+        if self.perf.enabled and self.rank0:
             print(self.perf.report())
         return self.pp_values
 
@@ -460,6 +473,16 @@ class Transient:
                 "converged": bool(sstate["converged"])}
 
 
+def _serial_only(problem, what: str):
+    """A named error for what the port does not run under a parallel mode
+    yet (ROADMAP: the per-rank writers and the sharded checkpoint wait)."""
+    mode = problem.domain.parallel_mode
+    if mode != "NONE":
+        raise NotImplementedError(
+            f"{what} is not ported to marlin_tpu_torch under parallel_mode = "
+            f"{mode} yet (serial decks only)")
+
+
 def run_deck(
     root: HitNode,
     file_base: Optional[str] = None,
@@ -469,13 +492,17 @@ def run_deck(
     arrays=None,
     deck_stem: Optional[str] = None,
     recover: Optional[str] = None,
+    mesh=None,
 ) -> Transient:
     """Build and run a full deck on ``device`` (default "cuda"); returns the
     finished Transient (marlin_tpu/executioner.py:run_deck).  ``deck_dir``
     and ``arrays`` go to TensorProblem (LBM buffer files); ``deck_stem`` is
     the [TensorOutputs]' default file base; ``recover`` is a checkpoint to
-    resume from in place of the initial state."""
-    problem = TensorProblem(root, device=device, deck_dir=deck_dir, arrays=arrays)
+    resume from in place of the initial state; ``mesh`` (a
+    ``parallel.Mesh``, this process one of its ranks) runs a
+    ``parallel_mode`` deck distributed, each rank on its block."""
+    problem = TensorProblem(root, device=device, deck_dir=deck_dir, arrays=arrays,
+                            mesh=mesh)
     transient = Transient(
         problem,
         exec_node=root.children.get("Executioner"),

@@ -28,8 +28,17 @@ streamed lattice g with its own faces, T = Σg, Boussinesq buoyancy and
 gravity through LBMComputeForces, the Guo source through LBMApplyForces,
 the residual on T).  ``match_chain`` raises ``FusedChainError`` with the
 JAX package's own message, word for word, for a chain the JAX package
-would not fuse; sharded domains fail earlier, in the Domain.  None of
-them ever falls back to the eager chain.
+would not fuse.  None of them ever falls back to the eager chain.
+
+Under ``[Domain] parallel_mode = REAL_SPACE`` on a 1-D (x) or 2-D (x, y)
+mesh the plan is a block's (``FusedLBMConfig.sharded``, with its offsets
+and the grid's extents, by match_chain's REAL_SPACE rules,
+pallas_lbm.py:1109-1135): each substep takes the halo rings of its
+distributions (``parallel.halo_ring``: the neighbours' boundary planes,
+on a 2-D mesh the y rows and their corners too; the media's ring once a
+step) and the flat kernel reads a pull that leaves the block from them;
+faces sit on the grid's coordinates.  The twin pads the block with its
+rings and streams by slices.
 
 ``fused_substep`` launches the CUDA kernel of ``csrc/lbm_substep.cu`` (the
 counterpart of pallas_lbm.py:224 ``_make_kernel``) on CUDA tensors and
@@ -185,6 +194,27 @@ class FusedLBMConfig:
     # the Smagorinsky collision on the fluid lattice, (C_s, τ₀): τ a cell
     # from the non-equilibrium momentum flux and the grid's mean density
     smag: Optional[Tuple[float, float]] = None
+    # a block of a REAL_SPACE mesh: x cut (and on a 2-D mesh y), and the
+    # grid's extents (the block's own offsets are FusedLBMPlan.offsets)
+    sharded: bool = False
+    nx_global: int = 0
+    shard_y: bool = False
+    ny_global: int = 0
+
+    @property
+    def gnx(self) -> int:
+        return self.nx_global if self.sharded else self.nx
+
+    @property
+    def gny(self) -> int:
+        return self.ny_global if self.shard_y else self.ny
+
+    @property
+    def ring(self) -> int:
+        """A direction's values in a halo ring (parallel.ring_size)."""
+        from .parallel import ring_size
+
+        return ring_size(self.nx, self.ny, self.nz, self.shard_y)
 
 
 @dataclass(frozen=True)
@@ -193,6 +223,8 @@ class FusedLBMPlan:
     fpc: str  # post-collision distribution (the carried state)
     speed: Optional[str]  # carried scalar buffer (residual input)
     fpc2: Optional[str] = None  # the second lattice's carried distribution
+    # a block of a mesh: its first cell in the grid, (x, y)
+    offsets: Tuple[int, int] = (0, 0)
 
 
 # ---------------------------------------------------------------------------
@@ -305,6 +337,31 @@ def match_chain(problem) -> FusedLBMPlan:
     if dom.dim not in (2, 3):
         _reject("only 2-D/3-D decks are supported")
     two_d = dom.dim == 2
+    sharded = False
+    p1 = p2 = 1
+    if dom.parallel_mode == "REAL_SPACE":
+        mesh = dom.mesh
+        if mesh is None or len(mesh.shape) not in (1, 2):
+            _reject("REAL_SPACE requires a 1-D (x) or 2-D (x×y) mesh")
+        sharded = True
+        p1 = mesh.shape[0]
+        p2 = mesh.shape[1] if len(mesh.shape) > 1 else 1
+        if dom.n_global[0] % p1:
+            _reject(
+                f"nx = {dom.n_global[0]} must divide evenly over the "
+                f"{p1}-device mesh axis"
+            )
+        if p2 > 1:
+            if two_d:
+                # y is the lane axis of 2-D blocks — shard x only
+                _reject("2-D decks support 1-D (x-sharded) meshes only")
+            if dom.n_global[1] % p2:
+                _reject(
+                    f"ny = {dom.n_global[1]} must divide evenly over the "
+                    f"{p2}-device mesh axis"
+                )
+    elif dom.parallel_mode != "NONE":
+        _reject("only serial or REAL_SPACE (1-D/2-D mesh) domains are supported")
     has_media = problem.lbm_solid_mask() is not None
 
     solver = problem.solver
@@ -533,6 +590,9 @@ def match_chain(problem) -> FusedLBMPlan:
         if not two_d:
             _reject("Smagorinsky collisions fuse on 2-D decks only (the "
                     "global mean density needs the single-block kernel)")
+        if sharded:
+            _reject("Smagorinsky collisions do not fuse on sharded "
+                    "domains (the mean density is a cross-shard reduction)")
         smag = (float(collision.C_s), float(collision.tau_0))
     if two_lattice:
         if equilibrium2 is None or collision2 is None:
@@ -575,6 +635,7 @@ def match_chain(problem) -> FusedLBMPlan:
 
     bf = velocity.body_force if velocity.add_body_force else [0.0, 0.0, 0.0]
     nx, ny, nz = (list(dom.shape) + [1, 1])[:3]
+    gnx, gny = (list(dom.n_global) + [1])[:2]
     cfg = FusedLBMConfig(
         q=int(st.q),
         e=tuple((int(st.ex[i]), int(st.ey[i]), int(st.ez[i])) for i in range(st.q)),
@@ -601,6 +662,10 @@ def match_chain(problem) -> FusedLBMPlan:
         proj2=bool(collision2 is not None and collision2.projection),
         two_d=two_d,
         smag=smag,
+        sharded=sharded,
+        nx_global=int(gnx),
+        shard_y=p2 > 1,
+        ny_global=int(gny),
     )
     old_keys = set()
     for c in [solver] + list(problem.bc_computes) + list(problem.solve_computes):
@@ -613,6 +678,8 @@ def match_chain(problem) -> FusedLBMPlan:
         fpc=fpc_name,
         speed=speed_buffer,
         fpc2=gpc_name,
+        offsets=(int(dom.real_slice[0].start) if sharded else 0,
+                 int(dom.real_slice[1].start) if p2 > 1 else 0),
     )
 
 
@@ -621,49 +688,71 @@ def match_chain(problem) -> FusedLBMPlan:
 # ---------------------------------------------------------------------------
 
 
-def _face_masks(cfg: FusedLBMConfig, device) -> Dict[Tuple[int, int], torch.Tensor]:
+def _face_masks(cfg: FusedLBMConfig, device,
+                offsets=(0, 0)) -> Dict[Tuple[int, int], torch.Tensor]:
     """(axis, side) -> a bool tensor broadcastable to (nx, ny, nz), true on
-    that face."""
+    that face of the grid (a block's cells on its coordinates, the block
+    at ``offsets``)."""
     masks = {}
     keys = ([(a, s) for a, s, _d in cfg.faces + cfg.faces2]
             + [(bc.axis, bc.side) for bc in cfg.post_bcs + cfg.post_bcs2])
     dims = (cfg.nx, cfg.ny, cfg.nz)
+    offs = (offsets[0], offsets[1], 0)
+    whole = (cfg.gnx, cfg.gny, cfg.nz)
     for axis, side in keys:
         if axis < 0 or (axis, side) in masks:
             continue
         view = [1, 1, 1]
         view[axis] = dims[axis]
-        io = torch.arange(dims[axis], device=device).reshape(view)
-        masks[(axis, side)] = io == (0 if side == 0 else dims[axis] - 1)
+        io = torch.arange(dims[axis], device=device).reshape(view) + offs[axis]
+        masks[(axis, side)] = io == (0 if side == 0 else whole[axis] - 1)
     return masks
 
 
+def _puller(cfg: FusedLBMConfig, t: torch.Tensor, ring: Optional[torch.Tensor],
+            lead: int):
+    """e -> ``t`` pull-streamed by e (``lead`` axes before x): a periodic
+    roll, or on a block of a mesh a slice of ``t`` padded with its ring."""
+    if not cfg.sharded:
+        return lambda e, sel=(): torch.roll(t[sel], e, (0, 1, 2))
+    from .parallel import ring_to_padded, shifted
+
+    padded = ring_to_padded(t, ring, lead, cfg.shard_y)
+    halo = (0, 1) if cfg.shard_y else (0,)
+    return lambda e, sel=(): shifted(padded[sel], e, (0, 1, 2), halo)
+
+
 def _streamed_lattice(src: torch.Tensor, media: Optional[torch.Tensor],
-                      cfg: FusedLBMConfig, faces, post_bcs):
+                      cfg: FusedLBMConfig, faces, post_bcs,
+                      ring: Optional[torch.Tensor] = None,
+                      mring: Optional[torch.Tensor] = None, offsets=(0, 0)):
     """One lattice's q streamed planes (nx, ny, nz) after its bounce-back
     and post-stream faces, in the kernel's order (pallas_lbm.py:_make_kernel
-    ``streamed`` and ``apply_post``)."""
+    ``streamed`` and ``apply_post``); on a block of a mesh (at ``offsets``)
+    the pulls that leave it read ``ring`` (and the media's ``mring``)."""
     q = cfg.q
     zero = torch.zeros((), dtype=src.dtype, device=src.device)
-    masks = _face_masks(cfg, src.device)
+    masks = _face_masks(cfg, src.device, offsets)
+    pull = _puller(cfg, src, ring, 1)
     if cfg.has_media:
         solid = media == 0
         # bounce-back applies at FLUID cells only (media >= 1); negative
         # media ids are neither solid-filled nor bounced
         fluid = media >= 1
+        media_pull = _puller(cfg, media, mring, 0)
 
     def streamed(qi):
         """Pull-streamed direction qi with face + obstacle bounce-back and
         solid masking (reference LBMStream.C:51-80 + LBMBounceBack.C +
         maskedFillSolids)."""
         e = cfg.e[qi]
-        a = torch.roll(src[qi], e, (0, 1, 2))
+        a = pull(e, qi)
         for axis, side, dirs in faces:
             if axis < 0:
                 # obstacle bounce-back: fluid cells whose upstream
                 # neighbor along e is solid
                 if qi != 0:
-                    m_up = torch.roll(media, e, (0, 1, 2))
+                    m_up = media_pull(e)
                     a = torch.where((m_up == 0) & fluid, src[cfg.op[qi]], a)
             elif qi in dirs:
                 # face bounce-back: the OPPOSITE direction of the unstreamed
@@ -692,7 +781,8 @@ def _streamed_lattice(src: torch.Tensor, media: Optional[torch.Tensor],
         else:
             a = None
             if bc.perturb_value:
-                a = perturb_profile(bc, cfg.ny, src.dtype, src.device).reshape(1, cfg.ny, 1)
+                a = perturb_profile(bc, cfg.gny, src.dtype, src.device)[
+                    offsets[1]:offsets[1] + cfg.ny].reshape(1, cfg.ny, 1)
             for d, val in apply_zouhe(bc, prev, a).items():
                 put(d, val)
     return fs
@@ -708,19 +798,23 @@ def density_mean_twin(fpc_qm: torch.Tensor, media: Optional[torch.Tensor],
 
 
 def fused_substep_twin(fpc_qm: torch.Tensor, media: Optional[torch.Tensor],
-                       cfg: FusedLBMConfig, gpc_qm: Optional[torch.Tensor] = None):
+                       cfg: FusedLBMConfig, gpc_qm: Optional[torch.Tensor] = None,
+                       rings=None, offsets=(0, 0)):
     """One lattice update in plain torch ops, in the kernel's order
     (pallas_lbm.py:_make_kernel); returns (fpc_new_qm, speed), or
     (fpc_new_qm, gpc_new_qm, speed) on two-lattice plans.  ``fpc_qm`` (and
     ``gpc_qm``) is (q, nx, ny, nz); ``media`` the (nx, ny, nz) media code,
-    or None."""
+    or None; ``rings`` on a block of a mesh the halo rings (fring, gring,
+    mring) of ``parallel.halo_ring``, the block at ``offsets`` (x, y)."""
     q = cfg.q
     zero = torch.zeros((), dtype=fpc_qm.dtype, device=fpc_qm.device)
     if cfg.has_media:
         solid = media == 0
-    fs = _streamed_lattice(fpc_qm, media, cfg, cfg.faces, cfg.post_bcs)
-    gs = _streamed_lattice(gpc_qm, media, cfg, cfg.faces2, cfg.post_bcs2) \
-        if cfg.two_lattice else None
+    fring, gring, mring = _check_rings(cfg, rings, fpc_qm, media)
+    fs = _streamed_lattice(fpc_qm, media, cfg, cfg.faces, cfg.post_bcs, fring, mring,
+                           offsets)
+    gs = _streamed_lattice(gpc_qm, media, cfg, cfg.faces2, cfg.post_bcs2, gring, mring,
+                           offsets) if cfg.two_lattice else None
 
     # moments (reference LBMComputeDensity / LBMComputeVelocity)
     rho = _direction_sum(fs)
@@ -823,6 +917,45 @@ def fused_substep_twin(fpc_qm: torch.Tensor, media: Optional[torch.Tensor],
     return fpc_new, collide(gs, temp, cfg.msm2, cfg.tau2, cfg.proj2, None), speed
 
 
+def shard_plan(cfg: FusedLBMConfig, split: Tuple[int, int], coords: Tuple[int, int]):
+    """(plan, offsets) of block ``coords`` of an unsharded plan's grid cut
+    ``split`` = (px, py) ways (py = 1: a 1-D mesh), as match_chain builds
+    them on that rank of a REAL_SPACE mesh."""
+    import dataclasses
+
+    px, py = split
+    nx, ny = cfg.nx // px, cfg.ny // py
+    block = dataclasses.replace(cfg, nx=nx, ny=ny, sharded=True, nx_global=cfg.nx,
+                                shard_y=py > 1, ny_global=cfg.ny)
+    return block, (coords[0] * nx, coords[1] * ny if py > 1 else 0)
+
+
+def block_halo(t: torch.Tensor, block: FusedLBMConfig, offsets, x_dim: int):
+    """(block, ring) of a block plan at ``offsets`` (``shard_plan``) cut
+    from the whole grid's ``t`` (lead..., nx, ny, nz; x at ``x_dim``), its
+    halos sliced from the neighbours, periodic: what ``parallel.halo_ring``
+    brings on that rank of a mesh."""
+    from .parallel import ring_pack
+
+    NX, NY = t.shape[x_dim], t.shape[x_dim + 1]
+    x0, y0 = offsets
+    ys = torch.arange(y0, y0 + block.ny, device=t.device) if block.shard_y else \
+        torch.arange(NY, device=t.device)
+    xs = torch.arange(x0, x0 + block.nx, device=t.device)
+    rows = lambda a, idx, d: a.index_select(d, idx)
+    blk = rows(rows(t, xs, x_dim), ys, x_dim + 1).contiguous()
+    xlo = rows(t.select(x_dim, (x0 - 1) % NX), ys, x_dim)
+    xhi = rows(t.select(x_dim, (x0 + block.nx) % NX), ys, x_dim)
+    xe = torch.arange(x0 - 1, x0 + block.nx + 1, device=t.device) % NX
+
+    def y_rows(_to_next, _to_prev):
+        lo = rows(t.select(x_dim + 1, (y0 - 1) % NY), xe, x_dim)
+        hi = rows(t.select(x_dim + 1, (y0 + block.ny) % NY), xe, x_dim)
+        return lo, hi
+
+    return blk, ring_pack(blk, xlo, xhi, x_dim, block.shard_y, y_rows)
+
+
 # ---------------------------------------------------------------------------
 # the CUDA kernel (csrc/lbm_substep.cu)
 # ---------------------------------------------------------------------------
@@ -863,6 +996,13 @@ class _Brick(ctypes.Structure):
                 ("grid", ctypes.c_int32)]
 
 
+class _Halo(ctypes.Structure):
+    _fields_ = [("on", ctypes.c_int32), ("shard_y", ctypes.c_int32),
+                ("xoff", ctypes.c_int64), ("yoff", ctypes.c_int64),
+                ("gnx", ctypes.c_int64), ("gny", ctypes.c_int64),
+                ("stride", ctypes.c_int64)]
+
+
 class _Plan(ctypes.Structure):
     """csrc/lbm_substep.cuh ``LbmPlan``, field for field."""
 
@@ -874,19 +1014,20 @@ class _Plan(ctypes.Structure):
                 ("guo", ctypes.c_int32), ("mrt", ctypes.c_int32 * 2),
                 ("proj", ctypes.c_int32 * 2), ("bf_on", ctypes.c_int32 * 3),
                 ("two_d", ctypes.c_int32), ("smag", ctypes.c_int32),
-                ("brick", _Brick), ("lat", _Faces * 2), ("d", _coef(ctypes.c_double)),
-                ("f", _coef(ctypes.c_float))]
+                ("halo", _Halo), ("brick", _Brick), ("lat", _Faces * 2),
+                ("d", _coef(ctypes.c_double)), ("f", _coef(ctypes.c_float))]
 
 
 LIBRARY = uf.CudaLibrary("lbm_substep", {
     # fpc, gpc (or null), media (or null), the perturbed inlets' a(y) rows
     # (or null), the mean density (or null: read by the flat kernel,
     # written by the plane kernel), the plane kernel's scratch (or null),
-    # fpc_new, gpc_new (or null), speed; q, double?; the host plan; stream
-    "mtt_lbm_substep": [uf._P] * 9 + [ctypes.c_int] * 2 + [uf._P, uf._P],
+    # fpc_new, gpc_new (or null), speed; the halo rings of a block of a
+    # mesh (fring, gring, mring, or null); q, double?; the host plan; stream
+    "mtt_lbm_substep": [uf._P] * 12 + [ctypes.c_int] * 2 + [uf._P, uf._P],
     # q; the compiled-in e (q·3) and op (q) tables out
     "mtt_lbm_tables": [ctypes.c_int, uf._P, uf._P],
-    # the plan's size and field offsets out (int64[8])
+    # the plan's size and field offsets out (int64[9])
     "mtt_lbm_plan_layout": [uf._P],
 }, source=os.path.join(uf.CSRC, "lbm_substep.cu"),
     # no contraction (the eager chain's bits); the register report; the 48
@@ -1060,14 +1201,18 @@ def plane_plan(cfg: FusedLBMConfig, dtype, sms: int) -> Optional[PlanePlan]:
 def walk_plan(cfg: FusedLBMConfig, dtype, sms: int):
     """The walk the kernel takes for ``cfg``: the plane kernel's launch of
     a 2-D Smagorinsky plan (``plane_plan``), the brick walk of a 3-D plan
-    (``brick_plan``), or None: the flat kernel."""
+    (``brick_plan``), or None: the flat kernel, which a block of a mesh
+    always takes (the brick's and the plane's halo forms are later work)."""
+    if cfg.sharded:
+        return None
     return plane_plan(cfg, dtype, sms) if cfg.nz == 1 else brick_plan(cfg, dtype)
 
 
-def pack(cfg: FusedLBMConfig, walk=None) -> _Plan:
+def pack(cfg: FusedLBMConfig, walk=None, offsets=(0, 0)) -> _Plan:
     """The kernel's plan struct for ``cfg`` with ``walk``: a BrickPlan (the
     brick kernel), a PlanePlan (the plane kernel) or None (the flat
-    kernel); raises for what the kernel does not take."""
+    kernel), a block of a mesh at ``offsets``; raises for what the kernel
+    does not take."""
     q = cfg.q
     fc = cfg.force
     p = _Plan(nx=cfg.nx, ny=cfg.ny, nz=cfg.nz, two_lattice=int(cfg.two_lattice),
@@ -1078,6 +1223,15 @@ def pack(cfg: FusedLBMConfig, walk=None) -> _Plan:
               force_dir=fc.direction if fc is not None else 0,
               guo=int(fc is not None and bool(fc.apply_tau)),
               two_d=int(cfg.two_d), smag=int(cfg.smag is not None))
+    # the faces on the grid's coordinates (offsets 0 and the block's own
+    # extents on an unsharded plan)
+    p.halo.on, p.halo.shard_y = int(cfg.sharded), int(cfg.shard_y)
+    p.halo.xoff, p.halo.yoff = offsets
+    p.halo.gnx, p.halo.gny = cfg.gnx, cfg.gny
+    p.halo.stride = cfg.ring if cfg.sharded else 0
+    if cfg.sharded and walk is not None:
+        raise FusedChainError("lbm_backend = PALLAS: a block of a mesh takes the "
+                              "flat kernel (no brick or plane walk)")
     if isinstance(walk, PlanePlan):
         p.brick.threads, p.brick.grid = walk.threads, walk.grid
     elif walk is not None:
@@ -1131,13 +1285,13 @@ def _check_tables(cfg: FusedLBMConfig):
         raise FusedChainError(f"lbm_backend = PALLAS: the kernel takes q = 9, 19 "
                               f"or 27 (got {cfg.q})")
     lib = LIBRARY.load()
-    layout = np.zeros(8, np.int64)
+    layout = np.zeros(9, np.int64)
     lib.mtt_lbm_plan_layout(layout.ctypes.data)
     coef_d, coef_f = _Plan.d.offset, _Plan.f.offset
     ours = [ctypes.sizeof(_Plan), _Plan.lat.offset,
             _Plan.lat.offset + ctypes.sizeof(_Faces), coef_d,
             coef_d + type(_Plan().d).msm.offset, coef_f,
-            coef_f + type(_Plan().f).msm.offset, _Plan.brick.offset]
+            coef_f + type(_Plan().f).msm.offset, _Plan.brick.offset, _Plan.halo.offset]
     if layout.tolist() != ours:
         raise RuntimeError(f"lbm_substep: the ctypes plan {ours} differs from "
                            f"csrc/lbm_substep.cu's LbmPlan {layout.tolist()}")
@@ -1168,7 +1322,7 @@ def _check_inputs(fpc_qm, media, cfg: FusedLBMConfig, what):
                         "on the distribution's device")
 
 
-def _kernel_args(fpc_qm, media, cfg: FusedLBMConfig, gpc_qm, what):
+def _kernel_args(fpc_qm, media, cfg: FusedLBMConfig, gpc_qm, what, offsets=(0, 0)):
     """Contiguity, then the packed plan (with ``walk_plan``'s walk for the
     tensor's card) and the perturbed inlets' a(y) rows (one (n, ny)
     tensor, or None) for a launch: built once per plan, dtype and device
@@ -1177,7 +1331,7 @@ def _kernel_args(fpc_qm, media, cfg: FusedLBMConfig, gpc_qm, what):
     if not fpc_qm.is_contiguous() or (media is not None and not media.is_contiguous()) \
             or (gpc_qm is not None and not gpc_qm.is_contiguous()):
         raise ValueError(f"{what}: inputs must be contiguous")
-    key = (cfg, fpc_qm.dtype, fpc_qm.device)
+    key = (cfg, tuple(offsets), fpc_qm.dtype, fpc_qm.device)
     args = _KERNEL_ARGS.get(key)
     if args is None:
         _check_tables(cfg)
@@ -1185,38 +1339,68 @@ def _kernel_args(fpc_qm, media, cfg: FusedLBMConfig, gpc_qm, what):
         perturbed = _perturbed(cfg)
         avec = None
         if perturbed:
-            avec = torch.stack([perturb_profile(bc, cfg.ny, fpc_qm.dtype, dev)
+            avec = torch.stack([perturb_profile(bc, cfg.gny, fpc_qm.dtype, dev)
                                 for bc in perturbed]).contiguous()
         walk = walk_plan(cfg, fpc_qm.dtype,
                          torch.cuda.get_device_properties(dev).multi_processor_count)
-        args = _KERNEL_ARGS[key] = (pack(cfg, walk), avec)
+        args = _KERNEL_ARGS[key] = (pack(cfg, walk, offsets), avec)
     return args
 
 
 _KERNEL_ARGS: Dict[tuple, tuple] = {}
 
 
+def _check_rings(cfg: FusedLBMConfig, rings, fpc_qm, media):
+    """(fring, gring, mring) of a block of a mesh, checked against the
+    plan; (None, None, None) on an unsharded plan."""
+    if not cfg.sharded:
+        if rings is not None and any(r is not None for r in rings):
+            raise ValueError("fused_substep: halo rings given to an unsharded plan")
+        return None, None, None
+    fring, gring, mring = rings if rings is not None else (None, None, None)
+    lead = (cfg.q, cfg.ring)
+    for name, r, want, dtype, needed in (
+            ("fring", fring, lead, fpc_qm.dtype, True),
+            ("gring", gring, lead, fpc_qm.dtype, cfg.two_lattice),
+            ("mring", mring, (cfg.ring,), torch.int8, cfg.has_media)):
+        if needed != (r is not None):
+            raise ValueError(f"fused_substep: {name} must be given exactly when "
+                             "the block's plan reads it")
+        if r is not None and (tuple(r.shape) != want or r.dtype != dtype
+                              or r.device != fpc_qm.device or not r.is_contiguous()):
+            raise ValueError(f"fused_substep: {name} must be a contiguous {dtype} "
+                             f"{want} ring on {fpc_qm.device}")
+    return fring, gring, mring
+
+
 def fused_substep(fpc_qm: torch.Tensor, media: Optional[torch.Tensor],
-                  cfg: FusedLBMConfig, gpc_qm: Optional[torch.Tensor] = None):
+                  cfg: FusedLBMConfig, gpc_qm: Optional[torch.Tensor] = None,
+                  rings=None, offsets=(0, 0)):
     """One lattice update of the (q, nx, ny, nz) post-collision
     distribution (and on two-lattice plans the second lattice's,
     ``gpc_qm``); ``media`` is the (nx, ny, nz) int8 media code
-    (TensorProblem.lbm_media) or None.  Returns (fpc_new_qm, speed), or
-    (fpc_new_qm, gpc_new_qm, speed) on two-lattice plans.  One launch of
-    csrc/lbm_substep.cu (a Smagorinsky plan's mean density computed inside
-    it) on CUDA tensors, ``fused_substep_twin`` on CPU tensors.  Replaces
-    pallas_lbm.py:224 ``_make_kernel`` (via ``fused_substep``)."""
-    return substepper(fpc_qm, media, cfg, gpc_qm)(fpc_qm, gpc_qm)
+    (TensorProblem.lbm_media) or None; ``rings`` on a block of a mesh the
+    halo rings (fring, gring, mring) of ``parallel.halo_ring``, the block
+    at ``offsets`` (x, y: FusedLBMPlan.offsets).  Returns
+    (fpc_new_qm, speed), or (fpc_new_qm, gpc_new_qm, speed) on two-lattice
+    plans.  One launch of csrc/lbm_substep.cu (a Smagorinsky plan's mean
+    density computed inside it) on CUDA tensors, ``fused_substep_twin`` on
+    CPU tensors.  Replaces pallas_lbm.py:224 ``_make_kernel`` (via
+    ``fused_substep``, and its sharded branch via
+    ``fused_substep_sharded``)."""
+    return substepper(fpc_qm, media, cfg, gpc_qm, offsets)(fpc_qm, gpc_qm, rings=rings)
 
 
 def substepper(fpc_qm: torch.Tensor, media: Optional[torch.Tensor],
-               cfg: FusedLBMConfig, gpc_qm: Optional[torch.Tensor] = None):
+               cfg: FusedLBMConfig, gpc_qm: Optional[torch.Tensor] = None,
+               offsets=(0, 0)):
     """``fused_substep`` with its checks and its packed arguments taken
-    once, for a loop: returns ``step(fpc_qm, gpc_qm=None)``, one substep of
-    distributions like these (the same shape, dtype and device; each
-    step's outputs are the next one's inputs), one kernel launch a call on
-    CUDA tensors and no other host work than its three output allocations
-    (``plan_stepper``)."""
+    once, for a loop: returns ``step(fpc_qm, gpc_qm=None, rings=None)``
+    (``rings`` a keyword),
+    one substep of distributions like these (the same shape, dtype and
+    device; each step's outputs are the next one's inputs), one kernel
+    launch a call on CUDA tensors and no other host work than its three
+    output allocations (``plan_stepper``)."""
     _check_inputs(fpc_qm, media, cfg, "fused_substep")
     if cfg.two_lattice != (gpc_qm is not None):
         raise ValueError("fused_substep: gpc must be given exactly when the plan "
@@ -1225,14 +1409,16 @@ def substepper(fpc_qm: torch.Tensor, media: Optional[torch.Tensor],
                                or gpc_qm.device != fpc_qm.device):
         raise TypeError("fused_substep: gpc must match fpc's shape, dtype and device")
     if not uf._launch_kernel(fpc_qm, "fused_substep"):
-        return lambda f, g=None: fused_substep_twin(f, media, cfg, g)
-    plan, avec = _kernel_args(fpc_qm, media, cfg, gpc_qm, "fused_substep")
+        return lambda f, g=None, mean=None, rings=None: fused_substep_twin(
+            f, media, cfg, g, rings, offsets)
+    plan, avec = _kernel_args(fpc_qm, media, cfg, gpc_qm, "fused_substep", offsets)
     return plan_stepper(fpc_qm, media, cfg, gpc_qm, plan, avec)
 
 
 def plan_stepper(fpc_qm, media, cfg: FusedLBMConfig, gpc_qm, plan: "_Plan", avec=None):
     """The one launch of ``mtt_lbm_substep`` that every caller makes:
-    returns ``step(f, g=None, mean=None)`` for CUDA distributions like
+    returns ``step(f, g=None, mean=None, rings=None)`` for CUDA
+    distributions like
     ``fpc_qm`` (and ``gpc_qm``) on a packed ``plan`` (its walk chooses the
     plane, brick or flat kernel) with ``_kernel_args``'s ``avec``, the
     plane kernel's scratch (``_plane_scratch``) allocated here, once.  A
@@ -1249,17 +1435,18 @@ def plan_stepper(fpc_qm, media, cfg: FusedLBMConfig, gpc_qm, plan: "_Plan", avec
     tail = (cfg.q, int(dtype == torch.float64), ctypes.addressof(plan))
     ptr_scratch = uf._ptr(scratch)
 
-    def step(f, g=None, mean=None):
+    def step(f, g=None, mean=None, rings=None):
         if f.shape != shape or f.dtype != dtype or f.device != device \
                 or not f.is_contiguous() or (g is None) != (gpc_qm is None):
             raise ValueError("fused_substep: a step takes distributions like the "
                              "substepper's")
+        fring, gring, mring = _check_rings(cfg, rings, f, media)
         out = torch.empty_like(f)
         gout = None if g is None else torch.empty_like(g)
         speed = torch.empty(shape[1:], dtype=dtype, device=device)
         args = (f.data_ptr(), None if g is None else g.data_ptr(), *const, uf._ptr(mean),
                 ptr_scratch, out.data_ptr(), None if gout is None else gout.data_ptr(),
-                speed.data_ptr(), *tail)
+                speed.data_ptr(), uf._ptr(fring), uf._ptr(gring), uf._ptr(mring), *tail)
         if torch.cuda.current_device() == device.index:
             err = fn(*args, torch.cuda.current_stream().cuda_stream)
         else:

@@ -8,6 +8,15 @@ The device is ``--compute-device``, else ``MARLIN_TORCH_DEVICE``, else
 explicit ``cpu`` runs.  ``--timing`` is ``[Outputs] perf_graph = true``;
 ``--x64`` makes ``floating_precision = DEVICE_DEFAULT`` (the default)
 float64 on the card too.
+
+Launched by ``torchrun`` (``python -m torch.distributed.run
+--nproc_per_node P -m marlin_tpu_torch deck.i``: ``RANK``, ``WORLD_SIZE``
+and ``LOCAL_RANK`` set), each process joins the default group, NCCL on
+``cuda:LOCAL_RANK`` or gloo on the CPU (the counterpart of
+marlin_tpu/main.py:84-91's ``jax.distributed.initialize``), and a deck
+with ``[Domain] parallel_mode`` FFT_SLAB or REAL_SPACE runs on the mesh of
+every process (``make_mesh``'s default: one axis of all the ranks).
+Rank 0 alone writes the CSV and prints.
 """
 
 from __future__ import annotations
@@ -55,10 +64,20 @@ def main(argv=None):
     if deck is None:
         parser.error("no input deck given")
     dev = _device.from_cli(ns.compute_device)
+    launched = "RANK" in os.environ and "WORLD_SIZE" in os.environ
+    if launched:
+        dev = join_group(dev)
 
     root = hit.load(deck, overrides + (["Outputs/perf_graph=true"] if ns.timing else []))
     if ns.x64:
         force_x64(root)
+    mesh = None
+    domain = root.children.get("Domain")
+    mode = domain.get("parallel_mode", "NONE") if domain is not None else "NONE"
+    if launched and mode != "NONE":
+        from .parallel import make_mesh
+
+        mesh = make_mesh(mode)
     stem = os.path.splitext(os.path.basename(deck))[0]
     out_node = root.children.get("Outputs")
     file_base = out_node.get("file_base") if out_node is not None else None
@@ -70,11 +89,33 @@ def main(argv=None):
         device=dev,
         deck_dir=os.path.dirname(os.path.abspath(deck)),
         deck_stem=stem,
+        mesh=mesh,
     )
-    print(f"Finished after {transient.step_count} steps, t = {transient.time}")
-    for k, v in transient.pp_values.items():
-        print(f"  {k} = {v}")
+    if transient.rank0:
+        print(f"Finished after {transient.step_count} steps, t = {transient.time}")
+        for k, v in transient.pp_values.items():
+            print(f"  {k} = {v}")
+    if launched:
+        import torch.distributed as dist
+
+        dist.destroy_process_group()
     return 0
+
+
+def join_group(dev):
+    """Join torchrun's default process group: NCCL on ``cuda:LOCAL_RANK``
+    when the device is the card, gloo on the CPU.  Returns the rank's
+    device.  A group that cannot form fails the run."""
+    import torch
+    import torch.distributed as dist
+
+    if dev.type == "cuda":
+        dev = torch.device("cuda", int(os.environ.get("LOCAL_RANK", "0")))
+        torch.cuda.set_device(dev)
+        dist.init_process_group("nccl", device_id=dev)
+    else:
+        dist.init_process_group("gloo")
+    return dev
 
 
 if __name__ == "__main__":

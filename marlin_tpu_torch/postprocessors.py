@@ -6,7 +6,9 @@ src/postprocessors/).  A tensor postprocessor is a function
 an output point to the host in one transfer.  A postprocessor with
 ``depends_on_pps`` (``ParsedPostprocessor``, ``ComputeGroupExecutionCount``)
 is evaluated after that transfer, on the host, from the values fetched
-(``compute_host``).  The aux-variable postprocessors reduce the buffer an
+(``compute_host``).  On a mesh each rank reduces its block and the
+partial results are reduced over the group (``Domain.reduce``), so every
+rank holds the whole grid's values.  The aux-variable postprocessors reduce the buffer an
 aux variable reads on the device, inside the same transfer.  A vector
 postprocessor (``TensorHistogram``) returns columns of host arrays, written
 as one CSV a step by the executioner.
@@ -62,7 +64,7 @@ class TensorAveragePostprocessor(TensorPostprocessor):
 
     def compute(self, state, ctx):
         u = state["buffers"][self.buffer]
-        return torch.sum(u) / u.numel()
+        return self.domain.reduce(torch.sum(u)) / self.domain.numel(u)
 
 
 @postprocessors.register("TensorIntegralPostprocessor")
@@ -94,7 +96,7 @@ class TensorIntegralChangePostprocessor(TensorPostprocessor):
             integral = torch.sum(torch.abs(u - state["old"][self.buffer][0]))
         else:
             integral = torch.sum(torch.abs(u))
-        return integral * math.prod(self.domain.grid_spacing)
+        return self.domain.reduce(integral) * math.prod(self.domain.grid_spacing)
 
 
 @postprocessors.register("TensorExtremeValuePostprocessor")
@@ -107,20 +109,27 @@ class TensorExtremeValuePostprocessor(TensorPostprocessor):
 
     def compute(self, state, ctx):
         u = state["buffers"][self.buffer]
-        return torch.min(u) if self.value_type == "MIN" else torch.max(u)
+        if self.value_type == "MIN":
+            return self.domain.reduce(torch.min(u), "min")
+        return self.domain.reduce(torch.max(u), "max")
 
 
 @postprocessors.register("ReciprocalIntegral")
 class ReciprocalIntegral(TensorPostprocessor):
     """k=0 component / N · V (reference ReciprocalIntegral.C).  Slot 0 holds
     k = 0 under both backends: the PALLAS kernels' permuted order keeps the
-    zero frequency first (``unordered_fft.true_k_order(n)[0] == 0``)."""
+    zero frequency first (``unordered_fft.true_k_order(n)[0] == 0``); on a
+    mesh the rank whose block starts the spectrum holds it."""
 
     def compute(self, state, ctx):
+        dom = self.domain
         u = state["buffers"][self.buffer]
-        zero = u[(0,) * self.domain.dim]
-        n = self.domain.n_cells_global
-        return torch.real(zero) / n * self.domain.volume_global
+        zero = torch.real(u[(0,) * dom.dim])
+        if dom.mesh is not None:
+            holds = all(s.start == 0 for s in dom.reciprocal_slice)
+            zero = dom.reduce(zero if holds else torch.zeros_like(zero))
+        n = dom.n_cells_global
+        return zero / n * dom.volume_global
 
 
 @postprocessors.register("SemiImplicitCriticalTimeStep")
@@ -130,7 +139,8 @@ class SemiImplicitCriticalTimeStep(TensorPostprocessor):
 
     def compute(self, state, ctx):
         u = state["buffers"][self.buffer]
-        max_norm_k = torch.sqrt(torch.max(torch.real(u * torch.conj(u))))
+        max_norm_k = torch.sqrt(self.domain.reduce(
+            torch.max(torch.real(u * torch.conj(u))), "max"))
         return torch.where(max_norm_k > 0.0, 1.0 / max_norm_k,
                            torch.full_like(max_norm_k, 1e30))
 
@@ -166,7 +176,10 @@ class FunctionElementIntegral(Postprocessor):
         weight = 1.0
         for d in range(dom.dim):
             weight *= dom.grid_spacing[d] / 2.0
-        return torch.sum(vals) * weight
+        total = torch.sum(vals)
+        if dom.mesh is not None:
+            total = dom.reduce(total.to(dom.device)).cpu()
+        return total * weight
 
 
 @postprocessors.register("TensorInterfaceVelocityPostprocessor")
@@ -189,7 +202,7 @@ class TensorInterfaceVelocityPostprocessor(TensorPostprocessor):
             grad = dom.ifft(ubar * dom.reciprocal_axis(d) * 1j)
             v = torch.where(torch.abs(grad) > 1e-3, du / grad, torch.zeros_like(du))
             vsquare = v * v if vsquare is None else vsquare + v * v
-        return torch.sqrt(torch.max(vsquare))
+        return torch.sqrt(dom.reduce(torch.max(vsquare), "max"))
 
 
 @postprocessors.register("ParsedPostprocessor")
@@ -274,7 +287,7 @@ class ComputeReynoldsNumber(TensorPostprocessor):
         # the reference uses nu = (tau - 0.5)/sqrt(3), c_s and not the
         # textbook c_s² = 1/3 (ComputeReynoldsNumber.C:34); kept for parity
         kinematic_viscosity = 1.0 / math.sqrt(3.0) * (self.tau - 0.5)
-        avg_speed = torch.sum(u) / u.numel()
+        avg_speed = self.domain.reduce(torch.sum(u)) / self.domain.numel(u)
         return avg_speed * self.D / kinematic_viscosity
 
 
@@ -312,7 +325,9 @@ class ElementExtremeValue(AuxVariablePostprocessor):
 
     def compute(self, state, ctx):
         u = self._field(state)
-        return torch.min(u) if self.value_type == "MIN" else torch.max(u)
+        if self.value_type == "MIN":
+            return self.domain.reduce(torch.min(u), "min")
+        return self.domain.reduce(torch.max(u), "max")
 
 
 @postprocessors.register("ElementAverageValue")
@@ -323,7 +338,7 @@ class ElementAverageValue(AuxVariablePostprocessor):
 
     def compute(self, state, ctx):
         u = self._field(state)
-        return torch.sum(u) / u.numel()
+        return self.domain.reduce(torch.sum(u)) / self.domain.numel(u)
 
 
 @postprocessors.register("ElementIntegralVariablePostprocessor")

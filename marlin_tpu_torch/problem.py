@@ -35,7 +35,7 @@ import torch
 
 from . import checkpoint
 from . import computes as _computes_pkg  # noqa: F401  (registers compute types)
-from . import lbm_fused
+from . import lbm_fused, parallel
 from . import postprocessors as _pp_pkg  # noqa: F401  (registers pp types)
 from . import solvers as _solvers_pkg  # noqa: F401  (registers solver types)
 from . import stencils as _stencils_pkg  # noqa: F401  (registers stencils)
@@ -65,9 +65,29 @@ NEML2_VALUE_DIMS = {"VectorTensor": [3], "SR2Tensor": [6], "R2Tensor": [3, 3],
                     "SSR4Tensor": [6, 6], "RotTensor": [3]}
 
 
-def build_domain(node: Optional[HitNode], device=None) -> Domain:
-    """The Domain of a deck's [Domain] block
-    (marlin_tpu/problem.py:build_domain)."""
+#: compute types that run on one device only: on a mesh each is a named
+#: error, naming what waits (ROADMAP §1 item 8 lists the rest in order)
+SERIAL_COMPUTES = {
+    "FiniteDifferenceLaplacian": "real-space stencils outside the LBM chain",
+    **{t: "sharded FFT micromechanics" for t in (
+        "HyperElasticIsotropic", "RankTwoIdentity", "FFTMechanics",
+        "ComputeVonMisesStress", "ComputeDisplacements", "FFTQuasistaticElasticity",
+        "FFTElasticChemicalPotential", "MacroscopicShearTensor", "PhaseMechanicsTest")},
+    "NEML2TensorCompute": "sharded NEML2",
+}
+#: the solvers that run on a mesh (the slab ABM, the LBM stream)
+MESH_SOLVERS = ("AdamsBashforthMoulton", "SemiImplicitSolver", "LBMStream")
+
+
+def _serial_only(domain: Domain, what: str, waits: str):
+    raise ProblemError(
+        f"{what} under parallel_mode = {domain.parallel_mode} on a mesh is not "
+        f"ported to marlin_tpu_torch yet ({waits} waits for a later slice)")
+
+
+def build_domain(node: Optional[HitNode], device=None, mesh=None) -> Domain:
+    """The Domain of a deck's [Domain] block on ``mesh``, or on one device
+    without one (marlin_tpu/problem.py:build_domain)."""
     if node is None:
         raise ProblemError("Missing [Domain] block")
     p = Params(node)
@@ -83,6 +103,8 @@ def build_domain(node: Optional[HitNode], device=None) -> Domain:
                                       "DEVICE_DEFAULT"),
         fft_backend=p.get_enum("fft_backend", FFT_BACKENDS, "DEFAULT"),
         device=device,
+        mesh=mesh,
+        debug=p.get_bool("debug", False),
     )
 
 
@@ -93,7 +115,7 @@ class TensorProblem:
     file and no h5py."""
 
     def __init__(self, root: HitNode, device=None, deck_dir: Optional[str] = None,
-                 arrays: Optional[Dict[str, np.ndarray]] = None):
+                 arrays: Optional[Dict[str, np.ndarray]] = None, mesh=None):
         self.root = root
         gp = root.children.get("GlobalParams")
         self.global_params = dict(gp.params) if gp is not None else {}
@@ -110,7 +132,7 @@ class TensorProblem:
         if self.batch_fft:
             self._check_batch_fft(root, self.is_lbm)
 
-        self.domain = build_domain(root.children.get("Domain"), device=device)
+        self.domain = build_domain(root.children.get("Domain"), device=device, mesh=mesh)
 
         # -- problem-level constants (reference TensorProblem.C:38-39,57-60)
         self.constants: Dict[str, float] = {}
@@ -241,6 +263,9 @@ class TensorProblem:
         if tname is None or tname == "ComputeGroup":
             members = [self._build_compute(b) for b in node.blocks()]
             return ComputeGroup(node.name, params, self, members)
+        if self.domain.mesh is not None and tname in SERIAL_COMPUTES:
+            _serial_only(self.domain, f"[TensorComputes/{node.name}] type = {tname}",
+                         SERIAL_COMPUTES[tname])
         cls = compute_registry.get(tname)
         return cls(node.name, params, self)
 
@@ -314,7 +339,11 @@ class TensorProblem:
         tti = root.children.get("TensorTimeIntegrators")
         if ts is not None:
             params = Params(ts, self.global_params)
-            cls = solver_registry.get(params.get_str("type", required=True))
+            stype = params.get_str("type", required=True)
+            if self.domain.mesh is not None and stype not in MESH_SOLVERS:
+                _serial_only(self.domain, f"[TensorSolver] type = {stype}",
+                             "the sharded solver family")
+            cls = solver_registry.get(stype)
             self.solver = cls(ts.name, params, self)
             root_name = params.get_str("root_compute")
             # [TensorSolver/Predictors]: built for every solver, applied by
@@ -395,8 +424,8 @@ class TensorProblem:
     def _check_batch_fft(root: HitNode, is_lbm: bool):
         """``[Problem] batch_fft = true`` applies to serial spectral decks
         only (marlin_tpu/problem.py:444-467, its words).  Checked before the
-        Domain is built, whose own refusal of every parallel_mode would
-        otherwise speak first."""
+        Domain is built, so that its refusal of FFT_PENCIL does not speak
+        first."""
         if is_lbm:
             raise ProblemError(
                 "[Problem] batch_fft = true does not apply to "
@@ -547,6 +576,8 @@ class TensorProblem:
             data = np.asarray(self._read_lbm_h5(spec.get_str("file")))
             if data.ndim < 3:
                 data = data.reshape(data.shape + (1,) * (3 - data.ndim))
+            # the whole grid's data: this rank keeps its block
+            data = np.ascontiguousarray(self.domain.local(data))
             return torch.as_tensor(data).to(device=self.domain.device, dtype=dtype)
         return self._zeros(shape, dtype)
 
@@ -633,6 +664,18 @@ class TensorProblem:
         (marlin_tpu/problem.py:init_state; reference TensorProblem.C:74-151)."""
         self.check_constants()
         dom = self.domain
+        if dom.debug and (dom.mesh is None or dom.mesh.rank == 0):
+            # reference Domain/debug=true introspection
+            # (marlin_tpu/problem.py:870-882): the domain and its layout
+            print(f"[marlin_tpu_torch] domain: {dom!r}")
+            print(f"[marlin_tpu_torch] fft_backend: {dom.fft_backend}; "
+                  f"{self.spectral_solve_substeps} substeps a step")
+            if dom.mesh is not None:
+                from . import parallel as _par
+
+                print(f"[marlin_tpu_torch] mesh: {dom.mesh}; real spec "
+                      f"{_par.real_spec(dom, dom.dim)}; reciprocal spec "
+                      f"{_par.reciprocal_spec(dom, dom.dim)}")
         buffers: Dict[str, torch.Tensor] = {}
         for name, spec in self.buffer_specs.items():
             if self._is_lbm_buffer(spec):
@@ -828,9 +871,22 @@ class TensorProblem:
         gpc_qm = q_major(plan.fpc2) if cfg.two_lattice else None
         media = self.lbm_media() if cfg.has_media else None
         # checks and packed arguments once; then one launch a substep
-        step = lbm_fused.substepper(fpc_qm, media, cfg, gpc_qm)
+        step = lbm_fused.substepper(fpc_qm, media, cfg, gpc_qm, plan.offsets)
+        if cfg.sharded:
+            # a block of a mesh: the media's halo ring once (it does not
+            # change), the distributions' before every substep
+            # (marlin_tpu/problem.py:1100-1150)
+            mesh = self.domain.mesh
+            mring = None if media is None else parallel.halo_ring(
+                mesh, media, 0, cfg.shard_y)
         for _ in range(n_fused):
-            out = step(fpc_qm, gpc_qm)
+            args = (fpc_qm, gpc_qm)
+            if cfg.sharded:
+                args += (None, (parallel.halo_ring(mesh, fpc_qm, 1, cfg.shard_y),
+                                None if gpc_qm is None else parallel.halo_ring(
+                                    mesh, gpc_qm, 1, cfg.shard_y),
+                                mring))
+            out = step(*args)
             if cfg.two_lattice:
                 fpc_qm, gpc_qm, speed = out
             else:

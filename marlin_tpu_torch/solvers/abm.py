@@ -9,7 +9,10 @@ is chosen on the host each substep.
 ``fused_spectral = true`` (with ``carry_reciprocal = true`` and ``[Domain]
 fft_backend = PALLAS``) runs all but the last substep of each step through
 the fused kernels of ``spectral.py`` (``_fused_step``); the last substep
-runs the regular chain, so the state matches the unfused path.
+runs the regular chain, so the state matches the unfused path.  On an
+FFT_SLAB mesh the fused substeps run on the rank's slab
+(``spectral.ch_substep_sharded``), ū and N̄ carried as the X-sharded
+blocks.
 """
 
 from __future__ import annotations
@@ -111,11 +114,19 @@ class AdamsBashforthMoulton(SplitOperatorBase):
         dt_changed = dt != dt_old
         n_adv0 = state["n_advances"]
         shape = plan.shape
-        flat = (shape[0], math.prod(shape[1:]))
+        rshape = dom.reciprocal_shape
+        sharded = dom.mesh is not None
+        # serial: (nx, L) tiles; a slab keeps its 3-D X-sharded block
+        flat = rshape if sharded else (shape[0], math.prod(shape[1:]))
         buffers = dict(state["buffers"])
 
         def carried(name):
             return buffers[name].to(torch.complex64).reshape(flat).contiguous()
+
+        def forward(ci):
+            if sharded:
+                return dom.fft(ci).to(torch.complex64).contiguous()
+            return uf.fftn_unordered(ci).reshape(flat)
 
         # carry_reciprocal seed: ū = fft(u) once per step.  The history slot
         # equals buffers[N̄] here: the step-level advance just pushed it (on
@@ -123,14 +134,19 @@ class AdamsBashforthMoulton(SplitOperatorBase):
         # per-substep history push a rebinding of the carried N̄
         if multi:
             c = torch.stack([buffers[n].to(torch.float32) for n in plan.buffers])
-            cbar = torch.stack([uf.fftn_unordered(ci).reshape(flat) for ci in c])
+            cbar = torch.stack([forward(ci) for ci in c])
             nbar = torch.stack([carried(n) for n in plan.nonlinears])
             substep_fn = sp.ch_substep_multi
         else:
             c = buffers[plan.buffer].to(torch.float32)
-            cbar = uf.fftn_unordered(c).reshape(flat)
+            cbar = forward(c)
             nbar = carried(plan.nonlinear)
             substep_fn = sp.ch_substep
+        if sharded:
+            sharded_fn = sp.ch_substep_sharded_multi if multi else sp.ch_substep_sharded
+
+            def substep_fn(*args):
+                return sharded_fn(*args, dom.mesh)
 
         for s in range(self.substeps - 1):
             # AB order selection (substep(), reference :88-91)
@@ -158,12 +174,12 @@ class AdamsBashforthMoulton(SplitOperatorBase):
         if multi:
             for i, name in enumerate(plan.buffers):
                 buffers[name] = c[i].to(dom.dtype)
-                buffers[plan.reciprocals[i]] = cbar[i].reshape(shape).to(dom.cdtype)
-                buffers[plan.nonlinears[i]] = nbar[i].reshape(shape).to(dom.cdtype)
+                buffers[plan.reciprocals[i]] = cbar[i].reshape(rshape).to(dom.cdtype)
+                buffers[plan.nonlinears[i]] = nbar[i].reshape(rshape).to(dom.cdtype)
         else:
             buffers[plan.buffer] = c.to(dom.dtype)
-            buffers[plan.reciprocal] = cbar.reshape(shape).to(dom.cdtype)
-            buffers[plan.nonlinear] = nbar.reshape(shape).to(dom.cdtype)
+            buffers[plan.reciprocal] = cbar.reshape(rshape).to(dom.cdtype)
+            buffers[plan.nonlinear] = nbar.reshape(rshape).to(dom.cdtype)
         # the skipped in-loop advances (s = 1..substeps-2); the final
         # substep's advance below refreshes the depth-1 old/old_dt slots
         st = {**state, "buffers": buffers,

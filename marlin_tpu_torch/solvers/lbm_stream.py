@@ -3,7 +3,10 @@
 Re-design of reference LBMStream (src/tensor_solver/LBMStream.C:51-80),
 after marlin_tpu/solvers/lbm_stream.py: per-direction periodic roll of the
 old post-collision distribution, with solid masking.  The substep loop
-around it is TensorProblem's (``_lbm_step``)."""
+around it is TensorProblem's (``_lbm_step``).  Under REAL_SPACE on a mesh
+the roll crosses ranks: the distribution is padded once with its
+neighbours' planes (``Domain.padded``, one exchange an axis) and each
+direction is a slice of it."""
 
 from __future__ import annotations
 
@@ -12,6 +15,17 @@ import torch
 from ..params import Params
 from ..registry import solvers
 from .base import TensorSolver
+
+
+def roll(t, shifts, halo):
+    """A direction's pull stream: ``torch.roll`` over (x, y, z), or on a
+    padded field (``halo`` its padded axes, counting the leading
+    direction axis) a slice along those axes."""
+    if not halo:
+        return torch.roll(t, shifts, (0, 1, 2))
+    from ..parallel import shifted
+
+    return shifted(t, shifts, (0, 1, 2), [d - 1 for d in halo])
 
 
 @solvers.register("LBMStream")
@@ -36,6 +50,7 @@ class LBMStream(TensorSolver):
 
     def stream(self, state):
         stencil = self.problem.lbm_stencil()
+        dom = self.problem.domain
         buffers = dict(state["buffers"])
         mask = self.problem.lbm_solid_mask()
         for out, old_name in zip(self.buffers_, self.f_old):
@@ -43,12 +58,11 @@ class LBMStream(TensorSolver):
             # a contiguous plane in and out, the (nx, ny, nz, q) buffer a
             # view of it
             fq = state["old"][old_name][0].movedim(-1, 0).contiguous()
+            halo = [d + 1 for d in dom.halo_dims()]
+            src = dom.padded(fq, lead=1) if halo else fq
             comps = [
-                torch.roll(
-                    fq[i],
-                    (int(stencil.ex[i]), int(stencil.ey[i]), int(stencil.ez[i])),
-                    (0, 1, 2),
-                )
+                roll(src[i], (int(stencil.ex[i]), int(stencil.ey[i]),
+                              int(stencil.ez[i])), halo)
                 for i in range(stencil.q)
             ]
             u = torch.stack(comps, 0).movedim(0, -1)

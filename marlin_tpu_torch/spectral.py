@@ -23,9 +23,16 @@ per field.  ū and N̄ are carried between substeps as contiguous complex64
 
 ``match_chain`` pattern-matches the deck's chain and raises
 ``SpectralChainError`` naming what it cannot fuse, word for word as the
-JAX package does.  The slab-sharded substeps of the JAX package wait for
-the port's distributed modes; ``[Domain] parallel_mode`` other than NONE is
-a named error of the port's Domain.
+JAX package does.
+
+Under ``[Domain] parallel_mode = FFT_SLAB`` on a mesh the substep runs on
+the rank's slab (``ch_substep_sharded``, ``ch_substep_sharded_multi``, in
+the order of pallas_spectral.py:308-364): kernel 1′ (µ fused) and kernel 3
+on the Y-sharded block (nx, ny/p, nz), one all_to_all, kernel 5 or 6 in
+its slab form on the X-sharded block (nx/p, ny, nz) (the local x rows the
+prefix, the transform along y, k² = ky²[k′] + (kx² + kz²)[row, z] from a
+(nx/p, nz) table), kernel 4 along y, the all_to_all back, kernels 4 and 2
+along x and z.
 
 ``fwd_x_update`` and ``fwd_x_update_poly`` launch the CUDA kernels of
 ``csrc/spectral_update.cu`` on a CUDA tensor and compute their plain twins
@@ -50,12 +57,12 @@ from . import unordered_fft as uf
 MAX_FIELDS = 16  # csrc/spectral_update.cu kMaxFields
 
 LIBRARY = uf.CudaLibrary("spectral_update", {
-    # 8 pointers; n, L, b; the L̄ form and mobility flags; dt, β0, β1, two
-    # L̄ constants, mobility; the stream
-    "mtt_fwd_x_update": ([uf._P] * 8 + [uf._I] * 3 + [ctypes.c_int] * 2
+    # 8 pointers; rows (0: serial), n, L, b; the L̄ form and mobility
+    # flags; dt, β0, β1, two L̄ constants, mobility; the stream
+    "mtt_fwd_x_update": ([uf._P] * 8 + [uf._I] * 4 + [ctypes.c_int] * 2
                          + [ctypes.c_float] * 6 + [uf._P]),
-    # 8 pointers; N, n, L, b; the host rows; the stream
-    "mtt_fwd_x_update_poly": [uf._P] * 8 + [uf._I] * 4 + [uf._P, uf._P],
+    # 8 pointers; N, rows (0: serial), n, L, b; the host rows; the stream
+    "mtt_fwd_x_update_poly": [uf._P] * 8 + [uf._I] * 5 + [uf._P, uf._P],
 }, source=os.path.join(uf.CSRC, "spectral_update.cu"), flags=["-Xptxas=-v"])
 
 
@@ -80,6 +87,9 @@ class SpectralPlan:
     shape: tuple
     kx2: torch.Tensor  # (nx,) permuted kx², float32
     kyz2: torch.Tensor  # (ny·nz,) permuted ky²+kz² flattened, float32
+    # the slab form's tables on a mesh: ky2 (ny,) and the local rows'
+    # kx²+kz² (nx/p · nz,), float32; None in serial mode
+    slab: Optional[Tuple[torch.Tensor, torch.Tensor]] = None
 
 
 @dataclass
@@ -98,6 +108,7 @@ class SpectralPlanMulti:
     shape: tuple
     kx2: torch.Tensor
     kyz2: torch.Tensor
+    slab: Optional[Tuple[torch.Tensor, torch.Tensor]] = None
 
 
 def _reject(msg):
@@ -124,13 +135,24 @@ def _update(m, ubar, n_old, dt, b0, b1, lb, mb):
     return (ubar + dt * acc) * den, nn
 
 
+def _k2(kx2, kyz2, shape):
+    """k² over a tile of ``shape``: (n, L) serial, or (rows, n, L) in the
+    slab form (kyz2 then the (rows, L) table)."""
+    n, L = shape[-2:]
+    if len(shape) == 2:
+        return kx2.reshape(n, 1) + kyz2.reshape(1, L)
+    return kx2.reshape(1, n, 1) + kyz2.reshape(shape[0], 1, L)
+
+
 def fwd_x_update_plain(mubar, ubar, n_old, kx2, kyz2, dt, b0, b1,
                        mobility, lin) -> Tuple[torch.Tensor, torch.Tensor]:
-    """Twin of ``fwd_x_update``: ``fwd_sublanes_plain`` along axis 0 of the
-    (n, L) µ̄ tile, then the update in torch ops."""
-    n, L = mubar.shape
-    m = uf.fwd_sublanes_plain(mubar.reshape(1, n, L)).reshape(n, L)
-    k2 = kx2.reshape(n, 1) + kyz2.reshape(1, L)
+    """Twin of ``fwd_x_update``: ``fwd_sublanes_plain`` along the transform
+    axis of the (n, L) µ̄ tile (or of each row of the slab form's (rows, n,
+    L)), then the update in torch ops."""
+    shape = tuple(mubar.shape)
+    n, L = shape[-2:]
+    m = uf.fwd_sublanes_plain(mubar.reshape(-1, n, L)).reshape(shape)
+    k2 = _k2(kx2, kyz2, shape)
     if lin[0] == "lapsq":
         lb = (k2 * k2) * _f32(lin[1])
     else:
@@ -143,9 +165,10 @@ def fwd_x_update_plain(mubar, ubar, n_old, kx2, kyz2, dt, b0, b1,
 def fwd_x_update_poly_plain(mubar, ubar, n_old, kx2, kyz2, rows):
     """Twin of ``fwd_x_update_poly``: per field f, the row [dt, β0, β1, m0,
     m1, la0, la1, la2] gives M̄ = m0 + m1·k² and L̄ = la0 + la1·k² + la2·k⁴."""
-    N, n, L = mubar.shape
-    m = uf.fwd_sublanes_plain(mubar)
-    k2 = kx2.reshape(n, 1) + kyz2.reshape(1, L)
+    shape = tuple(mubar.shape)
+    N, (n, L) = shape[0], shape[-2:]
+    m = uf.fwd_sublanes_plain(mubar.reshape(-1, n, L)).reshape(shape)
+    k2 = _k2(kx2, kyz2, shape[1:])
     us, ns = [], []
     for f in range(N):
         dt, b0, b1, m0, m1, la0, la1, la2 = (float(v) for v in
@@ -158,8 +181,9 @@ def fwd_x_update_poly_plain(mubar, ubar, n_old, kx2, kyz2, rows):
     return torch.stack(us), torch.stack(ns)
 
 
-def _check_update(what, mubar, ubar, n_old, kx2, kyz2):
+def _check_update(what, mubar, ubar, n_old, kx2, kyz2, slab: bool):
     n, L = mubar.shape[-2:]
+    rows = mubar.shape[-3] if slab else 1
     if not uf.supported(n):
         raise ValueError(f"{what}: extent {n} does not factor as "
                          f"{uf.SUPPORTED_RULE}")
@@ -171,7 +195,7 @@ def _check_update(what, mubar, ubar, n_old, kx2, kyz2):
         if not t.is_contiguous() or t.device != mubar.device:
             raise ValueError(f"{what}: {name} must be contiguous on "
                              f"{mubar.device}")
-    for name, t, size in (("kx2", kx2, n), ("kyz2", kyz2, L)):
+    for name, t, size in (("kx2", kx2, n), ("kyz2", kyz2, rows * L)):
         if (t.dtype != torch.float32 or t.numel() != size
                 or not t.is_contiguous() or t.device != mubar.device):
             raise TypeError(f"{what}: {name} must be a contiguous float32 "
@@ -182,12 +206,19 @@ def fwd_x_update(mubar, ubar, n_old, kx2, kyz2, dt, b0, b1, mobility, lin):
     """Forward along axis 0 of the (n, L) complex64 µ̄ tile fused with the
     ABM update; returns (ū′, N̄).  kx2 (n,) and kyz2 (L,) are the permuted
     |k|² tables; ``mobility`` None means N̄ = µ̄; ``lin`` is ("lapsq", κ) or
-    ("sh", r, α).  Replaces pallas_spectral._fwd_x_update_kernel."""
-    _check_update("fwd_x_update", mubar, ubar, n_old, kx2, kyz2)
+    ("sh", r, α).  Replaces pallas_spectral._fwd_x_update_kernel.  The slab
+    form takes a (rows, n, L) tile, transformed along n, with kx2 the (n,)
+    ky² table and kyz2 the (rows·L,) table of kx²+kz²."""
+    if mubar.ndim not in (2, 3):
+        raise ValueError(f"fwd_x_update: a (n, L) or (rows, n, L) tile, got "
+                         f"{tuple(mubar.shape)}")
+    slab = mubar.ndim == 3
+    _check_update("fwd_x_update", mubar, ubar, n_old, kx2, kyz2, slab)
     if not uf._launch_kernel(mubar, "fwd_x_update"):
         return fwd_x_update_plain(mubar, ubar, n_old, kx2, kyz2, dt, b0, b1,
                                   mobility, lin)
-    n, L = mubar.shape
+    rows = mubar.shape[0] if slab else 0
+    n, L = mubar.shape[-2:]
     u_out = torch.empty_like(mubar)
     n_out = torch.empty_like(mubar)
     sh = lin[0] == "sh"
@@ -196,7 +227,7 @@ def fwd_x_update(mubar, ubar, n_old, kx2, kyz2, dt, b0, b1, mobility, lin):
     uf._launch(LIBRARY.load().mtt_fwd_x_update, uf._ptr(mubar), uf._ptr(ubar),
                uf._ptr(n_old), uf._ptr(u_out), uf._ptr(n_out), uf._ptr(kx2),
                uf._ptr(kyz2), uf._ptr(uf._table(n, False, mubar.device)),
-               n, L, uf.base(n), int(sh), int(mobility is not None),
+               rows, n, L, uf.base(n), int(sh), int(mobility is not None),
                dt, b0, b1, lin0, lin1,
                0.0 if mobility is None else mobility,
                device=mubar.device, name="fwd_x_update")
@@ -207,9 +238,16 @@ def fwd_x_update(mubar, ubar, n_old, kx2, kyz2, dt, b0, b1, mobility, lin):
 def fwd_x_update_poly(mubar, ubar, n_old, kx2, kyz2, rows):
     """N-field ``fwd_x_update`` over (N, n, L) complex64 stacks, all fields
     in one launch; ``rows`` (N, 8) holds each field's [dt, β0, β1, m0, m1,
-    la0, la1, la2].  Replaces pallas_spectral._fwd_x_update_kernel_poly."""
-    _check_update("fwd_x_update_poly", mubar, ubar, n_old, kx2, kyz2)
-    N, n, L = mubar.shape
+    la0, la1, la2].  Replaces pallas_spectral._fwd_x_update_kernel_poly.
+    The slab form takes (N, rows, n, L) stacks and kernel 5's slab
+    tables."""
+    if mubar.ndim not in (3, 4):
+        raise ValueError(f"fwd_x_update_poly: a (N, n, L) or (N, rows, n, L) "
+                         f"stack, got {tuple(mubar.shape)}")
+    slab = mubar.ndim == 4
+    _check_update("fwd_x_update_poly", mubar, ubar, n_old, kx2, kyz2, slab)
+    N, (n, L) = mubar.shape[0], mubar.shape[-2:]
+    x_rows = mubar.shape[1] if slab else 0
     rows = np.ascontiguousarray(rows, dtype=np.float32).reshape(-1, 8)
     if rows.shape[0] != N or not 1 <= N <= MAX_FIELDS:
         raise ValueError(f"fwd_x_update_poly: {rows.shape[0]} rows for {N} "
@@ -222,7 +260,7 @@ def fwd_x_update_poly(mubar, ubar, n_old, kx2, kyz2, rows):
                uf._ptr(ubar), uf._ptr(n_old), uf._ptr(u_out), uf._ptr(n_out),
                uf._ptr(kx2), uf._ptr(kyz2),
                uf._ptr(uf._table(n, False, mubar.device)),
-               N, n, L, uf.base(n), rows.ctypes.data,
+               N, x_rows, n, L, uf.base(n), rows.ctypes.data,
                device=mubar.device, name="fwd_x_update_poly")
     fwd_x_update_poly.launches += 1
     return u_out, n_out
@@ -279,6 +317,47 @@ def ch_substep_multi(u, ubar, n_old, sub_dt, b0, b1, plan: SpectralPlanMulti):
     return u_out, u_new, n_new
 
 
+def ch_substep_sharded(c, ubar, n_old, sub_dt, b0, b1, plan: SpectralPlan, mesh):
+    """One fused predictor substep on this rank's slab
+    (pallas_spectral.ch_substep_sharded).  c: the Y-sharded float32 block
+    (nx, ny/p, nz); ubar, n_old: the X-sharded complex64 blocks (nx/p, ny,
+    nz).  Kernels 1′ (µ fused) and 3 on the real block, the all_to_all,
+    kernel 5's slab form along y, kernel 4 along y, the all_to_all back,
+    kernels 4 and 2.  Returns (c′, ū′, N̄)."""
+    from . import parallel
+
+    ky2, kxz2 = plan.slab
+    mubar = parallel.all_to_all(mesh, uf.fwd_axes(c, (0, 2), pre=plan.pre), 0, 1)
+    u_new, n_new = fwd_x_update(mubar.contiguous(), ubar, n_old, ky2, kxz2, sub_dt,
+                                b0, b1, plan.mobility, plan.lin)
+    back = parallel.all_to_all(mesh, uf.inv_sublanes(u_new), 1, 0)
+    return uf.inv_axes(back, (0, 2), real_output=True), u_new, n_new
+
+
+def ch_substep_sharded_multi(u, ubar, n_old, sub_dt, b0, b1,
+                             plan: SpectralPlanMulti, mesh):
+    """The N-field substep on this rank's slab
+    (pallas_spectral.ch_substep_sharded_multi): u (N, nx, ny/p, nz)
+    float32; ubar, n_old (N, nx/p, ny, nz) complex64.  Each kernel runs over
+    the whole stack in one launch, kernel 6 in its slab form."""
+    from . import parallel
+
+    ky2, kxz2 = plan.slab
+    N = len(plan.buffers)
+    mus = plan.mu_stack(u).to(torch.float32)
+    # the spatial axes shift one right for the leading field axis
+    mubar = parallel.all_to_all(mesh, uf.fwd_axes(mus, (1, 3)), 1, 2)
+    rows = np.concatenate(
+        [np.tile(np.asarray([sub_dt, b0, b1], np.float32), (N, 1)), plan.coef],
+        axis=1)
+    u_new, n_new = fwd_x_update_poly(mubar.contiguous(), ubar, n_old, ky2, kxz2,
+                                     rows)
+    shape = tuple(u_new.shape)
+    back = uf.inv_sublanes(u_new.reshape((-1,) + shape[2:])).reshape(shape)
+    back = parallel.all_to_all(mesh, back, 2, 1)
+    return uf.inv_axes(back, (1, 3), real_output=True), u_new, n_new
+
+
 # ---------------------------------------------------------------------------
 # deck-chain pattern matching (pallas_spectral.py:393-667)
 # ---------------------------------------------------------------------------
@@ -322,6 +401,18 @@ def _find_ic(problem, name, classes, what):
                         f"{[c.__name__ for c in classes]}")
             return m
     _reject(f"no Initialize compute produces {what} '{name}'")
+
+
+def _slab_tables(dom):
+    """The slab form's tables on a mesh, or None: ky2 (ny,) and the local x
+    rows' kx² + kz² (nx/p · nz,), each squared axis rounded to float32 and
+    summed in float32 (marlin_tpu/solvers/abm.py:214-226)."""
+    if dom.mesh is None:
+        return None
+    k2 = [(a ** 2).astype(np.float32) for a in dom._np_raxes]
+    kxz2 = (k2[0][:, None] + k2[2][None, :]).reshape(-1)
+    return (torch.from_numpy(np.ascontiguousarray(k2[1])).to(dom.device),
+            torch.from_numpy(np.ascontiguousarray(kxz2)).to(dom.device))
 
 
 def _k2_tables(dom) -> Tuple[torch.Tensor, torch.Tensor]:
@@ -431,6 +522,7 @@ def match_chain(solver):
         shape=tuple(dom.shape),
         kx2=kx2,
         kyz2=kyz2,
+        slab=_slab_tables(dom),
     )
 
 
@@ -541,4 +633,5 @@ def match_chain_multi(solver) -> SpectralPlanMulti:
         shape=tuple(dom.shape),
         kx2=kx2,
         kyz2=kyz2,
+        slab=_slab_tables(dom),
     )

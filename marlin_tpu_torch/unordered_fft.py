@@ -119,6 +119,31 @@ def path(n: int):
     return "small" if b == n else "tile"
 
 
+#: the most prefix batches a sublanes launch takes (the grid's y extent)
+MAX_PREFIX = 65535
+
+
+def slab_grid_unsupported_reason(shape, p: int):
+    """Why the 3-D FFT_SLAB path at ``p`` ranks cannot run the kernels on
+    this grid, or None (pallas_fft.slab_grid_unsupported_reason): kernels 1
+    and 3 take the Y-sharded block (nx, ny/p, nz), kernel 3 along y (and
+    kernels 5-6 in their slab form) the X-sharded block (nx/p, ny, nz).
+    Every path of the kernels takes any row count and column count; what
+    limits them is the extents and the prefix of a sublanes launch (the
+    fields times nx/p rows of kernel 6 included)."""
+    nx, ny, nz = (int(s) for s in shape)
+    for n in (nx, ny, nz):
+        if not supported(n):
+            return f"extent {n} does not factor as {SUPPORTED_RULE}"
+    if ny % p or nx % p:
+        return (f"FFT_SLAB PALLAS needs nx and ny divisible by the mesh "
+                f"size {p} (got {nx}x{ny})")
+    if nx // p > MAX_PREFIX:
+        return (f"the y kernel's prefix of {nx // p} rows exceeds "
+                f"{MAX_PREFIX}")
+    return None
+
+
 def true_k_order(n: int) -> np.ndarray:
     """true_k[k'] — the natural frequency index stored at permuted slot k'."""
     b = base(n)
@@ -299,9 +324,13 @@ class CudaLibrary:
             source = path[:-3] + ".cu"
             with open(source, "w") as f:
                 f.write(self.text)
+        # at a lower priority where `nice` exists: a build beside other work
+        # (chip_smoke.py's host-bound phases while the LBM library builds)
+        # leaves the cores to it, and takes what is idle
+        nvcc = (["nice", "-n", "10"] if shutil.which("nice") else []) + [_nvcc()]
         fd, tmp = tempfile.mkstemp(suffix=".so", dir=BUILD_DIR)
         os.close(fd)
-        cmd = [_nvcc(), *self.flags, "-I", CSRC, "-o", tmp, source]
+        cmd = [*nvcc, *self.flags, "-I", CSRC, "-o", tmp, source]
         try:
             proc = subprocess.run(cmd, capture_output=True, text=True)
             if proc.returncode != 0:

@@ -5,9 +5,9 @@ XDMFTensorOutput (src/tensor_outputs/XDMFTensorOutput.C, 760 LoC):
 time-series XDMF XML with CoRectMesh topology, per-frame datasets
 `{name}.{frame}` in an HDF5 sidecar (or raw .bin files), CELL / NODE
 (periodic extension) / OVERSIZED_NODAL modes and an optional transpose for
-Paraview axis order.  Serial only: the port's Domain refuses every
-``parallel_mode``, so the JAX package's per-rank files have no counterpart
-here.
+Paraview axis order.  Serial only: under a ``parallel_mode`` the JAX
+package writes per-rank files, whose writer waits for a later slice of the
+port; such a deck is a named error at build.
 
 The reference writes from a detached std::thread per frame with join
 barriers (TensorOutput.C:66-84).  Here the main thread fetches every buffer
@@ -40,6 +40,11 @@ class XDMFTensorOutput:
         self.name = name
         self.problem = problem
         self.domain = problem.domain
+        if self.domain.parallel_mode != "NONE":
+            raise NotImplementedError(
+                f"XDMF output '{name}': the per-rank XDMF writer of "
+                f"parallel_mode = {self.domain.parallel_mode} is not ported to "
+                "marlin_tpu_torch yet (serial decks only)")
         self.buffers: List[str] = params.get_str_vector("buffer", required=True)
         self.enable_hdf5 = params.get_bool("enable_hdf5", False)
         if self.enable_hdf5:

@@ -71,7 +71,7 @@ def test_sources_cover_the_port():
                    "outputs.py", "xdmf.py", "xdmfdiff.py", "vtk.py", "exodus.py",
                    "aux.py", "checkpoint.py", "smallsolve.py", "solvers/etdrk4.py",
                    "solvers/forward_euler.py", "solvers/secant.py", "solvers/broyden.py",
-                   "solvers/abm_coupled.py", "solvers/predictors.py"):
+                   "solvers/abm_coupled.py", "solvers/predictors.py", "parallel.py"):
         assert os.path.join("marlin_tpu_torch", module) in names, module
 
 
@@ -196,7 +196,8 @@ def test_unported_features_are_named_errors(extra, match):
     """[Functions] and the legacy integrator blocks are ported; what stays a
     named error there is what the JAX package refuses (a function that
     names no function, an integrator other than FFTSemiImplicit), the
-    per-rank XDMF writer (every parallel_mode is refused).  The NN
+    per-rank XDMF writer (refused under every parallel_mode: FFT_SLAB
+    runs, its writer waits).  The NN
     surrogate and NEML2 are ported: the port builds both types, and a
     missing model file is the JAX package's named error."""
     text = _CH_DECK.format(nx=16, ny=16, substeps=1) + extra
@@ -253,7 +254,8 @@ def test_outputs_and_checkpoints_run_on_cpu(extra, written, tmp_path):
 
 
 @pytest.mark.parametrize("domain,match", [
-    ("parallel_mode = FFT_SLAB", "parallel_mode"),
+    # FFT_SLAB and REAL_SPACE run; FFT_PENCIL waits for the next slice
+    ("parallel_mode = FFT_PENCIL", "parallel_mode"),
     ("fft_backend = PALLAS\n  floating_precision = DOUBLE", "single-precision"),
     ("fft_backend = PALLAS", "requires every grid"),
 ], ids=["parallel", "pallas_f64", "pallas_extent"])

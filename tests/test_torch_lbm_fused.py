@@ -835,8 +835,10 @@ def test_unported_feature_is_a_named_error(jx, feature):
      lf.FusedChainError, "lbm_backend = PALLAS: solve compute 'convert' "
                          "(LBMTensorUnitConverter) is not fusable (use the default "
                          "JNP backend)"),
-    (("[Domain]", "[Domain]\n  parallel_mode = REAL_SPACE"), NotImplementedError,
-     "parallel_mode"),
+    # REAL_SPACE runs on a mesh (tests/test_torch_lbm_sharded.py); without
+    # one the PALLAS step refuses it in the JAX package's words
+    (("[Domain]", "[Domain]\n  parallel_mode = REAL_SPACE"), lf.FusedChainError,
+     "lbm_backend = PALLAS: REAL_SPACE requires a 1-D (x) or 2-D (x×y) mesh"),
     ((TOP, TOP.replace("LBMBounceBack", "LBMDirichletBC").replace(
         "f_old = fpc\n", "f_old = fpc\n      feq = feq\n      rho = density\n"
                          "      velocity = velocity\n      value = 1.0\n")),
@@ -845,8 +847,8 @@ def test_unported_feature_is_a_named_error(jx, feature):
 ], ids=["smagorinsky_mrt", "smagorinsky", "surface_forces", "unit_converter",
         "sharded", "dirichlet"])
 def test_unported_compute_fails_at_build(edit, error, match):
-    """Sharded domains fail when the deck is built, by name, before either
-    backend could run.  The Smagorinsky collisions, the surface forces, the
+    """A REAL_SPACE deck without a mesh builds, and its PALLAS step refuses
+    it by name, as the JAX package does.  The Smagorinsky collisions, the surface forces, the
     unit converter and the Dirichlet condition are ported: they build, and
     this 3-D deck's PALLAS step refuses them with the JAX package's words
     (``test_rejection_is_the_jax_message`` holds the Smagorinsky messages

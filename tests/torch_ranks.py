@@ -1,0 +1,174 @@
+"""Ranks for the port's distributed tests, on the CPU.
+
+``spawn(world, cases, tmp_path)`` starts ``world`` processes with
+torch.multiprocessing (spawn), each joining a gloo group through a file
+store under ``tmp_path`` (no port, so parallel test workers cannot
+collide), with one thread each.  Every rank runs the listed cases, each a
+function of this module by name with its keyword arguments, and sends its
+results back.  The parent collects them against a deadline: a rank that
+raises, dies or hangs fails the caller's test, and every rank left is
+killed, so no rank can hang the suite.  This module imports the port and
+not the JAX package, so a rank never loads JAX.
+"""
+
+from __future__ import annotations
+
+import datetime
+import os
+import queue
+import time
+import traceback
+
+import numpy as np
+import torch
+
+DEADLINE = 150.0  # seconds for a spawn's whole list of cases
+
+
+def _child(rank, world, store, cases, q):
+    import torch.distributed as dist
+
+    torch.set_num_threads(1)
+    dist.init_process_group("gloo", init_method=f"file://{store}", rank=rank,
+                            world_size=world,
+                            timeout=datetime.timedelta(seconds=60))
+    try:
+        for i, (name, kw) in enumerate(cases):
+            try:
+                q.put((rank, i, "ok", globals()[name](**kw)))
+            except Exception:
+                q.put((rank, i, "error", traceback.format_exc()))
+                return
+    finally:
+        dist.destroy_process_group()
+
+
+def spawn(world: int, cases, tmp_path, deadline: float = DEADLINE):
+    """Run ``cases`` ([(name, kwargs), ...]) on ``world`` ranks; returns, a
+    case, the list of the ranks' results in rank order."""
+    import torch.multiprocessing as mp
+
+    ctx = mp.get_context("spawn")
+    q = ctx.Queue()
+    store = os.path.join(str(tmp_path), f"store_{world}_{time.monotonic_ns()}")
+    procs = [ctx.Process(target=_child, args=(r, world, store, cases, q), daemon=True)
+             for r in range(world)]
+    for p in procs:
+        p.start()
+    results = {}
+    end = time.monotonic() + deadline
+    try:
+        while len(results) < world * len(cases):
+            left = end - time.monotonic()
+            if left <= 0:
+                raise TimeoutError(f"{world} ranks did not finish {cases} in "
+                                   f"{deadline} s")
+            try:
+                rank, i, kind, value = q.get(timeout=min(left, 1.0))
+            except queue.Empty:
+                dead = [r for r, p in enumerate(procs)
+                        if not p.is_alive() and p.exitcode != 0]
+                if dead:
+                    raise RuntimeError(f"rank(s) {dead} died (exit codes "
+                                       f"{[procs[r].exitcode for r in dead]})")
+                continue
+            if kind == "error":
+                raise RuntimeError(f"rank {rank}, case {cases[i][0]}:\n{value}")
+            results[(rank, i)] = value
+    finally:
+        for p in procs:
+            p.join(timeout=10 if len(results) == world * len(cases) else 0)
+            if p.is_alive():
+                p.kill()
+                p.join()
+    return [[results[(r, i)] for r in range(world)] for i in range(len(cases))]
+
+
+def assemble(blocks, shape):
+    """The global array from every rank's (slices, block)."""
+    first = blocks[0][1]
+    out = np.zeros(tuple(shape) + first.shape[len(shape):], first.dtype)
+    for sl, b in blocks:
+        out[sl] = b
+    return out
+
+
+# ---------------------------------------------------------------------------
+# cases (run on every rank)
+# ---------------------------------------------------------------------------
+
+
+def _mesh(mode, shape=None):
+    from marlin_tpu_torch import parallel
+
+    return parallel.make_mesh(mode, shape=shape)
+
+
+def slab_fft(dim, n, complex_input, seed=0):
+    """The forward and inverse slab transforms of a seeded field: this
+    rank's (reciprocal slice, spectrum block) and (real slice, inverse)."""
+    from marlin_tpu_torch.domain import Domain
+
+    dom = Domain(dim, n, parallel_mode="FFT_SLAB", floating_precision="DOUBLE",
+                 device="cpu", mesh=_mesh("FFT_SLAB"))
+    rng = np.random.RandomState(seed)
+    g = rng.randn(*n)
+    if complex_input:
+        g = g + 1j * rng.randn(*n)
+    x = torch.from_numpy(np.ascontiguousarray(g[dom.real_slice]))
+    z = dom.fft(x)
+    sl = dom.full_slice if complex_input else dom.reciprocal_slice
+    return {"spectrum": (sl, z.numpy()), "back": (dom.real_slice, dom.ifft(z).numpy()),
+            "uneven": dom.uneven}
+
+
+def deck_run(text, steps, mode, mesh_shape=None, arrays=None, buffers=(), old=(),
+             how="steps", dt=1.0, output_dir=None):
+    """A deck on the mesh of every rank.  ``how`` "steps": the
+    problem's steps at ``dt`` from t = 0, as the JAX package's tests drive
+    them (the first one the first step); "run_deck": the whole run, its
+    CSV in ``output_dir``/rank<r>.  Returns this rank's slices and blocks
+    of ``buffers`` (None: every one) and of the history stacks ``old``,
+    the residual, the advances and, under run_deck, the postprocessor
+    values."""
+    import torch.distributed as dist
+
+    from marlin_tpu_torch import hit
+    from marlin_tpu_torch.executioner import run_deck
+    from marlin_tpu_torch.problem import TensorProblem
+
+    mesh = _mesh(mode, mesh_shape)
+    res = {}
+    if how == "steps":
+        p = TensorProblem(hit.parse(text), device="cpu", arrays=arrays, mesh=mesh)
+        st = p.init_state()
+        for i in range(steps):
+            st = p.step(st, i * dt, dt, dt, i == 0)
+    else:
+        root = hit.parse(text)
+        root.child("Executioner", create=True).set_param("num_steps", str(steps))
+        out = os.path.join(output_dir, f"rank{dist.get_rank()}")
+        tr = run_deck(root, device="cpu", mesh=mesh, arrays=arrays, output_dir=out)
+        p, st = tr.problem, tr.state
+        res["pps"] = dict(tr.pp_values)
+    dom = p.domain
+    names = st["buffers"] if buffers is None else buffers
+    res.update({
+        "slice": dom.real_slice, "reciprocal_slice": dom.reciprocal_slice,
+        "n_advances": st["n_advances"],
+        "buffers": {k: st["buffers"][k].numpy() for k in names},
+        "old": {k: st["old"][k].numpy() for k in (st["old"] if old is None else old)}})
+    if "residual" in st["solver"]:
+        res["residual"] = float(st["solver"]["residual"])
+    return res
+
+
+def named_error(text, mode, output_dir, mesh_shape=None, steps=2, arrays=None):
+    """The message of what a whole run of a deck on the mesh raises, or
+    None."""
+    try:
+        deck_run(text, steps, mode, mesh_shape, arrays=arrays, buffers=(),
+                 how="run_deck", output_dir=output_dir)
+    except Exception as e:  # the test reads the words
+        return f"{type(e).__name__}: {e}"
+    return None
