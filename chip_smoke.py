@@ -241,14 +241,18 @@ Phases, one line each, flushed as they finish:
    5-6 in their slab form at 512³ (the rank's X-sharded block (512/p, 512,
    512) for p = 1, 2, 4, kernel 6 with two fields at p = 1, 2; p = 1 is
    (b)'s stack) against their twins, ms a launch beside serial kernel 5's;
-   kernel 7's halo branch on the porous (media), all-faces D3Q27 and
+   kernel 7's halo forms on the porous (media), all-faces D3Q27 and
    thermal (two lattices) plans at 256³ cut 2 and 4 ways along x and
    2 × 2 (porous also uncut: (b)'s world-of-one block, its ring its own
-   periodic wrap), and on the D2Q9 channel at
-   800×200 cut 2 and 4 ways: each block's halos sliced from its
-   neighbours, the blocks put together equal to the unsharded flat kernel
-   bit for bit and within 1e-5 of the twin; a block's ms beside the flat
-   and brick kernels on an unsharded plan of its shape and its byte bound;
+   periodic wrap), the mixed plan (Zou-He inlet, zero-gradient outlet) cut
+   2 ways, and on the D2Q9 channel at 800×200 cut 2 and 4 ways: each
+   block's halos sliced from its neighbours, each block run on the walk
+   it gets (the halo brick on one-lattice 3-D blocks, the flat kernel on
+   the others) and on the flat halo form, both forms' blocks put together
+   equal to the unsharded flat kernel bit for bit and within 1e-5 of the
+   twin; a block's ms in each form beside the flat and brick kernels on
+   an unsharded plan of its shape and its byte bound, and the halo
+   brick's registers and spills;
    (b) on a real NCCL group of world size 1 (formed here, destroyed
    after): decks.CH3D_DECK at 512³ float32 on FFT_SLAB, DEFAULT, PALLAS
    and PALLAS fused, 2 steps × 10 substeps: |c_slab − c_serial| ≤ 5e-5
@@ -256,7 +260,8 @@ Phases, one line each, flushed as they finish:
    launches and all_to_alls exact, ms a substep beside phases 3-5's;
    MULTI_3D_DECK fused on the slab (5e-5 of phase 6's); POROUS_DECK at
    256³ on REAL_SPACE, PALLAS and JNP, 3 steps × 10 substeps, within 1e-5
-   of phase 7's end states, launches exact; one all_to_all of a 512³
+   of phase 7's end states (PALLAS, the halo brick, with its bits),
+   launches exact; one all_to_all of a 512³
    complex64 block and one halo ring of a 256³ D3Q19 block, ms; the NCCL
    version and the world size.
 
@@ -868,14 +873,15 @@ def ptxas_report(log, describe):
 
 
 def lbm_kernel_name(mangled):
-    """lbm_substep_kernel or lbm_brick_kernel <Q, T, TWO, MRT> of a mangled
-    entry name, or None."""
-    m = re.search(r"lbm_(substep|brick)_kernelILi(\d+)E([fd])Lb([01])ELb([01])E", mangled)
+    """lbm_substep_kernel or lbm_brick_kernel <Q, T, TWO, MRT(, HALO)> of a
+    mangled entry name, or None."""
+    m = re.search(r"lbm_(substep|brick)_kernelILi(\d+)E([fd])Lb([01])ELb([01])E(?:Lb([01])E)?",
+                  mangled)
     if not m:
         return None
-    kind, q, t, two, mrt = m.groups()
+    kind, q, t, two, mrt, halo = m.groups()
     return (f"lbm_{kind}_kernel<{q}, {'float' if t == 'f' else 'double'}, "
-            f"two={two}, mrt={mrt}>")
+            f"two={two}, mrt={mrt}{'' if halo is None else f', halo={halo}'}>")
 
 
 FFT_KERNEL = re.compile(
@@ -3396,10 +3402,11 @@ def phase_surrogate_neml2(uf, sp, dev, smi):
 # -- 18: the distributed modes --------------------------------------------------------
 SLAB_P = (1, 2, 4)  # (a) kernel 5's slab form at 512³ cut p ways
 SLAB_POLY_P = (1, 2)  # (a) kernel 6's: p = 1 is (b)'s world-of-one stack
-HALO_PLANS = {  # (a) kernel 7's halo branch: plan -> (shape, [(px, py), ...]);
+HALO_PLANS = {  # (a) kernel 7's halo forms: plan -> (shape, [(px, py), ...]);
     # (1, 1) is (b)'s world-of-one block, its ring its own periodic wrap
     "porous": ((LBM_N,) * 3, [(1, 1), (2, 1), (4, 1), (2, 2)]),
     "allface_d3q27": ((LBM_N,) * 3, [(2, 1), (4, 1)]),
+    "mixed": ((LBM_N,) * 3, [(2, 1)]),  # the post-stream faces' global path
     "thermal": ((LBM_N,) * 3, [(2, 1), (2, 2)]),
     "channel2d": (KARMAN + (1,), [(2, 1), (4, 1)]),
 }
@@ -3471,12 +3478,15 @@ def slab_kernel_rows(sp, dev, gen, serial_ms):
 
 
 def halo_kernel_rows(lf, dev):
-    """(a) kernel 7's halo branch: each plan of HALO_PLANS cut as its splits
+    """(a) kernel 7's halo forms: each plan of HALO_PLANS cut as its splits
     say, each block's halos sliced from its neighbours (lf.block_halo), run
-    block by block; the blocks put together equal the unsharded flat kernel
-    bit for bit and the twin within 1e-5.  ms a block's launch beside the
-    flat and the brick kernel on an unsharded plan of the block's shape,
-    and the block's byte bound (the rings included)."""
+    block by block on the walk the block gets (lf.walk_plan: the halo brick
+    on one-lattice 3-D blocks, else the flat kernel) and on the flat halo
+    form (``pack(b, None, offs)``); the blocks put together equal the
+    unsharded flat kernel bit for bit and the twin within 1e-5.  ms a
+    block's launch of each form beside the flat and the brick kernel on an
+    unsharded plan of the block's shape, and the block's byte bound (the
+    rings included)."""
     import dataclasses
     import itertools
 
@@ -3506,17 +3516,23 @@ def halo_kernel_rows(lf, dev):
                 gb, gr = lf.block_halo(gpc, b, offs, 1) if gpc is not None else (None, None)
                 mb, mr = (lf.block_halo(media, b, offs, 0) if media is not None
                           else (None, None))
-                blocks[ij] = (b, offs, fb, gb, mb, (fr, gr, mr))
-                outs[ij] = lf.fused_substep(fb, mb, b, gb, rings=(fr, gr, mr), offsets=offs)
+                _plan, avec_b = lf._kernel_args(fb, mb, b, gb, "chip_smoke", offs)
+                flat_halo = lf.plan_stepper(fb, mb, b, gb, lf.pack(b, None, offs), avec_b)
+                blocks[ij] = (b, offs, fb, gb, mb, (fr, gr, mr), flat_halo)
+                outs[ij] = (lf.fused_substep(fb, mb, b, gb, rings=(fr, gr, mr), offsets=offs),
+                            flat_halo(fb, gb, rings=(fr, gr, mr)))
             err = 0.0
-            for k in range(len(whole)):
-                got = torch.cat([torch.cat([outs[(i, j)][k] for j in range(split[1])], dim=-2)
-                                 for i in range(split[0])], dim=-3)
-                assert torch.equal(got, whole[k]), (name, split, k)
+            for form, k in itertools.product(range(2), range(len(whole))):
+                got = torch.cat([torch.cat([outs[(i, j)][form][k] for j in range(split[1])],
+                                           dim=-2) for i in range(split[0])], dim=-3)
+                assert torch.equal(got, whole[k]), (name, split, form, k)
                 err = max(err, check(f"lbm_substep halo {name} {split}", shape, got, twin[k]))
-            b, offs, fb, gb, mb, rings = blocks[(0, 0)]
+            b, offs, fb, gb, mb, rings, flat_halo = blocks[(0, 0)]
+            block_walk = lf.walk_plan(b, fb.dtype, torch.cuda.get_device_properties(dev)
+                                      .multi_processor_count)
             step = lf.substepper(fb, mb, b, gb, offs)
             ms = cuda_ms(lambda: step(fb, gb, rings=rings))
+            ms_flat_halo = cuda_ms(lambda: flat_halo(fb, gb, rings=rings))
             local = dataclasses.replace(cfg, nx=b.nx, ny=b.ny)
             flat = lf.plan_stepper(fb, mb, local, gb, lf.pack(local), avec)
             ms_flat = cuda_ms(lambda: flat(fb, gb))
@@ -3533,17 +3549,23 @@ def halo_kernel_rows(lf, dev):
             n_bytes = (2 * lattices * nbytes(fb) + cells * 4 + (cells if mb is not None else 0)
                        + nbytes(*[r for r in rings if r is not None]))
             bnd, by = bound_ms(n_bytes, lbm_flops(b) * cells, F32_NO_FMA_FLOP_PER_S)
-            say(f"[18a] lbm_substep halo {name} {shape} split {split}: blocks equal the flat "
-                f"kernel bit for bit, twin max_abs_err {err:.3e}; block "
-                f"{(b.nx, b.ny, b.nz)}: {ms:.3f} ms a launch, flat unsharded {ms_flat:.3f} ms, "
-                f"brick {'-' if ms_brick is None else f'{ms_brick:.3f}'} ms, twin "
-                f"{plain:.3f} ms, bound {bnd:.3f} ms ({by})")
-            rows.append({"shape": [name, list(shape), list(split)], "max_abs_err": err,
-                         "ms": ms, "plain_ms": plain, "library_ms": None, "bound_ms": bnd,
+            form = "flat" if block_walk is None else "brick"
+            say(f"[18a] lbm_substep halo {name} {shape} split {split}: both forms' blocks equal "
+                f"the flat kernel bit for bit, twin max_abs_err {err:.3e}; block "
+                f"{(b.nx, b.ny, b.nz)} takes the {form} form: {ms:.3f} ms a launch "
+                f"({bnd / ms:.0%} of its bound), flat halo form {ms_flat_halo:.3f} ms; unsharded "
+                f"flat {ms_flat:.3f} ms, brick {'-' if ms_brick is None else f'{ms_brick:.3f}'} "
+                f"ms; twin {plain:.3f} ms, bound {bnd:.3f} ms ({by})")
+            rows.append({"shape": [name, list(shape), list(split)], "walk": form,
+                         "max_abs_err": err, "ms": ms, "flat_halo_ms": ms_flat_halo,
+                         "plain_ms": plain, "library_ms": None, "bound_ms": bnd,
                          "bound_by": by, "flat_ms": ms_flat, "brick_ms": ms_brick})
             del blocks, outs
         del fpc, gpc, media, whole, twin
         torch.cuda.empty_cache()
+    for line in ptxas_report(lf.LIBRARY.log, lbm_kernel_name):
+        if "halo=1" in line:
+            say(f"[18a] ptxas {line}")
     return rows
 
 
@@ -3656,7 +3678,7 @@ def phase_distributed(uf, sp, lf, dev, smi, serial_ms):
             want = (LBM_STEPS - 1) * (LBM_SUBSTEPS - 1) if backend == "PALLAS" else 0
             assert n == want, (backend, n, want)
             launches[f"real_space porous {backend}"] = {"lbm_substep": n}
-            worst = 0.0
+            worst, equal = 0.0, True
             for k, ref in SERIAL[f"porous {backend}"].items():
                 v = tr.state["buffers"][k]
                 assert bool(torch.isfinite(v).all()), (backend, k)
@@ -3664,11 +3686,15 @@ def phase_distributed(uf, sp, lf, dev, smi, serial_ms):
                 mag = ref.abs().max().item()
                 assert d <= KERNEL_TOL * mag, (backend, k, d, mag)
                 worst = max(worst, d / mag)
+                equal = equal and torch.equal(v.cpu(), ref)
+            # the halo brick of the world-of-one block gives the serial brick's bits
+            assert equal or backend != "PALLAS", backend
             ms = lbm_substep_ms(tr)
             say(f"[18b] POROUS {LBM_N}^3 REAL_SPACE {backend}: run_deck {wall:.2f} s, "
                 f"{ms:.3f} ms/substep (serial {serial_ms['porous ' + backend]:.3f}), "
                 f"lbm_substep launches {n}, exchanges {parallel.calls()['exchange']}, "
-                f"max relative |slab - serial| {worst:.3e} (limit {KERNEL_TOL})")
+                f"max relative |slab - serial| {worst:.3e} (limit {KERNEL_TOL}), "
+                f"{'equal bits' if equal else 'bits differ'}")
             del tr
             torch.cuda.empty_cache()
         fpc = torch.rand((19,) + (LBM_N,) * 3, generator=gen, device=dev)
@@ -3683,7 +3709,12 @@ def phase_distributed(uf, sp, lf, dev, smi, serial_ms):
         f"{smi}")
     rows = {"fwd_x_update slab": summarise(slab_rows),
             "fwd_x_update_poly slab": summarise(poly_rows),
-            "lbm_substep halo": summarise(halo_rows),
+            "lbm_substep halo": {
+                **summarise(halo_rows),
+                "forms": {"brick": "lbm_brick_kernel<Q, T, false, MRT, true> (one-lattice "
+                                   "3-D blocks)",
+                          "flat": "lbm_substep_kernel<Q, T, TWO, MRT> with LbmPlan.halo "
+                                  "(two-lattice and 2-D blocks; flat_halo_ms on every row)"}},
             "collective": {"all_to_all_ms": a2a_ms, "halo_ring_ms": ring_ms}}
     return rows, launches
 

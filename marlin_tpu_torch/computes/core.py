@@ -255,12 +255,16 @@ class RandomTensor(TensorCompute):
 
     def apply(self, state, ctx):
         dom = self.domain
-        # on a mesh: the whole grid's stream, this rank's block of it, so
-        # that a sharded run draws the serial run's field (the JAX package
-        # tiles each rank's own local draw, as the reference's MPI ranks do)
-        u = self._draw(list(dom.n_global))
-        if dom.mesh is not None:
-            u = dom.local(u).contiguous()
+        if dom.mesh is not None and self.seed is not None:
+            # every rank seeds and draws its own block's shape, so the
+            # global field is that block tiled in rank order, as the
+            # reference's MPI ranks draw it (RandomTensor.C:42-53) and the
+            # JAX package does (marlin_tpu/computes/core.py:248-260)
+            u = self._draw(list(dom.shape))
+        else:
+            u = self._draw(list(dom.n_global))
+            if dom.mesh is not None:
+                u = dom.local(u).contiguous()
         return {self.out: u * (self.max - self.min) + self.min}
 
     def output_specs(self, specs):

@@ -27,11 +27,20 @@
 // and a pull that leaves the block reads its ring in place of the wrap;
 // the bounce-back and Zou-He faces are found on the grid's coordinates
 // (the plan's offsets and global extents), the perturbed inlet's a(y) on
-// the global y.  That branch is a run-time flag of the plan, uniform over
-// a launch (the unsharded plans read the same fields with offsets 0).  The
-// brick and plane kernels stay unsharded: a sharded plan takes the flat
-// kernel.  Bound of the sharded substep: the flat kernel's bytes plus the
-// rings (2 planes a direction, negligible at 256^3).
+// the global y.  In the flat kernel that branch is a run-time flag of the
+// plan, uniform over a launch (the unsharded plans read the same fields
+// with offsets 0).  One-lattice 3-D blocks take the halo brick instead
+// (lbm_brick_kernel with HALO, a compile-time form, so the unsharded
+// brick's code stays as it was: routing it through the run-time branch
+// cost it 7-16%, PERF.md): its producer copies a row that leaves the
+// block from the row of the ring that holds it (halo_plane; each ring row is
+// nz values at a multiple of nz, so 16-byte aligned wherever the brick
+// takes the block), and a post-stream face cell's global path reads the
+// rings.  Two-lattice blocks keep the flat form (at 67% of its bound it
+// beat the brick on the block, PERF.md §6), 2-D blocks the flat kernel;
+// no block takes the plane kernel (the JAX package refuses Smagorinsky
+// fusion on a mesh).  Bound of the sharded substep: the unsharded bytes
+// plus the rings (2 planes a direction, 1-6% of a block's rows).
 //
 // Bound on an H100 SXM: bytes.  Each cell reads q values and writes q a
 // lattice, plus the carried scalar and the media byte (at 256^3 with D3Q19
@@ -205,14 +214,16 @@ lbm_substep_kernel(const T* __restrict__ fpc, const T* __restrict__ gpc,
 // stored, on a loop that is not unrolled: at most one lattice's q values
 // are live, and the collision's code (the MRT rows unrolled) is there
 // once.
-template <int Q, typename T, bool TWO, bool MRT>
+template <int Q, typename T, bool TWO, bool MRT, bool HALO = false>
 __device__ __forceinline__ void brick_cell(const LbmPlan& p, Stage<T> st, const T* msm, Cell c,
                                            int j, const T* __restrict__ fpc,
                                            const T* __restrict__ gpc,
                                            const int8_t* __restrict__ media,
                                            const T* __restrict__ avec,
                                            const T* __restrict__ mean, T* __restrict__ out,
-                                           T* __restrict__ gout, T* __restrict__ speed) {
+                                           T* __restrict__ gout, T* __restrict__ speed,
+                                           Ring<T> fr = {nullptr, nullptr},
+                                           Ring<T> gr = {nullptr, nullptr}) {
   constexpr int S = kMsmStride<Q, T>;
   const LbmCoef<T>& k = coef<T>();
   const long long N = p.nx * p.ny * p.nz;
@@ -221,8 +232,8 @@ __device__ __forceinline__ void brick_cell(const LbmPlan& p, Stage<T> st, const 
   T temp = T(0);
   T f[Q];
   if constexpr (TWO) {
-    settle<Q, T>(p, p.lat[1], st, 1, gpc, media, avec, N, c, j);
-    settle<Q, T>(p, p.lat[0], st, 0, fpc, media, avec, N, c, j);
+    settle<Q, T, HALO>(p, p.lat[1], st, 1, gpc, media, avec, N, c, j, gr);
+    settle<Q, T, HALO>(p, p.lat[0], st, 0, fpc, media, avec, N, c, j, fr);
     forget();
     T g[Q];
     settled<Q, T>(st, 1, j, c.z, g);
@@ -232,7 +243,7 @@ __device__ __forceinline__ void brick_cell(const LbmPlan& p, Stage<T> st, const 
     forget();
     settled<Q, T>(st, 0, j, c.z, f);
   } else {
-    brick_lattice<Q, T>(p, p.lat[0], st, 0, fpc, media, avec, N, c, j, f);
+    brick_lattice<Q, T, HALO>(p, p.lat[0], st, 0, fpc, media, avec, N, c, j, f, fr);
   }
   const Flow<T> fl = flow<Q, T>(p, f, temp, solid);
   speed[at] = carried(p, fl, temp);
@@ -261,12 +272,16 @@ __device__ __forceinline__ void brick_cell(const LbmPlan& p, Stage<T> st, const 
 
 // The brick kernel of 3-D plans: persistent blocks walk the bricks, warp 0
 // bringing them in, the other warps updating their cells out of the stage.
-template <int Q, typename T, bool TWO, bool MRT>
+// HALO: the form of a block of a mesh, its halos from fring and mring
+// (built for one lattice only; the unsharded form ignores the rings).
+template <int Q, typename T, bool TWO, bool MRT, bool HALO = false>
 __global__ void __launch_bounds__((kBrickThreads<Q, TWO>), (kBrickBlocks<Q, TWO, MRT>))
 lbm_brick_kernel(const T* __restrict__ fpc, const T* __restrict__ gpc,
                  const int8_t* __restrict__ media, const T* __restrict__ avec,
                  const T* __restrict__ mean, T* __restrict__ out, T* __restrict__ gout,
-                 T* __restrict__ speed) {
+                 T* __restrict__ speed, const T* __restrict__ fring,
+                 const T* __restrict__ gring, const int8_t* __restrict__ mring) {
+  static_assert(!(HALO && TWO), "the halo brick takes one lattice");
   extern __shared__ __align__(16) unsigned char smem[];
   const LbmPlan& p = c_plan;
   const int nz = (int)p.nz, by = p.brick.by;
@@ -275,8 +290,8 @@ lbm_brick_kernel(const T* __restrict__ fpc, const T* __restrict__ gpc,
   const T* msm = MRT ? brick_msm<Q, T, TWO>(smem + lay.msm_off) : nullptr;
   const BrickPipe pipe = brick_pipe(p, lay, smem);
   if (threadIdx.x < 32) {
-    brick_produce<Q, T, true>(p, pipe, lay.lattice_bytes, lay.media_off, fpc,
-                              TWO ? gpc : nullptr, media);
+    brick_produce<Q, T, true, HALO>(p, pipe, lay.lattice_bytes, lay.media_off, fpc,
+                                    TWO ? gpc : nullptr, media, {fring, mring});
     return;
   }
   long long k = 0;
@@ -286,8 +301,9 @@ lbm_brick_kernel(const T* __restrict__ fpc, const T* __restrict__ gpc,
     const Brick br = brick_at(p, b);
     for (int i = threadIdx.x - 32; i < br.rows * nz; i += blockDim.x - 32) {
       const int j = i / nz;
-      brick_cell<Q, T, TWO, MRT>(p, st, msm, Cell{br.x, br.y0 + j, i - j * nz}, j, fpc, gpc,
-                                 media, avec, mean, out, gout, speed);
+      brick_cell<Q, T, TWO, MRT, HALO>(p, st, msm, Cell{br.x, br.y0 + j, i - j * nz}, j, fpc,
+                                       gpc, media, avec, mean, out, gout, speed,
+                                       {fring, mring}, {gring, mring});
     }
     brick_release(pipe, k);
   }
@@ -520,16 +536,17 @@ cudaError_t launch(const void* fpc, const void* gpc, const void* media, const vo
 }
 
 // The brick plan against what the brick kernel takes: a 3-D plan, rows of
-// 16-byte multiples (media rows too), a producer and at least one
-// consumer warp, and the shared memory brick_layout gives, within the
-// 227 KB a block may have.
+// 16-byte multiples (media rows too; on a block of a mesh each ring row
+// starts at a multiple of nz, so a ring's stride must be one), a producer
+// and at least one consumer warp, and the shared memory brick_layout
+// gives, within the 227 KB a block may have.
 template <int Q, typename T>
 bool brick_ok(const LbmPlan& p, bool media) {
   const LbmBrick& b = p.brick;
   if (Q == 9 || p.nz == 1 || b.by < 1 || b.stages < 1 || b.threads < 64 ||
       b.threads > (p.two_lattice ? kBrickThreads<Q, true> : kBrickThreads<Q, false>) ||
       b.threads % 32 || (p.nz * (long long)sizeof(T)) % 16 ||
-      (media && p.nz % 16))
+      (media && p.nz % 16) || (p.halo.on && p.halo.stride % p.nz))
     return false;
   const bool mrt = p.mrt[0] || (p.two_lattice && p.mrt[1]);
   const BrickLayout l = brick_layout(Q, sizeof(T), p.two_lattice ? 2 : 1, media, mrt, b.by,
@@ -568,12 +585,12 @@ cudaError_t resident(Resident& r, K kernel, const LbmBrick& b) {
   return cudaSuccess;
 }
 
-template <int Q, typename T, bool TWO, bool MRT>
+template <int Q, typename T, bool TWO, bool MRT, bool HALO>
 cudaError_t launch_brick(const void* fpc, const void* gpc, const void* media, const void* avec,
                          const void* mean, void* out, void* gout, void* speed,
-                         const LbmPlan& p, cudaStream_t stream) {
+                         const void* const* rings, const LbmPlan& p, cudaStream_t stream) {
   static Resident r;
-  auto kernel = lbm_brick_kernel<Q, T, TWO, MRT>;
+  auto kernel = lbm_brick_kernel<Q, T, TWO, MRT, HALO>;
   const LbmBrick& b = p.brick;
   cudaError_t err = resident(r, kernel, b);
   if (err != cudaSuccess) return err;
@@ -582,7 +599,8 @@ cudaError_t launch_brick(const void* fpc, const void* gpc, const void* media, co
   if (err != cudaSuccess) return err;
   kernel<<<(unsigned)(bricks < r.blocks ? bricks : r.blocks), b.threads, b.smem, stream>>>(
       (const T*)fpc, (const T*)gpc, (const int8_t*)media, (const T*)avec, (const T*)mean,
-      (T*)out, (T*)gout, (T*)speed);
+      (T*)out, (T*)gout, (T*)speed, (const T*)rings[0], (const T*)rings[1],
+      (const int8_t*)rings[2]);
   return cudaGetLastError();
 }
 
@@ -619,7 +637,9 @@ cudaError_t launch_plane(const void* fpc, const void* gpc, const void* media, co
 // The plane kernel on a plan with its cooperative grid; the brick kernel
 // where the plan has a brick walk (and the buffers are 16-byte aligned, as
 // the bulk copies need: torch's allocations are); the flat kernel
-// otherwise.  All give the same bits.
+// otherwise.  All give the same bits.  A block of a mesh with a brick walk
+// takes the halo brick, one lattice only, its rings aligned too: anything
+// else is an error, never a flat launch.
 template <int Q, typename T, bool TWO, bool MRT>
 cudaError_t launch_any(const void* fpc, const void* gpc, const void* media, const void* avec,
                        void* scratch, void* mean, void* out, void* gout, void* speed,
@@ -632,9 +652,19 @@ cudaError_t launch_any(const void* fpc, const void* gpc, const void* media, cons
     }
   } else {
     const bool aligned = (((uintptr_t)fpc | (uintptr_t)gpc | (uintptr_t)media) & 15) == 0;
+    if (p.brick.by > 0 && p.halo.on) {
+      if constexpr (TWO) {
+        return cudaErrorInvalidValue;
+      } else {
+        if (!aligned || (((uintptr_t)rings[0] | (uintptr_t)rings[2]) & 15))
+          return cudaErrorInvalidValue;
+        return launch_brick<Q, T, false, MRT, true>(fpc, gpc, media, avec, mean, out, gout,
+                                                    speed, rings, p, stream);
+      }
+    }
     if (p.brick.by > 0 && aligned)
-      return launch_brick<Q, T, TWO, MRT>(fpc, gpc, media, avec, mean, out, gout, speed, p,
-                                          stream);
+      return launch_brick<Q, T, TWO, MRT, false>(fpc, gpc, media, avec, mean, out, gout, speed,
+                                                 rings, p, stream);
   }
   if (p.smag && !mean) return cudaErrorInvalidValue;
   return launch<Q, T, TWO, MRT>(fpc, gpc, media, avec, mean, out, gout, speed, rings, p,
@@ -648,8 +678,9 @@ cudaError_t dispatch(const void* fpc, const void* gpc, const void* media, const 
   if ((p.brick.grid > 0 && !(Q == 9 && plane_ok(p))) ||
       (p.brick.by > 0 && !brick_ok<Q, T>(p, media != nullptr)))
     return cudaErrorInvalidValue;
-  // a block of a mesh takes the flat kernel, with its rings
-  if (p.halo.on && (p.brick.grid > 0 || p.brick.by > 0 || !rings[0] ||
+  // a block of a mesh takes the flat kernel or, with one lattice, the halo
+  // brick, with its rings; never the plane kernel
+  if (p.halo.on && (p.brick.grid > 0 || (p.brick.by > 0 && p.two_lattice) || !rings[0] ||
                     (p.two_lattice && !rings[1]) || (media && !rings[2])))
     return cudaErrorInvalidValue;
   const bool mrt = p.mrt[0] || (p.two_lattice && p.mrt[1]);

@@ -179,6 +179,17 @@ struct Lattice<27> {
   }
 };
 
+// The e_x + 1 (axis 0) or e_y + 1 (axis 1) of every direction of stencil
+// Q, two bits a direction: for a loop over directions that is not
+// unrolled (the halo brick's producer).
+template <int Q>
+__host__ __device__ constexpr unsigned long long e_bits(int axis) {
+  unsigned long long b = 0;
+  for (int q = 0; q < Q; ++q)
+    b |= (unsigned long long)((axis == 0 ? Lattice<Q>::ex(q) : Lattice<Q>::ey(q)) + 1) << (2 * q);
+  return b;
+}
+
 namespace {
 
 struct Cell {
@@ -190,9 +201,9 @@ __device__ __forceinline__ int cell_index(const LbmPlan& p, Cell c) {
 }
 
 // A face of the grid: with GRID on the grid's coordinates (the block's
-// offset added; the flat kernel, which blocks of a mesh take), else on the
-// block's own (the brick and plane kernels, unsharded only, keep the code
-// they had before the halo branch).
+// offset added; the flat kernel and the halo brick, which blocks of a mesh
+// take), else on the block's own (the unsharded brick and the plane
+// kernel keep the code they had before the halo branch).
 template <bool GRID = true>
 __device__ __forceinline__ bool on_face(const LbmPlan& p, int axis, int side, Cell c) {
   if (GRID) {
@@ -232,6 +243,47 @@ __device__ __forceinline__ HaloSrc halo_source(const LbmPlan& p, Cell c, int ex,
   const int rows = 2 * ny * nz;
   if (!xo) return {rows + ((sy < 0 ? 0 : 1) * nx + sx) * nz + sz, true};
   return {rows + 2 * nx * nz + ((sx < 0 ? 0 : 2) + (sy < 0 ? 0 : 1)) * nz + sz, true};
+}
+
+// Plane sx in -1..nx of a block of a mesh, as the halo brick's producer
+// reads it, each row (every z) at a multiple of nz: rows 0..ny-1 at at +
+// sy nz, in the block or (ring) in the ring's x-lo or x-hi plane; rows -1
+// and ny at lo and hi, which on a 1-D mesh wrap in the plane and on a 2-D
+// mesh are the ring's y-lo and y-hi rows (a plane in the block) or its
+// corner columns (a ring plane).  halo_source's tests and layout at z = 0;
+// lbm_fused.brick_rows and media_rows mirror them.  The producer forms
+// the three planes of a brick once and each row from them (plane_row).
+struct HaloPlane {
+  int at, lo, hi;
+  bool ring, yring;
+};
+
+__device__ __forceinline__ HaloPlane halo_plane(const LbmPlan& p, int sx) {
+  const int nx = (int)p.nx, ny = (int)p.ny, nz = (int)p.nz;
+  HaloPlane pl;
+  pl.ring = sx < 0 || sx == nx;
+  pl.at = pl.ring ? (sx < 0 ? 0 : ny * nz) : sx * ny * nz;
+  if (!p.halo.shard_y) {
+    pl.yring = pl.ring;
+    pl.lo = pl.at + (ny - 1) * nz;
+    pl.hi = pl.at;
+    return pl;
+  }
+  const int rows = 2 * ny * nz;
+  pl.yring = true;
+  if (!pl.ring) {
+    pl.lo = rows + sx * nz;
+    pl.hi = rows + (nx + sx) * nz;
+  } else {
+    pl.lo = rows + 2 * nx * nz + (sx < 0 ? 0 : 2) * nz;
+    pl.hi = pl.lo + nz;
+  }
+  return pl;
+}
+
+__device__ __forceinline__ HaloSrc plane_row(const LbmPlan& p, const HaloPlane& pl, int sy) {
+  if ((unsigned)sy < (unsigned)p.ny) return {pl.at + sy * (int)p.nz, pl.ring};
+  return {sy < 0 ? pl.lo : pl.hi, pl.yring};
 }
 
 // A lattice's ring of halos and the media's, null on unsharded plans.
@@ -682,7 +734,9 @@ __device__ __forceinline__ T carried(const LbmPlan& p, const Flow<T>& fl, T temp
 // x - 1 .. x + 1 and rows y - 1 .. y + by.  Each row comes in by one bulk
 // copy (cp.async.bulk, the Tensor Memory Accelerator's 1-D form) completed
 // on the stage's mbarrier, so the bytes in flight do not depend on
-// registers or occupancy.
+// registers or occupancy.  On a block of a mesh (the halo brick, HALO) a
+// row that leaves the block is a whole row of parallel.halo_ring's ring
+// (halo_plane), so only the copy's source changes.
 
 // The byte offsets of one stage and of the block's shared memory:
 // stages x [lattice][q][by][nz] of T, then [3][by + 2][nz] media bytes,
@@ -804,12 +858,24 @@ __device__ __forceinline__ int wrap(int i, int d, int n) {
 // The producer warp brings brick b into `stage`: the barrier's expected
 // bytes from lane 0, then the rows spread over the lanes.  SHIFT false
 // reads each row at the brick's own (x, y) (the probe's copy-only variant).
-template <int Q, typename T, bool SHIFT>
+// HALO (a block of a mesh; one lattice): a row whose source leaves the
+// block comes from its row of the lattice's ring (fr.f) or the media's
+// (fr.m), the same one bulk copy of the same bytes a row.  The producer's
+// code runs beside the consumers' on the SM and is kept small: one loop,
+// not unrolled, over this lane's own rows (no test of every row, no
+// divide a row), the direction's e from e_bits, a row's source a select
+// or a multiply-add from its plane's (halo_plane, three a brick).  On the
+// card the unrolled form of this loop (the unsharded brick's) ran a
+// porous block at about twice the unsharded brick's time, its Q offsets
+// held across bricks and spilled; this loop runs it in less than the
+// unsharded brick's time (PERF.md §6, row 7h).
+template <int Q, typename T, bool SHIFT, bool HALO = false>
 __device__ __forceinline__ void brick_fetch(const LbmPlan& p, long long lattice_bytes,
                                             long long media_off, const T* __restrict__ fpc,
                                             const T* __restrict__ gpc,
                                             const int8_t* __restrict__ media,
-                                            unsigned char* stage, uint64_t* bar, Brick b) {
+                                            unsigned char* stage, uint64_t* bar, Brick b,
+                                            Ring<T> fr = {nullptr, nullptr}) {
   using D = Lattice<Q>;
   const int lane = threadIdx.x & 31;
   const int nx = (int)p.nx, ny = (int)p.ny, by = p.brick.by;
@@ -824,6 +890,43 @@ __device__ __forceinline__ void brick_fetch(const LbmPlan& p, long long lattice_
                                    (media ? 3 * (b.rows + 2) * nz : 0)));
   }
   __syncwarp();
+  if constexpr (HALO) {
+    static_assert(SHIFT, "the halo brick streams");
+    constexpr unsigned long long EX = e_bits<Q>(0), EY = e_bits<Q>(1);
+    const HaloPlane lo = halo_plane(p, b.x - 1), mid = halo_plane(p, b.x),
+                    hi = halo_plane(p, b.x + 1);
+    const long long H = p.halo.stride;
+    // this lane's rows r = lane, lane + 32, ... of the brick's Q by: q = r
+    // / by, j = r mod by, stepped by 32 = dq by + dj
+    const int dq = 32 / by, dj = 32 % by;
+#pragma unroll 1
+    for (int q = lane / by, j = lane % by; q < Q;) {
+      if (j < b.rows) {
+        const int ex = (int)((EX >> (2 * q)) & 3) - 1, ey = (int)((EY >> (2 * q)) & 3) - 1;
+        const HaloSrc s = plane_row(p, ex > 0 ? lo : (ex < 0 ? hi : mid), b.y0 + j - ey);
+        bulk_row(stage + (long long)(q * by + j) * row,
+                 s.ring ? fr.f + (q * H + s.i) : fpc + (q * N + s.i), row, bar);
+      }
+      q += dq;
+      j += dj;
+      if (j >= by) {
+        j -= by;
+        ++q;
+      }
+    }
+    if (media) {
+      // planes x - 1 .. x + 1, rows y0 - 1 .. y0 + rows
+      const int m = b.rows + 2;
+#pragma unroll 1
+      for (int i = lane; i < 3 * m; i += 32) {
+        const int dx = (i >= m) + (i >= 2 * m), jj = i - dx * m;
+        const HaloSrc s = plane_row(p, dx == 0 ? lo : (dx == 1 ? mid : hi), b.y0 + jj - 1);
+        bulk_row(stage + media_off + (long long)(dx * (by + 2) + jj) * nz,
+                 (s.ring ? fr.m : media) + s.i, (uint32_t)nz, bar);
+      }
+    }
+    return;
+  }
   for (int l = 0; l < lattices; ++l) {
     const T* src = l ? gpc : fpc;
 #pragma unroll
@@ -886,18 +989,20 @@ __device__ __forceinline__ BrickPipe brick_pipe(const LbmPlan& p, const BrickLay
   return pipe;
 }
 
-template <int Q, typename T, bool SHIFT>
+template <int Q, typename T, bool SHIFT, bool HALO = false>
 __device__ __forceinline__ void brick_produce(const LbmPlan& p, const BrickPipe& pipe,
                                               long long lattice_bytes, long long media_off,
                                               const T* __restrict__ fpc,
                                               const T* __restrict__ gpc,
-                                              const int8_t* __restrict__ media) {
+                                              const int8_t* __restrict__ media,
+                                              Ring<T> fr = {nullptr, nullptr}) {
   long long k = 0;
   for (long long b = blockIdx.x; b < pipe.bricks; b += gridDim.x, ++k) {
     const int s = (int)(k % pipe.stages);
     if (k >= pipe.stages) mbar_wait(&pipe.empty[s], (uint32_t)((k / pipe.stages - 1) & 1));
-    brick_fetch<Q, T, SHIFT>(p, lattice_bytes, media_off, fpc, gpc, media,
-                             pipe.smem + s * pipe.stage_bytes, &pipe.full[s], brick_at(p, b));
+    brick_fetch<Q, T, SHIFT, HALO>(p, lattice_bytes, media_off, fpc, gpc, media,
+                                   pipe.smem + s * pipe.stage_bytes, &pipe.full[s],
+                                   brick_at(p, b), fr);
   }
 }
 
@@ -950,8 +1055,9 @@ __device__ __forceinline__ Stage<T> stage_at(unsigned char* s, long long lattice
 
 // stream_cell of the cell at row j of the brick, out of the stage: the same
 // pull stream, face and obstacle bounce-back (from the unstreamed value at
-// the cell, a global read) and solid masking.
-template <int Q, typename T>
+// the cell, a global read inside the block) and solid masking; HALO: the
+// faces on the grid's coordinates.
+template <int Q, typename T, bool HALO = false>
 __device__ __forceinline__ void brick_stream(const LbmPlan& p, const LbmFaces& L,
                                              Stage<T> st, int l,
                                              const T* __restrict__ fpc, long long N, Cell c,
@@ -965,7 +1071,7 @@ __device__ __forceinline__ void brick_stream(const LbmPlan& p, const LbmFaces& L
   bool wall = false;
   for (int i = 0; i < L.n_faces; ++i) {
     if (L.face_axis[i] < 0) wall = true;
-    else if (on_face<false>(p, L.face_axis[i], L.face_side[i], c)) bounce |= L.face_dirs[i];
+    else if (on_face<HALO>(p, L.face_axis[i], L.face_side[i], c)) bounce |= L.face_dirs[i];
   }
   wall = wall && fluid;
 #pragma unroll
@@ -980,32 +1086,39 @@ __device__ __forceinline__ void brick_stream(const LbmPlan& p, const LbmFaces& L
 
 // load_lattice of the brick: a cell on a post-stream face takes the global
 // path (its state may start at another cell), every other cell streams
-// out of the stage.
-template <int Q, typename T>
+// out of the stage.  HALO: faces on the grid's coordinates, and the
+// global path reads the lattice's ring where a pull leaves the block.
+template <int Q, typename T, bool HALO = false>
 __device__ __forceinline__ void brick_lattice(const LbmPlan& p, const LbmFaces& L,
                                               Stage<T> st, int l,
                                               const T* __restrict__ fpc,
                                               const int8_t* __restrict__ media,
                                               const T* __restrict__ avec, long long N,
-                                              Cell c, int j, T (&f)[Q]) {
+                                              Cell c, int j, T (&f)[Q],
+                                              Ring<T> ring = {nullptr, nullptr}) {
   bool on_post = false;
   for (int k = 0; k < L.n_post; ++k)
-    on_post |= on_face<false>(p, L.post[k].axis, L.post[k].side, c);
-  if (on_post) load_lattice<Q, T, false>(p, L, fpc, media, avec, N, c, f);
-  else brick_stream<Q, T>(p, L, st, l, fpc, N, c, j, f);
+    on_post |= on_face<HALO>(p, L.post[k].axis, L.post[k].side, c);
+  if (on_post) {
+    if constexpr (HALO) load_lattice<Q, T, true>(p, L, fpc, media, avec, N, c, f, ring);
+    else load_lattice<Q, T, false>(p, L, fpc, media, avec, N, c, f);
+  } else {
+    brick_stream<Q, T, HALO>(p, L, st, l, fpc, N, c, j, f);
+  }
 }
 
 // The streamed value of every direction of lattice l at the cell (after
 // its bounce-back, masking and faces), written back to the cell's own
 // slots of the stage.
-template <int Q, typename T>
+template <int Q, typename T, bool HALO = false>
 __device__ __forceinline__ void settle(const LbmPlan& p, const LbmFaces& L, Stage<T> st, int l,
                                        const T* __restrict__ fpc,
                                        const int8_t* __restrict__ media,
-                                       const T* __restrict__ avec, long long N, Cell c, int j) {
+                                       const T* __restrict__ avec, long long N, Cell c, int j,
+                                       Ring<T> ring = {nullptr, nullptr}) {
   using D = Lattice<Q>;
   T f[Q];
-  brick_lattice<Q, T>(p, L, st, l, fpc, media, avec, N, c, j, f);
+  brick_lattice<Q, T, HALO>(p, L, st, l, fpc, media, avec, N, c, j, f, ring);
   const Around zs(c.z, (int)p.nz);
 #pragma unroll
   for (int q = 0; q < Q; ++q) st.row(l, q, j, zs.v[1 - D::ez(q)]) = f[q];

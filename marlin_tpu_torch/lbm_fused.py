@@ -36,9 +36,11 @@ and the grid's extents, by match_chain's REAL_SPACE rules,
 pallas_lbm.py:1109-1135): each substep takes the halo rings of its
 distributions (``parallel.halo_ring``: the neighbours' boundary planes,
 on a 2-D mesh the y rows and their corners too; the media's ring once a
-step) and the flat kernel reads a pull that leaves the block from them;
-faces sit on the grid's coordinates.  The twin pads the block with its
-rings and streams by slices.
+step) and the kernel reads a pull that leaves the block from them: the
+halo brick on one-lattice 3-D blocks (its producer copies such a row from
+the ring, ``brick_rows``), the flat kernel on the others; faces sit on the
+grid's coordinates.  The twin pads the block with its rings and streams
+by slices.
 
 ``fused_substep`` launches the CUDA kernel of ``csrc/lbm_substep.cu`` (the
 counterpart of pallas_lbm.py:224 ``_make_kernel``) on CUDA tensors and
@@ -1030,7 +1032,7 @@ LIBRARY = uf.CudaLibrary("lbm_substep", {
     # the plan's size and field offsets out (int64[9])
     "mtt_lbm_plan_layout": [uf._P],
 }, source=os.path.join(uf.CSRC, "lbm_substep.cu"),
-    # no contraction (the eager chain's bits); the register report; the 48
+    # no contraction (the eager chain's bits); the register report; the 56
     # kernel instantiations optimized on every core (-split-compile=0; a
     # third of the single-threaded build time, PERF.md)
     flags=["-fmad=false", "-Xptxas=-v", "-split-compile=0"])
@@ -1162,9 +1164,13 @@ def brick_plan(cfg: FusedLBMConfig, dtype, stage_bytes: int = STAGE_BYTES,
     ny); ``stages`` is ``brick_stages`` by default, and fewer where they
     do not fit a block; ``threads`` (at most ``brick_threads``, the
     default) is cut to no more consumer warps than the brick has cells.
-    The defaults are the probe's choice at 256³."""
+    On a block of a mesh each ring row must start at a multiple of nz
+    (``brick_rows``), as it does wherever a ring's stride is one, so that
+    the ring's rows are as aligned as the block's.  The defaults are the
+    probe's choice at 256³."""
     itemsize = torch.empty((), dtype=dtype).element_size()
-    if cfg.nz == 1 or (cfg.nz * itemsize) % 16 or (cfg.has_media and cfg.nz % 16):
+    if cfg.nz == 1 or (cfg.nz * itemsize) % 16 or (cfg.has_media and cfg.nz % 16) \
+            or (cfg.sharded and cfg.ring % cfg.nz):
         return None
     lattices = 2 if cfg.two_lattice else 1
     by = max(1, min(cfg.ny, stage_bytes // (lattices * cfg.q * cfg.nz * itemsize)))
@@ -1201,11 +1207,69 @@ def plane_plan(cfg: FusedLBMConfig, dtype, sms: int) -> Optional[PlanePlan]:
 def walk_plan(cfg: FusedLBMConfig, dtype, sms: int):
     """The walk the kernel takes for ``cfg``: the plane kernel's launch of
     a 2-D Smagorinsky plan (``plane_plan``), the brick walk of a 3-D plan
-    (``brick_plan``), or None: the flat kernel, which a block of a mesh
-    always takes (the brick's and the plane's halo forms are later work)."""
+    (``brick_plan``), or None: the flat kernel.  A block of a mesh with one
+    lattice takes the brick walk of the block (the halo brick); a
+    two-lattice block takes the flat kernel, whose halo form beat the
+    brick on the block on the card (PERF.md §6), as do 2-D blocks (no 2-D
+    deck the JAX package fuses on a mesh takes the plane kernel)."""
     if cfg.sharded:
-        return None
+        return None if cfg.two_lattice or cfg.nz == 1 else brick_plan(cfg, dtype)
     return plane_plan(cfg, dtype, sms) if cfg.nz == 1 else brick_plan(cfg, dtype)
+
+
+def brick_rows(cfg: FusedLBMConfig, brick, q: int):
+    """The sources of the lattice rows that the producer of brick ``brick``
+    = (x, y0, rows) copies for direction ``q``, mirroring
+    csrc/lbm_substep.cuh ``brick_fetch`` (on a block of a mesh its
+    ``halo_plane`` and ``plane_row``): a list, row j of the brick, of
+    (buffer, offset), buffer "block" (the direction's (nx, ny, nz) values,
+    flattened) or "ring" (the direction's ring of ``parallel.halo_ring``),
+    offset the first of the row's nz values there, those of plane x - e_x,
+    row y0 + j - e_y."""
+    x, y0, rows = brick
+    ex, ey, _ez = cfg.e[q]
+    plane = _plane(cfg, x - ex)
+    return [_plane_row(cfg, plane, y0 + j - ey) for j in range(rows)]
+
+
+def media_rows(cfg: FusedLBMConfig, brick):
+    """The sources of the media rows of brick ``brick`` = (x, y0, rows), as
+    ``brick_rows`` gives a direction's: [dx][jj] for planes x - 1 .. x + 1
+    and rows y0 - 1 .. y0 + rows, (buffer, offset) in the media block or
+    the media's ring."""
+    x, y0, rows = brick
+    return [[_plane_row(cfg, _plane(cfg, x + dx - 1), y0 + jj - 1) for jj in range(rows + 2)]
+            for dx in range(3)]
+
+
+def _plane(cfg: FusedLBMConfig, sx: int):
+    """csrc/lbm_substep.cuh ``halo_plane`` of plane sx in -1..nx: (at, lo,
+    hi, ring, yring), rows 0..ny-1 at at + sy·nz (in the ring where ring),
+    rows -1 and ny at lo and hi (in the ring where yring); on an unsharded
+    plan the plane wrapped in the block."""
+    nx, ny, nz = cfg.nx, cfg.ny, cfg.nz
+    if not cfg.sharded:
+        at = (sx % nx) * ny * nz
+        return at, at + (ny - 1) * nz, at, False, False
+    ring = sx < 0 or sx == nx
+    at = (0 if sx < 0 else ny * nz) if ring else sx * ny * nz
+    if not cfg.shard_y:
+        # y wraps in the plane
+        return at, at + (ny - 1) * nz, at, ring, ring
+    rows = 2 * ny * nz  # the x planes; then the y rows, then the corners
+    if not ring:
+        return at, rows + sx * nz, rows + (nx + sx) * nz, False, True
+    lo = rows + 2 * nx * nz + (0 if sx < 0 else 2) * nz
+    return at, lo, lo + nz, True, True
+
+
+def _plane_row(cfg: FusedLBMConfig, plane, sy: int):
+    """csrc/lbm_substep.cuh ``plane_row``: (buffer, offset) of row sy in
+    -1..ny of ``plane``."""
+    at, lo, hi, ring, yring = plane
+    if 0 <= sy < cfg.ny:
+        return ("ring" if ring else "block"), at + sy * cfg.nz
+    return ("ring" if yring else "block"), lo if sy < 0 else hi
 
 
 def pack(cfg: FusedLBMConfig, walk=None, offsets=(0, 0)) -> _Plan:
@@ -1229,9 +1293,10 @@ def pack(cfg: FusedLBMConfig, walk=None, offsets=(0, 0)) -> _Plan:
     p.halo.xoff, p.halo.yoff = offsets
     p.halo.gnx, p.halo.gny = cfg.gnx, cfg.gny
     p.halo.stride = cfg.ring if cfg.sharded else 0
-    if cfg.sharded and walk is not None:
+    if cfg.sharded and (isinstance(walk, PlanePlan) or (walk is not None and cfg.two_lattice)):
         raise FusedChainError("lbm_backend = PALLAS: a block of a mesh takes the "
-                              "flat kernel (no brick or plane walk)")
+                              "flat kernel or, with one lattice, the brick walk (no "
+                              "plane walk)")
     if isinstance(walk, PlanePlan):
         p.brick.threads, p.brick.grid = walk.threads, walk.grid
     elif walk is not None:

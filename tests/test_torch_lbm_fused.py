@@ -1086,6 +1086,63 @@ def test_brick_plan_fits_or_is_none(case, extent, dtype):
         assert (walk.by + 1) * lattices * cfg.q * cfg.nz * item > lf.STAGE_BYTES
 
 
+# -- the walks of a block of a REAL_SPACE mesh -------------------------------------------
+
+SPLITS = [(1, 1), (2, 1), (4, 1), (2, 2)]
+
+
+@pytest.mark.parametrize("split", SPLITS, ids=lambda s: f"{s[0]}x{s[1]}")
+@pytest.mark.parametrize("case", PLAN_CASES + PLAN_CASES_2D)
+def test_block_walk_and_pack(case, split):
+    """A block of a mesh (``shard_plan`` of 64³, or of 64×64 on 2-D plans)
+    takes the brick walk of the block on one-lattice 3-D plans (the halo
+    brick), and the flat kernel (None) on two-lattice and 2-D blocks.  The
+    packed plan carries the walk and the halo fields together; ``pack``
+    refuses a plane walk on any block and a brick walk on a two-lattice
+    block."""
+    base = plan_config(case)
+    extent = (64, 64, 1) if base.two_d else (64, 64, 64)
+    cfg = dataclasses.replace(base, nx=extent[0], ny=extent[1], nz=extent[2])
+    block, offs = lf.shard_plan(cfg, split, (split[0] - 1, split[1] - 1))
+    for dtype in DTYPES:
+        walk = lf.walk_plan(block, dtype, H100_SMS)
+        if block.two_lattice or block.two_d:
+            assert walk is None
+        else:
+            assert isinstance(walk, lf.BrickPlan) and walk == lf.brick_plan(block, dtype)
+            p = lf.pack(block, walk, offs)
+            assert (p.brick.by, p.brick.stages, p.brick.threads, p.brick.smem) == (
+                walk.by, walk.stages, walk.threads, walk.smem)
+            assert (p.halo.on, p.halo.shard_y, p.halo.xoff, p.halo.yoff) == (
+                1, int(split[1] > 1), offs[0], offs[1])
+            assert (p.halo.gnx, p.halo.gny, p.halo.stride) == (64, 64, block.ring)
+            assert block.ring % block.nz == 0
+    p = lf.pack(block, None, offs)
+    assert p.halo.on == 1 and p.brick.by == 0
+    with pytest.raises(lf.FusedChainError, match="no plane walk"):
+        lf.pack(block, lf.PlanePlan(threads=lf.PLANE_THREADS, grid=1), offs)
+    if block.two_lattice and not block.two_d:
+        with pytest.raises(lf.FusedChainError, match="with one lattice, the brick walk"):
+            lf.pack(block, lf.brick_plan(block, torch.float32), offs)
+
+
+def test_block_brick_needs_ring_rows_at_multiples_of_nz():
+    """``brick_plan`` admits a block only where each ring row starts at a
+    multiple of nz (the ring's stride is one), as the bulk copies from the
+    ring need; a ring that is not is refused, not copied from."""
+    cfg = dataclasses.replace(plan_config("mixed_8"), nx=64, ny=64, nz=64)
+    block, _offs = lf.shard_plan(cfg, (2, 2), (0, 0))
+    assert lf.brick_plan(block, torch.float32) is not None
+
+    class Odd(type(block)):
+        @property
+        def ring(self):
+            return super().ring + 1
+
+    odd = Odd(**{f.name: getattr(block, f.name) for f in dataclasses.fields(block)})
+    assert lf.brick_plan(odd, torch.float32) is None
+
+
 # -- the plane kernel of 2-D Smagorinsky plans -------------------------------------------
 
 PLANE_EXTENTS = [(33, 17), (1000, 333), (800, 200), (4096, 2048)]
@@ -1345,6 +1402,41 @@ def test_brick_matches_flat_on_card(cuda, case, dtype):
         torch.cuda.synchronize()
         for g, r in zip(got, ref):
             torch.testing.assert_close(g, r, rtol=0, atol=0, equal_nan=True)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+@pytest.mark.parametrize("case", ["porous_8", "mixed_8", "allface_d3q27", "allface_d3q27_mrt",
+                                  "zeroth_order", "perturb_3d", "thermal"])
+def test_halo_blocks_match_unsharded_on_card(cuda, case, dtype):
+    """Blocks cut from one 64³ field at every split, their halos sliced from
+    the neighbours (``block_halo``), each run on the walk ``walk_plan``
+    gives it (the halo brick on one-lattice plans) and on the flat kernel
+    (``pack(b, None, offs)``): put together, each equals the unsharded
+    kernel bit for bit."""
+    import itertools
+
+    cfg = dataclasses.replace(port_plan(case).config, nx=64, ny=64, nz=64)
+    fpc, gpc, media = _card_inputs(cfg, dtype, cuda, 11)
+    ref = lf.fused_substep(fpc, media, cfg, gpc)
+    for split in SPLITS:
+        outs = {}
+        for ij in itertools.product(range(split[0]), range(split[1])):
+            b, offs = lf.shard_plan(cfg, split, ij)
+            fb, fr = lf.block_halo(fpc, b, offs, 1)
+            gb, gr = lf.block_halo(gpc, b, offs, 1) if gpc is not None else (None, None)
+            mb, mr = lf.block_halo(media, b, offs, 0) if media is not None else (None, None)
+            walk = lf.walk_plan(b, dtype, H100_SMS)
+            assert (walk is None) == cfg.two_lattice
+            _plan, avec = lf._kernel_args(fb, mb, b, gb, "test", offs)
+            flat = lf.plan_stepper(fb, mb, b, gb, lf.pack(b, None, offs), avec)
+            outs[ij] = (lf.fused_substep(fb, mb, b, gb, rings=(fr, gr, mr), offsets=offs),
+                        flat(fb, gb, rings=(fr, gr, mr)))
+        for form in range(2):
+            for k in range(len(ref)):
+                got = torch.cat([torch.cat([outs[(i, j)][form][k] for j in range(split[1])],
+                                           dim=-2) for i in range(split[0])], dim=-3)
+                torch.testing.assert_close(got, ref[k], rtol=0, atol=0, equal_nan=True)
 
 
 @pytest.mark.cuda

@@ -282,6 +282,48 @@ def test_halo_twin_equals_unsharded_twin(name):
             assert torch.equal(got, ref[k]), (name, split, k)
 
 
+@pytest.mark.parametrize("by", [1, 3])
+@pytest.mark.parametrize("name", sorted(n for n in HALO if HALO[n][0][2] > 1))
+def test_brick_rows_read_the_padded_block(name, by):
+    """The halo brick's producer, mirrored (``lf.brick_rows`` and
+    ``lf.media_rows``, csrc/lbm_substep.cuh ``halo_row``): for every brick
+    of every block at each split and every direction, the rows it names in
+    (block, ring) are the rows of ``parallel.ring_to_padded`` that the
+    brick pulls from, plane x - e_x and row y - e_y; likewise the media
+    rows of planes x - 1 .. x + 1 and rows y0 - 1 .. y0 + rows.  Bricks of
+    1 and 3 rows (a short last brick at y = ny)."""
+    from marlin_tpu_torch.parallel import ring_to_padded
+
+    shape, splits = HALO[name]
+    cfg = dataclasses.replace(_plan(name), nx=shape[0], ny=shape[1], nz=shape[2])
+    f = torch.arange(cfg.q * math.prod(shape), dtype=torch.float64).reshape((cfg.q,) + shape)
+    m = torch.arange(math.prod(shape), dtype=torch.int64).reshape(shape)
+    for split in [(1, 1), (2, 1), (4, 1), (2, 2)]:
+        for ij in itertools.product(range(split[0]), range(split[1])):
+            b, offs = lf.shard_plan(cfg, split, ij)
+            fb, fr = lf.block_halo(f, b, offs, 1)
+            mb, mr = lf.block_halo(m, b, offs, 0)
+            fpad = ring_to_padded(fb, fr, 1, b.shard_y)
+            mpad = ring_to_padded(mb, mr, 0, b.shard_y)
+            dy = 1 if b.shard_y else 0
+
+            def row(buf, ring, source):
+                kind, off = source
+                assert off % b.nz == 0
+                return (buf.reshape(-1) if kind == "block" else ring)[off:off + b.nz]
+
+            for x, y0 in itertools.product(range(b.nx), range(0, b.ny, by)):
+                brick = (x, y0, min(by, b.ny - y0))
+                for q, (ex, ey, _ez) in enumerate(b.e):
+                    for j, src in enumerate(lf.brick_rows(b, brick, q)):
+                        sy = y0 + j - ey + dy if b.shard_y else (y0 + j - ey) % b.ny
+                        assert torch.equal(row(fb[q], fr[q], src), fpad[q, x - ex + 1, sy])
+                for dx, rows in enumerate(lf.media_rows(b, brick)):
+                    for jj, src in enumerate(rows):
+                        sy = y0 + jj - 1 + dy if b.shard_y else (y0 + jj - 1) % b.ny
+                        assert torch.equal(row(mb, mr, src), mpad[x + dx, sy])
+
+
 def test_rings_are_checked_against_the_plan():
     cfg = dataclasses.replace(_plan("porous"), nx=8, ny=8, nz=6)
     b, offs = lf.shard_plan(cfg, (2, 1), (0, 0))

@@ -108,7 +108,7 @@ CSV_PPS = """
 """
 
 SPECTRA = ("cbar", "Mbarmubar")
-#: the Cahn-Hilliard deck from a seeded RandomTensor: the global stream cut
+#: the Cahn-Hilliard deck from a seeded RandomTensor: each rank's own draw
 RANDOM_IC = """    [c]
       type = RandomTensor
       buffer = c
@@ -133,14 +133,16 @@ RUNS = {
     "multi_fused": (lambda: multi("FFT_SLAB"), 2, 0.05, ("c", "n1")),
     "ch3d_random": (lambda: ch3d_random("FFT_SLAB"), 1, 1.0, ("c",)),
 }
+#: the initial buffers a run sends back
+INITIAL = {"ch3d_random": ("c",)}
 
 
 def _cases(world, tmp):
     cases = [("slab_fft", dict(dim=d, n=n[world], complex_input=c))
              for d, n, c in FFTS.values()]
     cases += [("deck_run", dict(text=make(), steps=steps, mode="FFT_SLAB", dt=dt,
-                                buffers=keys))
-              for make, steps, dt, keys in RUNS.values()]
+                                buffers=keys, initial=INITIAL.get(name, ())))
+              for name, (make, steps, dt, keys) in RUNS.items()]
     cases.append(("deck_run", dict(text=ch3d("FFT_SLAB") + CSV_PPS, steps=2,
                                    mode="FFT_SLAB", how="run_deck",
                                    output_dir=str(tmp / f"csv{world}"))))
@@ -317,13 +319,23 @@ def test_ch3d_slab_pallas_matches_serial_and_jax(ranks, jx, world, run):
 
 
 @pytest.mark.parametrize("world", WORLDS)
-def test_random_ic_draws_the_global_stream(ranks, world):
-    """A seeded RandomTensor on a mesh: each rank keeps its block of the
-    whole grid's draw, so the sharded run equals the serial one."""
+def test_random_ic_draws_the_global_stream(ranks, jx, world):
+    """A seeded RandomTensor on a mesh: every rank seeds and draws its own
+    block's shape (reference RandomTensor.C:42-53), so the global field is
+    rank 0's block tiled in rank order.  The draw equals the JAX package's
+    sharded one bit for bit in float64, and c after a step within
+    CH_TOL."""
     make, steps, dt, keys = RUNS["ch3d_random"]
     res = _result(ranks, world, "ch3d_random", text=make())
+    blocks = [r["initial"]["c"] for r in res]
+    for b in blocks[1:]:
+        np.testing.assert_array_equal(b, blocks[0])
+    drawn = torch_ranks.assemble([(r["slice"], r["initial"]["c"]) for r in res], (N,) * 3)
+    assert drawn.dtype == np.float64
+    np.testing.assert_array_equal(drawn, _jax_run(jx, make(), world, 0, dt)["c"])
     np.testing.assert_allclose(_assembled(res, "c", (N,) * 3),
-                               _serial(make(), steps, dt)["c"], rtol=0, atol=CH_TOL)
+                               _jax_run(jx, make(), world, steps, dt)["c"], rtol=0,
+                               atol=CH_TOL)
 
 
 @pytest.mark.parametrize("world", [2])

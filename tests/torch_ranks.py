@@ -123,13 +123,14 @@ def slab_fft(dim, n, complex_input, seed=0):
 
 
 def deck_run(text, steps, mode, mesh_shape=None, arrays=None, buffers=(), old=(),
-             how="steps", dt=1.0, output_dir=None):
+             how="steps", dt=1.0, output_dir=None, initial=()):
     """A deck on the mesh of every rank.  ``how`` "steps": the
     problem's steps at ``dt`` from t = 0, as the JAX package's tests drive
     them (the first one the first step); "run_deck": the whole run, its
     CSV in ``output_dir``/rank<r>.  Returns this rank's slices and blocks
     of ``buffers`` (None: every one) and of the history stacks ``old``,
-    the residual, the advances and, under run_deck, the postprocessor
+    the initial state's blocks of ``initial`` (under "steps"), the
+    residual, the advances and, under run_deck, the postprocessor
     values."""
     import torch.distributed as dist
 
@@ -142,6 +143,7 @@ def deck_run(text, steps, mode, mesh_shape=None, arrays=None, buffers=(), old=()
     if how == "steps":
         p = TensorProblem(hit.parse(text), device="cpu", arrays=arrays, mesh=mesh)
         st = p.init_state()
+        res["initial"] = {k: st["buffers"][k].numpy().copy() for k in initial}
         for i in range(steps):
             st = p.step(st, i * dt, dt, dt, i == 0)
     else:
