@@ -1869,9 +1869,9 @@ def reset_all():
     lf.reset_launches()
 
 
-def deck_run(deck, dev, arrays=None):
-    """run_deck with every launch count set to 0 just before and read just
-    after: (transient, wall seconds, launches)."""
+def deck_run(deck, dev, arrays=None, mesh=None):
+    """run_deck (on ``mesh`` where given) with every launch count set to 0
+    just before and read just after: (transient, wall seconds, launches)."""
     from marlin_tpu_torch import hit
     from marlin_tpu_torch.executioner import run_deck
 
@@ -1881,7 +1881,8 @@ def deck_run(deck, dev, arrays=None):
     with tempfile.TemporaryDirectory() as out_dir:
         torch.cuda.synchronize()
         t0 = time.perf_counter()
-        tr = run_deck(hit.parse(deck), output_dir=out_dir, device=dev, arrays=arrays)
+        tr = run_deck(hit.parse(deck), output_dir=out_dir, device=dev, arrays=arrays,
+                      mesh=mesh)
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
     return tr, wall, all_launches()
@@ -2320,6 +2321,7 @@ def phase_etdrk4(dev, smi):
             assert fin, run
             mass(tr, f"15a {run}")
             c[backend] = tr.state["buffers"]["c"]
+            SERIAL[f"etdrk4 {backend}"] = c[backend].cpu()  # phase 19's anchors
         else:
             # the reference's tables divide by (L·dt)³, 2.3e-8 at the smallest
             # |L·dt| here: tests/test_torch_solvers.py finds them non-finite
@@ -3356,6 +3358,9 @@ def phase_neml2(dev, tmp, smi):
             f"({ms_solve / max(its, 1):.2f} ms an iteration, the first residual and the "
             f"final forward included); plastic share {(b['ep'] > 0).double().mean().item():.3f}")
         out[prec] = {k: b[k] for k in ("Ep", "ep", "S", "psi", "psi_inactive")}
+        if prec == "DOUBLE":  # phase 19's anchor: the Newton log and the end state
+            SERIAL["perzyna"] = (steps_log[:NEML2_STEPS],
+                                 {k: v.cpu() for k, v in out[prec].items()})
         del tr, b, virgin
     for k in out["DOUBLE"]:
         d = max_rel(out["SINGLE"][k], out["DOUBLE"][k])
@@ -3589,10 +3594,11 @@ def mesh_run(deck, dev, mesh, arrays=None):
     return tr, time.perf_counter() - t0
 
 
-def phase_distributed(uf, sp, lf, dev, smi, serial_ms):
+def phase_distributed(uf, sp, lf, dev, smi, serial_ms, version):
     """Phase 18: the distributed modes.  (a) kernels 5-6 in slab form and
-    kernel 7's halo branch at P > 1 in one process; (b) the decks on an
-    NCCL group of world size 1.  Returns (rows, launches of (b))."""
+    kernel 7's halo branch at P > 1 in one process; (b) the decks on the
+    NCCL group of world size 1 (``version`` its NCCL's).  Returns (rows,
+    launches of (b))."""
     import torch.distributed as dist
 
     from marlin_tpu_torch import parallel
@@ -3603,107 +3609,103 @@ def phase_distributed(uf, sp, lf, dev, smi, serial_ms):
     halo_rows = halo_kernel_rows(lf, dev)
     t_a = time.perf_counter() - t0
 
-    version = nccl_world_of_one(dev)
     launches = {}
-    try:
-        mesh = parallel.make_mesh("FFT_SLAB")
-        say(f"[18b] NCCL {version}, world size {dist.get_world_size()}, mesh {mesh}")
-        n_sub = STEPS * SUBSTEPS
-        for route in SLAB_ROUTES:
-            reset(uf, sp)
-            parallel.reset_calls()
-            tr, wall = mesh_run(slab_deck(route, dev), dev, mesh)
-            got = counters(uf, sp)
-            calls = parallel.calls()
-            S = SUBSTEPS
-            if route == "DEFAULT":
-                want = {k: 0 for k in got}
-                a2a = 3 * n_sub
-            elif route == "PALLAS":
-                want = {"fwd_lanes": 2 * n_sub, "fwd_lanes_pre": 0,
-                        "fwd_sublanes": 4 * n_sub, "inv_sublanes": 2 * n_sub,
-                        "inv_lanes": n_sub, "fwd_x_update": 0, "fwd_x_update_poly": 0}
-                a2a = 3 * n_sub
-            else:
-                want = {"fwd_lanes": STEPS * 2, "fwd_lanes_pre": STEPS * (S - 1),
-                        "fwd_sublanes": STEPS * (2 + (S - 1) + 2),
-                        "fwd_x_update": STEPS * (S - 1), "fwd_x_update_poly": 0,
-                        "inv_sublanes": STEPS * 2 * S, "inv_lanes": STEPS * S}
-                a2a = STEPS * (2 * S + 1)
-            assert got == want, (route, got, want)
-            assert calls["all_to_all"] == a2a, (route, calls, a2a)
-            launches[f"slab {route}"] = got
-            c = tr.state["buffers"]["c"]
-            assert c.shape == (N, N, N) and bool(torch.isfinite(c).all()), route
-            mass(tr, f"18b slab {route}")
-            d = (c.cpu() - SERIAL[route]).abs().max().item()
-            ms = substep_ms(tr, 1.0)
-            say(f"[18b] CH3D {N}^3 FFT_SLAB {route}: run_deck {wall:.2f} s, {ms:.3f} "
-                f"ms/substep (serial {serial_ms[route]:.3f}), max|c_slab - c_serial| "
-                f"{d:.3e} (limit {SLAB_TOL[route]}), launches exact, all_to_all {a2a}")
-            assert d <= SLAB_TOL[route], (route, d)
-            del tr, c
-            torch.cuda.empty_cache()
-        # the collective layer: one all_to_all of a 512³ complex64 block
-        blk = torch.randn((N, N, N), generator=gen, dtype=torch.complex64, device=dev)
-        a2a_ms = cuda_ms(lambda: parallel.all_to_all(mesh, blk, 0, 1), reps=5)
-        say(f"[18b] all_to_all of a {N}^3 complex64 block at world size 1: {a2a_ms:.3f} ms "
-            f"(3 a substep unfused, 2 fused)")
-        del blk
+    mesh = parallel.make_mesh("FFT_SLAB")
+    say(f"[18b] NCCL {version}, world size {dist.get_world_size()}, mesh {mesh}")
+    n_sub = STEPS * SUBSTEPS
+    for route in SLAB_ROUTES:
         reset(uf, sp)
-        tr, wall = mesh_run(multi_deck(FUSED).replace(
-            "[Domain]", "[Domain]\n  parallel_mode = FFT_SLAB"), dev, mesh)
+        parallel.reset_calls()
+        tr, wall = mesh_run(slab_deck(route, dev), dev, mesh)
         got = counters(uf, sp)
-        assert got["fwd_x_update_poly"] == STEPS * (SUBSTEPS - 1), got
-        launches["slab multi fused"] = got
-        mass(tr, "18b slab multi")
-        for k in ("c", "n1"):
-            d = (tr.state["buffers"][k].cpu() - SERIAL[f"multi {k}"]).abs().max().item()
-            say(f"[18b] MULTI_3D {N}^3 FFT_SLAB fused: max|{k}_slab - {k}_serial| {d:.3e} "
-                f"(limit {MULTI_TOL})")
-            assert d <= MULTI_TOL, (k, d)
-        say(f"[18b] MULTI_3D fused slab {substep_ms(tr, MULTI_DT):.3f} ms/substep, "
-            f"run_deck {wall:.2f} s")
+        calls = parallel.calls()
+        S = SUBSTEPS
+        if route == "DEFAULT":
+            want = {k: 0 for k in got}
+            a2a = 3 * n_sub
+        elif route == "PALLAS":
+            want = {"fwd_lanes": 2 * n_sub, "fwd_lanes_pre": 0,
+                    "fwd_sublanes": 4 * n_sub, "inv_sublanes": 2 * n_sub,
+                    "inv_lanes": n_sub, "fwd_x_update": 0, "fwd_x_update_poly": 0}
+            a2a = 3 * n_sub
+        else:
+            want = {"fwd_lanes": STEPS * 2, "fwd_lanes_pre": STEPS * (S - 1),
+                    "fwd_sublanes": STEPS * (2 + (S - 1) + 2),
+                    "fwd_x_update": STEPS * (S - 1), "fwd_x_update_poly": 0,
+                    "inv_sublanes": STEPS * 2 * S, "inv_lanes": STEPS * S}
+            a2a = STEPS * (2 * S + 1)
+        assert got == want, (route, got, want)
+        assert calls["all_to_all"] == a2a, (route, calls, a2a)
+        launches[f"slab {route}"] = got
+        c = tr.state["buffers"]["c"]
+        assert c.shape == (N, N, N) and bool(torch.isfinite(c).all()), route
+        mass(tr, f"18b slab {route}")
+        d = (c.cpu() - SERIAL[route]).abs().max().item()
+        ms = substep_ms(tr, 1.0)
+        say(f"[18b] CH3D {N}^3 FFT_SLAB {route}: run_deck {wall:.2f} s, {ms:.3f} "
+            f"ms/substep (serial {serial_ms[route]:.3f}), max|c_slab - c_serial| "
+            f"{d:.3e} (limit {SLAB_TOL[route]}), launches exact, all_to_all {a2a}")
+        assert d <= SLAB_TOL[route], (route, d)
+        del tr, c
+        torch.cuda.empty_cache()
+    # the collective layer: one all_to_all of a 512³ complex64 block
+    blk = torch.randn((N, N, N), generator=gen, dtype=torch.complex64, device=dev)
+    a2a_ms = cuda_ms(lambda: parallel.all_to_all(mesh, blk, 0, 1), reps=5)
+    say(f"[18b] all_to_all of a {N}^3 complex64 block at world size 1: {a2a_ms:.3f} ms "
+        f"(3 a substep unfused, 2 fused)")
+    del blk
+    reset(uf, sp)
+    tr, wall = mesh_run(multi_deck(FUSED).replace(
+        "[Domain]", "[Domain]\n  parallel_mode = FFT_SLAB"), dev, mesh)
+    got = counters(uf, sp)
+    assert got["fwd_x_update_poly"] == STEPS * (SUBSTEPS - 1), got
+    launches["slab multi fused"] = got
+    mass(tr, "18b slab multi")
+    for k in ("c", "n1"):
+        d = (tr.state["buffers"][k].cpu() - SERIAL[f"multi {k}"]).abs().max().item()
+        say(f"[18b] MULTI_3D {N}^3 FFT_SLAB fused: max|{k}_slab - {k}_serial| {d:.3e} "
+            f"(limit {MULTI_TOL})")
+        assert d <= MULTI_TOL, (k, d)
+    say(f"[18b] MULTI_3D fused slab {substep_ms(tr, MULTI_DT):.3f} ms/substep, "
+        f"run_deck {wall:.2f} s")
+    del tr
+    torch.cuda.empty_cache()
+
+    lmesh = parallel.make_mesh("REAL_SPACE")
+    for backend in ("PALLAS", "JNP"):
+        deck, arrays = lbm_deck("porous", backend)
+        deck = deck.replace("[Domain]", "[Domain]\n  parallel_mode = REAL_SPACE")
+        lf.reset_launches()
+        parallel.reset_calls()
+        tr, wall = mesh_run(deck, dev, lmesh, arrays)
+        n = lf.launches()["lbm_substep"]
+        want = (LBM_STEPS - 1) * (LBM_SUBSTEPS - 1) if backend == "PALLAS" else 0
+        assert n == want, (backend, n, want)
+        launches[f"real_space porous {backend}"] = {"lbm_substep": n}
+        worst, equal = 0.0, True
+        for k, ref in SERIAL[f"porous {backend}"].items():
+            v = tr.state["buffers"][k]
+            assert bool(torch.isfinite(v).all()), (backend, k)
+            d = (v.cpu() - ref).abs().max().item()
+            mag = ref.abs().max().item()
+            assert d <= KERNEL_TOL * mag, (backend, k, d, mag)
+            worst = max(worst, d / mag)
+            equal = equal and torch.equal(v.cpu(), ref)
+        # the halo brick of the world-of-one block gives the serial brick's bits
+        assert equal or backend != "PALLAS", backend
+        ms = lbm_substep_ms(tr)
+        say(f"[18b] POROUS {LBM_N}^3 REAL_SPACE {backend}: run_deck {wall:.2f} s, "
+            f"{ms:.3f} ms/substep (serial {serial_ms['porous ' + backend]:.3f}), "
+            f"lbm_substep launches {n}, exchanges {parallel.calls()['exchange']}, "
+            f"max relative |slab - serial| {worst:.3e} (limit {KERNEL_TOL}), "
+            f"{'equal bits' if equal else 'bits differ'}")
         del tr
         torch.cuda.empty_cache()
-
-        lmesh = parallel.make_mesh("REAL_SPACE")
-        for backend in ("PALLAS", "JNP"):
-            deck, arrays = lbm_deck("porous", backend)
-            deck = deck.replace("[Domain]", "[Domain]\n  parallel_mode = REAL_SPACE")
-            lf.reset_launches()
-            parallel.reset_calls()
-            tr, wall = mesh_run(deck, dev, lmesh, arrays)
-            n = lf.launches()["lbm_substep"]
-            want = (LBM_STEPS - 1) * (LBM_SUBSTEPS - 1) if backend == "PALLAS" else 0
-            assert n == want, (backend, n, want)
-            launches[f"real_space porous {backend}"] = {"lbm_substep": n}
-            worst, equal = 0.0, True
-            for k, ref in SERIAL[f"porous {backend}"].items():
-                v = tr.state["buffers"][k]
-                assert bool(torch.isfinite(v).all()), (backend, k)
-                d = (v.cpu() - ref).abs().max().item()
-                mag = ref.abs().max().item()
-                assert d <= KERNEL_TOL * mag, (backend, k, d, mag)
-                worst = max(worst, d / mag)
-                equal = equal and torch.equal(v.cpu(), ref)
-            # the halo brick of the world-of-one block gives the serial brick's bits
-            assert equal or backend != "PALLAS", backend
-            ms = lbm_substep_ms(tr)
-            say(f"[18b] POROUS {LBM_N}^3 REAL_SPACE {backend}: run_deck {wall:.2f} s, "
-                f"{ms:.3f} ms/substep (serial {serial_ms['porous ' + backend]:.3f}), "
-                f"lbm_substep launches {n}, exchanges {parallel.calls()['exchange']}, "
-                f"max relative |slab - serial| {worst:.3e} (limit {KERNEL_TOL}), "
-                f"{'equal bits' if equal else 'bits differ'}")
-            del tr
-            torch.cuda.empty_cache()
-        fpc = torch.rand((19,) + (LBM_N,) * 3, generator=gen, device=dev)
-        ring_ms = cuda_ms(lambda: parallel.halo_ring(lmesh, fpc, 1, False), reps=5)
-        say(f"[18b] halo ring of a {LBM_N}^3 D3Q19 float32 block at world size 1: "
-            f"{ring_ms:.3f} ms (one a fused substep)")
-        del fpc
-    finally:
-        dist.destroy_process_group()
+    fpc = torch.rand((19,) + (LBM_N,) * 3, generator=gen, device=dev)
+    ring_ms = cuda_ms(lambda: parallel.halo_ring(lmesh, fpc, 1, False), reps=5)
+    say(f"[18b] halo ring of a {LBM_N}^3 D3Q19 float32 block at world size 1: "
+        f"{ring_ms:.3f} ms (one a fused substep)")
+    del fpc
     torch.cuda.empty_cache()
     say(f"[18] distributed modes in {time.perf_counter() - t0:.1f} s ((a) {t_a:.1f} s); "
         f"{smi}")
@@ -3716,6 +3718,229 @@ def phase_distributed(uf, sp, lf, dev, smi, serial_ms):
                           "flat": "lbm_substep_kernel<Q, T, TWO, MRT> with LbmPlan.halo "
                                   "(two-lattice and 2-D blocks; flat_halo_ms on every row)"}},
             "collective": {"all_to_all_ms": a2a_ms, "halo_ring_ms": ring_ms}}
+    return rows, launches
+
+# -- 19: the mesh family ----------------------------------------------------------------
+
+MESH_SUBSTEPS = 2  # (a) the pencil's CH3D run: STEPS steps of 2 substeps
+PENCIL_TOL = 5e-5  # (a) c against the serial DEFAULT run (float32)
+MESH_MECH_SUBSTEPS = 2  # (c) one step: the first substep unloaded, the second a solve
+MESH_MECH_TOL = 1e-4  # (c) F and stress (tests/test_mechanics_parallel.py:94-98)
+NEML2_MESH_TOL = 1e-10  # (d) float64, of each buffer's largest
+LAP_N = 512  # (e) LAPLACIAN_RS_DECK 3-D, float32, the 5-point stencil
+LAP_TOL = 1e-6  # (e) u against serial
+SLAB_FFT_P = (2, 4)  # (f) kernels 1-4 in slab form: the blocks of p ranks
+SLAB_FFT = {  # (f) name -> (block, the wrapper's view of it, dtype)
+    "fwd_lanes slab": ("y", lambda b, p: (N * N // p, N), torch.float32),
+    "fwd_sublanes slab": ("y", lambda b, p: (1, N, N * N // p), torch.complex64),
+    "inv_sublanes slab": ("y", lambda b, p: (1, N, N * N // p), torch.complex64),
+    "inv_lanes slab": ("y", lambda b, p: (N * N // p, N), torch.complex64),
+    "fwd_sublanes slab x": ("x", lambda b, p: (N // p, N, N), torch.complex64),
+    "inv_sublanes slab x": ("x", lambda b, p: (N // p, N, N), torch.complex64),
+}
+
+
+def slab_fft_rows(uf, dev, gen):
+    """(f) kernels 1-4 in the slab form of fft_slab_pallas and its inverse:
+    for p in SLAB_FFT_P, rank 0's Y-sharded block (N, N/p, N) (kernel 1
+    along z, 3 and 4 along x, 2 along z with a real output) and X-sharded
+    block (N/p, N, N) (3 and 4 along y), each cut from one 512³ field,
+    against the twin within 1e-5 of its largest value; ms a launch, the
+    twin's, torch.fft's and the byte bound."""
+    library = {"fwd_lanes": lambda x: torch.fft.fft(x, dim=-1),
+               "inv_lanes": lambda x: torch.fft.ifft(x, dim=-1).real,
+               "fwd_sublanes": lambda x: torch.fft.fft(x, dim=1),
+               "inv_sublanes": lambda x: torch.fft.ifft(x, dim=1)}
+    rows = {}
+    for name, (cut, view, dtype) in SLAB_FFT.items():
+        base = name.split()[0]
+        field = torch.randn((N,) * 3, generator=gen, dtype=dtype, device=dev)
+        for p in SLAB_FFT_P:
+            blk = (field[:, :N // p] if cut == "y" else field[:N // p]).contiguous()
+            x = blk.reshape(view(blk, p))
+            kernel, twin = getattr(uf, base), getattr(uf, base + "_plain")
+            if base == "inv_lanes":
+                run_k = lambda: kernel(x, real_output=True)
+                run_t = lambda: twin(x, real_output=True)
+            else:
+                run_k, run_t = (lambda: kernel(x)), (lambda: twin(x))
+            got = run_k()
+            torch.cuda.synchronize()
+            err = check(f"{name} p={p}", tuple(x.shape), got, run_t())
+            del got
+            n = x.shape[1] if "sub" in base else x.shape[-1]
+            out_bytes = x.numel() * (4 if base == "inv_lanes" else 8)
+            bnd, by = bound_ms(nbytes(x) + out_bytes + n * 8, fft_flops(x.numel() // n, n))
+            row = {"shape": list(x.shape), "p": p, "max_abs_err": err,
+                   "ms": cuda_ms(run_k, reps=5), "plain_ms": cuda_ms(run_t, reps=1, warmup=1),
+                   "library_ms": cuda_ms(lambda: library[base](x), reps=5),
+                   "bound_ms": bnd, "bound_by": by}
+            say(f"[19f] {name} p={p} {tuple(x.shape)}: max_abs_err {err:.3e}, kernel "
+                f"{row['ms']:.3f} ms, twin {row['plain_ms']:.3f} ms, torch.fft "
+                f"{row['library_ms']:.3f} ms, bound {bnd:.3f} ms ({by})")
+            rows.setdefault(base + " slab", []).append(row)
+            del blk, x
+        del field
+        torch.cuda.empty_cache()
+    return {k: summarise(v) for k, v in rows.items()}
+
+
+def phase_mesh_family(uf, sp, dev, smi, version):
+    """Phase 19: the mesh family over phase 18's NCCL group of world size 1: (a)
+    CH3D on FFT_PENCIL, (b) ETDRK4 on FFT_SLAB, DEFAULT and PALLAS, (c) the
+    deGeus RVE on FFT_SLAB and FFT_PENCIL, (d) the Perzyna deck on
+    FFT_SLAB, (e) the 3-D REAL_SPACE Laplacian on a (1, 1, 1) mesh, (f)
+    kernels 1-4 in slab form at p = 2 and 4.  Returns (rows, launches)."""
+    import torch.distributed as dist
+
+    from marlin_tpu_torch import decks, parallel
+
+    t0 = time.perf_counter()
+    gen = torch.Generator(device=dev).manual_seed(191)
+    rows = slab_fft_rows(uf, dev, gen)
+    t_f = time.perf_counter() - t0
+    launches = {}
+    slab = parallel.make_mesh("FFT_SLAB")
+    pencil = parallel.make_mesh("FFT_PENCIL", shape=(1, 1))
+    say(f"[19] NCCL {version}, world size {dist.get_world_size()}, meshes {slab}, "
+        f"{pencil}")
+
+    # (a) CH3D on the pencil, beside serial and the slab
+    n_sub = STEPS * MESH_SUBSTEPS
+    deck = ch3d_deck("DEFAULT").replace(f"substeps = {SUBSTEPS}",
+                                         f"substeps = {MESH_SUBSTEPS}")
+    ms, c = {}, {}
+    for route, mode, mesh in (("serial", "NONE", None), ("slab", "FFT_SLAB", slab),
+                              ("pencil", "FFT_PENCIL", pencil)):
+        parallel.reset_calls()
+        tr, wall, got = deck_run(deck.replace(
+            "[Domain]", f"[Domain]\n  parallel_mode = {mode}"), dev, mesh=mesh)
+        calls = parallel.calls()["all_to_all"]
+        want = {"serial": 0, "slab": 3 * n_sub, "pencil": 6 * n_sub}[route]
+        assert calls == want, (route, calls, want)
+        assert not any(got.values()), (route, got)
+        c[route] = tr.state["buffers"]["c"]
+        assert c[route].shape == (N, N, N) and bool(torch.isfinite(c[route]).all())
+        mass(tr, f"19a {route}")
+        ms[route] = cuda_ms(lambda: tr.problem.step(tr.state, tr.time, 1.0, 1.0, False),
+                            reps=2, warmup=1) / MESH_SUBSTEPS
+        say(f"[19a] CH3D {N}^3 DEFAULT float32 {route}, {STEPS} steps x "
+            f"{MESH_SUBSTEPS} substeps: run_deck {wall:.2f} s, {ms[route]:.3f} "
+            f"ms/substep, all_to_all {calls}")
+        del tr
+    for route in ("slab", "pencil"):
+        d = (c[route] - c["serial"]).abs().max().item()
+        say(f"[19a] max|c_{route} - c_serial| {d:.3e} (limit {PENCIL_TOL})")
+        assert d <= PENCIL_TOL, (route, d)
+    say(f"[19a] ms/substep: pencil {ms['pencil']:.3f}, slab {ms['slab']:.3f}, serial "
+        f"{ms['serial']:.3f}; two all_to_all a transform on the pencil, one on the slab")
+    del c
+    torch.cuda.empty_cache()
+
+    # (b) ETDRK4 on the slab, on both backends, against phase 15's serial runs
+    for backend in ("DEFAULT", "PALLAS"):
+        S = STEPS * SUBSTEPS
+        want = ({"fwd_lanes": 8 * S, "fwd_sublanes": 16 * S, "inv_lanes": 4 * S,
+                 "inv_sublanes": 8 * S} if backend == "PALLAS" else {})
+        deck = transient(decks.CH3D_ETDRK4_DECK.format(
+            n=N, substeps=SUBSTEPS, solver_extra="cox_matthews = true").replace(
+                "[Domain]", f"[Domain]\n  parallel_mode = FFT_SLAB\n  fft_backend = "
+                f"{backend}\n  floating_precision = SINGLE"), 1, "c")
+        parallel.reset_calls()
+        tr, wall, got = deck_run(deck, dev, mesh=slab)
+        got = {k: v for k, v in got.items() if v}
+        assert got == want, (backend, got, want)
+        launches[f"19 etdrk4 slab {backend}"] = got
+        mass(tr, f"19b {backend}")
+        d = (tr.state["buffers"]["c"].cpu() - SERIAL[f"etdrk4 {backend}"]).abs().max().item()
+        say(f"[19b] ETDRK4 {N}^3 FFT_SLAB {backend} float32, {STEPS} x {SUBSTEPS}: "
+            f"run_deck {wall:.2f} s, {substep_wall_ms(tr, 1.0):.3f} ms a substep, "
+            f"all_to_all {parallel.calls()['all_to_all']}, launches {got}, "
+            f"max|c_slab - c_serial| {d:.3e} (limit {ANCHOR_TOL})")
+        assert d <= ANCHOR_TOL, (backend, d)
+        del tr
+        torch.cuda.empty_cache()
+
+    # (c) the deGeus RVE on the slab and the pencil, against serial runs of
+    # the same layouts (a pencil's half axis is x; at an even extent the
+    # Green operator's Nyquist planes follow it)
+    text = mech_text(MECH_N, MECH_ROUTES["DEFAULT float32"], 1,
+                     substeps=MESH_MECH_SUBSTEPS)
+    for mode, mesh in (("FFT_SLAB", slab), ("FFT_PENCIL", pencil)):
+        deck = text.replace("[Domain]", f"[Domain]\n  parallel_mode = {mode}")
+        runs = {}
+        for where, m in (("serial", None), ("mesh", mesh)):
+            tr, wall, _ = deck_run(deck, dev, mesh=m)
+            cnt = mech_counts(tr)
+            assert bool(tr.state["buffers"]["__converged_mech__"]), (mode, where)
+            # one more step, timed by CUDA events: ms a CG iteration is
+            # its time over its CG iterations (the Newton work between
+            # them included)
+            comp = tr.problem.get_compute("mech")
+            before = dict(vars(comp.counts))
+            ms_step = cuda_ms(lambda: tr.problem.step(tr.state, tr.time, MECH_DT,
+                                                      MECH_DT, False), reps=1, warmup=0)
+            extra = {k: v - before[k] for k, v in vars(comp.counts).items()}
+            runs[where] = (tr.state["buffers"], cnt, ms_step / max(extra["cg_device"], 1),
+                           extra)
+            del tr, comp
+        (sb, sc, s_ms, _), (mb, mc, m_ms, mx) = runs["serial"], runs["mesh"]
+        assert (mc["newton"], mc["cg"]) == (sc["newton"], sc["cg"]), (mode, mc, sc)
+        assert sc["reductions"] == 0 and mc["reductions"] >= 3 * mc["cg_device"], mc
+        worst = {k: (mb[k] - sb[k]).abs().max().item() for k in ("F", "stress")}
+        say(f"[19c] RVE {MECH_N}^3 DEFAULT float32 {mode}, 1 step x "
+            f"{MESH_MECH_SUBSTEPS} substeps: Newton {mc['newton']}, CG {mc['cg']} "
+            f"(serial {sc['newton']}, {sc['cg']}), group reductions "
+            f"{mc['reductions']}; one more step {m_ms:.3f} ms a CG iteration with "
+            f"{mx['reductions'] / max(mx['cg_device'], 1):.2f} group reductions each "
+            f"(serial {s_ms:.3f}); max|F - F_serial| {worst['F']:.3e}, "
+            f"max|stress - stress_serial| {worst['stress']:.3e} (limit {MESH_MECH_TOL})")
+        assert max(worst.values()) <= MESH_MECH_TOL, (mode, worst)
+        del runs, sb, mb
+        torch.cuda.empty_cache()
+
+    # (d) the Perzyna deck on the slab against phase 17's float64 run
+    log, want_b = SERIAL["perzyna"]
+    with tempfile.TemporaryDirectory() as tmp:
+        model = os.path.join(tmp, "perzyna.i")
+        spectral = os.path.join(tmp, "spectral.i")
+        with open(model, "w") as f:
+            f.write(decks.NEML2_PERZYNA_MODEL)
+        with open(spectral, "w") as f:
+            f.write(decks.NEML2_SPECTRAL_MODEL)
+        tr, wall, _ = deck_run(decks.NEML2_PERZYNA_DECK.format(
+            n=NEML2_N, domain_extra="floating_precision = DOUBLE\n  parallel_mode = "
+            "FFT_SLAB", dt=NEML2_DT, steps=NEML2_STEPS, model=model,
+            spectral_model=spectral, cli_args=""), dev, mesh=slab)
+    got_log = list(tr.problem.get_compute("perzyna").model.counts.log)
+    worst = max(max_rel(tr.state["buffers"][k], v.to(dev)) for k, v in want_b.items())
+    say(f"[19d] Perzyna {NEML2_N}^3 float64 FFT_SLAB: {wall:.2f} s, Newton a step "
+        f"{got_log} (serial {log}), largest relative difference {worst:.3e} (limit "
+        f"{NEML2_MESH_TOL})")
+    assert got_log == log and worst <= NEML2_MESH_TOL, (got_log, log, worst)
+    del tr
+
+    # (e) the 3-D REAL_SPACE Laplacian on a (1, 1, 1) mesh: every axis
+    # wraps through its own exchange
+    real = parallel.make_mesh("REAL_SPACE", shape=(1, 1, 1))
+    deck = decks.laplacian_rs(3, LAP_N, stencil=5, substeps=MESH_SUBSTEPS,
+                              domain_extra="floating_precision = SINGLE")
+    u = {}
+    for where, m in (("serial", None), ("mesh", real)):
+        parallel.reset_calls()
+        tr, wall, _ = deck_run(deck, dev, mesh=m)
+        u[where] = tr.state["buffers"]["u"]
+        ex = parallel.calls()["exchange"]
+        say(f"[19e] LAPLACIAN_RS {LAP_N}^3 float32 {where}: run_deck {wall:.2f} s, "
+            f"exchanges {ex}")
+        assert ex == (0 if m is None else 3 * 2 * MESH_SUBSTEPS), (where, ex)
+        del tr
+    d = (u["mesh"] - u["serial"]).abs().max().item()
+    say(f"[19e] max|u_mesh - u_serial| {d:.3e} (limit {LAP_TOL})")
+    assert bool(torch.isfinite(u["mesh"]).all()) and d <= LAP_TOL, d
+    del u
+    torch.cuda.empty_cache()
+    say(f"[19] the mesh family in {time.perf_counter() - t0:.1f} s ((f) {t_f:.1f} s); {smi}")
     return rows, launches
 
 
@@ -3966,13 +4191,23 @@ def main():
     launches_17 = phase_surrogate_neml2(uf, sp, dev, smi)
     lap("17 (NN Gibbs surrogate, NEML2)", t_start)
 
-    # -- 18: the distributed modes ----------------------------------------------------
-    dist_rows, launches_18 = phase_distributed(uf, sp, lf, dev, smi, {
-        "kernel5": kernels["fwd_x_update"]["ms"], "DEFAULT": ms_default,
-        "PALLAS": ms_pallas, "PALLAS fused": ms_fused,
-        "porous PALLAS": lbm_ms["porous"][0], "porous JNP": lbm_ms["porous"][1]})
+    # -- 18 and 19: the distributed modes and the mesh family, on one NCCL group -------------
+    import torch.distributed as dist
+
+    version = nccl_world_of_one(dev)
+    try:
+        dist_rows, launches_18 = phase_distributed(uf, sp, lf, dev, smi, {
+            "kernel5": kernels["fwd_x_update"]["ms"], "DEFAULT": ms_default,
+            "PALLAS": ms_pallas, "PALLAS fused": ms_fused,
+            "porous PALLAS": lbm_ms["porous"][0], "porous JNP": lbm_ms["porous"][1]},
+            version)
+        lap("18 (distributed modes: slab and halo kernels, NCCL world of one)", t_start)
+        slab_fft, launches_19 = phase_mesh_family(uf, sp, dev, smi, version)
+    finally:
+        dist.destroy_process_group()
     SERIAL.clear()
-    lap("18 (distributed modes: slab and halo kernels, NCCL world of one)", t_start)
+    lap("19 (mesh family: pencil, ETDRK4 slab, sharded mechanics and NEML2, z cut)",
+        t_start)
     say(f"[done] {time.perf_counter() - t_start:.1f} s")
 
     # -- result -----------------------------------------------------------------
@@ -4046,9 +4281,24 @@ def main():
         ("lbm_substep halo", "lbm_substep.cu", "marlin_tpu/pallas_lbm.py:224",
          ("real_space porous PALLAS",)),
     ]
+    def entry_slab_fft(name, replaces):
+        # kernels 1-4 in slab form: launched by phase 19's ETDRK4 slab PALLAS run
+        base = name.split()[0]
+        by_path = {k: v[base] for k, v in launches_19.items() if v.get(base)}
+        return {"name": name, "route": "cuda", "source": "marlin_tpu_torch/csrc/unordered_fft.cu",
+                "replaces": replaces, "launches": sum(by_path.values()),
+                "launches_by_path": by_path, **slab_fft[name]}
+
+    table_slab_fft = [
+        ("fwd_lanes slab", "marlin_tpu/pallas_fft.py:237"),
+        ("fwd_sublanes slab", "marlin_tpu/pallas_fft.py:340"),
+        ("inv_sublanes slab", "marlin_tpu/pallas_fft.py:355"),
+        ("inv_lanes slab", "marlin_tpu/pallas_fft.py:276"),
+    ]
     line = {"kernels": [entry(*row) for row in table]
             + [entry_small(*row) for row in table_small]
-            + [entry_dist(*row) for row in table_dist],
+            + [entry_dist(*row) for row in table_dist]
+            + [entry_slab_fft(*row) for row in table_slab_fft],
             "collective": dist_rows["collective"]}
     for k in line["kernels"]:
         assert k["launches"] > 0, (k["name"], k["launches_by_path"])

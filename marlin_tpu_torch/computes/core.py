@@ -19,6 +19,7 @@ from typing import Dict
 import numpy as np
 import torch
 
+from .. import parallel
 from ..expression import CompiledExpression, fparse
 from ..params import Params
 from ..registry import computes
@@ -518,7 +519,10 @@ class DeAliasingTensor(TensorCompute):
     def _build(self):
         dom = self.domain
         axes = [np.abs(dom.reciprocal_axis(d).cpu().numpy()) for d in range(3)]
-        maxima = [float(a.max()) if a.size else 0.0 for a in axes]
+        # the whole grid's largest |k| an axis, whatever block this rank holds
+        maxima = [float(np.abs(dom._np_raxes_global[d]).max())
+                  if d < dom.dim and dom._np_raxes_global[d].size else 0.0
+                  for d in range(3)]
         if self.method == "SHARP":
             mask = None
             for a, m in zip(axes, maxima):
@@ -670,9 +674,11 @@ class SmoothRectangleCompute(TensorCompute):
 @computes.register("FiniteDifferenceLaplacian")
 class FiniteDifferenceLaplacian(TensorCompute):
     """3- or 5-point finite-difference Laplacian on the periodic grid
-    (reference: src/tensor_computes/FiniteDifferenceLaplacian.C:19-110),
-    by torch.roll over the spatial axes (serial: no ghost layers to ask
-    for)."""
+    (reference: src/tensor_computes/FiniteDifferenceLaplacian.C:19-110;
+    marlin_tpu/computes/core.py:637), by torch.roll over the spatial axes.
+    On a REAL_SPACE mesh the block is padded with its neighbours' planes,
+    as many as the stencil reaches, on every cut axis (``Domain.padded``),
+    and the roll along a cut axis is a slice of that."""
 
     def __init__(self, name, params: Params, problem):
         super().__init__(name, params, problem)
@@ -683,18 +689,28 @@ class FiniteDifferenceLaplacian(TensorCompute):
     def apply(self, state, ctx):
         dom = self.domain
         u = state[self.input]
+        width = self.stencil // 2
+        halo = dom.halo_dims()
+        src = dom.padded(u, width=width) if halo else u
+
+        def roll(k, d):
+            if not halo:
+                return torch.roll(u, k, d)
+            return parallel.shifted(src, (k,), (d,), halo, width)
+
+        centre = roll(0, 0) if halo else u
         out = torch.zeros_like(u)
         for d in range(dom.dim):
             h2 = dom.grid_spacing[d] ** 2
             if self.stencil == 3:
-                out = out + (torch.roll(u, 1, d) - 2.0 * u + torch.roll(u, -1, d)) / h2
+                out = out + (roll(1, d) - 2.0 * centre + roll(-1, d)) / h2
             else:
                 out = out + (
-                    -torch.roll(u, 2, d)
-                    + 16.0 * torch.roll(u, 1, d)
-                    - 30.0 * u
-                    + 16.0 * torch.roll(u, -1, d)
-                    - torch.roll(u, -2, d)
+                    -roll(2, d)
+                    + 16.0 * roll(1, d)
+                    - 30.0 * centre
+                    + 16.0 * roll(-1, d)
+                    - roll(-2, d)
                 ) / (12.0 * h2)
         return {self.out: out * self.factor}
 
@@ -719,7 +735,7 @@ class MooseFunctionTensor(TensorCompute):
 
         def axis(d):
             h = dom.grid_spacing[d]
-            a = np.arange(dom.n_global[d]) * h + h / 2.0
+            a = np.arange(dom.n_global[d])[dom.real_slice[d]] * h + h / 2.0
             return torch.from_numpy(dom._np_align(a, d))
 
         zero = torch.zeros([1] * dom.dim, dtype=torch.float64)

@@ -772,28 +772,44 @@ class LBMIsotropicGradient(LatticeBoltzmannOperator):
             raise ComputeError("Isotropic gradient cannot be computed for D3Q19 stencil")
         if problem.domain.dim == 3:
             raise ComputeError("LBMIsotropicGradient is not implemented for 3D")
-        if problem.domain.halo_dims():
-            # its edge-replicating pad would need the neighbours' planes
-            # clamped at the grid's faces
-            raise ComputeError(
-                f"{type(self).__name__} under REAL_SPACE on a mesh is not "
-                "ported to marlin_tpu_torch yet (REAL_SPACE stencils outside "
-                "the LBM stream wait for a later slice)")
         w33 = st.weights[st.reorder_indices].reshape(3, 3)
         ex33 = st.ex[st.reorder_indices].reshape(3, 3)
         ey33 = st.ey[st.reorder_indices].reshape(3, 3)
         self.kernels = [w33 * ex33, w33 * ey33]
 
-    @staticmethod
-    def _correlate(field2d, kernel):
-        """Σ_ab kernel[a, b]·padded[a:a+n0, b:b+n1] in (a, b) order, zero
-        entries skipped, the pad replicating the first and last rows and
-        columns (marlin_tpu/computes/lbm.py:_correlate)."""
+    def _padded(self, field2d):
+        """The plane with one more row and column on each side, replicating
+        the grid's first and last (marlin_tpu/computes/lbm.py:_correlate).
+        On a REAL_SPACE mesh a cut axis takes the neighbour's plane inside
+        the grid (``Domain.padded``) and the clamped one only at the grid's
+        faces."""
+        dom = self.domain
         n0, n1 = field2d.shape
         dev = field2d.device
-        rows = torch.arange(-1, n0 + 1, device=dev).clamp(0, n0 - 1)
-        cols = torch.arange(-1, n1 + 1, device=dev).clamp(0, n1 - 1)
-        padded = field2d[rows][:, cols]
+        halo = dom.halo_dims()
+        if not halo:
+            rows = torch.arange(-1, n0 + 1, device=dev).clamp(0, n0 - 1)
+            cols = torch.arange(-1, n1 + 1, device=dev).clamp(0, n1 - 1)
+            return field2d[rows][:, cols]
+        p = dom.padded(field2d)
+        for axis in range(2):
+            if axis not in halo:
+                n = p.shape[axis]
+                idx = torch.arange(-1, n + 1, device=dev).clamp(0, n - 1)
+                p = p.index_select(axis, idx)
+                continue
+            n = p.shape[axis]
+            if dom.holds_face(axis, 0):
+                p = torch.cat([p.narrow(axis, 1, 1), p.narrow(axis, 1, n - 1)], axis)
+            if dom.holds_face(axis, 1):
+                p = torch.cat([p.narrow(axis, 0, n - 1), p.narrow(axis, n - 2, 1)], axis)
+        return p
+
+    def _correlate(self, field2d, kernel):
+        """Σ_ab kernel[a, b]·padded[a:a+n0, b:b+n1] in (a, b) order, zero
+        entries skipped, over the edge-replicating pad (``_padded``)."""
+        n0, n1 = field2d.shape
+        padded = self._padded(field2d)
         out = torch.zeros_like(field2d)
         for a in range(3):
             for b in range(3):

@@ -12,7 +12,10 @@ they are host loops, as the reference's are, and as the port's secant and
 Broyden solvers are.  A CG iteration gathers its done flag and residual
 norm into one small tensor and fetches it once; a Newton iteration after
 the first fetches its done flag once.  ``FFTMechanics.counts`` keeps what
-the loops saw (``MechanicsCounts``).
+the loops saw (``MechanicsCounts``).  On a mesh (FFT_SLAB or FFT_PENCIL)
+every dot product and norm is a rank's partial sum reduced over the group
+(``Domain.reduce``) before anything decides on it, so every rank takes the
+same branch of the breakdown guard and runs the same iterations.
 
 The rank-4 Green operator is never built: the projection is applied
 factorized per k-point.  Above 8192 cells (``analytic_tangent = auto``)
@@ -31,7 +34,7 @@ from dataclasses import dataclass
 import numpy as np
 import torch
 
-from .. import unordered_fft
+from .. import parallel, unordered_fft
 from ..params import Params
 from ..registry import computes
 from .base import ComputeError, Spec, TensorCompute
@@ -67,12 +70,17 @@ def dyad22(A2, B2):
     return torch.einsum("...ij,...kl->...ijkl", A2, B2)
 
 
-def _norm(x):
-    return torch.linalg.vector_norm(x)
+def _norm(x, dom=None):
+    """|x| over the whole grid: on a mesh, the ranks' Σx² summed over it."""
+    if dom is None or dom.mesh is None:
+        return torch.linalg.vector_norm(x)
+    return dom.reduce(x.square().sum()).sqrt()
 
 
-def _dot(a, b):
-    return (a * b).sum()
+def _dot(a, b, dom=None):
+    """a·b over the whole grid: on a mesh, the ranks' sums summed over it."""
+    local = (a * b).sum()
+    return local if dom is None else dom.reduce(local)
 
 
 @dataclass
@@ -89,7 +97,7 @@ class CGResult:
     fetches: int
 
 
-def conjugate_gradient(A, b, x0, tol, maxiter, Minv=None) -> CGResult:
+def conjugate_gradient(A, b, x0, tol, maxiter, Minv=None, dom=None) -> CGResult:
     """Matrix-free CG with convergence relative to |b| (reference
     conjugateGradientSolve, include/utils/MarlinUtils.h:55-131); ``Minv``
     left-preconditions (z = M⁻¹r), None is plain CG
@@ -104,31 +112,32 @@ def conjugate_gradient(A, b, x0, tol, maxiter, Minv=None) -> CGResult:
     the previous iterate, as the JAX loop's zero step does.  Where b is
     zero the JAX loop runs no iteration: x0 is returned with a count of 0
     (the iteration this ran is discarded).  ``x0 = None`` starts from zero
-    without applying A to it (r = b − A(0) = b exactly)."""
+    without applying A to it (r = b − A(0) = b exactly).  With ``dom``
+    every dot product and norm is taken over its mesh."""
     apply_Minv = Minv if Minv is not None else (lambda r: r)
-    b_norm = _norm(b)
+    b_norm = _norm(b, dom)
     if x0 is None:
         x0, r = torch.zeros_like(b), b
     else:
         r = b - A(x0)
     z = apply_Minv(r)
     p = z
-    rz_old = _dot(r, z)
-    r0_norm = _norm(r)
+    rz_old = _dot(r, z, dom)
+    r0_norm = _norm(r, dom)
     x = x_best = x0
     k = fetches = 0
     blown = False
     res = res_best = None
     while k < maxiter:
         Ap = A(p)
-        pAp = _dot(p, Ap)
+        pAp = _dot(p, Ap, dom)
         alpha = rz_old / pAp
         # products and sums apart, as the JAX loop computes them (a fused
         # multiply-add parts from it on ill-conditioned systems)
         x_new = x + alpha * p
         r_new = r - alpha * Ap
         extra = [b_norm, r0_norm] if k == 0 else []
-        host = torch.stack([pAp, rz_old, _norm(r_new)] + extra).tolist()
+        host = torch.stack([pAp, rz_old, _norm(r_new, dom)] + extra).tolist()
         fetches += 1
         pAp_h, rz_h, res_new = host[:3]
         if k == 0:
@@ -148,7 +157,7 @@ def conjugate_gradient(A, b, x0, tol, maxiter, Minv=None) -> CGResult:
         if res <= tol * b_norm_h or diverged:
             break
         z = apply_Minv(r)
-        rz_new = _dot(r, z)
+        rz_new = _dot(r, z, dom)
         p = z + rz_new / (rz_h if rz_h != 0.0 else 1.0) * p
         rz_old = rz_new
     if k == 0:
@@ -342,8 +351,9 @@ class MechanicsCounts:
     loop's count) and those that ran on the device, device-to-host fetches
     (one a CG iteration that ran, one a Newton iteration after the first),
     operator applications (one a CG iteration that ran, and the residual
-    and right-hand side of each Newton iteration and solve), and solves
-    that did not converge."""
+    and right-hand side of each Newton iteration and solve), solves that
+    did not converge, and the group reductions the solves made on a mesh
+    (``parallel.calls()["all_reduce"]`` across them; none without one)."""
 
     solves: int = 0
     newton: int = 0
@@ -352,6 +362,7 @@ class MechanicsCounts:
     fetches: int = 0
     projections: int = 0
     failed: int = 0
+    reductions: int = 0
 
 
 def _hermitian_nyquist(dom, qvec):
@@ -368,16 +379,18 @@ def _hermitian_nyquist(dom, qvec):
     is +π/h, and the other axes' Nyquist components are +π/h on the modes
     of k_last < 0; then q(−k) = −q(k) off the planes k_last = 0 and
     Nyquist, where the real part treats both backends alike.  The JAX
-    package keeps the averaging (ROADMAP §3)."""
+    package keeps the averaging (ROADMAP §3).  The masks are built on the
+    whole grid's axes and cut to the rank's reciprocal block on a mesh."""
     last = dom.dim - 1
     nyquist = []
     for d in range(dom.dim):
         n, h = dom.n_global[d], dom.grid_spacing[d]
         freq = unordered_fft.permuted_freqs(n, d=h)
-        nyquist.append(freq == np.fft.fftfreq(n, d=h)[n // 2] if n % 2 == 0
-                       else np.zeros(n, dtype=bool))
+        mask = (freq == np.fft.fftfreq(n, d=h)[n // 2] if n % 2 == 0
+                else np.zeros(n, dtype=bool))
         if d == last:
-            negative = (freq < 0) & ~nyquist[d]
+            negative = ((freq < 0) & ~mask)[dom.reciprocal_slice[d]]
+        nyquist.append(mask[dom.reciprocal_slice[d]])
     comps = []
     for d in range(dom.dim):
         q = qvec[..., d]
@@ -514,6 +527,7 @@ class FFTMechanics(TensorCompute):
             self.check()
         dom = self.domain
         counts = self.counts
+        reductions = parallel.calls()["all_reduce"]
         qvec, inv_k2, qn = self._green_factors()
         G = self.project
 
@@ -524,8 +538,8 @@ class FFTMechanics(TensorCompute):
                     f"FFTMechanics '{self.name}': preconditioner = "
                     "REFERENCE_MEDIUM needs the `mu` buffer (isotropic "
                     "reference moduli come from the K/mu volume averages)")
-            mu0 = state[self.mu].mean().to(dom.dtype)
-            lam0 = (state[self.K].mean() - 2.0 * mu0 / 3.0).to(dom.dtype)
+            mu0 = dom.average(state[self.mu]).to(dom.dtype)
+            lam0 = (dom.average(state[self.K]) - 2.0 * mu0 / 3.0).to(dom.dtype)
             # on range(G), r̂_ij = rho_i q_j/|q|²; the homogeneous operator's
             # inverse there is rho/mu0 − (lam0+mu0)/((lam0+2mu0)·mu0) ·
             # (rho·q) q/|q|² (marlin_tpu/computes/mechanics.py:470-487)
@@ -559,7 +573,7 @@ class FFTMechanics(TensorCompute):
             scope[self.out] = scope[self.out] + applied
         else:
             b = -make_op(scope)(torch.zeros_like(scope[self.out]))
-        Fn = _norm(scope[self.out])
+        Fn = _norm(scope[self.out], dom)
         l_max = self.l_max_its if self.l_max_its else dom.n_cells_global
 
         # the JAX loop's state: the first CG starts from zero, each later
@@ -567,14 +581,15 @@ class FFTMechanics(TensorCompute):
         dF = None
         it, done = 0, False
         while not done and it <= self.nl_max_its:
-            cg = conjugate_gradient(make_op(scope), b, dF, self.l_tol, l_max, Minv=Minv)
+            cg = conjugate_gradient(make_op(scope), b, dF, self.l_tol, l_max, Minv=Minv,
+                                    dom=dom)
             dF = cg.x
             counts.cg += cg.iterations
             self.cg_log.append(cg.iterations)
             counts.cg_device += cg.device_iterations
             counts.fetches += cg.fetches
             if it > 0:
-                anorm, fn = torch.stack([_norm(dF), Fn]).tolist()
+                anorm, fn = torch.stack([_norm(dF, dom), Fn]).tolist()
                 done = anorm / fn < self.nl_rel_tol or anorm < self.nl_abs_tol
                 counts.fetches += 1
             scope[self.out] = scope[self.out] + dF
@@ -585,6 +600,7 @@ class FFTMechanics(TensorCompute):
                 b = -G(scope[self.stress])
             it += 1
         counts.newton += it
+        counts.reductions += parallel.calls()["all_reduce"] - reductions
         counts.solves += 1
         counts.failed += int(not done)
         # the plain layout, as a checkpoint restores it: a resumed run then
@@ -633,7 +649,9 @@ _INTERPOLATION = {1: "linear", 2: "bilinear", 3: "trilinear"}
 @computes.register("ComputeDisplacements")
 class ComputeDisplacements(TensorCompute):
     """Displacements integrated from F in k-space and interpolated to the
-    (n+1)^dim node grid (reference ComputeDisplacements.C)."""
+    (n+1)^dim node grid (reference ComputeDisplacements.C).  The node grid
+    is the whole grid's: on a mesh the cell field is gathered first and
+    every rank holds all the nodes, as the JAX package's global array."""
 
     def __init__(self, name, params: Params, problem):
         super().__init__(name, params, problem)
@@ -657,32 +675,36 @@ class ComputeDisplacements(TensorCompute):
         # linear interpolation to the node grid with align_corners (the
         # reference's torch interpolate; the JAX package's map_coordinates
         # at linspace(0, n-1, n+1), order 1, mode nearest)
+        u = dom.gather(u)
         nodes = torch.nn.functional.interpolate(
-            u.movedim(-1, 0)[None], size=tuple(n + 1 for n in dom.shape),
+            u.movedim(-1, 0)[None], size=tuple(n + 1 for n in dom.n_global),
             mode=_INTERPOLATION[dom.dim], align_corners=True)
         return {self.out: nodes[0].movedim(0, -1).contiguous()}
 
     def output_specs(self, specs):
         dom = self.domain
-        return {self.out: Spec(tuple(n + 1 for n in dom.shape) + (dom.dim,), dom.dtype)}
+        return {self.out: Spec(tuple(n + 1 for n in dom.n_global) + (dom.dim,), dom.dtype)}
 
 
 def _real_inverse(dom, spec):
     """dom.ifft of a fresh spectrum (*reciprocal, …) that need not be
     Hermitian (at the Nyquist indices of even extents).  On DEFAULT's half
-    spectrum the planes k_last = 0 and k_last = Nyquist are first made
+    spectrum the planes k_half = 0 and k_half = Nyquist are first made
     Hermitian in the other axes, in place: what numpy's and torch's CPU
     c2r read from them (the real part of the inverse over those axes),
     while cuFFT's multi-axis c2r leaves a non-Hermitian plane's result to
     the algorithm its batch layout picks (128³ float32 on the card: a
     Newton solve's CG stalled at its cap on one layout and not on the
-    other).  The full spectrum of PALLAS takes the real part anyway."""
-    if dom.fft_backend == "DEFAULT":
-        last = dom.dim - 1
-        n = dom.n_global[last]
-        lead = tuple(range(last))
+    other).  On a mesh the distributed inverse drops the imaginary part of
+    those planes after the other axes' transforms (``parallel._real_ends``),
+    which is the same fix.  The full spectrum of PALLAS takes the real part
+    anyway."""
+    half = dom.half_axis
+    if dom.fft_backend == "DEFAULT" and dom.mesh is None and half is not None:
+        n = dom.n_global[half]
+        lead = tuple(range(dom.dim - 1))  # the plane's spatial axes
         for idx in (0, n // 2) if n % 2 == 0 else (0,):
-            plane = spec.select(last, idx)
+            plane = spec.select(half, idx)
             partner = plane.flip(lead).roll((1,) * len(lead), lead) if lead else plane
             plane.copy_(0.5 * (plane + partner.conj()))
     return dom.ifft(spec)
@@ -815,12 +837,13 @@ class MacroscopicShearTensor(TensorCompute):
 
 @computes.register("PhaseMechanicsTest")
 class PhaseMechanicsTest(TensorCompute):
-    """Two-phase microstructure: a corner block of 1
-    (reference test/src/tensor_computes/PhaseMechanicsTest.C)."""
+    """Two-phase microstructure: a corner block of 1 of the whole grid
+    (reference test/src/tensor_computes/PhaseMechanicsTest.C), this rank's
+    block of it on a mesh."""
 
     def apply(self, state, ctx):
         dom = self.domain
-        u = torch.zeros(dom.shape, dtype=dom.dtype, device=dom.device)
+        u = torch.zeros(dom.n_global, dtype=dom.dtype, device=dom.device)
         s = 30 if dom.dim == 2 else 9
         if dom.dim == 3:
             u[-s:, :s, -s:] = 1.0
@@ -828,7 +851,7 @@ class PhaseMechanicsTest(TensorCompute):
             u[-s:, :s] = 1.0
         else:
             raise ComputeError("Unsupported problem dimension")
-        return {self.out: u}
+        return {self.out: dom.local(u).contiguous()}
 
     def output_specs(self, specs):
         return {self.out: Spec(self.domain.shape, self.domain.dtype)}

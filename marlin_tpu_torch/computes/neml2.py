@@ -45,6 +45,7 @@ import numpy as np
 import torch
 
 from .. import device as _device
+from ..parallel import all_reduce
 from ..params import Params
 from ..registry import computes
 from ..smallsolve import small_solve
@@ -89,6 +90,10 @@ class NewtonCounts:
 
 
 class _NEML2Model:
+    #: the domain's mesh, set by NEML2TensorCompute: the host Newton loops'
+    #: maxima are taken over it
+    mesh = None
+
     def __init__(self, name: str, params: Params, device=None):
         self.name = name
         self.device = torch.device(device) if device is not None else _device.resolve()
@@ -545,9 +550,10 @@ def _find_backward_euler(model):
     return []
 
 
-def _finite_abs_max(r):
-    """max |r| over the finite entries (0 where none is)."""
-    return torch.where(torch.isfinite(r), r.abs(), torch.zeros_like(r)).max()
+def _finite_abs_max(r, mesh=None):
+    """max |r| over the finite entries (0 where none is), over the mesh."""
+    return all_reduce(mesh, torch.where(torch.isfinite(r), r.abs(),
+                                        torch.zeros_like(r)).max(), "max")
 
 
 class ImplicitUpdate(_NEML2Model):
@@ -568,7 +574,9 @@ class ImplicitUpdate(_NEML2Model):
     point must not freeze or disable every other point's convergence);
     `miter` bounds the iteration count (non-convergence leaves the last
     iterate; a NaN stays in the output to surface the divergence).  The
-    condition is tested before each iteration, one fetch a test."""
+    condition is tested before each iteration, one fetch a test; on a mesh
+    the maxima are the whole grid's, so every rank runs the same
+    iterations."""
 
     def __init__(self, name, params, device=None):
         super().__init__(name, params, device)
@@ -641,7 +649,7 @@ class ImplicitUpdate(_NEML2Model):
 
         r = res_fn(u0)
         tol = torch.maximum(_const(self.abs_tol, u0.dtype, u0.device),
-                            self.rel_tol * _finite_abs_max(r))
+                            self.rel_tol * _finite_abs_max(r, self.mesh))
         eye = torch.eye(n, dtype=u0.dtype, device=u0.device)
 
         def tangents(u):
@@ -652,7 +660,7 @@ class ImplicitUpdate(_NEML2Model):
         counts = self.counts
         while it < self.miter:
             counts.fetches += 1
-            if not bool(_finite_abs_max(r) > tol):
+            if not bool(_finite_abs_max(r, self.mesh) > tol):
                 break
             # n exact forward-mode columns, one pass: the n unit tangents
             # batched by vmap (the JAX package's n jax.jvp calls)
@@ -838,7 +846,7 @@ class J2RadialReturn(_NEML2Model):
         it = 0
         while it < self.max_its:
             self.counts.fetches += 1
-            if not bool(r.abs().max() > self.abs_tol):
+            if not bool(all_reduce(self.mesh, r.abs().max(), "nanmax") > self.abs_tol):
                 break
             drdx = -3.0 * G - self.Hk - self._kp(ep_old + dep)
             dep = _maximum(dep - r / drdx, 0.0)
@@ -1750,6 +1758,8 @@ class NEML2TensorCompute(TensorCompute):
             params.get_str_vector("cli_args", []),
             device=self.domain.device,
         )
+        for m in walk_models(self.model):
+            m.mesh = self.domain.mesh
         # every model input must be mapped, or forward() would die with a
         # bare KeyError in the middle of a step
         missing = set(getattr(self.model, "from_var", []) or []) - set(self.neml2_inputs)

@@ -185,6 +185,19 @@ are.
 - ``FRACTURE_DECK``: the path of examples/phase_field_fracture/fracture.i
   (AT2 phase-field fracture on FFT micromechanics, 96²), the JAX package's
   showcase deck, loaded as it is by both packages.
+
+Stand-ins for the reference's test decks of the distributed modes, which
+are not in the repository (the port's own; each runs in both packages):
+
+- ``GRADIENT_DECK``: for test/tests/gradient/gradient.i (40³, the
+  reference's slab and pencil spec): a smooth field's spectral gradients
+  (``FFTGradient`` along x, y and z, ``FFTGradientSquare``) and their
+  extrema, mean and integral in the CSV; ``n``, ``domain_extra``.
+- ``LAPLACIAN_RS_DECK``: for test/tests/real_space/laplacian.i: explicit
+  diffusion u' = 0.02·∇²u by ``FiniteDifferenceLaplacian`` under
+  ``RealSpaceForwardEuler`` on a REAL_SPACE grid, u's extrema and mean and
+  ∇²u's integral in the CSV; formatted by ``laplacian_rs(dim, n, ...)``
+  (2-D or 3-D, stencil width 3 or 5).
 """
 
 import os
@@ -3908,3 +3921,170 @@ NEML2_PERZYNA_DECK = """
   dt = {dt}
 []
 """
+
+
+# -- stand-ins for the distributed modes' reference decks ------------------------
+
+GRADIENT_DECK = """
+[Domain]
+  dim = 3
+  nx = {n}
+  ny = {n}
+  nz = {n}
+  xmax = 6.283185307179586
+  ymax = 6.283185307179586
+  zmax = 6.283185307179586
+  {domain_extra}
+[]
+[TensorComputes]
+  [Initialize]
+    [c]
+      type = ParsedCompute
+      buffer = c
+      extra_symbols = true
+      expression = 'sin(x)*cos(2*y) + 0.5*cos(3*z)*sin(y) + 0.25*sin(x+z)'
+    []
+  []
+  [Solve]
+    [dcdx]
+      type = FFTGradient
+      buffer = dcdx
+      input = c
+      direction = X
+    []
+    [dcdy]
+      type = FFTGradient
+      buffer = dcdy
+      input = c
+      direction = Y
+    []
+    [dcdz]
+      type = FFTGradient
+      buffer = dcdz
+      input = c
+      direction = Z
+    []
+    [grad_sq]
+      type = FFTGradientSquare
+      buffer = grad_sq
+      input = c
+    []
+  []
+[]
+[Postprocessors]
+  [dcdx_max]
+    type = TensorExtremeValuePostprocessor
+    buffer = dcdx
+    value_type = MAX
+  []
+  [dcdy_min]
+    type = TensorExtremeValuePostprocessor
+    buffer = dcdy
+    value_type = MIN
+  []
+  [dcdz_mean]
+    type = TensorAveragePostprocessor
+    buffer = dcdz
+  []
+  [grad_sq_integral]
+    type = TensorIntegralPostprocessor
+    buffer = grad_sq
+  []
+[]
+[Problem]
+  type = TensorProblem
+[]
+[Executioner]
+  type = Transient
+  num_steps = 2
+  dt = 1
+[]
+[Outputs]
+  csv = true
+[]
+"""
+
+LAPLACIAN_RS_DECK = """
+[Domain]
+  dim = {dim}
+  {extents}
+  parallel_mode = REAL_SPACE
+  {domain_extra}
+[]
+[TensorComputes]
+  [Initialize]
+    [u]
+      type = ParsedCompute
+      buffer = u
+      extra_symbols = true
+      expression = '{ic}'
+    []
+  []
+  [Solve]
+    [lap]
+      type = FiniteDifferenceLaplacian
+      buffer = lap
+      input = u
+      factor = 0.02
+      stencil_width = {stencil}
+    []
+  []
+[]
+[TensorSolver]
+  type = RealSpaceForwardEuler
+  buffer = u
+  time_derivative = lap
+  substeps = {substeps}
+[]
+[Postprocessors]
+  [u_max]
+    type = TensorExtremeValuePostprocessor
+    buffer = u
+    value_type = MAX
+  []
+  [u_min]
+    type = TensorExtremeValuePostprocessor
+    buffer = u
+    value_type = MIN
+  []
+  [u_mean]
+    type = TensorAveragePostprocessor
+    buffer = u
+  []
+  [lap_integral]
+    type = TensorIntegralPostprocessor
+    buffer = lap
+  []
+[]
+[Problem]
+  type = TensorProblem
+[]
+[Executioner]
+  type = Transient
+  num_steps = {num_steps}
+  dt = {dt}
+[]
+[Outputs]
+  csv = true
+[]
+"""
+
+#: the initial field of LAPLACIAN_RS_DECK by dimension: low modes and one
+#: short one along each axis, so that the halo of every cut axis matters
+LAPLACIAN_RS_IC = {2: "cos(x) + 0.5*sin(3*y) + 0.2*cos(7*x + 2*y)",
+                   3: "cos(x) + 0.5*sin(3*y) + 0.2*cos(7*x + 2*y) + 0.3*sin(5*z - x)"}
+
+
+def laplacian_rs(dim: int, n: int, stencil: int = 3, substeps: int = 4,
+                 num_steps: int = 2, domain_extra: str = "") -> str:
+    """LAPLACIAN_RS_DECK on an n^dim grid of side 2π, dt a stable fraction
+    of the explicit limit (h²/(4·dim·0.02) a substep)."""
+    names = "xyz"[:dim]
+    extents = "\n  ".join([f"n{a} = {n}" for a in names]
+                          + [f"{a}max = 6.283185307179586" for a in names])
+    h = 6.283185307179586 / n
+    dt = 0.5 * h * h / (4 * dim * 0.02) * substeps
+    return LAPLACIAN_RS_DECK.format(dim=dim, extents=extents, ic=LAPLACIAN_RS_IC[dim],
+                                    stencil=stencil, substeps=substeps,
+                                    num_steps=num_steps, dt=repr(dt),
+                                    domain_extra=domain_extra)

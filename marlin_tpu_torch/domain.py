@@ -15,24 +15,27 @@ semantic choices of the reference DomainAction are kept
 unchanged) transforms with the unordered-FFT kernels of ``unordered_fft``:
 the full complex spectrum in permuted order along every axis, with
 reciprocal axes from ``permuted_freqs``.  It keeps the JAX package's three
-rejections: serial only, float32 only, and extents by ``supported()``.  A
-tensor-valued field (trailing value axes, as ``batched_transform`` stacks
-them) transforms with its value axes moved to the front, where they join
-the rows of the lanes kernels and the prefix of the sublanes kernels: one
-launch of each kernel an axis, whatever the number of fields
+rejections: serial mode and 3-D FFT_SLAB only, float32 only, and extents
+by ``supported()``.  A tensor-valued field (trailing value axes, as
+``batched_transform`` stacks them) transforms with its value axes moved to
+the front, where they join the rows of the lanes kernels and the prefix of
+the sublanes kernels: one launch of each kernel an axis, whatever the
+number of fields
 (marlin_tpu/domain.py:420-441 forward, :492-511 inverse).
 
-``parallel_mode = FFT_SLAB`` and ``REAL_SPACE`` run over a ``parallel.Mesh``
-of ranks: the Domain then holds the global extents (``n_global``) and this
-rank's block of them (``real_slice``, ``reciprocal_slice``), and ``shape``,
-``reciprocal_shape``, the axes and the k-tables are the block's, so that
-every compute works on the local block as it would on the whole grid.
-``fft``/``ifft`` go through ``parallel.fft``/``ifft``, ``sum``/``average``
-reduce over the group.  Without a mesh a parallel-mode deck runs its
-layouts on one device, as the JAX package does with ``mesh=None``: 3-D
-FFT_SLAB rfft's z as serial mode does, 2-D FFT_SLAB keeps the full
-spectrum.  FFT_PENCIL waits for the next slice of the port and is a named
-error.
+``parallel_mode = FFT_SLAB``, ``FFT_PENCIL`` and ``REAL_SPACE`` run over a
+``parallel.Mesh`` of ranks: the Domain then holds the global extents
+(``n_global``) and this rank's block of them (``real_slice``,
+``reciprocal_slice``), and ``shape``, ``reciprocal_shape``, the axes and
+the k-tables are the block's, so that every compute works on the local
+block as it would on the whole grid.  ``fft``/``ifft`` go through
+``parallel.fft``/``ifft``, ``sum``/``average`` reduce over the group.  A
+pencil's half spectrum is along x, padded with ``reciprocal_pad`` rows of
+k = 0 to a multiple of p1 (``spectrum``: a block without them).  Without
+a mesh a parallel-mode deck runs its layouts on one device, as the JAX
+package does with ``mesh=None``: 3-D FFT_SLAB rfft's z as serial mode
+does, 2-D FFT_SLAB keeps the full spectrum, FFT_PENCIL rfft's x
+(``rfftn`` over the axes (1, 2, 0), no pad).
 """
 
 from __future__ import annotations
@@ -98,11 +101,9 @@ class Domain:
         if parallel_mode not in PARALLEL_MODES:
             raise ValueError(f"[Domain] parallel_mode = {parallel_mode} is not one "
                              f"of {PARALLEL_MODES}")
-        if parallel_mode == "FFT_PENCIL":
-            raise NotImplementedError(
-                "[Domain] parallel_mode = FFT_PENCIL is not ported to "
-                "marlin_tpu_torch yet: it waits for the next slice of the port "
-                "(FFT_SLAB and REAL_SPACE run)")
+        if parallel_mode == "FFT_PENCIL" and dim != 3:
+            # reference DomainAction.C:572 (marlin_tpu/domain.py:128-132)
+            raise ValueError("Dimension must be 3 for pencil decomposition.")
         self.dim = dim
         self.device = resolve(device)
         self.n_global = tuple(int(x) for x in n[:dim])
@@ -124,11 +125,6 @@ class Domain:
                 raise ValueError(
                     f"[Domain] a {len(self.mesh.shape)}-D REAL_SPACE mesh does "
                     f"not fit a {dim}-D grid")
-            if parallel_mode == "REAL_SPACE" and len(self.mesh.shape) > 2:
-                raise NotImplementedError(
-                    "[Domain] a 3-D REAL_SPACE mesh (z cut) is not ported to "
-                    "marlin_tpu_torch yet: its halos cut x, or x and y (a 1-D or "
-                    "2-D mesh); the z cut waits for a later slice")
         if fft_backend == "PALLAS":
             if parallel_mode not in ("NONE", "FFT_SLAB") \
                     or (parallel_mode == "FFT_SLAB" and dim != 3):
@@ -184,8 +180,9 @@ class Domain:
     def use_rfft(self, d: int) -> bool:
         """Which axis carries the half spectrum (marlin_tpu/domain.py
         _use_rfft): the last in serial mode, z on 3-D FFT_SLAB grids (z is
-        whole in both slab layouts), none on 2-D FFT_SLAB, REAL_SPACE or
-        PALLAS (the full permuted spectrum)."""
+        whole in both slab layouts), x on FFT_PENCIL (the reference's own
+        convention, DomainAction.C:279-284), none on 2-D FFT_SLAB,
+        REAL_SPACE or PALLAS (the full permuted spectrum)."""
         if self.fft_backend == "PALLAS":
             return False
         if self.parallel_mode == "NONE":
@@ -194,9 +191,26 @@ class Domain:
             # nz > 2 keeps the half extent distinct from nz, so the inverse
             # can tell half from full spectra by shape
             return self.dim == 3 and d == 2 and self.n_global[2] > 2
+        if self.parallel_mode == "FFT_PENCIL":
+            return d == 0 and self.n_global[0] > 2
         return False
 
+    def _pencil_pad(self, half: int) -> int:
+        """The zero rows that pad a pencil's half extent ``half`` to a
+        multiple of p1 (marlin_tpu/domain.py:251-292): one more tile where
+        the padded extent would equal nx, so that the inverse still tells
+        a half spectrum from a full one by its extent."""
+        p1 = self.mesh.axis_size("p1")
+        pad = (-half) % p1
+        if half + pad == self.n_global[0]:
+            pad += p1
+        self.reciprocal_pad = pad
+        return pad
+
     def _build_axes(self):
+        self.reciprocal_pad = 0
+        #: the spatial axis of the half spectrum, None for a full one
+        self.half_axis = next((d for d in range(self.dim) if self.use_rfft(d)), None)
         npdtype = np.float64 if self.dtype == torch.float64 else np.float32
         self._np_axes_global = []
         self._np_raxes_global = []
@@ -212,6 +226,8 @@ class Domain:
                 freq = unordered_fft.permuted_freqs(n, d=h)
             elif self.use_rfft(d):
                 freq = np.fft.rfftfreq(n, d=h)
+                if self.parallel_mode == "FFT_PENCIL" and self.mesh is not None:
+                    freq = np.concatenate([freq, np.zeros(self._pencil_pad(len(freq)))])
             else:
                 freq = np.fft.fftfreq(n, d=h)
             self._np_raxes_global.append((freq * 2.0 * math.pi).astype(npdtype))
@@ -367,10 +383,15 @@ class Domain:
         if tb is not t:
             # each field a contiguous block: the bits it has alone
             tb = tb.contiguous()
-        if t.is_complex() or not self.use_rfft(self.dim - 1):
+        half = self.half_axis
+        if t.is_complex() or half is None:
             # a complex field, or the full spectrum of 2-D FFT_SLAB run
             # without a mesh (marlin_tpu/domain.py:453-465)
             return self._value_axes_last(torch.fft.fftn(tb, dim=dims)).to(self.cdtype)
+        if half != self.dim - 1:
+            # rfftn halves the last axis it is given: a pencil's x goes last
+            # (rfftn(axes=(1, 2, 0)), marlin_tpu/domain.py:462-464)
+            dims = tuple(a for a in dims if a != dims[half]) + (dims[half],)
         return self._value_axes_last(torch.fft.rfftn(tb, dim=dims)).to(self.cdtype)
 
     def fft_spec(self, shape, dtype):
@@ -405,17 +426,21 @@ class Domain:
                                        range(tb.ndim - self.dim, tb.ndim),
                                        real_output=True)
             return self._value_axes_last(u).to(self.dtype)
-        last = self.dim - 1
+        half = self.half_axis
         # a full spectrum (forward transform of a complex field, or any of
         # 2-D FFT_SLAB run without a mesh) would be cropped by irfftn; see
         # marlin_tpu/domain.py:ifft for the n <= 2 degeneracy this shape
         # test shares
-        if (not self.use_rfft(last)
-                or (t.shape[last] != self.reciprocal_shape[last]
-                    and t.shape[last] == self.shape[last])):
+        if (half is None
+                or (t.shape[half] != self.reciprocal_shape[half]
+                    and t.shape[half] == self.shape[half])):
             u = torch.fft.ifftn(t, dim=spatial, norm="forward").real
-        else:
+        elif half == self.dim - 1:
             u = torch.fft.irfftn(t, s=self.shape, dim=spatial, norm="forward")
+        else:
+            dims = tuple(a for a in spatial if a != half) + (half,)
+            u = torch.fft.irfftn(t, s=[self.shape[a] for a in dims], dim=dims,
+                                 norm="forward")
         return (u / self._cells(u.dtype)).to(self.dtype)
 
     # -- reductions --------------------------------------------------------
@@ -428,8 +453,9 @@ class Domain:
         return self.sum(t) / self.n_cells_global
 
     def reduce(self, t: torch.Tensor, op: str = "sum") -> torch.Tensor:
-        """``t`` (a rank's partial result) reduced over the mesh: sum, max
-        or min; ``t`` itself without a mesh."""
+        """``t`` (a rank's partial result) reduced over the mesh: sum, max,
+        min or nanmax (``parallel.all_reduce``); ``t`` itself without a
+        mesh."""
         return parallel.all_reduce(self.mesh, t, op)
 
     def gather(self, t: torch.Tensor) -> torch.Tensor:
@@ -455,28 +481,39 @@ class Domain:
             self.mesh, torch.tensor(float(t.numel()), dtype=torch.float64,
                                     device=self.device)).item())
 
+    def spectrum(self, t: torch.Tensor) -> torch.Tensor:
+        """This rank's block of a half spectrum without a pencil's pad rows
+        (rows of k = 0 past the half extent, zero after every forward
+        transform): what a reduction over the spectrum may read.  ``t``
+        itself where there is no pad or ``t`` is a full spectrum."""
+        if (not self.reciprocal_pad or not t.is_complex()
+                or t.shape[0] != self.reciprocal_shape[0]):
+            return t
+        rows = self.reciprocal_slice[0]
+        valid = self.n_global[0] // 2 + 1
+        return t.narrow(0, 0, max(0, min(rows.stop, valid) - rows.start))
+
     # -- REAL_SPACE halos ----------------------------------------------------
     def halo_dims(self) -> Tuple[int, ...]:
-        """The spatial axes cut by the mesh (REAL_SPACE: the first
-        ``len(mesh.shape)`` axes)."""
-        if self.mesh is None or self.parallel_mode != "REAL_SPACE":
+        """The spatial axes that the mesh cuts in real space: the first
+        ``len(mesh.shape)`` under REAL_SPACE, y on a slab, y and z on a
+        pencil (none without a mesh)."""
+        if self.mesh is None:
             return ()
-        return tuple(range(len(self.mesh.shape)))
+        spec = parallel.real_spec(self, self.dim)
+        return tuple(d for d in range(self.dim) if spec[d] is not None)
 
-    def padded(self, t: torch.Tensor, lead: int = 0) -> torch.Tensor:
-        """``t`` (``lead`` axes before its spatial ones) with one plane of
-        its neighbours' on each side of every cut axis (the periodic wrap
-        where the neighbour is this rank): the fused kernel's halo ring
-        (``parallel.halo_ring``) put back around the block."""
+    def padded(self, t: torch.Tensor, lead: int = 0, width: int = 1) -> torch.Tensor:
+        """``t`` (``lead`` axes before its spatial ones) with ``width``
+        planes of its neighbours' on each side of every cut axis (the
+        periodic wrap where the neighbour is this rank; ``parallel.halo_pad``,
+        one exchange a cut axis)."""
         dims = self.halo_dims()
         if not dims:
             return t
-        flat = t.dim() - lead == 2  # a 2-D field: z of extent 1
-        u = t.unsqueeze(-1) if flat else t
-        shard_y = len(dims) == 2
-        out = parallel.ring_to_padded(u, parallel.halo_ring(self.mesh, u, lead, shard_y),
-                                      lead, shard_y)
-        return out.squeeze(-1) if flat else out
+        spec = parallel.real_spec(self, self.dim)
+        cuts = [(d, self.mesh.axis_names.index(spec[d])) for d in dims]
+        return parallel.halo_pad(self.mesh, t, lead, cuts, width)
 
     def holds_face(self, axis: int, side: int) -> bool:
         """True when this rank's block holds the grid's face on ``axis``

@@ -14,9 +14,12 @@ Launched by ``torchrun`` (``python -m torch.distributed.run
 and ``LOCAL_RANK`` set), each process joins the default group, NCCL on
 ``cuda:LOCAL_RANK`` or gloo on the CPU (the counterpart of
 marlin_tpu/main.py:84-91's ``jax.distributed.initialize``), and a deck
-with ``[Domain] parallel_mode`` FFT_SLAB or REAL_SPACE runs on the mesh of
-every process (``make_mesh``'s default: one axis of all the ranks).
-Rank 0 alone writes the CSV and prints.
+with ``[Domain] parallel_mode`` FFT_SLAB, FFT_PENCIL or REAL_SPACE runs on
+the mesh of every process (``make_mesh``'s default: one axis of all the
+ranks; a near-square p1 × p2 for FFT_PENCIL).  Another mesh, such as a
+REAL_SPACE z cut, is ``run_deck(root, mesh=make_mesh("REAL_SPACE",
+shape=(2, 1, 2)))`` in a script that torchrun launches.  Rank 0 alone
+writes the CSV and prints.
 """
 
 from __future__ import annotations

@@ -1,5 +1,6 @@
-"""Distributed execution over torch.distributed: slab FFTs, block layouts,
-halo exchange and reductions (the port of marlin_tpu/parallel.py).
+"""Distributed execution over torch.distributed: slab and pencil FFTs,
+block layouts, halo exchange and reductions (the port of
+marlin_tpu/parallel.py).
 
 One process a device; each rank holds its own block of every field, and
 the Domain (``domain.py``) builds its axes and k-tables for that block.
@@ -20,14 +21,24 @@ default group when ``torchrun`` launches the CLI, and a caller hands a
   on the unordered-FFT kernels (``fft_slab_pallas``): kernels 1 and 3 on
   the Y-sharded block, one planar transpose, kernel 3 (inverse: 4) on the
   X-sharded block.
-- REAL_SPACE: block decomposition over a 1-D (x) or 2-D (x, y) mesh.  What
-  GSPMD inserts for the JAX package is explicit here: ``halo_ring`` brings
-  a block's neighbouring planes (on a 2-D mesh the y rows and their x
-  corners too) by ``batch_isend_irecv``, for the fused LBM kernel; the
-  eager chain puts the same ring back around its block
-  (``ring_to_padded``) and slices its periodic roll across ranks out of
-  that (``shifted``).  A neighbour that is this rank itself is a local slice.
-- Reductions (sum, max, min) are ``all_reduce`` over the mesh's group.
+- FFT_PENCIL: a (p1, p2) mesh over 3-D grids; real space is X pencils
+  (y cut by p1, z by p2), reciprocal space Z pencils (x cut by p1, y by
+  p2).  A forward transform is a local rfft along x, its half extent
+  zero-padded to a multiple of p1 (``Domain.reciprocal_pad``), one
+  ``all_to_all`` within each mesh column (over p1), the y transform, one
+  within each mesh row (over p2) and the z transform (``fft_pencil``).
+  ``make_mesh`` forms the row and column groups once.
+- REAL_SPACE: block decomposition over a 1-D (x), 2-D (x, y) or 3-D
+  (x, y, z) mesh.  What GSPMD inserts for the JAX package is explicit
+  here: ``halo_ring`` brings a block's neighbouring planes (on a 2-D mesh
+  the y rows and their x corners too) by ``batch_isend_irecv``, for the
+  fused LBM kernel; the eager computes pad their block with its
+  neighbours' planes, one exchange a cut axis (``halo_pad``: corners and
+  edges ride the later axes' exchanges) and slice their periodic roll
+  across ranks out of that (``shifted``).  A neighbour that is this rank
+  itself is a local slice.
+- Reductions (sum, max, min, and a max that keeps NaN) are ``all_reduce``
+  over the mesh's group.
 
 Rank order is row-major over the mesh axes, as ``local_slices`` lists the
 blocks and as the reference's partitioners number MPI ranks.  Uneven
@@ -64,6 +75,41 @@ class Mesh:
                              f"the process group has {world}")
         self.rank = dist.get_rank(group)
         self.backend = dist.get_backend(group)
+        self.axis_groups = {}  # axis name -> the group along it (build_axis_groups)
+
+    def build_axis_groups(self):
+        """The process group of each mesh axis that this rank lies on: the
+        ranks that differ from it in that axis' coordinate alone, in
+        coordinate order (a pencil's column for "p1", its row for "p2").
+        ``dist.new_group`` is collective over the default group, so every
+        rank forms every group, in one order; an axis that spans the whole
+        mesh takes the mesh's own group."""
+        me = self.coords()
+        for axis, name in enumerate(self.axis_names):
+            if self.shape[axis] == self.size:
+                self.axis_groups[name] = self.group
+                continue
+            others = [s for a, s in enumerate(self.shape) if a != axis]
+            for rest in itertools.product(*[range(s) for s in others]):
+                coords = list(rest)
+                members = []
+                for c in range(self.shape[axis]):
+                    coords.insert(axis, c)
+                    members.append(self.global_rank(self.rank_at(coords)))
+                    coords.pop(axis)
+                g = dist.new_group(members)
+                if list(rest) == [c for a, c in enumerate(me) if a != axis]:
+                    self.axis_groups[name] = g
+        return self
+
+    def axis_group(self, name: Optional[str]):
+        """The group of mesh axis ``name`` (the whole mesh's for None)."""
+        if name is None:
+            return self.group
+        if name not in self.axis_groups:
+            raise RuntimeError(f"the mesh's '{name}' group was not formed "
+                               "(parallel.make_mesh forms a pencil's groups)")
+        return self.axis_groups[name]
 
     def coords(self, rank: Optional[int] = None) -> Tuple[int, ...]:
         """The mesh coordinates of ``rank`` (this rank by default)."""
@@ -100,8 +146,10 @@ class Mesh:
 def make_mesh(parallel_mode: str, group=None, shape: Optional[Sequence[int]] = None) -> Mesh:
     """The mesh of a parallel mode over ``group`` (the default group when
     None), by marlin_tpu/parallel.py:make_mesh's rules: 1-D ("sp",) for
-    FFT_SLAB; ("p1", "p2") for FFT_PENCIL, near-square by default; a 1-D
-    ("p1",) or 2-D ("p1", "p2") block mesh for REAL_SPACE."""
+    FFT_SLAB; ("p1", "p2") for FFT_PENCIL, near-square by default, with its
+    row and column groups; a 1-D ("p1",), 2-D ("p1", "p2") or 3-D ("p1",
+    "p2", "p3") block mesh for REAL_SPACE.  Every rank calls it, in the
+    same order as its other collectives."""
     if not (dist.is_available() and dist.is_initialized()):
         raise RuntimeError(
             "make_mesh needs an initialised torch.distributed process group "
@@ -115,7 +163,7 @@ def make_mesh(parallel_mode: str, group=None, shape: Optional[Sequence[int]] = N
             while n % p1:
                 p1 -= 1
             shape = (p1, n // p1)
-        return Mesh(shape, ("p1", "p2"), group)
+        return Mesh(shape, ("p1", "p2"), group).build_axis_groups()
     if parallel_mode == "REAL_SPACE":
         shape = (n,) if shape is None else tuple(shape)
         return Mesh(shape, ("p1", "p2", "p3")[:len(shape)], group)
@@ -254,13 +302,15 @@ def _wire(t: torch.Tensor) -> torch.Tensor:
     return torch.view_as_real(t) if t.is_complex() else t
 
 
-def all_to_all(mesh: Mesh, t: torch.Tensor, split_axis: int, concat_axis: int) -> torch.Tensor:
-    """``jax.lax.all_to_all(t, split_axis, concat_axis, tiled=True)`` over
-    the mesh: ``t`` is cut into ``mesh.size`` tiles along ``split_axis``,
-    tile j goes to rank j, and the tiles received are joined along
-    ``concat_axis`` in rank order.  One ``all_to_all_single`` of the
-    tiles made contiguous."""
-    p = mesh.size
+def all_to_all(mesh: Mesh, t: torch.Tensor, split_axis: int, concat_axis: int,
+               axis: Optional[str] = None) -> torch.Tensor:
+    """``jax.lax.all_to_all(t, axis, split_axis, concat_axis, tiled=True)``:
+    ``t`` is cut into p tiles along ``split_axis``, tile j goes to rank j
+    of the group, and the tiles received are joined along ``concat_axis``
+    in rank order.  The group is mesh axis ``axis``'s, or the whole mesh's
+    for None.  One ``all_to_all_single`` of the tiles made contiguous."""
+    group = mesh.axis_group(axis)
+    p = dist.get_world_size(group)
     shape = list(t.shape)
     if shape[split_axis] % p:
         raise ValueError(f"all_to_all: extent {shape[split_axis]} along axis "
@@ -269,7 +319,7 @@ def all_to_all(mesh: Mesh, t: torch.Tensor, split_axis: int, concat_axis: int) -
     send = t.reshape(shape[:split_axis] + [p] + tile[split_axis:]).movedim(
         split_axis, 0).contiguous()
     recv = torch.empty_like(send)
-    dist.all_to_all_single(_wire(recv), _wire(send), group=mesh.group)
+    dist.all_to_all_single(_wire(recv), _wire(send), group=group)
     all_to_all.calls += 1
     joined = recv.movedim(0, concat_axis)
     out = list(tile)
@@ -300,10 +350,17 @@ def _gather(mesh: Mesh, t: torch.Tensor, spec, global_shape) -> torch.Tensor:
 
 
 def all_reduce(mesh: Optional[Mesh], t: torch.Tensor, op: str = "sum") -> torch.Tensor:
-    """``t`` reduced over the mesh's group (sum, max or min); ``t`` itself
-    without a mesh.  A new tensor: the caller's is not written."""
+    """``t`` reduced over the mesh's group (sum, max, min, or "nanmax": the
+    max, NaN where any rank's ``t`` is, as ``torch.max`` of the whole
+    would give); ``t`` itself without a mesh.  A new tensor: the caller's
+    is not written.  One collective whatever the op."""
     if mesh is None:
         return t
+    if op == "nanmax":
+        nan = t.isnan()
+        both = all_reduce(mesh, torch.stack([t.masked_fill(nan, -math.inf),
+                                             nan.to(t.dtype)]), "max")
+        return torch.where(both[1] > 0, math.nan, both[0])
     out = t.clone()
     red = {"sum": dist.ReduceOp.SUM, "max": dist.ReduceOp.MAX,
            "min": dist.ReduceOp.MIN}[op]
@@ -374,24 +431,43 @@ def calls() -> Dict[str, int]:
 
 
 def shifted(p: torch.Tensor, shifts: Sequence[int], dims: Sequence[int],
-            halo_dims: Sequence[int]) -> torch.Tensor:
-    """``torch.roll(t, shifts, dims)`` of the field ``t`` that
-    ``ring_to_padded`` extended along ``halo_dims``: a slice there
-    (|shift| ≤ 1), a roll elsewhere."""
+            halo_dims: Sequence[int], width: int = 1) -> torch.Tensor:
+    """``torch.roll(t, shifts, dims)`` of the field ``t`` that ``halo_pad``
+    (or ``ring_to_padded``) extended by ``width`` planes on each side of
+    ``halo_dims``: a slice there (|shift| ≤ width), a roll elsewhere."""
     out = p
     for s, d in zip(shifts, dims):
         if d in halo_dims:
-            if abs(s) > 1:
-                raise ValueError(f"a sharded roll takes shifts of at most one "
-                                 f"plane (got {s} along axis {d})")
-            n = p.shape[d] - 2
-            out = out.narrow(d, 1 - s, n)
+            if abs(s) > width:
+                raise ValueError(f"a sharded roll takes shifts of at most {width} "
+                                 f"plane(s) (got {s} along axis {d})")
+            out = out.narrow(d, width - s, p.shape[d] - 2 * width)
         elif s:
             out = torch.roll(out, s, d)
     for d in halo_dims:
         if d not in dims:
-            out = out.narrow(d, 1, p.shape[d] - 2)
+            out = out.narrow(d, width, p.shape[d] - 2 * width)
     return out
+
+
+def halo_pad(mesh: Mesh, t: torch.Tensor, lead: int, cuts: Sequence[Tuple[int, int]],
+             width: int = 1) -> torch.Tensor:
+    """``t`` (``lead`` axes before its spatial ones) with ``width`` planes
+    of its neighbours' on each side of every cut spatial axis, ``cuts``
+    the (spatial axis, mesh axis) pairs, the periodic wrap where the
+    neighbour is this rank: one ``exchange`` a cut, each of the block
+    extended by the cuts before it, so that edges and corners come from
+    the diagonal neighbours."""
+    for axis, mesh_axis in cuts:
+        d = lead + axis
+        n = t.shape[d]
+        if n < width:
+            raise ValueError(f"a block of {n} plane(s) along axis {axis} cannot "
+                             f"give its neighbours a halo of {width}")
+        lo, hi = exchange(mesh, mesh_axis, t.narrow(d, n - width, width),
+                          t.narrow(d, 0, width))
+        t = torch.cat([lo, t, hi], dim=d)
+    return t
 
 
 def halo_ring(mesh: Mesh, t: torch.Tensor, x_dim: int, shard_y: bool) -> torch.Tensor:
@@ -470,6 +546,8 @@ def fft(domain, x: torch.Tensor) -> torch.Tensor:
         if domain.fft_backend == "PALLAS":
             return fft_slab_pallas(domain, x)
         return fft_slab(domain, x)
+    if domain.parallel_mode == "FFT_PENCIL":
+        return fft_pencil(domain, x)
     raise RuntimeError(f"No distributed FFT for mode {domain.parallel_mode}")
 
 
@@ -478,7 +556,21 @@ def ifft(domain, x: torch.Tensor) -> torch.Tensor:
         if domain.fft_backend == "PALLAS":
             return ifft_slab_pallas(domain, x)
         return ifft_slab(domain, x)
+    if domain.parallel_mode == "FFT_PENCIL":
+        return ifft_pencil(domain, x)
     raise RuntimeError(f"No distributed iFFT for mode {domain.parallel_mode}")
+
+
+def _real_ends(z: torch.Tensor, axis: int, n: int) -> torch.Tensor:
+    """``z`` with the imaginary part of its zero and (even ``n``) Nyquist
+    entries along the half axis ``axis`` dropped, before the c2r transform
+    along it: what a c2r reads of them whatever the library, and what a
+    spectrum Hermitian in the other axes holds there after their inverse
+    transforms (so a non-Hermitian end plane inverts as the serial path's
+    Hermitian fix of it does)."""
+    for idx in (0, n // 2) if n % 2 == 0 else (0,):
+        z.select(axis, idx).imag.zero_()
+    return z
 
 
 def fft_slab(domain, x: torch.Tensor) -> torch.Tensor:
@@ -513,7 +605,8 @@ def ifft_slab(domain, x: torch.Tensor) -> torch.Tensor:
     z = all_to_all(domain.mesh, z, 1, 0)
     z = torch.fft.ifft(z, dim=0)
     if half_z:
-        return torch.fft.irfft(z, n=domain.n_global[2], dim=2).to(domain.dtype)
+        nz = domain.n_global[2]
+        return torch.fft.irfft(_real_ends(z, 2, nz), n=nz, dim=2).to(domain.dtype)
     for a in range(2, dim):
         z = torch.fft.ifft(z, dim=a)
     return z.real.to(domain.dtype)
@@ -549,6 +642,50 @@ def _gather_ifft(domain, x: torch.Tensor) -> torch.Tensor:
         r = torch.fft.ifftn(g, dim=spatial).real
     sl = block_slices(mesh, real_spec(domain, r.ndim), r.shape)
     return r[sl].to(domain.dtype).contiguous()
+
+
+def fft_pencil(domain, x: torch.Tensor) -> torch.Tensor:
+    """Forward pencil FFT (reference fftPencil, DomainAction.C:1021-1404;
+    marlin_tpu/parallel.py:434): the local rfft along x, its half extent
+    zero-padded to the p1 tile multiple (the pad rows stay exact zeros
+    through the linear stages), one all_to_all over p1, the y transform,
+    one over p2, the z transform.  Complex input keeps the full spectrum
+    and needs nx divisible by p1."""
+    mesh = domain.mesh
+    if x.is_complex():
+        p1 = mesh.axis_size("p1")
+        if domain.n_global[0] % p1:
+            raise ValueError(
+                f"FFT_PENCIL full-spectrum (complex-input) transform needs "
+                f"nx={domain.n_global[0]} divisible by the p1 mesh axis ({p1})"
+            )
+        z = torch.fft.fft(x.to(domain.cdtype), dim=0)
+    else:
+        z = torch.fft.rfft(x, dim=0)
+        if domain.reciprocal_pad:
+            z = torch.cat([z, z.new_zeros((domain.reciprocal_pad,) + z.shape[1:])], 0)
+    z = all_to_all(mesh, z, 0, 1, "p1")
+    z = torch.fft.fft(z, dim=1)
+    z = all_to_all(mesh, z, 1, 2, "p2")
+    return torch.fft.fft(z, dim=2).to(domain.cdtype)
+
+
+def ifft_pencil(domain, x: torch.Tensor) -> torch.Tensor:
+    """Inverse of ``fft_pencil`` (marlin_tpu/parallel.py:478): the z
+    transform, the all_to_all back over p2, y, back over p1, then the pad
+    rows cut off and the c2r along x.  A half-x spectrum is told from a
+    full one by its x extent (the tiny-grid pad keeps them apart)."""
+    mesh = domain.mesh
+    half_x = domain.use_rfft(0) and x.shape[0] == domain.reciprocal_shape[0]
+    z = torch.fft.ifft(x, dim=2)
+    z = all_to_all(mesh, z, 2, 1, "p2")
+    z = torch.fft.ifft(z, dim=1)
+    z = all_to_all(mesh, z, 1, 0, "p1")
+    if half_x:
+        nx = domain.n_global[0]
+        z = _real_ends(z[:nx // 2 + 1], 0, nx)
+        return torch.fft.irfft(z, n=nx, dim=0).to(domain.dtype)
+    return torch.fft.ifft(z, dim=0).real.to(domain.dtype)
 
 
 def fft_slab_pallas(domain, x: torch.Tensor) -> torch.Tensor:

@@ -8,7 +8,9 @@ an output point to the host in one transfer.  A postprocessor with
 is evaluated after that transfer, on the host, from the values fetched
 (``compute_host``).  On a mesh each rank reduces its block and the
 partial results are reduced over the group (``Domain.reduce``), so every
-rank holds the whole grid's values.  The aux-variable postprocessors reduce the buffer an
+rank holds the whole grid's values; a reduction over a spectrum leaves a
+pencil's pad rows out (``Domain.spectrum``).  The aux-variable
+postprocessors reduce the buffer an
 aux variable reads on the device, inside the same transfer.  A vector
 postprocessor (``TensorHistogram``) returns columns of host arrays, written
 as one CSV a step by the executioner.
@@ -63,7 +65,7 @@ class TensorAveragePostprocessor(TensorPostprocessor):
     """Mean over the grid (reference TensorAveragePostprocessor.C)."""
 
     def compute(self, state, ctx):
-        u = state["buffers"][self.buffer]
+        u = self.domain.spectrum(state["buffers"][self.buffer])
         return self.domain.reduce(torch.sum(u)) / self.domain.numel(u)
 
 
@@ -91,9 +93,10 @@ class TensorIntegralChangePostprocessor(TensorPostprocessor):
         return {self.buffer: 1}
 
     def compute(self, state, ctx):
-        u = state["buffers"][self.buffer]
+        dom = self.domain
+        u = dom.spectrum(state["buffers"][self.buffer])
         if _n_old(state, self.buffer) > 0:
-            integral = torch.sum(torch.abs(u - state["old"][self.buffer][0]))
+            integral = torch.sum(torch.abs(u - dom.spectrum(state["old"][self.buffer][0])))
         else:
             integral = torch.sum(torch.abs(u))
         return self.domain.reduce(integral) * math.prod(self.domain.grid_spacing)
@@ -108,7 +111,7 @@ class TensorExtremeValuePostprocessor(TensorPostprocessor):
         self.value_type = params.get_enum("value_type", ["MIN", "MAX"], "MAX")
 
     def compute(self, state, ctx):
-        u = state["buffers"][self.buffer]
+        u = self.domain.spectrum(state["buffers"][self.buffer])
         if self.value_type == "MIN":
             return self.domain.reduce(torch.min(u), "min")
         return self.domain.reduce(torch.max(u), "max")
@@ -138,9 +141,11 @@ class SemiImplicitCriticalTimeStep(TensorPostprocessor):
     (reference SemiImplicitCriticalTimeStep.C:30-46)."""
 
     def compute(self, state, ctx):
-        u = state["buffers"][self.buffer]
-        max_norm_k = torch.sqrt(self.domain.reduce(
-            torch.max(torch.real(u * torch.conj(u))), "max"))
+        u = self.domain.spectrum(state["buffers"][self.buffer])
+        sq = torch.real(u * torch.conj(u))
+        # a pencil block may hold pad rows alone: 0 is the max's neutral here
+        local = torch.max(sq) if sq.numel() else sq.new_zeros(())
+        max_norm_k = torch.sqrt(self.domain.reduce(local, "max"))
         return torch.where(max_norm_k > 0.0, 1.0 / max_norm_k,
                            torch.full_like(max_norm_k, 1e30))
 

@@ -65,26 +65,6 @@ NEML2_VALUE_DIMS = {"VectorTensor": [3], "SR2Tensor": [6], "R2Tensor": [3, 3],
                     "SSR4Tensor": [6, 6], "RotTensor": [3]}
 
 
-#: compute types that run on one device only: on a mesh each is a named
-#: error, naming what waits (ROADMAP §1 item 8 lists the rest in order)
-SERIAL_COMPUTES = {
-    "FiniteDifferenceLaplacian": "real-space stencils outside the LBM chain",
-    **{t: "sharded FFT micromechanics" for t in (
-        "HyperElasticIsotropic", "RankTwoIdentity", "FFTMechanics",
-        "ComputeVonMisesStress", "ComputeDisplacements", "FFTQuasistaticElasticity",
-        "FFTElasticChemicalPotential", "MacroscopicShearTensor", "PhaseMechanicsTest")},
-    "NEML2TensorCompute": "sharded NEML2",
-}
-#: the solvers that run on a mesh (the slab ABM, the LBM stream)
-MESH_SOLVERS = ("AdamsBashforthMoulton", "SemiImplicitSolver", "LBMStream")
-
-
-def _serial_only(domain: Domain, what: str, waits: str):
-    raise ProblemError(
-        f"{what} under parallel_mode = {domain.parallel_mode} on a mesh is not "
-        f"ported to marlin_tpu_torch yet ({waits} waits for a later slice)")
-
-
 def build_domain(node: Optional[HitNode], device=None, mesh=None) -> Domain:
     """The Domain of a deck's [Domain] block on ``mesh``, or on one device
     without one (marlin_tpu/problem.py:build_domain)."""
@@ -263,9 +243,6 @@ class TensorProblem:
         if tname is None or tname == "ComputeGroup":
             members = [self._build_compute(b) for b in node.blocks()]
             return ComputeGroup(node.name, params, self, members)
-        if self.domain.mesh is not None and tname in SERIAL_COMPUTES:
-            _serial_only(self.domain, f"[TensorComputes/{node.name}] type = {tname}",
-                         SERIAL_COMPUTES[tname])
         cls = compute_registry.get(tname)
         return cls(node.name, params, self)
 
@@ -340,9 +317,6 @@ class TensorProblem:
         if ts is not None:
             params = Params(ts, self.global_params)
             stype = params.get_str("type", required=True)
-            if self.domain.mesh is not None and stype not in MESH_SOLVERS:
-                _serial_only(self.domain, f"[TensorSolver] type = {stype}",
-                             "the sharded solver family")
             cls = solver_registry.get(stype)
             self.solver = cls(ts.name, params, self)
             root_name = params.get_str("root_compute")

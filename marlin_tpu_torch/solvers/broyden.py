@@ -7,7 +7,8 @@ substeps and steps in ``state["solver"]["M"]`` (the reference keeps it as
 a member), so a checkpoint holds it.  The per-point contractions (N ≤ 5)
 are elementwise products and sums in the state's precision.  The loop runs
 on the host like SecantSolver's: one fetch before the first iteration and
-one after each.
+one after each, of a norm summed over the mesh first (``Domain.reduce``),
+so that every rank of a mesh runs the same iterations.
 """
 
 from __future__ import annotations
@@ -17,7 +18,7 @@ import torch
 from ..params import Params
 from ..registry import solvers
 from .base import IterativeSolver
-from .secant import _fetch, _norm
+from .secant import _fetch, _sq
 
 
 def _matvec(M, x):
@@ -58,9 +59,12 @@ class BroydenSolver(IterativeSolver):
             for v in self.variables], -1)
         return u, N, L
 
+    def _norm(self, R):
+        return self.domain.reduce(_sq(self.domain, R)).sqrt()
+
     def _done(self, R, R0norm):
         """(converged, NaN) of a residual, in one fetch."""
-        Rnorm = _norm(R)
+        Rnorm = self._norm(R)
         conv = (Rnorm < self.abs_tol) | (Rnorm / R0norm < self.rel_tol)
         (converged, nan), (host_norm,) = _fetch([conv, torch.isnan(Rnorm)], [Rnorm])
         return converged, nan, host_norm
@@ -74,7 +78,7 @@ class BroydenSolver(IterativeSolver):
         u, N, L = self._stack(buffers)
         u_old = u
         R = (N + L * u) * sub_dt
-        R0norm = _norm(R)
+        R0norm = self._norm(R)
 
         it = 0
         converged, nan, Rnorm = self._done(R, R0norm)

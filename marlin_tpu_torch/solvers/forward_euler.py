@@ -4,9 +4,9 @@
   u = ifft(ū + dt·dū/dt).  Also used as a no-op wrapper driving steady
   solves (reference: examples/degeus_mechanics/mech.i:84-92).
 - RealSpaceForwardEuler (reference: src/tensor_solver/RealSpaceForwardEuler.C:47-56):
-  FFT-free explicit Euler, u += dt·du/dt.  The port's domain is serial,
-  so it runs serially; the reference's REAL_SPACE mode waits for the
-  parallel modes.
+  FFT-free explicit Euler, u += dt·du/dt, pointwise on each rank's block:
+  it runs serially and on any mesh, REAL_SPACE (the reference's mode for
+  it, the derivative from halo'd stencils) included.
 """
 
 from __future__ import annotations

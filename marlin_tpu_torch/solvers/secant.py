@@ -11,7 +11,11 @@ host loop that stops on convergence, NaN or ``max_iterations``, as the
 reference's ``.item()`` checks do (SecantSolver.C:88).  Each iteration
 gathers the convergence flag, the NaN flag and every variable's |R| into
 one small device tensor and fetches it once: one device-to-host transfer
-an iteration, whatever the number of variables.
+an iteration, whatever the number of variables.  On a mesh the norms are
+summed over the group first, every variable's in one reduction
+(``Domain.reduce``), and the flags are computed from the reduced norms, so every
+rank takes the same branch and runs the same iterations.  A pencil's pad
+rows are left out of the sums (``Domain.spectrum``).
 """
 
 from __future__ import annotations
@@ -23,8 +27,9 @@ from ..registry import solvers
 from .base import IterativeSolver
 
 
-def _norm(x):
-    return x.abs().square().sum().sqrt()
+def _sq(dom, x):
+    """This rank's Σ|x|² over the spectrum (a pencil's pad rows left out)."""
+    return dom.spectrum(x).abs().square().sum()
 
 
 def _fetch(flags, norms):
@@ -51,7 +56,8 @@ class SecantSolver(IterativeSolver):
         state = self._run_group(state, sub_time)
         buffers = dict(state["buffers"])
 
-        u_old, Rprev, R0norm, boots = [], [], [], []
+        dom = self.domain
+        u_old, Rprev, R0sq, boots = [], [], [], []
         for v in self.variables:
             u = buffers[v.reciprocal_buffer]
             N = buffers[v.nonlinear_reciprocal]
@@ -61,7 +67,7 @@ class SecantSolver(IterativeSolver):
             else:
                 Rp = N * sub_dt
             Rprev.append(Rp)
-            R0norm.append(_norm(Rp))
+            R0sq.append(_sq(dom, Rp))
             u_old.append(u)
             # semi-implicit bootstrap (reference :80-88)
             if v.linear_reciprocal is not None:
@@ -69,8 +75,9 @@ class SecantSolver(IterativeSolver):
             else:
                 bootstrap = u + self.dt_epsilon * N
             boots.append((v.buffer, bootstrap))
+        R0norm = dom.reduce(torch.stack(R0sq)).sqrt()
         if self.verbose:  # reference :95 "|R0|=..."
-            for r in torch.stack(R0norm).tolist():
+            for r in R0norm.tolist():
                 print(f"|R0|={r}")
         buffers.update(self._ifft_all(boots))
 
@@ -85,9 +92,7 @@ class SecantSolver(IterativeSolver):
         while it < self.max_iterations and not converged and not nan_abort:
             st = self._run_group({**state, "buffers": buffers}, sub_time)
             buffers = dict(st["buffers"])
-            all_conv = None
-            any_nan = None
-            updates, norms, du_norms = [], [], []
+            updates, squares, du_squares = [], [], []
             for i, v in enumerate(self.variables):
                 u = buffers[v.reciprocal_buffer]
                 N = buffers[v.nonlinear_reciprocal]
@@ -104,19 +109,17 @@ class SecantSolver(IterativeSolver):
                 up[i], Rp[i] = u, R
                 updates.append((v.buffer, u + du if self.damping == 1.0
                                 else u + du * self.damping))
-                Rnorm = _norm(R)
-                norms.append(Rnorm)
+                squares.append(_sq(dom, R))
                 if self.verbose:
-                    du_norms.append(_norm(du))
-                conv = (Rnorm < self.abs_tol) | (Rnorm / R0norm[i] < self.rel_tol)
-                nan = torch.isnan(Rnorm)
-                all_conv = conv if all_conv is None else all_conv & conv
-                any_nan = nan if any_nan is None else any_nan | nan
+                    du_squares.append(_sq(dom, du))
+            n = len(self.variables)
+            reduced = dom.reduce(torch.stack(squares + du_squares)).sqrt()
+            norms = reduced[:n]
+            conv = ((norms < self.abs_tol) | (norms / R0norm < self.rel_tol)).all()
             buffers.update(self._ifft_all(updates))
             (converged, nan_abort), host_norms = _fetch(
-                [all_conv, any_nan], norms + du_norms)
+                [conv, torch.isnan(norms).any()], list(reduced))
             if self.verbose:  # reference :146 "i |du| = ... |R|=..."
-                n = len(self.variables)
                 for r, d in zip(host_norms[:n], host_norms[n:]):
                     print(f"{it} |du| = {d} |R|={r}")
             it += 1

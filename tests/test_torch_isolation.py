@@ -53,6 +53,27 @@ def _imported_modules(path):
             yield str(node.args[0].value), lazy
 
 
+#: the modules the mesh family's slice (FFT_PENCIL, the z cut, every
+#: compute and solver on a mesh) wrote or changed, and the rank harness of
+#: its tests, which every spawned rank imports alone
+MESH_FAMILY = ("parallel.py", "domain.py", "decks.py", "problem.py", "postprocessors.py",
+               "computes/core.py", "computes/lbm.py", "computes/mechanics.py",
+               "computes/neml2.py", "solvers/secant.py", "solvers/broyden.py",
+               "solvers/forward_euler.py")
+
+
+@pytest.mark.parametrize("rel", MESH_FAMILY + ("tests/torch_ranks.py",))
+def test_mesh_family_modules_stand_alone(rel):
+    """Each module of the mesh family's slice is among those scanned, and
+    imports neither jax nor marlin_tpu (tests/torch_ranks.py, which every
+    spawned rank runs, neither)."""
+    path = os.path.join(ROOT, rel) if rel.startswith("tests") else os.path.join(
+        ROOT, "marlin_tpu_torch", rel)
+    assert rel.startswith("tests") or path in _sources()
+    for mod, _lazy in _imported_modules(path):
+        assert mod.split(".")[0] not in ("jax", "jaxlib", "marlin_tpu"), (rel, mod)
+
+
 @pytest.mark.parametrize("path", _sources(),
                          ids=lambda p: os.path.relpath(p, ROOT))
 def test_no_jax_or_marlin_tpu_import(path):
@@ -254,8 +275,8 @@ def test_outputs_and_checkpoints_run_on_cpu(extra, written, tmp_path):
 
 
 @pytest.mark.parametrize("domain,match", [
-    # FFT_SLAB and REAL_SPACE run; FFT_PENCIL waits for the next slice
-    ("parallel_mode = FFT_PENCIL", "parallel_mode"),
+    # FFT_SLAB, FFT_PENCIL and REAL_SPACE run; a pencil is 3-D only
+    ("parallel_mode = FFT_PENCIL", "Dimension must be 3 for pencil decomposition"),
     ("fft_backend = PALLAS\n  floating_precision = DOUBLE", "single-precision"),
     ("fft_backend = PALLAS", "requires every grid"),
 ], ids=["parallel", "pallas_f64", "pallas_extent"])

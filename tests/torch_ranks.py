@@ -122,35 +122,102 @@ def slab_fft(dim, n, complex_input, seed=0):
             "uneven": dom.uneven}
 
 
+def pencil_fft(n, shape, complex_input=False, seed=0, kspace=False):
+    """The forward and inverse pencil transforms of a seeded field on a
+    (p1, p2) mesh: this rank's (reciprocal slice, spectrum block), (real
+    slice, inverse), the pad and the exchanges made; with ``kspace`` also
+    the inverse of the spectrum divided by 1 + 0.01·k² (a pointwise k²
+    operator between the transforms)."""
+    from marlin_tpu_torch import parallel
+    from marlin_tpu_torch.domain import Domain
+
+    dom = Domain(3, n, maxs=[1.0, 2.0, 3.0], parallel_mode="FFT_PENCIL",
+                 floating_precision="DOUBLE", device="cpu",
+                 mesh=_mesh("FFT_PENCIL", shape))
+    rng = np.random.RandomState(seed)
+    g = rng.rand(*n)
+    if complex_input:
+        g = g + 1j * rng.rand(*n)
+    x = torch.from_numpy(np.ascontiguousarray(g[dom.real_slice]))
+    parallel.reset_calls()
+    z = dom.fft(x)
+    back = dom.ifft(z)
+    out = {"spectrum": (dom.full_slice if complex_input else dom.reciprocal_slice,
+                        z.numpy()),
+           "back": (dom.real_slice, back.numpy()), "pad": dom.reciprocal_pad,
+           "reciprocal_shape": dom.global_reciprocal_shape,
+           "calls": parallel.calls()}
+    if kspace:
+        out["kspace"] = (dom.real_slice,
+                         dom.ifft(z / (1.0 + 0.01 * dom.k_square)).numpy())
+    return out
+
+
+def counts_of(problem, names):
+    """The host loops' counts of the computes ``names`` (FFTMechanics:
+    its counts and CG log; NEML2TensorCompute: each Newton model's log)
+    and of the solver, where it keeps any."""
+    import dataclasses
+
+    out = {}
+    for name in names:
+        c = problem.get_compute(name)
+        if hasattr(c, "model"):
+            from marlin_tpu_torch.computes.neml2 import walk_models
+
+            out[name] = [list(m.counts.log) for m in walk_models(c.model)
+                         if hasattr(m, "counts")]
+        else:
+            out[name] = dict(dataclasses.asdict(c.counts), cg_log=list(c.cg_log))
+    counts = getattr(problem.solver, "counts", None)
+    if counts is not None:
+        out["solver"] = dataclasses.asdict(counts)
+    return out
+
+
 def deck_run(text, steps, mode, mesh_shape=None, arrays=None, buffers=(), old=(),
-             how="steps", dt=1.0, output_dir=None, initial=()):
+             how="steps", dt=1.0, output_dir=None, initial=(), counts=(), deck_dir=None,
+             path=None, overrides=()):
     """A deck on the mesh of every rank.  ``how`` "steps": the
     problem's steps at ``dt`` from t = 0, as the JAX package's tests drive
     them (the first one the first step); "run_deck": the whole run, its
-    CSV in ``output_dir``/rank<r>.  Returns this rank's slices and blocks
+    CSV in ``output_dir``/rank<r>.  ``overrides`` are command-line
+    arguments to the deck; with ``path`` the deck is that file (``text``
+    unused).  Returns this rank's slices and blocks
     of ``buffers`` (None: every one) and of the history stacks ``old``,
     the initial state's blocks of ``initial`` (under "steps"), the
-    residual, the advances and, under run_deck, the postprocessor
-    values."""
+    residual, the advances, the loops' counts (``counts_of``), the
+    collectives of the run (``parallel.calls()``) and, under run_deck, the
+    postprocessor values."""
     import torch.distributed as dist
 
-    from marlin_tpu_torch import hit
+    from marlin_tpu_torch import hit, parallel
     from marlin_tpu_torch.executioner import run_deck
     from marlin_tpu_torch.problem import TensorProblem
 
     mesh = _mesh(mode, mesh_shape)
+    parallel.reset_calls()
     res = {}
+    def load():
+        if path:
+            return hit.load(path, list(overrides))
+        root = hit.parse(text)
+        hit.apply_cli_args(root, list(overrides))
+        return root
+
     if how == "steps":
-        p = TensorProblem(hit.parse(text), device="cpu", arrays=arrays, mesh=mesh)
+        p = TensorProblem(load(), device="cpu", arrays=arrays, mesh=mesh,
+                          deck_dir=deck_dir)
         st = p.init_state()
         res["initial"] = {k: st["buffers"][k].numpy().copy() for k in initial}
         for i in range(steps):
             st = p.step(st, i * dt, dt, dt, i == 0)
     else:
-        root = hit.parse(text)
+        root = load()
         root.child("Executioner", create=True).set_param("num_steps", str(steps))
         out = os.path.join(output_dir, f"rank{dist.get_rank()}")
-        tr = run_deck(root, device="cpu", mesh=mesh, arrays=arrays, output_dir=out)
+        tr = run_deck(root, device="cpu", mesh=mesh, arrays=arrays, output_dir=out,
+                      deck_dir=deck_dir)
         p, st = tr.problem, tr.state
         res["pps"] = dict(tr.pp_values)
     dom = p.domain
@@ -162,6 +229,8 @@ def deck_run(text, steps, mode, mesh_shape=None, arrays=None, buffers=(), old=()
         "old": {k: st["old"][k].numpy() for k in (st["old"] if old is None else old)}})
     if "residual" in st["solver"]:
         res["residual"] = float(st["solver"]["residual"])
+    res["counts"] = counts_of(p, counts)
+    res["calls"] = parallel.calls()
     return res
 
 
