@@ -9,7 +9,8 @@ Phases, one line each, flushed as they finish:
 1. build: the CUDA libraries of marlin_tpu_torch/csrc (the unordered FFT,
    the fused k-space update, the fused LBM substep) and the generated
    library of the 3-D Cahn-Hilliard µ fused into the forward lanes read,
-   one nvcc each, all started together, with ptxas's registers and spills
+   one nvcc each, all started together (and g++ of phase 20's native
+   fparse library beside them), with ptxas's registers and spills
    of every FFT and LBM kernel, forward and inverse (and the register FFT
    kernels' shared memory), the LBM substep's flat and brick kernels.  The
    LBM substep library, the slowest to build, builds while phase 2's
@@ -94,10 +95,10 @@ Phases, one line each, flushed as they finish:
    through ``run_deck`` to its end (t = 10500, or the Terminator's
    ``change < 1e-4``), four times: DEFAULT (torch.fft) in float64, the
    card's reference (run first, while the libraries build: it needs no
-   kernel of the port), and in float32, cut to its first 12 of 85 steps
-   (``BENCH_1A_CUT``: phase 17's room in the cold start); PALLAS
+   kernel of the port), and in float32, cut to its first 8 of 85 steps
+   (``BENCH_1A_CUT``: room in the cold start for phases 17 and 20); PALLAS
    unfused in float32 (kernels 1-4 on the small-extent path at n = 200, in
-   every substep and in the free-energy group), cut to its first 12
+   every substep and in the free-energy group), cut to its first 8
    (``BENCH_1A_CUT``: the host-bound route, its kernels held at
    200² by phase 2); each cut route's last F held within 1e-3 of the
    float64 run's at the same step; PALLAS with ``carry_reciprocal`` and
@@ -264,6 +265,31 @@ Phases, one line each, flushed as they finish:
    launches exact; one all_to_all of a 512³
    complex64 block and one halo ring of a 256³ D3Q19 block, ms; the NCCL
    version and the world size.
+19. the mesh family on the same group: (a) CH3D on FFT_PENCIL, (b) ETDRK4
+   on FFT_SLAB, DEFAULT and PALLAS, (c) the deGeus RVE on FFT_SLAB and
+   FFT_PENCIL, (d) the Perzyna deck on FFT_SLAB, (e) the 3-D REAL_SPACE
+   Laplacian on a (1, 1, 1) mesh, (f) kernels 1-4 in slab form at p = 2
+   and 4 (``phase_mesh_family``).
+20. the sharded checkpoint, the writers on a mesh and the native
+   evaluator, on the same group, where the writers take the serial file
+   form of a world of one (``phase_restart_mesh``): (a) decks.CH3D_DECK at
+   256³ float32 (not 512³: that state's ~6 GiB would cost 15-20 s of the
+   cold start to write and read) on the PALLAS fused slab, 2 steps × 10
+   substeps, a checkpoint every step and an XDMF frame of c (.bin) each
+   step; a fresh Transient resumed from step 1's checkpoint equals the
+   uninterrupted run in every leaf bit for bit, its frame's bytes are c,
+   its launches (kernels 1', 5s, 4 and 2, with 1 and 3) phase 18 (b)'s
+   for one step; the checkpoint's bytes and its write and read seconds;
+   (b) benchmark 1a at 200² DEFAULT float32 on FFT_SLAB, cut to 4 steps of
+   100 substeps, with phase 13's outputs (Exodus of a LAGRANGE aux
+   variable with ElementAverageValue, the histogram, XDMF, CSV),
+   checkpointed at step 2 and resumed: the CSV rows, the histograms and
+   the Exodus frames after the checkpoint bit for bit, the histogram
+   counts 200², and c within 5e-5 of a serial run of the cut deck; (c)
+   the native fparse library (g++, built in phase 1's pool beside the
+   kernels): available, its build seconds, and fracture.i's ``${fparse}``
+   constants equal to the Python engine's, hit.load taking the native
+   engine for each.
 
 Then one JSON line with every kernel's numbers (a kernel timed at more
 than one main shape also lists each under ``shapes``; ``launches_by_path``
@@ -277,7 +303,9 @@ small-extent entries; phase 16's
 rows at its shapes stand under ``mechanics_shapes``; kernels 5-6's slab
 form and kernel 7's halo branch stand as their own entries, ``<wrapper>
 slab`` and ``lbm_substep halo``, timed by phase 18 (a) and launched by its
-(b) runs; ``collective`` holds (b)'s all_to_all and halo ring ms) and, last, the JSON result line.  Any failure ends the run with a non-zero exit and no result line.
+(b) runs and phase 20 (a)'s, kernels 1-4's slab rows by phase 19's ETDRK4
+slab run and phase 20 (a)'s, whose kernel 1' launches join that row's;
+``collective`` holds (b)'s all_to_all and halo ring ms) and, last, the JSON result line.  Any failure ends the run with a non-zero exit and no result line.
 Needs one CUDA card; fails without one, and fails where the package is not
 beside it.
 """
@@ -342,13 +370,14 @@ BENCH_1A_RUNS = {  # run: its route in marlin_tpu_torch.bench_1a_runs.ROUTES
     "DEFAULT float64": "D64", "DEFAULT float32": "D32",
     "PALLAS float32": "P32", "PALLAS fused float32": "F32",
 }
-# runs cut short, each to its first 12 of 85 steps (past the t <= 10 gate):
+# runs cut short, each to its first 8 of 85 steps (t = 11.4, past the t <= 10 gate):
 # PALLAS float32 unfused, host-bound (55-66 s whole), its
 # kernels held at 200² by phase 2 and its launches again in phases 13-15;
 # DEFAULT float32 (room for phase 17; 42-46 s whole), torch.fft
-# alone.  Each last F is held against the float64 run's at the same step,
-# within BENCH_1A_EARLY's tolerance
-BENCH_1A_CUT = {"PALLAS float32": 12, "DEFAULT float32": 12}
+# alone; 8 steps, not 12, make room for phase 20 (a cold run at 12 reached
+# [done] at 298.5 s).  Each last F is held against the float64 run's at
+# the same step, within BENCH_1A_EARLY's tolerance
+BENCH_1A_CUT = {"PALLAS float32": 8, "DEFAULT float32": 8}
 PROFILE_ATTEMPTS = 3  # device_ms: traces taken before an empty one fails
 RESUME_1A = (6, 3)  # phase 13: steps of 1a, and the checkpoint's step
 RESUME_KARMAN = (4, 2)  # the same for Kármán (100 substeps a step)
@@ -487,7 +516,6 @@ def measure(name, shape, kernel, twin, library, n_bytes, flops, yardstick=None,
         row["yardstick_ms"] = cuda_ms(fn)
         text += f", {label} {row['yardstick_ms']:.3f} ms"
     say(text)
-    torch.cuda.empty_cache()
     return row
 
 
@@ -575,7 +603,6 @@ def measure_1a(uf, name, path, shape, kernel, twin, library, n_bytes, flops,
         row["yardstick_ms"] = device_ms(fn)
         text += f", {label} {1e3 * row['yardstick_ms']:.2f}"
     say(text)
-    torch.cuda.empty_cache()
     return row
 
 
@@ -945,7 +972,7 @@ def phase_lbm_kernel(lf, dev):
     extent) and the density mean's rows."""
     import dataclasses
 
-    from marlin_tpu_torch.decks import karman_media, porous_media
+    from marlin_tpu_torch.decks import karman_media
     from marlin_tpu_torch.lbm_probe import deck_plans
 
     gen = torch.Generator(device=dev).manual_seed(1)
@@ -1063,8 +1090,9 @@ def lbm_mean_check(lf, fpc, media, cfg, shape, timed):
 def device_ms(fn, calls=20):
     """Device ms a call: the time of the kernels ``fn`` launches, by
     torch.profiler over ``calls`` calls (at 800×200 the host cannot keep
-    the card busy, so CUDA events would time the host)."""
-    return device_profile(fn, calls)[0]
+    the card busy, so CUDA events would time the host), its trace the
+    device's activity alone (a twin's host trace takes seconds to read)."""
+    return device_profile(fn, calls, cpu=False)[0]
 
 
 def device_profile(fn, calls=20, warm=True, cpu=True):
@@ -1102,6 +1130,19 @@ LBM_PATHS = {
 }
 
 
+@functools.lru_cache(maxsize=None)
+def _porous_media(n):
+    from marlin_tpu_torch import decks
+
+    return decks.porous_media(n)
+
+
+def porous_media(n):
+    """A copy of decks.porous_media(n), drawn once a run (a second at 256³
+    on the host; phases 2, 7-10, 14 and 18 each take it)."""
+    return _porous_media(n).copy()
+
+
 def lbm_deck(name, backend):
     """(deck text at LBM_N³ in float32 with LBM_STEPS steps, arrays)."""
     import re
@@ -1112,7 +1153,7 @@ def lbm_deck(name, backend):
     arrays = None
     if name == "porous":
         deck = decks.POROUS_DECK.format(n=LBM_N, media_h5="media.h5", **fmt)
-        arrays = {"media": decks.porous_media(LBM_N)}
+        arrays = {"media": porous_media(LBM_N)}
     elif name == "mixed":
         deck = decks.MIXED_DECK.format(n=LBM_N, **fmt)
     elif name == "thermal":
@@ -1120,7 +1161,7 @@ def lbm_deck(name, backend):
     else:
         deck = decks.PEBBLES_DECK.format(nx=LBM_N, ny=LBM_N, nz=LBM_N,
                                          media_h5="media.h5", **fmt)
-        arrays = {"media": decks.porous_media(LBM_N)}
+        arrays = {"media": porous_media(LBM_N)}
     deck = deck.replace("[Domain]", "[Domain]\n  floating_precision = SINGLE")
     deck = re.sub(r"\[Executioner\]\n(  .*\n)*\[\]\n", "", deck)
     assert "[Executioner]" not in deck, name
@@ -1152,9 +1193,11 @@ def lbm_run(name, backend, dev):
 
 
 def lbm_substep_ms(tr, substeps=LBM_SUBSTEPS):
-    """Device time of one steady step of the finished run, a substep."""
+    """Device time of one more step of the finished run, a substep: the
+    run's own steps warmed it (the eager JNP chain takes up to 0.2 s a
+    substep at 256³, so one step is timed, not three)."""
     p, st = tr.problem, tr.state
-    ms = cuda_ms(lambda: p.step(st, tr.time, 1.0, 1.0, False), reps=2, warmup=1)
+    ms = cuda_ms(lambda: p.step(st, tr.time, 1.0, 1.0, False), reps=1, warmup=0)
     return ms / substeps
 
 
@@ -1364,10 +1407,12 @@ def run_main_path(deck, dev):
     return tr, wall
 
 
-def substep_ms(tr, dt):
-    """Device time of one steady-state step of the finished run, a substep."""
+def substep_ms(tr, dt, reps=2):
+    """Device time of ``reps`` more steps of the finished run, a substep
+    (after one more untimed step where ``reps`` > 1)."""
     p, st = tr.problem, tr.state
-    ms = cuda_ms(lambda: p.step(st, tr.time, dt, dt, False), reps=2, warmup=1)
+    ms = cuda_ms(lambda: p.step(st, tr.time, dt, dt, False), reps=reps,
+                 warmup=1 if reps > 1 else 0)
     return ms / SUBSTEPS
 
 
@@ -1576,11 +1621,13 @@ def states_equal(a, b):
     assert a["old_dt"] == b["old_dt"], (a["old_dt"], b["old_dt"])
 
 
-def resume_runs(deck, steps, at, out_dir, dev, counters_of, reset_all, arrays=None):
+def resume_runs(deck, steps, at, out_dir, dev, counters_of, reset_all, arrays=None,
+                mesh=None):
     """``deck`` run ``steps`` steps uninterrupted, ``at`` steps with a
     checkpoint at the end, and resumed from that checkpoint to ``steps``;
-    each run_deck in its own directory under ``out_dir``, the launch counts
-    set to 0 just before each and read just after.  Returns {run:
+    each run_deck in its own directory under ``out_dir`` (on ``mesh`` where
+    given), the launch counts set to 0 just before each and read just
+    after.  Returns {run:
     (transient, launches, seconds)}."""
     from marlin_tpu_torch import hit
     from marlin_tpu_torch.executioner import run_deck
@@ -1600,7 +1647,7 @@ def resume_runs(deck, steps, at, out_dir, dev, counters_of, reset_all, arrays=No
         torch.cuda.synchronize()
         t0 = time.perf_counter()
         tr = run_deck(root(n, interval), output_dir=os.path.join(out_dir, run), device=dev,
-                      arrays=arrays, deck_stem="field",
+                      arrays=arrays, deck_stem="field", mesh=mesh,
                       recover=recover and out[recover][0].checkpoint_path)
         torch.cuda.synchronize()
         out[run] = (tr, counters_of(), time.perf_counter() - t0)
@@ -1979,7 +2026,7 @@ def phase_pressure(dev, smi):
     from marlin_tpu_torch import decks
 
     n, steps, substeps = PRESSURE
-    media = decks.porous_media(n)
+    media = porous_media(n)
     ms = {}
     for inlet in ("left", "wall"):
         deck = decks.PRESSURE_DECK.format(n=n, substeps=substeps, backend="JNP",
@@ -3495,7 +3542,6 @@ def halo_kernel_rows(lf, dev):
     import dataclasses
     import itertools
 
-    from marlin_tpu_torch.decks import porous_media
     from marlin_tpu_torch.lbm_probe import deck_plans
 
     gen = torch.Generator(device=dev).manual_seed(18)
@@ -3594,6 +3640,24 @@ def mesh_run(deck, dev, mesh, arrays=None):
     return tr, time.perf_counter() - t0
 
 
+def serial_diff(v, ref):
+    """max|v − ref| for ``ref`` a host copy in SERIAL, on v's device (a
+    512³ difference on the host takes a second)."""
+    return (v - ref.to(v.device)).abs().max().item()
+
+
+def step_copy_ms(tr, dt):
+    """(device ms, leaves) of the copy that TensorProblem.step makes on an
+    FFT mesh: the leaves that one step leaves strided, made contiguous
+    (what keeps a resumed run the uninterrupted one bit for bit)."""
+    p = tr.problem
+    raw = p._step(tr.state, tr.time, dt, dt, False)
+    strided = [v for part in ("buffers", "old", "solver") for v in raw[part].values()
+               if isinstance(v, torch.Tensor) and not v.is_contiguous()]
+    ms = cuda_ms(lambda: [v.contiguous() for v in strided], reps=5) if strided else 0.0
+    return ms, len(strided)
+
+
 def phase_distributed(uf, sp, lf, dev, smi, serial_ms, version):
     """Phase 18: the distributed modes.  (a) kernels 5-6 in slab form and
     kernel 7's halo branch at P > 1 in one process; (b) the decks on the
@@ -3640,10 +3704,12 @@ def phase_distributed(uf, sp, lf, dev, smi, serial_ms, version):
         c = tr.state["buffers"]["c"]
         assert c.shape == (N, N, N) and bool(torch.isfinite(c).all()), route
         mass(tr, f"18b slab {route}")
-        d = (c.cpu() - SERIAL[route]).abs().max().item()
-        ms = substep_ms(tr, 1.0)
+        d = serial_diff(c, SERIAL[route])
+        ms = substep_ms(tr, 1.0, reps=1)
+        copy_ms, copied = step_copy_ms(tr, 1.0)
         say(f"[18b] CH3D {N}^3 FFT_SLAB {route}: run_deck {wall:.2f} s, {ms:.3f} "
-            f"ms/substep (serial {serial_ms[route]:.3f}), max|c_slab - c_serial| "
+            f"ms/substep (serial {serial_ms[route]:.3f}; of it the step's copy of {copied} "
+            f"strided leaves, {copy_ms:.3f} ms a step), max|c_slab - c_serial| "
             f"{d:.3e} (limit {SLAB_TOL[route]}), launches exact, all_to_all {a2a}")
         assert d <= SLAB_TOL[route], (route, d)
         del tr, c
@@ -3662,11 +3728,11 @@ def phase_distributed(uf, sp, lf, dev, smi, serial_ms, version):
     launches["slab multi fused"] = got
     mass(tr, "18b slab multi")
     for k in ("c", "n1"):
-        d = (tr.state["buffers"][k].cpu() - SERIAL[f"multi {k}"]).abs().max().item()
+        d = serial_diff(tr.state["buffers"][k], SERIAL[f"multi {k}"])
         say(f"[18b] MULTI_3D {N}^3 FFT_SLAB fused: max|{k}_slab - {k}_serial| {d:.3e} "
             f"(limit {MULTI_TOL})")
         assert d <= MULTI_TOL, (k, d)
-    say(f"[18b] MULTI_3D fused slab {substep_ms(tr, MULTI_DT):.3f} ms/substep, "
+    say(f"[18b] MULTI_3D fused slab {substep_ms(tr, MULTI_DT, reps=1):.3f} ms/substep, "
         f"run_deck {wall:.2f} s")
     del tr
     torch.cuda.empty_cache()
@@ -3686,11 +3752,13 @@ def phase_distributed(uf, sp, lf, dev, smi, serial_ms, version):
         for k, ref in SERIAL[f"porous {backend}"].items():
             v = tr.state["buffers"][k]
             assert bool(torch.isfinite(v).all()), (backend, k)
-            d = (v.cpu() - ref).abs().max().item()
+            ref = ref.to(dev)
+            d = (v - ref).abs().max().item()
             mag = ref.abs().max().item()
             assert d <= KERNEL_TOL * mag, (backend, k, d, mag)
             worst = max(worst, d / mag)
-            equal = equal and torch.equal(v.cpu(), ref)
+            equal = equal and torch.equal(v, ref)
+            del ref
         # the halo brick of the world-of-one block gives the serial brick's bits
         assert equal or backend != "PALLAS", backend
         ms = lbm_substep_ms(tr)
@@ -3852,7 +3920,7 @@ def phase_mesh_family(uf, sp, dev, smi, version):
         assert got == want, (backend, got, want)
         launches[f"19 etdrk4 slab {backend}"] = got
         mass(tr, f"19b {backend}")
-        d = (tr.state["buffers"]["c"].cpu() - SERIAL[f"etdrk4 {backend}"]).abs().max().item()
+        d = serial_diff(tr.state["buffers"]["c"], SERIAL[f"etdrk4 {backend}"])
         say(f"[19b] ETDRK4 {N}^3 FFT_SLAB {backend} float32, {STEPS} x {SUBSTEPS}: "
             f"run_deck {wall:.2f} s, {substep_wall_ms(tr, 1.0):.3f} ms a substep, "
             f"all_to_all {parallel.calls()['all_to_all']}, launches {got}, "
@@ -3944,6 +4012,231 @@ def phase_mesh_family(uf, sp, dev, smi, version):
     return rows, launches
 
 
+# -- 20: the sharded checkpoint, the writers on a mesh, the native evaluator --------------
+
+RESTART_N = 256  # (a) CH3D fused slab: 256³, not 512³ (the state's ~6 GiB would cost
+# 15-20 s of the cold start to write and read; PERF.md gives the 512³ figure)
+RESTART_STEPS = 2  # (a) steps of SUBSTEPS, step 1's checkpoint written
+RESTART_1A = (4, 2, 100)  # (b) 1a DEFAULT float32 on the slab: steps, checkpoint, substeps
+RESTART_1A_TOL = 5e-5  # (b) c of the mesh run against the serial run of the cut deck
+FRACTURE_DECK = os.path.join(HERE, "examples", "phase_field_fracture", "fracture.i")
+RESTART_XDMF = """
+[TensorOutputs]
+  [field]
+    type = XDMFTensorOutput
+    buffer = c
+    enable_hdf5 = false
+    execute_on = TIMESTEP_END
+  []
+[]
+"""
+
+
+def transient_of(deck, dev, mesh, out_dir, overrides=()):
+    """run_deck's Transient of ``deck`` on ``mesh``, built but not run
+    (its [TensorOutputs] under the stem "field")."""
+    from marlin_tpu_torch import hit
+    from marlin_tpu_torch.executioner import Transient
+    from marlin_tpu_torch.outputs import build_tensor_outputs
+    from marlin_tpu_torch.problem import TensorProblem
+
+    root = hit.parse(deck)
+    hit.apply_cli_args(root, list(overrides))
+    problem = TensorProblem(root, device=dev, mesh=mesh)
+    tr = Transient(problem, exec_node=root.children.get("Executioner"),
+                   outputs_node=root.children.get("Outputs"),
+                   user_objects_node=root.children.get("UserObjects"), output_dir=out_dir)
+    tout = root.children.get("TensorOutputs")
+    if tout is not None:
+        tr.tensor_outputs.extend(build_tensor_outputs(tout, problem, output_dir=out_dir,
+                                                      default_file_base="field"))
+    return tr
+
+
+def restart_slab(uf, sp, dev, mesh, smi):
+    """(a) CH3D at RESTART_N³ float32 on the PALLAS fused slab, its
+    checkpoint of step 1 written (``checkpoint_interval = 1``; step 2's
+    save, which nothing reads, is skipped) and an XDMF frame of c; a fresh
+    Transient resumed from step 1's checkpoint equals the uninterrupted run
+    bit for bit, its frame's bytes are c, its launches one step's.  Returns
+    its launches."""
+    n, S = RESTART_N, SUBSTEPS
+    deck = ch3d_deck("PALLAS", FUSED).replace("[Domain]", "[Domain]\n  parallel_mode = FFT_SLAB")
+    deck = deck.replace(f"nx = {N}", f"nx = {n}").replace(f"ny = {N}", f"ny = {n}").replace(
+        f"nz = {N}", f"nz = {n}").replace(f"xmax = {N}", f"xmax = {n}").replace(
+        f"ymax = {N}", f"ymax = {n}").replace(f"zmax = {N}", f"zmax = {n}") + RESTART_XDMF
+    one_step = {"fwd_lanes": 2, "fwd_lanes_pre": S - 1, "fwd_sublanes": 2 + (S - 1) + 2,
+                "fwd_x_update": S - 1, "fwd_x_update_poly": 0, "inv_sublanes": 2 * S,
+                "inv_lanes": S}
+    with tempfile.TemporaryDirectory() as out_dir:
+        # the uninterrupted run: its checkpoint of step 1 kept aside
+        full = transient_of(deck, dev, mesh, os.path.join(out_dir, "full"), [
+            f"Executioner/num_steps={RESTART_STEPS}", "Executioner/checkpoint_interval=1"])
+        step1 = os.path.join(out_dir, "step1.npz")
+        writes = []
+        save = full.save_checkpoint
+
+        def save_and_keep():
+            if full.step_count != 1:
+                return
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            save()
+            writes.append(time.perf_counter() - t0)
+            os.replace(full.checkpoint_path, step1)
+
+        full.save_checkpoint = save_and_keep
+        reset(uf, sp)
+        full.run()
+        got_full = counters(uf, sp)
+        want_full = {k: RESTART_STEPS * v for k, v in one_step.items()}
+        assert got_full == want_full, (got_full, want_full)
+        size = os.path.getsize(step1)
+        # the resumed run: a fresh Transient from step 1's file
+        res = transient_of(deck, dev, mesh, os.path.join(out_dir, "resumed"), [
+            f"Executioner/num_steps={RESTART_STEPS}", "Executioner/checkpoint_interval=0"])
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        res.recover(step1)
+        torch.cuda.synchronize()
+        read_s = time.perf_counter() - t0
+        reset(uf, sp)
+        res.run()
+        got = counters(uf, sp)
+        say(f"[20a] CH3D {n}^3 PALLAS fused FFT_SLAB, {RESTART_STEPS} steps x {S} substeps: "
+            f"launches uninterrupted {got_full}, resumed (1 step) {got} (expected {one_step})")
+        assert got == one_step, (got, one_step)
+        assert res.step_count == full.step_count == RESTART_STEPS and res.time == full.time
+        states_equal(res.state, full.state)
+        assert res.state["buffers"]["cbar"].dtype == torch.complex64
+        c = full.state["buffers"]["c"]
+        frame = np.fromfile(os.path.join(out_dir, "resumed", "field.c.0.bin"), dtype=np.float32)
+        assert np.array_equal(frame.reshape(n, n, n).transpose(2, 1, 0), c.cpu().numpy())
+        say(f"[20a] resumed bit for bit (every leaf, n_advances {res.state['n_advances']}, "
+            f"old_dt {res.state['old_dt']}); its XDMF frame is c's bytes; checkpoint "
+            f"{size} bytes, written in {writes[0]:.3f} s ({size / writes[0] / 1e9:.3f} GB/s), "
+            f"read onto the card in {read_s:.3f} s ({size / read_s / 1e9:.3f} GB/s); {smi}")
+    return got_full, got, {"bytes": size, "write_s": writes[0], "read_s": read_s}
+
+
+def restart_1a(dev, mesh, smi):
+    """(b) benchmark 1a at 200² DEFAULT float32 on the slab, cut to
+    RESTART_1A, with phase 13's outputs (XDMF, Exodus of a LAGRANGE aux
+    variable and ElementAverageValue, the histogram, CSV): the uninterrupted
+    run keeps its checkpoint of the step ``at`` (its later save, which
+    nothing reads, skipped), a fresh Transient resumes from it, and the
+    rows, the histograms and the Exodus frames after the checkpoint equal
+    the uninterrupted run's bit for bit, the histogram counts the cell
+    count; c is within RESTART_1A_TOL of a serial run of the cut deck
+    (without the outputs, which c does not read)."""
+    from marlin_tpu_torch import hit
+    from marlin_tpu_torch.bench_1a_runs import deck_text
+    from marlin_tpu_torch.executioner import run_deck
+    from marlin_tpu_torch.exodus import read_exodus
+
+    steps, at, substeps = RESTART_1A
+    n = BENCH_1A_N
+    plain = deck_text(BENCH_1A_RUNS["DEFAULT float32"], n, substeps).replace(
+        "  perf_graph = true\n", "")
+    deck = (plain + OUTPUTS_1A).replace(
+        "  csv = true\n", "  csv = true\n  exodus = true\n").replace(
+        "[Postprocessors]\n", "[Postprocessors]\n  [c_avg]\n    type = ElementAverageValue\n"
+        "    variable = c_aux\n  []\n", 1)
+    slab = deck.replace("[Domain]", "[Domain]\n  parallel_mode = FFT_SLAB")
+    with tempfile.TemporaryDirectory() as out_dir:
+        d_full, d_res = (os.path.join(out_dir, r) for r in ("full", "resumed"))
+        kept = os.path.join(out_dir, "at.npz")
+        t0 = time.perf_counter()
+        full = transient_of(slab, dev, mesh, d_full, [
+            f"Executioner/num_steps={steps}", f"Executioner/checkpoint_interval={at}"])
+        save = full.save_checkpoint
+
+        def save_at():
+            if full.step_count == at:
+                save()
+                os.replace(full.checkpoint_path, kept)
+
+        full.save_checkpoint = save_at
+        full.run()
+        res = transient_of(slab, dev, mesh, d_res, [
+            f"Executioner/num_steps={steps}", "Executioner/checkpoint_interval=0"])
+        res.recover(kept)
+        res.run()
+        wall = time.perf_counter() - t0
+        assert res.step_count == full.step_count == steps and res.time == full.time
+        states_equal(res.state, full.state)
+        rows = lambda d: text(d, "out.csv").splitlines()
+        assert rows(d_res)[1:] == rows(d_full)[at + 2:], "CSV rows after the checkpoint"
+        for i in range(at + 1, steps + 1):
+            name = f"out_c_hist_{i:04d}.csv"
+            assert text(d_res, name) == text(d_full, name), name
+            counts = [float(r.split(",")[1]) for r in text(d_full, name).splitlines()[1:]]
+            assert sum(counts) == n * n, (name, sum(counts))
+        ef, er = (read_exodus(os.path.join(d, "out.e")) for d in (d_full, d_res))
+        assert len(er["time"]) == steps - at and np.array_equal(er["time"], ef["time"][at + 1:])
+        for kind in ("nodal", "glo"):
+            for key, vals in ef[kind].items():
+                assert np.array_equal(er[kind][key], vals[at + 1:]), (kind, key)
+        root = hit.parse(plain)
+        root.child("Executioner").set_param("num_steps", str(steps))
+        serial = run_deck(root, output_dir=os.path.join(out_dir, "serial"), device=dev)
+        d = (full.state["buffers"]["c"] - serial.state["buffers"]["c"]).abs().max().item()
+        say(f"[20b] 1a {n}^2 DEFAULT float32 FFT_SLAB, {steps} steps x {substeps} substeps, "
+            f"checkpoint at {at}: uninterrupted and resumed in {wall:.2f} s; CSV rows, "
+            f"histograms (counts {n * n}) and Exodus frames {at + 1}-{steps} bit for bit; "
+            f"max|c_slab - c_serial| {d:.3e} (limit {RESTART_1A_TOL}); {smi}")
+        assert d <= RESTART_1A_TOL, d
+
+
+def native_check(build_s):
+    """(c) the native fparse evaluator: built beside the kernels in phase 1,
+    and the ``${fparse}`` constants of fracture.i, which phase 16 runs,
+    equal the Python engine's."""
+    from marlin_tpu_torch import hit, native
+    from marlin_tpu_torch.expression import Ops, parse
+
+    assert native.available()
+    exprs = re.findall(r"\$\{fparse\s+([^}]*)\}", text(FRACTURE_DECK))
+    assert exprs
+    for e in exprs:
+        scope = {"pi": math.pi, "e": math.e}
+        got, want = native.eval_scalar(e, scope), float(parse(e).evaluate(scope, Ops()))
+        assert got == want, (e, got, want)
+    calls = []
+    real = native.eval_scalar
+
+    def counted(expr, env=None):
+        calls.append(expr)
+        return real(expr, env)
+
+    native.eval_scalar = counted
+    try:
+        hit.load(FRACTURE_DECK)
+    finally:
+        native.eval_scalar = real
+    assert len(calls) == len(exprs), (calls, exprs)
+    say(f"[20c] native fparse: {os.path.relpath(native.library_path(), HERE)} built in "
+        f"{build_s:.2f} s (phase 1's pool); fracture.i's {len(exprs)} fparse constants equal "
+        f"the Python engine's, and hit.load took the native engine for each")
+
+
+def phase_restart_mesh(uf, sp, dev, smi, native_build_s):
+    """Phase 20 on phase 18's NCCL group of world size 1: (a) the slab
+    route's checkpoint, (b) the writers and resume on a 2-D slab, (c) the
+    native evaluator.  Returns ({path: launches}, checkpoint figures)."""
+    from marlin_tpu_torch import parallel
+
+    t0 = time.perf_counter()
+    mesh = parallel.make_mesh("FFT_SLAB")
+    got_full, got_res, figures = restart_slab(uf, sp, dev, mesh, smi)
+    torch.cuda.empty_cache()
+    restart_1a(dev, mesh, smi)
+    native_check(native_build_s)
+    say(f"[20] sharded checkpoint, writers on a mesh, native fparse in "
+        f"{time.perf_counter() - t0:.1f} s")
+    return {"20 restart slab full": got_full, "20 restart slab resumed": got_res}, figures
+
+
 def main():
     if not torch.cuda.is_available():
         say("chip_smoke: torch.cuda.is_available() is False; needs a CUDA card")
@@ -3951,6 +4244,7 @@ def main():
     sys.path.insert(0, HERE)
     from marlin_tpu_torch import hit
     from marlin_tpu_torch import lbm_fused as lf
+    from marlin_tpu_torch import native
     from marlin_tpu_torch import spectral as sp
     from marlin_tpu_torch import unordered_fft as uf
     from marlin_tpu_torch.decks import CH3D_DECK
@@ -3958,23 +4252,11 @@ def main():
 
     dev = torch.device("cuda")
     t_start = time.perf_counter()
-    # -- 0: toolchain ---------------------------------------------------------
-    smi = run(["nvidia-smi", "--query-gpu=name,power.limit",
-               "--format=csv,noheader"]).splitlines()[0]
-    nvcc = run([uf._nvcc(), "--version"]).splitlines()[-1]
-    say(f"[toolchain] torch {torch.__version__}, CUDA {torch.version.cuda}, "
-        f"device {torch.cuda.get_device_name(0)}, nvcc: {nvcc}")
-
-    # -- 1: build, one nvcc a library, all at once -------------------------------
-    # the plan of the fused deck gives the µ of the lanes kernel's read; its
-    # library is named by the generated source, the same at every extent
-    small = TensorProblem(hit.parse(CH3D_DECK.format(n=16, substeps=2).replace(
-        "[Domain]", "[Domain]\n  fft_backend = PALLAS\n  floating_precision = SINGLE"
-    ).replace("[TensorSolver]", f"[TensorSolver]\n  {FUSED}")), device=dev)
-    pre = sp.match_chain(small.solver).pre
-    libs = {"unordered_fft": uf.LIBRARY, "spectral_update": sp.LIBRARY,
-            "lbm_substep": lf.LIBRARY, "fwd_lanes_pre (Cahn-Hilliard µ)": pre.library}
-    cold = {k: not os.path.exists(lib.path()) for k, lib in libs.items()}
+    # -- 1 (started first): build, one nvcc a library, all at once, and g++ of
+    # phase 20's native fparse library beside them ------------------------------
+    # the LBM substep library takes the longest: the spectral phases (2's FFT
+    # rows, 3-6, 12) run while it builds, and its rows of phase 2 wait for it
+    pool = concurrent.futures.ThreadPoolExecutor(5)
 
     def timed_build(lib):
         t0 = time.perf_counter()
@@ -3982,10 +4264,29 @@ def main():
         return time.perf_counter() - t0
 
     t0 = time.perf_counter()
-    # the LBM substep library takes the longest: the spectral phases (2's FFT
-    # rows, 3-6, 12) run while it builds, and its rows of phase 2 wait for it
-    pool = concurrent.futures.ThreadPoolExecutor(len(libs))
+    libs = {"unordered_fft": uf.LIBRARY, "spectral_update": sp.LIBRARY,
+            "lbm_substep": lf.LIBRARY}
+    cold = {k: not os.path.exists(lib.path()) for k, lib in libs.items()}
     builds = {k: pool.submit(timed_build, lib) for k, lib in libs.items()}
+    native_build = pool.submit(timed_build, native)
+    # -- 0: toolchain ---------------------------------------------------------
+    smi = run(["nvidia-smi", "--query-gpu=name,power.limit",
+               "--format=csv,noheader"]).splitlines()[0]
+    nvcc = run([uf._nvcc(), "--version"]).splitlines()[-1]
+    say(f"[toolchain] torch {torch.__version__}, CUDA {torch.version.cuda}, "
+        f"device {torch.cuda.get_device_name(0)}, nvcc: {nvcc}")
+
+    # -- 1, the generated library: the plan of the fused deck gives the µ of
+    # the lanes kernel's read; its library is named by the generated source,
+    # the same at every extent (the deck's constants wait for the g++ build)
+    small = TensorProblem(hit.parse(CH3D_DECK.format(n=16, substeps=2).replace(
+        "[Domain]", "[Domain]\n  fft_backend = PALLAS\n  floating_precision = SINGLE"
+    ).replace("[TensorSolver]", f"[TensorSolver]\n  {FUSED}")), device=dev)
+    pre = sp.match_chain(small.solver).pre
+    key = "fwd_lanes_pre (Cahn-Hilliard µ)"
+    libs[key] = pre.library
+    cold[key] = not os.path.exists(pre.library.path())
+    builds[key] = pool.submit(timed_build, pre.library)
 
     def loaded(keys):
         for k in keys:
@@ -4203,11 +4504,14 @@ def main():
             version)
         lap("18 (distributed modes: slab and halo kernels, NCCL world of one)", t_start)
         slab_fft, launches_19 = phase_mesh_family(uf, sp, dev, smi, version)
+        lap("19 (mesh family: pencil, ETDRK4 slab, sharded mechanics and NEML2, z cut)",
+            t_start)
+        # -- 20: the sharded checkpoint and the writers on the same group ------------------
+        launches_20, _figures = phase_restart_mesh(uf, sp, dev, smi, native_build.result())
     finally:
         dist.destroy_process_group()
     SERIAL.clear()
-    lap("19 (mesh family: pencil, ETDRK4 slab, sharded mechanics and NEML2, z cut)",
-        t_start)
+    lap("20 (sharded checkpoint, writers on a mesh, native fparse)", t_start)
     say(f"[done] {time.perf_counter() - t_start:.1f} s")
 
     # -- result -----------------------------------------------------------------
@@ -4238,6 +4542,11 @@ def main():
     paths_1a.update(launches_16_small)
     paths_karman = {k: v for k, v in launches_13.items() if " karman " in k}
     paths_14 = {**launches_14["main"], **launches_15["main"], **launches_16, **launches_17}
+    # phase 20's slab runs: kernel 1' on its own row, 5s on the slab row
+    # (entry_dist), kernels 1-4 on the slab FFT rows (entry_slab_fft)
+    paths_14.update({k: {"fwd_lanes_pre": v["fwd_lanes_pre"]} for k, v in launches_20.items()})
+    launches_18.update(launches_20)
+    launches_19.update(launches_20)
     table_small = [
         ("fwd_lanes", "small_lanes_kernel<Identity, Store>", "marlin_tpu/pallas_fft.py:237"),
         ("inv_lanes", "small_lanes_kernel<Identity, InvStore>", "marlin_tpu/pallas_fft.py:276"),
@@ -4275,7 +4584,7 @@ def main():
 
     table_dist = [
         ("fwd_x_update slab", "spectral_update.cu", "marlin_tpu/pallas_spectral.py:308",
-         ("slab PALLAS fused",)),
+         ("slab PALLAS fused", "20 restart slab full", "20 restart slab resumed")),
         ("fwd_x_update_poly slab", "spectral_update.cu", "marlin_tpu/pallas_spectral.py:336",
          ("slab multi fused",)),
         ("lbm_substep halo", "lbm_substep.cu", "marlin_tpu/pallas_lbm.py:224",

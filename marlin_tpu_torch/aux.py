@@ -17,7 +17,11 @@ lattice, filled with the periodic wrap buffer[i % nx, j % ny, k % nz]
 MONOMIAL) variable is the raw cell field.  Both sampling paths produce
 identical values on the conforming mesh, so they share one implementation.
 Sampling runs on the host: ``fetch`` copies the buffers the variables read
-off the device once per output.
+off the device once per output.  On a mesh ``fetch`` gathers each of them
+to rank 0 first (the nodal wrap indexes the whole grid, which no rank's
+block holds), and rank 0 alone samples; the other ranks take part in the
+gathers and keep None for an INITIAL-only sample, so that every rank
+gathers the same buffers at every output.
 """
 
 from __future__ import annotations
@@ -157,21 +161,42 @@ class AuxSystem:
     def fetch(self, state) -> Dict[str, np.ndarray]:
         """The buffers that ``values`` will read for every variable, on the
         host: one transfer a buffer (an INITIAL-only variable already
-        sampled reads its cache, not the state)."""
+        sampled reads its cache, not the state).  On a mesh each is the
+        whole grid's, gathered to rank 0 (``Domain.gather_to``; every rank
+        calls this), and the other ranks get an empty dict."""
         names = {buf for var, buf in self._map.items()
                  if var in self.variables and not (
                      self._initial_only(self.kernel_execute_on.get(var))
                      and var in self._initial_cache)}
-        return {b: _host(state["buffers"][b]) for b in sorted(names)}
+        dom = self.problem.domain
+        out = {}
+        for b in sorted(names):
+            whole = dom.gather_to(state["buffers"][b])
+            if whole is not None:
+                out[b] = whole.numpy()
+        return out
+
+    @property
+    def samples_here(self) -> bool:
+        """True where ``values`` samples: without a mesh, or on rank 0."""
+        mesh = self.problem.domain.mesh
+        return mesh is None or mesh.rank == 0
 
     def seed_initial(self, state):
         """Populate the INITIAL-only kernel cache from the actual t=0 state.
         Without this, a variable first sampled at step N > 0 (output
         interval > 1, FINAL-only outputs) would cache step-N data as its
         'initial' value."""
-        for var, exec_on in self.kernel_execute_on.items():
-            if self._initial_only(exec_on):
-                self.values(state, var)
+        initial = [var for var, exec_on in self.kernel_execute_on.items()
+                   if self._initial_only(exec_on)]
+        if not initial:
+            return
+        host = {"buffers": self.fetch(state)}
+        for var in initial:
+            if self.samples_here:
+                self.values(host, var)
+            else:
+                self._initial_cache[var] = None
 
     def values(self, state, var: str) -> np.ndarray:
         """Sample the mapped buffer onto the variable's support, on the
@@ -179,10 +204,11 @@ class AuxSystem:
 
         Nodal: (n0+1, ..., nd+1) with periodic wrap (mapBuffersToAux index
         arithmetic, reference TensorProblem.C:338-372).  Elemental: the raw
-        (n0, ..., nd) cell field."""
+        (n0, ..., nd) cell field; the whole grid's on a mesh, from the
+        arrays of ``fetch``."""
         dom = self.problem.domain
         buf = self._map.get(var)
-        n = dom.shape
+        n = tuple(dom.n_global)
         if buf is None:
             shape = tuple(x + 1 for x in n) if self.is_nodal(var) else n
             return np.zeros(shape)

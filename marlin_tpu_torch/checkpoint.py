@@ -10,6 +10,11 @@ written by either package resumes in the other:
     __aux__/<variable>                          INITIAL-only aux samples
     __meta__                                    JSON: time, step, dt, pp_values
 
+On a mesh the file is the same: rank 0 writes the global arrays that
+``TensorProblem.gathered_state`` puts together, and on resume every rank
+reads the file and keeps its block (``TensorProblem.load_checkpoint``), so
+a checkpoint resumes at any mesh size, serially, and in either package.
+
 The reference never serializes the tensor buffers (SURVEY §5.4); here the
 whole state and the time loop's position are saved, so a run resumes bit
 for bit.  Complex buffers (a carried ū, in the PALLAS kernels' permuted
@@ -23,7 +28,10 @@ from __future__ import annotations
 
 import json
 import os
-from typing import Dict, Tuple
+import struct
+import zipfile
+import zlib
+from typing import Dict, Iterator, Tuple
 
 import numpy as np
 
@@ -83,15 +91,77 @@ def save(path: str, state: Dict, time: float, step: int, dt: float,
     np.savez(path, **payload)
 
 
-def load(path: str, device) -> Tuple[Dict, Dict]:
+def _stored_array(fh, info: zipfile.ZipInfo):
+    """The array of an uncompressed member (np.savez's), read from the
+    file in one call and checked against the member's CRC-32 as zipfile
+    checks it; None where the member is another kind (compressed, object
+    dtype, a header version numpy does not expose), for zipfile to read."""
+    if info.compress_type != zipfile.ZIP_STORED:
+        return None
+    fh.seek(info.header_offset)
+    local = fh.read(30)
+    if len(local) != 30 or local[:4] != b"PK\x03\x04":
+        return None
+    start = info.header_offset + 30 + sum(struct.unpack("<HH", local[26:30]))
+    fh.seek(start)
+    version = np.lib.format.read_magic(fh)
+    if version == (1, 0):
+        shape, fortran, dtype = np.lib.format.read_array_header_1_0(fh)
+    elif version == (2, 0):
+        shape, fortran, dtype = np.lib.format.read_array_header_2_0(fh)
+    else:
+        return None
+    if dtype.hasobject:
+        return None
+    head = fh.tell() - start
+    count = int(np.prod(shape, dtype=np.int64))
+    if head + count * dtype.itemsize != info.file_size:
+        return None
+    fh.seek(start)
+    crc = zlib.crc32(fh.read(head))
+    arr = np.empty(count, dtype=dtype)
+    view = memoryview(arr).cast("B")
+    if fh.readinto(view) != len(view):
+        raise zipfile.BadZipFile(f"truncated member {info.filename!r}")
+    if zlib.crc32(view, crc) != info.CRC:
+        raise zipfile.BadZipFile(f"Bad CRC-32 for file {info.filename!r}")
+    return arr.reshape(shape[::-1]).T if fortran else arr.reshape(shape)
+
+
+def _members(path: str) -> Iterator[Tuple[str, np.ndarray]]:
+    """(key, array) of each member of the ``.npz`` at ``path``, one at a
+    time: what np.load gives, read straight from the file (a checkpoint's
+    arrays are hundreds of MB: zipfile's reads in small pieces take twice
+    as long)."""
+    with zipfile.ZipFile(path) as z, open(path, "rb") as fh:
+        for info in z.infolist():
+            key = info.filename[:-4] if info.filename.endswith(".npy") else info.filename
+            arr = _stored_array(fh, info)
+            if arr is None:
+                with z.open(info) as member:
+                    arr = np.lib.format.read_array(member)
+            yield key, arr
+
+
+def load(path: str, device, select=None) -> Tuple[Dict, Dict]:
     """Returns (state, meta): the state's tensors on ``device``, its
     ``old_dt`` as Python floats; meta['aux_cache'] holds the INITIAL-only
-    aux samples as numpy arrays (empty for checkpoints written without)."""
-    with np.load(path if path.endswith(".npz") else path + ".npz") as f:
-        arrays = {k: f[k] for k in f.files
-                  if k != "__meta__" and not k.startswith("__aux__/")}
-        aux = {k[len("__aux__/"):]: f[k] for k in f.files
-               if k.startswith("__aux__/")}
-        meta = json.loads(bytes(f["__meta__"]).decode())
+    aux samples as numpy arrays (empty for checkpoints written without).
+    ``select(key, array)`` gives the part of each state array to keep (a
+    rank's block of a sharded checkpoint's global array), read one array
+    at a time so that only one whole array is held at once."""
+    arrays, aux, meta = {}, {}, None
+    for k, a in _members(path if path.endswith(".npz") else path + ".npz"):
+        if k == "__meta__":
+            meta = json.loads(bytes(a).decode())
+        elif k.startswith("__aux__/"):
+            aux[k[len("__aux__/"):]] = a
+        else:
+            if select is not None:
+                b = select(k, a)
+                a = b.copy() if b.shape != a.shape else b
+            arrays[k] = a
+    if meta is None:
+        raise KeyError(f"__meta__ is not a file in the archive {path!r}")
     meta["aux_cache"] = aux
     return from_numpy(_unflatten(arrays), device), meta

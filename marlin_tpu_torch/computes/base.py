@@ -9,7 +9,8 @@ A compute is an object configured from a deck block that exposes
 ``output_specs(specs) -> {buffer: Spec}``, the shape and dtype of each
 output computed from those of the inputs (the port's counterpart of
 ``jax.eval_shape``, which TensorProblem.init_state uses to give derived
-buffers their zeros without running anything).  Groups
+buffers their zeros without running anything), and the layout the output
+takes on a mesh (``Spec.layout``, which the sharded checkpoint reads).  Groups
 dependency-sort members by requested/supplied buffer names and run them in
 that order.  Under ``[Problem] batch_fft = true`` a sorted group rewrites
 each run of independent same-direction transforms into one batched
@@ -18,18 +19,28 @@ transform (``fuse_ffts``, ``core.BatchedFFT``).
 
 from __future__ import annotations
 
-from typing import Dict, List, NamedTuple, Optional, Sequence, Tuple
+from dataclasses import dataclass, field
+from typing import Dict, List, Optional, Sequence, Tuple
 
 import torch
 
 from ..params import Params
+from ..parallel import REAL
 
 
-class Spec(NamedTuple):
-    """Shape and dtype of a buffer."""
+@dataclass(frozen=True)
+class Spec:
+    """Shape and dtype of a buffer, and its layout on a mesh: ``REAL``,
+    ``RECIPROCAL``, ``FULL`` or None (one value on every rank; see
+    ``parallel.layout_spec``).  Two specs are equal by shape and dtype; a
+    spec unpacks to (shape, dtype)."""
 
     shape: Tuple[int, ...]
     dtype: torch.dtype
+    layout: Optional[str] = field(default=REAL, compare=False)
+
+    def __iter__(self):
+        return iter((self.shape, self.dtype))
 
 
 class ComputeError(Exception):

@@ -146,8 +146,9 @@ class ParsedCompute(TensorCompute):
             for d, (x, k) in enumerate(zip("xyz", ("kx", "ky", "kz"))):
                 ax = tuple(dom.axis(d).shape) if d < dom.dim else one
                 scope[x] = Spec(ax, dom.dtype)
-                scope[k] = Spec(tuple(dom.reciprocal_axis(d).shape), dom.dtype)
-            scope["k2"] = Spec(dom.reciprocal_shape, dom.dtype)
+                scope[k] = Spec(tuple(dom.reciprocal_axis(d).shape), dom.dtype,
+                                parallel.RECIPROCAL)
+            scope["k2"] = Spec(dom.reciprocal_shape, dom.dtype, parallel.RECIPROCAL)
         env = {n: torch.zeros((1,) * len(sp.shape), dtype=sp.dtype)
                for n, sp in scope.items()}
         env["t"] = 0.0
@@ -158,7 +159,19 @@ class ParsedCompute(TensorCompute):
         u = self._finish(self.expr(env))
         if self.expand == "NONE":
             u = u.expand(shape)
-        return {self.out: Spec(tuple(u.shape), u.dtype)}
+        return {self.out: Spec(tuple(u.shape), u.dtype, self._layout(
+            [scope[n].layout for n in sorted(used) if n in scope]))}
+
+    def _layout(self, used):
+        """The output's layout: the expansion's, else that of the fields
+        the expression reads (a spectrum's where it reads one), else one
+        value on every rank (an expression of constants and t)."""
+        if self.expand != "NONE":
+            return parallel.REAL if self.expand == "REAL" else parallel.RECIPROCAL
+        for layout in (parallel.FULL, parallel.RECIPROCAL, parallel.REAL):
+            if layout in used:
+                return layout
+        return None
 
 
 @computes.register("ConstantTensor")
@@ -201,7 +214,7 @@ class ConstantReciprocalTensor(TensorCompute):
                                      dtype=dom.cdtype, device=dom.device)}
 
     def output_specs(self, specs):
-        return {self.out: Spec(self.domain.reciprocal_shape, self.domain.cdtype)}
+        return {self.out: Spec(self.domain.reciprocal_shape, self.domain.cdtype, parallel.RECIPROCAL)}
 
 
 @computes.register("RandomTensor")
@@ -325,7 +338,8 @@ class RunningMaximum(TensorCompute):
         if prev is None:
             return {self.out: cur}
         shape = tuple(np.broadcast_shapes(prev.shape, cur.shape))
-        return {self.out: Spec(shape, torch.promote_types(prev.dtype, cur.dtype))}
+        return {self.out: Spec(shape, torch.promote_types(prev.dtype, cur.dtype),
+                               cur.layout)}
 
 
 @computes.register("ForwardFFT")
@@ -401,7 +415,7 @@ class ReciprocalLaplacianFactor(TensorCompute):
         return {self.out: -self.domain.k_square * self.factor}
 
     def output_specs(self, specs):
-        return {self.out: Spec(self.domain.reciprocal_shape, self.domain.dtype)}
+        return {self.out: Spec(self.domain.reciprocal_shape, self.domain.dtype, parallel.RECIPROCAL)}
 
 
 @computes.register("ReciprocalLaplacianSquareFactor")
@@ -419,7 +433,7 @@ class ReciprocalLaplacianSquareFactor(TensorCompute):
         return {self.out: k2 * k2 * self.factor}
 
     def output_specs(self, specs):
-        return {self.out: Spec(self.domain.reciprocal_shape, self.domain.dtype)}
+        return {self.out: Spec(self.domain.reciprocal_shape, self.domain.dtype, parallel.RECIPROCAL)}
 
 
 @computes.register("SwiftHohenbergLinear")
@@ -436,7 +450,7 @@ class SwiftHohenbergLinear(TensorCompute):
         return {self.out: self.r - self.alpha * self.alpha * (1.0 - k2) * (1.0 - k2)}
 
     def output_specs(self, specs):
-        return {self.out: Spec(self.domain.reciprocal_shape, self.domain.dtype)}
+        return {self.out: Spec(self.domain.reciprocal_shape, self.domain.dtype, parallel.RECIPROCAL)}
 
 
 class _SpectralGradient(TensorCompute):
@@ -543,7 +557,7 @@ class DeAliasingTensor(TensorCompute):
         return {self.out: self._filter.expand(self.domain.reciprocal_shape)}
 
     def output_specs(self, specs):
-        return {self.out: Spec(self.domain.reciprocal_shape, self.domain.dtype)}
+        return {self.out: Spec(self.domain.reciprocal_shape, self.domain.dtype, parallel.RECIPROCAL)}
 
 
 @computes.register("ReciprocalAllenCahn")
@@ -607,7 +621,7 @@ class ReciprocalMatDiffusion(TensorCompute):
         return {self.out: div_J_hat + no_flux_hat}
 
     def output_specs(self, specs):
-        return {self.out: Spec(self.domain.reciprocal_shape, self.domain.cdtype)}
+        return {self.out: Spec(self.domain.reciprocal_shape, self.domain.cdtype, parallel.RECIPROCAL)}
 
 
 @computes.register("SmoothRectangleCompute")

@@ -131,15 +131,29 @@ class LBMBounceBack(LBMBoundaryCondition):
     def __init__(self, name, params: Params, problem):
         super().__init__(name, params, problem)
         self.f_old = params.get_str("f_old", required=True)
-        self.xsel = slice(1, -1) if params.get_bool("exclude_corners_x") else slice(None)
-        self.ysel = slice(1, -1) if params.get_bool("exclude_corners_y") else slice(None)
-        self.zsel = slice(1, -1) if params.get_bool("exclude_corners_z") else slice(None)
-        for axis, sel in enumerate((self.xsel, self.ysel, self.zsel)):
-            if sel.start is not None and axis in self.domain.halo_dims():
-                raise ComputeError(
-                    f"{name}: exclude_corners_{'xyz'[axis]} along an axis the "
-                    "REAL_SPACE mesh cuts is not ported to marlin_tpu_torch yet")
+        self.xsel, self.ysel, self.zsel = (
+            self._corner_sel(axis, params.get_bool(f"exclude_corners_{'xyz'[axis]}"))
+            for axis in range(3))
         self._wall_mask = None
+
+    def _corner_sel(self, axis: int, exclude: bool) -> slice:
+        """The transverse selection along ``axis``: everything, or with
+        ``exclude_corners`` the grid's planes 1 .. n-2 (``slice(1, -1)``
+        on the whole grid).  On an axis that the mesh cuts, a block drops
+        its first plane only where it starts at plane 0 and its last only
+        where it ends at plane n, from its ``real_slice``; an empty block
+        drops nothing."""
+        if not exclude:
+            return slice(None)
+        dom = self.domain
+        if axis not in dom.halo_dims():
+            return slice(1, -1)
+        block = dom.real_slice[axis]
+        n = block.stop - block.start
+        if not n:
+            return slice(0, 0)
+        return slice(1 if block.start == 0 else 0,
+                     n - 1 if block.stop == dom.n_global[axis] else n)
 
     def history_requests(self):
         return {self.f_old: 1}

@@ -491,7 +491,7 @@ class FFTMechanics(TensorCompute):
         dom = self.domain
         out = {self.out: Spec(dom.value_shape((dom.dim, dom.dim)), dom.dtype)}
         out.update(self.constitutive.output_specs(specs))
-        out[self.converged_key] = Spec((), torch.bool)
+        out[self.converged_key] = Spec((), torch.bool, None)
         return out
 
     def _green_factors(self):
@@ -683,7 +683,8 @@ class ComputeDisplacements(TensorCompute):
 
     def output_specs(self, specs):
         dom = self.domain
-        return {self.out: Spec(tuple(n + 1 for n in dom.n_global) + (dom.dim,), dom.dtype)}
+        return {self.out: Spec(tuple(n + 1 for n in dom.n_global) + (dom.dim,), dom.dtype,
+                               None)}
 
 
 def _real_inverse(dom, spec):
@@ -810,7 +811,8 @@ class FFTElasticChemicalPotential(TensorCompute):
         return {self.out: out}
 
     def output_specs(self, specs):
-        return {self.out: Spec(self.domain.reciprocal_shape, self.domain.cdtype)}
+        return {self.out: Spec(self.domain.reciprocal_shape, self.domain.cdtype,
+                               parallel.RECIPROCAL)}
 
 
 @computes.register("MacroscopicShearTensor")
@@ -832,7 +834,7 @@ class MacroscopicShearTensor(TensorCompute):
 
     def output_specs(self, specs):
         dom = self.domain
-        return {self.out: Spec((dom.dim, dom.dim), dom.dtype)}
+        return {self.out: Spec((dom.dim, dom.dim), dom.dtype, None)}
 
 
 @computes.register("PhaseMechanicsTest")

@@ -395,17 +395,19 @@ class Domain:
         return self._value_axes_last(torch.fft.rfftn(tb, dim=dims)).to(self.cdtype)
 
     def fft_spec(self, shape, dtype):
-        """(shape, dtype) that ``fft`` gives a tensor of this shape and dtype."""
+        """(shape, dtype, layout) that ``fft`` gives a tensor of this shape
+        and dtype (the layout as ``parallel.layout_spec`` reads it)."""
         shape = tuple(shape)
         if dtype.is_complex and self.fft_backend == "DEFAULT":
             # fftn keeps the full spectrum
             full = tuple(s.stop - s.start for s in self.full_slice)
-            return full + shape[self.dim:], self.cdtype
-        return self.reciprocal_shape + shape[self.dim:], self.cdtype
+            return full + shape[self.dim:], self.cdtype, parallel.FULL
+        return self.reciprocal_shape + shape[self.dim:], self.cdtype, parallel.RECIPROCAL
 
     def ifft_spec(self, shape, dtype):
-        """(shape, dtype) that ``ifft`` gives a tensor of this shape and dtype."""
-        return self.shape + tuple(shape)[self.dim:], self.dtype
+        """(shape, dtype, layout) that ``ifft`` gives a tensor of this shape
+        and dtype."""
+        return self.shape + tuple(shape)[self.dim:], self.dtype, parallel.REAL
 
     def ifft(self, t: torch.Tensor) -> torch.Tensor:
         """Inverse FFT, divided by the cell count.  A division, not torch's
@@ -466,6 +468,17 @@ class Domain:
         shape = tuple(self.n_global) + tuple(t.shape[self.dim:])
         return parallel._gather(self.mesh, t, parallel.real_spec(self, t.ndim), shape)
 
+    def gather_to(self, t: torch.Tensor, root: int = 0) -> Optional[torch.Tensor]:
+        """The whole grid's field from every rank's real-space block, on
+        the host of rank ``root`` (None on the others; ``parallel.gather_to``:
+        no other rank holds the whole field); ``t`` on the host without a
+        mesh.  Every rank calls it."""
+        if self.mesh is None:
+            return t.detach().cpu()
+        shape = tuple(self.n_global)
+        return parallel.gather_to(self.mesh, t.detach(), parallel.real_spec(self, t.ndim),
+                                  shape, root, device="cpu")
+
     def numel(self, t: torch.Tensor) -> int:
         """The element count of a field over the whole mesh (``t.numel()``
         without one): from the block's shape where it is a real- or
@@ -475,8 +488,10 @@ class Domain:
         head = tuple(t.shape[:self.dim])
         for local, whole in ((self.shape, self.n_global),
                              (self.reciprocal_shape, self.global_reciprocal_shape)):
-            if head == local and math.prod(local):
-                return t.numel() // math.prod(local) * math.prod(whole)
+            # from the whole grid's extents, so that a rank's empty block
+            # counts as the others do, with no collective of its own
+            if head == local:
+                return math.prod(whole) * math.prod(t.shape[self.dim:])
         return int(parallel.all_reduce(
             self.mesh, torch.tensor(float(t.numel()), dtype=torch.float64,
                                     device=self.device)).item())

@@ -9,7 +9,11 @@ postprocessors and checkpoints fetch buffers on their own cadence.
 vector postprocessors, "checkpoint" the checkpoint writes.
 ``checkpoint_interval = N`` writes ``<file_base>_checkpoint.npz`` every N
 steps (``checkpoint.py``, the JAX package's layout); ``Transient.recover``
-resumes from one, bit for bit.
+resumes from one, bit for bit.  On a mesh every rank runs the loop and
+takes part in every gather of an output, a vector postprocessor or a
+checkpoint, in the same order; rank 0 writes the CSV, the Exodus file,
+the vector postprocessors' files and the checkpoint, and each rank its
+own XDMF frames.
 """
 
 from __future__ import annotations
@@ -17,7 +21,7 @@ from __future__ import annotations
 import os
 from typing import Dict, List, Optional
 
-from . import checkpoint
+from . import checkpoint, parallel
 from .exodus import ExodusOutput
 from .expression import fparse
 from .hit import HitNode
@@ -248,10 +252,6 @@ class Transient:
                         f"(block '{b.name}')"
                     )
         os.makedirs(self.output_dir, exist_ok=True)
-        if exodus_enabled:
-            _serial_only(problem, "[Outputs] exodus (the per-rank Exodus writer)")
-        if problem.vector_postprocessors:
-            _serial_only(problem, "[VectorPostprocessors]")
         if csv_enabled and self.rank0:
             self.csv = CSVWriter(os.path.join(self.output_dir, self.file_base + ".csv"))
         # field outputs: Exodus here, [TensorOutputs] added by run_deck
@@ -278,9 +278,6 @@ class Transient:
         # checkpoint/resume (the reference checkpoints no tensor buffers,
         # SURVEY §5.4; this is the full-state superset)
         self.checkpoint_interval = p.get_int("checkpoint_interval", 0)
-        if self.checkpoint_interval:
-            _serial_only(problem, "[Executioner] checkpoint_interval (the "
-                         "sharded checkpoint)")
         self.checkpoint_path = os.path.join(
             self.output_dir, self.file_base + "_checkpoint.npz")
 
@@ -315,13 +312,16 @@ class Transient:
 
     def _write_vpps(self, flag):
         """Vector postprocessor CSV series: <file_base>_<name>_NNNN.csv
-        (MOOSE naming convention)."""
+        (MOOSE naming convention).  On a mesh every rank computes (a
+        histogram's counts are summed over the ranks) and rank 0 writes."""
         active = [v for v in self.problem.vector_postprocessors
                   if flag in v.execute_on]
         if flag == "TIMESTEP_END":
             self._vpp_counter += 1
         for v in active:
             cols = v.compute(self.state, {"t": self.time})
+            if not self.rank0:
+                continue
             path = os.path.join(
                 self.output_dir,
                 f"{self.file_base}_{v.name}_{self._vpp_counter:04d}.csv")
@@ -333,19 +333,27 @@ class Transient:
                     f.write(",".join(CSVWriter._fmt(x) for x in row) + "\n")
 
     def save_checkpoint(self):
+        """Write the checkpoint.  On a mesh every rank sends its blocks to
+        rank 0 (``TensorProblem.gathered_state``), rank 0 writes the
+        global arrays in the serial layout, and every rank waits at a
+        barrier, so that no rank reads the file before it is whole."""
         with self.perf.section("checkpoint"):
-            checkpoint.save(
-                self.checkpoint_path, self.state, self.time, self.step_count,
-                self._last_dt, self.pp_values,
-                aux_cache=self.problem.aux._initial_cache)
+            state = self.problem.gathered_state(self.state)
+            if self.rank0:
+                checkpoint.save(
+                    self.checkpoint_path, state, self.time, self.step_count,
+                    self._last_dt, self.pp_values,
+                    aux_cache=self.problem.aux._initial_cache)
+            parallel.barrier(self.problem.domain.mesh)
 
     def recover(self, path=None):
         """Resume from a checkpoint of either package (default: this
         run's own): restores the state, time, step count, last dt,
         postprocessor values and INITIAL-only aux samples.  Works without
-        ``init()``; ``run()`` then goes on from the restored step."""
-        _serial_only(self.problem, "recover (the sharded checkpoint and "
-                     "RandomTensor resume)")
+        ``init()``; ``run()`` then goes on from the restored step.  On a
+        mesh every rank reads the file and keeps its blocks, whatever mesh
+        (or none) wrote it; several hosts need the file on a file system
+        they share."""
         state, meta = self.problem.load_checkpoint(path or self.checkpoint_path)
         self.state = state
         self.time = meta["time"]
@@ -471,16 +479,6 @@ class Transient:
             return None
         return {"iterations": int(sstate["iterations"]),
                 "converged": bool(sstate["converged"])}
-
-
-def _serial_only(problem, what: str):
-    """A named error for what the port does not run under a parallel mode
-    yet (ROADMAP: the per-rank writers and the sharded checkpoint wait)."""
-    mode = problem.domain.parallel_mode
-    if mode != "NONE":
-        raise NotImplementedError(
-            f"{what} is not ported to marlin_tpu_torch under parallel_mode = "
-            f"{mode} yet (serial decks only)")
 
 
 def run_deck(

@@ -1,7 +1,9 @@
 """Minimal Exodus II writer/reader (pure Python, scipy netCDF3).
 
 A copy of marlin_tpu/exodus.py; ``ExodusOutput`` fetches the buffers its
-aux variables read to the host once per output (``AuxSystem.fetch``).
+aux variables read to the host once per output (``AuxSystem.fetch``).  On
+a mesh the fetch gathers the whole grid's fields to rank 0, which alone
+keeps the series and writes ``<file_base>.e`` over the whole grid.
 
 Exodus II is netCDF3-classic underneath; this module writes the subset MOOSE
 emits for `[Outputs] exodus = true` (reference uses libMesh's ExodusII_IO):
@@ -31,7 +33,7 @@ def _grid_mesh(domain):
     """Nodes + connectivity of the conforming mesh (x-fastest node order,
     matching libMesh's generated mesh as seen in the reference golds)."""
     dim = domain.dim
-    n = domain.shape
+    n = tuple(domain.n_global)
     h = domain.grid_spacing
     mins = domain.mins if hasattr(domain, "mins") else [0.0] * dim
     nn = [x + 1 for x in n]
@@ -239,7 +241,9 @@ class ExodusOutput:
     def output(self, problem, state, time, initial=False, pp_values=None):
         aux = problem.aux
         dim = problem.domain.dim
-        state = {"buffers": aux.fetch(state)}
+        state = {"buffers": aux.fetch(state)}  # every rank: the gathers
+        if not aux.samples_here:
+            return
         self.times.append(float(time))
         for var in aux.variables:
             vals = aux.values(state, var)

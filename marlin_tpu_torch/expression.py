@@ -1213,12 +1213,21 @@ def fparse(text: str, env: Optional[Dict[str, float]] = None) -> float:
     """Evaluate an `${fparse ...}`-style scalar expression.
 
     Mirrors the reference's use of FParser for deck-level constant expressions
-    (reference: examples/degeus_mechanics/mech.i:6-8 usage), through the
-    Python AST engine.
+    (reference: examples/degeus_mechanics/mech.i:6-8 usage), as
+    marlin_tpu/expression.py:fparse does: the native engine's value where
+    its library loads (``native.py``), else, and for an expression that it
+    refuses, the Python AST engine's, whose errors are the JAX package's.
     """
     scope = {"pi": math.pi, "e": math.e}
     if env:
         scope.update(env)
+    from . import native
+
+    if native.available():
+        try:
+            return native.eval_scalar(text, scope)
+        except native.NativeError:
+            pass
     ast = parse(text, constants=())
     return float(ast.evaluate(scope, _scalar_ops))
 

@@ -20,6 +20,16 @@ ranks; a near-square p1 × p2 for FFT_PENCIL).  Another mesh, such as a
 REAL_SPACE z cut, is ``run_deck(root, mesh=make_mesh("REAL_SPACE",
 shape=(2, 1, 2)))`` in a script that torchrun launches.  Rank 0 alone
 writes the CSV and prints.
+
+Across hosts, torchrun's ``--nnodes``, ``--node_rank`` and
+``--rdzv_endpoint`` set the same three variables.  Without them, the JAX
+package's variables form the group (marlin_tpu/main.py:83-92):
+``MARLIN_TPU_COORDINATOR`` (host:port of rank 0), ``MARLIN_TPU_NUM_PROCESSES``
+and ``MARLIN_TPU_PROCESS_ID`` give ``init_method = tcp://<coordinator>``,
+the world size and the rank.  The port runs one process a card, on
+``cuda:LOCAL_RANK`` (``LOCAL_RANK`` defaults to 0), where the JAX package
+runs one process a host.  A group that cannot form fails the run; it never
+falls back to a serial run.
 """
 
 from __future__ import annotations
@@ -67,9 +77,10 @@ def main(argv=None):
     if deck is None:
         parser.error("no input deck given")
     dev = _device.from_cli(ns.compute_device)
-    launched = "RANK" in os.environ and "WORLD_SIZE" in os.environ
+    launch = launch_env(os.environ)
+    launched = launch is not None
     if launched:
-        dev = join_group(dev)
+        dev = join_group(dev, *launch)
 
     root = hit.load(deck, overrides + (["Outputs/perf_graph=true"] if ns.timing else []))
     if ns.x64:
@@ -105,19 +116,38 @@ def main(argv=None):
     return 0
 
 
-def join_group(dev):
-    """Join torchrun's default process group: NCCL on ``cuda:LOCAL_RANK``
-    when the device is the card, gloo on the CPU.  Returns the rank's
-    device.  A group that cannot form fails the run."""
+def launch_env(env):
+    """(init_method, world size, rank) of the default group a launcher
+    asks for, or None for a run of one process: torchrun's ``RANK`` and
+    ``WORLD_SIZE`` (its rendezvous in ``MASTER_ADDR``/``MASTER_PORT``,
+    read by ``env://``), else the JAX package's ``MARLIN_TPU_COORDINATOR``,
+    ``MARLIN_TPU_NUM_PROCESSES`` and ``MARLIN_TPU_PROCESS_ID`` (defaults 1
+    and 0, as marlin_tpu/main.py reads them)."""
+    if "RANK" in env and "WORLD_SIZE" in env:
+        return "env://", int(env["WORLD_SIZE"]), int(env["RANK"])
+    coordinator = env.get("MARLIN_TPU_COORDINATOR")
+    if coordinator:
+        return (f"tcp://{coordinator}", int(env.get("MARLIN_TPU_NUM_PROCESSES", "1")),
+                int(env.get("MARLIN_TPU_PROCESS_ID", "0")))
+    return None
+
+
+def join_group(dev, init_method="env://", world_size=None, rank=None):
+    """Join the default process group: NCCL on ``cuda:LOCAL_RANK`` when
+    the device is the card, gloo on the CPU.  Returns the rank's device.
+    A group that cannot form fails the run."""
     import torch
     import torch.distributed as dist
 
+    kw = dict(init_method=init_method)
+    if init_method != "env://":
+        kw.update(world_size=world_size, rank=rank)
     if dev.type == "cuda":
         dev = torch.device("cuda", int(os.environ.get("LOCAL_RANK", "0")))
         torch.cuda.set_device(dev)
-        dist.init_process_group("nccl", device_id=dev)
+        dist.init_process_group("nccl", device_id=dev, **kw)
     else:
-        dist.init_process_group("gloo")
+        dist.init_process_group("gloo", **kw)
     return dev
 
 

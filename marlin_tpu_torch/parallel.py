@@ -39,6 +39,12 @@ default group when ``torchrun`` launches the CLI, and a caller hands a
   itself is a local slice.
 - Reductions (sum, max, min, and a max that keeps NaN) are ``all_reduce``
   over the mesh's group.
+- Whole arrays for the host: ``gather_to`` puts every rank's block
+  together on one rank (the sharded checkpoint, the Exodus and aux
+  samples), ``block_of`` cuts a rank's block out of a global array (the
+  checkpoint's resume).  A state leaf's layout (``REAL``, ``RECIPROCAL``,
+  ``FULL`` or None) names its spec (``layout_spec``) and its global
+  extents (``layout_extents``).
 
 Rank order is row-major over the mesh axes, as ``local_slices`` lists the
 blocks and as the reference's partitioners number MPI ranks.  Uneven
@@ -222,6 +228,116 @@ def block_slices(mesh: Mesh, spec, shape: Sequence[int], rank: Optional[int] = N
         else:
             out.append(chunk(n, mesh.axis_size(name), coords[name]))
     return tuple(out)
+
+
+#: the layouts of a state leaf on a mesh (``Spec.layout``): a real-space
+#: field, a spectrum laid out as the domain's transforms give it (half or,
+#: under PALLAS, the full permuted one; a pencil's pad rows included), a
+#: full spectrum of a complex field's ``fftn``; None is one value that
+#: every rank holds whole
+REAL, RECIPROCAL, FULL = "real", "reciprocal", "full"
+
+
+def layout_spec(domain, layout: Optional[str], ndim: int, lead: int = 0):
+    """The mesh axis of each axis of a leaf of ``layout`` with ``lead``
+    axes before its spatial ones (a history stack's slot axis); none for
+    a leaf with fewer axes than the grid (no field: whole on every
+    rank)."""
+    if layout is None or domain.mesh is None or ndim - lead < domain.dim:
+        return (None,) * ndim
+    spec = real_spec(domain, ndim - lead) if layout == REAL else \
+        reciprocal_spec(domain, ndim - lead)
+    return (None,) * lead + tuple(spec)
+
+
+def layout_extents(domain, layout: Optional[str]) -> Tuple[int, ...]:
+    """The global spatial extents of a leaf of ``layout``."""
+    if layout == REAL:
+        return tuple(domain.n_global)
+    if layout == RECIPROCAL:
+        return tuple(domain.global_reciprocal_shape)
+    return tuple(domain.global_full_shape)
+
+
+def gather_to(mesh: Mesh, t: torch.Tensor, spec, global_shape, root: int = 0,
+              device=None) -> Optional[torch.Tensor]:
+    """The global array of every rank's block ``t`` (laid out by ``spec``
+    in the ceil-division layout, trailing axes past ``global_shape``
+    kept) on rank ``root``, on ``device`` (``t``'s by default); None on
+    the other ranks.  Each rank sends its block to ``root``, which takes
+    them one at a time: no other rank holds the whole field, and ``root``
+    holds it once and one block (``_gather`` gives every rank the whole
+    field).  An empty block is neither sent nor received.  Every rank
+    calls it, in the same order as its other collectives."""
+    full = tuple(global_shape) + tuple(t.shape[len(global_shape):])
+    me = mesh.rank
+    if me != root:
+        if t.numel():
+            dist.send(_wire(t.contiguous()), mesh.global_rank(root), group=mesh.group)
+        return None
+    out = torch.empty(full, dtype=t.dtype, device=device or t.device)
+    for r in range(mesh.size):
+        sl = block_slices(mesh, spec, full, r)
+        shape = [s.stop - s.start for s in sl]
+        if not math.prod(shape):
+            continue
+        if r == me:
+            block = t
+        else:
+            block = torch.empty(shape, dtype=t.dtype, device=t.device)
+            dist.recv(_wire(block), mesh.global_rank(r), group=mesh.group)
+        out[sl].copy_(block)  # across devices too, with no staging copy
+    return out
+
+
+def all_shapes(mesh: Mesh, shapes: Sequence[Tuple[int, ...]], device) -> List[List[tuple]]:
+    """Every rank's ``shapes`` (a list of tensor shapes, the same count on
+    every rank), in rank order, by one ``all_gather`` of a small integer
+    tensor on ``device``."""
+    width = max([len(s) for s in shapes] + [1])
+    mine = torch.full((max(len(shapes), 1), width + 1), -1, dtype=torch.int64)
+    for i, s in enumerate(shapes):
+        mine[i, 0] = len(s)
+        mine[i, 1:1 + len(s)] = torch.tensor(s, dtype=torch.int64)
+    mine = mine.to(device)
+    parts = [torch.empty_like(mine) for _ in range(mesh.size)]
+    dist.all_gather(parts, mine, group=mesh.group)
+    return [[tuple(int(x) for x in row[1:1 + int(row[0])])
+             for row in part.cpu()[:len(shapes)]] for part in parts]
+
+
+def settle_layout(mesh: Mesh, spec, extents: Sequence[int], lead: int, shapes):
+    """(spec, global shape) of a leaf laid out by ``spec`` whose spatial
+    axes (after ``lead``) span ``extents``, from every rank's block shape
+    (``shapes``, rank order): a cut axis whose blocks are the ceil-division
+    blocks of its extent takes that extent; one whose blocks are all of
+    extent 1 is a broadcast, whole on every rank.  Every rank that reads
+    the same shapes settles the same way."""
+    spec = list(spec)
+    shape = list(shapes[0])
+    for d, name in enumerate(spec):
+        if name is None:
+            continue
+        n = extents[d - lead]
+        parts = mesh.axis_size(name)
+        blocks = [chunk(n, parts, dict(zip(mesh.axis_names, mesh.coords(r)))[name])
+                  for r in range(mesh.size)]
+        if all(s[d] == b.stop - b.start for s, b in zip(shapes, blocks)):
+            shape[d] = n
+        elif all(s[d] == 1 for s in shapes):
+            spec[d] = None
+        else:
+            raise ValueError(f"a leaf of block shapes {shapes} is not laid out along "
+                             f"axis {d} as '{name}' over {n} (its recorded layout "
+                             "is wrong)")
+    return tuple(spec), tuple(shape)
+
+
+def block_of(mesh: Mesh, global_array, spec):
+    """This rank's block of ``global_array`` (numpy or torch) laid out by
+    ``spec``, through ``block_slices``; an empty block where the
+    ceil-division layout leaves this rank none."""
+    return global_array[block_slices(mesh, spec, global_array.shape)]
 
 
 def local_slices(domain) -> List[tuple]:
@@ -413,6 +529,12 @@ def exchange(mesh: Mesh, axis: int, to_next: Optional[torch.Tensor],
 
 
 exchange.calls = 0
+
+
+def barrier(mesh: Optional[Mesh]):
+    """Every rank of ``mesh`` waits for the others (nothing without one)."""
+    if mesh is not None:
+        dist.barrier(group=mesh.group)
 
 
 def reset_calls():

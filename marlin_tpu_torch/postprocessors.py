@@ -23,6 +23,7 @@ import math
 import numpy as np
 import torch
 
+from . import parallel
 from .expression import CompiledExpression
 from .params import Params
 from .registry import postprocessors
@@ -113,8 +114,8 @@ class TensorExtremeValuePostprocessor(TensorPostprocessor):
     def compute(self, state, ctx):
         u = self.domain.spectrum(state["buffers"][self.buffer])
         if self.value_type == "MIN":
-            return self.domain.reduce(torch.min(u), "min")
-        return self.domain.reduce(torch.max(u), "max")
+            return _extreme(self.domain, u, "min")
+        return _extreme(self.domain, u, "max")
 
 
 @postprocessors.register("ReciprocalIntegral")
@@ -331,8 +332,8 @@ class ElementExtremeValue(AuxVariablePostprocessor):
     def compute(self, state, ctx):
         u = self._field(state)
         if self.value_type == "MIN":
-            return self.domain.reduce(torch.min(u), "min")
-        return self.domain.reduce(torch.max(u), "max")
+            return _extreme(self.domain, u, "min")
+        return _extreme(self.domain, u, "max")
 
 
 @postprocessors.register("ElementAverageValue")
@@ -350,6 +351,17 @@ class ElementAverageValue(AuxVariablePostprocessor):
 class ElementIntegralVariablePostprocessor(ElementAverageValue):
     def compute(self, state, ctx):
         return super().compute(state, ctx) * self.domain.volume_global
+
+
+def _extreme(domain, u, kind: str):
+    """The min or max of ``u`` over the mesh; a rank's empty block (the
+    ceil-division layout's last) gives the reduction's identity."""
+    if u.numel():
+        local = torch.min(u) if kind == "min" else torch.max(u)
+    else:
+        local = torch.tensor(math.inf if kind == "min" else -math.inf, dtype=u.dtype,
+                             device=u.device)
+    return domain.reduce(local, kind)
 
 
 class VectorPostprocessor:
@@ -376,7 +388,12 @@ class TensorHistogram(VectorPostprocessor):
     src/vectorpostprocessors/TensorHistogram.C): `bins` equal-width bins on
     [min, max], columns `bin` (centers) and `count`.  The buffer is fetched
     to the host and binned by numpy, as the JAX package bins it
-    (``torch.histc`` places its edges differently)."""
+    (``torch.histc`` places its edges differently).  On a mesh each rank
+    bins its own block over the same range and bins and the integer counts
+    are summed by one ``all_reduce``: numpy bins each value on its own, so
+    the sum over the blocks is the whole field's histogram, exactly, and
+    nothing is gathered.  A buffer that every rank holds whole is binned
+    once."""
 
     is_vector = True
 
@@ -392,6 +409,10 @@ class TensorHistogram(VectorPostprocessor):
     def compute(self, state, ctx):
         u = state["buffers"][self.buffer].detach().cpu().numpy().reshape(-1)
         counts, _edges = np.histogram(u, bins=self.bins, range=(self.min, self.max))
+        dom = self.domain
+        if dom.mesh is not None and \
+                self.problem.buffer_layouts().get(self.buffer, parallel.REAL) is not None:
+            counts = dom.reduce(torch.from_numpy(counts).to(dom.device)).cpu().numpy()
         step = (self.max - self.min) / self.bins
         centers = self.min + step / 2.0 + step * np.arange(self.bins)
         return {"bin": centers, "count": counts.astype(float)}

@@ -128,6 +128,7 @@ class TensorProblem:
             "lbm_backend", ["JNP", "PALLAS"], "JNP"
         )
         self._lbm_fused_plan = None
+        self._buffer_layouts = None  # buffer_layouts(), built at first use
         self._lbm_solid_mask = None
         self._lbm_media = None
         self._lbm_media_raw = None
@@ -729,7 +730,9 @@ class TensorProblem:
         computes' shape rules without running them (marlin_tpu uses
         jax.eval_shape here)."""
         dom = self.domain
-        scope = {k: Spec(tuple(v.shape), v.dtype) for k, v in buffers.items()}
+        layouts = self.buffer_layouts()
+        scope = {k: Spec(tuple(v.shape), v.dtype, layouts.get(k, parallel.REAL))
+                 for k, v in buffers.items()}
         derived: Dict[str, Spec] = {}
         for g in groups:
             for m in g.sorted_members:
@@ -754,7 +757,23 @@ class TensorProblem:
 
     # ------------------------------------------------------------------
     def step(self, state, t, dt, dt_old, first_step: bool):
-        """One full timestep (marlin_tpu/problem.py:_step_impl)."""
+        """One full timestep (marlin_tpu/problem.py:_step_impl).  On an
+        FFT_SLAB or FFT_PENCIL mesh the step leaves every tensor of the
+        state contiguous: the distributed transforms return strided
+        blocks, the bits of a later transform depend on its input's
+        strides, and a block restored from a checkpoint is contiguous, so
+        a run resumed at a step is the uninterrupted one bit for bit only
+        where the running state is contiguous there too (one copy a step,
+        of the strided leaves).  REAL_SPACE runs no transform, and its
+        LBM distributions are large: it copies nothing."""
+        state = self._step(state, t, dt, dt_old, first_step)
+        if self.domain.mesh is None or self.domain.parallel_mode == "REAL_SPACE":
+            return state
+        return {**state, **{part: {k: v.contiguous() if isinstance(v, torch.Tensor) else v
+                                   for k, v in state[part].items()}
+                            for part in ("buffers", "old", "solver")}}
+
+    def _step(self, state, t, dt, dt_old, first_step: bool):
         if self.is_lbm:
             return self._lbm_step(state, t, dt, first_step)
         if not first_step:
@@ -954,11 +973,151 @@ class TensorProblem:
     def load_checkpoint(self, path: str):
         """(state, meta) of a checkpoint of either package, the state's
         tensors on this problem's device; an LBM problem's media are taken
-        from it as ``init_state`` takes them."""
-        state, meta = checkpoint.load(path, self.domain.device)
+        from it as ``init_state`` takes them.  The file holds global
+        arrays: on a mesh every rank takes its block of each leaf
+        (``parallel.block_of``, by the leaf's recorded layout), so a
+        checkpoint written at one mesh size, or serially, resumes at
+        another."""
+        tables = self._layout_tables()
+
+        def block(key, arr):
+            part, _, name = key.partition("/")
+            if part not in tables or name == "__empty__":
+                return arr
+            table = tables[part]
+            if name not in table:
+                raise ProblemError(f"checkpoint '{path}' does not fit this deck: "
+                                   f"{key} is not a leaf of its state")
+            return self._block_of(table[name], arr, 1 if part == "old" else 0)
+
+        state, meta = checkpoint.load(path, self.domain.device, select=block)
         self._check_restored(state["buffers"], path)
         self._capture_lbm_media(state["buffers"])
         return state, meta
+
+    # -- layouts of the state on a mesh (the sharded checkpoint) -----------
+    def buffer_layouts(self) -> Dict[str, Optional[str]]:
+        """The layout on a mesh of every buffer the state holds
+        (``parallel.REAL``, ``RECIPROCAL``, ``FULL`` or None), recorded
+        where each buffer is made: a declared buffer by its declaration
+        (LBM buffers and real ones REAL, ``reciprocal = true`` RECIPROCAL),
+        a compute's output by its ``output_specs`` (the initial conditions,
+        then the solve and postprocess chains, in their order), the
+        solver's extra buffers REAL, the Newton flags None.  Built once
+        from the declarations alone, so that ``recover`` needs no
+        ``init_state``; a history stack's slots take their buffer's."""
+        if self._buffer_layouts is not None:
+            return self._buffer_layouts
+        dom = self.domain
+        scope: Dict[str, Spec] = {}
+        for name, spec in self.buffer_specs.items():
+            reciprocal = not self._is_lbm_buffer(spec) and spec.get_bool("reciprocal", False)
+            scope[name] = Spec(tuple(self.declared_buffer_shape(name)),
+                               self._declared_dtype(spec),
+                               parallel.RECIPROCAL if reciprocal else parallel.REAL)
+        solve_all = ComputeGroup(
+            "_all_solve", Params(None, self.global_params), self, self.solve_computes
+        ).sort()
+        for g in (self.ic_computes.sort(), solve_all, self.pp_computes.sort()):
+            for m in g.sorted_members:
+                for b in m.inputs:
+                    scope.setdefault(b, Spec(dom.shape, dom.dtype))
+                scope.update(m.output_specs(scope))
+        layouts = {k: v.layout for k, v in scope.items()}
+        if self.solver is not None:
+            for b in self.solver.extra_input_buffers() + self.solver.output_buffers():
+                layouts.setdefault(b, parallel.REAL)
+        for key in self.newton_diag_keys():
+            layouts[key] = None
+        self._buffer_layouts = layouts
+        return layouts
+
+    def _layout_tables(self) -> Dict[str, Dict[str, Optional[str]]]:
+        buffers = self.buffer_layouts()
+        solver = dict(self.solver.STATE_LAYOUTS) if self.solver is not None else {}
+        if self.is_lbm:
+            solver["residual"] = None  # the convergence residual, a reduction
+        return {"buffers": buffers, "old": buffers, "solver": solver}
+
+    def state_layout(self, state) -> Dict:
+        """The layout of each leaf of ``state``, in its tree: {"buffers",
+        "old", "solver"} -> {name: layout}; ``n_advances`` and ``old_dt``
+        are the same on every rank.  A leaf whose layout was never
+        recorded is a named error, not a guess."""
+        tables = self._layout_tables()
+        out = {}
+        for part, table in tables.items():
+            missing = sorted(set(state[part]) - set(table))
+            if missing:
+                raise ProblemError(f"state['{part}'] entries {missing} have no "
+                                   "recorded layout (parallel.REAL, RECIPROCAL, "
+                                   "FULL or None)")
+            out[part] = {k: table[k] for k in state[part]}
+        return out
+
+    def _block_of(self, layout, arr: np.ndarray, lead: int) -> np.ndarray:
+        """This rank's block of a global leaf of ``layout``: an axis of
+        extent 1 where the layout's is larger is a broadcast (whole on
+        every rank), and a pencil's half axis fits its pad rows to this
+        mesh's (they hold zeros); on no mesh, the array itself.  An array
+        that fits none of these is another deck's: it is kept whole, for
+        ``_check_restored`` to name."""
+        dom = self.domain
+        if layout is None:
+            return arr
+        extents = parallel.layout_extents(dom, layout)
+        spec = list(parallel.layout_spec(dom, layout, arr.ndim, lead))
+        for d in range(min(dom.dim, arr.ndim - lead)):
+            have, want = arr.shape[lead + d], extents[d]
+            if have == want:
+                continue
+            if have == 1:
+                spec[lead + d] = None
+                continue
+            if layout == parallel.RECIPROCAL and d == dom.half_axis \
+                    and dom.parallel_mode == "FFT_PENCIL" \
+                    and min(have, want) >= dom.n_global[d] // 2 + 1:
+                arr = _fit_rows(arr, lead + d, want)
+                continue
+            return arr  # another deck's array: _check_restored names it
+        if dom.mesh is None:
+            return arr
+        return parallel.block_of(dom.mesh, arr, tuple(spec))
+
+    def gathered_state(self, state, root: int = 0):
+        """``state`` with every leaf whole, its tensors on the host, on
+        rank ``root`` (None on the other ranks): each laid-out leaf
+        gathered there by ``parallel.gather_to`` (one leaf at a time, so
+        no rank holds more than one whole leaf besides what it keeps),
+        each other one taken from ``root``.  Every rank calls it.  The
+        ranks' block shapes travel first, in one collective, so that
+        every rank reads the same global shapes: an axis of a leaf whose
+        blocks are all of extent 1 where the layout's blocks are larger
+        is a broadcast and is kept whole."""
+        mesh = self.domain.mesh
+        if mesh is None:
+            return state
+        layouts = self.state_layout(state)
+        leaves = [(part, k) for part in ("buffers", "old", "solver")
+                  for k in sorted(state[part])]
+        laid = [(part, k) for part, k in leaves if layouts[part][k] is not None]
+        shapes = parallel.all_shapes(mesh, [tuple(state[p][k].shape) for p, k in laid],
+                                     self.domain.device)
+        out = {"buffers": {}, "old": {}, "solver": {},
+               "n_advances": state["n_advances"], "old_dt": state["old_dt"]}
+        for i, (part, k) in enumerate(laid):
+            layout = layouts[part][k]
+            lead = 1 if part == "old" else 0
+            t = state[part][k]
+            spec, shape = parallel.settle_layout(
+                mesh, parallel.layout_spec(self.domain, layout, t.ndim, lead),
+                parallel.layout_extents(self.domain, layout), lead, [s[i] for s in shapes])
+            out[part][k] = parallel.gather_to(mesh, t, spec, shape, root, device="cpu")
+        for part, k in leaves:
+            if layouts[part][k] is None:
+                v = state[part][k]
+                out[part][k] = v.cpu() if isinstance(v, torch.Tensor) else v
+        return out if mesh.rank == root else None
 
     def _check_restored(self, buffers, path):
         """Every declared buffer is in the checkpoint with the shape and
@@ -974,3 +1133,15 @@ class TensorProblem:
                 raise ProblemError(
                     f"checkpoint '{path}' does not fit this deck: buffer '{name}' "
                     f"is {have}, the deck declares {shape} {dtype}")
+
+
+def _fit_rows(arr: np.ndarray, axis: int, rows: int) -> np.ndarray:
+    """``arr`` cut or zero-padded to ``rows`` along ``axis`` (a pencil's
+    half spectrum whose pad rows, zeros past n/2 + 1, another mesh laid
+    out otherwise)."""
+    have = arr.shape[axis]
+    if have >= rows:
+        return arr[(slice(None),) * axis + (slice(0, rows),)]
+    pad = [(0, 0)] * arr.ndim
+    pad[axis] = (0, rows - have)
+    return np.pad(arr, pad)

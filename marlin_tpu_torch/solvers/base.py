@@ -120,6 +120,11 @@ class TensorSolver:
         ``TensorProblem.init_state`` (marlin_tpu/problem.py:845-846)."""
         return {}
 
+    #: the layout on a mesh of each entry the solver keeps in
+    #: ``state["solver"]`` (``parallel.REAL``, ``RECIPROCAL``, ``FULL``, or
+    #: None for a value every rank holds whole), for the sharded checkpoint
+    STATE_LAYOUTS: Dict[str, Optional[str]] = {}
+
     def extra_input_buffers(self) -> List[str]:
         """Buffers the solver reads that must exist in the state."""
         return [b for _, b in self.forwarded_buffers]
@@ -353,6 +358,7 @@ class IterativeSolver(SplitOperatorBase):
     host, and the loop's counts (``IterativeCounts``)."""
 
     iterative = True
+    STATE_LAYOUTS = {"iterations": None, "converged": None, "group_evals": None}
 
     def __init__(self, name, params: Params, problem):
         super().__init__(name, params, problem)

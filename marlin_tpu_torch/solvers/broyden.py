@@ -15,6 +15,7 @@ from __future__ import annotations
 
 import torch
 
+from .. import parallel
 from ..params import Params
 from ..registry import solvers
 from .base import IterativeSolver
@@ -42,6 +43,8 @@ class BroydenSolver(IterativeSolver):
         # BroydenSolver never calls applyPredictors (only SecantSolver.C:100
         # does): attached [Predictors] blocks are built but inert
         self.predictors = []
+
+    STATE_LAYOUTS = {**IterativeSolver.STATE_LAYOUTS, "M": parallel.RECIPROCAL}
 
     def init_solver_state(self):
         n = len(self.variables)

@@ -15,7 +15,11 @@ import torch
 
 
 def _tensor(a, device) -> torch.Tensor:
-    return torch.from_numpy(np.array(a, copy=True)).to(device)
+    a = np.asarray(a)
+    if torch.device(device).type == "cpu":
+        # the state owns its memory; on another device the move copies
+        a = np.array(a, copy=True)
+    return torch.as_tensor(a, device=device)
 
 
 def from_numpy(tree: Dict, device) -> Dict:

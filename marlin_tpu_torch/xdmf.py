@@ -5,9 +5,15 @@ XDMFTensorOutput (src/tensor_outputs/XDMFTensorOutput.C, 760 LoC):
 time-series XDMF XML with CoRectMesh topology, per-frame datasets
 `{name}.{frame}` in an HDF5 sidecar (or raw .bin files), CELL / NODE
 (periodic extension) / OVERSIZED_NODAL modes and an optional transpose for
-Paraview axis order.  Serial only: under a ``parallel_mode`` the JAX
-package writes per-rank files, whose writer waits for a later slice of the
-port; such a deck is a named error at build.
+Paraview axis order.  On a mesh of more than one rank each rank writes its
+own block, straight from its block and with no gather, to
+``<file_base>.rank{r:04d}.h5`` (or ``.rank{r:04d}.<dataset>.bin``), and
+rank 0 writes the one global XMF with a ``Uniform`` subgrid a rank
+(``Rank{r}``, its origin and cell counts from ``parallel.local_slices``),
+as marlin_tpu/xdmf.py does (reference XDMFTensorOutput.C:70 rankTag,
+writeParallelXMF :429-527).  A rank with no cells (the ceil-division
+layout's empty last block) writes no file and has no subgrid; only CELL
+output runs in parallel.  A world of one writes the serial files.
 
 The reference writes from a detached std::thread per frame with join
 barriers (TensorOutput.C:66-84).  Here the main thread fetches every buffer
@@ -40,11 +46,6 @@ class XDMFTensorOutput:
         self.name = name
         self.problem = problem
         self.domain = problem.domain
-        if self.domain.parallel_mode != "NONE":
-            raise NotImplementedError(
-                f"XDMF output '{name}': the per-rank XDMF writer of "
-                f"parallel_mode = {self.domain.parallel_mode} is not ported to "
-                "marlin_tpu_torch yet (serial decks only)")
         self.buffers: List[str] = params.get_str_vector("buffer", required=True)
         self.enable_hdf5 = params.get_bool("enable_hdf5", False)
         if self.enable_hdf5:
@@ -76,7 +77,24 @@ class XDMFTensorOutput:
                 "execute_on", default=["INITIAL", "TIMESTEP_END"]
             )
         )
-        self.hdf5_name = self.file_base + ".h5"
+        # parallel: one file (or .bin series) a rank + one global XMF
+        mesh = self.domain.mesh
+        self.n_ranks = mesh.size if mesh is not None else 1
+        self.rank = mesh.rank if mesh is not None else 0
+        self.is_parallel = self.n_ranks > 1
+        if self.is_parallel:
+            for m in self.output_mode.values():
+                if m != "CELL":
+                    params.error(
+                        "output_mode",
+                        "XDMFTensorOutput currently supports only CELL "
+                        "output mode in parallel.",
+                    )
+        self.hdf5_names = [
+            self.file_base + (f".rank{r:04d}" if self.is_parallel else "") + ".h5"
+            for r in range(self.n_ranks)
+        ]
+        self.hdf5_name = self.hdf5_names[self.rank]
         self.frame = 0
         self._frames: List[Dict] = []
         self._thread: Optional[threading.Thread] = None
@@ -127,7 +145,8 @@ class XDMFTensorOutput:
                     "exist (declared buffers: "
                     + ", ".join(sorted(state["buffers"])) + ")"
                 )
-            # the frame's one transfer of this buffer, on this thread
+            # the frame's one transfer of this buffer (this rank's block),
+            # on this thread
             arr = state["buffers"][bname].detach().cpu().numpy()
             mode = self.output_mode[bname]
             if mode == "NODE":
@@ -154,7 +173,8 @@ class XDMFTensorOutput:
         def write():
             try:
                 self._write_h5(frame_data)
-                self._write_xmf()
+                if self.rank == 0:
+                    self._write_xmf()
             except BaseException as e:  # re-raised on the main thread
                 self._thread_error = e
 
@@ -176,6 +196,8 @@ class XDMFTensorOutput:
 
     # ------------------------------------------------------------------
     def _write_h5(self, frame_data: Dict[str, np.ndarray]):
+        if frame_data and all(a.size == 0 for a in frame_data.values()):
+            return  # an empty rank (uneven ceil-division): no file
         if self.enable_hdf5:
             import h5py
 
@@ -186,8 +208,9 @@ class XDMFTensorOutput:
                         del f[dset]
                     f.create_dataset(dset, data=arr)
         else:
+            tag = f".rank{self.rank:04d}" if self.is_parallel else ""
             for dset, arr in frame_data.items():
-                arr.tofile(f"{self.file_base}.{dset}.bin")
+                arr.tofile(f"{self.file_base}{tag}.{dset}.bin")
 
     def _write_xmf(self):
         dim = self.domain.dim
@@ -218,6 +241,16 @@ class XDMFTensorOutput:
         tgrid.set("GridType", "Collection")
         tgrid.set("CollectionType", "Temporal")
 
+        if self.is_parallel:
+            self._write_parallel_frames(tgrid, dim, h)
+        else:
+            self._write_serial_frames(tgrid)
+
+        ET.indent(xdmf, space=" ")
+        tree = ET.ElementTree(xdmf)
+        tree.write(self.file_base + ".xmf", xml_declaration=False)
+
+    def _write_serial_frames(self, tgrid):
         for fr in self._frames:
             grid = ET.SubElement(tgrid, "Grid")
             grid.set("Name", f"T{fr['frame']}")
@@ -232,13 +265,58 @@ class XDMFTensorOutput:
             for bname, (names, mode, dtype, spatial) in sorted(fr["fields"].items()):
                 for cname in names:
                     self._add_attribute(grid, cname, mode, dtype, spatial,
-                                        f"{cname}.{fr['frame']}")
+                                        f"{cname}.{fr['frame']}", self.hdf5_name)
 
-        ET.indent(xdmf, space=" ")
-        tree = ET.ElementTree(xdmf)
-        tree.write(self.file_base + ".xmf", xml_declaration=False)
+    def _write_parallel_frames(self, tgrid, dim, h):
+        """Per-frame Spatial collection with one Uniform subgrid per rank
+        that holds cells (marlin_tpu/xdmf.py:_write_parallel_frames)."""
+        from .parallel import local_slices
 
-    def _add_attribute(self, grid, cname, mode, dtype, spatial, dataset):
+        slices = local_slices(self.domain)
+        dom = self.domain
+        axes = list(range(dim - 1, -1, -1)) if self.transpose else list(range(dim))
+        for fr in self._frames:
+            grid = ET.SubElement(tgrid, "Grid")
+            grid.set("Name", f"T{fr['frame']}")
+            grid.set("GridType", "Collection")
+            grid.set("CollectionType", "Spatial")
+            te = ET.SubElement(grid, "Time")
+            te.set("Value", _fmt(fr["time"]))
+            for r in range(self.n_ranks):
+                sl = slices[r]
+                # local cell counts / origin in output (maybe transposed) order
+                cells, lorigin = [], []
+                for a in axes:
+                    start = sl[a].start or 0
+                    stop = sl[a].stop if sl[a].stop is not None else dom.n_global[a]
+                    cells.append(stop - start)
+                    lorigin.append(dom.mins[a] + start * dom.grid_spacing[a])
+                if min(cells) == 0:
+                    continue  # an empty rank: a 0-extent subgrid breaks readers
+                sub = ET.SubElement(grid, "Grid")
+                sub.set("Name", f"Rank{r}")
+                sub.set("GridType", "Uniform")
+                topo = ET.SubElement(sub, "Topology")
+                topo.set("TopologyType", f"{dim}DCoRectMesh")
+                topo.set("Dimensions", " ".join(str(c + 1) for c in cells))
+                geom = ET.SubElement(sub, "Geometry")
+                geom.set("Type", "ORIGIN_" + "".join(["DX", "DY", "DZ"][:dim]))
+                d1 = ET.SubElement(geom, "DataItem")
+                d1.set("Format", "XML")
+                d1.set("Dimensions", str(dim))
+                d1.text = " ".join(_fmt(x) for x in lorigin)
+                d2 = ET.SubElement(geom, "DataItem")
+                d2.set("Format", "XML")
+                d2.set("Dimensions", str(dim))
+                d2.text = " ".join(_fmt(x) for x in h)
+                for bname, (names, mode, dtype, _spatial) in sorted(fr["fields"].items()):
+                    for cname in names:
+                        self._add_attribute(
+                            sub, cname, mode, dtype, cells,
+                            f"{cname}.{fr['frame']}", self.hdf5_names[r],
+                            tag=f".rank{r:04d}")
+
+    def _add_attribute(self, grid, cname, mode, dtype, spatial, dataset, h5_name, tag=""):
         attr = ET.SubElement(grid, "Attribute")
         attr.set("Name", cname)
         attr.set("Center", "Cell" if mode == "CELL" else "Node")
@@ -247,12 +325,12 @@ class XDMFTensorOutput:
         data.set("Dimensions", " ".join(str(s) for s in spatial))
         if self.enable_hdf5:
             data.set("Format", "HDF")
-            data.text = f"{os.path.basename(self.hdf5_name)}:/{dataset}"
+            data.text = f"{os.path.basename(h5_name)}:/{dataset}"
         else:
             data.set("Format", "Binary")
             data.set("Endian", "Little")
             data.set("Precision", "8" if dtype in (np.float64, np.int64) else "4")
-            data.text = os.path.basename(f"{self.file_base}.{dataset}.bin")
+            data.text = os.path.basename(f"{self.file_base}{tag}.{dataset}.bin")
 
 
 def _fmt(x: float) -> str:

@@ -261,6 +261,35 @@ def test_checkpoint_layout_round_trip(tmp_path):
     np.testing.assert_array_equal(meta["aux_cache"]["c0"], np.ones((3, 4)))
 
 
+@pytest.mark.parametrize("writer", [np.savez, np.savez_compressed])
+def test_checkpoint_members_read_as_numpy_reads_them(writer, tmp_path):
+    """load reads np.savez's stored members straight from the file and any
+    other member through zipfile: every array as np.load gives it (dtype,
+    shape, Fortran order, 0-d and empty ones), and a flipped byte of a
+    stored member fails its CRC-32 as zipfile's read does."""
+    import zipfile
+
+    arrays = {"buffers/c": np.random.default_rng(0).random((3, 4, 5)).astype(np.float32),
+              "buffers/f": np.asfortranarray(np.arange(42.0).reshape(6, 7)),
+              "buffers/z": (np.arange(4) + 1j * np.arange(4)).astype(np.complex64),
+              "old/__empty__": np.zeros(0, dtype=np.uint8),
+              "n_advances": np.asarray(3, dtype=np.int32), "flag": np.asarray(True)}
+    path = str(tmp_path / "m.npz")
+    writer(path, **arrays)
+    got = dict(checkpoint._members(path))
+    with np.load(path) as f:
+        assert sorted(got) == sorted(f.files)
+        for k in f.files:
+            assert got[k].dtype == f[k].dtype and got[k].shape == f[k].shape, k
+            np.testing.assert_array_equal(got[k], f[k], err_msg=k)
+    if writer is np.savez:
+        raw = bytearray(open(path, "rb").read())
+        raw[raw.find(arrays["buffers/c"].tobytes()) + 5] ^= 1
+        open(path, "wb").write(bytes(raw))
+        with pytest.raises(zipfile.BadZipFile, match="CRC"):
+            dict(checkpoint._members(path))
+
+
 def test_initial_only_aux_sample_rides_the_checkpoint(tmp_path):
     """An INITIAL-only projection keeps its t = 0 sample across a resume
     without init (the t = 0 state is gone)."""

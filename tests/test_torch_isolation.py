@@ -201,8 +201,8 @@ def _without_solver(text):
                          "    function = missing\n  []\n[]\n"), "missing"),
     (LEGACY_SOLVER.format(type="FFTExplicit"), "Unsupported TensorTimeIntegrator type "
                                                "FFTExplicit"),
-    ("[TensorOutputs]\n  [x]\n    type = XDMFTensorOutput\n    buffer = c\n  []\n[]\n",
-     "parallel_mode"),
+    ("[TensorOutputs]\n  [x]\n    type = XDMFTensorOutput\n    buffer = c\n"
+     "    output_mode = 'CELL NODE'\n  []\n[]\n", "Specify one output mode per buffer"),
     (UNPORTED_COMPUTE.format(type="LibtorchGibbsEnergy").replace(
         "      buffer = x\n", "      buffer = x\n      phase_fractions = c\n"
         "      concentrations = c\n      domega_detas = dx\n      chem_pots = mx\n"
@@ -216,15 +216,15 @@ def _without_solver(text):
 def test_unported_features_are_named_errors(extra, match):
     """[Functions] and the legacy integrator blocks are ported; what stays a
     named error there is what the JAX package refuses (a function that
-    names no function, an integrator other than FFTSemiImplicit), the
-    per-rank XDMF writer (refused under every parallel_mode: FFT_SLAB
-    runs, its writer waits).  The NN
+    names no function, an integrator other than FFTSemiImplicit), and an
+    XDMF output that the JAX package refuses under a parallel_mode (one
+    output mode for two buffers; the per-rank writer itself runs).  The NN
     surrogate and NEML2 are ported: the port builds both types, and a
     missing model file is the JAX package's named error."""
     text = _CH_DECK.format(nx=16, ny=16, substeps=1) + extra
     if match != "parallel_mode" and "TensorTimeIntegrators" in extra:
         text = _without_solver(text)
-    if match == "parallel_mode":
+    if "TensorOutputs" in extra:
         text = text.replace("[Domain]", "[Domain]\n  parallel_mode = FFT_SLAB")
     with pytest.raises(Exception, match=match):
         run_deck(hit.parse(text), device="cpu")

@@ -44,6 +44,12 @@ def _deck(name, backend):
                 {"media": decks.porous_media(8)})
     if name == "allface":
         return decks.ALLFACE_DECK.format(n=8, stencil="LBMD3Q19", backend=backend), None
+    if name == "corners":
+        # every face with exclude_corners_{x,y,z}: along a cut axis a block
+        # drops the grid's first and last planes only where it holds them
+        text = decks.ALLFACE_DECK.format(n=8, stencil="LBMD3Q19", backend=backend)
+        return text.replace("type = LBMBounceBack\n", "type = LBMBounceBack\n"
+                            + "".join(f"      exclude_corners_{a} = true\n" for a in "xyz")), None
     if name == "inlet_outlet":
         return decks.INLET_OUTLET_DECK.format(backend=backend), None
     if name == "thermal":
@@ -61,6 +67,10 @@ RUNS = [(d, b, m) for d in ("porous", "allface", "inlet_outlet", "thermal")
         for b in BACKENDS for w in MESHES for m in MESHES[w]]
 RUNS += [("channel2d", b, (w,)) for b in BACKENDS for w in MESHES]
 RUNS += [("karman", "JNP", (w,)) for w in MESHES]
+#: LBMBounceBack's corner exclusion along cut axes (the fused plan refuses
+#: exclude_corners_*, as the JAX package's does: JNP only)
+CORNERS = [("corners", "JNP", m) for w in MESHES for m in MESHES[w]]
+RUNS += CORNERS
 
 
 def _sharded(text):
@@ -164,10 +174,11 @@ def _jax_sharded(jx, name, backend, mesh, tmp_path):
     return s
 
 
-def _assert_parity(res, ref, tol=TOL):
+def _assert_parity(res, ref, tol=TOL, exact=False):
     """Every buffer and old slot of the blocks put together against
     ``ref`` (a state of numpy-able arrays), the residual and n_advances
-    (tests/test_pallas_lbm.py:_assert_state_parity)."""
+    (tests/test_pallas_lbm.py:_assert_state_parity); with ``exact`` every
+    buffer and slot bit for bit."""
     for group in ("buffers", "old"):
         for key, want in ref[group].items():
             want = np.asarray(want)
@@ -183,6 +194,7 @@ def _assert_parity(res, ref, tol=TOL):
                 got[sl] = b
             d = np.max(np.abs(got - want)) if want.size else 0.0
             assert d < tol, f"{group}[{key}]: maxdiff {d}"
+            assert not exact or np.array_equal(got, want), f"{group}[{key}] not bit for bit"
     for r in res:
         assert abs(r["residual"] - float(ref["solver"]["residual"])) < tol
         assert int(r["n_advances"]) == int(ref["n_advances"])
@@ -213,6 +225,31 @@ def test_real_space_matches_jax_sharded(ranks, jx, tmp_path, name, backend, mesh
     branch in interpret mode)."""
     res = _ranks_of(ranks, name, backend, mesh)
     _assert_parity(res, _jax_sharded(jx, name, backend, mesh, tmp_path))
+
+
+@pytest.mark.parametrize("mesh", [m for _n, _b, m in CORNERS],
+                         ids=["x".join(map(str, m)) for _n, _b, m in CORNERS])
+def test_corner_exclusion_on_a_cut_axis(ranks, jx, tmp_path, mesh):
+    """exclude_corners_{x,y,z} on every face, with x (and y) cut: the
+    blocks put together equal the serial run bit for bit (the residual, a
+    reduction, within 1e-12), and the JAX package's run of the deck, which
+    slices its global array, within 1e-12.  That is the JAX package's
+    serial run: its sharded run of this deck parts from its own serial
+    run by about 1e-3 wherever exclude_corners_x meets a cut x axis
+    (ROADMAP §3), so it is not the reference here."""
+    res = _ranks_of(ranks, "corners", "JNP", mesh)
+    serial = _serial("corners", "JNP")
+    ref = {"buffers": {k: v.numpy() for k, v in serial["buffers"].items()},
+           "old": {k: v.numpy() for k, v in serial["old"].items()},
+           "solver": serial["solver"], "n_advances": serial["n_advances"]}
+    _assert_parity(res, ref, exact=True)
+    text, _arrays = _deck("corners", "JNP")
+    p = jx.Problem(jx.hit.parse(text))
+    s = p.init_state()
+    dt = jx.jnp.asarray(1.0, p.domain.dtype)
+    for i in range(STEPS):
+        s = p.step(s, float(i), dt, dt, i == 0)
+    _assert_parity(res, s)
 
 
 @pytest.mark.parametrize("case", sorted(ERRORS))

@@ -152,8 +152,10 @@ def _cases(world, tmp):
 
 
 #: named errors under FFT_SLAB on a mesh: deck -> the words (None: a deck
-#: that the port refused on a mesh until FFT_PENCIL's slice and that runs
-#: on one now, as it does in the JAX package)
+#: that the port once refused on a mesh and that runs on one now, as it
+#: does in the JAX package: the XDMF and checkpoint decks since the per-rank
+#: writers and the sharded checkpoint, compared in
+#: tests/test_torch_mesh_outputs.py and tests/test_torch_checkpoint_sharded.py)
 ERRORS = {
     "xdmf": ch3d("FFT_SLAB") + "[TensorOutputs]\n  [x]\n    type = XDMFTensorOutput\n"
     "    buffer = c\n  []\n[]\n",
@@ -173,8 +175,8 @@ ERRORS = {
 """, 1),
 }
 ERROR_WORDS = {
-    "xdmf": "per-rank XDMF writer of parallel_mode = FFT_SLAB is not ported",
-    "checkpoint": "the sharded checkpoint",
+    "xdmf": None,
+    "checkpoint": None,
     "batch_fft": "batch_fft = true is serial-only",
     "etdrk4": None,
     # a tensor field on the PALLAS slab (marlin_tpu/domain.py:408-413)

@@ -243,3 +243,65 @@ def named_error(text, mode, output_dir, mesh_shape=None, steps=2, arrays=None):
     except Exception as e:  # the test reads the words
         return f"{type(e).__name__}: {e}"
     return None
+
+
+def outputs_run(text, mode, output_dir, steps=2, mesh_shape=None, arrays=None):
+    """A whole run of a deck on the mesh of every rank, all ranks writing
+    into the one directory ``output_dir`` (file base "out", deck stem
+    "det"), as one process of the JAX package writes its per-rank files.
+    Returns the postprocessor values and this rank's real-space slice."""
+    from marlin_tpu_torch import hit
+    from marlin_tpu_torch.executioner import run_deck
+
+    mesh = _mesh(mode, mesh_shape)
+    root = hit.parse(text)
+    root.child("Executioner", create=True).set_param("num_steps", str(steps))
+    tr = run_deck(root, device="cpu", mesh=mesh, arrays=arrays, output_dir=output_dir,
+                  file_base="out", deck_stem="det")
+    return {"pps": dict(tr.pp_values), "slice": tr.problem.domain.real_slice}
+
+
+def _leaves(problem, state):
+    """Every leaf of ``state`` as numpy with its recorded layout, and the
+    rank's slices of each layout."""
+    dom = problem.domain
+    layout = problem.state_layout(state)
+    out = {part: {k: (np.asarray(v.numpy() if isinstance(v, torch.Tensor) else v),
+                      layout[part][k]) for k, v in state[part].items()}
+           for part in ("buffers", "old", "solver")}
+    out["n_advances"] = int(state["n_advances"])
+    out["old_dt"] = tuple(state["old_dt"])
+    out["slices"] = {"real": dom.real_slice, "reciprocal": dom.reciprocal_slice,
+                     "full": dom.full_slice}
+    return out
+
+
+def resume_run(text, mode, output_dir, steps, mesh_shape=None, arrays=None,
+               checkpoint_at=0, recover=None):
+    """One run of a deck on the mesh of every rank, its outputs in
+    ``output_dir``/rank<r> and its checkpoint in ``output_dir`` (rank 0
+    writes it): ``steps`` steps from the start, checkpointing every
+    ``checkpoint_at`` (0: never), or from the checkpoint ``recover`` on.
+    Returns this rank's leaves (``_leaves``), the postprocessor values,
+    the checkpoint's path and the CSV rows."""
+    import torch.distributed as dist
+
+    from marlin_tpu_torch import hit
+    from marlin_tpu_torch.executioner import run_deck
+
+    mesh = _mesh(mode, mesh_shape)
+    root = hit.parse(text)
+    ex = root.child("Executioner", create=True)
+    ex.set_param("num_steps", str(steps))
+    if checkpoint_at:
+        ex.set_param("checkpoint_interval", str(checkpoint_at))
+    out = os.path.join(output_dir, f"rank{dist.get_rank()}")
+    tr = run_deck(root, device="cpu", mesh=mesh, arrays=arrays, output_dir=out,
+                  file_base="ck", recover=recover)
+    res = _leaves(tr.problem, tr.state)
+    res["pps"] = dict(tr.pp_values)
+    res["checkpoint"] = tr.checkpoint_path
+    csv = os.path.join(out, "ck.csv")
+    res["csv"] = open(csv).read().splitlines() if os.path.exists(csv) else None
+    res["step"], res["time"] = tr.step_count, tr.time
+    return res
