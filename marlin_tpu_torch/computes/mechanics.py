@@ -34,7 +34,7 @@ from dataclasses import dataclass
 import numpy as np
 import torch
 
-from .. import parallel, unordered_fft
+from .. import parallel, perf, unordered_fft
 from ..params import Params
 from ..registry import computes
 from .base import ComputeError, Spec, TensorCompute
@@ -139,6 +139,7 @@ def conjugate_gradient(A, b, x0, tol, maxiter, Minv=None, dom=None) -> CGResult:
         extra = [b_norm, r0_norm] if k == 0 else []
         host = torch.stack([pAp, rz_old, _norm(r_new, dom)] + extra).tolist()
         fetches += 1
+        perf.count("fetches")
         pAp_h, rz_h, res_new = host[:3]
         if k == 0:
             b_norm_h, r0_h = host[3:]
@@ -592,6 +593,7 @@ class FFTMechanics(TensorCompute):
                 anorm, fn = torch.stack([_norm(dF, dom), Fn]).tolist()
                 done = anorm / fn < self.nl_rel_tol or anorm < self.nl_abs_tol
                 counts.fetches += 1
+                perf.count("fetches")
             scope[self.out] = scope[self.out] + dF
             scope = run_constitutive(scope)
             if not done and it < self.nl_max_its:

@@ -45,6 +45,7 @@ import numpy as np
 import torch
 
 from .. import device as _device
+from .. import perf
 from ..parallel import all_reduce
 from ..params import Params
 from ..registry import computes
@@ -660,6 +661,7 @@ class ImplicitUpdate(_NEML2Model):
         counts = self.counts
         while it < self.miter:
             counts.fetches += 1
+            perf.count("fetches")
             if not bool(_finite_abs_max(r, self.mesh) > tol):
                 break
             # n exact forward-mode columns, one pass: the n unit tangents
@@ -846,6 +848,7 @@ class J2RadialReturn(_NEML2Model):
         it = 0
         while it < self.max_its:
             self.counts.fetches += 1
+            perf.count("fetches")
             if not bool(all_reduce(self.mesh, r.abs().max(), "nanmax") > self.abs_tol):
                 break
             drdx = -3.0 * G - self.Hk - self._kp(ep_old + dep)

@@ -4,9 +4,13 @@ A port of marlin_tpu/executioner.py: the host-side time loop around the
 eager step.  Only scalar postprocessor values cross to the host each step;
 field outputs ([TensorOutputs] XDMF, ``[Outputs] exodus``), vector
 postprocessors and checkpoints fetch buffers on their own cadence.
-``[Outputs] perf_graph = true`` times the JAX executioner's sections
-(``perf.PerfGraph``): "outputs" holds the CSV, the field outputs and the
-vector postprocessors, "checkpoint" the checkpoint writes.
+``[Outputs] perf_graph = true`` (or ``--timing``) prints the problem's
+performance graph (``perf.PerfGraph``, ``Transient.perf``) at the end of
+each ``run``: the JAX executioner's sections ("outputs" holds the CSV, the
+field outputs and the vector postprocessors, "checkpoint" the checkpoint
+writes, ``solver::step`` a step to its fetch) and the spans inside them,
+with device time on the card; ``transient.perf.enabled = True`` records
+without printing.
 ``checkpoint_interval = N`` writes ``<file_base>_checkpoint.npz`` every N
 steps (``checkpoint.py``, the JAX package's layout); ``Transient.recover``
 resumes from one, bit for bit.  On a mesh every rank runs the loop and
@@ -21,13 +25,12 @@ from __future__ import annotations
 import os
 from typing import Dict, List, Optional
 
-from . import checkpoint, parallel
+from . import checkpoint, parallel, perf
 from .exodus import ExodusOutput
 from .expression import fparse
 from .hit import HitNode
 from .outputs import build_tensor_outputs
 from .params import Params, check_unused
-from .perf import PerfGraph
 from .problem import TensorProblem
 
 
@@ -259,8 +262,12 @@ class Transient:
         if exodus_enabled:
             self.tensor_outputs.append(ExodusOutput(
                 os.path.join(self.output_dir, self.file_base + ".e"), problem))
-        # perf graph (reference `perf_graph = true`, MOOSE TIME_SECTION)
-        self.perf = PerfGraph(enabled=op.get_bool("perf_graph", False))
+        # perf graph (reference `perf_graph = true`, MOOSE TIME_SECTION):
+        # the problem's, so that its build is in it too
+        self.perf = problem.perf
+        self.print_perf = op.get_bool("perf_graph", False)
+        if self.print_perf:
+            self.perf.enabled = True
 
         self.state = None
         self.time = self.start_time
@@ -282,7 +289,11 @@ class Transient:
             self.output_dir, self.file_base + "_checkpoint.npz")
 
     def init(self):
-        with self.perf.section("problem::init_state (build + ICs)"):
+        with self.perf.active():
+            self._init()
+
+    def _init(self):
+        with self.perf.span("problem::init_state (build + ICs)"):
             self.state = self.problem.init_state()
         self.time = self.start_time
         # EXEC_INITIAL: CSV row 0 reports 0 for TIMESTEP_END-only
@@ -296,7 +307,7 @@ class Transient:
         # first output sampling happens at a later step
         self.problem.aux.seed_initial(self.state)
         self._vpp_counter = 0
-        with self.perf.section("outputs"):
+        with self.perf.span("outputs"):
             if self.csv is not None:
                 self.csv.add_row(self.time, dict(self.pp_values))
             self._run_outputs(initial=True)
@@ -337,7 +348,7 @@ class Transient:
         rank 0 (``TensorProblem.gathered_state``), rank 0 writes the
         global arrays in the serial layout, and every rank waits at a
         barrier, so that no rank reads the file before it is whole."""
-        with self.perf.section("checkpoint"):
+        with self.perf.active(), self.perf.span("checkpoint"):
             state = self.problem.gathered_state(self.state)
             if self.rank0:
                 checkpoint.save(
@@ -354,7 +365,8 @@ class Transient:
         mesh every rank reads the file and keeps its blocks, whatever mesh
         (or none) wrote it; several hosts need the file on a file system
         they share."""
-        state, meta = self.problem.load_checkpoint(path or self.checkpoint_path)
+        with self.perf.active(), self.perf.span("checkpoint::read"):
+            state, meta = self.problem.load_checkpoint(path or self.checkpoint_path)
         self.state = state
         self.time = meta["time"]
         self.step_count = meta["step"]
@@ -366,8 +378,15 @@ class Transient:
         self.problem.aux._initial_cache.update(meta.get("aux_cache", {}))
 
     def run(self) -> Dict[str, float]:
+        with self.perf.active():
+            values = self._run()
+        if self.print_perf and self.rank0:
+            print(self.perf.report())
+        return values
+
+    def _run(self) -> Dict[str, float]:
         if self.state is None:
-            self.init()
+            self._init()
         dt_old = self._last_dt  # nonzero when resuming from a checkpoint
         dt = self._last_dt or self.stepper.dt0
         solver_info = None
@@ -379,6 +398,7 @@ class Transient:
                 res = self._lbm_residual
                 if res is None:
                     res = float(self.state["solver"]["residual"])
+                    perf.count("fetches")
                 if res < self.problem.lbm_tolerance:
                     break
             self.step_count += 1
@@ -396,13 +416,10 @@ class Transient:
             # costs no copy.
             prev_state = self.state
             while True:
-                section = (
-                    "solver::step (first; incl. compile)"
-                    if self.step_count == 1
-                    else "solver::step"
-                )
+                self.perf.step = self.step_count
                 # ends at the postprocessors' fetch, the step's one sync
-                with self.perf.section(section):
+                with self.perf.span(perf.FIRST_STEP if self.step_count == 1
+                                    else perf.STEP):
                     self.state, values = self.problem.step_with_pps(
                         prev_state, self.time, dt, dt_old,
                         first_step=(self.step_count == 1),
@@ -440,7 +457,7 @@ class Transient:
             # CSV and the console tables
             self._lbm_residual = values.pop("_lbm_residual", None)
             self.pp_values.update(values)
-            with self.perf.section("outputs"):
+            with self.perf.span("outputs"):
                 if self.csv is not None:
                     self.csv.add_row(self.time, dict(self.pp_values))
                     self.csv.write()
@@ -462,13 +479,11 @@ class Transient:
                     print(msg)
                 break
 
-        with self.perf.section("outputs"):
+        with self.perf.span("outputs"):
             if self.csv is not None:
                 self.csv.write()
             for out in self.tensor_outputs:
                 out.finalize()
-        if self.perf.enabled and self.rank0:
-            print(self.perf.report())
         return self.pp_values
 
     def _solver_info(self):

@@ -24,6 +24,8 @@ import tempfile
 import threading
 from typing import Dict, Optional
 
+from . import perf
+
 _HERE = os.path.dirname(os.path.abspath(__file__))
 SOURCE = os.path.join(os.path.dirname(_HERE), "native", "expr_eval.cpp")
 BUILD_DIR = os.path.join(_HERE, "_build")
@@ -62,8 +64,10 @@ def build() -> str:
         fd, tmp = tempfile.mkstemp(suffix=".so", dir=BUILD_DIR)
         os.close(fd)
         try:
-            proc = subprocess.run(["g++", *FLAGS, "-o", tmp, SOURCE],
-                                  capture_output=True, text=True, timeout=300)
+            with perf.span("kernels::build"):
+                proc = subprocess.run(["g++", *FLAGS, "-o", tmp, SOURCE],
+                                      capture_output=True, text=True, timeout=300)
+            perf.count("kernel_builds")
             if proc.returncode != 0:
                 raise NativeError(f"g++ failed ({proc.returncode}):\n"
                                   f"{proc.stderr}{proc.stdout}")

@@ -61,6 +61,8 @@ import numpy as np
 import torch
 import torch.distributed as dist
 
+from . import perf
+
 
 class Mesh:
     """Ranks of a process group laid out as ``shape`` (row-major), with
@@ -435,7 +437,8 @@ def all_to_all(mesh: Mesh, t: torch.Tensor, split_axis: int, concat_axis: int,
     send = t.reshape(shape[:split_axis] + [p] + tile[split_axis:]).movedim(
         split_axis, 0).contiguous()
     recv = torch.empty_like(send)
-    dist.all_to_all_single(_wire(recv), _wire(send), group=group)
+    with perf.span("parallel::all_to_all"):
+        dist.all_to_all_single(_wire(recv), _wire(send), group=group)
     all_to_all.calls += 1
     joined = recv.movedim(0, concat_axis)
     out = list(tile)
@@ -480,7 +483,8 @@ def all_reduce(mesh: Optional[Mesh], t: torch.Tensor, op: str = "sum") -> torch.
     out = t.clone()
     red = {"sum": dist.ReduceOp.SUM, "max": dist.ReduceOp.MAX,
            "min": dist.ReduceOp.MIN}[op]
-    dist.all_reduce(_wire(out) if op == "sum" else out, op=red, group=mesh.group)
+    with perf.span("parallel::all_reduce"):
+        dist.all_reduce(_wire(out) if op == "sum" else out, op=red, group=mesh.group)
     all_reduce.calls += 1
     return out
 
@@ -522,8 +526,9 @@ def exchange(mesh: Mesh, axis: int, to_next: Optional[torch.Tensor],
         ops.append(dist.P2POp(dist.irecv, _wire(from_next), mesh.global_rank(nxt),
                               mesh.group, tag=1))
     if ops:
-        for req in dist.batch_isend_irecv(ops):
-            req.wait()
+        with perf.span("parallel::exchange"):
+            for req in dist.batch_isend_irecv(ops):
+                req.wait()
     exchange.calls += 1
     return from_prev, from_next
 

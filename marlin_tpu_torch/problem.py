@@ -35,7 +35,7 @@ import torch
 
 from . import checkpoint
 from . import computes as _computes_pkg  # noqa: F401  (registers compute types)
-from . import lbm_fused, parallel
+from . import lbm_fused, parallel, perf
 from . import postprocessors as _pp_pkg  # noqa: F401  (registers pp types)
 from . import solvers as _solvers_pkg  # noqa: F401  (registers solver types)
 from . import stencils as _stencils_pkg  # noqa: F401  (registers stencils)
@@ -99,6 +99,15 @@ class TensorProblem:
         self.root = root
         gp = root.children.get("GlobalParams")
         self.global_params = dict(gp.params) if gp is not None else {}
+        # the performance graph (perf.py), which the Transient shares: on
+        # from the deck's [Outputs] perf_graph, so that the build is in it
+        self.perf = perf.PerfGraph(enabled=Params(
+            root.children.get("Outputs"), self.global_params).get_bool("perf_graph", False))
+        with self.perf.active(), self.perf.span("problem::build"):
+            self._build(root, device, deck_dir, arrays, mesh)
+        self.perf.cuda = self.domain.device.type == "cuda"
+
+    def _build(self, root, device, deck_dir, arrays, mesh):
         prob = root.children.get("Problem")
         self.problem_params = Params(prob, self.global_params)
         ptype = self.problem_params.get_str("type", "TensorProblem")
@@ -766,12 +775,15 @@ class TensorProblem:
         where the running state is contiguous there too (one copy a step,
         of the strided leaves).  REAL_SPACE runs no transform, and its
         LBM distributions are large: it copies nothing."""
-        state = self._step(state, t, dt, dt_old, first_step)
-        if self.domain.mesh is None or self.domain.parallel_mode == "REAL_SPACE":
-            return state
-        return {**state, **{part: {k: v.contiguous() if isinstance(v, torch.Tensor) else v
-                                   for k, v in state[part].items()}
-                            for part in ("buffers", "old", "solver")}}
+        with perf.span("problem::step"):
+            state = self._step(state, t, dt, dt_old, first_step)
+            if self.domain.mesh is not None and self.domain.parallel_mode != "REAL_SPACE":
+                state = {**state, **{part: {k: v.contiguous() if isinstance(v, torch.Tensor)
+                                            else v for k, v in state[part].items()}
+                                     for part in ("buffers", "old", "solver")}}
+        # the earlier steps' spans are read while the card runs this one
+        self.perf.resolve()
+        return state
 
     def _step(self, state, t, dt, dt_old, first_step: bool):
         if self.is_lbm:
@@ -796,7 +808,9 @@ class TensorProblem:
             return state
         state = advance_state(state, dt)  # MOOSE-level advance
         if self.lbm_backend == "PALLAS" and self.lbm_substeps > 1:
-            state = self._lbm_fused_substeps(state)
+            with perf.span("solver::fused_substeps"):
+                state = self._lbm_fused_substeps(state)
+            perf.count("substeps_fused", self.lbm_substeps - 1)
             # the LAST substep runs the eager chain, so every deck buffer
             # (f, density, velocity, feq, speed) and the old-state ring are
             # exactly as the unfused path leaves them
@@ -807,18 +821,19 @@ class TensorProblem:
 
     def _lbm_substep(self, state, t, dt):
         """advance -> stream -> boundary conditions -> solve chain."""
-        state = advance_state(state, dt)
-        if self.solver is not None and hasattr(self.solver, "stream"):
-            state = self.solver.stream(state)
-        ctx = {"t": t, "old": state["old"], "n_advances": state["n_advances"]}
-        buffers = dict(state["buffers"])
-        for bc in self._lbm_bcs.sorted_members:
-            buffers.update(bc.apply(buffers, ctx))
-        buffers.update(self._lbm_solves.apply(buffers, ctx))
-        solver_state = dict(state["solver"])
-        if "__residual__" in buffers:
-            solver_state["residual"] = buffers.pop("__residual__")
-        return {**state, "buffers": buffers, "solver": solver_state}
+        with perf.span("solver::substep"):
+            state = advance_state(state, dt)
+            if self.solver is not None and hasattr(self.solver, "stream"):
+                state = self.solver.stream(state)
+            ctx = {"t": t, "old": state["old"], "n_advances": state["n_advances"]}
+            buffers = dict(state["buffers"])
+            for bc in self._lbm_bcs.sorted_members:
+                buffers.update(bc.apply(buffers, ctx))
+            buffers.update(self._lbm_solves.apply(buffers, ctx))
+            solver_state = dict(state["solver"])
+            if "__residual__" in buffers:
+                solver_state["residual"] = buffers.pop("__residual__")
+            return {**state, "buffers": buffers, "solver": solver_state}
 
     def _lbm_fused_substeps(self, state):
         """Substeps 0..n-2 through the fused kernel (lbm_fused.py), carrying
@@ -906,22 +921,26 @@ class TensorProblem:
         declaration order (marlin_tpu/problem.py:execute_postprocessors)."""
         tensor_pps = [pp for pp in pps if not getattr(pp, "depends_on_pps", False)]
         vals = dict(extra or {})
-        if tensor_pps:
-            ctx = {"t": t, "dt": dt}
-            buffers = dict(state["buffers"])
-            group = self.pp_computes.apply(buffers, ctx)
-            self._pp_group_last = (state["buffers"], t, group)
-            buffers.update(group)
-            st = {**state, "buffers": buffers}
-            vals = {**{pp.name: pp.compute(st, ctx) for pp in tensor_pps}, **vals}
-            # the flags of an FFTMechanics in the postprocess chain, which
-            # exist only in its outputs, ride the same transfer
-            vals.update({k: group[k] for k in self.newton_diag_keys() if k in group})
         result: Dict[str, float] = {}
+        with perf.span("problem::postprocessors"):
+            if tensor_pps:
+                ctx = {"t": t, "dt": dt}
+                buffers = dict(state["buffers"])
+                group = self.pp_computes.apply(buffers, ctx)
+                self._pp_group_last = (state["buffers"], t, group)
+                buffers.update(group)
+                st = {**state, "buffers": buffers}
+                vals = {**{pp.name: pp.compute(st, ctx) for pp in tensor_pps}, **vals}
+                # the flags of an FFTMechanics in the postprocess chain, which
+                # exist only in its outputs, ride the same transfer
+                vals.update({k: group[k] for k in self.newton_diag_keys() if k in group})
+            if vals:
+                host = torch.stack([torch.as_tensor(v, device=self.domain.device)
+                                    .to(torch.float64).reshape(()) for v in vals.values()])
         if vals:
-            host = torch.stack([torch.as_tensor(v, device=self.domain.device)
-                                .to(torch.float64).reshape(()) for v in vals.values()])
-            result = dict(zip(vals, host.tolist()))
+            with perf.span("problem::fetch"):
+                result = dict(zip(vals, host.tolist()))
+            perf.count("fetches")
         self.check_newton_diags({k: result.pop(k) for k in self.newton_diag_keys()
                                  if k in result})
         for pp in pps:

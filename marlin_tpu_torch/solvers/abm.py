@@ -22,6 +22,7 @@ import math
 import numpy as np
 import torch
 
+from .. import perf
 from ..params import Params
 from ..registry import solvers
 from .base import SplitOperatorBase, advance_state
@@ -128,67 +129,70 @@ class AdamsBashforthMoulton(SplitOperatorBase):
                 return dom.fft(ci).to(torch.complex64).contiguous()
             return uf.fftn_unordered(ci).reshape(flat)
 
-        # carry_reciprocal seed: ū = fft(u) once per step.  The history slot
-        # equals buffers[N̄] here: the step-level advance just pushed it (on
-        # the first step both are zeros while β₁ = 0), which makes the
-        # per-substep history push a rebinding of the carried N̄
-        if multi:
-            c = torch.stack([buffers[n].to(torch.float32) for n in plan.buffers])
-            cbar = torch.stack([forward(ci) for ci in c])
-            nbar = torch.stack([carried(n) for n in plan.nonlinears])
-            substep_fn = sp.ch_substep_multi
-        else:
-            c = buffers[plan.buffer].to(torch.float32)
-            cbar = forward(c)
-            nbar = carried(plan.nonlinear)
-            substep_fn = sp.ch_substep
-        if sharded:
-            sharded_fn = sp.ch_substep_sharded_multi if multi else sp.ch_substep_sharded
+        with perf.span("solver::fused_substeps"):
+            # carry_reciprocal seed: ū = fft(u) once per step.  The history slot
+            # equals buffers[N̄] here: the step-level advance just pushed it (on
+            # the first step both are zeros while β₁ = 0), which makes the
+            # per-substep history push a rebinding of the carried N̄
+            if multi:
+                c = torch.stack([buffers[n].to(torch.float32) for n in plan.buffers])
+                cbar = torch.stack([forward(ci) for ci in c])
+                nbar = torch.stack([carried(n) for n in plan.nonlinears])
+                substep_fn = sp.ch_substep_multi
+            else:
+                c = buffers[plan.buffer].to(torch.float32)
+                cbar = forward(c)
+                nbar = carried(plan.nonlinear)
+                substep_fn = sp.ch_substep
+            if sharded:
+                sharded_fn = sp.ch_substep_sharded_multi if multi else sp.ch_substep_sharded
 
-            def substep_fn(*args):
-                return sharded_fn(*args, dom.mesh)
+                def substep_fn(*args):
+                    return sharded_fn(*args, dom.mesh)
 
-        for s in range(self.substeps - 1):
-            # AB order selection (substep(), reference :88-91)
-            n_old_b = min(n_adv0 + (0 if first_step else s), 1)
-            cond = s < self.predictor_order and dt_changed
-            order = min(0 if cond else n_old_b, self.predictor_order)
-            c2, u2, n2 = substep_fn(c, cbar, nbar, sub_dt, BETA[order][0],
-                                    BETA[order][1], plan)
-            if self.corrector_steps:
-                # Adams-Moulton corrector (reference :118-186): the same fused
-                # chain with ū base = the pre-predictor ū, β0 → α0 on the
-                # fresh N̄ of the corrected field and β1 → α1 on the frozen N_n
-                cond_c = s < self.corrector_order and dt_changed
-                order_c = min(1 if cond_c else n_old_b + 1, self.corrector_order)
-                a0, a1 = ALPHA[order_c][0], ALPHA[order_c][1]
-                n_n = n2
-                for _ in range(self.corrector_steps):
-                    c3, u3, n2 = substep_fn(c2, cbar, n_n, sub_dt, a0, a1, plan)
-                    # corrector order 1: the group re-evaluates (N̄ updates)
-                    # but ū and u stay
-                    if self.corrector_order > 0:
-                        c2, u2 = c3, u3
-            c, cbar, nbar = c2, u2, n2
+            for s in range(self.substeps - 1):
+                # AB order selection (substep(), reference :88-91)
+                n_old_b = min(n_adv0 + (0 if first_step else s), 1)
+                cond = s < self.predictor_order and dt_changed
+                order = min(0 if cond else n_old_b, self.predictor_order)
+                c2, u2, n2 = substep_fn(c, cbar, nbar, sub_dt, BETA[order][0],
+                                        BETA[order][1], plan)
+                if self.corrector_steps:
+                    # Adams-Moulton corrector (reference :118-186): the same fused
+                    # chain with ū base = the pre-predictor ū, β0 → α0 on the
+                    # fresh N̄ of the corrected field and β1 → α1 on the frozen N_n
+                    cond_c = s < self.corrector_order and dt_changed
+                    order_c = min(1 if cond_c else n_old_b + 1, self.corrector_order)
+                    a0, a1 = ALPHA[order_c][0], ALPHA[order_c][1]
+                    n_n = n2
+                    for _ in range(self.corrector_steps):
+                        c3, u3, n2 = substep_fn(c2, cbar, n_n, sub_dt, a0, a1, plan)
+                        # corrector order 1: the group re-evaluates (N̄ updates)
+                        # but ū and u stay
+                        if self.corrector_order > 0:
+                            c2, u2 = c3, u3
+                c, cbar, nbar = c2, u2, n2
 
-        if multi:
-            for i, name in enumerate(plan.buffers):
-                buffers[name] = c[i].to(dom.dtype)
-                buffers[plan.reciprocals[i]] = cbar[i].reshape(rshape).to(dom.cdtype)
-                buffers[plan.nonlinears[i]] = nbar[i].reshape(rshape).to(dom.cdtype)
-        else:
-            buffers[plan.buffer] = c.to(dom.dtype)
-            buffers[plan.reciprocal] = cbar.reshape(rshape).to(dom.cdtype)
-            buffers[plan.nonlinear] = nbar.reshape(rshape).to(dom.cdtype)
+            if multi:
+                for i, name in enumerate(plan.buffers):
+                    buffers[name] = c[i].to(dom.dtype)
+                    buffers[plan.reciprocals[i]] = cbar[i].reshape(rshape).to(dom.cdtype)
+                    buffers[plan.nonlinears[i]] = nbar[i].reshape(rshape).to(dom.cdtype)
+            else:
+                buffers[plan.buffer] = c.to(dom.dtype)
+                buffers[plan.reciprocal] = cbar.reshape(rshape).to(dom.cdtype)
+                buffers[plan.nonlinear] = nbar.reshape(rshape).to(dom.cdtype)
+        perf.count("substeps_fused", self.substeps - 1)
         # the skipped in-loop advances (s = 1..substeps-2); the final
         # substep's advance below refreshes the depth-1 old/old_dt slots
         st = {**state, "buffers": buffers,
               "n_advances": n_adv0 + (0 if first_step else self.substeps - 2)}
-        if not first_step:
-            st = advance_state(st, dt)
         s_last = self.substeps - 1
-        return self.substep(st, t + s_last * sub_dt, sub_dt, dt, dt_old,
-                            s_last, first_step)
+        with perf.span("solver::substep"):
+            if not first_step:
+                st = advance_state(st, dt)
+            return self.substep(st, t + s_last * sub_dt, sub_dt, dt, dt_old,
+                                s_last, first_step)
 
     def substep(self, state, sub_time, sub_dt, dt, dt_old, substep_index, first_step):
         state = self._run_group(state, sub_time)

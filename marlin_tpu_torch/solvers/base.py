@@ -30,6 +30,7 @@ from typing import Dict, List, Optional, Tuple
 
 import torch
 
+from .. import perf
 from ..params import Params
 
 
@@ -166,10 +167,11 @@ class TensorSolver:
                 buffers[v.reciprocal_buffer] = self.domain.fft(buffers[v.buffer])
             state = {**state, "buffers": buffers}
         for s in range(self.substeps):
-            if s > 0 and not first_step:
-                state = advance_state(state, dt)
-            state = self.substep(state, t + s * sub_dt, sub_dt, dt, dt_old, s,
-                                 first_step)
+            with perf.span("solver::substep"):
+                if s > 0 and not first_step:
+                    state = advance_state(state, dt)
+                state = self.substep(state, t + s * sub_dt, sub_dt, dt, dt_old, s,
+                                     first_step)
         return state
 
     def substep(self, state, sub_time, sub_dt, dt, dt_old, substep_index, first_step):

@@ -22,6 +22,7 @@ from __future__ import annotations
 
 import torch
 
+from .. import perf
 from ..params import Params
 from ..registry import solvers
 from .base import IterativeSolver
@@ -36,6 +37,7 @@ def _fetch(flags, norms):
     """One transfer: (bool flags..., norms...) as host values."""
     host = torch.stack([f.to(torch.float64) for f in flags]
                        + [n.to(torch.float64) for n in norms]).tolist()
+    perf.count("fetches")
     return [bool(h) for h in host[:len(flags)]], host[len(flags):]
 
 
@@ -79,6 +81,7 @@ class SecantSolver(IterativeSolver):
         if self.verbose:  # reference :95 "|R0|=..."
             for r in R0norm.tolist():
                 print(f"|R0|={r}")
+            perf.count("fetches")
         buffers.update(self._ifft_all(boots))
 
         # forward predict on solver outputs (reference applyPredictors)

@@ -75,6 +75,8 @@ from typing import Dict, Sequence, Tuple
 import numpy as np
 import torch
 
+from . import perf
+
 P = 128  # the TPU kernels' DFT-matmul size; kept because it fixes the order
 MAX_R = 8  # largest radix: n up to 128·8 = 1024
 #: largest extent handled as one direct b = n DFT (pallas_fft.DIRECT_MAX)
@@ -332,7 +334,9 @@ class CudaLibrary:
         os.close(fd)
         cmd = [*nvcc, *self.flags, "-I", CSRC, "-o", tmp, source]
         try:
-            proc = subprocess.run(cmd, capture_output=True, text=True)
+            with perf.span("kernels::build"):
+                proc = subprocess.run(cmd, capture_output=True, text=True)
+            perf.count("kernel_builds")
             if proc.returncode != 0:
                 raise KernelBuildError(
                     f"nvcc failed ({proc.returncode}): {' '.join(cmd)}\n"
@@ -347,7 +351,9 @@ class CudaLibrary:
     def load(self) -> ctypes.CDLL:
         """Build (if needed) and load the library."""
         if self._lib is None:
-            lib = ctypes.CDLL(self.build())
+            path = self.build()
+            with perf.span("kernels::load"):
+                lib = ctypes.CDLL(path)
             for name, argtypes in self.signatures.items():
                 fn = getattr(lib, name)
                 fn.argtypes = argtypes
