@@ -15,6 +15,8 @@
 //         avec    (n, ny): a(y) of each perturbed Zou-He inlet
 //         mean    the grid's mean density (Smagorinsky plans)
 //   write fpc_new (q, nx, ny, nz), gpc_new, speed (nx, ny, nz): |u|, T or 0
+//         the final form also f and feq (q, nx, ny, nz), density (nx, ny, nz),
+//         velocity (nx, ny, nz, 3)
 //
 // On a block of a REAL_SPACE mesh (the sharded branch of the TPU kernel,
 // pallas_lbm.py:250-343, :382-399) the flat kernel also reads
@@ -89,6 +91,13 @@
 //   shape.  The TPU kernel's x-block pipeline, its VMEM carry of the
 //   previous block's last plane and its block choice exist for the TPU's
 //   sequential grid and are not carried over;
+// * the last substep of a step on an unsharded one-lattice 3-D plan runs
+//   the final form (mtt_lbm_final: the brick or the flat kernel with FINAL),
+//   the same cell update that also stores what the eager chain leaves in
+//   the deck's buffers: the streamed f after its faces, each direction's
+//   equilibrium, the density and the velocity (struct Final), so that no
+//   eager substep follows the fused ones.  FINAL is a template parameter,
+//   instantiated for those plans only, so the hot form keeps its code;
 // * the stencils' e and op tables are compiled in (the template on Q) so
 //   that every direction index is static: a run-time index into a register
 //   array would send it to local memory.  The wrapper holds the compiled
@@ -148,14 +157,17 @@ namespace {
 // One cell of the flat kernel from its streamed lattice f (lattice 1,
 // after its faces): the second lattice's stream, the moments, the carried
 // scalar and both collisions, both lattices held from load to store.
-template <int Q, typename T, bool TWO, bool MRT, bool HALO = true>
+// FINAL (one lattice, with a collision): the final form's stores too.
+template <int Q, typename T, bool TWO, bool MRT, bool HALO = true, bool FINAL = false>
 __device__ __forceinline__ void flat_update(const LbmPlan& p, Cell c, T (&f)[Q],
                                             const T* __restrict__ gpc,
                                             const int8_t* __restrict__ media,
                                             const T* __restrict__ avec,
                                             const T* __restrict__ mean, T* __restrict__ out,
                                             T* __restrict__ gout, T* __restrict__ speed,
-                                            Ring<T> gring = {nullptr, nullptr}) {
+                                            Ring<T> gring = {nullptr, nullptr},
+                                            Final<T> fin = {}) {
+  static_assert(!(FINAL && TWO), "the final form takes one lattice");
   const LbmCoef<T>& k = coef<T>();
   const long long N = p.nx * p.ny * p.nz;
   const int at = cell_index(p, c);
@@ -171,6 +183,7 @@ __device__ __forceinline__ void flat_update(const LbmPlan& p, Cell c, T (&f)[Q],
   }
   const Flow<T> fl = flow<Q, T>(p, f, temp, solid);
   speed[at] = carried(p, fl, temp);
+  if constexpr (FINAL) store_final<Q, T>(fin, f, fl, solid, N, at);
   if (!p.collide) {
     // the collisionless chain carries the post-face streamed distribution
 #pragma unroll
@@ -178,8 +191,8 @@ __device__ __forceinline__ void flat_update(const LbmPlan& p, Cell c, T (&f)[Q],
     return;
   }
   const T third = T(0.5) * fl.usqr * k.inv_cs2;
-  collide<Q, T, MRT>(p, 0, f, fl.rho, fl.ux, fl.uy, fl.uz, third, solid, p.guo != 0, fl.rho,
-                     fl.Fx, fl.Fy, fl.Fz, mean, k.msm[0], out, N, at);
+  collide<Q, T, MRT, Q, FINAL>(p, 0, f, fl.rho, fl.ux, fl.uy, fl.uz, third, solid, p.guo != 0,
+                               fl.rho, fl.Fx, fl.Fy, fl.Fz, mean, k.msm[0], out, N, at, fin.feq);
   if constexpr (TWO)
     collide<Q, T, MRT>(p, 1, g, temp, fl.ux, fl.uy, fl.uz, third, solid, false, fl.rho, fl.Fx,
                        fl.Fy, fl.Fz, mean, k.msm[1], gout, N, at);
@@ -188,22 +201,23 @@ __device__ __forceinline__ void flat_update(const LbmPlan& p, Cell c, T (&f)[Q],
 // The flat kernel: one thread a cell.  Every 2-D plan but the Smagorinsky
 // ones (y the fastest index of the flattened grid), and the extents of
 // 3-D plans the brick does not take; lbm_probe.py also runs a Smagorinsky
-// plan on it, its mean given.
-template <int Q, typename T, bool TWO, bool MRT>
+// plan on it, its mean given.  FINAL: the final form (fin's stores; built
+// for one-lattice plans only, as the brick's).
+template <int Q, typename T, bool TWO, bool MRT, bool FINAL = false>
 __global__ void __launch_bounds__(256)
 lbm_substep_kernel(const T* __restrict__ fpc, const T* __restrict__ gpc,
                    const int8_t* __restrict__ media, const T* __restrict__ avec,
                    const T* __restrict__ mean, T* __restrict__ out,
                    T* __restrict__ gout, T* __restrict__ speed, bool flat,
                    const T* __restrict__ fring, const T* __restrict__ gring,
-                   const int8_t* __restrict__ mring) {
+                   const int8_t* __restrict__ mring, Final<T> fin) {
   const LbmPlan& p = c_plan;
   Cell c;
   if (!thread_cell(p, flat, c)) return;
   T f[Q];
   load_lattice<Q, T>(p, p.lat[0], fpc, media, avec, p.nx * p.ny * p.nz, c, f, {fring, mring});
-  flat_update<Q, T, TWO, MRT>(p, c, f, gpc, media, avec, mean, out, gout, speed,
-                              {gring, mring});
+  flat_update<Q, T, TWO, MRT, true, FINAL>(p, c, f, gpc, media, avec, mean, out, gout, speed,
+                                           {gring, mring}, fin);
 }
 
 // One cell of the brick kernel (row j of its brick).  One lattice streams
@@ -213,8 +227,8 @@ lbm_substep_kernel(const T* __restrict__ fpc, const T* __restrict__ gpc,
 // moments, and each lattice in turn read from its slots, collided and
 // stored, on a loop that is not unrolled: at most one lattice's q values
 // are live, and the collision's code (the MRT rows unrolled) is there
-// once.
-template <int Q, typename T, bool TWO, bool MRT, bool HALO = false>
+// once.  FINAL (one lattice): the final form's stores too.
+template <int Q, typename T, bool TWO, bool MRT, bool HALO = false, bool FINAL = false>
 __device__ __forceinline__ void brick_cell(const LbmPlan& p, Stage<T> st, const T* msm, Cell c,
                                            int j, const T* __restrict__ fpc,
                                            const T* __restrict__ gpc,
@@ -223,7 +237,8 @@ __device__ __forceinline__ void brick_cell(const LbmPlan& p, Stage<T> st, const 
                                            const T* __restrict__ mean, T* __restrict__ out,
                                            T* __restrict__ gout, T* __restrict__ speed,
                                            Ring<T> fr = {nullptr, nullptr},
-                                           Ring<T> gr = {nullptr, nullptr}) {
+                                           Ring<T> gr = {nullptr, nullptr}, Final<T> fin = {}) {
+  static_assert(!(FINAL && (TWO || HALO)), "the final form takes one lattice, unsharded");
   constexpr int S = kMsmStride<Q, T>;
   const LbmCoef<T>& k = coef<T>();
   const long long N = p.nx * p.ny * p.nz;
@@ -247,6 +262,7 @@ __device__ __forceinline__ void brick_cell(const LbmPlan& p, Stage<T> st, const 
   }
   const Flow<T> fl = flow<Q, T>(p, f, temp, solid);
   speed[at] = carried(p, fl, temp);
+  if constexpr (FINAL) store_final<Q, T>(fin, f, fl, solid, N, at);
   if (!p.collide) {
 #pragma unroll
     for (int q = 0; q < Q; ++q) out[q * N + at] = f[q];
@@ -254,8 +270,9 @@ __device__ __forceinline__ void brick_cell(const LbmPlan& p, Stage<T> st, const 
   }
   const T third = T(0.5) * fl.usqr * k.inv_cs2;
   if constexpr (!TWO) {
-    collide<Q, T, MRT, S>(p, 0, f, fl.rho, fl.ux, fl.uy, fl.uz, third, solid, p.guo != 0,
-                          fl.rho, fl.Fx, fl.Fy, fl.Fz, mean, msm, out, N, at);
+    collide<Q, T, MRT, S, FINAL>(p, 0, f, fl.rho, fl.ux, fl.uy, fl.uz, third, solid,
+                                 p.guo != 0, fl.rho, fl.Fx, fl.Fy, fl.Fz, mean, msm, out, N, at,
+                                 fin.feq);
   } else {
     forget();
 #pragma unroll 1
@@ -274,13 +291,17 @@ __device__ __forceinline__ void brick_cell(const LbmPlan& p, Stage<T> st, const 
 // bringing them in, the other warps updating their cells out of the stage.
 // HALO: the form of a block of a mesh, its halos from fring and mring
 // (built for one lattice only; the unsharded form ignores the rings).
-template <int Q, typename T, bool TWO, bool MRT, bool HALO = false>
+// FINAL: the final form of an unsharded one-lattice plan, which also
+// stores fin (the last substep of a step; a compile-time form, so that the
+// hot form's code stays as it was).
+template <int Q, typename T, bool TWO, bool MRT, bool HALO = false, bool FINAL = false>
 __global__ void __launch_bounds__((kBrickThreads<Q, TWO>), (kBrickBlocks<Q, TWO, MRT>))
 lbm_brick_kernel(const T* __restrict__ fpc, const T* __restrict__ gpc,
                  const int8_t* __restrict__ media, const T* __restrict__ avec,
                  const T* __restrict__ mean, T* __restrict__ out, T* __restrict__ gout,
                  T* __restrict__ speed, const T* __restrict__ fring,
-                 const T* __restrict__ gring, const int8_t* __restrict__ mring) {
+                 const T* __restrict__ gring, const int8_t* __restrict__ mring,
+                 Final<T> fin) {
   static_assert(!(HALO && TWO), "the halo brick takes one lattice");
   extern __shared__ __align__(16) unsigned char smem[];
   const LbmPlan& p = c_plan;
@@ -301,9 +322,9 @@ lbm_brick_kernel(const T* __restrict__ fpc, const T* __restrict__ gpc,
     const Brick br = brick_at(p, b);
     for (int i = threadIdx.x - 32; i < br.rows * nz; i += blockDim.x - 32) {
       const int j = i / nz;
-      brick_cell<Q, T, TWO, MRT, HALO>(p, st, msm, Cell{br.x, br.y0 + j, i - j * nz}, j, fpc,
-                                       gpc, media, avec, mean, out, gout, speed,
-                                       {fring, mring}, {gring, mring});
+      brick_cell<Q, T, TWO, MRT, HALO, FINAL>(p, st, msm, Cell{br.x, br.y0 + j, i - j * nz}, j,
+                                              fpc, gpc, media, avec, mean, out, gout, speed,
+                                              {fring, mring}, {gring, mring}, fin);
     }
     brick_release(pipe, k);
   }
@@ -515,10 +536,23 @@ cudaError_t copy_plan(const LbmPlan& p, cudaStream_t stream) {
   return cudaSuccess;
 }
 
-template <int Q, typename T, bool TWO, bool MRT>
+// The final form's outputs as the C entry takes them (Final's pointers).
+struct LbmStores {
+  void* f;
+  void* feq;
+  void* rho;
+  void* vel;
+};
+
+template <typename T>
+Final<T> typed(const LbmStores& s) {
+  return {(T*)s.f, (T*)s.feq, (T*)s.rho, (T*)s.vel};
+}
+
+template <int Q, typename T, bool TWO, bool MRT, bool FINAL = false>
 cudaError_t launch(const void* fpc, const void* gpc, const void* media, const void* avec,
                    const void* mean, void* out, void* gout, void* speed, const void* const* rings,
-                   const LbmPlan& p, cudaStream_t stream) {
+                   const LbmPlan& p, cudaStream_t stream, const LbmStores& stores = {}) {
   // one thread a cell: x and y from the grid, z along the block; a 2-D
   // plan over the flattened grid
   const bool flat = p.nz == 1;
@@ -528,10 +562,10 @@ cudaError_t launch(const void* fpc, const void* gpc, const void* media, const vo
                                 (unsigned)p.ny, (unsigned)p.nx);
   cudaError_t err = copy_plan(p, stream);
   if (err != cudaSuccess) return err;
-  lbm_substep_kernel<Q, T, TWO, MRT><<<grid, threads, 0, stream>>>(
+  lbm_substep_kernel<Q, T, TWO, MRT, FINAL><<<grid, threads, 0, stream>>>(
       (const T*)fpc, (const T*)gpc, (const int8_t*)media, (const T*)avec, (const T*)mean,
       (T*)out, (T*)gout, (T*)speed, flat, (const T*)rings[0], (const T*)rings[1],
-      (const int8_t*)rings[2]);
+      (const int8_t*)rings[2], typed<T>(stores));
   return cudaGetLastError();
 }
 
@@ -585,12 +619,13 @@ cudaError_t resident(Resident& r, K kernel, const LbmBrick& b) {
   return cudaSuccess;
 }
 
-template <int Q, typename T, bool TWO, bool MRT, bool HALO>
+template <int Q, typename T, bool TWO, bool MRT, bool HALO, bool FINAL = false>
 cudaError_t launch_brick(const void* fpc, const void* gpc, const void* media, const void* avec,
                          const void* mean, void* out, void* gout, void* speed,
-                         const void* const* rings, const LbmPlan& p, cudaStream_t stream) {
+                         const void* const* rings, const LbmPlan& p, cudaStream_t stream,
+                         const LbmStores& stores = {}) {
   static Resident r;
-  auto kernel = lbm_brick_kernel<Q, T, TWO, MRT, HALO>;
+  auto kernel = lbm_brick_kernel<Q, T, TWO, MRT, HALO, FINAL>;
   const LbmBrick& b = p.brick;
   cudaError_t err = resident(r, kernel, b);
   if (err != cudaSuccess) return err;
@@ -600,7 +635,7 @@ cudaError_t launch_brick(const void* fpc, const void* gpc, const void* media, co
   kernel<<<(unsigned)(bricks < r.blocks ? bricks : r.blocks), b.threads, b.smem, stream>>>(
       (const T*)fpc, (const T*)gpc, (const int8_t*)media, (const T*)avec, (const T*)mean,
       (T*)out, (T*)gout, (T*)speed, (const T*)rings[0], (const T*)rings[1],
-      (const int8_t*)rings[2]);
+      (const int8_t*)rings[2], typed<T>(stores));
   return cudaGetLastError();
 }
 
@@ -692,6 +727,30 @@ cudaError_t dispatch(const void* fpc, const void* gpc, const void* media, const 
 #undef LBM_LAUNCH
 }
 
+// The final form: an unsharded one-lattice 3-D plan with a collision (no
+// Smagorinsky, no plane walk) on the brick where launch_any would take it,
+// else on the flat kernel, each also storing `stores`.  Instantiated for
+// Q = 19, 27 only, so the 2-D and two-lattice kernels build as before.
+template <int Q, typename T>
+cudaError_t dispatch_final(const void* fpc, const void* media, const void* avec, void* out,
+                           void* speed, const LbmStores& stores, const LbmPlan& p,
+                           cudaStream_t stream) {
+  if (p.two_lattice || p.halo.on || !p.collide || p.smag || p.two_d || p.brick.grid > 0 ||
+      (p.brick.by > 0 && !brick_ok<Q, T>(p, media != nullptr)))
+    return cudaErrorInvalidValue;
+  const void* rings[3] = {nullptr, nullptr, nullptr};
+  const bool aligned = (((uintptr_t)fpc | (uintptr_t)media) & 15) == 0;
+#define LBM_FINAL(MRT)                                                                    \
+  (p.brick.by > 0 && aligned                                                              \
+       ? launch_brick<Q, T, false, MRT, false, true>(fpc, nullptr, media, avec, nullptr, \
+                                                     out, nullptr, speed, rings, p,      \
+                                                     stream, stores)                     \
+       : launch<Q, T, false, MRT, true>(fpc, nullptr, media, avec, nullptr, out, nullptr, \
+                                        speed, rings, p, stream, stores))
+  return p.mrt[0] ? LBM_FINAL(true) : LBM_FINAL(false);
+#undef LBM_FINAL
+}
+
 template <int Q>
 void tables(int* e, int* op) {
   using D = Lattice<Q>;
@@ -745,6 +804,29 @@ extern "C" cudaError_t mtt_lbm_substep(const void* fpc, const void* gpc, const v
                    : dispatch<Q, float>(fpc, gpc, media, avec, scratch, mean, out, gout,  \
                                         speed, rings, p, stream)
   if (q == 9) LBM_DISPATCH(9);
+  if (q == 19) LBM_DISPATCH(19);
+  if (q == 27) LBM_DISPATCH(27);
+#undef LBM_DISPATCH
+  return cudaErrorInvalidValue;
+}
+
+// The final form of a substep (the last of a step): mtt_lbm_substep's
+// one-lattice launch, which also stores the streamed distribution after
+// its faces (f) and each direction's equilibrium (feq), (q, nx, ny, nz),
+// the density (nx, ny, nz) and the velocity (nx, ny, nz, 3), solids zero.
+// q = 19 or 27; an unsharded 3-D plan with a collision, else
+// cudaErrorInvalidValue.
+extern "C" cudaError_t mtt_lbm_final(const void* fpc, const void* media, const void* avec,
+                                     void* out, void* speed, void* f, void* feq, void* rho,
+                                     void* vel, int q, int is_double, const LbmPlan* plan,
+                                     cudaStream_t stream) {
+  const LbmPlan& p = *plan;
+  if (!plan_ok(p, avec) || !f || !feq || !rho || !vel) return cudaErrorInvalidValue;
+  const LbmStores stores = {f, feq, rho, vel};
+#define LBM_DISPATCH(Q)                                                                   \
+  return is_double ? dispatch_final<Q, double>(fpc, media, avec, out, speed, stores, p,   \
+                                               stream)                                   \
+                   : dispatch_final<Q, float>(fpc, media, avec, out, speed, stores, p, stream)
   if (q == 19) LBM_DISPATCH(19);
   if (q == 27) LBM_DISPATCH(27);
 #undef LBM_DISPATCH

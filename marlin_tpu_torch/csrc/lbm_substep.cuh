@@ -598,12 +598,15 @@ __device__ __forceinline__ T mrt_row(const T (&f)[Q], const T* row) {
 // address is then static) and runs on a loop over both in the brick
 // kernel, which so holds one copy of this code; `msm` is lattice L's MRT
 // matrix (M^-1 S' M, q x q), in constant memory (the flat kernel) or
-// copied to shared memory (the brick kernel).
-template <int Q, typename T, bool MRT, int STRIDE = Q>
+// copied to shared memory (the brick kernel).  FEQ (the final form): each
+// direction's equilibrium also goes to feq_out, q-major, zero at solids
+// (LBMEquilibrium's masked_fill_solids).
+template <int Q, typename T, bool MRT, int STRIDE = Q, bool FEQ = false>
 __device__ __forceinline__ void collide(const LbmPlan& p, int L, T (&f)[Q], T dens, T ux, T uy,
                                         T uz, T third, bool solid, bool guo, T rho, T Fx, T Fy,
                                         T Fz, const T* __restrict__ mean, const T* msm,
-                                        T* __restrict__ out, long long N, int at) {
+                                        T* __restrict__ out, long long N, int at,
+                                        T* __restrict__ feq_out = nullptr) {
   const LbmCoef<T>& k = coef<T>();
   T inv_tau = k.inv_tau[L];
   const bool mrt = MRT && p.mrt[L];
@@ -619,6 +622,7 @@ __device__ __forceinline__ void collide(const LbmPlan& p, int L, T (&f)[Q], T de
 #pragma unroll
   for (int i = 0; i < Q; ++i) {
     const T feq = equilibrium<Q, T>(i, dens, ux, uy, uz, third);
+    if constexpr (FEQ) feq_out[i * N + at] = solid ? T(0) : feq;
     T u;
     if (!dense) {
       const T fneq = f[i] - feq;
@@ -723,6 +727,34 @@ __device__ __forceinline__ Flow<T> flow(const LbmPlan& p, const T (&f)[Q], T tem
 template <typename T>
 __device__ __forceinline__ T carried(const LbmPlan& p, const Flow<T>& fl, T temp) {
   return p.speed == 1 ? sqrt(fl.usqr) : (p.speed == 2 ? temp : T(0));
+}
+
+// What the final form of a one-lattice substep (the last of a step) also
+// stores, so that its outputs are the deck's buffers as the eager chain
+// leaves them: the streamed distribution after its faces (LBMStream and
+// the boundary conditions) and each direction's equilibrium
+// (LBMEquilibrium), both q-major; the density (LBMComputeDensity); the
+// velocity (LBMComputeVelocity), (nx, ny, nz, 3).  Null in the hot form.
+template <typename T>
+struct Final {
+  T* f;
+  T* feq;
+  T* rho;
+  T* vel;
+};
+
+// The final form's stores of a cell but the equilibrium (collide's FEQ),
+// zero at solids as the eager chain's masked_fill_solids leaves them.
+template <int Q, typename T>
+__device__ __forceinline__ void store_final(const Final<T>& fin, const T (&f)[Q],
+                                            const Flow<T>& fl, bool solid, long long N, int at) {
+#pragma unroll
+  for (int q = 0; q < Q; ++q) fin.f[q * N + at] = solid ? T(0) : f[q];
+  fin.rho[at] = solid ? T(0) : fl.rho;
+  T* u = fin.vel + 3LL * at;
+  u[0] = fl.ux;  // flow zeroes a solid cell's velocity
+  u[1] = fl.uy;
+  u[2] = fl.uz;
 }
 
 // -- the brick walk (3-D plans) ---------------------------------------------------

@@ -13,8 +13,12 @@ post-stream Zou-He and zero-gradient faces in deck order, the moments, the
 equilibrium and the BGK collision.  The distribution is held q-major,
 (q, nx, ny, nz), so each direction is one contiguous plane; the layout
 changes once per MOOSE step, around the loop.  The last substep of a step
-runs the eager chain, so every deck buffer and the old-state ring leave the
-step as the unfused path leaves them.
+leaves every deck buffer and the old-state ring as the unfused path leaves
+them: on an unsharded one-lattice 3-D plan whose chain writes nothing but
+what the kernel computes (``FusedLBMPlan.final``) it is the kernel's final
+form, one launch that also stores the streamed f, the equilibrium, the
+density and the velocity (``final=True``); on every other plan it runs the
+eager chain.
 
 The fused pattern covers 3-D D3Q19 and D3Q27 chains and 2-D D2Q9 chains:
 BGK or MRT collisions, with or without the Hermite projection; on 2-D
@@ -220,6 +224,18 @@ class FusedLBMConfig:
 
 
 @dataclass(frozen=True)
+class FinalStores:
+    """The buffers the kernel's final form writes besides fpc and speed:
+    the streamed distribution after its faces, the equilibrium, the density
+    and the velocity."""
+
+    f: str
+    feq: str
+    density: str
+    velocity: str
+
+
+@dataclass(frozen=True)
 class FusedLBMPlan:
     config: FusedLBMConfig
     fpc: str  # post-collision distribution (the carried state)
@@ -227,6 +243,24 @@ class FusedLBMPlan:
     fpc2: Optional[str] = None  # the second lattice's carried distribution
     # a block of a mesh: its first cell in the grid, (x, y)
     offsets: Tuple[int, int] = (0, 0)
+    # the last substep of a step through the kernel's final form (every
+    # buffer the chain writes is one it stores, beside the residual), or
+    # None: the eager chain runs it
+    final: Optional[FinalStores] = None
+
+
+def final_form(cfg: FusedLBMConfig) -> bool:
+    """Whether the kernel has a final form for ``cfg`` (csrc/lbm_substep.cu
+    ``mtt_lbm_final``): an unsharded one-lattice 3-D plan, D3Q19 or D3Q27,
+    with a collision."""
+    return (cfg.q in (19, 27) and not (cfg.two_d or cfg.two_lattice or cfg.sharded)
+            and cfg.collide and cfg.smag is None)
+
+
+def _check_final(cfg: FusedLBMConfig):
+    if not final_form(cfg):
+        raise ValueError("fused_substep: the plan has no final form (one lattice, "
+                         "unsharded, 3-D, with a collision)")
 
 
 # ---------------------------------------------------------------------------
@@ -675,6 +709,15 @@ def match_chain(problem) -> FusedLBMPlan:
     allowed = {fpc_name, gpc_name, speed_buffer} - {None}
     if not old_keys <= allowed:
         _reject(f"unsupported old-state history on {sorted(old_keys)}")
+    final = None
+    if final_form(cfg):
+        stores = FinalStores(f=f_name, feq=equilibrium.out, density=density.out,
+                             velocity=velocity.out)
+        written = {f_name}
+        for c in list(problem.bc_computes) + list(problem.solve_computes):
+            written |= set(c.outputs)
+        if written <= {fpc_name, speed_buffer, *vars(stores).values()}:
+            final = stores
     return FusedLBMPlan(
         config=cfg,
         fpc=fpc_name,
@@ -682,6 +725,7 @@ def match_chain(problem) -> FusedLBMPlan:
         fpc2=gpc_name,
         offsets=(int(dom.real_slice[0].start) if sharded else 0,
                  int(dom.real_slice[1].start) if p2 > 1 else 0),
+        final=final,
     )
 
 
@@ -801,13 +845,20 @@ def density_mean_twin(fpc_qm: torch.Tensor, media: Optional[torch.Tensor],
 
 def fused_substep_twin(fpc_qm: torch.Tensor, media: Optional[torch.Tensor],
                        cfg: FusedLBMConfig, gpc_qm: Optional[torch.Tensor] = None,
-                       rings=None, offsets=(0, 0)):
+                       rings=None, offsets=(0, 0), final: bool = False):
     """One lattice update in plain torch ops, in the kernel's order
     (pallas_lbm.py:_make_kernel); returns (fpc_new_qm, speed), or
     (fpc_new_qm, gpc_new_qm, speed) on two-lattice plans.  ``fpc_qm`` (and
     ``gpc_qm``) is (q, nx, ny, nz); ``media`` the (nx, ny, nz) media code,
     or None; ``rings`` on a block of a mesh the halo rings (fring, gring,
-    mring) of ``parallel.halo_ring``, the block at ``offsets`` (x, y)."""
+    mring) of ``parallel.halo_ring``, the block at ``offsets`` (x, y).
+    ``final`` (a plan with ``final_form``): the kernel's final form,
+    (fpc_new_qm, speed, f_qm, feq_qm, density, velocity), f the streamed
+    distribution after its faces and feq the equilibrium, (q, nx, ny, nz),
+    the density (nx, ny, nz) and the velocity (nx, ny, nz, 3), zero at
+    solids as the eager chain leaves them."""
+    if final:
+        _check_final(cfg)
     q = cfg.q
     zero = torch.zeros((), dtype=fpc_qm.dtype, device=fpc_qm.device)
     if cfg.has_media:
@@ -914,6 +965,11 @@ def fused_substep_twin(fpc_qm: torch.Tensor, media: Optional[torch.Tensor],
     if cfg.force is not None and cfg.force.apply_tau:
         guo = guo_prefactors(cfg.w, cfg.force.apply_tau)
     fpc_new = collide(fs, rho, cfg.msm, cfg.tau, cfg.proj, guo, cfg.smag)
+    if final:
+        masked = (lambda t: torch.where(solid, zero, t)) if cfg.has_media else (lambda t: t)
+        return (fpc_new, speed, torch.stack([masked(a) for a in fs]),
+                torch.stack([masked(equilibrium(qi, rho)) for qi in range(q)]), masked(rho),
+                torch.stack((ux, uy, uz), -1))
     if not cfg.two_lattice:
         return fpc_new, speed
     return fpc_new, collide(gs, temp, cfg.msm2, cfg.tau2, cfg.proj2, None), speed
@@ -1027,14 +1083,18 @@ LIBRARY = uf.CudaLibrary("lbm_substep", {
     # fpc_new, gpc_new (or null), speed; the halo rings of a block of a
     # mesh (fring, gring, mring, or null); q, double?; the host plan; stream
     "mtt_lbm_substep": [uf._P] * 12 + [ctypes.c_int] * 2 + [uf._P, uf._P],
+    # the final form: fpc, media (or null), avec (or null), fpc_new, speed,
+    # f, feq, density, velocity; q, double?; the host plan; stream
+    "mtt_lbm_final": [uf._P] * 9 + [ctypes.c_int] * 2 + [uf._P, uf._P],
     # q; the compiled-in e (q·3) and op (q) tables out
     "mtt_lbm_tables": [ctypes.c_int, uf._P, uf._P],
     # the plan's size and field offsets out (int64[9])
     "mtt_lbm_plan_layout": [uf._P],
 }, source=os.path.join(uf.CSRC, "lbm_substep.cu"),
-    # no contraction (the eager chain's bits); the register report; the 56
-    # kernel instantiations optimized on every core (-split-compile=0; a
-    # third of the single-threaded build time, PERF.md)
+    # no contraction (the eager chain's bits); the register report; the 72
+    # kernel instantiations (56, and the final form's 16) optimized on every
+    # core (-split-compile=0; a third of the single-threaded build time,
+    # PERF.md)
     flags=["-fmad=false", "-Xptxas=-v", "-split-compile=0"])
 
 _SPEED_KIND = {"none": 0, "umag": 1, "t": 2}
@@ -1460,12 +1520,13 @@ def substepper(fpc_qm: torch.Tensor, media: Optional[torch.Tensor],
                cfg: FusedLBMConfig, gpc_qm: Optional[torch.Tensor] = None,
                offsets=(0, 0)):
     """``fused_substep`` with its checks and its packed arguments taken
-    once, for a loop: returns ``step(fpc_qm, gpc_qm=None, rings=None)``
-    (``rings`` a keyword),
+    once, for a loop: returns ``step(fpc_qm, gpc_qm=None, rings=None,
+    final=False)`` (``rings`` and ``final`` keywords),
     one substep of distributions like these (the same shape, dtype and
     device; each step's outputs are the next one's inputs), one kernel
     launch a call on CUDA tensors and no other host work than its three
-    output allocations (``plan_stepper``)."""
+    output allocations (``plan_stepper``); ``final``: the final form
+    (``fused_substep_twin``'s six outputs)."""
     _check_inputs(fpc_qm, media, cfg, "fused_substep")
     if cfg.two_lattice != (gpc_qm is not None):
         raise ValueError("fused_substep: gpc must be given exactly when the plan "
@@ -1474,16 +1535,16 @@ def substepper(fpc_qm: torch.Tensor, media: Optional[torch.Tensor],
                                or gpc_qm.device != fpc_qm.device):
         raise TypeError("fused_substep: gpc must match fpc's shape, dtype and device")
     if not uf._launch_kernel(fpc_qm, "fused_substep"):
-        return lambda f, g=None, mean=None, rings=None: fused_substep_twin(
-            f, media, cfg, g, rings, offsets)
+        return lambda f, g=None, mean=None, rings=None, final=False: fused_substep_twin(
+            f, media, cfg, g, rings, offsets, final)
     plan, avec = _kernel_args(fpc_qm, media, cfg, gpc_qm, "fused_substep", offsets)
     return plan_stepper(fpc_qm, media, cfg, gpc_qm, plan, avec)
 
 
 def plan_stepper(fpc_qm, media, cfg: FusedLBMConfig, gpc_qm, plan: "_Plan", avec=None):
     """The one launch of ``mtt_lbm_substep`` that every caller makes:
-    returns ``step(f, g=None, mean=None, rings=None)`` for CUDA
-    distributions like
+    returns ``step(f, g=None, mean=None, rings=None, final=False)`` for
+    CUDA distributions like
     ``fpc_qm`` (and ``gpc_qm``) on a packed ``plan`` (its walk chooses the
     plane, brick or flat kernel) with ``_kernel_args``'s ``avec``, the
     plane kernel's scratch (``_plane_scratch``) allocated here, once.  A
@@ -1491,8 +1552,11 @@ def plan_stepper(fpc_qm, media, cfg: FusedLBMConfig, gpc_qm, plan: "_Plan", avec
     tensor) where given; the flat kernel of a Smagorinsky plan reads it
     from there.  ``substepper`` builds it on the plan of ``walk_plan``;
     ``lbm_probe``, the card tests and ``chip_smoke.py`` on plans of their
-    own."""
-    fn = LIBRARY.load().mtt_lbm_substep
+    own.  ``final`` launches the final form (``mtt_lbm_final``, plans with
+    ``final_form``) on the same plan, which also allocates and returns
+    ``fused_substep_twin``'s f, feq, density and velocity."""
+    lib = LIBRARY.load()
+    fn, final_fn = lib.mtt_lbm_substep, lib.mtt_lbm_final
     shape, dtype, device = fpc_qm.shape, fpc_qm.dtype, fpc_qm.device
     plane = plan.brick.grid > 0
     scratch = _plane_scratch(cfg, fpc_qm) if plane else None
@@ -1500,7 +1564,7 @@ def plan_stepper(fpc_qm, media, cfg: FusedLBMConfig, gpc_qm, plan: "_Plan", avec
     tail = (cfg.q, int(dtype == torch.float64), ctypes.addressof(plan))
     ptr_scratch = uf._ptr(scratch)
 
-    def step(f, g=None, mean=None, rings=None):
+    def step(f, g=None, mean=None, rings=None, final=False):
         if f.shape != shape or f.dtype != dtype or f.device != device \
                 or not f.is_contiguous() or (g is None) != (gpc_qm is None):
             raise ValueError("fused_substep: a step takes distributions like the "
@@ -1509,18 +1573,28 @@ def plan_stepper(fpc_qm, media, cfg: FusedLBMConfig, gpc_qm, plan: "_Plan", avec
         out = torch.empty_like(f)
         gout = None if g is None else torch.empty_like(g)
         speed = torch.empty(shape[1:], dtype=dtype, device=device)
-        args = (f.data_ptr(), None if g is None else g.data_ptr(), *const, uf._ptr(mean),
-                ptr_scratch, out.data_ptr(), None if gout is None else gout.data_ptr(),
-                speed.data_ptr(), uf._ptr(fring), uf._ptr(gring), uf._ptr(mring), *tail)
+        if final:
+            _check_final(cfg)
+            stores = (torch.empty_like(f), torch.empty_like(f), torch.empty_like(speed),
+                      torch.empty(shape[1:] + (3,), dtype=dtype, device=device))
+            call, args = final_fn, (f.data_ptr(), *const, out.data_ptr(), speed.data_ptr(),
+                                    *(t.data_ptr() for t in stores), *tail)
+        else:
+            call, args = fn, (f.data_ptr(), None if g is None else g.data_ptr(), *const,
+                              uf._ptr(mean), ptr_scratch, out.data_ptr(),
+                              None if gout is None else gout.data_ptr(), speed.data_ptr(),
+                              uf._ptr(fring), uf._ptr(gring), uf._ptr(mring), *tail)
         if torch.cuda.current_device() == device.index:
-            err = fn(*args, torch.cuda.current_stream().cuda_stream)
+            err = call(*args, torch.cuda.current_stream().cuda_stream)
         else:
             with torch.cuda.device(device):
-                err = fn(*args, torch.cuda.current_stream().cuda_stream)
+                err = call(*args, torch.cuda.current_stream().cuda_stream)
         if err != 0:
             raise uf.KernelLaunchError(f"fused_substep: CUDA error {err}")
         fused_substep.launches += 1
         fused_substep.means += plane
+        if final:
+            return (out, speed, *stores)
         return (out, speed) if gout is None else (out, gout, speed)
 
     step.holds = (plan, media, avec, scratch)  # what its pointers point to

@@ -21,7 +21,9 @@ An LBM problem (``[Problem] type = LatticeBoltzmannProblem``) runs
 boundary conditions, then the solve chain.  With ``lbm_backend = PALLAS``
 all but the last substep of a step go through the fused kernel of
 ``lbm_fused.py`` (the JAX package's backend name, kept so decks run
-unchanged); the default ``JNP`` runs every substep through the eager chain.
+unchanged), and the last one too where the plan has a final form
+(``FusedLBMPlan.final``); the default ``JNP`` runs every substep through
+the eager chain.
 """
 
 from __future__ import annotations
@@ -809,8 +811,14 @@ class TensorProblem:
         state = advance_state(state, dt)  # MOOSE-level advance
         if self.lbm_backend == "PALLAS" and self.lbm_substeps > 1:
             with perf.span("solver::fused_substeps"):
-                state = self._lbm_fused_substeps(state)
+                state = self._lbm_fused_substeps(state, t, dt)
+            if self._lbm_fused_plan.final is not None:
+                # the last substep was the kernel's final form
+                perf.count("substeps_fused", self.lbm_substeps)
+                perf.count("lbm_final_fused")
+                return state
             perf.count("substeps_fused", self.lbm_substeps - 1)
+            perf.count("lbm_final_eager")
             # the LAST substep runs the eager chain, so every deck buffer
             # (f, density, velocity, feq, speed) and the old-state ring are
             # exactly as the unfused path leaves them
@@ -835,19 +843,21 @@ class TensorProblem:
                 solver_state["residual"] = buffers.pop("__residual__")
             return {**state, "buffers": buffers, "solver": solver_state}
 
-    def _lbm_fused_substeps(self, state):
+    def _lbm_fused_substeps(self, state, t, dt):
         """Substeps 0..n-2 through the fused kernel (lbm_fused.py), carrying
         only fpc (and on thermal decks gpc), q-major, and the carried scalar
-        (marlin_tpu/problem.py:_lbm_fused_substeps)."""
+        (marlin_tpu/problem.py:_lbm_fused_substeps); on a plan with a final
+        form (``FusedLBMPlan.final``) substep n-1 too (``_lbm_final_substep``)."""
         if self._lbm_fused_plan is None:
             self._lbm_fused_plan = lbm_fused.match_chain(self)
         plan = self._lbm_fused_plan
         cfg = plan.config
         n_fused = self.lbm_substeps - 1
 
-        # the trailing eager substep refreshes slot 0 of every depth-1
-        # ring, so skipping the fused substeps' pushes is invisible; deeper
-        # rings would retain skipped history and are rejected
+        # the last substep (eager, or the final form) refreshes slot 0 of
+        # every depth-1 ring, so skipping the fused substeps' pushes is
+        # invisible; deeper rings would retain skipped history and are
+        # rejected
         if len(state["old_dt"]) > 1:
             raise lbm_fused.FusedChainError(
                 "lbm_backend = PALLAS supports dt-history depth <= 1"
@@ -888,13 +898,15 @@ class TensorProblem:
             mring = None if media is None else parallel.halo_ring(
                 mesh, media, 0, cfg.shard_y)
         for _ in range(n_fused):
-            args = (fpc_qm, gpc_qm)
+            rings = None
             if cfg.sharded:
-                args += (None, (parallel.halo_ring(mesh, fpc_qm, 1, cfg.shard_y),
-                                None if gpc_qm is None else parallel.halo_ring(
-                                    mesh, gpc_qm, 1, cfg.shard_y),
-                                mring))
-            out = step(*args)
+                rings = (parallel.halo_ring(mesh, fpc_qm, 1, cfg.shard_y),
+                         None if gpc_qm is None else parallel.halo_ring(
+                             mesh, gpc_qm, 1, cfg.shard_y),
+                         mring)
+            # only fpc_qm (gpc_qm) holds a launch's input, so the last one's
+            # is freed before the final form allocates its outputs
+            out = step(fpc_qm, gpc_qm, rings=rings)
             if cfg.two_lattice:
                 fpc_qm, gpc_qm, speed = out
             else:
@@ -908,11 +920,41 @@ class TensorProblem:
         if plan.speed is not None:
             # |u|, or on thermal decks T (the residual's field)
             buffers[plan.speed] = speed
-        return {
+        state = {
             **state,
             "buffers": buffers,
             "n_advances": state["n_advances"] + n_fused,
         }
+        if plan.final is None:
+            return state
+        return self._lbm_final_substep(state, t, dt, step, fpc_qm)
+
+    def _lbm_final_substep(self, state, t, dt, step, fpc_qm):
+        """The last substep of a step through the kernel's final form: the
+        ring pushed as ``_lbm_substep`` pushes it, one launch whose outputs
+        are the deck's buffers (the q-major distributions as (nx, ny, nz,
+        q) views, as the fused loop leaves fpc), then the deck's residual
+        compute on the new speed and the ring."""
+        from .computes.lbm import LBMComputeResidual
+
+        plan = self._lbm_fused_plan
+        stores = plan.final
+        state = advance_state(state, dt)
+        fpc_qm, speed, f_qm, feq_qm, density, velocity = step(fpc_qm, final=True)
+        buffers = dict(state["buffers"])
+        buffers.update({plan.fpc: fpc_qm.permute(1, 2, 3, 0),
+                        stores.f: f_qm.permute(1, 2, 3, 0),
+                        stores.feq: feq_qm.permute(1, 2, 3, 0),
+                        stores.density: density, stores.velocity: velocity})
+        if plan.speed is not None:
+            buffers[plan.speed] = speed
+        solver_state = state["solver"]
+        ctx = {"t": t, "old": state["old"], "n_advances": state["n_advances"]}
+        for c in self._lbm_solves.sorted_members:
+            if isinstance(c, LBMComputeResidual):
+                solver_state = {**solver_state,
+                                "residual": c.apply(buffers, ctx)["__residual__"]}
+        return {**state, "buffers": buffers, "solver": solver_state}
 
     def _pp_values(self, state, pps, t, dt, extra=None) -> Dict[str, float]:
         """The postprocessors' values at time ``t``: the tensor ones, and

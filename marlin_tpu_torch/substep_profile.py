@@ -214,15 +214,16 @@ def kernels_1a(kernels, cells, substeps):
 
 
 def fused_loop(problem, state, acts):
-    """Trace the fused loop of one step alone (``_lbm_fused_substeps``, the
-    substeps but the last) and count, on the device, each kernel's
-    launches and the host-to-device copies."""
+    """Trace the fused loop of one step alone (``_lbm_fused_substeps``: the
+    substeps but the last, and the last too where the plan has a final
+    form) and count, on the device, each kernel's launches and the
+    host-to-device copies."""
     with torch.profiler.profile(activities=acts) as prof:
-        problem._lbm_fused_substeps(state)
+        problem._lbm_fused_substeps(state, 0.0, 1.0)
         torch.cuda.synchronize()
     events = [e for e in prof.key_averages()
               if e.device_type == torch.autograd.DeviceType.CUDA]
-    n = problem.lbm_substeps - 1
+    n = problem.lbm_substeps - (problem._lbm_fused_plan.final is None)
     copies = sum(e.count for e in events if "HtoD" in e.key)
     launches = {e.key: e.count for e in events if "Memcpy" not in e.key
                 and "Memset" not in e.key}

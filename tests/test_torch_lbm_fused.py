@@ -34,7 +34,7 @@ import numpy as np
 import pytest
 import torch
 
-from marlin_tpu_torch import decks, hit
+from marlin_tpu_torch import decks, hit, perf
 from marlin_tpu_torch import lbm_fused as lf
 from marlin_tpu_torch import state as port_state
 from marlin_tpu_torch.problem import TensorProblem
@@ -464,25 +464,121 @@ def test_pallas_is_jnp_bit_for_bit(case, precision):
     _bit_for_bit(case, precision)
 
 
-def test_fused_loop_runs_all_but_the_last_substep(tmp_path, monkeypatch):
-    """(steps − 1)·(substeps − 1) fused substeps: none in the first MOOSE
-    step, and the last substep of each step is the eager chain's; the loop
-    takes its substep wrapper once a step."""
-    calls, steppers = [], []
+@pytest.mark.parametrize("deck_text, final", [
+    (decks.MIXED_DECK.format(n=6, substeps=5, backend="PALLAS"), True),
+    (decks.THERMAL3D_DECK.format(n=6, substeps=5, backend="PALLAS"), False),
+], ids=["final_form", "eager_last"])
+def test_fused_loop_runs_all_but_the_last_substep(tmp_path, monkeypatch, deck_text, final):
+    """None in the first MOOSE step; then on a plan with a final form
+    (one lattice, its chain writing only what the kernel stores) every
+    substep of a step is a fused call, the last one the final form, and on
+    one without (the thermal pair) all but the last, which is the eager
+    chain's.  The loop takes its substep wrapper once a step; the graph
+    counts the fused substeps and which way each step's last one ran."""
+    calls, finals, steppers = [], [], []
     orig = lf.substepper
 
     def counted(*a):
         steppers.append(1)
         step = orig(*a)
-        return lambda *b: calls.append(1) or step(*b)
+
+        def wrapped(*b, final=False, **kw):
+            calls.append(1)
+            finals.append(final)
+            return step(*b, final=final, **kw)
+        return wrapped
 
     monkeypatch.setattr(lf, "substepper", counted)
-    text = decks.MIXED_DECK.format(n=6, substeps=5, backend="PALLAS")
-    s = run_port(text, steps=4)
-    assert len(calls) == 3 * 4
+    graph = perf.PerfGraph(enabled=True)
+    with graph.active():
+        s = run_port(deck_text, steps=4)
+    fused = 5 if final else 4
+    assert len(calls) == 3 * fused
+    assert sum(finals) == (3 if final else 0)
     assert len(steppers) == 3
     assert s["n_advances"] == 3 * 5 + 3
     assert s["buffers"]["fpc"].shape == (6, 6, 6, 19)
+    last = "lbm_final_fused" if final else "lbm_final_eager"
+    assert graph.counters == {"substeps_fused": 3 * fused, last: 3}
+
+
+#: the cases whose plan has a final form: every one-lattice 3-D plan with a
+#: collision (their chains write nothing the kernel does not store)
+FINAL_CASES = [c for c in DECKS if c not in ("thermal", "thermal_zg", "pebbles",
+                                             "collisionless") + tuple(PLAN_CASES_2D)]
+MASS = ("    [mass]\n      type = LBMComputeDensity\n      buffer = mass\n      f = f\n"
+        "    []\n")
+
+
+def _mixed_with_mass():
+    """decks.MIXED_DECK whose solve chain also writes a second density
+    buffer, one the final form does not store."""
+    text = decks.MIXED_DECK.format(n=6, substeps=3, backend="PALLAS")
+    text = text.replace("[TensorBuffers]\n", "[TensorBuffers]\n  [mass]\n    type = "
+                        "LBMTensorBuffer\n    buffer_type = ms\n  []\n", 1)
+    return text.replace("    [residual]\n", MASS + "    [residual]\n", 1)
+
+
+@pytest.mark.parametrize("case", list(DECKS) + ["mixed_mass"])
+def test_final_form_engages_where_it_stores_every_written_buffer(case):
+    """``match_chain`` decides once whether a step's last substep runs the
+    kernel's final form: on an unsharded one-lattice 3-D plan with a
+    collision whose boundary and solve chains write no buffer but f, feq,
+    fpc, the density, the velocity and the speed (the residual writes
+    none).  The thermal pairs, the collisionless chain and every 2-D plan
+    keep the eager substep, and so does a deck whose chain writes one more
+    buffer (a second density)."""
+    if case == "mixed_mass":
+        p = TensorProblem(hit.parse(_mixed_with_mass()), device="cpu")
+        p.init_state()
+        plan = lf.match_chain(p)
+        assert lf.final_form(plan.config) and plan.final is None
+        return
+    plan = port_plan(case)
+    assert (plan.final is not None) == (case in FINAL_CASES)
+    assert lf.final_form(plan.config) == (case in FINAL_CASES)
+    if plan.final is not None:
+        assert plan.final == lf.FinalStores("f", "feq", "density", "velocity")
+
+
+def test_a_chain_writing_more_keeps_the_eager_last_substep():
+    """The second-density deck runs its last substep eagerly and still
+    equals its JNP run bit for bit, the extra buffer included."""
+    runs = [run_port(_mixed_with_mass().replace("PALLAS", backend), steps=3)
+            for backend in ("JNP", "PALLAS")]
+    for group in ("buffers", "old"):
+        for name, t in runs[0][group].items():
+            assert torch.equal(t, runs[1][group][name]), (group, name)
+    assert torch.equal(runs[0]["solver"]["residual"], runs[1]["solver"]["residual"])
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64], ids=["f32", "f64"])
+@pytest.mark.parametrize("case", [c for c in PLAN_CASES if c in FINAL_CASES])
+def test_twin_final_form_adds_the_deck_buffers(case, dtype):
+    """The twin's final form (4×5×6, random distributions and media) gives
+    the hot form's fpc and speed, and besides them f and feq q-major, the
+    density Σf and the (nx, ny, nz, 3) velocity, zero at solids; a plan
+    without a final form refuses it."""
+    cfg = dataclasses.replace(port_plan(case).config, nx=4, ny=5, nz=6)
+    fpc, _gpc, media = _card_inputs(cfg, dtype, "cpu", 3)
+    hot = lf.fused_substep_twin(fpc, media, cfg)
+    got = lf.substepper(fpc, media, cfg)(fpc, final=True)
+    assert len(got) == 6
+    same = lambda a, b: torch.testing.assert_close(a, b, rtol=0, atol=0, equal_nan=True)
+    for g, r in zip(got[:2], hot):
+        same(g, r)
+    f, feq, rho, vel = got[2:]
+    assert f.shape == feq.shape == fpc.shape and vel.shape == (4, 5, 6, 3)
+    from marlin_tpu_torch.computes.lbm import _direction_sum
+
+    same(rho, _direction_sum(f))
+    if media is not None:
+        solid = media == 0
+        for t in (f, feq, vel.movedim(-1, 0)):
+            assert not t[:, solid].any()
+    thermal = dataclasses.replace(port_plan("thermal").config, nx=4, ny=5, nz=6)
+    with pytest.raises(ValueError, match="final form"):
+        lf.fused_substep_twin(fpc, None, thermal, fpc, final=True)
 
 
 # -- rejections ----------------------------------------------------------------------
@@ -1359,7 +1455,10 @@ def test_kernel_matches_twin_on_card(cuda, case, dtype):
     both give it: random media can leave a fluid face cell that copies a
     solid inner neighbour with no mass).  One launch a substep; a
     Smagorinsky plan computes its mean density inside it, and the mean it
-    writes equals the twin's."""
+    writes equals the twin's.  A plan with a final form runs it too, on
+    the walk the plan takes (the brick at 64³) and on the flat kernel, one
+    launch each: its six outputs (fpc, speed, f, feq, density, velocity)
+    equal the twin's final form bit for bit."""
     base = port_plan(case).config
     for shape in CARD_EXTENTS_2D if base.two_d else CARD_EXTENTS:
         cfg = dataclasses.replace(base, nx=shape[0], ny=shape[1], nz=shape[2])
@@ -1374,6 +1473,20 @@ def test_kernel_matches_twin_on_card(cuda, case, dtype):
         assert len(got) == len(ref)
         for g, r in zip(got, ref):
             torch.testing.assert_close(g, r, rtol=0, atol=0, equal_nan=True)
+        if lf.final_form(cfg):
+            if shape == (64, 64, 64):
+                assert lf.brick_plan(cfg, dtype) is not None
+            ref = lf.fused_substep_twin(fpc, media, cfg, final=True)
+            _plan, avec = lf._kernel_args(fpc, media, cfg, None, "test")
+            for step in (lf.substepper(fpc, media, cfg),
+                         lf.plan_stepper(fpc, media, cfg, None, lf.pack(cfg), avec)):
+                before = lf.launches()["lbm_substep"]
+                got = step(fpc, final=True)
+                torch.cuda.synchronize()
+                assert lf.launches()["lbm_substep"] == before + 1
+                assert len(got) == len(ref) == 6
+                for g, r in zip(got, ref):
+                    torch.testing.assert_close(g, r, rtol=0, atol=0, equal_nan=True)
         if smag:
             mean = torch.full((), float("nan"), dtype=dtype, device=cuda)
             again = lf.substepper(fpc, media, cfg, gpc)(fpc, gpc, mean)

@@ -134,15 +134,25 @@ def test_tracing_off_records_nothing_and_reads_no_clock(tmp_path, monkeypatch):
     ("lbm_porous256_fused", True),
 ])
 def test_benchmark_decks_record_their_spans_and_one_fetch_a_step(tmp_path, name, fused):
+    """The LBM deck's plan has a final form: every substep of a step runs
+    in the fused loop's span, the last one the final form, and no eager
+    substep follows; the fused CH route runs its last substep eagerly."""
     tr, substeps = _cell(name, tmp_path)
     steps = 3
     totals = _traced_steps(tr, 3, steps)
     calls = {n: s["calls"] for n, s in totals["spans"].items()}
+    final = name.startswith("lbm")
     assert totals["steps"] == steps
     assert totals["counters"]["fetches"] == steps
     assert calls["problem::step"] == calls["problem::postprocessors"] == steps
     assert calls["problem::fetch"] == steps
-    if fused:
+    if final:
+        assert calls["solver::fused_substeps"] == steps
+        assert totals["counters"]["substeps_fused"] == steps * substeps
+        assert totals["counters"]["lbm_final_fused"] == steps
+        assert "lbm_final_eager" not in totals["counters"]
+        assert "solver::substep" not in calls
+    elif fused:
         assert calls["solver::fused_substeps"] == steps
         assert totals["counters"]["substeps_fused"] == steps * (substeps - 1)
         assert calls["solver::substep"] == steps
@@ -153,7 +163,8 @@ def test_benchmark_decks_record_their_spans_and_one_fetch_a_step(tmp_path, name,
     # the step's spans nest under it, and carry its number
     last = {s.name: s for s in tr.perf.last}
     assert {s.step for s in tr.perf.last} == {tr.step_count}
-    assert last["solver::substep"].parent.name == "problem::step"
+    substep = "solver::fused_substeps" if final else "solver::substep"
+    assert last[substep].parent.name == "problem::step"
     assert last["problem::step"].parent.name == perf.STEP
     assert last["problem::fetch"].parent.name == perf.STEP
     assert last[perf.STEP].parent is None
@@ -214,6 +225,8 @@ def test_kernel_builds_count_nvcc_runs_only(tmp_path, monkeypatch):
 
 
 def test_spans_are_named_ranges_in_a_profiler_trace(tmp_path):
+    """The LBM cell's step: its last substep is the kernel's final form,
+    inside ``solver::fused_substeps``, so no ``solver::substep`` range."""
     tr, _ = _cell("lbm_porous256_fused", tmp_path)
     tr.init()
     tr.num_steps = 2
@@ -223,9 +236,10 @@ def test_spans_are_named_ranges_in_a_profiler_trace(tmp_path):
         tr.num_steps = 3
         tr.run()
     names = {e.name for e in prof.events()}
-    for span in (perf.STEP, "problem::step", "solver::fused_substeps", "solver::substep",
+    for span in (perf.STEP, "problem::step", "solver::fused_substeps",
                  "problem::postprocessors", "problem::fetch", "outputs"):
         assert span in names, span
+    assert "solver::substep" not in names
 
 
 def test_host_loop_reads_count_as_fetches(tmp_path):
